@@ -1,6 +1,6 @@
 """Chip smoke for the PyTorch/CUDA port (`hyperion_tpu_torch/`) on one
-NVIDIA H100 — the quickest proof that the port builds, is right and
-serves on the card.
+NVIDIA H100 — the quickest proof that the port builds, is right, trains
+and serves on the card.
 
     python3 chip_smoke.py            # every phase, one card
 
@@ -15,22 +15,37 @@ script exits non-zero):
               tensors: paged attention at Llama-2-7B heads (decode [8,1],
               verify [8,5], prefill [1,512]) and 70B heads, bf16 and
               fp32, plus the null-block poison check; RMSNorm at
-              [8*512, 4096]. Kernel, plain, bound and library times.
-  4. model    a tiny fp32 Llama on the CPU (plain versions) against the
+              [8*512, 4096]; LayerNorm at [4096, 256] (bf16, fp32, with
+              and without residual) and [4096, 768]; cross-entropy
+              forward and backward at the train step's [32, 127, 50257]
+              fp32 logits view, its rows in bf16 and a ragged [37, 5003];
+              the norms' gradients through the kernels against the plain
+              versions'. Kernel, plain, bound and library times.
+  4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
+              against the same weights on the card (kernels): logits,
+              loss and every gradient.
+  5. train    `train_language_model` at the language_ddp widths (bf16,
+              jit+pallas, batch 32, seq 128, 50 steps, dropout 0.1,
+              synthetic validation): the loss falls, one CSV row, the
+              export reloads, launch counters exact; step time p50 (CUDA
+              events), tokens/s, peak memory as smoke readings.
+  6. model    a tiny fp32 Llama on the CPU (plain versions) against the
               same weights on the card (kernels), through the three paged
               window shapes.
-  5. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
+  7. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
               streams equal the port's `generate`.
-  6. serve    full Llama-2-7B (32 layers, bf16, seeded random weights)
+  8. serve    full Llama-2-7B (32 layers, bf16, seeded random weights)
               behind `serve_jsonl`: 8 requests, prefix hits, a COW copy,
               launch counters exactly forwards x layers.
-  7. the `kernels` line: per kernel its launches on the serve run, its
-              error against the plain version and its times.
+  9. the `kernels` line: per kernel its launches on its path's run (the
+              serve run, or the train run), its error against the plain
+              version and its times.
 
 Kernel times are device times with host dispatch taken out: a run of
 launches captured in one CUDA graph and replayed, on copies of the
 inputs that together exceed the L2 cache, so each launch finds its
-inputs cold (see `time_ms`).
+inputs cold (see `time_ms`). Where a train step's device time goes is
+`scripts/profile_torch_train.py`'s work, not this script's.
 
 The last line is {"ok": true, "device": {...}}. Without CUDA the
 script prints no result and exits 1. The script takes no arguments; a
@@ -39,6 +54,7 @@ subset of phases runs by importing the phase functions.
 
 from __future__ import annotations
 
+import csv
 import functools
 import gc
 import io
@@ -47,6 +63,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,7 +101,13 @@ def time_ms(fn, args: tuple, nbytes: float, calls: int = 20,
     copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
     sets = [args] + [tuple(a.clone() for a in args)
                      for _ in range(copies - 1)]
-    calls = max(calls, copies)
+    return replay_ms(fn, sets, max(calls, copies), reps)
+
+
+def replay_ms(fn, sets: list[tuple], calls: int = 20, reps: int = 5) -> float:
+    """`time_ms` on ready-made argument sets: `calls` launches rotating
+    over `sets`, captured on the warm-up stream (so autograd work whose
+    forward ran there is captured too), replayed `reps` times."""
     side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the capture
@@ -92,9 +115,9 @@ def time_ms(fn, args: tuple, nbytes: float, calls: int = 20,
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for i in range(calls):
-            fn(*sets[i % copies])
+            fn(*sets[i % len(sets)])
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -274,7 +297,218 @@ def check_rms(name, x, w, timing: bool) -> dict:
     return rec
 
 
-def phase_kernels() -> None:
+def ln_ulp_ok(out, ref) -> tuple[bool, float]:
+    """`rms_ulp_ok`, with the bf16 ulp taken at no less than 2**-8: where
+    `... * w + b` cancels towards zero, the two sides' fp32 statistics
+    (summed in other orders) differ by more than the tiny output's own
+    ulp, so the error is held to 2**-16 absolute there."""
+    if out.dtype != torch.bfloat16:
+        return rms_ulp_ok(out, ref)
+    ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    near_zero = (out.float() - ref.float()).abs() <= 2.0 ** -16
+    return bool(((ulps <= 1) | near_zero).all()), float(ulps.max())
+
+
+def check_ln(name, x, w, b, residual, timing: bool) -> dict:
+    from hyperion_tpu_torch.ops.fused_norm import (
+        fused_layernorm,
+        fused_layernorm_plain,
+    )
+
+    out = fused_layernorm(x, w, b, residual=residual, eps=1e-6)
+    ref = fused_layernorm_plain(x, w, b, residual=residual, eps=1e-6)
+    torch.cuda.synchronize()
+    ok, worst = ln_ulp_ok(out, ref)
+    rec = {"phase": "kernels", "kernel": "fused_layernorm", "case": name,
+           "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+           "residual": residual is not None,
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "worst": worst,
+           "tol": "1 ulp, at least 2^-16" if x.dtype == torch.bfloat16
+           else 2e-5, "ok": ok}
+    if timing:
+        d = x.shape[-1]
+        rows = x.numel() // d
+        nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * d
+        rec["kernel_ms"] = time_ms(
+            lambda xs, ws, bs: fused_layernorm(xs, ws, bs, eps=1e-6),
+            (x, w, b), nbytes)
+        rec["plain_ms"] = time_ms(
+            lambda xs, ws, bs: fused_layernorm_plain(xs, ws, bs, eps=1e-6),
+            (x, w, b), nbytes)
+        # ~9 flops an element: add, subtract, square-add, scale, shift
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 9.0 * rows * d,
+                                                 x.dtype)
+        rec["library_ms"] = time_ms(
+            lambda xs, ws, bs: torch.nn.functional.layer_norm(
+                xs, (d,), ws, bs, 1e-6),
+            (x, w.to(x.dtype), b.to(x.dtype)), nbytes)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"fused_layernorm {name} {x.dtype}: {worst} "
+                             "over tolerance")
+    return rec
+
+
+def ce_case(B, T, V, dtype, seed, strided):
+    """(source, take, targets): logits are take(source) — the [B, T-1, V]
+    view of [B, T, V] logits, as next_token_loss hands them over, or a
+    contiguous [B*T, V] array — and targets match their rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:
+        src = (3 * torch.randn(B, T + 1, V, generator=g, device="cuda")
+               ).to(dtype)
+        tgt = torch.randint(0, V, (B, T), generator=g, device="cuda",
+                            dtype=torch.int32)
+
+        def take(a):
+            return a[:, :-1]
+    else:
+        src = (3 * torch.randn(B * T, V, generator=g, device="cuda")
+               ).to(dtype)
+        tgt = torch.randint(0, V, (B * T,), generator=g, device="cuda",
+                            dtype=torch.int32)
+
+        def take(a):
+            return a
+    return src, take, tgt
+
+
+def ce_bwd_fp32_ok(d, ref) -> tuple[bool, float]:
+    """fp32 dlogits within 1e-6 of each element's own size: at g ~ 1/rows
+    most elements are ~1e-9, so an absolute 1e-6 would pass zeros. The
+    floor is the smallest normal fp32, so only subnormals may differ.
+    Returns (ok, the worst relative error)."""
+    err = (d - ref).abs()
+    tiny = torch.finfo(torch.float32).tiny
+    return (bool((err <= 1e-6 * ref.abs() + tiny).all()),
+            float((err / (ref.abs() + tiny)).max()))
+
+
+def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
+    """The forward and backward kernels against their plain versions:
+    loss and lse within 1e-5 relative; dlogits within 1e-6 relative
+    (fp32) or one bf16 ulp."""
+    from hyperion_tpu_torch.ops import fused_ce as ce
+
+    logits = take(src)
+    dtype = logits.dtype
+    V = logits.shape[-1]
+    rows = logits.numel() // V
+    loss, lse = ce.fused_softmax_xent_fwd(logits, tgt)
+    ref_loss, ref_lse = ce._plain_fwd(logits, tgt)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    g = torch.rand(loss.shape, generator=gen, device="cuda") / rows
+    d = ce.fused_softmax_xent_bwd(logits, tgt, lse, g)
+    ref_d = ce.fused_softmax_xent_bwd_plain(logits, tgt, lse, g)
+    torch.cuda.synchronize()
+    fwd_err = max(float((loss - ref_loss).abs().max()),
+                  float((lse - ref_lse).abs().max()))
+    fwd_ok = bool(torch.allclose(loss, ref_loss, rtol=1e-5, atol=1e-6)
+                  and torch.allclose(lse, ref_lse, rtol=1e-5, atol=0))
+    bwd_ok, bwd_worst = rms_ulp_ok(d, ref_d) if dtype == torch.bfloat16 \
+        else ce_bwd_fp32_ok(d, ref_d)
+    base = {"phase": "kernels", "case": name, "dtype": str(dtype)
+            .split(".")[-1], "shape": list(logits.shape),
+            "strided": not logits.is_contiguous()}
+    fwd = {**base, "kernel": "fused_softmax_xent_fwd", "max_abs_err": fwd_err,
+           "tol": "1e-5 rel", "ok": fwd_ok}
+    bwd = {**base, "kernel": "fused_softmax_xent_bwd",
+           "max_abs_err": float((d.float() - ref_d.float()).abs().max()),
+           "worst": bwd_worst,
+           "tol": "1 ulp" if dtype == torch.bfloat16 else "1e-6 rel",
+           "ok": bwd_ok}
+    if timing:
+        it = logits.element_size()
+        t32 = ce._checked_targets(logits, tgt)
+        # forward: the logits once, int32 targets, loss and lse out
+        nf = rows * V * it + 3 * 4 * rows
+        fwd["kernel_ms"] = time_ms(lambda a, t: ce._run_fwd(take(a), t),
+                                   (src, t32), nf)
+        fwd["plain_ms"] = time_ms(lambda a, t: ce._plain_fwd(take(a), t),
+                                  (src, tgt), nf)
+        fwd["bound_ms"], fwd["bound_by"] = bound(nf, 4.0 * rows * V, dtype)
+        flat = logits.reshape(rows, V)  # F.cross_entropy's [N, C] layout
+        tl = tgt.reshape(rows).long()
+        fwd["library_ms"] = time_ms(
+            lambda a, t: torch.nn.functional.cross_entropy(
+                a, t, reduction="none"), (flat, tl), nf)
+        # backward: the logits in, dlogits out, targets, lse and g
+        nb = 2 * rows * V * it + 3 * 4 * rows
+        bwd["kernel_ms"] = time_ms(
+            lambda a, t, l, gg: ce._run_bwd(take(a), t, l, gg),
+            (src, t32, lse, g), nb)
+        bwd["plain_ms"] = time_ms(
+            lambda a, t, l, gg: ce.fused_softmax_xent_bwd_plain(
+                take(a), t, l, gg), (src, tgt, lse, g), nb)
+        bwd["bound_ms"], bwd["bound_by"] = bound(nb, 4.0 * rows * V, dtype)
+        side_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side_stream()):  # the graph's stream
+            leaf = flat.detach().clone().requires_grad_()
+            lib_loss = torch.nn.functional.cross_entropy(
+                leaf, tl, reduction="none")
+        bwd["library_ms"] = replay_ms(
+            lambda lo, x, gg: torch.autograd.grad(lo, x, gg,
+                                                  retain_graph=True),
+            [(lib_loss, leaf, g.reshape(rows))])
+        del leaf, lib_loss
+    emit(fwd)
+    emit(bwd)
+    if not (fwd_ok and bwd_ok):
+        raise AssertionError(f"fused_softmax_xent {name} {dtype}: forward "
+                             f"err {fwd_err}, backward worst {bwd_worst}")
+    return fwd, bwd
+
+
+def check_norm_grads() -> None:
+    """Gradients through the norm kernels (autograd of the plain version
+    on the saved inputs) equal the plain versions' own gradients, within
+    the forward tolerances."""
+    from hyperion_tpu_torch.ops.fused_norm import (
+        fused_layernorm,
+        fused_layernorm_plain,
+        fused_rmsnorm,
+        fused_rmsnorm_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x, r, gy = (torch.randn(4096, 256, generator=g, device="cuda")
+                    .to(dtype) for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(256, generator=g, device="cuda")
+        b = 0.1 * torch.randn(256, generator=g, device="cuda")
+        cases.append(("fused_layernorm", dtype, (x, r, w, b), gy,
+                      lambda x, r, w, b: fused_layernorm(
+                          x, w, b, residual=r, eps=1e-6),
+                      lambda x, r, w, b: fused_layernorm_plain(
+                          x, w, b, residual=r, eps=1e-6)))
+        x, gy = (torch.randn(512, 4096, generator=g, device="cuda").to(dtype)
+                 for _ in range(2))
+        w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
+        cases.append(("fused_rmsnorm", dtype, (x, w), gy, fused_rmsnorm,
+                      fused_rmsnorm_plain))
+    for kernel, dtype, ins, gy, fn, plain in cases:
+        grads = []
+        for f in (fn, plain):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            f(*leaves).backward(gy)
+            grads.append([t.grad for t in leaves])
+        torch.cuda.synchronize()
+        worst = [rms_ulp_ok(a, c) for a, c in zip(*grads)]
+        ok = all(o for o, _ in worst)
+        emit({"phase": "kernels", "kernel": kernel, "case": "gradients",
+              "dtype": str(dtype).split(".")[-1],
+              "worst": max(v for _, v in worst), "ok": ok})
+        if not ok:
+            raise AssertionError(f"{kernel} {dtype}: gradients through the "
+                                 f"kernel differ from the plain version's")
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; returns the records of
+    the training path's shapes for the `kernels` line."""
+    recs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for H, Hkv, tag in ((32, 32, "7b"), (64, 8, "70b")):
             check_paged(f"decode_{tag}", paged_geometry(8, 1, H, Hkv, dtype),
@@ -290,6 +524,197 @@ def phase_kernels() -> None:
         x = torch.randn(8 * 512, 4096, generator=g, device="cuda").to(dtype)
         w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
         check_rms("prefill_8x512", x, w, timing=True)
+
+    # LayerNorm at the language_ddp train step's [B*T, d] = [4096, 256],
+    # and at the GPT-2-shaped width 768
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    for d, dtypes in ((256, (torch.bfloat16, torch.float32)),
+                      (768, (torch.bfloat16,))):
+        w = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+        b = 0.1 * torch.randn(d, generator=g, device="cuda")
+        for dtype in dtypes:
+            x, r = ((torch.randn(4096, d, generator=g, device="cuda") + 0.5)
+                    .to(dtype) for _ in range(2))
+            rec = check_ln(f"train_4096x{d}", x, w, b, None, timing=True)
+            if d == 256 and dtype == torch.bfloat16:
+                recs["fused_layernorm"] = rec
+            if d == 256:
+                check_ln(f"train_4096x{d}_residual", x, w, b, r,
+                         timing=False)
+    # cross-entropy at the train step's [32, 127, 50257] fp32 logits view
+    # (4064 rows), the same rows contiguous in bf16, and a small ragged
+    # vocab
+    recs["fused_softmax_xent_fwd"], recs["fused_softmax_xent_bwd"] = \
+        check_ce("train_step_view_32x127", *ce_case(
+            32, 127, 50257, torch.float32, SEED + 12, strided=True),
+            timing=True)
+    check_ce("rows_4064_bf16", *ce_case(32, 127, 50257, torch.bfloat16,
+                                        SEED + 13, strided=False),
+             timing=True)
+    check_ce("ragged_37x5003", *ce_case(1, 37, 5003, torch.float32,
+                                        SEED + 14, strided=False),
+             timing=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_norm_grads()
+    return recs
+
+
+TINY_LM = dict(vocab_size=1000, d_model=32, n_heads=2, n_layers=2,
+               ff_dim=64, max_len=16, dropout=0.0)
+
+
+def phase_train_model() -> None:
+    """A tiny fp32 TransformerLM on the CPU (plain versions) against the
+    same weights on the card (kernels): logits, loss and every
+    parameter's gradient within 2e-5."""
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.ops.fused_ce import (
+        fused_softmax_xent_bwd,
+        fused_softmax_xent_fwd,
+    )
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.train.losses import next_token_loss
+
+    cfg = simple_lm_config(norm_impl="pallas", **TINY_LM)
+    cpu = TransformerLM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+    gpu = TransformerLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(SEED + 15)
+    B, T = 4, 16
+    ids = torch.as_tensor(rng.integers(0, 1000, (B, T)), dtype=torch.int32)
+    mask = torch.as_tensor(np.arange(T)[None] < np.array([T, 12, 9, 16])[
+        :, None], dtype=torch.int8)
+    before = (fused_layernorm.launches, fused_softmax_xent_fwd.launches,
+              fused_softmax_xent_bwd.launches)
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        logits = model(ids.to(dev), padding_mask=mask.to(dev))
+        loss = next_token_loss(logits, ids.to(dev), mask.to(dev),
+                               impl="pallas")
+        loss.backward()
+        out[dev] = (logits.detach().cpu(), loss.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    launched = (fused_layernorm.launches - before[0],
+                fused_softmax_xent_fwd.launches - before[1],
+                fused_softmax_xent_bwd.launches - before[2])
+    errs = {"logits": float((out["cpu"][0] - out["cuda"][0]).abs().max()),
+            "loss": float((out["cpu"][1] - out["cuda"][1]).abs())}
+    errs["grads"] = max(float((a - out["cuda"][2][n]).abs().max())
+                        for n, a in out["cpu"][2].items())
+    ok = (all(torch.allclose(a, c, atol=2e-5, rtol=2e-5)
+              for a, c in zip(out["cpu"][:2], out["cuda"][:2]))
+          and all(torch.allclose(a, out["cuda"][2][n], atol=2e-5, rtol=2e-5)
+                  for n, a in out["cpu"][2].items()))
+    emit({"phase": "train_model", "max_abs_err": errs, "tol": 2e-5,
+          "launches": launched, "ok": ok})
+    if not ok or launched != (2 * cfg.n_layers + 1, 1, 1):
+        raise AssertionError(f"train_model: errors {errs}, launches "
+                             f"{launched}")
+
+
+def train_config(base: Path, steps: int = 50):
+    """The language_ddp trainer's defaults at jit+pallas, one epoch of
+    `steps` steps, writing under `base` (emptied first) and reading its
+    data from an empty directory there: the synthetic splits."""
+    import shutil
+
+    from hyperion_tpu_torch.config import Config
+
+    shutil.rmtree(base, ignore_errors=True)
+    (base / "no_data").mkdir(parents=True)
+    cfg = Config()
+    cfg.train.epochs = 1
+    cfg.train.steps_per_epoch = steps
+    cfg.train.base_dir = str(base)
+    cfg.train.data_dir = str(base / "no_data")
+    cfg.optimization.compile_tier = "jit+pallas"
+    assert (cfg.train.batch_size, cfg.train.seq_len,
+            cfg.optimization.precision) == (32, 128, "bf16")
+    return cfg
+
+
+def phase_train(smi: str) -> dict:
+    """`train_language_model` on the card: language_ddp widths, bf16,
+    jit+pallas, batch 32, seq 128, one epoch of 50 steps, dropout 0.1,
+    validation on the synthetic split."""
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+    from hyperion_tpu_torch.ops.fused_ce import (
+        fused_softmax_xent_bwd,
+        fused_softmax_xent_fwd,
+    )
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.train.trainer import train_language_model
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    cfg = train_config(base)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_layernorm.launches = 0
+    fused_softmax_xent_fwd.launches = 0
+    fused_softmax_xent_bwd.launches = 0
+    t0 = time.perf_counter()
+    res = train_language_model(cfg)
+    wall = time.perf_counter() - t0
+    launches = {"fused_layernorm": fused_layernorm.launches,
+                "fused_softmax_xent_fwd": fused_softmax_xent_fwd.launches,
+                "fused_softmax_xent_bwd": fused_softmax_xent_bwd.launches}
+
+    spans = [json.loads(x) for x in
+             (base / "telemetry.jsonl").read_text().splitlines()]
+    eval_batches = sum(r.get("batches", 0) for r in spans
+                       if r.get("name") == "eval")
+    steps = len(res.step_losses)
+    losses = np.asarray(res.step_losses)
+    with open(res.csv_path) as f:
+        rows = list(csv.reader(f))
+    exported = load_gathered(base / "checkpoints" / "language_ddp_final.npz")
+    step_ms = np.asarray(res.step_ms)
+    p50 = float(np.percentile(step_ms, 50))
+    rec = {
+        "phase": "train", "nvidia_smi": smi, "wall_s": wall,
+        "steps": steps, "eval_batches": eval_batches,
+        "loss_first10": float(losses[:10].mean()),
+        "loss_last10": float(losses[-10:].mean()),
+        "final_loss": res.final_loss,
+        "val_loss": res.history[-1].extra.get("val_loss"),
+        "epoch_s": res.history[-1].duration_s,
+        "step_ms_p50": p50, "step_ms_min": float(step_ms.min()),
+        "step_ms_max": float(step_ms.max()),
+        "tokens_per_s": 32 * 128 / (p50 / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "csv_header": rows[0], "csv_rows": len(rows) - 1,
+        "launches": launches,
+        "launches_expected": {
+            "fused_layernorm": 5 * (steps + eval_batches),
+            "fused_softmax_xent_fwd": steps + eval_batches,
+            "fused_softmax_xent_bwd": steps},
+    }
+    emit(rec)
+    problems = []
+    if steps != 50 or eval_batches != 14:
+        problems.append(f"{steps} steps, {eval_batches} eval batches")
+    if not (np.isfinite(losses).all() and np.isfinite(rec["val_loss"])):
+        problems.append("non-finite loss")
+    if not rec["loss_last10"] < rec["loss_first10"]:
+        problems.append("loss did not fall")
+    if rows[0] != ["epoch", "loss", "duration_s", "gpus", "val_loss",
+                   "val_ppl"] or len(rows) != 2:
+        problems.append(f"csv {rows}")
+    if exported["lm_head"]["kernel"].shape != (256, 50257):
+        problems.append("export does not reload at the model's shapes")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch counts {launches} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("train: " + "; ".join(problems))
+    return rec
 
 
 def phase_model() -> None:
@@ -514,10 +939,11 @@ def phase_serve() -> dict:
     return rec
 
 
-def kernels_line(serve_rec: dict) -> dict:
-    """Per-kernel record at the serve run's decode-tick shapes (S=4
-    slots, one token, bf16, 7B widths), with its launches on the serve
-    run."""
+def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict) -> dict:
+    """Per-kernel record at its path's shapes, with its launches on that
+    path's run: the serve kernels at the decode tick (S=4 slots, one
+    token, bf16, 7B widths), the training kernels at the language_ddp
+    train step (the kernels phase's records)."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -528,15 +954,23 @@ def kernels_line(serve_rec: dict) -> dict:
     w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
     rn = check_rms("decode_tick_S4", x, w, timing=True)
     out = []
-    for rec, name, src, rep in (
-        (pa, "paged_attention", "hyperion_tpu_torch/ops/csrc/paged_attention.cu",
-         "hyperion_tpu/ops/pallas/paged_attention.py:105"),
-        (rn, "fused_rmsnorm", "hyperion_tpu_torch/ops/csrc/fused_norm.cu",
-         "hyperion_tpu/ops/pallas/fused_norm.py:135"),
+    csrc = "hyperion_tpu_torch/ops/csrc/"
+    pallas = "hyperion_tpu/ops/pallas/"
+    for rec, name, src, rep, run in (
+        (pa, "paged_attention", csrc + "paged_attention.cu",
+         pallas + "paged_attention.py:105", serve_rec),
+        (rn, "fused_rmsnorm", csrc + "fused_norm.cu",
+         pallas + "fused_norm.py:135", serve_rec),
+        (train_kernels["fused_layernorm"], "fused_layernorm",
+         csrc + "fused_norm.cu", pallas + "fused_norm.py:32", train_rec),
+        (train_kernels["fused_softmax_xent_fwd"], "fused_softmax_xent_fwd",
+         csrc + "fused_ce.cu", pallas + "fused_ce.py:61", train_rec),
+        (train_kernels["fused_softmax_xent_bwd"], "fused_softmax_xent_bwd",
+         csrc + "fused_ce.cu", pallas + "fused_ce.py:94", train_rec),
     ):
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep,
-                    "launches": serve_rec["launches"][name],
+                    "launches": run["launches"][name],
                     "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                     "bound_by": rec["bound_by"],
@@ -558,11 +992,13 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
-    phase_kernels()
+    train_kernels = phase_kernels()
+    phase_train_model()
+    train_rec = phase_train(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
     serve_rec = phase_serve()
-    emit(kernels_line(serve_rec))
+    emit(kernels_line(serve_rec, train_rec, train_kernels))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,2 +1,3 @@
 """Operators: plain PyTorch attention math and the hand-written CUDA
-kernels with their wrappers (`fused_norm`, `paged_attention`)."""
+kernels with their wrappers (`fused_ce`, `fused_norm`,
+`paged_attention`)."""

@@ -1,15 +1,27 @@
-"""RMSNorm: the hand-written CUDA kernel and its plain PyTorch version.
+"""RMSNorm and LayerNorm: the hand-written CUDA kernels, their plain
+PyTorch versions, and their gradients.
 
-Counterpart: `fused_rmsnorm` in `hyperion_tpu/ops/pallas/fused_norm.py`
-(`_rms_kernel`, `:135`). Statistics and the product are fp32 whatever
-the input dtype, with one cast back — the reference's `_rms_reference`
-order (`:148-151`), not the unfused XLA formula of
-`hyperion_tpu/models/llama.py:167-170`.
+Counterparts in `hyperion_tpu/ops/pallas/fused_norm.py`:
 
-`fused_rmsnorm(x, w)` runs `fused_rmsnorm_plain` for a CPU tensor and
+  * `fused_rmsnorm` (`:159`, `_rms_kernel` `:135`): statistics and the
+    product in fp32 whatever the input dtype, one cast back — the
+    reference's `_rms_reference` order (`:148-151`), not the unfused XLA
+    formula of `hyperion_tpu/models/llama.py:167-170`.
+  * `fused_layernorm` (`:103`, `_kernel` `:32` with a residual,
+    `_kernel_no_res` `:43` without): `LayerNorm(x [+ residual]) * w + b`
+    with fp32 mean and two-pass variance, one cast back — `_reference`
+    (`:88-95`).
+
+Each public wrapper runs its plain version for a CPU tensor and
 launches `csrc/fused_norm.cu` for a CUDA one — or raises on what the
-kernel does not take. It is forward-only: the backward (autograd of the
-reference formula) comes with the training slice.
+kernel does not take. Neither falls back.
+
+Gradients follow the reference's `custom_vjp`s: the backward is autograd
+of the plain version on the saved inputs (`_rms_bwd` `:171`, `_bwd`
+`:117-126`), not a kernel. On the card that runs through a
+`torch.autograd.Function` around the kernel launch; a call that cannot
+need a gradient (grad mode off, or no input requiring one, as on the
+serve path) launches the kernel directly and saves nothing.
 """
 
 from __future__ import annotations
@@ -23,9 +35,58 @@ from hyperion_tpu_torch.ops import build
 MAX_D = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, weight, y, rows, d, eps, dtype, stream
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_void_p]
+_RMS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                 ctypes.c_void_p]
+# x, residual (may be null), weight, bias, y, rows, d, eps, dtype, stream
+_LN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_void_p]
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _check_row_input(name: str, x: torch.Tensor, vecs: dict) -> int:
+    """Validate x [..., d] and its [d] fp32 vectors; return d."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    d = x.shape[-1]
+    if not 0 < d <= MAX_D:
+        raise ValueError(f"{name} kernel takes 0 < d <= {MAX_D}, got {d}")
+    for vname, v in vecs.items():
+        if v.dtype != torch.float32 or v.shape != (d,):
+            raise ValueError(f"{vname} must be float32 [{d}], got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    if not (x.is_contiguous() and all(v.is_contiguous()
+                                      for v in vecs.values())):
+        raise ValueError(f"{name} kernel needs contiguous inputs")
+    if any(v.device != x.device for v in vecs.values()):
+        raise ValueError(f"{name}: all inputs on one device")
+    return d
+
+
+def _vjp_of(plain, saved, needs, g, **kw):
+    """Gradients of `plain(*saved, **kw)` against cotangent g, for the
+    inputs whose `needs` flag is set (None elsewhere)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, needs)]
+        y = plain(*ins, **kw)
+        wrt = [t for t, n in zip(ins, needs) if n and t is not None]
+        grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+    return tuple(next(grads) if n and t is not None else None
+                 for t, n in zip(ins, needs))
+
+
+# ---------------------------------------------------------------- RMSNorm
 
 
 def fused_rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, *,
@@ -37,41 +98,126 @@ def fused_rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, *,
     return (h * torch.rsqrt(ms + eps) * weight.float()).to(x.dtype)
 
 
-def _launch(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"fused_rmsnorm kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    d = x.shape[-1]
-    if not 0 < d <= MAX_D:
-        raise ValueError(f"fused_rmsnorm kernel takes 0 < d <= {MAX_D}, got {d}")
-    if weight.dtype != torch.float32 or weight.shape != (d,):
-        raise ValueError(f"weight must be float32 [{d}], got "
-                         f"{weight.dtype} {tuple(weight.shape)}")
-    if not (x.is_contiguous() and weight.is_contiguous()):
-        raise ValueError("fused_rmsnorm kernel needs contiguous x and weight")
-    if weight.device != x.device:
-        raise ValueError(f"weight on {weight.device}, x on {x.device}")
-    fn = build.function("fused_norm", "hyperion_fused_rmsnorm", _ARGTYPES)
+def _launch_rms(x: torch.Tensor, weight: torch.Tensor,
+                eps: float) -> torch.Tensor:
+    d = _check_row_input("fused_rmsnorm", x, {"weight": weight})
+    fn = build.function("fused_norm", "hyperion_fused_rmsnorm", _RMS_ARGTYPES)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(x.data_ptr(), weight.data_ptr(), y.data_ptr(),
-                    x.numel() // d, d, eps, _DTYPES[x.dtype], stream)
+                    x.numel() // d, d, eps, _DTYPES[x.dtype], _stream(x))
     build.check(status, "fused_rmsnorm launch")
     fused_rmsnorm.launches += 1
     return y
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _launch_rms(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp_of(fused_rmsnorm_plain, ctx.saved_tensors,
+                       ctx.needs_input_grad[:2], g, eps=ctx.eps) + (None,)
 
 
 def fused_rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """`x * rsqrt(mean(x^2) + eps) * weight`, one pass over x.
     x: [..., d] float32 or bfloat16; weight: [d] float32.
-    CPU tensors take the plain version; CUDA tensors the kernel."""
+    CPU tensors take the plain version; CUDA tensors the kernel, with
+    the plain version's gradient."""
     if x.device.type == "cpu":
         return fused_rmsnorm_plain(x, weight, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rmsnorm: unsupported device {x.device}")
-    return _launch(x, weight, eps)
+    if _needs_grad(x, weight):
+        return _RMSNorm.apply(x, weight, eps)
+    return _launch_rms(x, weight, eps)
 
 
 fused_rmsnorm.launches = 0  # kernel launches since the last reset
+
+
+# -------------------------------------------------------------- LayerNorm
+
+
+def fused_layernorm_plain(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor, *,
+                          residual: torch.Tensor | None = None,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """`LayerNorm(x + residual) * weight + bias` in fp32 (mean, then the
+    mean of squared deviations), cast once to x's dtype. x, residual:
+    [..., d]; weight, bias: [d]."""
+    h = x.float()
+    if residual is not None:
+        h = h + residual.float()
+    mean = h.mean(dim=-1, keepdim=True)
+    var = (h - mean).square().mean(dim=-1, keepdim=True)
+    y = (h - mean) * torch.rsqrt(var + eps) * weight + bias
+    return y.to(x.dtype)
+
+
+def _launch_ln(x, residual, weight, bias, eps) -> torch.Tensor:
+    d = _check_row_input("fused_layernorm", x,
+                         {"weight": weight, "bias": bias})
+    if residual is not None:
+        if residual.shape != x.shape or residual.dtype != x.dtype:
+            raise ValueError(
+                f"residual must match x ({x.dtype} {tuple(x.shape)}), got "
+                f"{residual.dtype} {tuple(residual.shape)}")
+        if not residual.is_contiguous() or residual.device != x.device:
+            raise ValueError("fused_layernorm: residual must be contiguous "
+                             "and on x's device")
+    fn = build.function("fused_norm", "hyperion_fused_layernorm",
+                        _LN_ARGTYPES)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        status = fn(x.data_ptr(),
+                    None if residual is None else residual.data_ptr(),
+                    weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                    x.numel() // d, d, eps, _DTYPES[x.dtype], _stream(x))
+    build.check(status, "fused_layernorm launch")
+    fused_layernorm.launches += 1
+    return y
+
+
+def _layernorm_for_vjp(x, residual, weight, bias, *, eps):
+    return fused_layernorm_plain(x, weight, bias, residual=residual, eps=eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, residual, weight, bias, eps):
+        ctx.save_for_backward(x, residual, weight, bias)
+        ctx.eps = eps
+        return _launch_ln(x, residual, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _vjp_of(_layernorm_for_vjp, ctx.saved_tensors,
+                       ctx.needs_input_grad[:4], g, eps=ctx.eps) + (None,)
+
+
+def fused_layernorm(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, *,
+                    residual: torch.Tensor | None = None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """`LayerNorm(x + residual) * weight + bias` in one pass over x.
+    x, residual: [..., d] float32 or bfloat16 (residual optional);
+    weight, bias: [d] float32. CPU tensors take the plain version; CUDA
+    tensors the kernel, with the plain version's gradient."""
+    if x.device.type == "cpu":
+        return fused_layernorm_plain(x, weight, bias, residual=residual,
+                                     eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_layernorm: unsupported device {x.device}")
+    if _needs_grad(x, residual, weight, bias):
+        return _LayerNorm.apply(x, residual, weight, bias, eps)
+    return _launch_ln(x, residual, weight, bias, eps)
+
+
+fused_layernorm.launches = 0  # kernel launches since the last reset

@@ -73,6 +73,13 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _launch(q, k_pool, v_pool, block_tables, base):
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pool, v_pool)):
+        # the reference kernel has no VJP either: a launch here would
+        # return an output with no gradient path, silently
+        raise RuntimeError(
+            "paged_attention has no gradient: call it under "
+            "torch.no_grad() or on tensors that do not require grad")
     _check_shapes(q, k_pool, v_pool, block_tables, base)
     B, T, H, D = q.shape
     NB, bs, Hkv, _ = k_pool.shape
@@ -124,7 +131,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
       base: [B] int32 first logical position of the window per row.
 
     Returns [B, T, H, D] in q's dtype. CPU tensors take the plain
-    gather read; CUDA tensors the kernel.
+    gather read; CUDA tensors the kernel, which has no gradient (as the
+    reference's has no VJP): a CUDA input that requires grad, with grad
+    mode on, raises.
     """
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pool, v_pool, block_tables, base)

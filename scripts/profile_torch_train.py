@@ -1,0 +1,104 @@
+"""Where the port's train step time goes on the card: `language_ddp`
+(the TransformerLM at its published widths, bf16, jit+pallas, batch 32,
+seq 128) through `train_language_model`, under `torch.profiler`.
+
+    python3 scripts/profile_torch_train.py
+
+Trains twice, from the same seed: once plain (50 steps and validation,
+chip_smoke.py's train phase), for the step time p50 by CUDA events, and
+once for 10 steps without validation under the profiler, for the device
+time of every CUDA kernel. Prints JSON lines: the step p50, the kernel
+time and launches per step and their share of the step p50 (the card's
+busy share), device time per step grouped by what the kernel does, and
+the top N kernels. The profiled run's set-up (weight init, the export's
+copies out) is in its totals too: the memcpy group and a few init
+kernels. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+TOP = 12  # kernels listed one by one
+STEPS = 10  # profiled steps
+
+GROUPS = (  # first match wins, on the lowercased kernel name
+    ("memcpy / memset", ("memcpy", "memset")),
+    ("fused_softmax_xent fwd+bwd (hand-written)", ("ce_fwd_kernel",
+                                                   "ce_bwd_kernel")),
+    ("fused_layernorm (hand-written)", ("layernorm_kernel",)),
+    ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
+    ("AdamW and grad norm", ("adam", "multi_tensor", "foreach")),
+    ("embedding backward", ("embedding", "sort", "segment", "unique")),
+    ("copies and casts", ("copy", "cast", "convert")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for label, keys in GROUPS:
+        if any(k in low for k in keys):
+            return label
+    return "other elementwise / reductions"
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj, separators=(",", ":")), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_train: needs a CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from hyperion_tpu_torch.train.trainer import train_language_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = ROOT / "build" / "profile_torch_train"
+    res = train_language_model(chip_smoke.train_config(base / "plain"))
+    step_p50 = float(np.percentile(res.step_ms, 50))
+
+    cfg = chip_smoke.train_config(base / "profiled", steps=STEPS)
+    cfg.train.validate = False
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        train_language_model(cfg)
+    groups: dict[str, float] = {}
+    rows = []
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        ms = (e.self_cuda_time_total if us is None else us) / 1e3 / STEPS
+        label = group_of(e.key)
+        groups[label] = groups.get(label, 0.0) + ms
+        rows.append((ms, e.count / STEPS, e.key))
+        if label != "memcpy / memset":
+            launches += e.count
+    kernel_ms = sum(v for k, v in groups.items() if k != "memcpy / memset")
+    rows.sort(reverse=True)
+    emit({"device": torch.cuda.get_device_name(0),
+          "step_ms_p50": step_p50, "tokens_per_s": 32 * 128 / (step_p50 / 1e3),
+          "profiled_steps": STEPS, "kernel_ms_per_step": kernel_ms,
+          "kernel_launches_per_step": launches / STEPS,
+          "kernel_share_of_step_p50": kernel_ms / step_p50})
+    emit({"groups_ms_per_step": dict(sorted(groups.items(),
+                                            key=lambda kv: -kv[1]))})
+    for ms, calls, name in rows[:TOP]:
+        emit({"kernel": name[:120], "ms_per_step": ms,
+              "calls_per_step": calls})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. jax-free, so it runs where the port runs:
+card, and the gradients through them against the plain versions'
+autograd. jax-free, so it runs where the port runs:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -7,7 +8,9 @@ card. jax-free, so it runs where the port runs:
 machine does not have.) Without a CUDA device every test skips with
 its reason. chip_smoke.py holds the same kernels at full model width;
 these cover the small, odd geometries: GQA, a shared prefix, a window
-running past the table, every head_dim the kernel takes, odd rows.
+running past the table, every head_dim the kernel takes, odd rows and
+widths, the widest LayerNorm row (64 KB of shared memory), a ragged
+vocab and the strided [B, T-1, V] logits view.
 """
 
 from __future__ import annotations
@@ -16,7 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm, fused_rmsnorm_plain
+from hyperion_tpu_torch.ops.fused_ce import (
+    fused_softmax_xent,
+    fused_softmax_xent_bwd,
+    fused_softmax_xent_bwd_plain,
+    fused_softmax_xent_fwd,
+    fused_softmax_xent_plain,
+)
+from hyperion_tpu_torch.ops.fused_norm import (
+    fused_layernorm,
+    fused_layernorm_plain,
+    fused_rmsnorm,
+    fused_rmsnorm_plain,
+)
 from hyperion_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_plain,
@@ -101,3 +116,149 @@ def test_rmsnorm_matches_plain(cuda, shape, dtype):
         assert int(ulps.abs().max()) <= 1
     else:
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_rmsnorm_grads_equal_plain_grads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(40)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(6, 512, generator=g, device=cuda).to(dtype)
+        w = 1.0 + 0.1 * torch.randn(512, generator=g, device=cuda)
+        gy = torch.randn(6, 512, generator=g, device=cuda).to(dtype)
+        grads = []
+        for fn in (fused_rmsnorm, fused_rmsnorm_plain):
+            xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+            before = fused_rmsnorm.launches
+            fn(xs, ws).backward(gy)
+            assert fused_rmsnorm.launches == before + (fn is fused_rmsnorm)
+            grads.append((xs.grad, ws.grad))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_paged_attention_refuses_grad(cuda):
+    q, kp, vp, bt, base = _geometry(cuda, torch.float32, 2, 1, 4, 4, 32)
+    before = paged_attention.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        paged_attention(q.requires_grad_(), kp, vp, bt, base)
+    assert paged_attention.launches == before
+    with torch.no_grad():
+        paged_attention(q, kp, vp, bt, base)
+    assert paged_attention.launches == before + 1
+
+
+def _ulps(a, b):
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "res"])
+@pytest.mark.parametrize("shape", [(3, 7, 256), (5, 96), (1, 33), (2, 16384)])
+def test_layernorm_matches_plain(cuda, shape, residual, dtype):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + residual)
+    x = (torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    r = torch.randn(shape, generator=g, device=cuda).to(dtype) \
+        if residual else None
+    w = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    b = 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    before = fused_layernorm.launches
+    out = fused_layernorm(x, w, b, residual=r, eps=1e-6)
+    assert fused_layernorm.launches == before + 1
+    ref = fused_layernorm_plain(x, w, b, residual=r, eps=1e-6)
+    if dtype == torch.bfloat16:
+        # one ulp, taken at no less than 2**-8: where `* w + b` cancels
+        # towards zero the sides' fp32 statistics (summed in other
+        # orders) differ by more than the tiny output's own ulp
+        ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int())
+        near_zero = (out.float() - ref.float()).abs() <= 2.0 ** -16
+        assert bool(((ulps.abs() <= 1) | near_zero).all())
+    else:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_layernorm_grads_equal_plain_grads(cuda):
+    g = torch.Generator(device=cuda).manual_seed(41)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, r, gy = (torch.randn(8, 256, generator=g, device=cuda).to(dtype)
+                    for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(256, generator=g, device=cuda)
+        b = 0.1 * torch.randn(256, generator=g, device=cuda)
+        grads = []
+        for fn in (fused_layernorm, fused_layernorm_plain):
+            ts = [t.clone().requires_grad_() for t in (x, r, w, b)]
+            fn(ts[0], ts[2], ts[3], residual=ts[1], eps=1e-6).backward(gy)
+            grads.append([t.grad for t in ts])
+        for a, c in zip(*grads):
+            torch.testing.assert_close(a, c, atol=0, rtol=0)
+
+
+def _ce_inputs(dev, dtype, shape, seed, strided=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    *rows, V = shape
+    if strided:  # the [B, T-1, V] view of [B, T, V] logits
+        full = 3 * torch.randn(rows[0], rows[1] + 1, V, generator=g,
+                               device=dev)
+        logits = full.to(dtype)[:, :-1]
+    else:
+        logits = (3 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+    targets = torch.randint(0, V, tuple(rows), generator=g, device=dev)
+    return logits, targets
+
+
+# dlogits are held to 1e-6 of each element's own size, down to fp32's
+# smallest normal: most elements are far below an absolute 1e-6
+FP32_TINY = torch.finfo(torch.float32).tiny
+CE_CASES = {"ragged_37x5003": ((37, 5003), False),
+            "strided_3x6x1000": ((3, 6, 1000), True),
+            "one_row_7": ((1, 7), False)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CE_CASES))
+def test_softmax_xent_matches_plain(cuda, case, dtype):
+    shape, strided = CE_CASES[case]
+    logits, targets = _ce_inputs(cuda, dtype, shape, 42, strided)
+    before = (fused_softmax_xent_fwd.launches, fused_softmax_xent_bwd.launches)
+    loss, lse = fused_softmax_xent_fwd(logits, targets)
+    ref_loss, ref_lse = fused_softmax_xent_fwd(logits.cpu(), targets.cpu())
+    torch.testing.assert_close(loss.cpu(), ref_loss, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(lse.cpu(), ref_lse, atol=1e-6, rtol=1e-5)
+    gy = torch.rand(loss.shape, device=cuda)
+    d = fused_softmax_xent_bwd(logits, targets, lse, gy)
+    ref_d = fused_softmax_xent_bwd_plain(logits, targets, lse, gy)
+    assert d.dtype == dtype and d.shape == logits.shape
+    if dtype == torch.bfloat16:
+        assert _ulps(d, ref_d) <= 1
+    else:
+        torch.testing.assert_close(d, ref_d, atol=FP32_TINY, rtol=1e-6)
+    assert (fused_softmax_xent_fwd.launches,
+            fused_softmax_xent_bwd.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_softmax_xent_autograd_runs_both_kernels(cuda):
+    logits, targets = _ce_inputs(cuda, torch.float32, (4, 9, 300), 43, True)
+    leaf = logits.detach().clone().requires_grad_()
+    view = leaf[:, :-1]
+    targets = targets[:, :-1]
+    before = (fused_softmax_xent_fwd.launches, fused_softmax_xent_bwd.launches)
+    fused_softmax_xent(view, targets).mean().backward()
+    assert (fused_softmax_xent_fwd.launches,
+            fused_softmax_xent_bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref = leaf.detach().clone().requires_grad_()
+    fused_softmax_xent_plain(ref[:, :-1], targets).mean().backward()
+    torch.testing.assert_close(leaf.grad, ref.grad, atol=FP32_TINY, rtol=1e-6)
+    with torch.no_grad():
+        fused_softmax_xent(view, targets)
+    assert fused_softmax_xent_bwd.launches == before[1] + 1
+    assert fused_softmax_xent_fwd.launches == before[0] + 2
+
+
+def test_softmax_xent_refuses_out_of_range_targets(cuda):
+    logits, targets = _ce_inputs(cuda, torch.float32, (4, 50), 44)
+    targets[1] = 50
+    before = fused_softmax_xent_fwd.launches
+    with pytest.raises(ValueError, match="must lie in"):
+        fused_softmax_xent_fwd(logits, targets)
+    assert fused_softmax_xent_fwd.launches == before

@@ -1,5 +1,5 @@
-"""The port stands alone: `hyperion_tpu_torch` and `chip_smoke.py`
-import neither jax nor anything of the JAX package `hyperion_tpu`.
+"""The port stands alone: `hyperion_tpu_torch`, `chip_smoke.py` and
+the port's profiling scripts import neither jax nor anything of the JAX package `hyperion_tpu`.
 
 On the card a CUDA jax would compete with torch for device memory, and
 importing any `hyperion_tpu.utils.*` or `hyperion_tpu.serve.*` module
@@ -19,7 +19,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "hyperion_tpu_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py"] \
+    + sorted((REPO / "scripts").glob("profile_torch_*.py"))
 
 _PROBE = """
 import importlib, pkgutil, sys

@@ -3,15 +3,18 @@
 On the CPU each wrapper runs its kernel's plain PyTorch version, so
 these hold that version to the reference: `paged_attention_plain`
 against `hyperion_tpu/ops/pallas/paged_attention.py` (interpret mode,
-as tests/test_pallas_kernels.py runs it) and `fused_rmsnorm_plain`
-against `hyperion_tpu/ops/pallas/fused_norm.py`. The inputs are made
-with numpy from a seed and handed to both.
+as tests/test_pallas_kernels.py runs it), `fused_rmsnorm_plain` and
+`fused_layernorm_plain` against `hyperion_tpu/ops/pallas/fused_norm.py`
+and `fused_softmax_xent_plain` (and its backward) against
+`hyperion_tpu/ops/pallas/fused_ce.py`. The inputs are made with numpy
+from a seed and handed to both.
 
 Tolerances: paged attention 2e-5 abs/rel, the reference's own bound
-between its online-softmax kernel and the one-shot gather read; RMSNorm
-1e-6 in fp32 (the two frameworks sum the squares in another order) and
-one bf16 ulp in bf16 (both compute in fp32 and round once, so at most
-the last bit may differ).
+between its online-softmax kernel and the one-shot gather read; the
+norms 1e-6 (RMS) and 1e-5 (Layer) in fp32, where the two frameworks sum
+in another order, and one bf16 ulp in bf16 (both compute in fp32 and
+round once, so at most the last bit may differ); their gradients 1e-5;
+cross-entropy losses 1e-5 relative and dlogits 1e-6 absolute.
 
 The CUDA kernels themselves are held to these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -21,19 +24,32 @@ from __future__ import annotations
 
 import ctypes
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from hyperion_tpu.ops.pallas import fused_ce as jax_ce
+from hyperion_tpu.ops.pallas.fused_norm import fused_layernorm as jax_layernorm
 from hyperion_tpu.ops.pallas.fused_norm import fused_rmsnorm as jax_rmsnorm
 from hyperion_tpu.ops.pallas.paged_attention import (
     paged_attention as jax_paged_attention,
 )
 from hyperion_tpu_torch.ops import build
+from hyperion_tpu_torch.ops import fused_ce as ce_mod
 from hyperion_tpu_torch.ops import fused_norm as fn_mod
 from hyperion_tpu_torch.ops import paged_attention as pa_mod
+from hyperion_tpu_torch.ops.fused_ce import (
+    fused_softmax_xent,
+    fused_softmax_xent_bwd,
+    fused_softmax_xent_bwd_plain,
+    fused_softmax_xent_fwd,
+    fused_softmax_xent_plain,
+)
 from hyperion_tpu_torch.ops.fused_norm import (
+    fused_layernorm,
+    fused_layernorm_plain,
     fused_rmsnorm,
     fused_rmsnorm_plain,
 )
@@ -111,6 +127,20 @@ class TestPagedAttentionPlain:
         with pytest.raises(ValueError, match="unsupported device"):
             paged_attention(q, kp, vp, bt, base)
 
+    @pytest.mark.parametrize("which", ["q", "k_pool", "v_pool"])
+    def test_kernel_refuses_inputs_that_require_grad(self, which):
+        """The reference kernel has no VJP: a launch that would hand back
+        an output with no gradient path raises instead, before it
+        builds. Under no_grad the same inputs pass the check."""
+        args = dict(zip(("q", "k_pool", "v_pool", "block_tables", "base"),
+                        _torch(*_geometry(2, 1, 4, 4, D=32))))
+        args[which].requires_grad_()
+        with pytest.raises(RuntimeError, match="no gradient"):
+            pa_mod._launch(**args)
+        with torch.no_grad(), pytest.raises(TypeError, match="int32"):
+            # past the gradient check, into the shape checks
+            pa_mod._launch(**{**args, "base": args["base"].long()})
+
     @pytest.mark.parametrize("bad, match", [
         ("dtype", "float32 or bfloat16"),
         ("head_dim", "multiple of 32"),
@@ -181,7 +211,215 @@ class TestFusedRMSNormPlain:
         elif bad == "strided":
             x = torch.ones(d, 4).T
         with pytest.raises((TypeError, ValueError), match=match):
-            fn_mod._launch(x, w, 1e-5)
+            fn_mod._launch_rms(x, w, 1e-5)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in bf16 ulps between two bf16 tensors."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+class TestRMSNormGradient:
+    def test_grad_matches_jax_custom_vjp(self):
+        rng = np.random.default_rng(21)
+        x = rng.standard_normal((5, 48)).astype(np.float32)
+        w = (1.0 + 0.1 * rng.standard_normal(48)).astype(np.float32)
+        g = rng.standard_normal((5, 48)).astype(np.float32)
+        ref = jax.grad(lambda x, w: (jax_rmsnorm(x, w) * g).sum(),
+                       argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+        xt, wt = (t.requires_grad_() for t in _torch(x, w))
+        (fused_rmsnorm(xt, wt) * torch.from_numpy(g)).sum().backward()
+        for out, r in zip((xt.grad, wt.grad), ref):
+            np.testing.assert_allclose(out.numpy(), np.asarray(r),
+                                       atol=1e-5, rtol=1e-5)
+
+
+class TestFusedLayerNormPlain:
+    @pytest.mark.parametrize("residual", [False, True])
+    @pytest.mark.parametrize("shape", [(3, 5, 64), (7, 96)])
+    def test_fp32_matches_jax_kernel(self, shape, residual):
+        rng = np.random.default_rng(sum(shape) + residual)
+        x = rng.standard_normal(shape).astype(np.float32) + 0.5
+        r = rng.standard_normal(shape).astype(np.float32)
+        w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+        b = (0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+        res = jnp.asarray(r) if residual else None
+        ref = np.asarray(jax_layernorm(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b), residual=res,
+                                       eps=1e-6))
+        xt, rt, wt, bt = _torch(x, r, w, b)
+        out = fused_layernorm_plain(xt, wt, bt, residual=rt if residual
+                                    else None, eps=1e-6).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("residual", [False, True])
+    def test_bf16_within_one_ulp_of_jax_kernel(self, residual):
+        rng = np.random.default_rng(12 + residual)
+        x32, r32 = (rng.standard_normal((6, 256)).astype(np.float32)
+                    for _ in range(2))
+        w = (1.0 + 0.1 * rng.standard_normal(256)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(256)).astype(np.float32)
+        xj, rj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x32, r32))
+        ref = jax_layernorm(xj, jnp.asarray(w), jnp.asarray(b),
+                            residual=rj if residual else None, eps=1e-6)
+        ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).bfloat16()
+        xt, rt = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .bfloat16() for a in (xj, rj))
+        out = fused_layernorm_plain(xt, *_torch(w, b),
+                                    residual=rt if residual else None,
+                                    eps=1e-6)
+        assert out.dtype == torch.bfloat16
+        assert _ulps(out, ref) <= 1
+
+    def test_grads_match_jax_custom_vjp(self):
+        rng = np.random.default_rng(22)
+        x, r, g = (rng.standard_normal((4, 40)).astype(np.float32)
+                   for _ in range(3))
+        w = (1.0 + 0.1 * rng.standard_normal(40)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(40)).astype(np.float32)
+        ref = jax.grad(
+            lambda x, r, w, b: (jax_layernorm(x, w, b, residual=r, eps=1e-6)
+                                * g).sum(), argnums=(0, 1, 2, 3))(
+            *(jnp.asarray(a) for a in (x, r, w, b)))
+        ts = [t.requires_grad_() for t in _torch(x, r, w, b)]
+        (fused_layernorm(ts[0], ts[2], ts[3], residual=ts[1], eps=1e-6)
+         * torch.from_numpy(g)).sum().backward()
+        for t, rg in zip(ts, ref):
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(rg),
+                                       atol=1e-5, rtol=1e-5)
+
+    def test_cpu_wrapper_is_the_plain_version(self):
+        x, w, b = _torch(np.random.default_rng(1).standard_normal((4, 32))
+                         .astype(np.float32), np.ones(32, np.float32),
+                         np.zeros(32, np.float32))
+        before = fused_layernorm.launches
+        assert torch.equal(fused_layernorm(x, w, b, residual=x),
+                           fused_layernorm_plain(x, w, b, residual=x))
+        assert fused_layernorm.launches == before
+
+    @pytest.mark.parametrize("bad, match", [
+        ("dtype", "float32 or bfloat16"),
+        ("width", "d <= 16384"),
+        ("bias", "bias must be float32"),
+        ("residual", "residual must match"),
+        ("strided", "contiguous"),
+    ])
+    def test_kernel_rejects_what_it_cannot_take(self, bad, match):
+        d = 16400 if bad == "width" else 64
+        x, w, b = torch.ones(4, d), torch.ones(d), torch.zeros(d)
+        res = None
+        if bad == "dtype":
+            x = x.double()
+        elif bad == "bias":
+            b = b.bfloat16()
+        elif bad == "residual":
+            res = torch.ones(4, d).bfloat16()
+        elif bad == "strided":
+            x = torch.ones(d, 4).T
+        with pytest.raises((TypeError, ValueError), match=match):
+            fn_mod._launch_ln(x, res, w, b, 1e-6)
+
+
+class TestFusedSoftmaxXentPlain:
+    N, V = 24, 5003  # the vocab ragged against the reference's 2048 tiles
+
+    def _inputs(self, seed=31):
+        rng = np.random.default_rng(seed)
+        logits = (3 * rng.standard_normal((self.N, self.V))).astype(np.float32)
+        targets = rng.integers(0, self.V, self.N).astype(np.int32)
+        g = rng.standard_normal(self.N).astype(np.float32) / self.N
+        return logits, targets, g
+
+    def test_loss_and_lse_match_jax_forward(self):
+        logits, targets, _ = self._inputs()
+        ref_loss, (_, _, lse_p, _) = jax_ce._fwd(
+            jnp.asarray(logits), jnp.asarray(targets),
+            jax_ce.DEFAULT_BLOCK_N, jax_ce.DEFAULT_BLOCK_V)
+        loss, lse = fused_softmax_xent_fwd(*_torch(logits, targets))
+        np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss),
+                                   rtol=1e-5, atol=0)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(lse_p)[:self.N],
+                                   rtol=1e-5, atol=0)
+        np.testing.assert_array_equal(
+            fused_softmax_xent_plain(*_torch(logits, targets)).numpy(),
+            loss.numpy())
+
+    def test_gradient_matches_jax_backward(self):
+        logits, targets, g = self._inputs(32)
+        ref = jax.grad(lambda x: (jax_ce.fused_softmax_xent(
+            x, jnp.asarray(targets)) * g).sum())(jnp.asarray(logits))
+        lt = torch.from_numpy(logits).requires_grad_()
+        (fused_softmax_xent(lt, torch.from_numpy(targets))
+         * torch.from_numpy(g)).sum().backward()
+        # relative as well: at g ~ 1/N most elements lie far below 1e-6
+        np.testing.assert_allclose(lt.grad.numpy(), np.asarray(ref),
+                                   atol=1e-12, rtol=1e-5)
+        _, lse = fused_softmax_xent_fwd(*_torch(logits, targets))
+        direct = fused_softmax_xent_bwd_plain(
+            *_torch(logits, targets), lse, torch.from_numpy(g))
+        np.testing.assert_allclose(direct.numpy(), np.asarray(ref),
+                                   atol=1e-12, rtol=1e-5)
+
+    def test_strided_view_equals_the_copy(self):
+        """The [B, T-1, V] view next_token_loss passes equals its
+        contiguous copy, forward and backward."""
+        rng = np.random.default_rng(33)
+        full = torch.from_numpy(rng.standard_normal((3, 5, 300))
+                                .astype(np.float32))
+        t = torch.from_numpy(rng.integers(0, 300, (3, 4)))
+        view = full[:, :-1]
+        assert not view.is_contiguous()
+        loss_v, lse_v = fused_softmax_xent_fwd(view, t)
+        loss_c, lse_c = fused_softmax_xent_fwd(view.contiguous(), t)
+        assert torch.equal(loss_v, loss_c) and torch.equal(lse_v, lse_c)
+        g = torch.ones(3, 4)
+        assert torch.equal(fused_softmax_xent_bwd(view, t, lse_v, g),
+                           fused_softmax_xent_bwd(view.contiguous(), t,
+                                                  lse_c, g))
+        b, r, v, sb, sr = ce_mod._geometry(view, t)
+        assert (b, r, v, sb, sr) == (3, 4, 300, 1500, 300)
+
+    def test_cpu_wrappers_are_the_plain_versions(self):
+        logits, targets, g = _torch(*self._inputs(34))
+        before = (fused_softmax_xent_fwd.launches,
+                  fused_softmax_xent_bwd.launches)
+        loss, lse = fused_softmax_xent_fwd(logits, targets)
+        assert torch.equal(loss, fused_softmax_xent_plain(logits, targets))
+        assert torch.equal(fused_softmax_xent_bwd(logits, targets, lse, g),
+                           fused_softmax_xent_bwd_plain(logits, targets,
+                                                        lse, g))
+        assert (fused_softmax_xent_fwd.launches,
+                fused_softmax_xent_bwd.launches) == before
+
+    @pytest.mark.parametrize("bad, match", [
+        ("dtype", "float32 or\\s+bfloat16"),
+        ("target_dtype", "int32 or int64"),
+        ("target_high", "must lie in"),
+        ("target_low", "must lie in"),
+        ("shape", "do not match"),
+        ("vocab_stride", "unit stride"),
+    ])
+    def test_kernel_rejects_what_it_cannot_take(self, bad, match):
+        logits, targets = torch.zeros(4, 10), torch.zeros(4, dtype=torch.int64)
+        if bad == "dtype":
+            logits = logits.half()
+        elif bad == "target_dtype":
+            targets = targets.float()
+        elif bad == "target_high":
+            targets[2] = 10
+        elif bad == "target_low":
+            targets[0] = -1
+        elif bad == "shape":
+            targets = torch.zeros(5, dtype=torch.int64)
+        elif bad == "vocab_stride":
+            logits = torch.zeros(10, 4).T
+        with pytest.raises((TypeError, ValueError), match=match):
+            ce_mod._launch_fwd(logits, targets)
+        if bad in ("target_high", "target_low"):
+            with pytest.raises(ValueError, match=match):
+                ce_mod._launch_bwd(logits, targets, torch.zeros(4),
+                                   torch.ones(4))
 
 
 class TestBuild:
@@ -215,6 +453,7 @@ class TestBuild:
 
     def test_digest_keys_on_sources(self):
         srcs = sorted(build.CSRC.glob("*.cu"))
-        assert {s.stem for s in srcs} == {"fused_norm", "paged_attention"}
+        assert {s.stem for s in srcs} == {"fused_ce", "fused_norm",
+                                          "paged_attention"}
         assert build._digest(srcs) == build._digest(srcs)
         assert build._digest(srcs[:1]) != build._digest(srcs)
