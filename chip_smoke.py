@@ -20,7 +20,12 @@ script exits non-zero):
               forward and backward at the train step's [32, 127, 50257]
               fp32 logits view, its rows in bf16 and a ragged [37, 5003];
               the norms' gradients through the kernels against the plain
-              versions'. Kernel, plain, bound and library times.
+              versions'; the flash forward, dq and dk/dv kernels at the
+              Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
+              last quarter of the keys padding), at [2, 1024, 8, 128] fp32
+              causal and not, and at a ragged T = 1000; the cross-entropy
+              at Llama's [1, 4095, 32000] fp32 view. Kernel, plain, bound
+              and library times.
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -29,17 +34,28 @@ script exits non-zero):
               synthetic validation): the loss falls, one CSV row, the
               export reloads, launch counters exact; step time p50 (CUDA
               events), tokens/s, peak memory as smoke readings.
-  6. model    a tiny fp32 Llama on the CPU (plain versions) against the
+  6. llama_train_model  a tiny fp32 LoRA Llama (GQA, remat "full",
+              attention and norm at "pallas", a padding mask) on the CPU
+              against the card: the loss and every adapter gradient, and
+              the card's launches exact.
+  7. llama_train  `train_llama` at Llama-2-7B widths and depth: bf16,
+              LoRA r 16 on q/k/v/o, remat "full", jit+pallas, seq 4096,
+              batch 1, 8 steps and 2 validation batches: losses finite
+              from ln 32000, the base bit-identical, the B factors moved,
+              one CSV row, the adapter export reloads, every kernel's
+              launches exact; step time p50, tokens/s, peak memory as
+              smoke readings. The model is freed before the serve phases.
+  8. model    a tiny fp32 Llama on the CPU (plain versions) against the
               same weights on the card (kernels), through the three paged
               window shapes.
-  7. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
+  9. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
               streams equal the port's `generate`.
-  8. serve    full Llama-2-7B (32 layers, bf16, seeded random weights)
-              behind `serve_jsonl`: 8 requests, prefix hits, a COW copy,
-              launch counters exactly forwards x layers.
-  9. the `kernels` line: per kernel its launches on its path's run (the
-              serve run, or the train run), its error against the plain
-              version and its times.
+ 10. serve    full Llama-2-7B (32 layers, bf16, seeded random weights,
+              the fused RMSNorm) behind `serve_jsonl`: 8 requests, prefix
+              hits, a COW copy, launch counters exactly forwards x layers.
+ 11. the `kernels` line: per kernel its launches on its path's run (the
+              serve run, the language_ddp train run, or the Llama train
+              run), its error against the plain version and its times.
 
 Kernel times are device times with host dispatch taken out: a run of
 launches captured in one CUDA graph and replayed, on copies of the
@@ -55,6 +71,7 @@ subset of phases runs by importing the phase functions.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import functools
 import gc
 import io
@@ -560,6 +577,174 @@ def phase_kernels() -> dict:
     return recs
 
 
+def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
+    """(ok, max abs error) of a flash kernel output against its plain
+    version. fp32: 2e-5 for o and lse, 2e-4 for gradients (the
+    reference's own kernel bounds). bf16 o: the kernel rounds p to bf16
+    per key tile against the running max, the plain version once against
+    the row's max — one ulp of p (2^-8) over |v| <= 4, plus one of the
+    output: 2^-6 + 2^-7 of the value. lse is fp32 on both sides. bf16
+    gradients: the same rounded ds and p summed in another order, then
+    rounded: 2^-6 of the largest gradient."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    if dtype == torch.float32 or what == "lse":
+        tol = 2e-5 if what in ("o", "lse") else 2e-4
+        ok = bool((err <= tol + tol * ref.abs()).all())
+    elif what == "o":
+        ok = bool((err <= 2.0 ** -6 + 2.0 ** -7 * ref.abs()).all())
+    else:
+        ok = bool(err.max() <= 2.0 ** -6 * ref.abs().max())
+    return ok, float(err.max())
+
+
+def flash_case(B, T, H, D, dtype, pad_tail, seed):
+    """q, k, v, dO [B, T, H, D] and a [B, T] key mask whose last
+    `pad_tail` of positions is padding (None for no mask)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    pad = None
+    if pad_tail:
+        pad = torch.ones(B, T, dtype=torch.int8, device="cuda")
+        pad[:, T - int(T * pad_tail):] = 0
+    return q, k, v, do, pad
+
+
+def flash_pairs(B, T, causal, pad) -> float:
+    """(query, key) pairs the masks keep, over the batch: the work each
+    of the kernels' products does on these inputs."""
+    pos = torch.arange(T)
+    keep = (pos[None, :] <= pos[:, None]) if causal \
+        else torch.ones(T, T, dtype=torch.bool)
+    if pad is None:
+        return float(B * keep.sum())
+    return float((keep[None] & pad.bool().cpu()[:, None, :]).sum())
+
+
+def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
+    """The forward, dq and dk/dv kernels against the plain versions (the
+    backward from the kernel's own o and lse); with `timing`, kernel,
+    plain, bound and library times. Returns the three records."""
+    from hyperion_tpu_torch.ops import flash_attention as fa
+
+    dtype = q.dtype
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            padding_mask=pad)
+    dq = fa.flash_attention_dq(q, k, v, o, lse, do, causal=causal,
+                               padding_mask=pad)
+    dk, dv = fa.flash_attention_dkv(q, k, v, o, lse, do, causal=causal,
+                                    padding_mask=pad)
+    rdq, rdk, rdv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                 causal=causal,
+                                                 padding_mask=pad)
+    torch.cuda.synchronize()
+    checks = {"flash_attention_fwd": [flash_close(o, ro, dtype, "o"),
+                                      flash_close(lse, rlse, dtype, "lse")],
+              "flash_attention_dq": [flash_close(dq, rdq, dtype, "dq")],
+              "flash_attention_dkv": [flash_close(dk, rdk, dtype, "dk"),
+                                      flash_close(dv, rdv, dtype, "dv")]}
+    del ro, rlse, rdq, rdk, rdv
+    base = {"phase": "kernels", "case": name,
+            "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
+            "causal": causal, "padded_keys": 0 if pad is None
+            else int((pad == 0).sum())}
+    recs = {kn: {**base, "kernel": kn,
+                 "max_abs_err": max(e for _, e in c),
+                 "ok": all(ok for ok, _ in c)}
+            for kn, c in checks.items()}
+    if timing:
+        B, T, H, D = q.shape
+        it = q.element_size()
+        n = q.numel() * it
+        stats = B * H * T * 4
+        pad_bytes = 0 if pad is None else pad.numel()
+        pairs = flash_pairs(B, T, causal, pad)
+        few = dict(calls=3, reps=2)  # the plain versions' [T, T] passes
+        f, dqr, dkvr = (recs[k] for k in checks)
+        nf = 4 * n + stats + pad_bytes
+        f["kernel_ms"] = time_ms(
+            lambda a, b, c: fa._launch_fwd(a, b, c, pad, causal, True),
+            (q, k, v), nf)
+        f["plain_ms"] = time_ms(
+            lambda a, b, c: fa.flash_attention_fwd_plain(
+                a, b, c, causal=causal, padding_mask=pad), (q, k, v), nf,
+            **few)
+        f["bound_ms"], f["bound_by"] = bound(nf, 4.0 * D * H * pairs, dtype)
+        keep = torch.ones(T, T, dtype=torch.bool, device="cuda")
+        if causal:
+            keep = torch.tril(keep)
+        mask4 = keep[None, None] if pad is None \
+            else keep[None, None] & pad.bool()[:, None, None, :]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        f["library_ms"] = time_ms(
+            lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
+                                 c.transpose(1, 2), attn_mask=mask4),
+            (q, k, v), nf)
+        # the launchers alone: delta = sum(dO * O) is a plain reduction
+        dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad)
+        ndq = 5 * n + 2 * stats + pad_bytes
+        ndkv = 6 * n + 2 * stats + pad_bytes
+        dqr["kernel_ms"] = time_ms(
+            lambda *a: fa._launch_dq(dims, pad32, *a, causal), ins, ndq)
+        dkvr["kernel_ms"] = time_ms(
+            lambda *a: fa._launch_dkv(dims, pad32, *a, causal), ins, ndkv)
+        dqr["bound_ms"], dqr["bound_by"] = bound(ndq, 6.0 * D * H * pairs,
+                                                 dtype)
+        dkvr["bound_ms"], dkvr["bound_by"] = bound(ndkv, 8.0 * D * H * pairs,
+                                                   dtype)
+        # one plain backward and one library backward give all of dq,
+        # dk and dv: both rows carry that whole time
+        dqr["plain_ms"] = dkvr["plain_ms"] = time_ms(
+            lambda a, b, c, oo, ll, g: fa.flash_attention_bwd_plain(
+                a, b, c, oo, ll, g, causal=causal, padding_mask=pad),
+            (q, k, v, o, lse, do), 6 * n + 2 * stats, **few)
+        side_stream().wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side_stream()):  # the graph's stream
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            lib_o = sdpa(*(t.transpose(1, 2) for t in leaves),
+                         attn_mask=mask4)
+        dqr["library_ms"] = dkvr["library_ms"] = replay_ms(
+            lambda lo, a, b, c, g: torch.autograd.grad(
+                lo, (a, b, c), g, retain_graph=True),
+            [(lib_o, *leaves, do.transpose(1, 2))])
+        del leaves, lib_o, mask4
+    for rec in recs.values():
+        emit(rec)
+    bad = [k for k, r in recs.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash attention {name} {dtype}: {bad} over "
+                             "tolerance: " + ", ".join(
+                                 f"{k} {recs[k]['max_abs_err']}" for k in bad))
+    return recs
+
+
+def phase_flash() -> dict:
+    """The flash kernels at the Llama-2-7B train step ([1, 4096, 32, 128]
+    bf16, causal, the last quarter of the keys padding), fp32 causal and
+    not at [2, 1024, 8, 128], and a ragged T = 1000; the cross-entropy at
+    Llama's [1, 4095, 32000] fp32 logits view. Returns the train step's
+    records for the `kernels` line."""
+    recs = check_flash("llama_train_step", *flash_case(
+        1, 4096, 32, 128, torch.bfloat16, 0.25, SEED + 20), causal=True,
+        timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for causal in (True, False):
+        check_flash("fp32_causal" if causal else "fp32_full", *flash_case(
+            2, 1024, 8, 128, torch.float32, 0.0, SEED + 21), causal=causal,
+            timing=True)
+    check_flash("ragged_1000", *flash_case(
+        1, 1000, 8, 128, torch.bfloat16, 0.1, SEED + 22), causal=True,
+        timing=True)
+    check_ce("llama_step_view_1x4095", *ce_case(
+        1, 4095, 32000, torch.float32, SEED + 23, strided=True), timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
 TINY_LM = dict(vocab_size=1000, d_model=32, n_heads=2, n_layers=2,
                ff_dim=64, max_len=16, dropout=0.0)
 
@@ -717,6 +902,238 @@ def phase_train(smi: str) -> dict:
     return rec
 
 
+def _launch_counts() -> dict:
+    """Every training-path kernel's launch count (the wrappers' own)."""
+    from hyperion_tpu_torch.ops import flash_attention as fa
+    from hyperion_tpu_torch.ops import fused_ce, fused_norm
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_dq": fa.flash_attention_dq.launches,
+            "flash_attention_dkv": fa.flash_attention_dkv.launches,
+            "fused_rmsnorm": fused_norm.fused_rmsnorm.launches,
+            "fused_softmax_xent_fwd":
+                fused_ce.fused_softmax_xent_fwd.launches,
+            "fused_softmax_xent_bwd":
+                fused_ce.fused_softmax_xent_bwd.launches}
+
+
+def _reset_launch_counts() -> None:
+    from hyperion_tpu_torch.ops import flash_attention as fa
+    from hyperion_tpu_torch.ops import fused_ce, fused_norm
+
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv, fused_norm.fused_rmsnorm,
+               fused_ce.fused_softmax_xent_fwd,
+               fused_ce.fused_softmax_xent_bwd):
+        fn.launches = 0
+
+
+def llama_launches_expected(n_layers: int, steps: int, evals: int) -> dict:
+    """Launches of one LoRA fine-tune under remat "full": each train step
+    runs every block's forward twice (once more inside the backward's
+    recompute, where the flash forward and both norms launch again; the
+    final norm is outside remat), then dq and dk/dv once per layer; an
+    eval batch runs the forward once. The norms' backward is autograd of
+    the plain version, so it launches nothing."""
+    return {"flash_attention_fwd": n_layers * (2 * steps + evals),
+            "flash_attention_dq": n_layers * steps,
+            "flash_attention_dkv": n_layers * steps,
+            "fused_rmsnorm": (2 * n_layers + 1) * (steps + evals)
+            + 2 * n_layers * steps,
+            "fused_softmax_xent_fwd": steps + evals,
+            "fused_softmax_xent_bwd": steps}
+
+
+def phase_llama_train_model() -> None:
+    """A tiny fp32 Llama with LoRA (q/k/v/o, B drawn nonzero so every
+    factor has a gradient), GQA, remat "full", attention and norm at
+    "pallas", on the CPU (plain versions) and on the card (kernels) with
+    the same weights, a ragged 48-token window and a padding mask: the
+    loss and every adapter gradient within 2e-5 + 2e-5 relative, and
+    the card's launches exact."""
+    from hyperion_tpu_torch.models.llama import Llama, llama_tiny_config
+    from hyperion_tpu_torch.train.losses import next_token_loss
+
+    cfg = llama_tiny_config(d_model=128, n_heads=4, n_kv_heads=2, max_len=64,
+                            lora_rank=4, lora_scale=2.0, remat="full",
+                            attention_impl="pallas", norm_impl="pallas")
+    cpu = Llama(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 24)
+    for ab in cpu.lora_params().values():
+        for p in ab.values():
+            p.data.normal_(0.0, 0.05, generator=gen)
+    gpu = Llama(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(SEED + 25)
+    B, T = 2, 48
+    ids = torch.as_tensor(rng.integers(1, 256, (B, T)), dtype=torch.int32)
+    mask = torch.as_tensor(np.arange(T)[None] < np.array([T, 37])[:, None],
+                           dtype=torch.int8)
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", gpu)):
+        if dev == "cuda":
+            _reset_launch_counts()
+        logits = model(ids.to(dev), padding_mask=mask.to(dev))
+        loss = next_token_loss(logits, ids.to(dev), mask.to(dev),
+                               impl="pallas")
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _launch_counts()
+        out[dev] = (loss.detach().cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()
+                     if p.requires_grad})
+    errs = {"loss": float((out["cpu"][0] - out["cuda"][0]).abs()),
+            "adapter_grads": max(float((a - out["cuda"][1][n]).abs().max())
+                                 for n, a in out["cpu"][1].items())}
+    ok = (torch.allclose(out["cpu"][0], out["cuda"][0], atol=2e-5, rtol=2e-5)
+          and len(out["cpu"][1]) == 4 * 2 * cfg.n_layers
+          and all(torch.allclose(a, out["cuda"][1][n], atol=2e-5, rtol=2e-5)
+                  for n, a in out["cpu"][1].items()))
+    expected = llama_launches_expected(cfg.n_layers, 1, 0)
+    emit({"phase": "llama_train_model", "max_abs_err": errs, "tol": 2e-5,
+          "launches": launched, "launches_expected": expected, "ok": ok})
+    if not ok or launched != expected:
+        raise AssertionError(f"llama_train_model: errors {errs}, launches "
+                             f"{launched} != {expected}")
+
+
+LLAMA_STEPS, LLAMA_EVALS = 8, 2
+
+
+def llama_train_config(base: Path, steps: int = LLAMA_STEPS):
+    """`train_llama` as the reference's Llama job runs it, cut to one
+    card and a smoke's length: Llama-2-7B at its published widths and
+    full depth, bf16, LoRA r 16 alpha 32 on q/k/v/o, remat "full",
+    jit+pallas, seq 4096, batch 1 (the reference project's own), lr 1e-5,
+    weight decay 0.01, clip 1.0; one epoch of `steps` steps on the seeded
+    synthetic train split, and a 2-row seeded validation split written
+    under `base` (emptied first)."""
+    import shutil
+
+    from hyperion_tpu_torch.config import Config
+    from hyperion_tpu_torch.data.text import synthetic_lm_split
+
+    shutil.rmtree(base, ignore_errors=True)
+    data = base / "data" / "wikitext2_tokenized"
+    data.mkdir(parents=True)
+    val = synthetic_lm_split(LLAMA_EVALS, seq_len=4096, seed=SEED + 26)
+    np.savez(data / "validation.npz", input_ids=val.input_ids,
+             attention_mask=val.attention_mask)
+    cfg = Config()
+    t = cfg.train
+    t.model, t.lora, t.lora_rank, t.lora_alpha = "llama_7b", True, 16, 32.0
+    t.epochs, t.steps_per_epoch, t.batch_size, t.seq_len = 1, steps, 1, 4096
+    t.learning_rate, t.weight_decay = 1e-5, 0.01
+    t.base_dir, t.data_dir = str(base), str(base / "data")
+    o = cfg.optimization
+    o.remat, o.compile_tier, o.grad_clip_norm = "full", "jit+pallas", 1.0
+    return cfg
+
+
+def phase_llama_train(smi: str) -> dict:
+    """`train_llama` on the card at Llama-2-7B widths and depth (see
+    `llama_train_config`): every loss finite and the first within
+    [-0.1, +1.0] of ln 32000,
+    the base bit-identical to its seeded init afterwards, every B factor
+    moved off zero, one CSV row (mode lora_bf16), the adapter export
+    reloads at the JAX adapter layout's shapes, and every kernel's
+    launches exactly `llama_launches_expected`. Step time p50 (CUDA
+    events), tokens/s and peak memory are smoke readings."""
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+    from hyperion_tpu_torch.models.llama import Llama
+    from hyperion_tpu_torch.train.trainer import train_llama
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke_llama"
+    cfg = llama_train_config(base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train_llama(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    model = res.model
+    lcfg = model.cfg
+    moved_b = all(bool(ab["b"].any()) for ab in model.lora_params().values())
+    # the base: bit-identical to a fresh model drawn from the same seed
+    fresh = Llama(dataclasses.replace(lcfg, lora_rank=0), device="cuda")
+    fresh.init_params(torch.Generator(device="cuda").manual_seed(
+        cfg.train.seed))
+    trained = dict(model.named_parameters())
+    base_same = all(torch.equal(trained[n].float(), p.float())
+                    for n, p in fresh.named_parameters())
+    n_adapters = len(model.lora_params())
+    del fresh, trained, model
+    res.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with open(res.csv_path) as f:
+        rows = list(csv.reader(f))
+    exported = load_gathered(base / "checkpoints" / "llama_lora_bf16_final.npz")
+    q_ab = exported["layer_0"]["attn"]["q_proj"]["kernel"]
+    o_ab = exported["layer_31"]["attn"]["o_proj"]["kernel"]
+    losses = np.asarray(res.step_losses)
+    step_ms = np.asarray(res.step_ms)
+    p50 = float(np.percentile(step_ms, 50))
+    rec = {
+        "phase": "llama_train", "nvidia_smi": smi, "wall_s": wall,
+        "layers": lcfg.n_layers, "d_model": lcfg.d_model,
+        "seq_len": cfg.train.seq_len, "batch": cfg.train.batch_size,
+        "steps": len(losses), "eval_batches": LLAMA_EVALS,
+        "losses": losses.tolist(), "ln_vocab": math.log(lcfg.vocab_size),
+        "val_loss": res.history[-1].extra.get("val_loss"),
+        "step_ms": step_ms.tolist(), "step_ms_p50": p50,
+        "tokens_per_s": cfg.train.seq_len * cfg.train.batch_size
+        / (p50 / 1e3),
+        "peak_mem_gb": peak / 1e9, "base_bit_identical": base_same,
+        "adapters": n_adapters, "b_factors_moved": moved_b,
+        "csv_header": rows[0], "csv_rows": len(rows) - 1,
+        "export_shapes": {"q_a": list(q_ab["a"].shape),
+                          "q_b": list(q_ab["b"].shape),
+                          "o_a": list(o_ab["a"].shape),
+                          "o_b": list(o_ab["b"].shape)},
+        "launches": launches,
+        "launches_expected": llama_launches_expected(
+            lcfg.n_layers, len(losses), LLAMA_EVALS),
+    }
+    emit(rec)
+    problems = []
+    if len(losses) != LLAMA_STEPS or not np.isfinite(losses).all() \
+            or not np.isfinite(rec["val_loss"]):
+        problems.append(f"losses {losses.tolist()}, val {rec['val_loss']}")
+    elif not -0.1 <= losses[0] - rec["ln_vocab"] <= 1.0:
+        # seeded normal(0.02) weights give logits of std ~0.02 * sqrt(d)
+        # = 1.28 after the final norm, which adds ~sigma^2 / 2 = 0.8
+        # nats to ln V
+        problems.append(f"first loss {losses[0]} not near ln V")
+    if (lcfg.n_layers, lcfg.d_model, lcfg.n_heads, lcfg.ff_dim) != \
+            (32, 4096, 32, 11008):
+        problems.append("not Llama-2-7B's widths and depth")
+    if not base_same:
+        problems.append("the base weights moved")
+    if not moved_b or n_adapters != 4 * 32:
+        problems.append(f"adapters: {n_adapters}, B moved {moved_b}")
+    if len(rows) != 2 or rows[1][rows[0].index("mode")] != "lora_bf16":
+        problems.append(f"csv {rows}")
+    if rec["export_shapes"] != {"q_a": [4096, 16], "q_b": [16, 32, 128],
+                                "o_a": [32, 128, 16], "o_b": [16, 4096]}:
+        problems.append(f"export shapes {rec['export_shapes']}")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch counts {launches} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("llama_train: " + "; ".join(problems))
+    return rec
+
+
 def phase_model() -> None:
     from hyperion_tpu_torch.models.llama import (
         Llama,
@@ -725,7 +1142,8 @@ def phase_model() -> None:
     )
 
     # head_dim 32: the kernel's smallest (the JAX tiny config has 16)
-    cfg = llama_tiny_config(d_model=128, n_heads=4, n_kv_heads=2, max_len=64)
+    cfg = llama_tiny_config(d_model=128, n_heads=4, n_kv_heads=2, max_len=64,
+                            norm_impl="pallas")
     cpu = Llama(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(SEED))
     gpu = Llama(cfg, device="cuda")
@@ -782,7 +1200,8 @@ def phase_oracle() -> None:
     from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
     from hyperion_tpu_torch.serve.queue import Request
 
-    cfg = llama2_7b_config(n_layers=2, max_len=256, dtype="float32")
+    cfg = llama2_7b_config(n_layers=2, max_len=256, dtype="float32",
+                           norm_impl="pallas")
     model = Llama(cfg, device="cuda").init_params(
         torch.Generator(device="cuda").manual_seed(SEED))
     eng = Engine(model, EngineConfig(slots=3, max_len=256, block_size=16),
@@ -858,7 +1277,7 @@ def phase_serve() -> dict:
     from hyperion_tpu_torch.serve.server import serve_jsonl
 
     t0 = time.perf_counter()
-    cfg = llama2_7b_config(dtype="bfloat16")
+    cfg = llama2_7b_config(dtype="bfloat16", norm_impl="pallas")
     n_layers = cfg.n_layers
     model = Llama(cfg, device="cuda").init_params(
         torch.Generator(device="cuda").manual_seed(SEED))
@@ -939,11 +1358,13 @@ def phase_serve() -> dict:
     return rec
 
 
-def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict) -> dict:
+def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict,
+                 llama_rec: dict, flash_kernels: dict) -> dict:
     """Per-kernel record at its path's shapes, with its launches on that
     path's run: the serve kernels at the decode tick (S=4 slots, one
-    token, bf16, 7B widths), the training kernels at the language_ddp
-    train step (the kernels phase's records)."""
+    token, bf16, 7B widths), LayerNorm and the cross-entropy at the
+    language_ddp train step, the flash kernels at the Llama-2-7B LoRA
+    train step (the kernels phases' records)."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -967,6 +1388,15 @@ def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict) -> dict:
          csrc + "fused_ce.cu", pallas + "fused_ce.py:61", train_rec),
         (train_kernels["fused_softmax_xent_bwd"], "fused_softmax_xent_bwd",
          csrc + "fused_ce.cu", pallas + "fused_ce.py:94", train_rec),
+        (flash_kernels["flash_attention_fwd"], "flash_attention_fwd",
+         csrc + "flash_attention.cu", pallas + "flash_attention.py:207",
+         llama_rec),
+        (flash_kernels["flash_attention_dq"], "flash_attention_dq",
+         csrc + "flash_attention.cu", pallas + "flash_attention.py:351",
+         llama_rec),
+        (flash_kernels["flash_attention_dkv"], "flash_attention_dkv",
+         csrc + "flash_attention.cu", pallas + "flash_attention.py:405",
+         llama_rec),
     ):
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep,
@@ -993,12 +1423,16 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     train_kernels = phase_kernels()
+    flash_kernels = phase_flash()
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
+    phase_llama_train_model()
+    llama_rec = phase_llama_train(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
     serve_rec = phase_serve()
-    emit(kernels_line(serve_rec, train_rec, train_kernels))
+    emit(kernels_line(serve_rec, train_rec, train_kernels, llama_rec,
+                      flash_kernels))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,10 @@ standard library only — never jax, and nothing of the JAX package.
 Devices are explicit. Every entry point takes `device=None`, which
 means `cuda:0`; with no CUDA device that raises and says to pass
 `device="cpu"` — nothing falls back to the CPU quietly. On a CUDA
-tensor each kernel wrapper (`ops/fused_ce.py`, `ops/fused_norm.py`,
-`ops/paged_attention.py`) launches its hand-written Hopper kernel; on
-a CPU tensor it runs the kernel's plain PyTorch version.
+tensor each kernel wrapper (`ops/flash_attention.py`, `ops/fused_ce.py`,
+`ops/fused_norm.py`, `ops/paged_attention.py`) launches its
+hand-written Hopper kernel; on a CPU tensor it runs the kernel's plain
+PyTorch version.
 
 Importing the package builds nothing: the kernels compile with `nvcc`
 on their first launch (`ops/build.py`).

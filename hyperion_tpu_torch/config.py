@@ -1,6 +1,6 @@
-"""The trainer's configuration — the `train` and `optimization` fields of
-`hyperion_tpu/config.py` that the port's language trainer reads, with
-the reference's defaults.
+"""The trainers' configuration — the `train` and `optimization` fields of
+`hyperion_tpu/config.py` that the port's language and Llama trainers
+read, with the reference's defaults.
 
 Fields for features the port does not have yet stay, so that asking
 for one raises `NotImplementedError` naming its ROADMAP item instead of
@@ -18,7 +18,7 @@ import dataclasses
 @dataclasses.dataclass
 class OptimizationConfig:
     precision: str = "bf16"          # fp32 | bf16 | bf16_full
-    remat: str = "none"              # not ported (ROADMAP A7)
+    remat: str = "none"              # none | full | dots | dots_no_batch
     grad_accum_steps: int = 1
     grad_clip_norm: float = 0.0      # 0 disables
     compile_tier: str = "jit"        # jit (plain ops) | jit+pallas (kernels)
@@ -27,6 +27,7 @@ class OptimizationConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
+    model: str = "transformer_lm"    # train_llama: llama_tiny|llama_7b|llama_70b
     epochs: int = 3
     batch_size: int = 32             # per-step global batch
     learning_rate: float = 2e-4
@@ -42,6 +43,11 @@ class TrainConfig:
     seed: int = 0
     base_dir: str = "data"           # run outputs; data too unless data_dir
     data_dir: str = ""
+    lora: bool = False               # train_llama: adapters on a frozen base
+    lora_rank: int = 16              # reference LoraConfig r=16, alpha=32
+    lora_alpha: float = 32.0
+    lora_dropout: float = 0.05       # read by nothing, as in the reference
+    export_merged: bool = False      # also export base + adapters merged
     # not ported: set, they raise (ROADMAP A7, A8)
     health_policy: str = "off"
     prefetch_depth: int = 0

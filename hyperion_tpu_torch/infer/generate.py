@@ -220,7 +220,7 @@ def model_from_npz(params: dict, max_len: int = 4096, *,
     cfg = LlamaConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers,
         n_heads=n_heads, n_kv_heads=n_kv_heads, ff_dim=ff_dim,
-        max_len=max_len, dtype=dtype,
+        max_len=max_len, remat=False, dtype=dtype,
     )
     model = Llama(cfg, device=device)
     model.load_state_dict(params_from_jax(params, cfg), strict=True)

@@ -1,12 +1,28 @@
-"""Llama-2 in PyTorch — the decode half of `hyperion_tpu/models/llama.py`.
+"""Llama-2 in PyTorch — `hyperion_tpu/models/llama.py`.
 
 Same architecture and names as the JAX module: RMSNorm (eps 1e-5),
-split-half rotary embeddings from an fp32 table, GQA attention that
-never repeats K/V, SwiGLU MLP, untied embeddings, fp32 logits. Weights
-live in the compute dtype except the norm weights, which stay fp32 as
-the JAX params do.
+split-half rotary embeddings from an fp32 table, GQA attention, SwiGLU
+MLP, untied embeddings, fp32 logits. Weights live in the compute dtype
+except the norm weights, which stay fp32 as the JAX params do.
 
-Two cache call forms, as in the reference:
+`norm_impl` picks the RMSNorm as the reference does: "xla" (the
+default) is the JAX module's own formula — variance in fp32, the
+normalised activations and then the weight multiplied in the compute
+dtype, two roundings in bf16 — and "pallas" is `ops.fused_rmsnorm`
+(fp32 throughout, one cast: the CUDA kernel on the card, its plain
+version on the CPU).
+
+The cache-free call (`cache=None`, `:362-368` and `:445-482` there) is
+the training forward: attention over the whole window with the causal
+and `[B, T]` padding masks through `ops.dot_product_attention` at
+`attention_impl` ("pallas" / "auto" reach the flash kernel), K/V heads
+repeated for GQA, each block rematerialized per `remat`
+(`precision.remat`), and gradients carried. With `lora_rank > 0` the
+projections named in `lora_targets` are `models.lora.LoraDense`: the
+base weights stay frozen and only the adapters train (LoRA and int8
+are mutually exclusive; int8 waits for ROADMAP A9).
+
+Two cache call forms, as in the reference, both without gradients:
 
   * **paged** (`block_tables` given, `:272-318` there): `cache` is the
     pooled `init_paged_cache` layout; the window's K/V scatter through
@@ -20,13 +36,16 @@ Two cache call forms, as in the reference:
 
 Both forms update the cache tensors IN PLACE (`index_put_`), where the
 JAX engine donates its buffers; the returned cache is the same list.
-The cache-free forward goes through flash attention and belongs to the
-training slice: calling the model without a cache raises.
+
+Weights cross over from the JAX package (`params_from_jax`,
+`params_to_jax`) and from a local HF checkpoint
+(`params_from_hf_state_dict`, `load_hf_checkpoint`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -34,9 +53,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from hyperion_tpu_torch import resolve_device
-from hyperion_tpu_torch.ops.attention import grouped_cache_attention
+from hyperion_tpu_torch.models.lora import LoraDense
+from hyperion_tpu_torch.ops.attention import (
+    dot_product_attention,
+    grouped_cache_attention,
+)
 from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
 from hyperion_tpu_torch.ops.paged_attention import paged_attention
+from hyperion_tpu_torch.precision.remat import apply_remat, normalize_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,22 +74,34 @@ class LlamaConfig:
     max_len: int = 4096
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    # not ported yet (ROADMAP A9, A7): set, they raise
-    quant: str = "none"
+    attention_impl: str = "xla"   # the cache-free forward's attention
+    norm_impl: str = "xla"        # xla | pallas (fused_rmsnorm kernel)
+    quant: str = "none"           # int8 is not ported yet (ROADMAP A9)
+    # rank > 0 routes the targeted projections through LoraDense's
+    # activation side-path
     lora_rank: int = 0
-    remat: bool | str = False
+    lora_scale: float = 2.0       # alpha / r at the peft defaults (32/16)
+    lora_targets: tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
+    # the cache-free forward's remat: False/"none", True/"full", "dots",
+    # "dots_no_batch" (precision.remat)
+    remat: bool | str = True
     dtype: str = "bfloat16"
 
     def __post_init__(self):
+        if self.lora_rank > 0 and self.quant != "none":
+            raise ValueError("LoRA training and int8 inference quant are "
+                             "mutually exclusive (train float, then merge "
+                             "+ quantize)")
         if self.quant != "none":
             raise NotImplementedError(
                 "int8 weight quant is not ported yet (ROADMAP A9)")
-        if self.lora_rank:
-            raise NotImplementedError(
-                "LoRA is not ported yet (ROADMAP A7, training slice)")
-        if self.remat not in (False, "none"):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP A7, training slice)")
+        if self.norm_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown norm_impl {self.norm_impl!r}")
+        normalize_remat(self.remat)
+
+    @property
+    def remat_policy(self) -> str:
+        return normalize_remat(self.remat)
 
     @property
     def head_dim(self) -> int:
@@ -94,7 +130,8 @@ def llama2_70b_config(**kw) -> LlamaConfig:
 def llama_tiny_config(**kw) -> LlamaConfig:
     """Test-sized config with the real op mix."""
     base = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
-                n_kv_heads=4, ff_dim=128, max_len=64, dtype="float32")
+                n_kv_heads=4, ff_dim=128, max_len=64, remat=False,
+                dtype="float32")
     base.update(kw)
     return LlamaConfig(**base)
 
@@ -112,19 +149,43 @@ class _Dense(nn.Module):
         return F.linear(x, self.weight)
 
 
-class RMSNorm(nn.Module):
-    """Always the fused kernel's math (`ops.fused_norm`): on the card
-    the CUDA kernel, on the CPU its plain version."""
+def _dense(c: LlamaConfig, name: str, d_in: int, d_out: int, device):
+    """A projection named `name`: `LoraDense` where the config trains
+    an adapter on it (`_dense_ctor` of the reference), else `_Dense`."""
+    if c.lora_rank > 0 and name in c.lora_targets:
+        return LoraDense(d_in, d_out, c.lora_rank, c.lora_scale,
+                         c.compute_dtype, device)
+    return _Dense(d_in, d_out, c.compute_dtype, device)
 
-    def __init__(self, d: int, eps: float, device):
+
+def rms_norm_xla(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The JAX module's RMSNorm (`:167-170` there): variance in fp32,
+    `x * rsqrt(var + eps)` rounded to x's dtype, then times the weight
+    cast to `dtype`."""
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return x * torch.rsqrt(var + eps).to(x.dtype) * weight.to(dtype)
+
+
+class RMSNorm(nn.Module):
+    """`impl="xla"`: `rms_norm_xla`; `impl="pallas"`: the fused kernel's
+    math (`ops.fused_norm`), on the card the CUDA kernel, which takes
+    the weight in fp32 whatever its param dtype."""
+
+    def __init__(self, d: int, eps: float, impl: str, dtype: torch.dtype,
+                 device):
         super().__init__()
         self.eps = eps
+        self.impl = impl
+        self.dtype = dtype
         self.weight = nn.Parameter(
             torch.ones(d, dtype=torch.float32, device=device),
             requires_grad=False)
 
     def forward(self, x):
-        return fused_rmsnorm(x, self.weight, eps=self.eps)
+        if self.impl == "pallas":
+            return fused_rmsnorm(x, self.weight.float(), eps=self.eps)
+        return rms_norm_xla(x, self.weight, self.eps, self.dtype)
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float,
@@ -163,13 +224,16 @@ class LlamaAttention(nn.Module):
     def __init__(self, c: LlamaConfig, device):
         super().__init__()
         self.c = c
-        dt, Dh = c.compute_dtype, c.head_dim
-        self.q_proj = _Dense(c.d_model, c.n_heads * Dh, dt, device)
-        self.k_proj = _Dense(c.d_model, c.n_kv_heads * Dh, dt, device)
-        self.v_proj = _Dense(c.d_model, c.n_kv_heads * Dh, dt, device)
-        self.o_proj = _Dense(c.n_heads * Dh, c.d_model, dt, device)
+        Dh = c.head_dim
+        self.q_proj = _dense(c, "q_proj", c.d_model, c.n_heads * Dh, device)
+        self.k_proj = _dense(c, "k_proj", c.d_model, c.n_kv_heads * Dh,
+                             device)
+        self.v_proj = _dense(c, "v_proj", c.d_model, c.n_kv_heads * Dh,
+                             device)
+        self.o_proj = _dense(c, "o_proj", c.n_heads * Dh, c.d_model, device)
 
-    def forward(self, x, rope_table, cache, cache_index, block_tables=None):
+    def forward(self, x, rope_table, padding_mask=None, cache=None,
+                cache_index=0, block_tables=None):
         c = self.c
         B, T, _ = x.shape
         Dh = c.head_dim
@@ -179,6 +243,14 @@ class LlamaAttention(nn.Module):
         q = apply_rope(q, rope_table, cache_index)
         k = apply_rope(k, rope_table, cache_index)
         rep = c.n_heads // c.n_kv_heads
+        if cache is None:
+            if rep != 1:  # GQA: repeat the kv heads
+                k = k.repeat_interleave(rep, dim=2)
+                v = v.repeat_interleave(rep, dim=2)
+            out = dot_product_attention(q, k, v, causal=True,
+                                        padding_mask=padding_mask,
+                                        impl=c.attention_impl)
+            return self.o_proj(out.reshape(B, T, c.n_heads * Dh))
         ck, cv = cache["k"], cache["v"]
         dev = x.device
 
@@ -231,26 +303,32 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, c: LlamaConfig, device):
         super().__init__()
-        dt = c.compute_dtype
-        self.gate_proj = _Dense(c.d_model, c.ff_dim, dt, device)
-        self.up_proj = _Dense(c.d_model, c.ff_dim, dt, device)
-        self.down_proj = _Dense(c.ff_dim, c.d_model, dt, device)
+        self.gate_proj = _dense(c, "gate_proj", c.d_model, c.ff_dim, device)
+        self.up_proj = _dense(c, "up_proj", c.d_model, c.ff_dim, device)
+        self.down_proj = _dense(c, "down_proj", c.ff_dim, c.d_model, device)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
+def _norm(c: LlamaConfig, device) -> RMSNorm:
+    return RMSNorm(c.d_model, c.norm_eps, c.norm_impl, c.compute_dtype,
+                   device)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, c: LlamaConfig, device):
         super().__init__()
-        self.input_norm = RMSNorm(c.d_model, c.norm_eps, device)
+        self.input_norm = _norm(c, device)
         self.attn = LlamaAttention(c, device)
-        self.post_attn_norm = RMSNorm(c.d_model, c.norm_eps, device)
+        self.post_attn_norm = _norm(c, device)
         self.mlp = LlamaMLP(c, device)
 
-    def forward(self, x, rope_table, cache, cache_index, block_tables=None):
+    def forward(self, x, rope_table, padding_mask=None, cache=None,
+                cache_index=0, block_tables=None):
         h = self.input_norm(x)
-        x = x + self.attn(h, rope_table, cache, cache_index, block_tables)
+        x = x + self.attn(h, rope_table, padding_mask, cache, cache_index,
+                          block_tables)
         return x + self.mlp(self.post_attn_norm(x))
 
 
@@ -292,11 +370,13 @@ def paged_cache_block_bytes(cfg: LlamaConfig, block_size: int,
 
 
 class Llama(nn.Module):
-    """input_ids [B, T] → (logits fp32 [B, T, vocab], cache).
+    """input_ids [B, T] → logits fp32 [B, T, vocab] (cache-free, with
+    gradients), or (logits, cache) with a cache (no gradients).
 
     Weights are allocated uninitialised on `device` (None = cuda:0):
     fill them with `init_params(generator)` or `load_state_dict`
-    (`params_from_jax`)."""
+    (`params_from_jax`); adapters, when `lora_rank > 0`, with
+    `load_lora`."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None):
         super().__init__()
@@ -309,7 +389,7 @@ class Llama(nn.Module):
             requires_grad=False)
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, dev) for _ in range(cfg.n_layers)])
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
+        self.final_norm = _norm(cfg, dev)
         self.lm_head = _Dense(cfg.d_model, cfg.vocab_size, dt, dev)
         self.register_buffer(
             "rope", rope_frequencies(cfg.head_dim, cfg.max_len,
@@ -320,21 +400,61 @@ class Llama(nn.Module):
     def init_params(self, generator: torch.Generator) -> "Llama":
         """normal(0.02) for every projection and the embedding, ones for
         the norms, drawn from `generator` (on the weights' device) in
-        parameter order."""
+        parameter order. Adapters are left alone (`load_lora`)."""
         for name, p in self.named_parameters():
+            if name.endswith(("lora_a", "lora_b")):
+                continue
             if name.endswith("norm.weight"):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=generator)
         return self
 
+    def lora_params(self) -> dict[str, dict[str, nn.Parameter]]:
+        """The live adapters, keyed by JAX kernel path
+        (`models.lora`'s flat adapter dict)."""
+        out = {}
+        for name, mod in self.named_modules():
+            if isinstance(mod, LoraDense):
+                out[_jax_kernel_path(name)] = {"a": mod.lora_a,
+                                               "b": mod.lora_b}
+        return out
+
     @torch.no_grad()
-    def forward(self, input_ids, cache=None, cache_index=0,
-                block_tables=None):
-        if cache is None:
-            raise NotImplementedError(
-                "the cache-free forward (flash attention) belongs to the "
-                "training slice (ROADMAP A7)")
+    def load_lora(self, lora: dict[str, dict[str, torch.Tensor]]) -> "Llama":
+        """Copy a flat adapter dict into the adapters, which keep their
+        own dtype; every adapter must be given."""
+        live = self.lora_params()
+        if set(live) != set(lora):
+            raise ValueError(f"adapter paths differ: model has "
+                             f"{sorted(live)[:4]}..., got "
+                             f"{sorted(lora)[:4]}...")
+        for path, ab in live.items():
+            for name in ("a", "b"):
+                ab[name].copy_(lora[path][name])
+        return self
+
+    def forward(self, input_ids, padding_mask=None, cache=None,
+                cache_index=0, block_tables=None):
+        if cache is not None:
+            with torch.no_grad():
+                return self._decode(input_ids, cache, cache_index,
+                                    block_tables)
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        if ids.shape[1] > self.cfg.max_len:
+            raise ValueError(f"sequence length {ids.shape[1]} exceeds "
+                             f"max_len {self.cfg.max_len} — the rope table "
+                             "has no rows past max_len")
+        if padding_mask is not None:
+            padding_mask = torch.as_tensor(padding_mask, device=self.device)
+        x = self.embed_tokens[ids]
+        policy = self.cfg.remat_policy
+        for layer in self.layers:
+            x = apply_remat(layer, policy)(x, self.rope, padding_mask)
+        x = self.final_norm(x)
+        return self.lm_head(x).float()
+
+    def _decode(self, input_ids, cache, cache_index, block_tables):
         ids = torch.as_tensor(input_ids, device=self.device).long()
         if block_tables is not None:
             block_tables = torch.as_tensor(
@@ -345,7 +465,8 @@ class Llama(nn.Module):
                 cache_index = int(cache_index)
         x = self.embed_tokens[ids]
         for layer, layer_cache in zip(self.layers, cache):
-            x = layer(x, self.rope, layer_cache, cache_index, block_tables)
+            x = layer(x, self.rope, None, layer_cache, cache_index,
+                      block_tables)
         x = self.final_norm(x)
         return self.lm_head(x).float(), cache
 
@@ -363,6 +484,36 @@ _LAYER_MAP = {
     ("mlp", "up_proj", "kernel"): "mlp.up_proj.weight",
     ("mlp", "down_proj", "kernel"): "mlp.down_proj.weight",
 }
+
+
+def _jax_kernel_path(module_name: str) -> str:
+    """"layers.3.attn.q_proj" → "layer_3/attn/q_proj/kernel"."""
+    _, i, *rest = module_name.split(".")
+    return "/".join([f"layer_{i}", *rest, "kernel"])
+
+
+def _kernel_shape(path: tuple, cfg: LlamaConfig) -> tuple:
+    """The JAX kernel shape of a layer projection."""
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"q_proj": (d, H, Dh), "k_proj": (d, Hkv, Dh),
+            "v_proj": (d, Hkv, Dh), "o_proj": (H, Dh, d),
+            "gate_proj": (d, cfg.ff_dim), "up_proj": (d, cfg.ff_dim),
+            "down_proj": (cfg.ff_dim, d)}[path[1]]
+
+
+def jax_kernel_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
+    """"/"-joined JAX param path → shape, for every parameter of the
+    JAX Llama: what `models.lora.init_lora_params` matches targets
+    against."""
+    shapes = {"embed_tokens/embedding": (cfg.vocab_size, cfg.d_model),
+              "final_norm/weight": (cfg.d_model,),
+              "lm_head/kernel": (cfg.d_model, cfg.vocab_size)}
+    for i in range(cfg.n_layers):
+        for path in _LAYER_MAP:
+            shapes["/".join((f"layer_{i}", *path))] = (
+                (cfg.d_model,) if path[-1] == "weight"
+                else _kernel_shape(path, cfg))
+    return shapes
 
 
 def params_from_jax(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
@@ -395,3 +546,105 @@ def params_from_jax(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
                     w = w.reshape(w.shape[0], -1).T
             sd[f"layers.{i}.{name}"] = w.contiguous()
     return sd
+
+
+def params_to_jax(model: Llama) -> dict:
+    """The inverse of `params_from_jax` over the base weights (adapters
+    left out): the JAX Llama's nested tree of fp32 numpy arrays, the
+    tree `hyperion_tpu/checkpoint/io.py`'s `export_gathered` writes."""
+    cfg = model.cfg
+
+    def a(p) -> np.ndarray:
+        return p.detach().float().cpu().numpy()
+
+    tree = {"embed_tokens": {"embedding": a(model.embed_tokens)},
+            "final_norm": {"weight": a(model.final_norm.weight)},
+            "lm_head": {"kernel": np.ascontiguousarray(
+                a(model.lm_head.weight).T)}}
+    sd = dict(model.named_parameters())
+    for i in range(cfg.n_layers):
+        layer: dict = {}
+        for path, name in _LAYER_MAP.items():
+            w = a(sd[f"layers.{i}.{name}"])
+            if path[-1] == "kernel":
+                w = np.ascontiguousarray(w.T.reshape(_kernel_shape(path,
+                                                                   cfg)))
+            node = layer
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = w
+        tree[f"layer_{i}"] = layer
+    return tree
+
+
+# --- HF checkpoint interchange (local files only) --------------------
+
+_HF_LAYER_MAP = {
+    "input_layernorm.weight": ("input_norm", "weight"),
+    "post_attention_layernorm.weight": ("post_attn_norm", "weight"),
+    "self_attn.q_proj.weight": ("attn", "q_proj", "kernel"),
+    "self_attn.k_proj.weight": ("attn", "k_proj", "kernel"),
+    "self_attn.v_proj.weight": ("attn", "v_proj", "kernel"),
+    "self_attn.o_proj.weight": ("attn", "o_proj", "kernel"),
+    "mlp.gate_proj.weight": ("mlp", "gate_proj", "kernel"),
+    "mlp.up_proj.weight": ("mlp", "up_proj", "kernel"),
+    "mlp.down_proj.weight": ("mlp", "down_proj", "kernel"),
+}
+
+
+def params_from_hf_state_dict(state: dict, cfg: LlamaConfig) -> dict:
+    """An HF Llama state dict (torch tensors or arrays) → the JAX
+    Llama's nested param tree of fp32 numpy arrays (`params_from_jax`
+    takes it from there), as the reference maps it: HF linear weights
+    [out, in] become kernels [in, out], q/k/v reshaped to (in, heads,
+    head_dim) and o_proj to (heads, head_dim, out)."""
+
+    def arr(v) -> np.ndarray:
+        if isinstance(v, torch.Tensor):
+            v = v.detach().float().cpu().numpy()
+        return np.asarray(v, np.float32)
+
+    params: dict = {
+        "embed_tokens": {"embedding": arr(state["model.embed_tokens.weight"])},
+        "final_norm": {"weight": arr(state["model.norm.weight"])},
+        "lm_head": {"kernel": arr(state["lm_head.weight"]).T},
+    }
+    for i in range(cfg.n_layers):
+        layer: dict = {}
+        for hf_name, path in _HF_LAYER_MAP.items():
+            w = arr(state[f"model.layers.{i}.{hf_name}"])
+            if path[-1] == "kernel":
+                w = w.T.reshape(_kernel_shape(path, cfg))
+            node = layer
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = w
+        params[f"layer_{i}"] = layer
+    return params
+
+
+def load_hf_checkpoint(model_dir: str | Path, cfg: LlamaConfig) -> dict | None:
+    """HF weights from a local directory (`*.safetensors`, else
+    `pytorch_model*.bin` shards) as the JAX param tree; None when the
+    directory holds neither. `.bin` shards are read with
+    `torch.load(weights_only=True)`; `.safetensors` need the
+    `safetensors` package, and without it this raises."""
+    model_dir = Path(model_dir)
+    state: dict = {}
+    sf = sorted(model_dir.glob("*.safetensors"))
+    if sf:
+        try:
+            from safetensors.torch import load_file
+        except ModuleNotFoundError as e:
+            raise ModuleNotFoundError(
+                f"{model_dir} holds .safetensors weights, which need the "
+                "'safetensors' package (not installed)") from e
+        for f in sf:
+            state.update(load_file(str(f)))
+    else:
+        bins = sorted(model_dir.glob("pytorch_model*.bin"))
+        if not bins:
+            return None
+        for f in bins:
+            state.update(torch.load(f, map_location="cpu", weights_only=True))
+    return params_from_hf_state_dict(state, cfg)

@@ -24,8 +24,11 @@ fp32 `scale`/`bias` with eps 1e-6. `attention_impl` goes to
 `ops.attention.dot_product_attention`.
 
 Dropout draws from the `torch.Generator` the caller passes; it cannot
-reproduce JAX's dropout bits. `remat` and `quant="int8"` are not ported
-(ROADMAP A7, A9) and raise.
+reproduce JAX's dropout bits. `remat` wraps each block with
+`precision.remat.apply_remat`; a rematerialized block's
+recompute restarts the dropout generator where the block's first run
+found it, so it redraws the same masks. `quant="int8"` is not ported
+(ROADMAP A9) and raises.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from hyperion_tpu_torch import resolve_device
 from hyperion_tpu_torch.data.text import GPT2_VOCAB_SIZE
 from hyperion_tpu_torch.ops.attention import dot_product_attention
 from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+from hyperion_tpu_torch.precision.remat import apply_remat, normalize_remat
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, used by both impls
 
@@ -56,17 +60,15 @@ class TransformerLMConfig:
     max_len: int = 128
     dropout: float = 0.1
     activation: str = "relu"       # relu | gelu
-    attention_impl: str = "xla"    # xla | auto (pallas waits for ROADMAP B3)
+    attention_impl: str = "xla"    # xla | pallas (flash kernel) | auto
     norm_impl: str = "xla"         # xla | pallas (fused_layernorm kernel)
     causal: bool = True            # False → bidirectional encoder blocks
-    remat: bool | str = False      # not ported (ROADMAP A7)
+    remat: bool | str = False      # precision.remat policy, per block
     dtype: str = "float32"         # compute dtype; params stay fp32
     quant: str = "none"            # not ported (ROADMAP A9)
 
     def __post_init__(self):
-        if self.remat not in (False, "none"):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP A7)")
+        normalize_remat(self.remat)
         if self.quant != "none":
             raise NotImplementedError(
                 "int8 weight quant is not ported yet (ROADMAP A9)")
@@ -74,6 +76,10 @@ class TransformerLMConfig:
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.norm_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown norm_impl {self.norm_impl!r}")
+
+    @property
+    def remat_policy(self) -> str:
+        return normalize_remat(self.remat)
 
     @property
     def head_dim(self) -> int:
@@ -287,8 +293,25 @@ class TransformerLM(nn.Module):
             torch.arange(T, device=self.device))[None]
         x = drop(x)
         for block in self.blocks:
-            x = block(x, padding_mask, drop)
+            x = _remat_block(block, c.remat_policy, generator)(
+                x, padding_mask, drop)
         return self.lm_head(self.ln_f(x)).float()
+
+
+def _remat_block(block: Block, policy: str,
+                 generator: torch.Generator | None):
+    """`block` wrapped per the remat policy. With a dropout generator,
+    each run of the wrapped block (the first, and the recompute in
+    backward) starts from the generator state the first run found."""
+    if policy == "none" or generator is None:
+        return apply_remat(block, policy)
+    state = generator.get_state()
+
+    def run(*args):
+        generator.set_state(state)
+        return block(*args)
+
+    return apply_remat(run, policy)
 
 
 # --- weight interchange with the JAX package -------------------------

@@ -8,10 +8,10 @@ Counterparts: `NEG_INF`, `select_attention_impl`, `causal_mask` and
 `dot_product_attention` runs the reference's `"xla"` formulation as
 plain ops, in the input dtype: q scaled in that dtype, the q·k product
 in it, masked logits set to `NEG_INF`, softmax in fp32 and cast back,
-then the p·v product. `impl="auto"` resolves per geometry exactly as the
-reference does; where that picks the flash kernel, or `"pallas"` is
-asked for, it raises until the flash kernel is ported (ROADMAP B3), as
-the sequence-parallel impls do until the mesh runtime is (A8).
+then the p·v product. `impl="pallas"` is the flash kernel
+(`ops/flash_attention.py`), and `impl="auto"` resolves per geometry
+exactly as the reference does; the sequence-parallel impls raise until
+the mesh runtime is ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -75,9 +75,11 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.shape[1], q.shape[-1],
             mode="fwd" if impl.endswith(":fwd") else "train")
     if impl == "pallas":
-        raise NotImplementedError(
-            "the flash attention kernel is not ported yet (ROADMAP B3); "
-            "use impl='xla'")
+        # imported here: ops.flash_attention imports NEG_INF from this module
+        from hyperion_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal,
+                               padding_mask=padding_mask)
     strategy = impl.partition(":")[0]
     if strategy in ("ring", "ulysses"):
         raise NotImplementedError(

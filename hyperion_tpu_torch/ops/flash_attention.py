@@ -1,0 +1,347 @@
+"""Flash attention: the hand-written CUDA kernels (forward, dq, dk/dv),
+their plain PyTorch versions, and the autograd glue.
+
+Counterpart: `hyperion_tpu/ops/pallas/flash_attention.py` —
+`flash_attention` (`:616`), whose forward is `_flash_forward` (`:277`,
+`_fwd_kernel` `:207`) and whose `custom_vjp` backward is
+`_flash_backward` (`:467`: `_dq_kernel` `:351`, `_dkv_kernel` `:405`).
+
+The contract is the JAX kernels', not the "xla" attention's (which
+pre-scales q in the input dtype, `ops/attention.py`): s = q·kᵀ
+accumulated in fp32, times 1/√D in fp32; masked entries (causal
+`kv <= q` from position 0, and the `[B, Tkv]` key padding mask) set to
+`NEG_INF`; softmax statistics in fp32; p cast to the input dtype before
+p·v, accumulated in fp32; o = acc / max(l, 1e-30) in the input dtype;
+lse = m + log(max(l, 1e-30)), a compact `[B, H, Tq]` fp32 array. The
+backward recomputes p = exp(s − lse) from the saved lse and takes
+delta = Σ dO·O in fp32 outside the kernels, as `_flash_backward` does
+(`:479-484`). Rows whose keys are all masked give garbage outputs and
+clean gradients, as the reference documents (`:43-46`).
+
+Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
+when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
+CPU tensor each runs its plain version, a full-matrix formula of the
+same math with no tiles; on a CUDA tensor it launches
+`csrc/flash_attention.cu` or raises. `flash_attention` is the
+differentiable entry point: a `torch.autograd.Function` that saves q, k,
+v, the mask, o and lse, as the reference's `_fwd` does, and runs the
+two backward kernels; a call that needs no gradient skips the lse
+write, as the reference's `need_lse=False` does.
+
+`block_q` / `block_kv` are the TPU kernel's tiling knobs: accepted, and
+left to the kernel, whose tile is fixed. `_pick_block`'s limits and the
+Mosaic layout workarounds (`LANES`, `SUBLANES`, `_mask_arg`) have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import warnings
+
+import torch
+
+from hyperion_tpu_torch.ops import build
+from hyperion_tpu_torch.ops.attention import NEG_INF
+
+HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# q, k, v, pad, o, lse; B, Tq, Tkv, H, D, causal; scale; dtype; stream
+_FWD_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
+# q, k, v, pad, dout, lse, delta, dq; B, Tq, Tkv, H, D, causal; scale; ...
+_DQ_ARGTYPES = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
+# q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, causal; ...
+_DKV_ARGTYPES = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
+
+
+def _scale(D: int) -> float:
+    """1/sqrt(D): a Python float, rounded to fp32 where it meets an fp32
+    tensor, as the reference's weak-typed `sm_scale` is."""
+    return 1.0 / math.sqrt(D)
+
+
+# ------------------------------------------------------------ plain math
+
+
+def _logits(q, k, causal, padding_mask):
+    """Scaled, masked fp32 logits [B, H, Tq, Tkv]."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * _scale(q.shape[-1])
+    Tq, Tkv = q.shape[1], k.shape[1]
+    keep = None
+    if causal:
+        keep = (torch.arange(Tkv, device=q.device)[None, :]
+                <= torch.arange(Tq, device=q.device)[:, None])[None, None]
+    if padding_mask is not None:
+        pad = padding_mask.to(q.device, torch.bool)[:, None, None, :]
+        keep = pad if keep is None else keep & pad
+    return s if keep is None else s.masked_fill(~keep, NEG_INF)
+
+
+def flash_attention_fwd_plain(q, k, v, *, causal=False, padding_mask=None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, Tq, H, D] in q's dtype, lse [B, H, Tq] fp32): the forward
+    kernel's arithmetic over the whole logits matrix at once."""
+    s = _logits(q, k, causal, padding_mask)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+    o = (acc / l.permute(0, 2, 1, 3)).to(q.dtype)
+    return o, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, g, *, causal=False,
+                              padding_mask=None
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtype from the saved o and lse and
+    the cotangent g: the two backward kernels' arithmetic over whole
+    matrices."""
+    dt = q.dtype
+    p = torch.exp(_logits(q, k, causal, padding_mask) - lse[..., None])
+    gf = g.float()
+    delta = (gf * o.float()).sum(-1).permute(0, 2, 1)[..., None]
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
+    ds = (p * (dp - delta)).to(dt).float()
+    scale = _scale(q.shape[-1])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+# --------------------------------------------------------------- kernels
+
+
+def _on_card(name: str, t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, at a 16-byte aligned address (the kernels' vector
+    loads); copies only a view that is neither."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _check(q, k, v, padding_mask):
+    """Validate what the kernels take; return (B, Tq, Tkv, H, D) and the
+    mask as contiguous int32 (or None)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or q.shape[0] != k.shape[0] or q.shape[2:] != k.shape[2:]:
+        raise ValueError(f"flash_attention kernel takes q [B, Tq, H, D] and "
+                         f"k, v [B, Tkv, H, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention kernel takes q, k and v in one dtype")
+    B, Tq, H, D = q.shape
+    Tkv = k.shape[1]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {D}")
+    if max(B, H, B * Tq * H * D, B * Tkv * H * D) >= 2 ** 31:
+        raise ValueError(f"flash_attention kernel: shape {tuple(q.shape)} "
+                         "out of range")
+    if any(t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention: all inputs on one device")
+    pad = None
+    if padding_mask is not None:
+        if tuple(padding_mask.shape) != (B, Tkv):
+            raise ValueError(f"padding_mask must be [{B}, {Tkv}], got "
+                             f"{tuple(padding_mask.shape)}")
+        pad = padding_mask.to(q.device, torch.int32).contiguous()
+    return (B, Tq, Tkv, H, D), pad
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
+    (B, Tq, Tkv, H, D), pad = _check(q, k, v, padding_mask)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    fn = build.function("flash_attention", "hyperion_flash_fwd",
+                        _FWD_ARGTYPES)
+    o = torch.empty_like(q)
+    lse = (torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+           if need_lse else None)
+    with torch.cuda.device(q.device):
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
+                    o.data_ptr(), _ptr(lse), B, Tq, Tkv, H, D, int(causal),
+                    _scale(D), _DTYPES[q.dtype], _stream(q))
+    build.check(status, "flash_attention forward launch")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
+    """Checked, aligned backward inputs and delta = Σ dO·O [B, H, Tq]."""
+    dims, pad = _check(q, k, v, padding_mask)
+    B, Tq, _, H, _ = dims
+    for name, t in (("o", o), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q ({q.dtype} "
+                             f"{tuple(q.shape)}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq):
+        raise ValueError(f"lse must be float32 [{B}, {H}, {Tq}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return dims, pad, (_aligned(q), _aligned(k), _aligned(v), _aligned(g),
+                       lse.contiguous(), delta)
+
+
+def _launch_dq(dims, pad, q, k, v, g, lse, delta, causal):
+    B, Tq, Tkv, H, D = dims
+    fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
+                    g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), B, Tq, Tkv, H, D, int(causal), _scale(D),
+                    _DTYPES[q.dtype], _stream(q))
+    build.check(status, "flash_attention dq launch")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+def _launch_dkv(dims, pad, q, k, v, g, lse, delta, causal):
+    B, Tq, Tkv, H, D = dims
+    fn = build.function("flash_attention", "hyperion_flash_dkv",
+                        _DKV_ARGTYPES)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
+                    g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), B, Tq, Tkv, H, D,
+                    int(causal), _scale(D), _DTYPES[q.dtype], _stream(q))
+    build.check(status, "flash_attention dk/dv launch")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+def flash_attention_fwd(q, k, v, *, causal=False, padding_mask=None,
+                        need_lse=True):
+    """The forward kernel: (o, lse), lse None unless `need_lse`. No
+    autograd."""
+    if _on_card("flash_attention_fwd", q):
+        return _launch_fwd(q, k, v, padding_mask, causal, need_lse)
+    o, lse = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                       padding_mask=padding_mask)
+    return o, (lse if need_lse else None)
+
+
+flash_attention_fwd.launches = 0  # kernel launches since the last reset
+
+
+def flash_attention_dq(q, k, v, o, lse, g, *, causal=False,
+                       padding_mask=None):
+    """The dq kernel: dq in q's shape and dtype."""
+    if _on_card("flash_attention_dq", q):
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
+        return _launch_dq(dims, pad, *ins, causal)
+    return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                     padding_mask=padding_mask)[0]
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, o, lse, g, *, causal=False,
+                        padding_mask=None):
+    """The dk/dv kernel: (dk, dv) in k's shape and dtype."""
+    if _on_card("flash_attention_dkv", q):
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
+        return _launch_dkv(dims, pad, *ins, causal)
+    return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                     padding_mask=padding_mask)[1:]
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, g, *, causal=False,
+                        padding_mask=None):
+    """(dq, dk, dv): both backward kernels on one delta on the card, the
+    plain backward on the CPU."""
+    if not _on_card("flash_attention_bwd", q):
+        return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                         padding_mask=padding_mask)
+    dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
+    dq = _launch_dq(dims, pad, *ins, causal)
+    dk, dv = _launch_dkv(dims, pad, *ins, causal)
+    return dq, dk, dv
+
+
+# -------------------------------------------------------------- autograd
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, padding_mask, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     padding_mask=padding_mask)
+        ctx.save_for_backward(q, k, v, padding_mask, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, padding_mask, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g.contiguous(),
+                                         causal=ctx.causal,
+                                         padding_mask=padding_mask)
+        return dq, dk, dv, None, None
+
+
+_NARROWING_WARNED: set[tuple[str, str, str]] = set()
+
+
+def _warn_if_narrowing(q_dtype, k_dtype, v_dtype) -> None:
+    """Warn once per dtype combination when bringing k or v to q's dtype
+    loses precision (`_warn_if_narrowing` of the reference, `:590`)."""
+    q_bits = torch.finfo(q_dtype).bits
+    for name, d in (("k", k_dtype), ("v", v_dtype)):
+        bits = torch.finfo(d).bits
+        key = (str(q_dtype), name, str(d))
+        if bits > q_bits and key not in _NARROWING_WARNED:
+            _NARROWING_WARNED.add(key)
+            warnings.warn(
+                f"flash_attention: {name} is {d} but q is {q_dtype}; "
+                f"reconciling to q's dtype NARROWS {name} from {bits} to "
+                f"{q_bits} bits per element (e.g. a bf16 query against an "
+                "fp32 KV cache). Cast q up, or store K/V in the compute "
+                "dtype, if that precision matters. (warned once per dtype "
+                "combination)", stacklevel=3)
+
+
+def flash_attention(q, k, v, *, causal: bool = False, padding_mask=None,
+                    block_q: int | None = None,
+                    block_kv: int | None = None) -> torch.Tensor:
+    """Attention over [B, T, H, D] tensors; padding_mask [B, Tkv], 1 =
+    real token. k and v are brought to q's dtype (with a warning when
+    that narrows them). `block_q`/`block_kv` are accepted for the
+    reference's signature; the kernel's tile is its own."""
+    del block_q, block_kv
+    if not (q.dtype == k.dtype == v.dtype):
+        _warn_if_narrowing(q.dtype, k.dtype, v.dtype)
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, padding_mask, causal)
+    return flash_attention_fwd(q, k, v, causal=causal,
+                               padding_mask=padding_mask, need_lse=False)[0]

@@ -1,1 +1,1 @@
-"""Mixed-precision policies."""
+"""Mixed-precision policies and activation rematerialization."""

@@ -16,6 +16,14 @@ learning rate a schedule of the update count — over a
     `cosine_decay_schedule` and `warmup_cosine_decay_schedule`; the
     learning rate is set before each update.
 
+The optimizer takes the parameters that require a gradient and no
+others. That is how the Llama trainer's LoRA mode freezes the base, the
+reference's `optax.multi_transform` with `set_to_zero` on the base
+(`hyperion_tpu/train/trainer.py:1209-1219`): the base weights have
+`requires_grad=False`, so they get no gradient, no AdamW state and no
+update, and the clipping norm is taken over the adapters alone, as the
+reference's partitioned chain takes it over its "train" subtree.
+
 The reference's sharded-state planning (meshes, FSDP) waits for the
 distributed runtime (ROADMAP A8).
 """

@@ -27,10 +27,11 @@ LossFn = Callable[[torch.nn.Module, dict, torch.Generator | None],
                   tuple[torch.Tensor, dict]]
 
 
-def dropout_generator(device, *keys: int) -> torch.Generator:
+def seeded_generator(device, *keys: int) -> torch.Generator:
     """A generator on `device` seeded from `keys` (seed, step, ...)
     through numpy's SeedSequence, so nearby keys give unrelated
-    streams."""
+    streams: dropout's, and the LoRA adapters' init (seed, 1) — the
+    reference's `fold_in`."""
     seed = int(np.random.SeedSequence(list(keys)).generate_state(
         1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed)
@@ -57,7 +58,7 @@ def make_train_step(loss_fn: LossFn, grad_accum: int = 1,
         dev = next(model.parameters()).device
         opt.zero_grad()
         if grad_accum == 1:
-            gen = dropout_generator(dev, seed, state.step) if dropout else None
+            gen = seeded_generator(dev, seed, state.step) if dropout else None
             loss, metrics = loss_fn(model, batch, gen)
             loss.backward()
         else:
@@ -65,7 +66,7 @@ def make_train_step(loss_fn: LossFn, grad_accum: int = 1,
             for i, mb in enumerate(_split_microbatches(batch, grad_accum)):
                 # an independent mask per microbatch, as the reference
                 # folds the microbatch index into its key
-                gen = (dropout_generator(dev, seed, state.step, i)
+                gen = (seeded_generator(dev, seed, state.step, i)
                        if dropout else None)
                 loss, m = loss_fn(model, mb, gen)
                 loss.backward()  # .grad sums over the microbatches

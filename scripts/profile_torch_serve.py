@@ -59,7 +59,7 @@ def main() -> int:
     from hyperion_tpu_torch.serve.server import serve_jsonl
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = llama2_7b_config(dtype="bfloat16")
+    cfg = llama2_7b_config(dtype="bfloat16", norm_impl="pallas")
     model = Llama(cfg, device="cuda").init_params(
         torch.Generator(device="cuda").manual_seed(chip_smoke.SEED))
     reqs = chip_smoke.serve_requests(

@@ -10,7 +10,8 @@ its reason. chip_smoke.py holds the same kernels at full model width;
 these cover the small, odd geometries: GQA, a shared prefix, a window
 running past the table, every head_dim the kernel takes, odd rows and
 widths, the widest LayerNorm row (64 KB of shared memory), a ragged
-vocab and the strided [B, T-1, V] logits view.
+vocab and the strided [B, T-1, V] logits view, every head_dim the
+flash kernels take, a ragged sequence, unequal query and key lengths.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from hyperion_tpu_torch.ops.fused_ce import (
     fused_softmax_xent_fwd,
     fused_softmax_xent_plain,
 )
+from hyperion_tpu_torch.ops import flash_attention as fa
 from hyperion_tpu_torch.ops.fused_norm import (
     fused_layernorm,
     fused_layernorm_plain,
@@ -262,3 +264,95 @@ def test_softmax_xent_refuses_out_of_range_targets(cuda):
     with pytest.raises(ValueError, match="must lie in"):
         fused_softmax_xent_fwd(logits, targets)
     assert fused_softmax_xent_fwd.launches == before
+
+
+# flash attention: (B, Tq, Tkv, H, D, causal, padded fraction of keys)
+FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
+               "full_d64": (2, 130, 130, 3, 64, False, 0.0),
+               "ragged_causal_d32": (1, 77, 77, 2, 32, True, 0.1),
+               "cross_lengths_d64": (2, 70, 130, 2, 64, False, 0.2)}
+
+
+def _flash_inputs(dev, dtype, case, seed=45):
+    B, Tq, Tkv, H, D, causal, padded = FLASH_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, o_g = (torch.randn(B, Tq, H, D, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    k, v = (torch.randn(B, Tkv, H, D, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    pad = None
+    if padded:
+        pad = torch.ones(B, Tkv, dtype=torch.int8, device=dev)
+        pad[:, int(Tkv * (1 - padded)):] = 0
+    return q, k, v, o_g, pad, causal
+
+
+def _flash_close(out, ref, dtype, what):
+    """fp32: 2e-5 for o and lse, 2e-4 for gradients (the reference's own
+    kernel bounds). bf16 o: the kernel rounds p to bf16 per key tile
+    against the running max, the plain version once against the row's
+    max: one ulp of p (2^-8) over |v| <= 4 plus one of the output. bf16
+    gradients: the same rounded ds and p, summed in another order, then
+    rounded: 2^-6 of the largest gradient."""
+    out, ref = out.float(), ref.float()
+    if dtype == torch.float32 or what == "lse":
+        tol = 2e-5 if what in ("o", "lse") else 2e-4
+        torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
+    elif what == "o":
+        assert ((out - ref).abs() <= 2.0 ** -6 + 2.0 ** -7 * ref.abs()).all()
+    else:
+        assert (out - ref).abs().max() <= 2.0 ** -6 * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, case)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+    ref_o, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                                  padding_mask=pad)
+    _flash_close(o, ref_o, dtype, "o")
+    _flash_close(lse, ref_lse, dtype, "lse")
+    dq = fa.flash_attention_dq(q, k, v, o, lse, g, causal=causal,
+                               padding_mask=pad)
+    dk, dv = fa.flash_attention_dkv(q, k, v, o, lse, g, causal=causal,
+                                    padding_mask=pad)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                        padding_mask=pad)
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        assert out.dtype == dtype and out.shape == ref.shape
+        _flash_close(out, ref, dtype, name)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+
+
+def test_flash_autograd_runs_the_three_kernels(cuda):
+    q, k, v, g, pad, causal = _flash_inputs(cuda, torch.float32,
+                                            "causal_pad_d128", seed=46)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    o = fa.flash_attention(*leaves, causal=causal, padding_mask=pad)
+    o.backward(g)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+    plain = [t.clone().cpu().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*plain, causal=causal,
+                       padding_mask=pad.cpu()).backward(g.cpu())
+    for a, b in zip(leaves, plain):
+        torch.testing.assert_close(a.grad.cpu(), b.grad, atol=2e-4, rtol=2e-4)
+    with torch.no_grad():
+        fa.flash_attention(*leaves, causal=causal, padding_mask=pad)
+    assert fa.flash_attention_fwd.launches == before[0] + 2
+
+
+def test_flash_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_fwd(q, q, q)

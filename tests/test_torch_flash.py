@@ -1,0 +1,189 @@
+"""The port's flash attention against the JAX package's, on the CPU.
+
+Inputs are made with numpy from a seed and handed to both packages. The
+JAX kernels run in interpret mode with `block_q=16, block_kv=32`, so
+their multi-tile paths (the online softmax across kv tiles, the causal
+tile skip, the transposed dk/dv sweep) are the ones compared; the
+port's wrappers run their plain versions (whole-matrix formulas of the
+same math) on CPU tensors.
+
+Tolerances, fp32: outputs and lse 2e-5, gradients 2e-4 — the reference's
+own bounds between its kernels and the XLA attention
+(`tests/test_pallas_kernels.py`). bf16: outputs within 2^-6 + 2^-7 of
+each value — the JAX kernel rounds p to bf16 per kv tile against the
+running max, the plain version once against the row's max, and each
+then rounds the output; one bf16 ulp of p (2^-8) over values |v| <= 4
+and one of the output.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hyperion_tpu.ops.attention import dot_product_attention as jax_attention
+from hyperion_tpu.ops.pallas.flash_attention import _flash_forward
+from hyperion_tpu.ops.pallas.flash_attention import flash_attention as jflash
+from hyperion_tpu_torch.ops import flash_attention as fa
+from hyperion_tpu_torch.ops.attention import dot_product_attention
+
+SHAPE = (2, 64, 2, 16)
+BLOCKS = dict(block_q=16, block_kv=32)
+
+
+def _inputs(shape=SHAPE, seed=0, pad_from=40):
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (rng.standard_normal(shape).astype(np.float32)
+                  for _ in range(4))
+    mask = np.ones(shape[:2], np.int8)
+    mask[-1, pad_from:] = 0  # the last row's tail is padding
+    return q, k, v, g, mask
+
+
+def _t(a, dtype=torch.float32, grad=False):
+    return torch.tensor(a, dtype=dtype, requires_grad=grad)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_forward_and_lse_match_jax(causal, masked):
+    q, k, v, _, mask = _inputs()
+    m = mask if masked else None
+    jm = None if m is None else jnp.asarray(m)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=causal, padding_mask=jm, **BLOCKS)
+    _, ref_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jm, causal, 16, 32)
+    o, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), causal=causal,
+                                    padding_mask=None if m is None
+                                    else torch.tensor(m))
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_gradients_match_jax(causal, masked):
+    """d/d(q, k, v) of sum(o * g): the dq and dk/dv kernels' math."""
+    q, k, v, g, mask = _inputs(seed=1)
+    jm = jnp.asarray(mask) if masked else None
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash(q, k, v, causal=causal, padding_mask=jm,
+                              **BLOCKS) * jnp.asarray(g))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ins = [_t(a, grad=True) for a in (q, k, v)]
+    o = fa.flash_attention(*ins, causal=causal,
+                           padding_mask=torch.tensor(mask) if masked
+                           else None)
+    (o * _t(g)).sum().backward()
+    for t, r in zip(ins, ref):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)
+
+
+def test_bf16_forward_close_to_jax():
+    q, k, v, _, mask = _inputs(seed=2)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    ref = np.asarray(jflash(*jb, causal=True, padding_mask=jnp.asarray(mask),
+                            **BLOCKS).astype(jnp.float32))
+    tb = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          for a in jb]
+    out = fa.flash_attention(*tb, causal=True,
+                             padding_mask=torch.tensor(mask)).float().numpy()
+    assert np.all(np.abs(out - ref) <= 2.0 ** -6 + 2.0 ** -7 * np.abs(ref))
+
+
+def test_bf16_gradients_close_to_jax():
+    """bf16 gradients: ds and p are rounded to bf16 before their
+    products on both sides, from the same fp32 statistics; each side
+    rounds its output. Held to 2^-6 of the largest gradient."""
+    q, k, v, g, mask = _inputs(shape=(1, 64, 2, 16), seed=3)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    gb = jnp.asarray(g).astype(jnp.bfloat16)
+
+    def jloss(q, k, v):
+        o = jflash(q, k, v, causal=True, padding_mask=jnp.asarray(mask[:1]),
+                   **BLOCKS)
+        return jnp.sum((o * gb).astype(jnp.float32))
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(*jb)
+    tb = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16()
+          .requires_grad_() for a in jb]
+    o = fa.flash_attention(*tb, causal=True,
+                           padding_mask=torch.tensor(mask[:1]))
+    o.backward(torch.from_numpy(np.array(gb.astype(jnp.float32))).bfloat16())
+    for t, r in zip(tb, ref):
+        r = np.asarray(r.astype(jnp.float32))
+        assert np.abs(t.grad.float().numpy() - r).max() <= \
+            2.0 ** -6 * np.abs(r).max()
+
+
+def test_ragged_length_and_fully_masked_rows():
+    """A sequence of no tile multiple runs whole; a batch row whose keys
+    are all padding gives garbage outputs but zero gradients when the
+    loss leaves it out, as the reference documents."""
+    q, k, v, g, mask = _inputs(shape=(2, 37, 2, 8), seed=4, pad_from=0)
+    ins = [_t(a, grad=True) for a in (q, k, v)]
+    o = fa.flash_attention(*ins, causal=False,
+                           padding_mask=torch.tensor(mask))
+    ref = jax_attention(jnp.asarray(q[:1]), jnp.asarray(k[:1]),
+                        jnp.asarray(v[:1]))
+    np.testing.assert_allclose(o[:1].detach().numpy(), np.asarray(ref),
+                               atol=2e-5, rtol=2e-5)
+    (o[:1] * _t(g[:1])).sum().backward()
+    for t in ins:
+        assert torch.isfinite(t.grad).all()
+        assert t.grad[1].abs().max() == 0
+
+
+@pytest.mark.parametrize("impl", ["pallas", "auto"])
+def test_dispatch_reaches_the_flash_kernel(impl):
+    """`impl="pallas"` is the flash kernel; "auto" picks it from 4096
+    tokens (head_dim <= 128) and the plain einsum below."""
+    q, k, v, _, mask = _inputs(shape=(1, 4096, 1, 8), seed=5,
+                               pad_from=4096)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    out = dot_product_attention(tq, tk, tv, causal=True, impl=impl)
+    want = fa.flash_attention(tq, tk, tv, causal=True)
+    assert torch.equal(out, want)
+    short = [t[:, :128] for t in (tq, tk, tv)]
+    assert torch.equal(dot_product_attention(*short, causal=True, impl=impl),
+                       dot_product_attention(*short, causal=True,
+                                             impl="pallas" if impl ==
+                                             "pallas" else "xla"))
+
+
+def test_mixed_dtypes_reconcile_to_q_and_warn_once():
+    q, k, v, _, _ = _inputs(shape=(1, 16, 2, 8), seed=6)
+    qb = torch.tensor(q).bfloat16()
+    fa._NARROWING_WARNED.clear()
+    with pytest.warns(UserWarning, match="NARROWS k"):
+        out = fa.flash_attention(qb, _t(k), _t(v))
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, fa.flash_attention(qb, _t(k).bfloat16(),
+                                               _t(v).bfloat16()))
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        fa.flash_attention(qb, _t(k), _t(v))  # warned once already
+
+
+def test_cpu_tensors_launch_nothing_and_skip_lse_without_grad():
+    q, k, v, _, _ = _inputs(shape=(1, 16, 2, 8), seed=7)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    _, lse = fa.flash_attention_fwd(_t(q), _t(k), _t(v), need_lse=False)
+    assert lse is None
+    ins = [_t(a, grad=True) for a in (q, k, v)]
+    fa.flash_attention(*ins, causal=True).sum().backward()
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == before

@@ -43,7 +43,7 @@ REPO = Path(__file__).resolve().parents[1]
 def pair():
     jmodel = jl.Llama(jl.llama_tiny_config(max_len=64, norm_impl="pallas"))
     params = jax.device_get(jmodel.init_params(jax.random.key(0), seq=8))
-    cfg = tl.llama_tiny_config(max_len=64)
+    cfg = tl.llama_tiny_config(max_len=64, norm_impl="pallas")
     model = tl.Llama(cfg, device="cpu")
     model.load_state_dict(tl.params_from_jax(params, cfg))
     # JAX `generate` under one jit: a single compile per (batch, prompt

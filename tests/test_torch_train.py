@@ -144,12 +144,28 @@ class TestAttention:
         assert select_attention_impl(seq, hd, mode) == ref(seq, hd, mode)
         assert select_attention_impl(seq, hd, mode) == impl
 
-    @pytest.mark.parametrize("impl, item", [("pallas", "B3"), ("ring", "A8"),
+    @pytest.mark.parametrize("impl, item", [("ring", "A8"),
                                             ("ulysses:pallas", "A8")])
     def test_unported_impls_raise(self, impl, item):
         q = torch.zeros(1, 4, 2, 8)
         with pytest.raises(NotImplementedError, match=item):
             dot_product_attention(q, q, q, causal=True, impl=impl)
+
+    def test_pallas_impl_matches_the_jax_flash_kernel(self):
+        """impl="pallas" reaches the port's flash attention, held to the
+        JAX kernel (interpret mode) at the reference's 2e-5."""
+        from hyperion_tpu.ops.attention import (
+            dot_product_attention as jax_dpa,
+        )
+
+        q, k, v = (np.random.default_rng(i).standard_normal(
+            (2, 32, 2, 8)).astype(np.float32) for i in range(3))
+        ref = jax_dpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=True, impl="pallas")
+        out = dot_product_attention(_t(q), _t(k), _t(v), causal=True,
+                                    impl="pallas")
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-5)
 
 
 class TestTransformerLM:
@@ -200,10 +216,33 @@ class TestTransformerLM:
         model = tt.TransformerLM(tt.simple_lm_config(**TINY), device="cpu")
         with pytest.raises(ValueError, match="max_len"):
             model(torch.zeros(1, 17, dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="A7"):
-            tt.simple_lm_config(remat=True)
+        with pytest.raises(ValueError, match="unknown remat policy"):
+            tt.simple_lm_config(remat="offload")
         with pytest.raises(NotImplementedError, match="A9"):
             tt.simple_lm_config(quant="int8")
+
+    @pytest.mark.parametrize("remat", ["full", "dots"])
+    def test_remat_logits_and_grads_match_jax(self, remat):
+        """fp32, dropout off: a rematerialized model against the JAX
+        one with the same policy."""
+        jmodel, params, model = _pair(remat=remat)
+        ids, mask = _batch(seed=8)
+
+        def jloss(p):
+            return jmodel.apply({"params": p}, jnp.asarray(ids),
+                                padding_mask=jnp.asarray(mask)).sum()
+
+        ref_grads = jax.device_get(jax.grad(jloss)(params))
+        model(_t(ids), padding_mask=_t(mask)).sum().backward()
+        grads = tt.state_to_jax(
+            {n: p.grad for n, p in model.named_parameters()}, model.cfg)
+        leaves = list(zip(jax.tree_util.tree_leaves_with_path(grads),
+                          jax.tree_util.tree_leaves_with_path(ref_grads)))
+        largest = max(np.abs(np.asarray(r)).max() for _, (_, r) in leaves)
+        for (path, g), (_, r) in leaves:
+            # k_proj's bias: zero in exact arithmetic (see above)
+            scale = max(np.abs(np.asarray(r)).max(), 1e-4 * largest)
+            assert np.abs(g - np.asarray(r)).max() <= 1e-4 * scale, path
 
 
 class TestLoss:
