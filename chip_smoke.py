@@ -23,9 +23,13 @@ script exits non-zero):
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
               last quarter of the keys padding), at [2, 1024, 8, 128] fp32
-              causal and not, and at a ragged T = 1000; the cross-entropy
-              at Llama's [1, 4095, 32000] fp32 view. Kernel, plain, bound
-              and library times.
+              causal and not, and at a ragged T = 1000, alone and through
+              `flash_attention_bwd` (two runs bit-identical), each with its
+              registers, spill and shared-memory bytes (the Hopper
+              backward must not spill); the cross-entropy at Llama's
+              [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
+              times, and the whole flash backward against SDPA's masked
+              backward in turns (library, kernel, kernel, library).
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -577,6 +581,10 @@ def phase_kernels() -> dict:
     return recs
 
 
+# what the compiler gave a kernel, on the flash kernels' records
+ATTR_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads")
+
+
 def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
     """(ok, max abs error) of a flash kernel output against its plain
     version. fp32: 2e-5 for o and lse, 2e-4 for gradients (the
@@ -624,8 +632,13 @@ def flash_pairs(B, T, causal, pad) -> float:
 
 def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     """The forward, dq and dk/dv kernels against the plain versions (the
-    backward from the kernel's own o and lse); with `timing`, kernel,
-    plain, bound and library times. Returns the three records."""
+    backward from the kernel's own o and lse), standalone and through
+    `flash_attention_bwd` (one delta for both kernels; on the bf16 D 128
+    path the dq kernel computes it), whose two runs must be bit-identical;
+    each kernel's registers, spill and shared-memory bytes, and no spill
+    on the Hopper backward. With `timing`, kernel, plain, bound and
+    library times, and the whole backward against SDPA's in turns.
+    Returns the three kernel records."""
     from hyperion_tpu_torch.ops import flash_attention as fa
 
     dtype = q.dtype
@@ -636,26 +649,42 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
                                padding_mask=pad)
     dk, dv = fa.flash_attention_dkv(q, k, v, o, lse, do, causal=causal,
                                     padding_mask=pad)
+    bwd = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  padding_mask=pad) for _ in range(2)]
     rdq, rdk, rdv = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
                                                  causal=causal,
                                                  padding_mask=pad)
     torch.cuda.synchronize()
     checks = {"flash_attention_fwd": [flash_close(o, ro, dtype, "o"),
                                       flash_close(lse, rlse, dtype, "lse")],
-              "flash_attention_dq": [flash_close(dq, rdq, dtype, "dq")],
+              "flash_attention_dq": [flash_close(dq, rdq, dtype, "dq"),
+                                     flash_close(bwd[0][0], rdq, dtype, "dq")],
               "flash_attention_dkv": [flash_close(dk, rdk, dtype, "dk"),
-                                      flash_close(dv, rdv, dtype, "dv")]}
-    del ro, rlse, rdq, rdk, rdv
+                                      flash_close(dv, rdv, dtype, "dv"),
+                                      flash_close(bwd[0][1], rdk, dtype, "dk"),
+                                      flash_close(bwd[0][2], rdv, dtype, "dv")]}
+    deterministic = all(torch.equal(a, b) for a, b in zip(*bwd))
+    del ro, rlse, rdq, rdk, rdv, bwd
+    B, T, H, D = q.shape
     base = {"phase": "kernels", "case": name,
             "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
             "causal": causal, "padded_keys": 0 if pad is None
             else int((pad == 0).sum())}
-    recs = {kn: {**base, "kernel": kn,
-                 "max_abs_err": max(e for _, e in c),
-                 "ok": all(ok for ok, _ in c)}
-            for kn, c in checks.items()}
+    recs = {}
+    for kn, c in checks.items():
+        which = kn.split("_")[-1]
+        attrs = fa.kernel_attrs(which, D, dtype)
+        ok = all(ok for ok, _ in c)
+        if which != "fwd":
+            # two runs of the backward agree to the bit; the Hopper kernels
+            # (bf16, D 128) keep everything in registers
+            ok = ok and deterministic and not (fa.fused_delta(q)
+                                               and attrs["spill_bytes"])
+        recs[kn] = {**base, "kernel": kn, **attrs,
+                    "max_abs_err": max(e for _, e in c), "ok": ok}
+    for kn in ("flash_attention_dq", "flash_attention_dkv"):
+        recs[kn]["deterministic"] = deterministic
     if timing:
-        B, T, H, D = q.shape
         it = q.element_size()
         n = q.numel() * it
         stats = B * H * T * 4
@@ -682,14 +711,22 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), attn_mask=mask4),
             (q, k, v), nf)
-        # the launchers alone: delta = sum(dO * O) is a plain reduction
-        dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad)
-        ndq = 5 * n + 2 * stats + pad_bytes
+        # the launchers alone: dq computes delta itself on the Hopper path
+        # (and reads o), otherwise delta = sum(dO * O) is a plain reduction
+        # made once, outside the timing
+        fused = fa.fused_delta(q)
+        dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad,
+                                          delta=not fused)
+        delta = fa._launch_dq(dims, pad32, *ins, causal)[1]
+        ndq = (6 if fused else 5) * n + 2 * stats + pad_bytes
         ndkv = 6 * n + 2 * stats + pad_bytes
+        none = (None,) if fused else ()  # the delta argument dq fills
         dqr["kernel_ms"] = time_ms(
-            lambda *a: fa._launch_dq(dims, pad32, *a, causal), ins, ndq)
+            lambda *a: fa._launch_dq(dims, pad32, *a, *none, causal),
+            ins[:-1] if fused else ins, ndq)
         dkvr["kernel_ms"] = time_ms(
-            lambda *a: fa._launch_dkv(dims, pad32, *a, causal), ins, ndkv)
+            lambda *a: fa._launch_dkv(dims, pad32, *a, causal),
+            (*ins[:-1], delta), ndkv)
         dqr["bound_ms"], dqr["bound_by"] = bound(ndq, 6.0 * D * H * pairs,
                                                  dtype)
         dkvr["bound_ms"], dkvr["bound_by"] = bound(ndkv, 8.0 * D * H * pairs,
@@ -705,18 +742,38 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
             leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
             lib_o = sdpa(*(t.transpose(1, 2) for t in leaves),
                          attn_mask=mask4)
-        dqr["library_ms"] = dkvr["library_ms"] = replay_ms(
-            lambda lo, a, b, c, g: torch.autograd.grad(
-                lo, (a, b, c), g, retain_graph=True),
-            [(lib_o, *leaves, do.transpose(1, 2))])
+        # the whole backward (delta included, as SDPA's own is) against
+        # SDPA's, in turns: library, kernel, kernel, library
+        nbwd = 8 * n + stats + pad_bytes
+        turns = {"library": [], "kernel": []}
+        for who in ("library", "kernel", "kernel", "library"):
+            if who == "library":
+                turns[who].append(replay_ms(
+                    lambda lo, a, b, c, g: torch.autograd.grad(
+                        lo, (a, b, c), g, retain_graph=True),
+                    [(lib_o, *leaves, do.transpose(1, 2))]))
+            else:
+                turns[who].append(time_ms(
+                    lambda a, b, c, oo, ll, g: fa.flash_attention_bwd(
+                        a, b, c, oo, ll, g, causal=causal,
+                        padding_mask=pad),
+                    (q, k, v, o, lse, do), nbwd))
+        dqr["library_ms"] = dkvr["library_ms"] = sum(turns["library"]) / 2
+        whole = {**base, "kernel": "flash_attention_bwd",
+                 "what": "dq + dk/dv launches, delta included",
+                 "ms": turns["kernel"], "library_ms": turns["library"]}
+        whole["bound_ms"], whole["bound_by"] = bound(
+            nbwd, 10.0 * D * H * pairs, dtype)
+        emit(whole)
         del leaves, lib_o, mask4
     for rec in recs.values():
         emit(rec)
     bad = [k for k, r in recs.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"flash attention {name} {dtype}: {bad} over "
-                             "tolerance: " + ", ".join(
-                                 f"{k} {recs[k]['max_abs_err']}" for k in bad))
+                             "tolerance, not deterministic or spilling: " +
+                             ", ".join(f"{k} {recs[k]['max_abs_err']}"
+                                       for k in bad))
     return recs
 
 
@@ -1406,7 +1463,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict,
                     "bound_by": rec["bound_by"],
                     "library_ms": rec["library_ms"],
                     "checked": rec["ok"], "shape": rec["shape"],
-                    "dtype": rec["dtype"]})
+                    "dtype": rec["dtype"],
+                    **{key: rec[key] for key in ATTR_KEYS if key in rec}})
     return {"kernels": out}
 
 

@@ -15,18 +15,20 @@
 //   p . v, which accumulates in fp32; o = acc / max(l, 1e-30) cast to the
 //   input dtype; lse = m + log(max(l, 1e-30)), written only when asked
 //   for. Backward from the saved lse and delta = sum(dO * O) (computed by
-//   the caller): p = exp(s - lse), dp = dO . v^T, ds = p * (dp - delta),
+//   the caller, or by the bf16 D = 128 dq kernel): p = exp(s - lse), dp = dO . v^T, ds = p * (dp - delta),
 //   dq = scale * ds->dtype . k, dv = p->dtype^T . dO, dk = scale *
 //   ds->dtype^T . q, each cast to the input dtype. Key columns past Tkv
 //   (the ragged last tile) are left out entirely (p = 0); rows whose keys
 //   are all masked give garbage, as the reference documents.
 //
 // Bound on the H100: operations. At the Llama-2-7B train step ([1, 4096,
-// 32, 128] bf16, causal) the forward's two causal-half products are 1.37e11
-// flops, 0.139 ms at 989 TFLOP/s, against 134 MB of bytes (0.040 ms); the
-// backward's five products 3.44e11 flops, 0.347 ms.
+// 32, 128] bf16, causal, the last 1024 keys padding) the forward's two
+// products over the kept (query, key) pairs are 1.29e11 flops, 0.130 ms at
+// 989 TFLOP/s, against 134 MB of bytes (0.040 ms); dq's three products
+// (s, dp, dq) 0.196 ms and dk/dv's four (s, dp, dv, dk) 0.261 ms.
 //
-// Design (right and simple first; wgmma and TMA are later work):
+// Forward, and the backward in fp32 and in bf16 at D = 32 and 64 (right
+// and simple first):
 //   * One block of 4 warps per (tile, head, batch). The forward and dq
 //     kernels take a 64-row query tile and loop over 64-row key tiles up
 //     to the causal frontier: the loop replaces the TPU's ordered kv grid
@@ -41,13 +43,43 @@
 //     the tensor cores (mma.sync m16n8k16, fp32 accumulators), the
 //     fragments read from shared memory; fp32 inputs take plain fp32 FMAs
 //     over the same fragment layout (never TF32), so fp32 parity holds.
-//     The dk/dv kernel computes s^T = k . q^T directly, so no operand is
-//     read transposed except the right-hand tiles of p.v, ds.k, p^T.dO and
-//     ds^T.q.
 //   * p (and ds) go through shared memory in the input dtype to feed the
 //     second product; the fp32 values stay in registers for ds.
 //   * Shared memory above 48 KB is opted in (up to ~170 KB for fp32 dk/dv
 //     at D = 128).
+//
+// Backward in bf16 at D = 128 (`flash_dq_kernel_sm90`,
+// `flash_dkv_kernel_sm90`), built from sm90.cuh for the tensor cores'
+// full rate:
+//   * A block of three warpgroups per (head, 128-row tile, batch): two
+//     consumers of 64 rows each and a producer, whose first warp issues
+//     every TMA load. The block's own 128 rows (k and v for dk/dv; q and
+//     dO for dq) stay resident in shared memory; the other side's 64-row
+//     tiles stream through a 2-stage ring with full/empty mbarriers, so
+//     the next tile's loads overlap this tile's products. ~130 KB of
+//     shared memory: one block an SM.
+//   * TMA reads [B, T, H, D] in place as a 4-D map (D, H, T, B), boxes of
+//     64 columns under the 128-byte swizzle; rows past T arrive as zeros,
+//     so a ragged T needs no bound check. The maps are encoded on the host
+//     at each launch and passed as __grid_constant__ parameters.
+//   * dk/dv: s^T = k . q^T and dp^T = v . dO^T run on wgmma m64n64k16 with
+//     both operands K-major in shared memory, as they lie in [T, D]. p^T
+//     and ds^T stay in registers: the m64n64 accumulator is, element for
+//     element, the bf16 A fragment of the next wgmma, so dv += p^T . dO and
+//     dk += ds^T . q run on wgmma m64n128k16 with A from registers and B (dO,
+//     q) read MN-major through the descriptor's transpose bit. The dk and
+//     dv accumulators are 64 + 64 floats a consumer thread; setmaxnreg
+//     gives the consumers 240 registers and the producer 24.
+//   * dq: s = q . k^T and dp = dO . v^T likewise, dq += ds . k with k read
+//     MN-major. The dq block also computes delta = sum(dO * O) for its
+//     rows in its prologue (dO from the resident tile, O read once) and
+//     writes it for the dk/dv launch that follows on the same stream.
+//   * Two kernels, no atomics: every gradient row has one writer, so two
+//     launches give bit-identical results. The cost is two recomputed
+//     products (seven against a fused kernel's five).
+//   * Only edge tiles (the diagonal, padded or ragged keys, a ragged query
+//     tail) take the per-element mask; a consumer skips a tile wholly past
+//     its causal frontier. p = exp2(s * scale * log2(e) - lse * log2(e)).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -55,6 +87,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -539,18 +573,542 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------- backward, bf16 at D = 128 (sm_90a)
+//
+// Three warpgroups a block: two consumers of 64 rows each and one
+// producer. The producer's first warp issues every TMA load and fills the
+// small per-tile arrays; the consumers run wgmma and the softmax
+// arithmetic. A block's own 128 rows stay resident; the other side's
+// 64-row tiles come through a ring of kStages stages, each with a "full"
+// mbarrier (the producer warp's 32 arrivals plus the TMA bytes) and an
+// "empty" one (the 256 consumer threads' arrivals).
+
+namespace wgp {
+
+constexpr int kD = 128;          // the only head dim of this path
+constexpr int kBox = 8192;       // one TMA box: 64 rows x 64 bf16 columns
+constexpr int kHalf = 2 * kBox;  // 64 rows x D, two boxes side by side
+constexpr int kStages = 2;
+constexpr int kThreads = 384;    // consumers 0..255, producer 256..383
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct DkvSmem {
+  uint8_t k[2 * kHalf];  // the block's 128 key rows: [consumer][box]
+  uint8_t v[2 * kHalf];
+  uint8_t q[kStages][kHalf];  // a 64-row query tile: [box]
+  uint8_t dout[kStages][kHalf];
+  float lse[kStages][64];
+  float delta[kStages][64];
+  uint64_t kv_full, full[kStages], empty[kStages];
+};
+
+struct DqSmem {
+  uint8_t q[2 * kHalf];  // the block's 128 query rows: [consumer][box]
+  uint8_t dout[2 * kHalf];
+  uint8_t k[kStages][kHalf];  // a 64-row key tile: [box]
+  uint8_t v[kStages][kHalf];
+  int keep[kStages][64];  // key kept (in range and not padding)
+  int all_keep[kStages];
+  float delta[128];
+  uint64_t qd_full, full[kStages], empty[kStages];
+};
+
+// the block's shared memory, its start rounded up to 1024 bytes (the
+// swizzle's period); the launch asks for sizeof(S) + 1024
+template <typename S>
+__device__ __forceinline__ S& smem_block() {
+  extern __shared__ __align__(16) uint8_t smem_ws[];
+  const uint32_t off = (1024u - (sm90::smem_u32(smem_ws) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(smem_ws + off);
+}
+
+// K-major operand: a 64-row tile of D = 128 columns (two boxes); k-step kk
+// covers columns 16kk .. 16kk + 15
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return sm90::desc_sw128(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024);
+}
+
+// MN-major operand: the same tile read with its rows as k; k-step kk
+// covers rows 16kk .. 16kk + 15, all 128 columns (the second box lbo on)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return sm90::desc_sw128(tile + kk * 2048, kBox, 1024);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the m64n64 accumulator (fp32) as the bf16 A fragments of four k16 steps
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&acc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+}  // namespace wgp
+
+// dk, dv for 128 key rows of one head: each consumer owns 64 key rows and
+// walks the query tiles from the causal diagonal down, computing
+// s^T = k . q^T and dp^T = v . dO^T (wgmma, both operands K-major in shared
+// memory), p^T and ds^T in registers, then dv += p^T . dO and
+// dk += ds^T . q (wgmma, A from registers, B = dO or q read MN-major).
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const int* __restrict__ pad,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int Tq, int Tkv, int H, int causal,
+                      float scale) {
+  using namespace wgp;
+  DkvSmem& sm = smem_block<DkvSmem>();
+  // causal: the first key blocks see the most query tiles, and the tile
+  // index is the grid's slower axis, so every head's longest blocks start
+  // first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * 128;
+  const int n_q = (Tq + 63) / 64;
+  const int first = causal ? k0 / 64 : 0;
+  const int n_tiles = max(n_q - first, 0);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 32);
+      sm90::mbar_init(&sm.empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.kv_full, 4 * kHalf);
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int off = w * kHalf + x * kBox;
+            sm90::tma_load_4d(sm.k + off, &tk, &sm.kv_full, 64 * x, h,
+                              k0 + 64 * w, b);
+            sm90::tma_load_4d(sm.v + off, &tv, &sm.kv_full, 64 * x, h,
+                              k0 + 64 * w, b);
+          }
+        }
+      }
+      const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        const int q0 = (first + it) * 64;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = lane + 32 * half;
+          const bool in = q0 + j < Tq;
+          sm.lse[s][j] = in ? lse[row0 + q0 + j] : 0.f;
+          sm.delta[s][j] = in ? delta[row0 + q0 + j] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kHalf);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            sm90::tma_load_4d(sm.q[s] + x * kBox, &tq, &sm.full[s], 64 * x, h,
+                              q0, b);
+            sm90::tma_load_4d(sm.dout[s] + x * kBox, &tdo, &sm.full[s],
+                              64 * x, h, q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int kw = k0 + 64 * wg + 16 * warp;  // the warp's first key row
+    const int kr[2] = {kw + g, kw + g + 8};
+    bool keep[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      keep[i] = kr[i] < Tkv &&
+                (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + kr[i]] != 0);
+    }
+    const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
+    const float sl2 = scale * kLog2e;
+
+    float acc_k[64], acc_v[64];
+    zero(acc_k);
+    zero(acc_v);
+    const uint32_t k_tile = sm90::smem_u32(sm.k + wg * kHalf);
+    const uint32_t v_tile = sm90::smem_u32(sm.v + wg * kHalf);
+    sm90::mbar_wait(&sm.kv_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int q0 = (first + it) * 64;
+      sm90::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      // a tile wholly above the diagonal for this consumer's keys is skipped
+      if (!causal || k0 + 64 * wg <= q0 + 63) {
+        const uint32_t q_tile = sm90::smem_u32(sm.q[s]);
+        const uint32_t do_tile = sm90::smem_u32(sm.dout[s]);
+        float st[32], dpt[32];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n64k16_ss(st, desc_k(k_tile, kk), desc_k(q_tile, kk),
+                                   kk > 0);
+        }
+        sm90::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n64k16_ss(dpt, desc_k(v_tile, kk),
+                                   desc_k(do_tile, kk), kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(st);
+
+        // p^T = exp(s^T - lse): rows are keys, columns queries. Only edge
+        // tiles (the diagonal, padded or ragged keys, a ragged query tail)
+        // take the per-element mask.
+        const bool interior = q0 + 63 < Tq && warp_keep &&
+                              (!causal || kw + 15 <= q0);
+        if (interior) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float l = sm.lse[s][8 * j + 2 * c + (e & 1)];
+              st[4 * j + e] = ex2(fmaf(st[4 * j + e], sl2, -l * kLog2e));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * c + (e & 1);
+              const float x = masked(st[4 * j + e] * scale, q0 + col,
+                                     kr[e >> 1], Tq, Tkv, causal, keep[e >> 1]);
+              st[4 * j + e] = ex2((x - sm.lse[s][col]) * kLog2e);
+            }
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dpt);
+
+        // ds^T = p^T (dp^T - delta); both cast to bf16 as A fragments
+        uint32_t pa[4][4], dsa[4][4];
+        to_a_frags(pa, st);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float d = sm.delta[s][8 * j + 2 * c + (e & 1)];
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - d);
+          }
+        }
+        to_a_frags(dsa, dpt);
+
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_m64n128k16_rs_mn(acc_v, pa[kk], desc_mn(do_tile, kk));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_m64n128k16_rs_mn(acc_k, dsa[kk], desc_mn(q_tile, kk));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc_v);
+        sm90::fence_regs(acc_k);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(dsa);
+      }
+      sm90::mbar_arrive(&sm.empty[s]);
+    }
+
+    const int64_t stride = static_cast<int64_t>(H) * kD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kr[i] < Tkv) {
+        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * kD;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 8 * j + 2 * c;
+          put2(dk + row + col, scale * acc_k[4 * j + 2 * i],
+               scale * acc_k[4 * j + 2 * i + 1]);
+          put2(dv + row + col, acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
+// dq for 128 query rows of one head, and delta = sum(dO * O) for them
+// (written for the dk/dv launch that follows): each consumer owns 64
+// query rows and walks the key tiles up to its causal frontier, computing
+// s = q . k^T and dp = dO . v^T (wgmma from shared memory), ds in
+// registers, then dq += ds . k (A from registers, k read MN-major).
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const bf16* __restrict__ o, const int* __restrict__ pad,
+                     const float* __restrict__ lse, float* __restrict__ delta,
+                     bf16* __restrict__ dq, int Tq, int Tkv, int H, int causal,
+                     float scale) {
+  using namespace wgp;
+  DqSmem& sm = smem_block<DqSmem>();
+  const int h = blockIdx.x, b = blockIdx.z;
+  // causal: the last query blocks see the most key tiles; launch them first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
+  const int n_kv = (Tkv + 63) / 64;
+  const int n_tiles = causal ? min(n_kv, min(q0 + 127, Tq - 1) / 64 + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.qd_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 32);
+      sm90::mbar_init(&sm.empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.qd_full, 4 * kHalf);
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int off = w * kHalf + x * kBox;
+            sm90::tma_load_4d(sm.q + off, &tq, &sm.qd_full, 64 * x, h,
+                              q0 + 64 * w, b);
+            sm90::tma_load_4d(sm.dout + off, &tdo, &sm.qd_full, 64 * x, h,
+                              q0 + 64 * w, b);
+          }
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        const int k0 = it * 64;
+        bool all = true;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = lane + 32 * half;
+          const int key = k0 + j;
+          const bool kp = key < Tkv &&
+                          (pad == nullptr ||
+                           pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+          sm.keep[s][j] = kp;
+          all = all && kp;
+        }
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) {
+          sm.all_keep[s] = all;
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kHalf);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            sm90::tma_load_4d(sm.k[s] + x * kBox, &tk, &sm.full[s], 64 * x, h,
+                              k0, b);
+            sm90::tma_load_4d(sm.v[s] + x * kBox, &tv, &sm.full[s], 64 * x, h,
+                              k0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int t = tid & 127, wg = tid >> 7, warp = t >> 5, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int64_t stride = static_cast<int64_t>(H) * kD;
+    const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+    sm90::mbar_wait(&sm.qd_full, 0);
+
+    // delta = sum(dO * O) over this consumer's 64 rows: two threads a row,
+    // one box (64 columns) each; dO from the resident (swizzled) tile
+    {
+      const int row = t >> 1, x = t & 1;
+      const int qrow = q0 + 64 * wg + row;
+      float sum = 0.f;
+      if (qrow < Tq) {
+        const uint8_t* tile = sm.dout + wg * kHalf + x * kBox + row * 128;
+        const bf16* orow = o + (static_cast<int64_t>(b) * Tq + qrow) * stride +
+                           h * kD + 64 * x;
+#pragma unroll
+        for (int ch = 0; ch < 8; ++ch) {
+          const uint4 dv4 =
+              *reinterpret_cast<const uint4*>(tile + ((ch ^ (row & 7)) << 4));
+          const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + 8 * ch);
+          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
+          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(d2[e]);
+            const float2 bb = __bfloat1622float2(o2[e]);
+            sum = fmaf(a.x, bb.x, sum);
+            sum = fmaf(a.y, bb.y, sum);
+          }
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (x == 0) {
+        sm.delta[64 * wg + row] = sum;
+        if (qrow < Tq) delta[stat0 + qrow] = sum;
+      }
+      sm90::named_sync(1 + wg, 128);
+    }
+
+    const int qw = q0 + 64 * wg + 16 * warp;  // the warp's first query row
+    const int qr[2] = {qw + g, qw + g + 8};
+    float row_lse[2], row_delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row_lse[i] = qr[i] < Tq ? lse[stat0 + qr[i]] : 0.f;
+      row_delta[i] = sm.delta[64 * wg + 16 * warp + g + 8 * i];
+    }
+    const float sl2 = scale * kLog2e;
+
+    float acc[64];
+    zero(acc);
+    const uint32_t q_tile = sm90::smem_u32(sm.q + wg * kHalf);
+    const uint32_t do_tile = sm90::smem_u32(sm.dout + wg * kHalf);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = it * 64;
+      sm90::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      // a tile wholly past this consumer's causal frontier is skipped
+      if (!causal || k0 <= q0 + 64 * wg + 63) {
+        const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
+        const uint32_t v_tile = sm90::smem_u32(sm.v[s]);
+        float sc[32], dp[32];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n64k16_ss(sc, desc_k(q_tile, kk), desc_k(k_tile, kk),
+                                   kk > 0);
+        }
+        sm90::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n64k16_ss(dp, desc_k(do_tile, kk), desc_k(v_tile, kk),
+                                   kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(sc);
+
+        const bool interior = qw + 15 < Tq && k0 + 63 < Tkv &&
+                              sm.all_keep[s] != 0 && (!causal || k0 + 63 <= qw);
+        if (interior) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2,
+                                       -row_lse[e >> 1] * kLog2e));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * c + (e & 1);
+              const float x = masked(sc[4 * j + e] * scale, qr[e >> 1], k0 + col,
+                                     Tq, Tkv, causal, sm.keep[s][col]);
+              sc[4 * j + e] = ex2((x - row_lse[e >> 1]) * kLog2e);
+            }
+          }
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dp);
+
+        uint32_t dsa[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          dp[i] = sc[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+        }
+        to_a_frags(dsa, dp);
+
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_m64n128k16_rs_mn(acc, dsa[kk], desc_mn(k_tile, kk));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(dsa);
+      }
+      sm90::mbar_arrive(&sm.empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (qr[i] < Tq) {
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * kD;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          put2(dq + row + 8 * j + 2 * c, scale * acc[4 * j + 2 * i],
+               scale * acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   cudaStream_t s, Args... args) {
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic smem
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, kThreads, smem, s>>>(args...);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
@@ -560,11 +1118,21 @@ template <typename T>
 constexpr size_t p_bytes() { return sizeof(T) * kTile * ld_p<T>(); }
 
 struct Args {
-  const void *q, *k, *v, *pad, *dout, *lse_in, *delta;
-  void *o, *lse, *dq, *dk, *dv;
+  const void *q, *k, *v, *pad, *dout, *o, *lse_in;
+  void *delta;  // read, or written by the Hopper dq kernel (o non-null)
+  void *out_o, *lse, *dq, *dk, *dv;
   int B, Tq, Tkv, H, causal;
   float scale;
 };
+
+// which: 0 forward, 1 dq, 2 dk/dv
+template <typename T, int D>
+size_t smem_bytes(int which) {
+  if (which == 0) return 3 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
+  if (which == 1) return 4 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
+  return 4 * tile_bytes<T, D>() + 2 * p_bytes<T>() +
+         kTile * (2 * sizeof(float) + sizeof(int));
+}
 
 template <typename T, int D>
 cudaError_t run(int which, const Args& a, cudaStream_t s) {
@@ -573,26 +1141,60 @@ cudaError_t run(int which, const Args& a, cudaStream_t s) {
   const T* v = static_cast<const T*>(a.v);
   const int* pad = static_cast<const int*>(a.pad);
   const int n_q = (a.Tq + kTile - 1) / kTile, n_kv = (a.Tkv + kTile - 1) / kTile;
+  const size_t smem = smem_bytes<T, D>(which);
   if (which == 0) {
-    const size_t smem = 3 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
-    return launch(flash_fwd_kernel<T, D>, dim3(n_q, a.H, a.B), smem, s, q, k, v,
-                  pad, static_cast<T*>(a.o), static_cast<float*>(a.lse), a.Tq,
-                  a.Tkv, a.H, a.causal, a.scale);
+    return launch(flash_fwd_kernel<T, D>, dim3(n_q, a.H, a.B), kThreads, smem,
+                  s, q, k, v, pad, static_cast<T*>(a.out_o),
+                  static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
+                  a.scale);
   }
+  if (a.o != nullptr) return cudaErrorInvalidValue;  // delta is an input here
   const T* dout = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse_in);
   const float* delta = static_cast<const float*>(a.delta);
   if (which == 1) {
-    const size_t smem = 4 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
-    return launch(flash_dq_kernel<T, D>, dim3(n_q, a.H, a.B), smem, s, q, k, v,
-                  pad, dout, lse, delta, static_cast<T*>(a.dq), a.Tq, a.Tkv,
-                  a.H, a.causal, a.scale);
+    return launch(flash_dq_kernel<T, D>, dim3(n_q, a.H, a.B), kThreads, smem, s,
+                  q, k, v, pad, dout, lse, delta, static_cast<T*>(a.dq), a.Tq,
+                  a.Tkv, a.H, a.causal, a.scale);
   }
-  const size_t smem = 4 * tile_bytes<T, D>() + 2 * p_bytes<T>() +
-                      kTile * (2 * sizeof(float) + sizeof(int));
-  return launch(flash_dkv_kernel<T, D>, dim3(n_kv, a.H, a.B), smem, s, q, k, v,
-                pad, dout, lse, delta, static_cast<T*>(a.dk),
+  return launch(flash_dkv_kernel<T, D>, dim3(n_kv, a.H, a.B), kThreads, smem, s,
+                q, k, v, pad, dout, lse, delta, static_cast<T*>(a.dk),
                 static_cast<T*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
+}
+
+// the Hopper backward (bf16, D = 128): the tensor maps are encoded on the
+// host at every launch and passed by value
+cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, wgp::kD, 64)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, wgp::kD, 64)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess) {
+    return e;
+  }
+  const int* pad = static_cast<const int*>(a.pad);
+  const float* lse = static_cast<const float*>(a.lse_in);
+  if (which == 1) {
+    if (a.o == nullptr) return cudaErrorInvalidValue;  // delta is computed here
+    return launch(flash_dq_kernel_sm90, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                  wgp::kThreads, sizeof(wgp::DqSmem) + 1024, s, mq, mk, mv, mdo,
+                  static_cast<const bf16*>(a.o), pad, lse,
+                  static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
+                  a.Tkv, a.H, a.causal, a.scale);
+  }
+  return launch(flash_dkv_kernel_sm90, dim3(a.H, (a.Tkv + 127) / 128, a.B),
+                wgp::kThreads, sizeof(wgp::DkvSmem) + 1024, s, mq, mk, mv, mdo,
+                pad, lse, static_cast<const float*>(a.delta),
+                static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq, a.Tkv,
+                a.H, a.causal, a.scale);
+}
+
+// bf16 backward at D = 128 takes the Hopper kernels; fp32 (bit parity
+// with the plain version) and bf16 at D = 32 and 64 keep the mma.sync /
+// FMA kernels above
+bool uses_sm90(int which, int D, int dtype) {
+  return which != 0 && dtype == 1 && D == wgp::kD;
 }
 
 template <typename T>
@@ -608,9 +1210,29 @@ cudaError_t run_d(int which, int D, const Args& a, cudaStream_t s) {
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (uses_sm90(which, D, dtype)) return static_cast<int>(run_sm90(which, a, s));
   if (dtype == 0) return static_cast<int>(run_d<float>(which, D, a, s));
   if (dtype == 1) return static_cast<int>(run_d<bf16>(which, D, a, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T, int D>
+cudaError_t kernel_of(int which, const void** fn, size_t* smem) {
+  *smem = smem_bytes<T, D>(which);
+  *fn = which == 0 ? reinterpret_cast<const void*>(flash_fwd_kernel<T, D>)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel<T, D>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel<T, D>);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t kernel_of_d(int which, int D, const void** fn, size_t* smem) {
+  switch (D) {
+    case 32: return kernel_of<T, 32>(which, fn, smem);
+    case 64: return kernel_of<T, 64>(which, fn, smem);
+    case 128: return kernel_of<T, 128>(which, fn, smem);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -624,18 +1246,21 @@ extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
                                   const void* pad, void* o, void* lse, int B,
                                   int Tq, int Tkv, int H, int D, int causal,
                                   float scale, int dtype, void* stream) {
-  Args a{q, k, v, pad, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr,
-         nullptr, B, Tq, Tkv, H, causal, scale};
+  Args a{q, k, v, pad, nullptr, nullptr, nullptr, nullptr, o, lse, nullptr,
+         nullptr, nullptr, B, Tq, Tkv, H, causal, scale};
   return dispatch(0, D, dtype, a, stream);
 }
 
+// `o`: non-null exactly when the Hopper kernel runs (bf16, D = 128), which
+// computes delta = sum(dO * O) itself and writes it to `delta`; otherwise
+// `delta` is read.
 extern "C" int hyperion_flash_dq(const void* q, const void* k, const void* v,
                                  const void* pad, const void* dout,
-                                 const void* lse, const void* delta, void* dq,
-                                 int B, int Tq, int Tkv, int H, int D,
-                                 int causal, float scale, int dtype,
+                                 const void* o, const void* lse, void* delta,
+                                 void* dq, int B, int Tq, int Tkv, int H,
+                                 int D, int causal, float scale, int dtype,
                                  void* stream) {
-  Args a{q, k, v, pad, dout, lse, delta, nullptr, nullptr, dq, nullptr,
+  Args a{q, k, v, pad, dout, o, lse, delta, nullptr, nullptr, dq, nullptr,
          nullptr, B, Tq, Tkv, H, causal, scale};
   return dispatch(1, D, dtype, a, stream);
 }
@@ -646,7 +1271,39 @@ extern "C" int hyperion_flash_dkv(const void* q, const void* k, const void* v,
                                   void* dv, int B, int Tq, int Tkv, int H,
                                   int D, int causal, float scale, int dtype,
                                   void* stream) {
-  Args a{q, k, v, pad, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv,
-         B, Tq, Tkv, H, causal, scale};
+  Args a{q, k, v, pad, dout, nullptr, lse, const_cast<void*>(delta), nullptr,
+         nullptr, nullptr, dk, dv, B, Tq, Tkv, H, causal, scale};
   return dispatch(2, D, dtype, a, stream);
+}
+
+// What the compiler gave the kernel that `which` (0 forward, 1 dq, 2 dk/dv)
+// launches at this D and dtype: out = {registers a thread, local-memory
+// (spill) bytes a thread, shared memory a block (static + dynamic), threads
+// a block}.
+extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
+  const void* fn = nullptr;
+  size_t smem = 0;
+  int threads = kThreads;
+  cudaError_t e = cudaSuccess;
+  if (uses_sm90(which, D, dtype)) {
+    threads = wgp::kThreads;
+    fn = which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90)
+                    : reinterpret_cast<const void*>(flash_dkv_kernel_sm90);
+    smem = (which == 1 ? sizeof(wgp::DqSmem) : sizeof(wgp::DkvSmem)) + 1024;
+  } else if (dtype == 0) {
+    e = kernel_of_d<float>(which, D, &fn, &smem);
+  } else if (dtype == 1) {
+    e = kernel_of_d<bf16>(which, D, &fn, &smem);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes + smem);
+  out[3] = threads;
+  return 0;
 }

@@ -14,15 +14,20 @@ accumulated in fp32, times 1/√D in fp32; masked entries (causal
 p·v, accumulated in fp32; o = acc / max(l, 1e-30) in the input dtype;
 lse = m + log(max(l, 1e-30)), a compact `[B, H, Tq]` fp32 array. The
 backward recomputes p = exp(s − lse) from the saved lse and takes
-delta = Σ dO·O in fp32 outside the kernels, as `_flash_backward` does
-(`:479-484`). Rows whose keys are all masked give garbage outputs and
-clean gradients, as the reference documents (`:43-46`).
+delta = Σ dO·O in fp32: outside the kernels, as `_flash_backward` does
+(`:479-484`), except on the bf16 D = 128 path, whose dq kernel computes
+it (`fused_delta`). Rows whose keys are all masked give garbage outputs
+and clean gradients, as the reference documents (`:43-46`).
 
 Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
 when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
-`csrc/flash_attention.cu` or raises. `flash_attention` is the
+`csrc/flash_attention.cu` or raises. The bf16 backward at D = 128 runs
+that file's Hopper kernels (wgmma, TMA, warp-specialised); fp32 and the
+other head dims run its first, mma.sync and FMA, kernels.
+`kernel_attrs` reads what the compiler gave each kernel (registers,
+spills, shared memory). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
 v, the mask, o and lse, as the reference's `_fwd` does, and runs the
 two backward kernels; a call that needs no gradient skips the lse
@@ -51,10 +56,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # q, k, v, pad, o, lse; B, Tq, Tkv, H, D, causal; scale; dtype; stream
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
-# q, k, v, pad, dout, lse, delta, dq; B, Tq, Tkv, H, D, causal; scale; ...
-_DQ_ARGTYPES = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
+# q, k, v, pad, dout, o, lse, delta, dq; B, Tq, Tkv, H, D, causal; scale; ...
+_DQ_ARGTYPES = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
 # q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, causal; ...
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
+# which (0 forward, 1 dq, 2 dk/dv), D, dtype, int out[4]
+_ATTRS_ARGTYPES = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 
 
 def _scale(D: int) -> float:
@@ -189,8 +196,18 @@ def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
     return o, lse
 
 
-def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
-    """Checked, aligned backward inputs and delta = Σ dO·O [B, H, Tq]."""
+def fused_delta(q: torch.Tensor) -> bool:
+    """Whether the backward of `q`'s dtype and head_dim runs the Hopper
+    kernels (bf16 at D = 128: wgmma, TMA, warp-specialised), whose dq
+    launch computes delta = Σ dO·O itself. fp32 keeps the FMA kernels (bit
+    parity with the plain version) and bf16 at D 32 and 64 the mma.sync
+    ones; both read a delta computed here."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 128
+
+
+def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
+    """Checked, aligned backward inputs (q, k, v, g, o, lse, delta); delta
+    = Σ dO·O [B, H, Tq] is computed here when `delta`, else None."""
     dims, pad = _check(q, k, v, padding_mask)
     B, Tq, _, H, _ = dims
     for name, t in (("o", o), ("g", g)):
@@ -201,26 +218,34 @@ def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq):
         raise ValueError(f"lse must be float32 [{B}, {H}, {Tq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    d = ((g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+         if delta else None)
     return dims, pad, (_aligned(q), _aligned(k), _aligned(v), _aligned(g),
-                       lse.contiguous(), delta)
+                       _aligned(o), lse.contiguous(), d)
 
 
-def _launch_dq(dims, pad, q, k, v, g, lse, delta, causal):
+def _launch_dq(dims, pad, q, k, v, g, o, lse, delta, causal):
+    """(dq, delta). With `delta` None the kernel (the Hopper one) computes
+    delta from g and o and returns it for the dk/dv launch."""
     B, Tq, Tkv, H, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
     dq = torch.empty_like(q)
+    fused = delta is None
+    if fused:
+        delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
-                    g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), B, Tq, Tkv, H, D, int(causal), _scale(D),
-                    _DTYPES[q.dtype], _stream(q))
+                    g.data_ptr(), o.data_ptr() if fused else None,
+                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Tq,
+                    Tkv, H, D, int(causal), _scale(D), _DTYPES[q.dtype],
+                    _stream(q))
     build.check(status, "flash_attention dq launch")
     flash_attention_dq.launches += 1
-    return dq
+    return dq, delta
 
 
-def _launch_dkv(dims, pad, q, k, v, g, lse, delta, causal):
+def _launch_dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
+    del o  # the inputs are _bwd_inputs', shared with dq
     B, Tq, Tkv, H, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dkv",
                         _DKV_ARGTYPES)
@@ -233,6 +258,19 @@ def _launch_dkv(dims, pad, q, k, v, g, lse, delta, causal):
     build.check(status, "flash_attention dk/dv launch")
     flash_attention_dkv.launches += 1
     return dk, dv
+
+
+def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
+    """What the compiler gave the kernel that `which` ("fwd", "dq", "dkv")
+    launches at this head_dim and dtype: registers and local-memory (spill)
+    bytes a thread, shared memory and threads a block. Needs the card."""
+    fn = build.function("flash_attention", "hyperion_flash_attrs",
+                        _ATTRS_ARGTYPES)
+    out = (ctypes.c_int * 4)()
+    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], D, _DTYPES[dtype],
+                   out), "flash_attention kernel attributes")
+    return {"registers": out[0], "spill_bytes": out[1],
+            "smem_bytes": out[2], "threads": out[3]}
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, padding_mask=None,
@@ -253,8 +291,9 @@ def flash_attention_dq(q, k, v, o, lse, g, *, causal=False,
                        padding_mask=None):
     """The dq kernel: dq in q's shape and dtype."""
     if _on_card("flash_attention_dq", q):
-        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
-        return _launch_dq(dims, pad, *ins, causal)
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
+                                     delta=not fused_delta(q))
+        return _launch_dq(dims, pad, *ins, causal)[0]
     return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                      padding_mask=padding_mask)[0]
 
@@ -266,7 +305,8 @@ def flash_attention_dkv(q, k, v, o, lse, g, *, causal=False,
                         padding_mask=None):
     """The dk/dv kernel: (dk, dv) in k's shape and dtype."""
     if _on_card("flash_attention_dkv", q):
-        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
+                                     delta=True)
         return _launch_dkv(dims, pad, *ins, causal)
     return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                      padding_mask=padding_mask)[1:]
@@ -277,14 +317,16 @@ flash_attention_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal=False,
                         padding_mask=None):
-    """(dq, dk, dv): both backward kernels on one delta on the card, the
-    plain backward on the CPU."""
+    """(dq, dk, dv): both backward kernels on one delta on the card (the
+    Hopper dq kernel computes it and hands it to dk/dv), the plain
+    backward on the CPU."""
     if not _on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                          padding_mask=padding_mask)
-    dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
-    dq = _launch_dq(dims, pad, *ins, causal)
-    dk, dv = _launch_dkv(dims, pad, *ins, causal)
+    dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
+                                 delta=not fused_delta(q))
+    dq, delta = _launch_dq(dims, pad, *ins, causal)
+    dk, dv = _launch_dkv(dims, pad, *ins[:-1], delta, causal)
     return dq, dk, dv
 
 

@@ -11,7 +11,9 @@ these cover the small, odd geometries: GQA, a shared prefix, a window
 running past the table, every head_dim the kernel takes, odd rows and
 widths, the widest LayerNorm row (64 KB of shared memory), a ragged
 vocab and the strided [B, T-1, V] logits view, every head_dim the
-flash kernels take, a ragged sequence, unequal query and key lengths.
+flash kernels take, a ragged sequence, unequal query and key lengths,
+the Hopper backward's edges (a sequence shorter than one tile, causal
+with unequal lengths, a padding tail per row) and its determinism.
 """
 
 from __future__ import annotations
@@ -266,11 +268,20 @@ def test_softmax_xent_refuses_out_of_range_targets(cuda):
     assert fused_softmax_xent_fwd.launches == before
 
 
-# flash attention: (B, Tq, Tkv, H, D, causal, padded fraction of keys)
+# flash attention: (B, Tq, Tkv, H, D, causal, padded fraction of keys —
+# one for every row, or one per row). bf16 at D 128 runs the Hopper
+# backward: T = 200 is no multiple of its 64- or 128-row tiles, T = 40 is
+# shorter than one tile, causal Tq != Tkv both ways, and two rows with
+# different padding tails.
 FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "full_d64": (2, 130, 130, 3, 64, False, 0.0),
                "ragged_causal_d32": (1, 77, 77, 2, 32, True, 0.1),
-               "cross_lengths_d64": (2, 70, 130, 2, 64, False, 0.2)}
+               "cross_lengths_d64": (2, 70, 130, 2, 64, False, 0.2),
+               "ragged_200_d128": (1, 200, 200, 2, 128, True, 0.25),
+               "short_40_d128": (1, 40, 40, 2, 128, True, 0.0),
+               "cross_causal_d128": (2, 70, 200, 2, 128, True, 0.2),
+               "cross_causal_long_q_d128": (1, 200, 130, 2, 128, True, 0.1),
+               "two_tails_d128": (2, 256, 256, 2, 128, True, (0.25, 0.1))}
 
 
 def _flash_inputs(dev, dtype, case, seed=45):
@@ -282,8 +293,10 @@ def _flash_inputs(dev, dtype, case, seed=45):
             for _ in range(2))
     pad = None
     if padded:
+        tails = padded if isinstance(padded, tuple) else (padded,) * B
         pad = torch.ones(B, Tkv, dtype=torch.int8, device=dev)
-        pad[:, int(Tkv * (1 - padded)):] = 0
+        for row, tail in enumerate(tails):
+            pad[row, int(Tkv * (1 - tail)):] = 0
     return q, k, v, o_g, pad, causal
 
 
@@ -327,6 +340,35 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
         _flash_close(out, ref, dtype, name)
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["causal_pad_d128", "two_tails_d128",
+                                  "cross_causal_d128", "ragged_causal_d32"])
+def test_flash_backward_is_deterministic(cuda, case, dtype):
+    """Two runs of the whole backward (one delta for both kernels; on the
+    bf16 D 128 path the dq kernel computes it) give the same bits, and
+    match the plain backward. No gradient row has two writers."""
+    q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, case, seed=47)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+    runs = [fa.flash_attention_bwd(q, k, v, o, lse, g, causal=causal,
+                                   padding_mask=pad) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                        padding_mask=pad)
+    for name, out, ref in zip(("dq", "dk", "dv"), runs[0], refs):
+        _flash_close(out, ref, dtype, name)
+
+
+def test_flash_hopper_backward_keeps_to_registers(cuda):
+    """The bf16 D 128 backward kernels are the warp-specialised ones (three
+    warpgroups) and spill nothing to local memory."""
+    for which in ("dq", "dkv"):
+        attrs = fa.kernel_attrs(which, 128, torch.bfloat16)
+        assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, attrs
+        assert attrs["smem_bytes"] <= 227 * 1024
 
 
 def test_flash_autograd_runs_the_three_kernels(cuda):
