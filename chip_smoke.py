@@ -15,17 +15,22 @@ script exits non-zero):
               tensors: paged attention at Llama-2-7B heads (decode [8,1],
               verify [8,5], prefill [1,512]) and 70B heads, bf16 and
               fp32, plus the null-block poison check; RMSNorm at
-              [8*512, 4096]; LayerNorm at [4096, 256] (bf16, fp32, with
-              and without residual) and [4096, 768]; cross-entropy
-              forward and backward at the train step's [32, 127, 50257]
-              fp32 logits view, its rows in bf16 and a ragged [37, 5003];
+              [8*512, 4096]; LayerNorm on its warp-a-row kernel at
+              [4096, 256] (bf16, fp32, with and without residual) and
+              [4096, 768], on its block-a-row kernel at [4096, 1001] and
+              a misaligned [4096, 256] view, each call's kernel named;
+              cross-entropy forward and backward at the train step's
+              [32, 127, 50257] fp32 logits view, its rows in bf16 and a
+              ragged [37, 5003];
               the norms' gradients through the kernels against the plain
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
               last quarter of the keys padding), at [2, 1024, 8, 128] fp32
-              causal and not, and at a ragged T = 1000, alone and through
-              `flash_attention_bwd` (two runs bit-identical), each with its
-              registers, spill and shared-memory bytes (the Hopper
+              causal and not, at a ragged T = 1000 and at [2, 200, 8,
+              128] bf16 with one batch row all padding, alone and through
+              `flash_attention_bwd` (two runs bit-identical, from the
+              forward kernel's own o and lse), each with its registers,
+              spill and shared-memory bytes (the Hopper forward and
               backward must not spill); the cross-entropy at Llama's
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
@@ -330,44 +335,54 @@ def ln_ulp_ok(out, ref) -> tuple[bool, float]:
     return bool(((ulps <= 1) | near_zero).all()), float(ulps.max())
 
 
-def check_ln(name, x, w, b, residual, timing: bool) -> dict:
+def check_ln(name, x, w, b, residual, path, timing: bool) -> dict:
+    """The LayerNorm kernel against its plain version, and that the call
+    took the kernel `path` ("warp" or "block") names. Timed with its
+    residual where it has one; no single PyTorch call adds a residual
+    before the norm, so that case has no library time."""
     from hyperion_tpu_torch.ops.fused_norm import (
         fused_layernorm,
         fused_layernorm_plain,
+        layernorm_path,
     )
 
     out = fused_layernorm(x, w, b, residual=residual, eps=1e-6)
     ref = fused_layernorm_plain(x, w, b, residual=residual, eps=1e-6)
     torch.cuda.synchronize()
     ok, worst = ln_ulp_ok(out, ref)
+    took = layernorm_path(x, w, b, residual=residual)
     rec = {"phase": "kernels", "kernel": "fused_layernorm", "case": name,
            "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
-           "residual": residual is not None,
+           "residual": residual is not None, "path": took,
            "max_abs_err": float((out.float() - ref.float()).abs().max()),
            "worst": worst,
            "tol": "1 ulp, at least 2^-16" if x.dtype == torch.bfloat16
-           else 2e-5, "ok": ok}
+           else 2e-5, "ok": ok and took == path}
     if timing:
         d = x.shape[-1]
         rows = x.numel() // d
-        nbytes = 2 * x.numel() * x.element_size() + 2 * 4 * d
+        ins = (x, w, b) if residual is None else (x, w, b, residual)
+        nbytes = (len(ins) - 1) * x.numel() * x.element_size() + 2 * 4 * d
         rec["kernel_ms"] = time_ms(
-            lambda xs, ws, bs: fused_layernorm(xs, ws, bs, eps=1e-6),
-            (x, w, b), nbytes)
+            lambda xs, ws, bs, *rs: fused_layernorm(
+                xs, ws, bs, residual=rs[0] if rs else None, eps=1e-6),
+            ins, nbytes)
         rec["plain_ms"] = time_ms(
-            lambda xs, ws, bs: fused_layernorm_plain(xs, ws, bs, eps=1e-6),
-            (x, w, b), nbytes)
+            lambda xs, ws, bs, *rs: fused_layernorm_plain(
+                xs, ws, bs, residual=rs[0] if rs else None, eps=1e-6),
+            ins, nbytes)
         # ~9 flops an element: add, subtract, square-add, scale, shift
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 9.0 * rows * d,
                                                  x.dtype)
-        rec["library_ms"] = time_ms(
+        rec["library_ms"] = None if residual is not None else time_ms(
             lambda xs, ws, bs: torch.nn.functional.layer_norm(
                 xs, (d,), ws, bs, 1e-6),
             (x, w.to(x.dtype), b.to(x.dtype)), nbytes)
     emit(rec)
-    if not ok:
+    if not rec["ok"]:
         raise AssertionError(f"fused_layernorm {name} {x.dtype}: {worst} "
-                             "over tolerance")
+                             f"over tolerance, or the {took} kernel where "
+                             f"the {path} kernel was due")
     return rec
 
 
@@ -546,21 +561,32 @@ def phase_kernels() -> dict:
         w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
         check_rms("prefill_8x512", x, w, timing=True)
 
-    # LayerNorm at the language_ddp train step's [B*T, d] = [4096, 256],
-    # and at the GPT-2-shaped width 768
+    # LayerNorm at the language_ddp train step's [B*T, d] = [4096, 256]
+    # and at the GPT-2-shaped width 768 (the warp-a-row kernel), at a
+    # width of no whole 16-byte chunk and on a misaligned view (the
+    # block-a-row kernel)
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
-    for d, dtypes in ((256, (torch.bfloat16, torch.float32)),
-                      (768, (torch.bfloat16,))):
+    for d, dtypes, path in ((256, (torch.bfloat16, torch.float32), "warp"),
+                            (768, (torch.bfloat16,), "warp"),
+                            (1001, (torch.bfloat16,), "block")):
         w = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
         b = 0.1 * torch.randn(d, generator=g, device="cuda")
         for dtype in dtypes:
             x, r = ((torch.randn(4096, d, generator=g, device="cuda") + 0.5)
                     .to(dtype) for _ in range(2))
-            rec = check_ln(f"train_4096x{d}", x, w, b, None, timing=True)
+            rec = check_ln(f"train_4096x{d}", x, w, b, None, path,
+                           timing=True)
             if d == 256 and dtype == torch.bfloat16:
                 recs["fused_layernorm"] = rec
             if d == 256:
-                check_ln(f"train_4096x{d}_residual", x, w, b, r,
+                check_ln(f"train_4096x{d}_residual", x, w, b, r, path,
+                         timing=True)
+                # a view one element into its buffer, off the 16-byte
+                # grid: timing would copy it aligned, so it is checked only
+                flat = torch.empty(4096 * d + 1, device="cuda", dtype=dtype)
+                view = flat[1:].view(4096, d)
+                view.copy_(x)
+                check_ln(f"misaligned_4096x{d}", view, w, b, None, "block",
                          timing=False)
     # cross-entropy at the train step's [32, 127, 50257] fp32 logits view
     # (4064 rows), the same rows contiguous in bf16, and a small ragged
@@ -608,14 +634,17 @@ def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
 
 def flash_case(B, T, H, D, dtype, pad_tail, seed):
     """q, k, v, dO [B, T, H, D] and a [B, T] key mask whose last
-    `pad_tail` of positions is padding (None for no mask)."""
+    `pad_tail` of positions is padding — one fraction for every batch row
+    or one per row (1.0: every key of the row) — None for no mask."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda")
                    .to(dtype) for _ in range(4))
     pad = None
     if pad_tail:
+        tails = pad_tail if isinstance(pad_tail, tuple) else (pad_tail,) * B
         pad = torch.ones(B, T, dtype=torch.int8, device="cuda")
-        pad[:, T - int(T * pad_tail):] = 0
+        for row, tail in enumerate(tails):
+            pad[row, T - int(T * tail):] = 0
     return q, k, v, do, pad
 
 
@@ -636,8 +665,9 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     `flash_attention_bwd` (one delta for both kernels; on the bf16 D 128
     path the dq kernel computes it), whose two runs must be bit-identical;
     each kernel's registers, spill and shared-memory bytes, and no spill
-    on the Hopper backward. With `timing`, kernel, plain, bound and
-    library times, and the whole backward against SDPA's in turns.
+    on the Hopper kernels (bf16 at D 128, forward and backward). With
+    `timing`, kernel, plain, bound and library times, and the whole
+    backward against SDPA's in turns.
     Returns the three kernel records."""
     from hyperion_tpu_torch.ops import flash_attention as fa
 
@@ -675,11 +705,11 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         which = kn.split("_")[-1]
         attrs = fa.kernel_attrs(which, D, dtype)
         ok = all(ok for ok, _ in c)
+        # the Hopper kernels (bf16, D 128) keep everything in registers
+        ok = ok and not (fa.hopper_forward(q) and attrs["spill_bytes"])
         if which != "fwd":
-            # two runs of the backward agree to the bit; the Hopper kernels
-            # (bf16, D 128) keep everything in registers
-            ok = ok and deterministic and not (fa.fused_delta(q)
-                                               and attrs["spill_bytes"])
+            # two runs of the backward agree to the bit
+            ok = ok and deterministic
         recs[kn] = {**base, "kernel": kn, **attrs,
                     "max_abs_err": max(e for _, e in c), "ok": ok}
     for kn in ("flash_attention_dq", "flash_attention_dkv"):
@@ -780,7 +810,8 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
 def phase_flash() -> dict:
     """The flash kernels at the Llama-2-7B train step ([1, 4096, 32, 128]
     bf16, causal, the last quarter of the keys padding), fp32 causal and
-    not at [2, 1024, 8, 128], and a ragged T = 1000; the cross-entropy at
+    not at [2, 1024, 8, 128], a ragged T = 1000, and [2, 200, 8, 128] bf16
+    with one batch row all padding; the cross-entropy at
     Llama's [1, 4095, 32000] fp32 logits view. Returns the train step's
     records for the `kernels` line."""
     recs = check_flash("llama_train_step", *flash_case(
@@ -795,6 +826,13 @@ def phase_flash() -> dict:
     check_flash("ragged_1000", *flash_case(
         1, 1000, 8, 128, torch.bfloat16, 0.1, SEED + 22), causal=True,
         timing=True)
+    # the Hopper forward's edges: T = 200, no multiple of its 128-row
+    # blocks, and a batch row whose keys are all padding (every s NEG_INF,
+    # o the mean of v over the keys; not causal, where the tiles a row
+    # visits would decide it)
+    check_flash("all_pad_row_200", *flash_case(
+        2, 200, 8, 128, torch.bfloat16, (1.0, 0.1), SEED + 24), causal=False,
+        timing=False)
     check_ce("llama_step_view_1x4095", *ce_case(
         1, 4095, 32000, torch.float32, SEED + 23, strided=True), timing=True)
     gc.collect()
@@ -1464,7 +1502,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict,
                     "library_ms": rec["library_ms"],
                     "checked": rec["ok"], "shape": rec["shape"],
                     "dtype": rec["dtype"],
-                    **{key: rec[key] for key in ATTR_KEYS if key in rec}})
+                    **{key: rec[key] for key in (*ATTR_KEYS, "path")
+                       if key in rec}})
     return {"kernels": out}
 
 

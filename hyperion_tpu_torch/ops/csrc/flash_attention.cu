@@ -15,20 +15,26 @@
 //   p . v, which accumulates in fp32; o = acc / max(l, 1e-30) cast to the
 //   input dtype; lse = m + log(max(l, 1e-30)), written only when asked
 //   for. Backward from the saved lse and delta = sum(dO * O) (computed by
-//   the caller, or by the bf16 D = 128 dq kernel): p = exp(s - lse), dp = dO . v^T, ds = p * (dp - delta),
-//   dq = scale * ds->dtype . k, dv = p->dtype^T . dO, dk = scale *
-//   ds->dtype^T . q, each cast to the input dtype. Key columns past Tkv
-//   (the ragged last tile) are left out entirely (p = 0); rows whose keys
-//   are all masked give garbage, as the reference documents.
+//   the caller, or by the bf16 D = 128 dq kernel): p = exp(s - lse),
+//   dp = dO . v^T, ds = p * (dp - delta), dq = scale * ds->dtype . k,
+//   dv = p->dtype^T . dO, dk = scale * ds->dtype^T . q, each cast to the
+//   input dtype. Key columns past Tkv (the ragged last tile) are left out
+//   entirely (p = 0). A row whose keys are all padding has every s at
+//   NEG_INF, so its o is the mean of v over the Tkv keys; under a causal
+//   mask the tiles past its frontier are skipped, so its o depends on the
+//   tiling: garbage, as the reference documents.
 //
 // Bound on the H100: operations. At the Llama-2-7B train step ([1, 4096,
 // 32, 128] bf16, causal, the last 1024 keys padding) the forward's two
 // products over the kept (query, key) pairs are 1.29e11 flops, 0.130 ms at
 // 989 TFLOP/s, against 134 MB of bytes (0.040 ms); dq's three products
-// (s, dp, dq) 0.196 ms and dk/dv's four (s, dp, dv, dk) 0.261 ms.
+// (s, dp, dq) 0.196 ms and dk/dv's four (s, dp, dv, dk) 0.261 ms. Every
+// design below therefore works at keeping the tensor cores fed: operands
+// reach them from shared memory filled by TMA (or from registers), and
+// the softmax arithmetic runs beside the products, not between them.
 //
-// Forward, and the backward in fp32 and in bf16 at D = 32 and 64 (right
-// and simple first):
+// fp32, and bf16 at D = 32 and 64 (`flash_fwd_kernel`, `flash_dq_kernel`,
+// `flash_dkv_kernel`; right and simple first):
 //   * One block of 4 warps per (tile, head, batch). The forward and dq
 //     kernels take a 64-row query tile and loop over 64-row key tiles up
 //     to the causal frontier: the loop replaces the TPU's ordered kv grid
@@ -48,38 +54,52 @@
 //   * Shared memory above 48 KB is opted in (up to ~170 KB for fp32 dk/dv
 //     at D = 128).
 //
-// Backward in bf16 at D = 128 (`flash_dq_kernel_sm90`,
+// bf16 at D = 128 (`flash_fwd_kernel_sm90`, `flash_dq_kernel_sm90`,
 // `flash_dkv_kernel_sm90`), built from sm90.cuh for the tensor cores'
 // full rate:
 //   * A block of three warpgroups per (head, 128-row tile, batch): two
 //     consumers of 64 rows each and a producer, whose first warp issues
-//     every TMA load. The block's own 128 rows (k and v for dk/dv; q and
-//     dO for dq) stay resident in shared memory; the other side's 64-row
-//     tiles stream through a 2-stage ring with full/empty mbarriers, so
-//     the next tile's loads overlap this tile's products. ~130 KB of
-//     shared memory: one block an SM.
+//     every TMA load. The block's own 128 rows (q for the forward; q and
+//     dO for dq; k and v for dk/dv) stay resident in shared memory; the
+//     other side's tiles stream through a ring with full/empty mbarriers,
+//     so the next tiles' loads overlap this tile's products. The forward
+//     streams 128-key tiles through three stages (~227 KB), the backward
+//     64-row tiles through two (~130 KB): one block an SM.
 //   * TMA reads [B, T, H, D] in place as a 4-D map (D, H, T, B), boxes of
 //     64 columns under the 128-byte swizzle; rows past T arrive as zeros,
 //     so a ragged T needs no bound check. The maps are encoded on the host
 //     at each launch and passed as __grid_constant__ parameters.
+//   * forward: s = q . k^T on wgmma m64n128k16 with q's A fragments in
+//     registers (read once from the resident tile) and k K-major in shared
+//     memory; the online softmax in registers (running max, per-thread
+//     partial sums, exp2 with the scale folded in); the m64n128 fp32
+//     accumulator is, element for element, the bf16 A fragment of
+//     o += p . v, whose B (v) is read MN-major through the descriptor's
+//     transpose bit. Each consumer issues tile j's s product and tile
+//     j - 1's p . v together, then runs tile j's softmax while p . v runs;
+//     and the two consumers take turns at the tensor cores (a named-
+//     barrier ping-pong), so one's softmax runs beside the other's
+//     products. No wgmma sits under a condition (ptxas would serialise
+//     them). Rows whose keys are all padding take every tile, so their o
+//     is the plain version's mean of v.
 //   * dk/dv: s^T = k . q^T and dp^T = v . dO^T run on wgmma m64n64k16 with
 //     both operands K-major in shared memory, as they lie in [T, D]. p^T
-//     and ds^T stay in registers: the m64n64 accumulator is, element for
-//     element, the bf16 A fragment of the next wgmma, so dv += p^T . dO and
-//     dk += ds^T . q run on wgmma m64n128k16 with A from registers and B (dO,
-//     q) read MN-major through the descriptor's transpose bit. The dk and
-//     dv accumulators are 64 + 64 floats a consumer thread; setmaxnreg
-//     gives the consumers 240 registers and the producer 24.
+//     and ds^T stay in registers as the A fragments of dv += p^T . dO and
+//     dk += ds^T . q (wgmma m64n128k16, B = dO or q read MN-major). The dk
+//     and dv accumulators are 64 + 64 floats a consumer thread; setmaxnreg
+//     gives the consumers 240 registers and the producer 24, as in the
+//     forward and dq.
 //   * dq: s = q . k^T and dp = dO . v^T likewise, dq += ds . k with k read
 //     MN-major. The dq block also computes delta = sum(dO * O) for its
 //     rows in its prologue (dO from the resident tile, O read once) and
 //     writes it for the dk/dv launch that follows on the same stream.
-//   * Two kernels, no atomics: every gradient row has one writer, so two
-//     launches give bit-identical results. The cost is two recomputed
-//     products (seven against a fused kernel's five).
+//   * Two backward kernels, no atomics: every gradient row has one
+//     writer, so two launches give bit-identical results. The cost is two
+//     recomputed products (seven against a fused kernel's five).
 //   * Only edge tiles (the diagonal, padded or ragged keys, a ragged query
-//     tail) take the per-element mask; a consumer skips a tile wholly past
-//     its causal frontier. p = exp2(s * scale * log2(e) - lse * log2(e)).
+//     tail) take the per-element mask; a backward consumer skips a tile
+//     wholly past its causal frontier. p = exp2(s * scale * log2(e) -
+//     m * log2(e)) (lse in place of m in the backward).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -613,6 +633,23 @@ struct DqSmem {
   uint64_t qd_full, full[kStages], empty[kStages];
 };
 
+// the forward streams 128-key tiles (boxes of 128 rows x 64 columns)
+// through three stages: a consumer holds two at once (k of tile it, v of
+// tile it - 1), so the third is the one being loaded. 226.6 KB with q,
+// just under the 227 KB a block may have.
+constexpr int kFwdKeys = 128;
+constexpr int kFwdBox = kFwdKeys * 128;
+constexpr int kFwdStages = 3;
+
+struct FwdSmem {
+  uint8_t q[2 * kHalf];  // the block's 128 query rows: [consumer][box]
+  uint8_t k[kFwdStages][2 * kFwdBox];  // a 128-row key tile: [box]
+  uint8_t v[kFwdStages][2 * kFwdBox];
+  int keep[kFwdStages][kFwdKeys];  // key kept (in range and not padding)
+  int all_keep[kFwdStages];
+  uint64_t q_full, full[kFwdStages], empty[kFwdStages];
+};
+
 // the block's shared memory, its start rounded up to 1024 bytes (the
 // swizzle's period); the launch asks for sizeof(S) + 1024
 template <typename S>
@@ -622,16 +659,19 @@ __device__ __forceinline__ S& smem_block() {
   return *reinterpret_cast<S*>(smem_ws + off);
 }
 
-// K-major operand: a 64-row tile of D = 128 columns (two boxes); k-step kk
-// covers columns 16kk .. 16kk + 15
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return sm90::desc_sw128(tile + (kk >> 2) * kBox + (kk & 3) * 32, 16, 1024);
+// K-major operand: a tile of D = 128 columns (two boxes of `box` bytes:
+// 64 rows, or 128 for the forward's key tiles); k-step kk covers columns
+// 16kk .. 16kk + 15
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk,
+                                           int box = kBox) {
+  return sm90::desc_sw128(tile + (kk >> 2) * box + (kk & 3) * 32, 16, 1024);
 }
 
 // MN-major operand: the same tile read with its rows as k; k-step kk
 // covers rows 16kk .. 16kk + 15, all 128 columns (the second box lbo on)
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return sm90::desc_sw128(tile + kk * 2048, kBox, 1024);
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk,
+                                            int box = kBox) {
+  return sm90::desc_sw128(tile + kk * 2048, box, 1024);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -645,11 +685,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// the m64n64 accumulator (fp32) as the bf16 A fragments of four k16 steps
-__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
-                                           const float (&acc)[32]) {
+// the m64nN accumulator (fp32) as the bf16 A fragments of N / 16 k16 steps
+template <int K>
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[K][4],
+                                           const float (&acc)[8 * K]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       a[kk][r] = pack_bf16(acc[8 * kk + 2 * r], acc[8 * kk + 2 * r + 1]);
@@ -663,7 +704,293 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
+// One step of the forward's online softmax over a 64 x 128 tile of raw
+// scores `sc` (the m64n128 accumulator: this thread's rows qr[0], qr[1],
+// columns col0 + 8j + (e & 1) of the tile's keys): the running max m
+// (natural units) moves to the tile's, alpha = exp(m_old - m_new) comes
+// back for the caller's rescale of o, sc becomes p = exp(s - m) in fp32,
+// and this thread's partial row sums l = l * alpha + sum(p). Interior
+// tiles take the raw scores' max times scale (the same value, scale > 0)
+// and fold the scale into one fma: s * scale * log2(e) - m * log2(e).
+// Edge tiles take the per-element mask, whose NEG_INF and -inf entries
+// need the plain difference (NEG_INF - NEG_INF = 0 exactly).
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[kFwdKeys / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    bool interior, const int* keep, const int (&qr)[2], int col0, int Tq,
+    int Tkv, int causal, float scale) {
+  float mx[2] = {-INFINITY, -INFINITY};
+  if (interior) {
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 2; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    mx[0] *= scale;
+    mx[1] *= scale;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFwdKeys / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * j + (e & 1);  // key index
+        const float x = masked(sc[4 * j + e] * scale, qr[e >> 1], col, Tq,
+                               Tkv, causal, keep[col & (kFwdKeys - 1)]);
+        sc[4 * j + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(m[i], quad_max(mx[i]));
+    alpha[i] = ex2((m[i] - mn) * kLog2e);
+    m[i] = mn;
+  }
+  float rs[2] = {0.f, 0.f};
+  if (interior) {
+    const float mb[2] = {m[0] * kLog2e, m[1] * kLog2e};
+    const float sl2 = scale * kLog2e;
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 2; ++i) {
+      sc[i] = ex2(fmaf(sc[i], sl2, -mb[(i >> 1) & 1]));
+      rs[(i >> 1) & 1] += sc[i];
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kFwdKeys / 2; ++i) {
+      sc[i] = ex2((sc[i] - m[(i >> 1) & 1]) * kLog2e);
+      rs[(i >> 1) & 1] += sc[i];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+}
+
 }  // namespace wgp
+
+// o (and lse) for 128 query rows of one head: each consumer owns 64 query
+// rows and walks the 128-key tiles up to the block's causal frontier,
+// computing s = q . k^T (wgmma, q from registers, k K-major in shared
+// memory), the online softmax in registers, then o += p . v (A from
+// registers, v read MN-major). The running max m, the per-thread partial
+// sum l and the 64 o accumulators stay in registers across tiles; l is
+// summed over the row's quad once, in the epilogue.
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const int* __restrict__ pad, bf16* __restrict__ o,
+                      float* __restrict__ lse, int Tq, int Tkv, int H,
+                      int causal, float scale) {
+  using namespace wgp;
+  FwdSmem& sm = smem_block<FwdSmem>();
+  const int h = blockIdx.x, b = blockIdx.z;
+  // causal: the last query blocks see the most key tiles; launch them first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
+  const int n_kv = (Tkv + kFwdKeys - 1) / kFwdKeys;
+  const int n_tiles =
+      causal ? min(n_kv, min(q0 + 127, Tq - 1) / kFwdKeys + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kFwdStages; ++s) {
+      sm90::mbar_init(&sm.full[s], 32);
+      sm90::mbar_init(&sm.empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kHalf);
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            sm90::tma_load_4d(sm.q + w * kHalf + x * kBox, &tq, &sm.q_full,
+                              64 * x, h, q0 + 64 * w, b);
+          }
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kFwdStages;
+        sm90::mbar_wait(&sm.empty[s], ((it / kFwdStages) & 1) ^ 1);
+        const int k0 = it * kFwdKeys;
+        bool all = true;
+#pragma unroll
+        for (int part = 0; part < kFwdKeys / 32; ++part) {
+          const int j = lane + 32 * part;
+          const int key = k0 + j;
+          const bool kp = key < Tkv &&
+                          (pad == nullptr ||
+                           pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+          sm.keep[s][j] = kp;
+          all = all && kp;
+        }
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) {
+          sm.all_keep[s] = all;
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 4 * kFwdBox);
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            sm90::tma_load_4d(sm.k[s] + x * kFwdBox, &tk, &sm.full[s], 64 * x,
+                              h, k0, b);
+            sm90::tma_load_4d(sm.v[s] + x * kFwdBox, &tv, &sm.full[s], 64 * x,
+                              h, k0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int row0 = q0 + 64 * wg;     // the consumer's first query row
+    const int qw = row0 + 16 * warp;   // the warp's first query row
+    const int qr[2] = {qw + g, qw + g + 8};
+
+    float acc[64];
+    zero(acc);
+    // m starts at NEG_INF, not -inf: a first tile wholly masked then
+    // gives alpha = exp(0), never exp(-inf + inf)
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    sm90::mbar_wait(&sm.q_full, 0);
+    // this warp's 16 query rows as the bf16 A fragments of the 8 k16 steps
+    // of s = q . k^T, read once from the swizzled tile: the product then
+    // reads only k from shared memory
+    uint32_t qa[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = 16 * warp + g + 8 * (r & 1);
+        const int col = 16 * kk + 2 * c + 8 * (r >> 1);
+        const int cb = col & 63;  // column within its 64-column box
+        qa[kk][r] = *reinterpret_cast<const uint32_t*>(
+            sm.q + wg * kHalf + (col >> 6) * kBox + row * 128 +
+            (((cb >> 3) ^ (row & 7)) << 4) + (cb & 7) * 2);
+      }
+    }
+
+    // Both consumers walk all of the block's key tiles (keys past consumer
+    // 0's causal frontier come out masked, p = 0), so they take turns at
+    // the tensor cores: named barrier 1 + w is consumer w's turn. In its
+    // turn a consumer issues tile it's s = q . k^T and then o += p . v of
+    // tile it - 1, and hands the turn over; its softmax of tile it then
+    // runs while the other consumer's products do, and only its rescale
+    // of o waits for its own p . v. Consumer 0 goes first. No wgmma sits
+    // under a condition: ptxas serialises wgmma on a path it cannot prove
+    // uniform.
+    const int turn = 1 + wg, other = 2 - wg;
+    if (wg == 1) sm90::named_arrive(1, 256);
+    uint32_t pa[kFwdKeys / 16][4];
+    float sc[kFwdKeys / 2];
+    float alpha[2];
+    {  // tile 0: s only
+      sm90::mbar_wait(&sm.full[0], 0);
+      const uint32_t k_tile = sm90::smem_u32(sm.k[0]);
+      sm90::named_sync(turn, 256);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
+                                  kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::named_arrive(other, 256);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      const bool interior = kFwdKeys <= Tkv && sm.all_keep[0] != 0 &&
+                            (!causal || kFwdKeys - 1 <= qw);
+      online_softmax(sc, m, l, alpha, interior, sm.keep[0], qr, 2 * c, Tq,
+                     Tkv, causal, scale);
+      to_a_frags(pa, sc);  // o is still zero: no rescale
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int s = it % kFwdStages;
+      const int k0 = it * kFwdKeys;
+      sm90::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
+      const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
+      const uint32_t v_prev = sm90::smem_u32(sm.v[(it - 1) % kFwdStages]);
+      sm90::named_sync(turn, 256);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
+                                  kk > 0);
+      }
+      sm90::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk],
+                                     desc_mn(v_prev, kk, kFwdBox));
+      }
+      sm90::wgmma_commit();
+      sm90::named_arrive(other, 256);
+      sm90::wgmma_wait<1>();  // s is ready; p . v runs on
+      sm90::fence_regs(sc);
+
+      // only edge tiles (the diagonal, padded or ragged keys) take the
+      // per-element mask
+      const bool interior = k0 + kFwdKeys <= Tkv && sm.all_keep[s] != 0 &&
+                            (!causal || k0 + kFwdKeys - 1 <= qw);
+      online_softmax(sc, m, l, alpha, interior, sm.keep[s], qr, k0 + 2 * c,
+                     Tq, Tkv, causal, scale);
+
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      sm90::mbar_arrive(&sm.empty[(it - 1) % kFwdStages]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      to_a_frags(pa, sc);
+    }
+    {  // the last tile's o += p . v
+      const int s = (n_tiles - 1) % kFwdStages;
+      const uint32_t v_tile = sm90::smem_u32(sm.v[s]);
+      sm90::named_sync(turn, 256);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk],
+                                     desc_mn(v_tile, kk, kFwdBox));
+      }
+      sm90::wgmma_commit();
+      sm90::named_arrive(other, 256);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      sm90::mbar_arrive(&sm.empty[s]);
+    }
+    // consumer 1's last hand-over has no turn of consumer 0 to open:
+    // take it, so that both barriers end balanced
+    if (wg == 0) sm90::named_sync(1, 256);
+
+    const int64_t stride = static_cast<int64_t>(H) * kD;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+      if (qr[i] < Tq) {
+        if (lse != nullptr && c == 0) {
+          lse[(static_cast<int64_t>(b) * H + h) * Tq + qr[i]] = m[i] + logf(l[i]);
+        }
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * kD;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          put2(o + row + 8 * j + 2 * c, acc[4 * j + 2 * i] / l[i],
+               acc[4 * j + 2 * i + 1] / l[i]);
+        }
+      }
+    }
+  }
+}
 
 // dk, dv for 128 key rows of one head: each consumer owns 64 key rows and
 // walks the query tiles from the causal diagonal down, computing
@@ -1162,18 +1489,28 @@ cudaError_t run(int which, const Args& a, cudaStream_t s) {
                 static_cast<T*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
 
-// the Hopper backward (bf16, D = 128): the tensor maps are encoded on the
+// the Hopper kernels (bf16, D = 128): the tensor maps are encoded on the
 // host at every launch and passed by value
 cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
+  // the forward streams 128-row key tiles, the backward 64-row ones
+  const int kv_rows = which == 0 ? wgp::kFwdKeys : 64;
   if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, wgp::kD, 64)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, wgp::kD, 64)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess) {
+      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, wgp::kD, kv_rows)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, wgp::kD, kv_rows)) != cudaSuccess) {
     return e;
   }
   const int* pad = static_cast<const int*>(a.pad);
+  if (which == 0) {
+    return launch(flash_fwd_kernel_sm90, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                  wgp::kThreads, sizeof(wgp::FwdSmem) + 1024, s, mq, mk, mv,
+                  pad, static_cast<bf16*>(a.out_o), static_cast<float*>(a.lse),
+                  a.Tq, a.Tkv, a.H, a.causal, a.scale);
+  }
+  if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess) {
+    return e;
+  }
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
     if (a.o == nullptr) return cudaErrorInvalidValue;  // delta is computed here
@@ -1190,19 +1527,20 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
                 a.H, a.causal, a.scale);
 }
 
-// bf16 backward at D = 128 takes the Hopper kernels; fp32 (bit parity
-// with the plain version) and bf16 at D = 32 and 64 keep the mma.sync /
-// FMA kernels above
-bool uses_sm90(int which, int D, int dtype) {
-  return which != 0 && dtype == 1 && D == wgp::kD;
-}
+// bf16 at D = 128 takes the Hopper kernels; fp32 (bit parity with the
+// plain version) and bf16 at D = 32 and 64 keep the mma.sync / FMA
+// kernels above
+bool uses_sm90(int D, int dtype) { return dtype == 1 && D == wgp::kD; }
 
+// bf16 at D = 128 is the Hopper kernels' (uses_sm90): not instantiated here
 template <typename T>
 cudaError_t run_d(int which, int D, const Args& a, cudaStream_t s) {
   switch (D) {
     case 32: return run<T, 32>(which, a, s);
     case 64: return run<T, 64>(which, a, s);
-    case 128: return run<T, 128>(which, a, s);
+    case 128:
+      if constexpr (std::is_same<T, bf16>::value) return cudaErrorInvalidValue;
+      else return run<T, 128>(which, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1210,7 +1548,7 @@ cudaError_t run_d(int which, int D, const Args& a, cudaStream_t s) {
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uses_sm90(which, D, dtype)) return static_cast<int>(run_sm90(which, a, s));
+  if (uses_sm90(D, dtype)) return static_cast<int>(run_sm90(which, a, s));
   if (dtype == 0) return static_cast<int>(run_d<float>(which, D, a, s));
   if (dtype == 1) return static_cast<int>(run_d<bf16>(which, D, a, s));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1230,7 +1568,9 @@ cudaError_t kernel_of_d(int which, int D, const void** fn, size_t* smem) {
   switch (D) {
     case 32: return kernel_of<T, 32>(which, fn, smem);
     case 64: return kernel_of<T, 64>(which, fn, smem);
-    case 128: return kernel_of<T, 128>(which, fn, smem);
+    case 128:
+      if constexpr (std::is_same<T, bf16>::value) return cudaErrorInvalidValue;
+      else return kernel_of<T, 128>(which, fn, smem);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1285,11 +1625,14 @@ extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
   size_t smem = 0;
   int threads = kThreads;
   cudaError_t e = cudaSuccess;
-  if (uses_sm90(which, D, dtype)) {
+  if (uses_sm90(D, dtype)) {
     threads = wgp::kThreads;
-    fn = which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90)
-                    : reinterpret_cast<const void*>(flash_dkv_kernel_sm90);
-    smem = (which == 1 ? sizeof(wgp::DqSmem) : sizeof(wgp::DkvSmem)) + 1024;
+    fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90)
+         : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90)
+                      : reinterpret_cast<const void*>(flash_dkv_kernel_sm90);
+    smem = (which == 0   ? sizeof(wgp::FwdSmem)
+            : which == 1 ? sizeof(wgp::DqSmem)
+                         : sizeof(wgp::DkvSmem)) + 1024;
   } else if (dtype == 0) {
     e = kernel_of_d<float>(which, D, &fn, &smem);
   } else if (dtype == 1) {

@@ -4,8 +4,8 @@
 // Replaces: hyperion_tpu/ops/pallas/fused_norm.py
 //   * `fused_rmsnorm` -> `_row_blocked_call` -> `_rms_kernel`;
 //   * `fused_layernorm` -> `_forward` -> `_row_blocked_call` -> `_kernel`
-//     (with residual) / `_kernel_no_res` (without): one kernel here, the
-//     residual pointer may be null.
+//     (with residual) / `_kernel_no_res` (without): two kernels here by
+//     row width (below), each taking a null residual pointer.
 //
 // Bound on the H100: bytes. Per row each reads d inputs (2d with a
 // residual) and writes d outputs, doing ~4 (RMS) or ~9 (Layer) flops an
@@ -13,19 +13,31 @@
 // compute could matter. The least time is the bytes moved over
 // 3.35 TB/s: a [4096, 256] bf16 LayerNorm moves 4.2 MB, ~1.3 us.
 //
-// Design: one block per row, so a row's sums are block reductions (warp
-// shuffles, then one shared-memory step) and no row crosses blocks.
-// Loads are coalesced: thread i touches elements i, i + blockDim, ...
-//   * RMSNorm: pass 1 sums squares in fp32; pass 2 re-reads x (from
-//     L1/L2: a 4096-wide bf16 row is 8 KB) and writes y.
-//   * LayerNorm: pass 1 stages x (+ residual) in fp32 in shared memory
-//     (d floats, at most 64 KB for d = 16384) and sums it; pass 2 sums
-//     squared deviations from the mean over the staged row — the
-//     reference's two-pass variance, not E[x^2] - E[x]^2; pass 3 writes
-//     (x - mean) * rsqrt(var + eps) * w + b. HBM sees each input once.
-// Vectorised 16-byte loads and several rows a block for narrow rows
-// (d = 256 leaves most of a 256-thread block's time in its two
-// reductions) are later work.
+// Design.
+//   * RMSNorm: one block per row, so a row's sum of squares is a block
+//     reduction (warp shuffles, then one shared-memory step); pass 1 sums
+//     squares in fp32, pass 2 re-reads x (from L1/L2: a 4096-wide bf16 row
+//     is 8 KB) and writes y.
+//   * LayerNorm, rows up to 1024 wide of whole 16-byte chunks, every
+//     pointer 16-byte aligned (`layernorm_warp_kernel`; language_ddp's
+//     [4096, 256]): one warp per row, 8 rows a 256-thread block. Each lane
+//     loads its 16-byte chunks of x (and the residual, added as it
+//     arrives), coalesced across the warp, and keeps them in fp32
+//     registers (at most 32 a lane); the mean and then the squared
+//     deviations from it — the reference's two-pass variance, not
+//     E[x^2] - E[x]^2 — are summed with warp shuffles alone: no shared
+//     memory, no block barrier. w and b come as 16-byte loads (the same
+//     columns every row, so from L1), y goes out as 16-byte stores. At
+//     d = 256 a lane holds one chunk (8 bf16) and HBM sees each byte once.
+//   * LayerNorm, any other call (`layernorm_kernel`: wider rows up to
+//     16384, widths of no whole 16-byte chunk, misaligned views): one block
+//     per row; pass 1 stages x (+ residual) in fp32 in shared memory (d
+//     floats, at most 64 KB) and sums it, pass 2 sums squared deviations
+//     over the staged row, pass 3 writes (x - mean) * rsqrt(var + eps) * w
+//     + b. Its two block reductions dominate at narrow widths, which is why
+//     narrow rows take the warp kernel.
+// Both LayerNorm kernels round the output op by op (__fmul_rn, __fadd_rn),
+// then cast once, as the reference does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -118,10 +130,160 @@ layernorm_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 }
 
+// ------------------------------------------------- LayerNorm, a warp a row
+
+constexpr int kWarpMaxD = 1024;  // widest row the warp kernel holds in registers
+constexpr int kRowsPerBlock = kThreads / 32;
+
+// 16 bytes of T (8 bf16 or 4 fp32) to and from fp32
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One warp a row, kRowsPerBlock rows a block. Lane `lane` holds the row's
+// 16-byte chunks lane, lane + 32, ... (at most kChunks) in fp32 registers:
+// every load and store is one coalesced 16-byte access a lane, and both
+// sums are warp shuffles, with no shared memory and no block barrier.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kThreads)
+layernorm_warp_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                      const float* __restrict__ w, const float* __restrict__ b,
+                      T* __restrict__ y, long long rows, int d, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= rows) return;  // a whole warp: the shuffles below stay full
+  const int n = d / kVec;  // chunks a row
+  const T* xr = x + r * d;
+  const T* rr = res == nullptr ? nullptr : res + r * d;
+  T* yr = y + r * d;
+
+  float v[kChunks][kVec];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch < n) {
+      load16(xr + ch * kVec, v[i]);
+      if (rr != nullptr) {
+        float t[kVec];
+        load16(rr + ch * kVec, t);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[i][e] += t[e];
+      }
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s += v[i][e];
+    }
+  }
+  const float mean = warp_sum(s) / (float)d;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    if (lane + 32 * i < n) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float c = v[i][e] - mean;
+        ss = fmaf(c, c, ss);
+      }
+    }
+  }
+  const float inv = 1.f / sqrtf(warp_sum(ss) / (float)d + eps);
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch < n) {
+      float out[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; e += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(w + ch * kVec + e);
+        const float4 b4 = *reinterpret_cast<const float4*>(b + ch * kVec + e);
+        const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          // rounded op by op, as in layernorm_kernel
+          const float t = __fmul_rn(__fmul_rn(v[i][e + f] - mean, inv), wv[f]);
+          out[e + f] = __fadd_rn(t, bv[f]);
+        }
+      }
+      store16(yr + ch * kVec, out);
+    }
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// the warp kernel takes rows of whole 16-byte chunks, up to kWarpMaxD
+// wide, with every pointer 16-byte aligned (a null residual is); any
+// other call takes layernorm_kernel
+template <typename T>
+bool warp_path(const void* x, const void* res, const void* w, const void* b,
+               const void* y, int d) {
+  return d % (16 / sizeof(T)) == 0 && d <= kWarpMaxD && aligned16(x) &&
+         aligned16(res) && aligned16(w) && aligned16(b) && aligned16(y);
+}
+
+template <typename T, int kChunks>
+cudaError_t launch_layernorm_warp(const void* x, const void* res,
+                                  const void* w, const void* b, void* y,
+                                  long long rows, int d, float eps,
+                                  cudaStream_t s) {
+  constexpr int kMax = kWarpMaxD / (32 * (16 / sizeof(T)));
+  const int chunks = (d / (16 / static_cast<int>(sizeof(T))) + 31) / 32;
+  if constexpr (kChunks < kMax) {
+    if (chunks > kChunks) {
+      return launch_layernorm_warp<T, 2 * kChunks>(x, res, w, b, y, rows, d,
+                                                   eps, s);
+    }
+  }
+  const unsigned blocks =
+      static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock);
+  layernorm_warp_kernel<T, kChunks><<<blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res),
+      static_cast<const float*>(w), static_cast<const float*>(b),
+      static_cast<T*>(y), rows, d, eps);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------- LayerNorm, a block a row
+
 template <typename T>
 cudaError_t launch_layernorm(const void* x, const void* res, const void* w,
                              const void* b, void* y, long long rows, int d,
                              float eps, cudaStream_t s) {
+  if (warp_path<T>(x, res, w, b, y, d)) {
+    return launch_layernorm_warp<T, 1>(x, res, w, b, y, rows, d, eps, s);
+  }
   const size_t smem = static_cast<size_t>(d) * sizeof(float);
   if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic smem
     cudaError_t e = cudaFuncSetAttribute(
@@ -160,7 +322,9 @@ extern "C" int hyperion_fused_rmsnorm(const void* x, const void* w, void* y,
 }
 
 // dtype: 0 = float32, 1 = bfloat16. x, residual (may be null), y:
-// [rows, d] contiguous in dtype; w, b: [d] fp32; d <= 16384.
+// [rows, d] contiguous in dtype; w, b: [d] fp32; d <= 16384. Launches
+// layernorm_warp_kernel where hyperion_layernorm_path says so, else
+// layernorm_kernel.
 extern "C" int hyperion_fused_layernorm(const void* x, const void* residual,
                                         const void* w, const void* b, void* y,
                                         long long rows, int d, float eps,
@@ -176,4 +340,15 @@ extern "C" int hyperion_fused_layernorm(const void* x, const void* residual,
         x, residual, w, b, y, rows, d, eps, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Which LayerNorm kernel hyperion_fused_layernorm launches for these
+// arguments: 1 the warp-a-row kernel, 0 the block-a-row kernel, -1 an
+// unknown dtype.
+extern "C" int hyperion_layernorm_path(const void* x, const void* residual,
+                                       const void* w, const void* b,
+                                       const void* y, int d, int dtype) {
+  if (dtype == 0) return warp_path<float>(x, residual, w, b, y, d) ? 1 : 0;
+  if (dtype == 1) return warp_path<__nv_bfloat16>(x, residual, w, b, y, d) ? 1 : 0;
+  return -1;
 }

@@ -23,9 +23,10 @@ Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
 when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
-`csrc/flash_attention.cu` or raises. The bf16 backward at D = 128 runs
-that file's Hopper kernels (wgmma, TMA, warp-specialised); fp32 and the
-other head dims run its first, mma.sync and FMA, kernels.
+`csrc/flash_attention.cu` or raises. bf16 at D = 128 runs that file's
+Hopper kernels (wgmma, TMA, warp-specialised) for the forward and both
+backward kernels (`hopper_forward`, `fused_delta`); fp32 and the other
+head dims run its first, mma.sync and FMA, kernels.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
 spills, shared memory). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
@@ -194,6 +195,14 @@ def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
     build.check(status, "flash_attention forward launch")
     flash_attention_fwd.launches += 1
     return o, lse
+
+
+def hopper_forward(q: torch.Tensor) -> bool:
+    """Whether the forward of `q`'s dtype and head_dim runs the Hopper
+    kernel (bf16 at D = 128: wgmma, TMA, warp-specialised). fp32 keeps the
+    FMA kernel (bit parity with the plain version) and bf16 at D 32 and 64
+    the mma.sync one."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 128
 
 
 def fused_delta(q: torch.Tensor) -> bool:

@@ -14,7 +14,10 @@ Counterparts in `hyperion_tpu/ops/pallas/fused_norm.py`:
 
 Each public wrapper runs its plain version for a CPU tensor and
 launches `csrc/fused_norm.cu` for a CUDA one — or raises on what the
-kernel does not take. Neither falls back.
+kernel does not take. Neither falls back. LayerNorm has two kernels
+there, chosen by the C entry point from the row width and alignment (a
+warp a row up to 1024 wide, else a block a row); `layernorm_path` asks
+which one a call takes.
 
 Gradients follow the reference's `custom_vjp`s: the backward is autograd
 of the plain version on the saved inputs (`_rms_bwd` `:171`, `_bwd`
@@ -42,6 +45,8 @@ _RMS_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 _LN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_float, ctypes.c_int,
                                         ctypes.c_void_p]
+# x, residual, weight, bias, y (each may be null), d, dtype
+_LN_PATH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
 
 
 def _needs_grad(*ts) -> bool:
@@ -183,6 +188,22 @@ def _launch_ln(x, residual, weight, bias, eps) -> torch.Tensor:
     build.check(status, "fused_layernorm launch")
     fused_layernorm.launches += 1
     return y
+
+
+def layernorm_path(x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, *,
+                   residual: torch.Tensor | None = None) -> str:
+    """Which kernel `fused_layernorm` launches for these CUDA inputs:
+    "warp" (a warp a row: d a whole number of 16-byte chunks, at most
+    1024, every pointer 16-byte aligned) or "block" (a block a row). The
+    C entry point's own rule; the output, fresh from the allocator, is
+    aligned. Needs the card."""
+    fn = build.function("fused_norm", "hyperion_layernorm_path",
+                        _LN_PATH_ARGTYPES)
+    path = fn(x.data_ptr(), None if residual is None else residual.data_ptr(),
+              weight.data_ptr(), bias.data_ptr(), None, x.shape[-1],
+              _DTYPES[x.dtype])
+    return "warp" if path == 1 else "block"
 
 
 def _layernorm_for_vjp(x, residual, weight, bias, *, eps):

@@ -34,7 +34,7 @@ GROUPS = (  # first match wins, on the lowercased kernel name
     ("memcpy / memset", ("memcpy", "memset")),
     ("fused_softmax_xent fwd+bwd (hand-written)", ("ce_fwd_kernel",
                                                    "ce_bwd_kernel")),
-    ("fused_layernorm (hand-written)", ("layernorm_kernel",)),
+    ("fused_layernorm (hand-written)", ("layernorm",)),  # both kernels
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
     ("AdamW and grad norm", ("adam", "multi_tensor", "foreach")),
     ("embedding backward", ("embedding", "sort", "segment", "unique")),

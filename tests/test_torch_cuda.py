@@ -9,11 +9,14 @@ machine does not have.) Without a CUDA device every test skips with
 its reason. chip_smoke.py holds the same kernels at full model width;
 these cover the small, odd geometries: GQA, a shared prefix, a window
 running past the table, every head_dim the kernel takes, odd rows and
-widths, the widest LayerNorm row (64 KB of shared memory), a ragged
+widths, both LayerNorm kernels (a warp a row up to 1024 wide, a block a
+row past that, for odd widths and misaligned views), the widest
+LayerNorm row (64 KB of shared memory), a ragged
 vocab and the strided [B, T-1, V] logits view, every head_dim the
 flash kernels take, a ragged sequence, unequal query and key lengths,
-the Hopper backward's edges (a sequence shorter than one tile, causal
-with unequal lengths, a padding tail per row) and its determinism.
+the Hopper kernels' edges (a sequence shorter than one tile, causal
+with unequal lengths, a padding tail per row, a row all padding) and the
+backward's determinism.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from hyperion_tpu_torch.ops.fused_norm import (
     fused_layernorm_plain,
     fused_rmsnorm,
     fused_rmsnorm_plain,
+    layernorm_path,
 )
 from hyperion_tpu_torch.ops.paged_attention import (
     paged_attention,
@@ -181,6 +185,39 @@ def test_layernorm_matches_plain(cuda, shape, residual, dtype):
         torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d, offset, path", [
+    (256, 0, "warp"), (768, 0, "warp"), (1024, 0, "warp"), (8, 0, "warp"),
+    (1032, 0, "block"), (102, 0, "block"), (256, 1, "block")],
+    ids=["256", "768", "1024", "8", "1032", "102", "256_misaligned"])
+def test_layernorm_paths(cuda, d, offset, path, dtype):
+    """Each width and alignment takes the kernel its rule names and
+    matches the plain version: the warp kernel for rows of whole 16-byte
+    chunks up to 1024 wide, the block kernel past that, for a width of
+    no whole chunk (102), and for a view `offset` elements into a flat
+    buffer, off the 16-byte grid."""
+    g = torch.Generator(device=cuda).manual_seed(d + offset)
+    rows = 37
+    flat = torch.empty(rows * d + offset, device=cuda, dtype=dtype)
+    x = flat[offset:].view(rows, d)
+    x.copy_(torch.randn(rows, d, generator=g, device=cuda) + 0.5)
+    r = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(d, generator=g, device=cuda)
+    b = 0.1 * torch.randn(d, generator=g, device=cuda)
+    for res in (None, r):
+        assert layernorm_path(x, w, b, residual=res) == path
+        out = fused_layernorm(x, w, b, residual=res, eps=1e-6)
+        ref = fused_layernorm_plain(x, w, b, residual=res, eps=1e-6)
+        if dtype == torch.bfloat16:
+            ulps = (out.view(torch.int16).int()
+                    - ref.view(torch.int16).int())
+            near_zero = (out.float() - ref.float()).abs() <= 2.0 ** -16
+            assert bool(((ulps.abs() <= 1) | near_zero).all())
+        else:
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
 def test_layernorm_grads_equal_plain_grads(cuda):
     g = torch.Generator(device=cuda).manual_seed(41)
     for dtype in (torch.float32, torch.bfloat16):
@@ -269,11 +306,17 @@ def test_softmax_xent_refuses_out_of_range_targets(cuda):
 
 
 # flash attention: (B, Tq, Tkv, H, D, causal, padded fraction of keys —
-# one for every row, or one per row). bf16 at D 128 runs the Hopper
-# backward: T = 200 is no multiple of its 64- or 128-row tiles, T = 40 is
-# shorter than one tile, causal Tq != Tkv both ways, and two rows with
-# different padding tails.
+# one for every row, or one per row; 1.0 pads the whole row). bf16 at D
+# 128 runs the Hopper kernels: T = 200 is no multiple of their 64- or
+# 128-row tiles, T = 40 is shorter than one tile, causal Tq != Tkv both
+# ways, two rows with different padding tails, and a row whose keys are
+# all padding: every s is NEG_INF, so its o is the mean of v over the Tkv
+# keys. Not causal: a causal kernel skips the tiles past a row's frontier
+# (the reference's does too), so such a row's o depends on the tiling.
 FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
+               "all_pad_row_d128": (2, 200, 200, 2, 128, False, (1.0, 0.1)),
+               "all_pad_row_cross_d128": (2, 70, 200, 2, 128, False,
+                                          (0.2, 1.0)),
                "full_d64": (2, 130, 130, 3, 64, False, 0.0),
                "ragged_causal_d32": (1, 77, 77, 2, 32, True, 0.1),
                "cross_lengths_d64": (2, 70, 130, 2, 64, False, 0.2),
@@ -369,6 +412,17 @@ def test_flash_hopper_backward_keeps_to_registers(cuda):
         attrs = fa.kernel_attrs(which, 128, torch.bfloat16)
         assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, attrs
         assert attrs["smem_bytes"] <= 227 * 1024
+
+
+def test_flash_hopper_forward_keeps_to_registers(cuda):
+    """The bf16 D 128 forward is the warp-specialised kernel (three
+    warpgroups), spills nothing to local memory and fits one block's
+    shared memory; fp32 and the narrower head dims keep 4-warp kernels."""
+    attrs = fa.kernel_attrs("fwd", 128, torch.bfloat16)
+    assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, attrs
+    assert attrs["smem_bytes"] <= 227 * 1024
+    for D, dtype in ((128, torch.float32), (64, torch.bfloat16)):
+        assert fa.kernel_attrs("fwd", D, dtype)["threads"] == 128
 
 
 def test_flash_autograd_runs_the_three_kernels(cuda):

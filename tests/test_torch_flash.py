@@ -89,6 +89,60 @@ def test_gradients_match_jax(causal, masked):
                                    rtol=2e-4)
 
 
+# The Hopper kernels' geometry (D 128), held between the port's plain
+# forward — what the card kernel is checked against — and the JAX kernel:
+# (B, Tq, Tkv, H, causal, per-row padded fraction of keys). T = 200 tiles
+# no block, so the JAX kernel runs it as one 200-wide tile; the others
+# take blocks of 64. Causal with Tq != Tkv both ways is causal from
+# position 0. A row whose keys are all padding (1.0) has every s at
+# NEG_INF: its o is the mean of v and its lse NEG_INF + log(Tkv), in both.
+HOPPER_CASES = {"t200_causal": (1, 200, 200, 2, True, (0.1,)),
+                "cross_causal_short_q": (1, 128, 192, 2, True, (0.25,)),
+                "cross_causal_long_q": (1, 192, 128, 2, True, (0.25,)),
+                "all_pad_row": (2, 128, 128, 2, False, (0.25, 1.0))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(HOPPER_CASES))
+def test_d128_forward_and_lse_match_jax(case, dtype):
+    B, Tq, Tkv, H, causal, tails = HOPPER_CASES[case]
+    rng = np.random.default_rng(sorted(HOPPER_CASES).index(case))
+    q = rng.standard_normal((B, Tq, H, 128)).astype(np.float32)
+    k, v = (rng.standard_normal((B, Tkv, H, 128)).astype(np.float32)
+            for _ in range(2))
+    mask = np.ones((B, Tkv), np.int8)
+    for row, tail in enumerate(tails):
+        mask[row, Tkv - int(Tkv * tail):] = 0
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    ref, ref_lse = _flash_forward(jq, jk, jv, jnp.asarray(mask), causal, 64,
+                                  64)
+    tq, tk, tv = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for a in (jq, jk, jv))
+    o, lse = fa.flash_attention_fwd_plain(tq, tk, tv, causal=causal,
+                                          padding_mask=torch.tensor(mask))
+    ref = np.asarray(ref.astype(jnp.float32))
+    o = o.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(o, ref, atol=2e-5, rtol=2e-5)
+    else:
+        assert np.all(np.abs(o - ref) <= 2.0 ** -6 + 2.0 ** -7 * np.abs(ref))
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_hopper_kernels_take_bf16_at_d128(D, dtype):
+    """On the card bf16 at head_dim 128 runs the Hopper forward and the
+    Hopper backward (whose dq launch computes delta); fp32 and the
+    narrower head dims keep the first kernels."""
+    q = torch.empty(1, 4, 2, D, dtype=dtype)
+    hopper = dtype == torch.bfloat16 and D == 128
+    assert fa.hopper_forward(q) is hopper
+    assert fa.fused_delta(q) is hopper
+
+
 def test_bf16_forward_close_to_jax():
     q, k, v, _, mask = _inputs(seed=2)
     jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]

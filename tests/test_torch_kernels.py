@@ -272,6 +272,30 @@ class TestFusedLayerNormPlain:
         assert out.dtype == torch.bfloat16
         assert _ulps(out, ref) <= 1
 
+    @pytest.mark.parametrize("residual", [False, True])
+    @pytest.mark.parametrize("d", [256, 768])
+    def test_bf16_warp_kernel_widths_within_one_ulp(self, d, residual):
+        """The widths the card's warp-a-row LayerNorm kernel takes on the
+        main paths (language_ddp's 256, GPT-2's 768): the plain version,
+        which that kernel is checked against, within one bf16 ulp of the
+        JAX kernel."""
+        rng = np.random.default_rng(d + residual)
+        x32, r32 = (rng.standard_normal((8, d)).astype(np.float32) + 0.5
+                    for _ in range(2))
+        w = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+        b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+        xj, rj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (x32, r32))
+        ref = jax_layernorm(xj, jnp.asarray(w), jnp.asarray(b),
+                            residual=rj if residual else None, eps=1e-6)
+        ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).bfloat16()
+        xt, rt = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .bfloat16() for a in (xj, rj))
+        out = fused_layernorm_plain(xt, *_torch(w, b),
+                                    residual=rt if residual else None,
+                                    eps=1e-6)
+        assert out.dtype == torch.bfloat16
+        assert _ulps(out, ref) <= 1
+
     def test_grads_match_jax_custom_vjp(self):
         rng = np.random.default_rng(22)
         x, r, g = (rng.standard_normal((4, 40)).astype(np.float32)
