@@ -14,7 +14,14 @@ script exits non-zero):
   3. kernels  each kernel against its plain PyTorch version on CUDA
               tensors: paged attention at Llama-2-7B heads (decode [8,1],
               verify [8,5], prefill [1,512]) and 70B heads, bf16 and
-              fp32, plus the null-block poison check; RMSNorm at
+              fp32, each with its plan (rows a block, splits of the
+              chain), registers and spill bytes; at head dims 16, 80 and
+              256; decode rows shorter than one split, ending on a split
+              boundary and covering the whole table; prefill windows at
+              base 0, at base 37 (no multiple of the block size) and of
+              8192 query rows at 70B heads;
+              the null-block poison check and a rerun, both
+              bit-identical; RMSNorm at
               [8*512, 4096]; LayerNorm on its warp-a-row kernel at
               [4096, 256] (bf16, fp32, with and without residual) and
               [4096, 768], on its block-a-row kernel at [4096, 1001] and
@@ -26,8 +33,10 @@ script exits non-zero):
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
               last quarter of the keys padding), at [2, 1024, 8, 128] fp32
-              causal and not, at a ragged T = 1000 and at [2, 200, 8,
-              128] bf16 with one batch row all padding, alone and through
+              causal and not, at a ragged T = 1000, at [2, 200, 8,
+              128] bf16 with one batch row all padding and at head dims
+              80 and 96 (zero-padded to 128, each kernel launched), alone
+              and through
               `flash_attention_bwd` (two runs bit-identical, from the
               forward kernel's own o and lse), each with its registers,
               spill and shared-memory bytes (the Hopper forward and
@@ -54,8 +63,9 @@ script exits non-zero):
               one CSV row, the adapter export reloads, every kernel's
               launches exact; step time p50, tokens/s, peak memory as
               smoke readings. The model is freed before the serve phases.
-  8. model    a tiny fp32 Llama on the CPU (plain versions) against the
-              same weights on the card (kernels), through the three paged
+  8. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
+              16, GQA rep 2) on the CPU (plain versions) against the same
+              weights on the card (kernels), through the three paged
               window shapes.
   9. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
               streams equal the port's `generate`.
@@ -230,26 +240,32 @@ def paged_cost(q, kp, bt, base) -> tuple[float, float]:
 
 
 def check_paged(name, geo, dtype, timing: bool) -> dict:
-    from hyperion_tpu_torch.ops.paged_attention import (
-        paged_attention,
-        paged_attention_plain,
-    )
+    """The paged kernel against its plain version on one geometry, with
+    its plan (rows a block, splits of the chain) and what the compiler
+    gave the split kernel (registers, spill bytes) and the combine."""
+    from hyperion_tpu_torch.ops import paged_attention as pa
 
     q, kp, vp, bt, base = geo
-    out = paged_attention(q, kp, vp, bt, base)
-    ref = paged_attention_plain(q, kp, vp, bt, base)
+    out = pa.paged_attention(q, kp, vp, bt, base)
+    ref = pa.paged_attention_plain(q, kp, vp, bt, base)
     torch.cuda.synchronize()
     atol, rtol = ATTN_TOL[dtype]
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
+    plan = pa.plan_for(q, kp, bt)
+    attrs = pa.kernel_attrs(q.shape[-1], dtype, plan)
     rec = {"phase": "kernels", "kernel": "paged_attention", "case": name,
            "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
-           "kv_heads": kp.shape[2], "max_abs_err": float(err.max()),
+           "kv_heads": kp.shape[2], "table": list(bt.shape),
+           "block_size": kp.shape[1], "plan": dataclasses.asdict(plan),
+           **attrs, "combine_registers": pa.kernel_attrs(
+               q.shape[-1], dtype, plan, "combine")["registers"],
+           "max_abs_err": float(err.max()),
            "atol": atol, "rtol": rtol, "ok": ok}
     if timing:
         nbytes, ops = paged_cost(q, kp, bt, base)
-        rec["kernel_ms"] = time_ms(paged_attention, geo, nbytes)
-        rec["plain_ms"] = time_ms(paged_attention_plain, geo, nbytes)
+        rec["kernel_ms"] = time_ms(pa.paged_attention, geo, nbytes)
+        rec["plain_ms"] = time_ms(pa.paged_attention_plain, geo, nbytes)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dtype)
         rec["library_ms"] = None
     emit(rec)
@@ -261,21 +277,61 @@ def check_paged(name, geo, dtype, timing: bool) -> dict:
 
 
 def check_poison(dtype) -> None:
+    """Huge values in the null block 0 behind every unmapped table entry
+    change no bit of the output, and a second run gives the same bits
+    (the splits merge in a fixed order, no atomics)."""
     from hyperion_tpu_torch.ops.paged_attention import paged_attention
 
     q, kp, vp, bt, base = paged_geometry(8, 5, 32, 32, dtype, seed=7)
     assert int((bt == 0).sum()) > 0, "no unmapped entries to poison"
     clean = paged_attention(q, kp, vp, bt, base)
+    rerun = paged_attention(q, kp, vp, bt, base)
     kp2, vp2 = kp.clone(), vp.clone()
     kp2[0] = 1e4
     vp2[0] = -1e4
     poisoned = paged_attention(q, kp2, vp2, bt, base)
     torch.cuda.synchronize()
     same = bool(torch.equal(clean, poisoned))
+    again = bool(torch.equal(clean, rerun))
     emit({"phase": "kernels", "kernel": "paged_attention", "case": "poison",
-          "dtype": str(dtype).split(".")[-1], "bit_identical": same})
+          "dtype": str(dtype).split(".")[-1], "bit_identical": same,
+          "rerun_bit_identical": again})
     if not same:
         raise AssertionError("null-block poison leaked into the output")
+    if not again:
+        raise AssertionError("two runs of paged_attention differ")
+
+
+def paged_edge_cases(dtype) -> None:
+    """The redesign's edges, each against the plain version: head dims
+    16, 80 and 256 (decode, verify, prefill); decode rows whose visible
+    length is shorter than one split, ends exactly on a split boundary,
+    and covers the whole table; prefill windows at base 0, at a base no
+    multiple of the block size, and of 8192 rows at 70B heads."""
+    from hyperion_tpu_torch.ops.paged_attention import plan
+
+    for D in (16, 80, 256):
+        check_paged(f"decode_d{D}", paged_geometry(8, 1, 32, 32, dtype, D=D,
+                                                   seed=30 + D), dtype,
+                    timing=False)
+        check_paged(f"verify_d{D}_70b_heads", paged_geometry(
+            4, 5, 64, 8, dtype, D=D, seed=31 + D), dtype, timing=False)
+        check_paged(f"prefill_d{D}", paged_geometry(
+            1, 300, 8, 4, dtype, D=D, base=[100], seed=32 + D), dtype,
+            timing=False)
+    split = plan(3, 1, 32, 32, 128, 16, 64).split_len
+    check_paged("split_edges", paged_geometry(
+        3, 1, 32, 32, dtype, base=[split // 2, 2 * split - 1, 64 * 16 - 1],
+        seed=33), dtype, timing=False)
+    check_paged("prefill_base0", paged_geometry(
+        1, 512, 32, 32, dtype, base=[0], seed=34), dtype, timing=False)
+    check_paged("prefill_base37_70b_heads", paged_geometry(
+        1, 200, 64, 8, dtype, base=[37], seed=35), dtype, timing=False)
+    # 70B heads at 8192 query rows (1024 tokens x rep 8) over a chain
+    # of 4096 positions: 128 row tiles, each chain in two splits
+    check_paged("prefill_70b_8192_rows", paged_geometry(
+        1, 1024, 64, 8, dtype, MB=256, base=[3000], seed=36), dtype,
+        timing=False)
 
 
 def rms_ulp_ok(out, ref) -> tuple[bool, float]:
@@ -556,6 +612,7 @@ def phase_kernels() -> dict:
                         paged_geometry(1, 512, H, Hkv, dtype, base=[256],
                                        seed=2), dtype, timing=True)
         check_poison(dtype)
+        paged_edge_cases(dtype)
         g = torch.Generator(device="cuda").manual_seed(3)
         x = torch.randn(8 * 512, 4096, generator=g, device="cuda").to(dtype)
         w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
@@ -810,8 +867,9 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
 def phase_flash() -> dict:
     """The flash kernels at the Llama-2-7B train step ([1, 4096, 32, 128]
     bf16, causal, the last quarter of the keys padding), fp32 causal and
-    not at [2, 1024, 8, 128], a ragged T = 1000, and [2, 200, 8, 128] bf16
-    with one batch row all padding; the cross-entropy at
+    not at [2, 1024, 8, 128], a ragged T = 1000, [2, 200, 8, 128] bf16
+    with one batch row all padding, and [2, 1000, 8, D] bf16 at D 80 and
+    96 (run zero-padded to the D 128 kernels); the cross-entropy at
     Llama's [1, 4095, 32000] fp32 logits view. Returns the train step's
     records for the `kernels` line."""
     recs = check_flash("llama_train_step", *flash_case(
@@ -833,11 +891,32 @@ def phase_flash() -> dict:
     check_flash("all_pad_row_200", *flash_case(
         2, 200, 8, 128, torch.bfloat16, (1.0, 0.1), SEED + 24), causal=False,
         timing=False)
+    # head dims of no kernel instantiation run zero-padded to D 128 (the
+    # Hopper kernels in bf16): the forward and whole backward against the
+    # plain versions, and each kernel launched
+    for D in (80, 96):
+        before = _flash_launches()
+        check_flash(f"d{D}_bf16", *flash_case(
+            2, 1000, 8, D, torch.bfloat16, 0.1, SEED + 25), causal=True,
+            timing=False)
+        rose = {k: n - before[k] for k, n in _flash_launches().items()}
+        emit({"phase": "kernels", "kernel": "flash_attention", "case":
+              f"d{D}_bf16_launches", "launches": rose})
+        if not all(rose.values()):
+            raise AssertionError(f"flash at D {D}: a kernel did not launch "
+                                 f"({rose})")
     check_ce("llama_step_view_1x4095", *ce_case(
         1, 4095, 32000, torch.float32, SEED + 23, strided=True), timing=True)
     gc.collect()
     torch.cuda.empty_cache()
     return recs
+
+
+def _flash_launches() -> dict:
+    from hyperion_tpu_torch.ops import flash_attention as fa
+
+    return {f.__name__: f.launches for f in (
+        fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)}
 
 
 TINY_LM = dict(vocab_size=1000, d_model=32, n_heads=2, n_layers=2,
@@ -1236,9 +1315,8 @@ def phase_model() -> None:
         llama_tiny_config,
     )
 
-    # head_dim 32: the kernel's smallest (the JAX tiny config has 16)
-    cfg = llama_tiny_config(d_model=128, n_heads=4, n_kv_heads=2, max_len=64,
-                            norm_impl="pallas")
+    # the JAX tiny config's widths (d 64, 4 heads: head_dim 16), GQA rep 2
+    cfg = llama_tiny_config(n_kv_heads=2, max_len=64, norm_impl="pallas")
     cpu = Llama(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(SEED))
     gpu = Llama(cfg, device="cuda")

@@ -7,199 +7,575 @@
 // -> `_decode_kernel` (the Pallas block-table walk with scalar-prefetched
 // tables and an online softmax in VMEM scratch).
 //
-// Bound on the H100: bytes. Decode reads every visible K/V position of
-// the slot once per token (2 * visible * Hkv * D * itemsize) and does
-// ~4 flops per element read, so the least time is the bytes of q, the
-// visible K/V and the output over 3.35 TB/s. A [1, C] prefill window
-// reuses each K/V tile across its rows and drifts toward compute, which
-// this first version does on CUDA cores in fp32 (no tensor cores yet).
+// Bound on the H100: bytes for decode and verify windows, which read
+// every visible K/V position of the slot (2 * visible * Hkv * D *
+// itemsize) for ~4 flops an element per query row; a [1, C] prefill
+// window reuses each K/V tile across its C * rep rows and nears the
+// tensor cores' rate. Both shapes run the one kernel below, with a plan
+// (rows a block, splits of the chain) that the wrapper derives from the
+// shapes alone, never from `base` or the tables, which live on the card:
+// the launch reads nothing back and is captured in a CUDA graph whole.
 //
-// Design (what it computes, not the TPU's block schedule):
-//  * Grid (B, Hkv, ceil(T*rep / kWarps)), one warp per query row. GQA
-//    folds into rows as on the TPU: row r is token r / rep and head
-//    g*rep + r % rep. The TPU kernel keeps all T*rep rows of a window in
-//    VMEM; a CUDA block cannot hold a long prefill's rows, so the row
-//    axis becomes a grid axis and each block walks the chain for its
-//    own rows only.
-//  * The block loads bt[b, p / bs] itself and stages kTile positions of
-//    K and V at a time in shared memory (converted to fp32), read by all
-//    of its warps. It walks only up to the frontier of its LAST row and
-//    never past the table, so it reads no position no row can see: the
-//    null block 0 behind unmapped entries is never touched by a real row.
-//  * Per row: q scaled by 1/sqrt(D) before the dot (as the reference),
-//    a warp-reduced dot per position, and an online softmax whose max,
-//    sum and accumulator stay in fp32 registers. A masked position is
-//    skipped by a branch, not multiplied by a zero weight, so it adds
-//    exactly nothing whatever the pool holds there.
-//  * Later work: tensor cores (wgmma) for prefill windows, TMA staging,
-//    and splitting long chains across blocks (flash-decoding) for
-//    small-batch decode.
+// Design:
+//  * Grid (row tiles x KV splits, Hkv, B). GQA folds into rows as on the
+//    TPU: row r of kv head g is token r / rep and head g*rep + r % rep,
+//    so every K/V tile a block stages serves all rep query heads. A block
+//    has 1 warp (a window of at most 16 rows: decode, verify) or 4 (64
+//    rows: prefill), 16 rows a warp. The tile order runs the longest
+//    causal tiles first.
+//  * Flash-decoding: the chain [0, MB*bs) is cut into splits of
+//    `split_len` positions, and each block walks its split only up to
+//    the frontier of its last row and never past the table, so it reads
+//    no position no row can see: the null block 0 behind unmapped
+//    entries is never touched by a real row. A split wholly past the
+//    frontier reads no K/V and writes (m, l) = (-inf, 0).
+//  * The block first turns its walk's positions into pool row indices
+//    (bt[b, p / bs] * bs + p % bs) in shared memory, then streams K and V
+//    in their own dtype (bf16 stays bf16) through a ring of 32-position
+//    tiles filled by cp.async, 16 bytes a thread (3 stages in bf16, 2 in
+//    fp32); positions past the walk arrive as zeros.
+//  * bf16: s = q . k^T and o += p . v on mma.sync m16n8k16 with fp32
+//    accumulators, fragments by ldmatrix (v transposed on the way). p
+//    enters the second product as two bf16 halves (p = hi + lo), so the
+//    output keeps fp32's accuracy, not bf16-rounded weights'.
+//  * fp32: the same plan and fragment layout on plain fp32 FMAs (never
+//    TF32), p passing through shared memory.
+//  * Online softmax in the exp2 domain; a tile takes the per-element mask
+//    only where it crosses its warp's nearest frontier or the walk's end.
+//    Rows that see nothing yet keep m = -inf and exponentiate against 0,
+//    so no exp(-inf - -inf) arises.
+//  * One split writes the output directly. More write fp32 partials (m,
+//    l, the unnormalised accumulator) to a workspace that the wrapper
+//    allocates, and `paged_attention_combine_kernel` (a warp an output
+//    row) merges them in split order, with no atomics: two runs give the
+//    same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 namespace {
 
-constexpr int kWarps = 4;    // query rows per block
-constexpr int kTile = 16;    // kv positions staged per step
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+constexpr int kN = 32;        // kv positions a tile
+constexpr int kMaxWarps = 4;  // 16 query rows a warp
+constexpr size_t kMaxSmem = 232448;  // what one block may have on sm_90
+
+template <typename T, int D>
+struct Layout {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int kStages = kBf16 ? 3 : 2;
+  static constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte copy
+  static constexpr int kLd = D + kVec;         // a row padded by 16 bytes
+  static constexpr int kPld = kN + 4;          // fp32 p rows
+  __host__ __device__ static constexpr size_t q_bytes(int warps) {
+    return sizeof(T) * 16 * warps * kLd;
+  }
+  __host__ __device__ static constexpr size_t kv_bytes() {
+    return sizeof(T) * kStages * 2 * kN * kLd;
+  }
+  __host__ __device__ static constexpr size_t p_bytes(int warps) {
+    return kBf16 ? 0 : sizeof(float) * warps * 16 * kPld;
+  }
+  __host__ __device__ static constexpr size_t bytes(int warps, int split_len) {
+    return q_bytes(warps) + kv_bytes() + p_bytes(warps) + sizeof(int) * split_len;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T, int NE>
-__global__ void __launch_bounds__(kWarps * 32)
+// 16 bytes global -> shared; zeros (and no read) when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as bf16 pairs hi + lo with hi + lo = (x, y) to ~2^-17
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - __low2float(h), y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// c + a . b over four lanes, by fp32 FMAs
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, c))));
+}
+
+__device__ __forceinline__ void put2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void put2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// element offset of query row r (of kv head g, slot b) in [B, T, H, D]
+__device__ __forceinline__ int64_t row_offset(int b, int g, int r, int n_tok, int H,
+                                              int rep, int D) {
+  return ((static_cast<int64_t>(b) * n_tok + r / rep) * H +
+          static_cast<int64_t>(g) * rep + r % rep) * D;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                        const T* __restrict__ vp, const int* __restrict__ bt,
                        const int* __restrict__ base, T* __restrict__ out,
+                       float* __restrict__ part_acc, float* __restrict__ part_ml,
                        int n_tok, int H, int Hkv, int bs, int MB, int rep,
-                       float scale) {
-  constexpr int D = NE * 32;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [kTile, D]
-  float* vs = smem + kTile * D;   // [kTile, D]
-  __shared__ int64_t pos_off[kTile];
+                       int n_splits, int split_len, int row_tiles,
+                       float scale_log2) {
+  using Lay = Layout<T, D>;
+  constexpr int LD = Lay::kLd, S = Lay::kStages, VEC = Lay::kVec;
+  constexpr int CPP = D / VEC;  // 16-byte chunks a row
+  constexpr int NT = D / 8;     // n8 tiles of the output
+  constexpr int ST = kN / 8;    // n8 tiles of s
 
-  const int b = blockIdx.x, g = blockIdx.y;
+  const int warps = blockDim.x >> 5, nthr = blockDim.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, cq = lane & 3;
+  const int tile_rows = 16 * warps;
+  const int rt = row_tiles - 1 - static_cast<int>(blockIdx.x) / n_splits;
+  const int split = blockIdx.x % n_splits;
+  const int g = blockIdx.y, b = blockIdx.z;
   const int rows = n_tok * rep;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.z * kWarps;
-  const int row = row0 + warp;
-  const bool active = row < rows;
-  const int last_row = min(row0 + kWarps, rows) - 1;
+  const int r0 = rt * tile_rows;
+  const int last_row = min(r0 + tile_rows, rows) - 1;
   const int b_base = base[b];
-  const int tok = active ? row / rep : 0;
-  const int head = g * rep + (active ? row % rep : 0);
-  const int my_qpos = b_base + tok;
-  // the block's walk: every position its deepest row may see, and never
-  // beyond the table's coverage
-  const int n_kv = min(b_base + last_row / rep + 1, MB * bs);
-  const int* btr = bt + (int64_t)b * MB;
+  const int s0 = split * split_len;
+  // the walk: what the deepest row sees of this split, within the table
+  const int walk_end = min(min(s0 + split_len, MB * bs), b_base + last_row / rep + 1);
+  const int64_t bg = static_cast<int64_t>(b) * Hkv + g;
 
-  float qr[NE], acc[NE];
-  const int64_t qo = (((int64_t)b * n_tok + tok) * H + head) * D;
-#pragma unroll
-  for (int e = 0; e < NE; ++e) {
-    qr[e] = active ? to_float(q[qo + lane + 32 * e]) * scale : 0.f;
-    acc[e] = 0.f;
+  if (walk_end <= s0) {  // only with n_splits > 1: split 0 holds position 0
+    for (int r = r0 + tid; r <= last_row; r += nthr) {
+      float* ml = part_ml + ((bg * rows + r) * n_splits + split) * 2;
+      ml[0] = -INFINITY;
+      ml[1] = 0.f;
+    }
+    return;
   }
-  float m = -INFINITY, l = 0.f;
 
-  for (int p0 = 0; p0 < n_kv; p0 += kTile) {
-    const int n = min(kTile, n_kv - p0);
-    if (threadIdx.x < n) {
-      const int p = p0 + threadIdx.x;
-      const int64_t phys = btr[p / bs];
-      pos_off[threadIdx.x] = ((phys * bs + p % bs) * Hkv + g) * D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* Ks = Qs + tile_rows * LD;  // [S][kN][LD]
+  T* Vs = Ks + S * kN * LD;
+  float* Ps = reinterpret_cast<float*>(Vs + S * kN * LD);  // fp32: [warps][16][kPld]
+  int* rowidx = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(Ps) +
+                                       Lay::p_bytes(warps));
+
+  const int n_pos = walk_end - s0;
+  const int* btr = bt + static_cast<int64_t>(b) * MB;
+  for (int i = tid; i < n_pos; i += nthr) {
+    const int p = s0 + i;
+    rowidx[i] = btr[p / bs] * bs + p % bs;
+  }
+  for (int idx = tid; idx < tile_rows * CPP; idx += nthr) {
+    const int r = idx / CPP, c = idx % CPP, rr = r0 + r;
+    const bool valid = rr < rows;
+    const T* src = valid ? q + row_offset(b, g, rr, n_tok, H, rep, D) + c * VEC : q;
+    cp_async16(Qs + r * LD + c * VEC, src, valid);
+  }
+  __syncthreads();  // rowidx is read by every thread's copies
+
+  const int64_t row_stride = static_cast<int64_t>(Hkv) * D;
+  const int64_t head_off = static_cast<int64_t>(g) * D;
+  auto load_tile = [&](int j) {
+    T* ks = Ks + (j % S) * kN * LD;
+    T* vs = Vs + (j % S) * kN * LD;
+    for (int idx = tid; idx < kN * CPP; idx += nthr) {
+      const int i = idx / CPP, c = idx % CPP, p = j * kN + i;
+      const bool valid = p < n_pos;
+      const int64_t off = valid ? rowidx[p] * row_stride + head_off + c * VEC : 0;
+      cp_async16(ks + i * LD + c * VEC, kp + off, valid);
+      cp_async16(vs + i * LD + c * VEC, vp + off, valid);
     }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n * D; idx += kWarps * 32) {
-      const int i = idx / D, dd = idx % D;
-      ks[idx] = to_float(kp[pos_off[i] + dd]);
-      vs[idx] = to_float(vp[pos_off[i] + dd]);
-    }
-    __syncthreads();
-    if (active) {
-      float s[kTile];
-      float cmax = -INFINITY;
+  };
+  const int n_tiles = (n_pos + kN - 1) / kN;
 #pragma unroll
-      for (int i = 0; i < kTile; ++i) {
-        s[i] = -INFINITY;
-        if (i < n) {  // uniform across the warp
-          float part = 0.f;
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < n_tiles) load_tile(j);
+    cp_async_commit();  // group 0 carries q as well
+  }
+
+  const int wrow0 = r0 + 16 * warp;
+  const int front[2] = {b_base + (wrow0 + gq) / rep, b_base + (wrow0 + gq + 8) / rep};
+  const int warp_front = b_base + wrow0 / rep;  // the warp's nearest frontier
+  const T* Qw = Qs + 16 * warp * LD;
+
+  float acc[NT][4];
 #pragma unroll
-          for (int e = 0; e < NE; ++e) part = fmaf(qr[e], ks[i * D + lane + 32 * e], part);
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // tile j landed for all; tile j - 1's stage is free
+    if (j + S - 1 < n_tiles) load_tile(j + S - 1);
+    cp_async_commit();
+    const T* ks = Ks + (j % S) * kN * LD;
+    const T* vs = Vs + (j % S) * kN * LD;
+    const int p0 = s0 + j * kN;
+
+    float s[ST][4];
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-          if (p0 + i <= my_qpos) s[i] = part;
-          cmax = fmaxf(cmax, s[i]);
+    for (int nt = 0; nt < ST; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    if constexpr (Lay::kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, Qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < ST / 2; ++np) {
+          uint32_t bk[4];
+          ldsm_x4(bk, ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
         }
       }
-      if (cmax > -INFINITY) {  // some position of this tile is visible
-        const float m_new = fmaxf(m, cmax);
-        const float alpha = expf(m - m_new);  // 0 on the first visible tile
-        l *= alpha;
+    } else {
+#pragma unroll 2
+      for (int k = 0; k < D; k += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(Qw + gq * LD + k);
+        const float4 a1 = *reinterpret_cast<const float4*>(Qw + (gq + 8) * LD + k);
 #pragma unroll
-        for (int e = 0; e < NE; ++e) acc[e] *= alpha;
+        for (int nt = 0; nt < ST; ++nt) {
+          const float4 b0 = *reinterpret_cast<const float4*>(ks + (nt * 8 + 2 * cq) * LD + k);
+          const float4 b1 = *reinterpret_cast<const float4*>(ks + (nt * 8 + 2 * cq + 1) * LD + k);
+          s[nt][0] = dot4(a0, b0, s[nt][0]);
+          s[nt][1] = dot4(a0, b1, s[nt][1]);
+          s[nt][2] = dot4(a1, b0, s[nt][2]);
+          s[nt][3] = dot4(a1, b1, s[nt][3]);
+        }
+      }
+    }
+
+    // scale into the exp2 domain; mask only a tile that crosses the warp's
+    // nearest frontier or the walk's end (zero-filled positions)
+    const bool edge = p0 + kN > min(warp_front + 1, walk_end);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-        for (int i = 0; i < kTile; ++i) {
-          if (i < n && p0 + i <= my_qpos) {
-            const float pi = expf(s[i] - m_new);
-            l += pi;
+    for (int nt = 0; nt < ST; ++nt) {
 #pragma unroll
-            for (int e = 0; e < NE; ++e) acc[e] = fmaf(pi, vs[i * D + lane + 32 * e], acc[e]);
+      for (int e = 0; e < 4; ++e) {
+        float v = s[nt][e] * scale_log2;
+        if (edge) {
+          const int pos = p0 + nt * 8 + 2 * cq + (e & 1);
+          if (pos > front[e >> 1] || pos >= walk_end) v = -INFINITY;
+        }
+        s[nt][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
+      }
+    }
+    float ref[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = quad_max(mx[i]);
+      ref[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // a row that sees nothing yet
+      const float alpha = exp2f(m[i] - ref[i]);
+      m[i] = mx[i];
+      l[i] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        acc[nt][2 * i] *= alpha;
+        acc[nt][2 * i + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < ST; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(s[nt][e] - ref[e >> 1]);
+        l[e >> 1] += s[nt][e];  // this thread's share; quad-summed at the end
+      }
+    }
+
+    if constexpr (Lay::kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], hi[0], lo[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], hi[1], lo[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], lo[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + dp * 16 +
+                            (lane >> 4) * 8);
+          mma_bf16(acc[2 * dp], hi, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp], lo, bv[0], bv[1]);
+          mma_bf16(acc[2 * dp + 1], hi, bv[2], bv[3]);
+          mma_bf16(acc[2 * dp + 1], lo, bv[2], bv[3]);
+        }
+      }
+    } else {
+      float* pw = Ps + warp * 16 * Lay::kPld;
+#pragma unroll
+      for (int nt = 0; nt < ST; ++nt) {
+        put2(pw + gq * Lay::kPld + nt * 8 + 2 * cq, s[nt][0], s[nt][1]);
+        put2(pw + (gq + 8) * Lay::kPld + nt * 8 + 2 * cq, s[nt][2], s[nt][3]);
+      }
+      __syncwarp();
+#pragma unroll 2
+      for (int k = 0; k < kN; k += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(pw + gq * Lay::kPld + k);
+        const float4 a1 = *reinterpret_cast<const float4*>(pw + (gq + 8) * Lay::kPld + k);
+        const float pa[4] = {a0.x, a0.y, a0.z, a0.w}, pb[4] = {a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const T* vr = vs + (k + kk) * LD + 2 * cq;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float2 v2 = *reinterpret_cast<const float2*>(vr + nt * 8);
+            acc[nt][0] = fmaf(pa[kk], v2.x, acc[nt][0]);
+            acc[nt][1] = fmaf(pa[kk], v2.y, acc[nt][1]);
+            acc[nt][2] = fmaf(pb[kk], v2.x, acc[nt][2]);
+            acc[nt][3] = fmaf(pb[kk], v2.y, acc[nt][3]);
           }
         }
-        m = m_new;
+      }
+      __syncwarp();  // p is read before the next tile rewrites it
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = quad_sum(l[i]);
+    const int r = wrow0 + gq + 8 * i;
+    if (r >= rows || r > last_row) continue;
+    if (n_splits == 1) {
+      // l > 0: position 0 is visible to every row (base + t >= 0)
+      const float inv = 1.f / l[i];
+      T* o = out + row_offset(b, g, r, n_tok, H, rep, D);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        put2(o + nt * 8 + 2 * cq, acc[nt][2 * i] * inv, acc[nt][2 * i + 1] * inv);
+      }
+    } else {
+      const int64_t slot = (bg * rows + r) * n_splits + split;
+      float* pa = part_acc + slot * D;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        put2(pa + nt * 8 + 2 * cq, acc[nt][2 * i], acc[nt][2 * i + 1]);
+      }
+      if (cq == 0) {
+        part_ml[slot * 2] = m[i];
+        part_ml[slot * 2 + 1] = l[i];
       }
     }
-    __syncthreads();  // the next tile overwrites shared memory
-  }
-  if (active) {
-    // l > 0: position 0 is visible to every row (base + tok >= 0)
-    const float inv = 1.f / l;
-#pragma unroll
-    for (int e = 0; e < NE; ++e) out[qo + lane + 32 * e] = from_float<T>(acc[e] * inv);
   }
 }
 
-template <typename T, int NE>
-int launch(const void* q, const void* kp, const void* vp, const int* bt,
-           const int* base, void* out, int B, int n_tok, int H, int Hkv,
-           int bs, int MB, cudaStream_t s) {
-  const int rep = H / Hkv;
-  const int rows = n_tok * rep;
-  dim3 grid(B, Hkv, (rows + kWarps - 1) / kWarps);
-  const size_t shm = 2 * kTile * NE * 32 * sizeof(float);  // <= 32 KB
-  const float scale = 1.f / sqrtf((float)(NE * 32));
-  paged_attention_kernel<T, NE><<<grid, kWarps * 32, shm, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), bt, base, static_cast<T*>(out),
-      n_tok, H, Hkv, bs, MB, rep, scale);
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void put4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void put4(bf16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
 }
 
+// The splits' partials of one output row -> the row, a warp a row, in
+// split order. m of a split that saw nothing is -inf and its acc unread.
 template <typename T>
-int dispatch_d(int D, const void* q, const void* kp, const void* vp,
-               const int* bt, const int* base, void* out, int B, int n_tok,
-               int H, int Hkv, int bs, int MB, cudaStream_t s) {
-  switch (D) {
-    case 32:  return launch<T, 1>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 64:  return launch<T, 2>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 96:  return launch<T, 3>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 128: return launch<T, 4>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 160: return launch<T, 5>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 192: return launch<T, 6>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 224: return launch<T, 7>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    case 256: return launch<T, 8>(q, kp, vp, bt, base, out, B, n_tok, H, Hkv, bs, MB, s);
-    default:  return static_cast<int>(cudaErrorInvalidValue);
+__global__ void __launch_bounds__(128)
+paged_attention_combine_kernel(const float* __restrict__ part_acc,
+                               const float* __restrict__ part_ml, T* __restrict__ out,
+                               int n_rows, int rows, int n_tok, int H, int Hkv,
+                               int rep, int D, int n_splits) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const float* ml = part_ml + static_cast<int64_t>(row) * n_splits * 2;
+  const float* acc = part_acc + static_cast<int64_t>(row) * n_splits * D;
+  float mx = -INFINITY;
+  for (int s = lane; s < n_splits; s += 32) mx = fmaxf(mx, ml[2 * s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float sum = 0.f;
+  for (int s = lane; s < n_splits; s += 32) {
+    const float ms = ml[2 * s];
+    if (ms != -INFINITY) sum += exp2f(ms - mx) * ml[2 * s + 1];
   }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  const float inv = 1.f / sum;  // > 0: split 0 holds position 0
+  const int bg = row / rows, r = row % rows;
+  T* o = out + row_offset(bg / Hkv, bg % Hkv, r, n_tok, H, rep, D);
+  for (int d = lane * 4; d < D; d += 128) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n_splits; ++s) {
+      const float ms = ml[2 * s];
+      if (ms == -INFINITY) continue;
+      const float w = exp2f(ms - mx);
+      const float4 a = *reinterpret_cast<const float4*>(acc + static_cast<int64_t>(s) * D + d);
+      v.x = fmaf(w, a.x, v.x);
+      v.y = fmaf(w, a.y, v.y);
+      v.z = fmaf(w, a.z, v.z);
+      v.w = fmaf(w, a.w, v.w);
+    }
+    put4(o + d, make_float4(v.x * inv, v.y * inv, v.z * inv, v.w * inv));
+  }
+}
+
+struct Args {
+  const void *q, *kp, *vp;
+  const int *bt, *base;
+  void *out;
+  float* ws;
+  int B, n_tok, H, Hkv, D, bs, MB, warps, row_tiles, n_splits, split_len;
+};
+
+template <typename T, int D>
+cudaError_t launch(const Args& a, cudaStream_t s) {
+  const size_t smem = Layout<T, D>::bytes(a.warps, a.split_len);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = paged_attention_kernel<T, D>;
+  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic smem
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int rep = a.H / a.Hkv, rows = a.n_tok * rep;
+  const int64_t n_rows = static_cast<int64_t>(a.B) * a.Hkv * rows;
+  float* part_acc = a.ws;
+  float* part_ml = a.ws == nullptr ? nullptr : a.ws + n_rows * a.n_splits * a.D;
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  kernel<<<dim3(a.row_tiles * a.n_splits, a.Hkv, a.B), 32 * a.warps, smem, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.kp), static_cast<const T*>(a.vp),
+      a.bt, a.base, static_cast<T*>(a.out), part_acc, part_ml, a.n_tok, a.H, a.Hkv, a.bs,
+      a.MB, rep, a.n_splits, a.split_len, a.row_tiles, scale_log2);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_splits == 1) return e;
+  paged_attention_combine_kernel<T><<<static_cast<unsigned>((n_rows + 3) / 4), 128, 0, s>>>(
+      part_acc, part_ml, static_cast<T*>(a.out), static_cast<int>(n_rows), rows, a.n_tok, a.H,
+      a.Hkv, rep, a.D, a.n_splits);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, D>) for D = 16, 32, ..., 256
+template <typename F, int... I>
+cudaError_t with_d(int D, F&& f, std::integer_sequence<int, I...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  ((D == 16 * (I + 1) ? (e = f(std::integral_constant<int, 16 * (I + 1)>{}), true) : false) ||
+   ...);
+  return e;
+}
+template <typename F>
+cudaError_t with_d(int D, F&& f) {
+  return with_d(D, static_cast<F&&>(f), std::make_integer_sequence<int, 16>{});
+}
+
+template <typename F>
+cudaError_t with_type(int dtype, F&& f) {
+  if (dtype == 0) return f(float{});
+  if (dtype == 1) return f(bf16{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
 // q/out [B, T, H, D], pools [NB, bs, Hkv, D], bt [B, MB] and base [B]
-// int32, all contiguous. D a multiple of 32, at most 256.
+// int32, all contiguous and 16-byte aligned; D a multiple of 16 from 16
+// to 256. The plan (the wrapper's): `warps` (1 or 4) a block of 16 *
+// warps query rows, `row_tiles` such blocks over T * H / Hkv rows,
+// `n_splits` splits of `split_len` positions (a multiple of 32) over
+// [0, MB * bs). `ws`: fp32 [B * Hkv * T * H / Hkv * n_splits * (D + 2)]
+// when n_splits > 1, else null.
 extern "C" int hyperion_paged_attention(const void* q, const void* k_pool,
                                         const void* v_pool, const void* bt,
-                                        const void* base, void* out, int B,
-                                        int n_tok, int H, int Hkv, int D,
-                                        int bs, int MB, int dtype,
+                                        const void* base, void* out, void* ws,
+                                        int B, int n_tok, int H, int Hkv, int D,
+                                        int bs, int MB, int warps, int row_tiles,
+                                        int n_splits, int split_len, int dtype,
                                         void* stream) {
   if (B == 0 || n_tok == 0) return 0;
+  const int rows = n_tok * (H / Hkv);
+  if ((warps != 1 && warps != kMaxWarps) || split_len <= 0 || split_len % kN ||
+      n_splits <= 0 || static_cast<int64_t>(n_splits) * split_len < static_cast<int64_t>(MB) * bs ||
+      static_cast<int64_t>(n_splits - 1) * split_len >= static_cast<int64_t>(MB) * bs ||
+      static_cast<int64_t>(row_tiles) * 16 * warps < rows ||
+      (n_splits > 1 && ws == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args a{q, k_pool, v_pool, static_cast<const int*>(bt), static_cast<const int*>(base), out,
+         static_cast<float*>(ws), B, n_tok, H, Hkv, D, bs, MB, warps, row_tiles, n_splits,
+         split_len};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* btp = static_cast<const int*>(bt);
-  const int* bp = static_cast<const int*>(base);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k_pool, v_pool, btp, bp, out, B, n_tok, H, Hkv, bs, MB, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k_pool, v_pool, btp, bp, out, B, n_tok, H, Hkv, bs, MB, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(with_type(dtype, [&](auto t) {
+    using T = decltype(t);
+    return with_d(D, [&](auto d) { return launch<T, decltype(d)::value>(a, s); });
+  }));
+}
+
+// What the compiler gave a kernel at this D and dtype (which: 0 the split
+// kernel, at a block of `warps` warps walking `split_len` positions; 1 the
+// combine): out = {registers a thread, local-memory (spill) bytes a
+// thread, shared memory a block (static + dynamic), threads a block}.
+extern "C" int hyperion_paged_attrs(int which, int D, int dtype, int warps,
+                                    int split_len, int* out) {
+  return static_cast<int>(with_type(dtype, [&](auto t) {
+    using T = decltype(t);
+    return with_d(D, [&](auto d) {
+      constexpr int kD = decltype(d)::value;
+      const void* fn = which == 0
+                           ? reinterpret_cast<const void*>(paged_attention_kernel<T, kD>)
+                           : reinterpret_cast<const void*>(paged_attention_combine_kernel<T>);
+      cudaFuncAttributes attr;
+      cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+      if (e != cudaSuccess) return e;
+      out[0] = attr.numRegs;
+      out[1] = static_cast<int>(attr.localSizeBytes);
+      out[2] = static_cast<int>(attr.sharedSizeBytes +
+                                (which == 0 ? Layout<T, kD>::bytes(warps, split_len) : 0));
+      out[3] = which == 0 ? 32 * warps : 128;
+      return cudaSuccess;
+    });
+  }));
 }

@@ -23,10 +23,16 @@ Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
 when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
-`csrc/flash_attention.cu` or raises. bf16 at D = 128 runs that file's
-Hopper kernels (wgmma, TMA, warp-specialised) for the forward and both
-backward kernels (`hopper_forward`, `fused_delta`); fp32 and the other
-head dims run its first, mma.sync and FMA, kernels.
+`csrc/flash_attention.cu` or raises. The kernels are built at D 32, 64
+and 128; any other D up to 128 (the reference's kernel tiles the full
+D and takes them all) runs zero-padded to the next of those
+(`kernel_head_dim`) with the scale of its true D, and o and the
+gradients are sliced back: zero columns add exact zeros to q·kᵀ, and
+the padded columns of v only fill columns that are cut away. bf16 at a
+kernel D of 128 runs that file's Hopper kernels (wgmma, TMA,
+warp-specialised) for the forward and both backward kernels
+(`hopper_forward`, `fused_delta`); fp32 and the other head dims run
+its first, mma.sync and FMA, kernels.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
 spills, shared memory). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
@@ -51,7 +57,7 @@ import torch
 from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import NEG_INF
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128)  # the kernels' instantiations; D up to 128 pads
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,13 +77,31 @@ def _scale(D: int) -> float:
     return 1.0 / math.sqrt(D)
 
 
+def kernel_head_dim(D: int) -> int:
+    """The kernel head_dim that runs a head_dim D: the least of
+    HEAD_DIMS at or above it. Raises ValueError past 128."""
+    for Dk in HEAD_DIMS:
+        if 0 < D <= Dk:
+            return Dk
+    raise ValueError(f"flash_attention kernel takes head_dim 1 to "
+                     f"{HEAD_DIMS[-1]}, got {D}")
+
+
+def pad_head_dim(t: torch.Tensor, Dk: int) -> torch.Tensor:
+    """t [..., D] with zero columns appended up to Dk (t itself if D is
+    Dk)."""
+    D = t.shape[-1]
+    return t if D == Dk else torch.nn.functional.pad(t, (0, Dk - D))
+
+
 # ------------------------------------------------------------ plain math
 
 
-def _logits(q, k, causal, padding_mask):
-    """Scaled, masked fp32 logits [B, H, Tq, Tkv]."""
+def _logits(q, k, causal, padding_mask, scale=None):
+    """Scaled, masked fp32 logits [B, H, Tq, Tkv]; `scale` 1/sqrt(D)
+    unless given."""
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
-        * _scale(q.shape[-1])
+        * (_scale(q.shape[-1]) if scale is None else scale)
     Tq, Tkv = q.shape[1], k.shape[1]
     keep = None
     if causal:
@@ -89,11 +113,13 @@ def _logits(q, k, causal, padding_mask):
     return s if keep is None else s.masked_fill(~keep, NEG_INF)
 
 
-def flash_attention_fwd_plain(q, k, v, *, causal=False, padding_mask=None
+def flash_attention_fwd_plain(q, k, v, *, causal=False, padding_mask=None,
+                              scale=None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(o [B, Tq, H, D] in q's dtype, lse [B, H, Tq] fp32): the forward
-    kernel's arithmetic over the whole logits matrix at once."""
-    s = _logits(q, k, causal, padding_mask)
+    kernel's arithmetic over the whole logits matrix at once. `scale`:
+    1/sqrt(D) unless given (a zero-padded D keeps its true one)."""
+    s = _logits(q, k, causal, padding_mask, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -103,19 +129,19 @@ def flash_attention_fwd_plain(q, k, v, *, causal=False, padding_mask=None
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, g, *, causal=False,
-                              padding_mask=None
+                              padding_mask=None, scale=None
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtype from the saved o and lse and
     the cotangent g: the two backward kernels' arithmetic over whole
-    matrices."""
+    matrices. `scale` as in the forward."""
     dt = q.dtype
-    p = torch.exp(_logits(q, k, causal, padding_mask) - lse[..., None])
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    p = torch.exp(_logits(q, k, causal, padding_mask, scale) - lse[..., None])
     gf = g.float()
     delta = (gf * o.float()).sum(-1).permute(0, 2, 1)[..., None]
     dp = torch.einsum("bqhd,bkhd->bhqk", gf, v.float())
     ds = (p * (dp - delta)).to(dt).float()
-    scale = _scale(q.shape[-1])
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), gf)
@@ -141,8 +167,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check(q, k, v, padding_mask):
-    """Validate what the kernels take; return (B, Tq, Tkv, H, D) and the
-    mask as contiguous int32 (or None)."""
+    """Validate what the kernels take; return (B, Tq, Tkv, H, Dk, D) — Dk
+    the kernel head_dim that runs D — and the mask as contiguous int32 (or
+    None)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -155,10 +182,8 @@ def _check(q, k, v, padding_mask):
         raise TypeError("flash_attention kernel takes q, k and v in one dtype")
     B, Tq, H, D = q.shape
     Tkv = k.shape[1]
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{HEAD_DIMS}, got {D}")
-    if max(B, H, B * Tq * H * D, B * Tkv * H * D) >= 2 ** 31:
+    Dk = kernel_head_dim(D)
+    if max(B, H, B * Tq * H * Dk, B * Tkv * H * Dk) >= 2 ** 31:
         raise ValueError(f"flash_attention kernel: shape {tuple(q.shape)} "
                          "out of range")
     if any(t.device != q.device for t in (k, v)):
@@ -169,7 +194,7 @@ def _check(q, k, v, padding_mask):
             raise ValueError(f"padding_mask must be [{B}, {Tkv}], got "
                              f"{tuple(padding_mask.shape)}")
         pad = padding_mask.to(q.device, torch.int32).contiguous()
-    return (B, Tq, Tkv, H, D), pad
+    return (B, Tq, Tkv, H, Dk, D), pad
 
 
 def _ptr(t):
@@ -180,9 +205,9 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
-    (B, Tq, Tkv, H, D), pad = _check(q, k, v, padding_mask)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+def _run_fwd(dims, pad, q, k, v, causal, need_lse):
+    """The forward launch on kernel-width (Dk) inputs, scaled for D."""
+    B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_fwd",
                         _FWD_ARGTYPES)
     o = torch.empty_like(q)
@@ -190,35 +215,48 @@ def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
            if need_lse else None)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
-                    o.data_ptr(), _ptr(lse), B, Tq, Tkv, H, D, int(causal),
+                    o.data_ptr(), _ptr(lse), B, Tq, Tkv, H, Dk, int(causal),
                     _scale(D), _DTYPES[q.dtype], _stream(q))
     build.check(status, "flash_attention forward launch")
     flash_attention_fwd.launches += 1
     return o, lse
 
 
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
+def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
+    dims, pad = _check(q, k, v, padding_mask)
+    Dk, D = dims[4:]
+    q, k, v = (_aligned(pad_head_dim(t, Dk)) for t in (q, k, v))
+    o, lse = _run_fwd(dims, pad, q, k, v, causal, need_lse)
+    return _unpad(o, D), lse
+
+
 def hopper_forward(q: torch.Tensor) -> bool:
     """Whether the forward of `q`'s dtype and head_dim runs the Hopper
-    kernel (bf16 at D = 128: wgmma, TMA, warp-specialised). fp32 keeps the
-    FMA kernel (bit parity with the plain version) and bf16 at D 32 and 64
-    the mma.sync one."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == 128
+    kernel (bf16 at a kernel D of 128, so any D from 65 to 128: wgmma,
+    TMA, warp-specialised). fp32 keeps the FMA kernel (bit parity with the
+    plain version) and bf16 at kernel D 32 and 64 the mma.sync one."""
+    return q.dtype == torch.bfloat16 and kernel_head_dim(q.shape[-1]) == 128
 
 
 def fused_delta(q: torch.Tensor) -> bool:
     """Whether the backward of `q`'s dtype and head_dim runs the Hopper
-    kernels (bf16 at D = 128: wgmma, TMA, warp-specialised), whose dq
-    launch computes delta = Σ dO·O itself. fp32 keeps the FMA kernels (bit
-    parity with the plain version) and bf16 at D 32 and 64 the mma.sync
-    ones; both read a delta computed here."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == 128
+    kernels (bf16 at a kernel D of 128: wgmma, TMA, warp-specialised),
+    whose dq launch computes delta = Σ dO·O itself. fp32 keeps the FMA
+    kernels (bit parity with the plain version) and bf16 at kernel D 32
+    and 64 the mma.sync ones; both read a delta computed here."""
+    return q.dtype == torch.bfloat16 and kernel_head_dim(q.shape[-1]) == 128
 
 
 def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
-    """Checked, aligned backward inputs (q, k, v, g, o, lse, delta); delta
-    = Σ dO·O [B, H, Tq] is computed here when `delta`, else None."""
+    """Checked, aligned backward inputs (q, k, v, g, o, lse, delta), the
+    first five zero-padded to the kernel head_dim; delta = Σ dO·O
+    [B, H, Tq] is computed here when `delta`, else None."""
     dims, pad = _check(q, k, v, padding_mask)
-    B, Tq, _, H, _ = dims
+    B, Tq, _, H, Dk, _ = dims
     for name, t in (("o", o), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q ({q.dtype} "
@@ -229,14 +267,14 @@ def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
                          f"{lse.dtype} {tuple(lse.shape)}")
     d = ((g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
          if delta else None)
-    return dims, pad, (_aligned(q), _aligned(k), _aligned(v), _aligned(g),
-                       _aligned(o), lse.contiguous(), d)
+    return dims, pad, (*(_aligned(pad_head_dim(t, Dk))
+                         for t in (q, k, v, g, o)), lse.contiguous(), d)
 
 
 def _launch_dq(dims, pad, q, k, v, g, o, lse, delta, causal):
     """(dq, delta). With `delta` None the kernel (the Hopper one) computes
     delta from g and o and returns it for the dk/dv launch."""
-    B, Tq, Tkv, H, D = dims
+    B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
     dq = torch.empty_like(q)
     fused = delta is None
@@ -246,38 +284,39 @@ def _launch_dq(dims, pad, q, k, v, g, o, lse, delta, causal):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
                     g.data_ptr(), o.data_ptr() if fused else None,
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Tq,
-                    Tkv, H, D, int(causal), _scale(D), _DTYPES[q.dtype],
+                    Tkv, H, Dk, int(causal), _scale(D), _DTYPES[q.dtype],
                     _stream(q))
     build.check(status, "flash_attention dq launch")
     flash_attention_dq.launches += 1
-    return dq, delta
+    return _unpad(dq, D), delta
 
 
 def _launch_dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
     del o  # the inputs are _bwd_inputs', shared with dq
-    B, Tq, Tkv, H, D = dims
+    B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dkv",
                         _DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
                     g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), B, Tq, Tkv, H, D,
+                    dk.data_ptr(), dv.data_ptr(), B, Tq, Tkv, H, Dk,
                     int(causal), _scale(D), _DTYPES[q.dtype], _stream(q))
     build.check(status, "flash_attention dk/dv launch")
     flash_attention_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, D), _unpad(dv, D)
 
 
 def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     """What the compiler gave the kernel that `which` ("fwd", "dq", "dkv")
-    launches at this head_dim and dtype: registers and local-memory (spill)
-    bytes a thread, shared memory and threads a block. Needs the card."""
+    launches at this head_dim (that is, at its kernel head_dim) and dtype:
+    registers and local-memory (spill) bytes a thread, shared memory and
+    threads a block. Needs the card."""
     fn = build.function("flash_attention", "hyperion_flash_attrs",
                         _ATTRS_ARGTYPES)
     out = (ctypes.c_int * 4)()
-    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], D, _DTYPES[dtype],
-                   out), "flash_attention kernel attributes")
+    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], kernel_head_dim(D),
+                   _DTYPES[dtype], out), "flash_attention kernel attributes")
     return {"registers": out[0], "spill_bytes": out[1],
             "smem_bytes": out[2], "threads": out[3]}
 

@@ -15,11 +15,20 @@ into a contiguous `[B, MB*bs, Hkv, D]` view and run the masked grouped
 attention. The kernel (`csrc/paged_attention.cu`) reads the pools in
 place instead, with an online softmax, so the two agree to a tolerance
 (2e-5 in fp32, the reference's own bound), not bit for bit.
+
+`plan` decides how a launch cuts the work: query rows a block (16 or
+64) and splits of the chain (flash-decoding), from the shapes alone.
+It reads no tensor, so a launch never waits on the card and a CUDA
+graph captures it whole; with more than one split the kernel writes
+fp32 partials into a workspace allocated here, and a second kernel of
+the same launch merges them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -27,11 +36,76 @@ from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import grouped_cache_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Z = 65535
-_ROWS_PER_BLOCK = 4   # kWarps in the kernel
-# q, k_pool, v_pool, block_tables, base, out; B, T, H, Hkv, D, bs, MB,
-# dtype; stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+HEAD_DIMS = range(16, 257, 16)  # the kernel's instantiations
+KV_TILE = 32        # kv positions a tile (kN in the kernel)
+SMS = 132           # streaming multiprocessors of an H100 SXM
+MAX_SPLIT = 2048    # positions a split walks at most: its pool row
+                    # indices sit in shared memory (8 KB)
+_GRID_X = 2 ** 31 - 1
+_GRID_YZ = 65535
+# q, k_pool, v_pool, block_tables, base, out, workspace; B, T, H, Hkv, D,
+# bs, MB; warps, row_tiles, n_splits, split_len; dtype; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# which (0 split kernel, 1 combine), D, dtype, warps, split_len, int out[4]
+_ATTRS_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one launch cuts its work: blocks of `warps` warps (16 query
+    rows each), `row_tiles` of them over the window's T * H / Hkv rows,
+    times `n_splits` splits of `split_len` kv positions over the chain
+    [0, MB * bs). Grid (row_tiles * n_splits, Hkv, B)."""
+
+    warps: int
+    row_tiles: int
+    n_splits: int
+    split_len: int
+
+    def grid(self, B: int, Hkv: int) -> tuple[int, int, int]:
+        return (self.row_tiles * self.n_splits, Hkv, B)
+
+
+@functools.lru_cache(maxsize=256)  # a serve run meets a handful of shapes
+def plan(B: int, T: int, H: int, Hkv: int, D: int, bs: int,
+         MB: int) -> Plan:
+    """The launch plan from shapes alone (never from `base` or the
+    tables, which live on the card). A window of at most 16 query rows
+    (decode, verify) takes one-warp blocks and enough splits for ~8
+    blocks an SM, since its bytes, not its products, bound it; wider
+    windows (prefill) take 64-row blocks and split only when their row
+    tiles do not fill the card once. Raises ValueError on what the kernel
+    cannot take."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged_attention kernel takes head_dim a multiple "
+                         f"of 16 from 16 to 256, got {D}")
+    if Hkv <= 0 or H % Hkv:
+        raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {Hkv}")
+    if MB * bs <= 0:
+        raise ValueError(f"paged_attention needs a table of at least one "
+                         f"position, got {MB} blocks of {bs}")
+    rows = T * (H // Hkv)
+    warps = 1 if rows <= 16 else 4
+    row_tiles = -(-rows // (16 * warps))
+    n_tiles = -(-(MB * bs) // KV_TILE)
+    blocks = max(1, B * Hkv * row_tiles)
+    want = -(-(8 * SMS if warps == 1 else SMS) // blocks)
+    per_split = min(-(-n_tiles // want), MAX_SPLIT // KV_TILE)
+    n_splits = -(-n_tiles // per_split)
+    p = Plan(warps, row_tiles, n_splits, per_split * KV_TILE)
+    x, y, z = p.grid(B, Hkv)
+    if x > _GRID_X or y > _GRID_YZ or z > _GRID_YZ:
+        raise ValueError(f"paged_attention: grid {(x, y, z)} exceeds CUDA's "
+                         "limits")
+    return p
+
+
+def plan_for(q: torch.Tensor, k_pool: torch.Tensor,
+             block_tables: torch.Tensor) -> Plan:
+    """`plan` at these tensors' shapes: reads `.shape` only."""
+    B, T, H, D = q.shape
+    _, bs, Hkv, _ = k_pool.shape
+    return plan(B, T, H, Hkv, D, bs, block_tables.shape[1])
 
 
 def _check_shapes(q, k_pool, v_pool, block_tables, base):
@@ -72,7 +146,9 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return grouped_cache_attention(q, vk, vv, mask, H // Hkv)
 
 
-def _launch(q, k_pool, v_pool, block_tables, base):
+def _launch(q, k_pool, v_pool, block_tables, base, p: Plan | None = None):
+    """The kernel launch; `p` replaces `plan`'s choice (for comparing
+    plans on the card, scripts/profile_torch_paged.py)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_pool, v_pool)):
         # the reference kernel has no VJP either: a launch here would
@@ -90,30 +166,50 @@ def _launch(q, k_pool, v_pool, block_tables, base):
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
         raise TypeError(f"paged_attention kernel needs q and pools in one "
                         f"dtype: q {q.dtype}, pools {k_pool.dtype}")
-    if D % 32 or not 0 < D <= 256:
-        raise ValueError(f"paged_attention kernel takes head_dim a multiple "
-                         f"of 32 up to 256, got {D}")
+    p = plan(B, T, H, Hkv, D, bs, MB) if p is None else p
     if block_tables.dtype != torch.int32 or base.dtype != torch.int32:
         raise TypeError("block_tables and base must be int32")
-    rows = T * (H // Hkv)
-    if -(-rows // _ROWS_PER_BLOCK) > _MAX_GRID_Z:
-        raise ValueError(f"window of {rows} query rows exceeds the grid")
     ts = (q, k_pool, v_pool, block_tables, base)
     if any(t.device != q.device for t in ts):
         raise ValueError("paged_attention: all inputs on one device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("paged_attention kernel needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in ts[:3]):
+        raise ValueError("paged_attention kernel needs q and the pools "
+                         "16-byte aligned")
     fn = build.function("paged_attention", "hyperion_paged_attention",
                         _ARGTYPES)
     out = torch.empty_like(q)
+    ws = None
+    if p.n_splits > 1:  # fp32 partials: acc [.., D] and (m, l) per split
+        ws = torch.empty(B * T * H * p.n_splits * (D + 2),
+                         dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                     block_tables.data_ptr(), base.data_ptr(), out.data_ptr(),
-                    B, T, H, Hkv, D, bs, MB, _DTYPES[q.dtype], stream)
+                    None if ws is None else ws.data_ptr(),
+                    B, T, H, Hkv, D, bs, MB, p.warps, p.row_tiles,
+                    p.n_splits, p.split_len, _DTYPES[q.dtype], stream)
     build.check(status, "paged_attention launch")
     paged_attention.launches += 1
     return out
+
+
+def kernel_attrs(D: int, dtype: torch.dtype, p: Plan,
+                 which: str = "split") -> dict:
+    """What the compiler gave the kernel `which` ("split": the attention
+    kernel, at plan `p`; "combine": the merge of the splits) at this
+    head_dim and dtype: registers and local-memory (spill) bytes a
+    thread, shared memory and threads a block. Needs the card."""
+    fn = build.function("paged_attention", "hyperion_paged_attrs",
+                        _ATTRS_ARGTYPES)
+    out = (ctypes.c_int * 4)()
+    build.check(fn({"split": 0, "combine": 1}[which], D, _DTYPES[dtype],
+                   p.warps, p.split_len, out),
+                "paged_attention kernel attributes")
+    return {"registers": out[0], "spill_bytes": out[1],
+            "smem_bytes": out[2], "threads": out[3]}
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -7,10 +7,11 @@ seeded random weights) behind the continuous-batching engine, the same
 Serves the requests twice, each time on a fresh engine over the same
 weights: once plain, for the wall time, and once under the profiler,
 for the device time of every CUDA kernel. Prints JSON lines: the walls,
-the device busy share (kernel time of the profiled run over the plain
-run's wall), device time grouped by what the kernel does (the two
-hand-written kernels, matmuls, the rest), and the top N kernels. Needs
-one CUDA card.
+the plain run's decode tick p50, the device busy share (kernel time of
+the profiled run over the plain run's wall), device time grouped by
+what the kernel does (the hand-written kernels — paged attention's
+split and combine kernels in one group — matmuls, the rest), and the
+top N kernels. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 TOP = 15  # kernels listed one by one
 
 GROUPS = (  # first match wins, on the lowercased kernel name
-    ("paged_attention (hand-written)", ("paged_attention_kernel",)),
+    ("paged_attention (hand-written)", ("paged_attention_kernel",
+                                        "paged_attention_combine_kernel")),
     ("fused_rmsnorm (hand-written)", ("rmsnorm_kernel",)),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
     ("kv scatter / gather / index", ("index", "scatter", "gather")),
@@ -79,13 +81,14 @@ def main() -> int:
             with profiler:
                 summary = serve_jsonl(eng, infile, io.StringIO())
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, summary, eng.forwards
+        tick_p50 = eng.metrics.reg.histogram("serve_tick_ms").percentile(50)
+        return time.perf_counter() - t0, summary, eng.forwards, tick_p50
 
-    wall, summary, forwards = serve()
+    wall, summary, forwards, tick_p50 = serve()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    wall_prof, _, _ = serve(prof)
+    wall_prof, _, _, _ = serve(prof)
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -105,7 +108,8 @@ def main() -> int:
           "serve_wall_profiled_ms": wall_prof * 1e3,
           "kernel_ms": device_ms,
           "device_busy_share": device_ms / (wall * 1e3),
-          "ticks": summary["ticks"], "forwards": forwards,
+          "ticks": summary["ticks"], "tick_ms_p50": tick_p50,
+          "forwards": forwards,
           "tokens": summary["tokens"],
           "tpot_ms_p50": summary["tpot_ms"].get("p50")})
     emit({"groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1]))})

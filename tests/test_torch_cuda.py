@@ -8,12 +8,16 @@ autograd. jax-free, so it runs where the port runs:
 machine does not have.) Without a CUDA device every test skips with
 its reason. chip_smoke.py holds the same kernels at full model width;
 these cover the small, odd geometries: GQA, a shared prefix, a window
-running past the table, every head_dim the kernel takes, odd rows and
+running past the table, head dims from 16 to 256, the paged kernel's
+plans (chains split across blocks, with rows that end inside, on and at
+the end of a split; prefill row tiles at base 0 and mid-block), its
+determinism and null-block poison, odd rows and
 widths, both LayerNorm kernels (a warp a row up to 1024 wide, a block a
 row past that, for odd widths and misaligned views), the widest
 LayerNorm row (64 KB of shared memory), a ragged
-vocab and the strided [B, T-1, V] logits view, every head_dim the
-flash kernels take, a ragged sequence, unequal query and key lengths,
+vocab and the strided [B, T-1, V] logits view, flash head dims 32 to
+128 (80 and 96 zero-padded to 128), a ragged sequence, unequal query
+and key lengths,
 the Hopper kernels' edges (a sequence shorter than one tile, causal
 with unequal lengths, a padding tail per row, a row all padding) and the
 backward's determinism.
@@ -40,6 +44,7 @@ from hyperion_tpu_torch.ops.fused_norm import (
     fused_rmsnorm_plain,
     layernorm_path,
 )
+from hyperion_tpu_torch.ops import paged_attention as pa_mod
 from hyperion_tpu_torch.ops.paged_attention import (
     paged_attention,
     paged_attention_plain,
@@ -59,15 +64,17 @@ def cuda():
 
 
 def _geometry(dev, dtype, B, T, H, Hkv, D, bs=4, MB=8, seed=0,
-              share_prefix=False, full=False):
+              share_prefix=False, full=False, base=None):
     rng = np.random.default_rng(seed)
     NB = B * MB + 1
     q, kp, vp = (torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).to(dev, dtype) for shape in
         ((B, T, H, D), (NB, bs, Hkv, D), (NB, bs, Hkv, D)))
     # full: the window runs to the table's end (bucket padding past it)
-    base = (np.full(B, MB * bs - T // 2) if full
-            else rng.integers(0, MB * bs - T + 1, B)).astype(np.int32)
+    if base is None:
+        base = (np.full(B, MB * bs - T // 2) if full
+                else rng.integers(0, MB * bs - T + 1, B))
+    base = np.asarray(base).astype(np.int32)
     bt = np.zeros((B, MB), np.int32)
     for b in range(B):
         n = min(MB, (int(base[b]) + T + bs - 1) // bs)
@@ -78,6 +85,11 @@ def _geometry(dev, dtype, B, T, H, Hkv, D, bs=4, MB=8, seed=0,
             torch.from_numpy(base).to(dev))
 
 
+# The kernel's plan (ops/paged_attention.py `plan`) splits a chain of
+# MB * bs positions across blocks for windows of at most 16 query rows
+# and takes 64-row tiles past that: the cases at bs 16 and MB 16-64 run
+# many splits (decode, verify) or several row tiles (prefill), at every
+# kind of head dim the kernel takes (16 to 256 in steps of 16).
 CASES = {
     "decode": dict(B=3, T=1, H=4, Hkv=4, D=64),
     "verify_gqa": dict(B=2, T=5, H=8, Hkv=2, D=128, seed=1),
@@ -85,6 +97,24 @@ CASES = {
     "shared_prefix": dict(B=3, T=2, H=4, Hkv=4, D=256, seed=3,
                           share_prefix=True),
     "past_the_table": dict(B=2, T=6, H=4, Hkv=1, D=96, seed=4, full=True),
+    "decode_d16_splits": dict(B=3, T=1, H=4, Hkv=2, D=16, bs=16, MB=64,
+                              seed=6),
+    "verify_d80_splits": dict(B=2, T=5, H=8, Hkv=8, D=80, bs=16, MB=64,
+                              seed=7),
+    "decode_d256_splits": dict(B=2, T=1, H=4, Hkv=4, D=256, bs=16, MB=32,
+                               seed=8),
+    "prefill_d80_base0": dict(B=1, T=100, H=4, Hkv=2, D=80, bs=16, MB=16,
+                              seed=9, base=[0]),
+    "prefill_d16_base37": dict(B=1, T=90, H=4, Hkv=4, D=16, bs=16, MB=16,
+                               seed=10, base=[37]),
+    "decode_70b_heads": dict(B=2, T=1, H=64, Hkv=8, D=128, bs=16, MB=32,
+                             seed=11),
+    "prefill_70b_heads": dict(B=1, T=40, H=64, Hkv=8, D=128, bs=16, MB=8,
+                              seed=12, base=[3]),
+    # decode rows over 32-position splits: a visible length shorter than
+    # one split, one ending exactly on a split boundary, the whole table
+    "split_edges": dict(B=3, T=1, H=4, Hkv=4, D=64, bs=16, MB=64, seed=13,
+                        base=[5, 63, 1023]),
 }
 
 
@@ -93,6 +123,8 @@ CASES = {
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_paged_attention_matches_plain(cuda, case, dtype):
     q, kp, vp, bt, base = _geometry(cuda, dtype, **CASES[case])
+    if case == "split_edges":
+        assert pa_mod.plan_for(q, kp, bt).split_len == 32
     before = paged_attention.launches
     out = paged_attention(q, kp, vp, bt, base)
     assert paged_attention.launches == before + 1
@@ -108,6 +140,36 @@ def test_paged_attention_null_block_poison(cuda):
     clean = paged_attention(q, kp, vp, bt, base)
     kp[0], vp[0] = 1e4, -1e4
     assert torch.equal(paged_attention(q, kp, vp, bt, base), clean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["decode_d16_splits", "verify_d80_splits",
+                                  "prefill_d80_base0"])
+def test_paged_attention_splits_are_deterministic_and_poison_free(
+        cuda, case, dtype):
+    """Two runs give the same bits (the splits merge in a fixed order, no
+    atomics), and garbage in the null block behind unmapped table entries
+    changes no bit: splits past a row's frontier read no K/V."""
+    q, kp, vp, bt, base = _geometry(cuda, dtype, **CASES[case])
+    assert int((bt == 0).sum()) > 0
+    runs = [paged_attention(q, kp, vp, bt, base) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    kp[0], vp[0] = 1e4, -1e4
+    assert torch.equal(paged_attention(q, kp, vp, bt, base), runs[0])
+
+
+def test_paged_attention_kernels_keep_to_registers(cuda):
+    """The split kernel at 7B's decode tick and prefill plans, and the
+    combine, spill nothing to local memory and fit a block's shared
+    memory."""
+    for T in (1, 512):
+        p = pa_mod.plan(4, T, 32, 32, 128, 16, 64)
+        for dtype in (torch.bfloat16, torch.float32):
+            for which in ("split", "combine"):
+                attrs = pa_mod.kernel_attrs(128, dtype, p, which)
+                assert attrs["spill_bytes"] == 0, (T, dtype, which, attrs)
+                assert attrs["smem_bytes"] <= 227 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -324,7 +386,10 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "short_40_d128": (1, 40, 40, 2, 128, True, 0.0),
                "cross_causal_d128": (2, 70, 200, 2, 128, True, 0.2),
                "cross_causal_long_q_d128": (1, 200, 130, 2, 128, True, 0.1),
-               "two_tails_d128": (2, 256, 256, 2, 128, True, (0.25, 0.1))}
+               "two_tails_d128": (2, 256, 256, 2, 128, True, (0.25, 0.1)),
+               # D 80 and 96 run zero-padded to the D 128 kernels
+               "causal_pad_d96": (2, 192, 192, 2, 96, True, 0.25),
+               "cross_causal_d80": (2, 70, 200, 2, 80, True, 0.2)}
 
 
 def _flash_inputs(dev, dtype, case, seed=45):
@@ -388,7 +453,8 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", ["causal_pad_d128", "two_tails_d128",
-                                  "cross_causal_d128", "ragged_causal_d32"])
+                                  "cross_causal_d128", "ragged_causal_d32",
+                                  "causal_pad_d96"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two runs of the whole backward (one delta for both kernels; on the
     bf16 D 128 path the dq kernel computes it) give the same bits, and
@@ -446,7 +512,7 @@ def test_flash_autograd_runs_the_three_kernels(cuda):
 
 
 def test_flash_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 48, device=cuda)
+    q = torch.zeros(1, 8, 2, 144, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)

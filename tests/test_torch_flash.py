@@ -132,13 +132,14 @@ def test_d128_forward_and_lse_match_jax(case, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
 def test_hopper_kernels_take_bf16_at_d128(D, dtype):
-    """On the card bf16 at head_dim 128 runs the Hopper forward and the
-    Hopper backward (whose dq launch computes delta); fp32 and the
-    narrower head dims keep the first kernels."""
+    """On the card bf16 at kernel head_dim 128 (D 80 and 96 run
+    zero-padded to it) runs the Hopper forward and the Hopper backward
+    (whose dq launch computes delta); fp32 and the narrower head dims
+    keep the first kernels."""
     q = torch.empty(1, 4, 2, D, dtype=dtype)
-    hopper = dtype == torch.bfloat16 and D == 128
+    hopper = dtype == torch.bfloat16 and D > 64
     assert fa.hopper_forward(q) is hopper
     assert fa.fused_delta(q) is hopper
 
@@ -241,3 +242,77 @@ def test_cpu_tensors_launch_nothing_and_skip_lse_without_grad():
     fa.flash_attention(*ins, causal=True).sum().backward()
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == before
+
+
+def _plain_run_fwd(dims, pad, q, k, v, causal, need_lse):
+    """`flash_attention._run_fwd` as the plain version: the forward at
+    the kernel's width Dk with the scale of the true D, as the kernel is
+    launched."""
+    Dk, D = dims[4:]
+    assert q.shape[-1] == k.shape[-1] == v.shape[-1] == Dk
+    return fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                        padding_mask=pad, scale=fa._scale(D))
+
+
+def _padded_path(monkeypatch, q, k, v, g, mask, causal):
+    """(o, lse, dq, dk, dv) through the kernels' padding: the forward
+    launcher with its launch run as the plain version, and the plain
+    backward on `_bwd_inputs`' zero-padded tensors, sliced back."""
+    monkeypatch.setattr(fa, "_run_fwd", _plain_run_fwd)
+    o, lse = fa._launch_fwd(q, k, v, mask, causal, True)
+    dims, pad, (qp, kp, vp, gp, op, lse_c, _) = fa._bwd_inputs(
+        q, k, v, o, lse, g, mask, delta=True)
+    Dk, D = dims[4:]
+    assert qp.shape[-1] == Dk > D
+    grads = fa.flash_attention_bwd_plain(qp, kp, vp, op, lse_c, gp,
+                                         causal=causal, padding_mask=pad,
+                                         scale=fa._scale(D))
+    return (o, lse, *(t[..., :D] for t in grads))
+
+
+@pytest.mark.parametrize("D", [80, 96])
+def test_padded_head_dim_equals_unpadded(D, monkeypatch):
+    """On the card D 80 and 96 run the D 128 kernels on zero-padded
+    q, k, v (and dO, o): zero columns add exact zeros to q·kᵀ and the
+    padded columns of v only fill the columns cut away. Through the
+    plain versions, in fp32, the padded path gives the unpadded one's
+    o, lse and gradients (to fp32 summation order)."""
+    q, k, v, g, mask = (torch.from_numpy(a) for a in
+                        _inputs(shape=(2, 48, 2, D), seed=8, pad_from=30))
+    assert fa.kernel_head_dim(D) == 128
+    got = _padded_path(monkeypatch, q, k, v, g, mask, True)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                          padding_mask=mask)
+    want = (o, lse, *fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, g, causal=True, padding_mask=mask))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_padded_d96_matches_jax(monkeypatch):
+    """The padded path at D 96 against the JAX kernel in interpret mode,
+    which tiles the full D: o and lse within 2e-5, gradients 2e-4."""
+    q, k, v, g, mask = _inputs(shape=(2, 64, 2, 96), seed=9)
+    jm = jnp.asarray(mask)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=True, padding_mask=jm, **BLOCKS)
+    _, ref_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jm, True, 16, 32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash(q, k, v, causal=True, padding_mask=jm,
+                              **BLOCKS) * jnp.asarray(g))
+
+    ref_grads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    o, lse, *grads = _padded_path(monkeypatch, *(torch.from_numpy(a) for a
+                                                 in (q, k, v, g, mask)),
+                                  True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               atol=2e-5, rtol=2e-5)
+    for t, r in zip(grads, ref_grads):
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)

@@ -143,7 +143,7 @@ class TestPagedAttentionPlain:
 
     @pytest.mark.parametrize("bad, match", [
         ("dtype", "float32 or bfloat16"),
-        ("head_dim", "multiple of 32"),
+        ("head_dim", "multiple of 16"),
         ("table_dtype", "int32"),
         ("pool_dtype", "one dtype"),
         ("strided", "contiguous"),
@@ -151,8 +151,11 @@ class TestPagedAttentionPlain:
     def test_kernel_rejects_what_it_cannot_take(self, bad, match):
         """The launch path validates before it builds or launches."""
         q, kp, vp, bt, base = _torch(*_geometry(
-            2, 1, 4, 4, D=48 if bad == "head_dim" else 32))
-        if bad == "dtype":
+            2, 1, 4, 4, D=40 if bad == "head_dim" else 32))
+        if bad == "head_dim":
+            for D in (16, 80):  # multiples of 16 pass the planner's check
+                assert pa_mod.plan(2, 1, 4, 4, D, 4, 8).n_splits >= 1
+        elif bad == "dtype":
             q, kp, vp = q.half(), kp.half(), vp.half()
         elif bad == "table_dtype":
             bt = bt.long()
@@ -162,6 +165,71 @@ class TestPagedAttentionPlain:
             q = q.transpose(2, 3).contiguous().transpose(2, 3)
         with pytest.raises((TypeError, ValueError), match=match):
             pa_mod._launch(q, kp, vp, bt, base)
+
+
+# (B, T, H, Hkv, D, bs, MB): the serve decode tick and verify window at
+# Llama-2-7B heads, 70B's GQA heads, serve's and 70B's prefill windows,
+# the CUDA tests' small geometries, a chain of one tile and one of a
+# table no split divides
+PLAN_SHAPES = {
+    "tick_7b": (4, 1, 32, 32, 128, 16, 64),
+    "decode_70b": (8, 1, 64, 8, 128, 16, 64),
+    "verify_70b": (8, 5, 64, 8, 128, 16, 64),
+    "prefill_7b_1024": (1, 1024, 32, 32, 128, 16, 64),
+    "prefill_70b_8192_rows": (1, 1024, 64, 8, 128, 16, 256),
+    "small_decode_d16": (3, 1, 4, 2, 16, 16, 64),
+    "one_tile": (3, 1, 4, 4, 64, 4, 8),
+    "ragged_table": (2, 3, 4, 4, 80, 5, 37),
+}
+
+
+class TestPagedAttentionPlan:
+    """The kernel's launch plan, a pure function of shapes."""
+
+    @pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+    def test_splits_cover_the_chain_once(self, name):
+        B, T, H, Hkv, D, bs, MB = PLAN_SHAPES[name]
+        p = pa_mod.plan(B, T, H, Hkv, D, bs, MB)
+        L = MB * bs
+        assert p.split_len % pa_mod.KV_TILE == 0
+        assert p.split_len <= pa_mod.MAX_SPLIT
+        covered = np.zeros(L, np.int64)
+        for s in range(p.n_splits):
+            s0 = s * p.split_len
+            assert s0 < L  # no split lies wholly past the table
+            covered[s0:min(s0 + p.split_len, L)] += 1
+        assert (covered == 1).all()
+        # every query row in exactly one row tile
+        rows = T * H // Hkv
+        assert p.warps in (1, 4)
+        assert (p.row_tiles - 1) * 16 * p.warps < rows \
+            <= p.row_tiles * 16 * p.warps
+
+    @pytest.mark.parametrize("name", ["prefill_7b_1024",
+                                      "prefill_70b_8192_rows", "tick_7b"])
+    def test_grid_within_cuda_limits(self, name):
+        B, T, H, Hkv, D, bs, MB = PLAN_SHAPES[name]
+        p = pa_mod.plan(B, T, H, Hkv, D, bs, MB)
+        x, y, z = p.grid(B, Hkv)
+        assert 0 < x < 2 ** 31 and 0 < y <= 65535 and 0 < z <= 65535
+        assert 32 * p.warps <= 1024
+        # the decode tick splits its chains across blocks; a prefill
+        # window's row tiles alone fill the card
+        if T == 1:
+            assert p.n_splits > 1 and p.warps == 1
+        else:
+            assert p.warps == 4 and x * y * z >= pa_mod.SMS
+
+    def test_plan_reads_no_tensor_data(self):
+        """The plan comes from shapes alone: tensors on the meta device,
+        which hold no data, give the plan of the same ints, whatever
+        `base` and the tables would hold."""
+        B, T, H, Hkv, D, bs, MB = PLAN_SHAPES["tick_7b"]
+        q = torch.empty(B, T, H, D, device="meta")
+        kp = torch.empty(B * MB + 1, bs, Hkv, D, device="meta")
+        bt = torch.empty(B, MB, dtype=torch.int32, device="meta")
+        assert pa_mod.plan_for(q, kp, bt) == pa_mod.plan(B, T, H, Hkv, D,
+                                                         bs, MB)
 
 
 class TestFusedRMSNormPlain:
