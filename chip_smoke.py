@@ -33,14 +33,16 @@ script exits non-zero):
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
               last quarter of the keys padding), at [2, 1024, 8, 128] fp32
-              causal and not, at a ragged T = 1000, at [2, 200, 8,
-              128] bf16 with one batch row all padding and at head dims
-              80 and 96 (zero-padded to 128, each kernel launched), alone
+              causal and not and with q scaled by 4 (the split-TF32
+              kernels), at a ragged T = 1000, at [2, 200, 8,
+              128] bf16 with one batch row all padding, bf16 at
+              [1, 4096, 8, 64] causal and at head dims 80 and 96
+              (zero-padded to 128, each kernel launched), alone
               and through
               `flash_attention_bwd` (two runs bit-identical, from the
               forward kernel's own o and lse), each with its registers,
-              spill and shared-memory bytes (the Hopper forward and
-              backward must not spill); the cross-entropy at Llama's
+              spill and shared-memory bytes (the Hopper and split-TF32
+              kernels must not spill); the cross-entropy at Llama's
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
               backward in turns (library, kernel, kernel, library).
@@ -105,8 +107,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# fp32: the least time for fp32-accurate products is three TF32 passes
+# (hi.hi + hi.lo + lo.hi of operands split as hi + lo) at the dense TF32
+# tensor-core rate, 495 TFLOP/s; one pass alone misses the fp32 bounds
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
-            torch.float32: 67e12}    # fp32 outside the tensor cores
+            torch.float32: 495e12 / 3}
 L2_BYTES = 50 * 2 ** 20             # H100 L2 cache
 SEED = 0
 # (atol, rtol) of a kernel against its plain version. bf16: both sides
@@ -689,13 +694,16 @@ def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
     return ok, float(err.max())
 
 
-def flash_case(B, T, H, D, dtype, pad_tail, seed):
+def flash_case(B, T, H, D, dtype, pad_tail, seed, q_scale=1.0):
     """q, k, v, dO [B, T, H, D] and a [B, T] key mask whose last
     `pad_tail` of positions is padding — one fraction for every batch row
-    or one per row (1.0: every key of the row) — None for no mask."""
+    or one per row (1.0: every key of the row) — None for no mask. q is
+    scaled by `q_scale` (large logits) before the cast to `dtype`."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = (torch.randn(B, T, H, D, generator=g, device="cuda")
-                   .to(dtype) for _ in range(4))
+                   for _ in range(4))
+    q, k, v, do = ((q * q_scale).to(dtype), k.to(dtype), v.to(dtype),
+                   do.to(dtype))
     pad = None
     if pad_tail:
         tails = pad_tail if isinstance(pad_tail, tuple) else (pad_tail,) * B
@@ -719,10 +727,12 @@ def flash_pairs(B, T, causal, pad) -> float:
 def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     """The forward, dq and dk/dv kernels against the plain versions (the
     backward from the kernel's own o and lse), standalone and through
-    `flash_attention_bwd` (one delta for both kernels; on the bf16 D 128
-    path the dq kernel computes it), whose two runs must be bit-identical;
+    `flash_attention_bwd` (one delta for both kernels; in fp32 and on the
+    bf16 D 128 path the dq kernel computes it), whose two runs must be
+    bit-identical;
     each kernel's registers, spill and shared-memory bytes, and no spill
-    on the Hopper kernels (bf16 at D 128, forward and backward). With
+    on the Hopper kernels (bf16 at D 128) or the split-TF32 ones (fp32),
+    forward and backward. With
     `timing`, kernel, plain, bound and library times, and the whole
     backward against SDPA's in turns.
     Returns the three kernel records."""
@@ -762,8 +772,10 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         which = kn.split("_")[-1]
         attrs = fa.kernel_attrs(which, D, dtype)
         ok = all(ok for ok, _ in c)
-        # the Hopper kernels (bf16, D 128) keep everything in registers
-        ok = ok and not (fa.hopper_forward(q) and attrs["spill_bytes"])
+        # the Hopper kernels (bf16, D 128) and the split-TF32 ones (fp32)
+        # keep everything in registers
+        redesigned = fa.hopper_forward(q) or dtype == torch.float32
+        ok = ok and not (redesigned and attrs["spill_bytes"])
         if which != "fwd":
             # two runs of the backward agree to the bit
             ok = ok and deterministic
@@ -798,9 +810,9 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), attn_mask=mask4),
             (q, k, v), nf)
-        # the launchers alone: dq computes delta itself on the Hopper path
-        # (and reads o), otherwise delta = sum(dO * O) is a plain reduction
-        # made once, outside the timing
+        # the launchers alone: dq computes delta itself in fp32 and on the
+        # Hopper path (and reads o), otherwise delta = sum(dO * O) is a
+        # plain reduction made once, outside the timing
         fused = fa.fused_delta(q)
         dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad,
                                           delta=not fused)
@@ -867,11 +879,13 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
 def phase_flash() -> dict:
     """The flash kernels at the Llama-2-7B train step ([1, 4096, 32, 128]
     bf16, causal, the last quarter of the keys padding), fp32 causal and
-    not at [2, 1024, 8, 128], a ragged T = 1000, [2, 200, 8, 128] bf16
-    with one batch row all padding, and [2, 1000, 8, D] bf16 at D 80 and
-    96 (run zero-padded to the D 128 kernels); the cross-entropy at
-    Llama's [1, 4095, 32000] fp32 logits view. Returns the train step's
-    records for the `kernels` line."""
+    not at [2, 1024, 8, 128] and with q scaled by 4 (large logits), a
+    ragged T = 1000, [2, 200, 8, 128] bf16 with one batch row all
+    padding, bf16 at D 64 ([1, 4096, 8, 64] causal, the language_ddp
+    heads at a length where "auto" picks flash) and [2, 1000, 8, D] bf16
+    at D 80 and 96 (run zero-padded to the D 128 kernels); the
+    cross-entropy at Llama's [1, 4095, 32000] fp32 logits view. Returns
+    the train step's records for the `kernels` line."""
     recs = check_flash("llama_train_step", *flash_case(
         1, 4096, 32, 128, torch.bfloat16, 0.25, SEED + 20), causal=True,
         timing=True)
@@ -881,6 +895,10 @@ def phase_flash() -> dict:
         check_flash("fp32_causal" if causal else "fp32_full", *flash_case(
             2, 1024, 8, 128, torch.float32, 0.0, SEED + 21), causal=causal,
             timing=True)
+    # large logits, where a TF32 term the fp32 kernels lost would show
+    check_flash("fp32_scaled_q", *flash_case(
+        2, 1024, 8, 128, torch.float32, 0.25, SEED + 26, q_scale=4.0),
+        causal=True, timing=False)
     check_flash("ragged_1000", *flash_case(
         1, 1000, 8, 128, torch.bfloat16, 0.1, SEED + 22), causal=True,
         timing=True)
@@ -891,14 +909,17 @@ def phase_flash() -> dict:
     check_flash("all_pad_row_200", *flash_case(
         2, 200, 8, 128, torch.bfloat16, (1.0, 0.1), SEED + 24), causal=False,
         timing=False)
+    check_flash("d64_bf16_4096", *flash_case(
+        1, 4096, 8, 64, torch.bfloat16, 0.0, SEED + 27), causal=True,
+        timing=True)
     # head dims of no kernel instantiation run zero-padded to D 128 (the
     # Hopper kernels in bf16): the forward and whole backward against the
-    # plain versions, and each kernel launched
+    # plain versions, each kernel launched, and their times
     for D in (80, 96):
         before = _flash_launches()
         check_flash(f"d{D}_bf16", *flash_case(
             2, 1000, 8, D, torch.bfloat16, 0.1, SEED + 25), causal=True,
-            timing=False)
+            timing=True)
         rose = {k: n - before[k] for k, n in _flash_launches().items()}
         emit({"phase": "kernels", "kernel": "flash_attention", "case":
               f"d{D}_bf16_launches", "launches": rose})

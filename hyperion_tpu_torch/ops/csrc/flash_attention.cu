@@ -15,10 +15,10 @@
 //   p . v, which accumulates in fp32; o = acc / max(l, 1e-30) cast to the
 //   input dtype; lse = m + log(max(l, 1e-30)), written only when asked
 //   for. Backward from the saved lse and delta = sum(dO * O) (computed by
-//   the caller, or by the bf16 D = 128 dq kernel): p = exp(s - lse),
-//   dp = dO . v^T, ds = p * (dp - delta), dq = scale * ds->dtype . k,
-//   dv = p->dtype^T . dO, dk = scale * ds->dtype^T . q, each cast to the
-//   input dtype. Key columns past Tkv (the ragged last tile) are left out
+//   the caller, or by the fp32 and the bf16 D = 128 dq kernels):
+//   p = exp(s - lse), dp = dO . v^T, ds = p * (dp - delta),
+//   dq = scale * ds->dtype . k, dv = p->dtype^T . dO,
+//   dk = scale * ds->dtype^T . q, each cast to the input dtype. Key columns past Tkv (the ragged last tile) are left out
 //   entirely (p = 0). A row whose keys are all padding has every s at
 //   NEG_INF, so its o is the mean of v over the Tkv keys; under a causal
 //   mask the tiles past its frontier are skipped, so its o depends on the
@@ -33,7 +33,7 @@
 // reach them from shared memory filled by TMA (or from registers), and
 // the softmax arithmetic runs beside the products, not between them.
 //
-// fp32, and bf16 at D = 32 and 64 (`flash_fwd_kernel`, `flash_dq_kernel`,
+// bf16 at D = 32 and 64 (`flash_fwd_kernel`, `flash_dq_kernel`,
 // `flash_dkv_kernel`; right and simple first):
 //   * One block of 4 warps per (tile, head, batch). The forward and dq
 //     kernels take a 64-row query tile and loop over 64-row key tiles up
@@ -45,14 +45,50 @@
 //   * Tiles are copied from device memory to shared memory with 16-byte
 //     loads, rows padded by 16 bytes so the fragment reads hit 32 banks;
 //     rows past T are zero-filled (a ragged T is a bound check).
-//   * Each warp owns 16 rows of its tile's products. bf16 products run on
-//     the tensor cores (mma.sync m16n8k16, fp32 accumulators), the
-//     fragments read from shared memory; fp32 inputs take plain fp32 FMAs
-//     over the same fragment layout (never TF32), so fp32 parity holds.
-//   * p (and ds) go through shared memory in the input dtype to feed the
-//     second product; the fp32 values stay in registers for ds.
-//   * Shared memory above 48 KB is opted in (up to ~170 KB for fp32 dk/dv
-//     at D = 128).
+//   * Each warp owns 16 rows of its tile's products, on the tensor cores
+//     (mma.sync m16n8k16, fp32 accumulators), the fragments read from
+//     shared memory.
+//   * p (and ds) go through shared memory in bf16 to feed the second
+//     product; the fp32 values stay in registers for ds.
+//
+// fp32 at D = 32, 64 and 128 (`flash_fwd_kernel_tf32`,
+// `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`): the same products on
+// the tensor cores as split TF32, within the reference's fp32 bounds
+// (o, lse 2e-5; gradients 2e-4) of the plain version:
+//   * Every operand x enters as hi = tf32(x) and lo = tf32(x - hi), each
+//     rounded to 10 mantissa bits (nearest, ties away) by integer ops on
+//     the fp32 bits; a product is the three mma.sync m16n8k8 TF32 passes
+//     lo.hi + hi.lo + hi.hi into one fp32 accumulator (lo.lo dropped: it
+//     is below 2^-22 of the product). One pass alone misses the bounds.
+//   * mma.sync, not wgmma: TF32 wgmma reads only K-major shared memory,
+//     and five of the seven products read B along the rows of a [T, D]
+//     tile (p.v, dq, dk, dv); mma.sync loads B fragments by thread from
+//     any layout.
+//   * 8 warps a block over 128 rows of the block's own side (q for the
+//     forward and dq, k and v for dk/dv), 16 rows a warp, resident in
+//     shared memory as raw fp32 (rows unpadded, 16-byte chunks XOR-
+//     swizzled by row, so the A-fragment reads hit 32 banks); each warp
+//     splits its A fragments as it reads them.
+//   * The other side streams in tiles of 32 rows at D 128 and 64 below:
+//     a raw stage filled by 16-byte cp.async while the tile before it is
+//     used, then split once for the block into hi and lo planes (rows
+//     padded by 16 bytes, so both B-fragment reads below hit 32 banks).
+//     The eight warps read B fragments ready to use: splitting them in
+//     every warp cost ten integer and float ops per three mma.sync and
+//     held the backward at the speed of SDPA's. At D 128 the backward's
+//     231.7 KB (two resident tiles, four planes, the stage) are just
+//     within the 227 KB a block may have: one block an SM.
+//   * s and dp stay in registers: the m16n8 C fragment of an 8-column
+//     tile (columns 2c, 2c + 1) is the A fragment of the next product
+//     (columns c, c + 4) once that product's k is permuted to match
+//     (k = c reads column 2c, k = c + 4 column 2c + 1), and its B
+//     fragment is read from the same permuted rows.
+//   * The dq kernel computes delta = sum(dO * O) for its rows in its
+//     prologue and writes it for the dk/dv launch; one writer per
+//     gradient row, so two backward runs give the same bits.
+//   * A warp skips a tile wholly past its causal frontier; only edge
+//     tiles (the diagonal, padded or ragged keys, a ragged query tail)
+//     take the per-element mask.
 //
 // bf16 at D = 128 (`flash_fwd_kernel_sm90`, `flash_dq_kernel_sm90`,
 // `flash_dkv_kernel_sm90`), built from sm90.cuh for the tensor cores'
@@ -126,13 +162,6 @@ __host__ __device__ constexpr int ld_in() { return D + pad_elems<T>(); }
 template <typename T>
 __host__ __device__ constexpr int ld_p() { return kTile + pad_elems<T>(); }
 
-// element (i, j) of a shared-memory matrix stored row-major (kTrans =
-// false: p[i * ld + j]) or transposed (p[j * ld + i])
-template <bool kTrans, typename T>
-__device__ __forceinline__ T at(const T* p, int ld, int i, int j) {
-  return kTrans ? p[j * ld + i] : p[i * ld + j];
-}
-
 __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
@@ -167,45 +196,28 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c[16 x 8*NT] += A[m0 .. m0+15, 0 .. K) . B[0 .. K, 0 .. 8*NT), one warp.
-// The accumulator is the m16n8 fragment: thread `lane` holds rows
-// lane/4 (c[.][0..1]) and lane/4 + 8 (c[.][2..3]), columns 2*(lane%4)
-// and 2*(lane%4) + 1 of each 8-column tile.
-template <bool kTransA, bool kTransB, int NT, typename T>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const T* A, int lda,
-                                          int m0, const T* Bm, int ldb, int K) {
+// c[16 x 8*NT] += A[m0 .. m0+15, 0 .. K) . B[0 .. K, 0 .. 8*NT), one warp,
+// bf16 on the tensor cores. The accumulator is the m16n8 fragment: thread
+// `lane` holds rows lane/4 (c[.][0..1]) and lane/4 + 8 (c[.][2..3]),
+// columns 2*(lane%4) and 2*(lane%4) + 1 of each 8-column tile.
+template <bool kTransA, bool kTransB, int NT>
+__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const bf16* A, int lda,
+                                          int m0, const bf16* Bm, int ldb, int K) {
   const int lane = threadIdx.x & 31;
   const int r = lane >> 2, cc = (lane & 3) * 2;
-  if constexpr (std::is_same<T, bf16>::value) {
 #pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t a[4];
-      a[0] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc);
-      a[1] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc);
-      a[2] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc + 8);
-      a[3] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc + 8);
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4];
+    a[0] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc);
+    a[1] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc);
+    a[2] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc + 8);
+    a[3] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc + 8);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t b[2];
-        b[0] = pair_rows<kTransB>(Bm, ldb, k0 + cc, nt * 8 + r);
-        b[1] = pair_rows<kTransB>(Bm, ldb, k0 + cc + 8, nt * 8 + r);
-        mma_bf16(c[nt], a, b);
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float a0 = at<kTransA>(A, lda, m0 + r, k);
-      const float a1 = at<kTransA>(A, lda, m0 + r + 8, k);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float b0 = at<kTransB>(Bm, ldb, k, nt * 8 + cc);
-        const float b1 = at<kTransB>(Bm, ldb, k, nt * 8 + cc + 1);
-        c[nt][0] = fmaf(a0, b0, c[nt][0]);
-        c[nt][1] = fmaf(a0, b1, c[nt][1]);
-        c[nt][2] = fmaf(a1, b0, c[nt][2]);
-        c[nt][3] = fmaf(a1, b1, c[nt][3]);
-      }
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t b[2];
+      b[0] = pair_rows<kTransB>(Bm, ldb, k0 + cc, nt * 8 + r);
+      b[1] = pair_rows<kTransB>(Bm, ldb, k0 + cc + 8, nt * 8 + r);
+      mma_bf16(c[nt], a, b);
     }
   }
 }
@@ -1424,6 +1436,663 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------------------ fp32: split TF32 on mma.sync
+//
+// Eight warps a block over 128 rows of the block's own side, 16 a warp,
+// resident in shared memory; the other side streams through a raw stage
+// (cp.async) and is split once a tile into hi and lo planes.
+
+namespace tf32 {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // the block's own rows
+
+// the streamed side's tile: 32 rows at D = 128, 64 below (what fits
+// beside the resident tiles in 227 KB)
+template <int D>
+__host__ __device__ constexpr int tile_rows() { return D == 128 ? 32 : 64; }
+
+// the row stride of a plane: D + 4 words, 4 mod 32 banks, so both of its
+// fragment reads (rows g, columns c; rows 2c and 2c + 1, columns g) fall
+// on 32 different banks
+template <int D>
+__host__ __device__ constexpr int ld() { return D + 4; }
+
+// Shared memory, in 4-byte words: `kOwn` resident [128][D] tiles (raw
+// fp32, swizzled), four planes (hi and lo of the two streamed tiles),
+// the raw stage of the two streamed tiles, then `extra` words of per-row
+// flags or statistics.
+template <int D, int kOwn>
+struct Layout {
+  static constexpr int R = tile_rows<D>();
+  static constexpr int own = kRows * D;
+  static constexpr int plane = R * ld<D>();
+  static constexpr int stage = R * D;
+  static constexpr int planes_off = kOwn * own;
+  static constexpr int stage_off = planes_off + 4 * plane;
+  static constexpr int extra_off = stage_off + 2 * stage;
+  static constexpr size_t bytes(int extra) { return 4u * (extra_off + extra); }
+};
+
+template <int D>
+constexpr size_t fwd_smem() { return Layout<D, 1>::bytes(tile_rows<D>()); }
+template <int D>
+constexpr size_t dq_smem() { return Layout<D, 2>::bytes(tile_rows<D>()); }
+template <int D>
+constexpr size_t dkv_smem() { return Layout<D, 2>::bytes(2 * tile_rows<D>()); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// word offset of element (r, col) of a resident tile: rows unpadded, the
+// 16-byte chunks of row r permuted by chunk ^ (r % 8), so that `frag_a`'s
+// reads (rows g, g + 8; columns c, c + 4) fall on 32 different banks
+template <int D>
+__device__ __forceinline__ int swz(int r, int col) {
+  return r * D + (col ^ ((r & 7) << 2));
+}
+
+// rows row0 .. row0 + R - 1 of one head of a [B, T, H, D] fp32 tensor
+// (`src` at its batch and head, rows `stride` floats apart), 16 bytes a
+// cp.async, into a resident tile (kSwz) or a raw [R][D] stage; rows at or
+// past `rows` are zeros
+template <int R, int D, bool kSwz>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0,
+                                          int rows, int64_t stride) {
+  constexpr int kPerRow = D / 4;
+  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + (kSwz ? swz<D>(r, c) : r * D + c),
+               valid ? src + (row0 + r) * stride + c : src, valid);
+  }
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero, by integer ops on its bits: `split_tf32` in ops/flash_attention.py
+// is the same rounding
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo as TF32 operands. The tensor cores read only the top 19
+// bits of an operand, so lo keeps its rounding increment unmasked: they
+// read round_tf32(x - hi).
+template <int N>
+__device__ __forceinline__ void split(const float (&x)[N], uint32_t (&hi)[N],
+                                      uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = round_tf32(x[i]);
+    lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i])) + 0x1000u;
+  }
+}
+
+// a raw [R][D] stage into its hi and lo planes, once for the block
+template <int R, int D>
+__device__ __forceinline__ void split_tile(uint32_t* hi, uint32_t* lo,
+                                           const float* raw) {
+  for (int i = threadIdx.x; i < R * D / 4; i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + r * D + c);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    uint32_t h[4], l[4];
+    split(x, h, l);
+    *reinterpret_cast<uint4*>(hi + r * ld<D>() + c) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + r * ld<D>() + c) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b, fp32-accurate: the two small terms first, lo . lo dropped
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB& b) {
+  mma(c, a.lo, b.hi);
+  mma(c, a.hi, b.lo);
+  mma(c, a.hi, b.hi);
+}
+
+// In the m16n8k8 layout thread (g, c) = (lane / 4, lane % 4) holds A at
+// rows g, g + 8 and columns c, c + 4; B at rows (k) c, c + 4 and column
+// (n) g; C at rows g, g + 8 and columns 2c, 2c + 1.
+
+// the A fragment of rows row0 .. row0 + 15, columns k0 .. k0 + 7 of a
+// resident tile, split here
+template <int D>
+__device__ __forceinline__ FragA frag_a(const float* t, int row0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, c = lane & 3;
+  const int r = row0 + g;
+  const float x[4] = {t[swz<D>(r, k0 + c)], t[swz<D>(r + 8, k0 + c)],
+                      t[swz<D>(r, k0 + c + 4)], t[swz<D>(r + 8, k0 + c + 4)]};
+  FragA f;
+  split(x, f.hi, f.lo);
+  return f;
+}
+
+// B(k, n) = T[n0 + n][k0 + k] from a streamed tile's planes: its rows as
+// B's columns (s = q . k^T)
+template <int D>
+__device__ __forceinline__ FragB frag_bt(const uint32_t* hi, const uint32_t* lo,
+                                         int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const int off = (n0 + (lane >> 2)) * ld<D>() + k0 + (lane & 3);
+  return FragB{{hi[off], hi[off + 4]}, {lo[off], lo[off + 4]}};
+}
+
+// B(k, n) = T[k0 + perm(k)][n0 + n], perm(c) = 2c, perm(c + 4) = 2c + 1:
+// a streamed tile as it lies, its rows in the order of `frag_c2a`'s k
+template <int D>
+__device__ __forceinline__ FragB frag_b(const uint32_t* hi, const uint32_t* lo,
+                                        int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int off = (k0 + 2 * (lane & 3)) * ld<D>() + n0 + (lane >> 2);
+  return FragB{{hi[off], hi[off + ld<D>()]}, {lo[off], lo[off + ld<D>()]}};
+}
+
+// an m16n8 C fragment (columns 2c, 2c + 1) as the A fragment of a k-step
+// over its 8 columns, k permuted as in `frag_b`: no data moves between
+// threads
+__device__ __forceinline__ FragA frag_c2a(const float (&acc)[4]) {
+  const float x[4] = {acc[0], acc[2], acc[1], acc[3]};
+  FragA f;
+  split(x, f.hi, f.lo);
+  return f;
+}
+
+// c[16 x 8NT] += A[16 x D] . Bt^T: A rows row0 .. row0 + 15 of a
+// resident tile, Bt the 8NT rows of a streamed tile (s = q . k^T)
+template <int NT, int D>
+__device__ __forceinline__ void gemm_abt(float (&c)[NT][4], const float* a, int row0,
+                                         const uint32_t* bhi, const uint32_t* blo) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    const FragA fa = frag_a<D>(a, row0, k0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma3(c[nt], fa, frag_bt<D>(bhi, blo, 8 * nt, k0));
+  }
+}
+
+// c[16 x D] += P . B: P the 16 x 8KS C fragments of an earlier product,
+// in registers; B the 8KS rows of a streamed tile (p . v, ds . k)
+template <int KS, int D>
+__device__ __forceinline__ void gemm_pb(float (&c)[D / 8][4], const float (&p)[KS][4],
+                                        const uint32_t* bhi, const uint32_t* blo) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const FragA fa = frag_c2a(p[ks]);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      mma3(c[nt], fa, frag_b<D>(bhi, blo, 8 * ks, 8 * nt));
+    }
+  }
+}
+
+}  // namespace tf32
+
+// o (and lse) for 128 query rows of one head: each warp owns 16 rows and
+// walks the key tiles up to the block's causal frontier, s = q . k^T and
+// o += p . v in split TF32, the online softmax in registers. Each key
+// tile is copied raw into the stage while the tile before it is used,
+// then split once into the planes.
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ pad,
+                      float* __restrict__ o, float* __restrict__ lse, int Tq,
+                      int Tkv, int H, int causal, float scale) {
+  using namespace tf32;
+  using L = Layout<D, 1>;
+  constexpr int KT = L::R, NO = D / 8, NS = KT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Qs + L::planes_off);
+  uint32_t* Kl = Kh + L::plane;
+  uint32_t* Vh = Kl + L::plane;
+  uint32_t* Vl = Vh + L::plane;
+  float* Kraw = Qs + L::stage_off;
+  float* Vraw = Kraw + L::stage;
+  int* keep_s = reinterpret_cast<int*>(Qs + L::extra_off);
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  // causal: the last query blocks see the most key tiles; launch them first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const float* qb = q + static_cast<int64_t>(b) * Tq * stride + h * D;
+  const float* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const float* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int n_kv = (Tkv + KT - 1) / KT;
+  const int n_tiles =
+      causal ? min(n_kv, min(q0 + kRows - 1, Tq - 1) / KT + 1) : n_kv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = lane & 3, m0 = 16 * warp;
+  const int qw = q0 + m0;  // the warp's first query row
+  const int rows[2] = {qw + (lane >> 2), qw + (lane >> 2) + 8};
+
+  // key tile `it` raw into the stage, one cp.async group; this thread's
+  // keep flag for it (threads < KT; true for the others)
+  auto fetch = [&](int it) {
+    const int k0 = it * KT;
+    load_rows<KT, D, false>(Kraw, kb, k0, Tkv, stride);
+    load_rows<KT, D, false>(Vraw, vb, k0, Tkv, stride);
+    cp_async_commit();
+    bool kp = true;
+    if (threadIdx.x < KT) {
+      const int key = k0 + threadIdx.x;
+      kp = key < Tkv && (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+    }
+    return kp;
+  };
+  // the landed stage into the planes, then a barrier; whether every key
+  // of the tile is kept
+  auto convert = [&](bool kp) {
+    split_tile<KT, D>(Kh, Kl, Kraw);
+    split_tile<KT, D>(Vh, Vl, Vraw);
+    if (threadIdx.x < KT) keep_s[threadIdx.x] = kp;
+    return __syncthreads_and(kp) != 0;
+  };
+
+  load_rows<kRows, D, true>(Qs, qb, q0, Tq, stride);
+  bool kp = fetch(0);  // q and key tile 0 in one group
+  cp_async_wait_all();
+  __syncthreads();
+  bool all_keep = convert(kp);
+  if (n_tiles > 1) kp = fetch(1);
+
+  float acc[NO][4];
+  zero(acc);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    // a warp whose rows all lie before the tile (causal) or past Tq skips it
+    if (qw < Tq && !(causal && k0 > qw + 15)) {
+      float s[NS][4];
+      zero(s);
+      gemm_abt<NS, D>(s, Qs, m0, Kh, Kl);
+      const bool interior = k0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
+                            (!causal || k0 + KT - 1 <= qw);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * c + (e & 1);
+          float x = s[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, rows[e >> 1], k0 + col, Tq, Tkv, causal, keep_s[col]);
+          }
+          s[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        alpha[i] = expf(m[i] - mx[i]);
+        m[i] = mx[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = expf(s[nt][e] - m[e >> 1]);
+          sum[e >> 1] += s[nt][e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+      for (int nt = 0; nt < NO; ++nt) {
+        acc[nt][0] *= alpha[0];
+        acc[nt][1] *= alpha[0];
+        acc[nt][2] *= alpha[1];
+        acc[nt][3] *= alpha[1];
+      }
+      gemm_pb<NS, D>(acc, s, Vh, Vl);
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait_all();
+      __syncthreads();  // the planes are read and the next stage has landed
+      all_keep = convert(kp);
+      if (it + 2 < n_tiles) kp = fetch(it + 2);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && c == 0 && rows[i] < Tq) {
+      lse[(static_cast<int64_t>(b) * H + h) * Tq + rows[i]] = m[i] + logf(l[i]);
+    }
+  }
+  float* ob = o + static_cast<int64_t>(b) * Tq * stride + h * D;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] < Tq) {
+        put2(ob + rows[i] * stride + 8 * nt + 2 * c, acc[nt][2 * i] / l[i],
+             acc[nt][2 * i + 1] / l[i]);
+      }
+    }
+  }
+}
+
+// dq for 128 query rows of one head, and delta = sum(dO * O) for them
+// (written for the dk/dv launch that follows): each warp owns 16 rows and
+// walks the key tiles up to its causal frontier, s = q . k^T and
+// dp = dO . v^T, ds in registers, then dq += ds . k.
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_dq_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const int* __restrict__ pad,
+                     const float* __restrict__ dout, const float* __restrict__ o,
+                     const float* __restrict__ lse, float* __restrict__ delta,
+                     float* __restrict__ dq, int Tq, int Tkv, int H, int causal,
+                     float scale) {
+  using namespace tf32;
+  using L = Layout<D, 2>;
+  constexpr int KT = L::R, NO = D / 8, NS = KT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + L::own;
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Qs + L::planes_off);
+  uint32_t* Kl = Kh + L::plane;
+  uint32_t* Vh = Kl + L::plane;
+  uint32_t* Vl = Vh + L::plane;
+  float* Kraw = Qs + L::stage_off;
+  float* Vraw = Kraw + L::stage;
+  int* keep_s = reinterpret_cast<int*>(Qs + L::extra_off);
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * kRows;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
+  const float* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const float* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int n_kv = (Tkv + KT - 1) / KT;
+  const int n_tiles =
+      causal ? min(n_kv, min(q0 + kRows - 1, Tq - 1) / KT + 1) : n_kv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3, m0 = 16 * warp;
+  const int qw = q0 + m0;
+  const int rows[2] = {qw + g, qw + g + 8};
+
+  auto fetch = [&](int it) {
+    const int k0 = it * KT;
+    load_rows<KT, D, false>(Kraw, kb, k0, Tkv, stride);
+    load_rows<KT, D, false>(Vraw, vb, k0, Tkv, stride);
+    cp_async_commit();
+    bool kp = true;
+    if (threadIdx.x < KT) {
+      const int key = k0 + threadIdx.x;
+      kp = key < Tkv && (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+    }
+    return kp;
+  };
+  auto convert = [&](bool kp) {
+    split_tile<KT, D>(Kh, Kl, Kraw);
+    split_tile<KT, D>(Vh, Vl, Vraw);
+    if (threadIdx.x < KT) keep_s[threadIdx.x] = kp;
+    return __syncthreads_and(kp) != 0;
+  };
+
+  load_rows<kRows, D, true>(Qs, q + qoff, q0, Tq, stride);
+  load_rows<kRows, D, true>(dOs, dout + qoff, q0, Tq, stride);
+  bool kp = fetch(0);  // q, dO and key tile 0 in one group
+  cp_async_wait_all();
+  __syncthreads();
+
+  // delta = sum(dO * O) over the warp's 16 rows: two lanes a row, half of
+  // D each, dO from shared memory
+  float row_delta[2];
+  {
+    const int r = lane >> 1, half = lane & 1, qrow = qw + r;
+    float sum = 0.f;
+    if (qrow < Tq) {
+      const float* orow = o + qoff + qrow * stride;
+#pragma unroll 4
+      for (int j = half * (D / 2); j < (half + 1) * (D / 2); j += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(dOs + swz<D>(m0 + r, j));
+        const float4 bb = *reinterpret_cast<const float4*>(orow + j);
+        sum = fmaf(a.x, bb.x, sum);
+        sum = fmaf(a.y, bb.y, sum);
+        sum = fmaf(a.z, bb.z, sum);
+        sum = fmaf(a.w, bb.w, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (half == 0 && qrow < Tq) delta[stat0 + qrow] = sum;
+    row_delta[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    row_delta[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+  }
+  float row_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) row_lse[i] = rows[i] < Tq ? lse[stat0 + rows[i]] : 0.f;
+
+  bool all_keep = convert(kp);
+  if (n_tiles > 1) kp = fetch(1);
+
+  float acc[NO][4];
+  zero(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    if (qw < Tq && !(causal && k0 > qw + 15)) {
+      float s[NS][4], dp[NS][4];
+      zero(s);
+      zero(dp);
+      gemm_abt<NS, D>(s, Qs, m0, Kh, Kl);
+      gemm_abt<NS, D>(dp, dOs, m0, Vh, Vl);
+      const bool interior = k0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
+                            (!causal || k0 + KT - 1 <= qw);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, col = 8 * nt + 2 * c + (e & 1);
+          float x = s[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, rows[i], k0 + col, Tq, Tkv, causal, keep_s[col]);
+          }
+          s[nt][e] = expf(x - row_lse[i]) * (dp[nt][e] - row_delta[i]);
+        }
+      }
+      gemm_pb<NS, D>(acc, s, Kh, Kl);
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait_all();
+      __syncthreads();
+      all_keep = convert(kp);
+      if (it + 2 < n_tiles) kp = fetch(it + 2);
+    }
+  }
+
+  float* dqb = dq + qoff;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] < Tq) {
+        put2(dqb + rows[i] * stride + 8 * nt + 2 * c, scale * acc[nt][2 * i],
+             scale * acc[nt][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk, dv for 128 key rows of one head: each warp owns 16 key rows and
+// walks the query tiles from the causal diagonal down, s^T = k . q^T and
+// dp^T = v . dO^T, p^T and ds^T in registers, dv += p^T . dO and
+// dk += ds^T . q.
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_dkv_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ pad,
+                      const float* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk,
+                      float* __restrict__ dv, int Tq, int Tkv, int H, int causal,
+                      float scale) {
+  using namespace tf32;
+  using L = Layout<D, 2>;
+  constexpr int QT = L::R, NO = D / 8, NS = QT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + L::own;
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(Ks + L::planes_off);
+  uint32_t* Ql = Qh + L::plane;
+  uint32_t* Dh = Ql + L::plane;  // dO
+  uint32_t* Dl = Dh + L::plane;
+  float* Qraw = Ks + L::stage_off;
+  float* Draw = Qraw + L::stage;
+  float* lse_s = Ks + L::extra_off;
+  float* delta_s = lse_s + QT;
+
+  // causal: the first key blocks see the most query tiles, and the tile
+  // index is the grid's slower axis, so they start first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * kRows;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
+  const int64_t koff = static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int n_q = (Tq + QT - 1) / QT;
+  const int first = causal ? k0 / QT : 0;
+  const int n_tiles = max(n_q - first, 0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3, m0 = 16 * warp;
+  const int kw = k0 + m0;  // the warp's first key row
+  const int kr[2] = {kw + g, kw + g + 8};
+  bool keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    keep[i] = kr[i] < Tkv &&
+              (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + kr[i]] != 0);
+  }
+  const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
+
+  // query tile `it` (q and dO) raw into the stage, one cp.async group,
+  // and its lse and delta into registers (threads < QT)
+  float next_lse = 0.f, next_delta = 0.f;
+  auto fetch = [&](int it) {
+    const int q0 = (first + it) * QT;
+    load_rows<QT, D, false>(Qraw, q + qoff, q0, Tq, stride);
+    load_rows<QT, D, false>(Draw, dout + qoff, q0, Tq, stride);
+    cp_async_commit();
+    if (threadIdx.x < QT) {
+      const bool in = q0 + threadIdx.x < Tq;
+      next_lse = in ? lse[stat0 + q0 + threadIdx.x] : 0.f;
+      next_delta = in ? delta[stat0 + q0 + threadIdx.x] : 0.f;
+    }
+  };
+  auto convert = [&]() {
+    split_tile<QT, D>(Qh, Ql, Qraw);
+    split_tile<QT, D>(Dh, Dl, Draw);
+    if (threadIdx.x < QT) {
+      lse_s[threadIdx.x] = next_lse;
+      delta_s[threadIdx.x] = next_delta;
+    }
+    __syncthreads();
+  };
+
+  load_rows<kRows, D, true>(Ks, k + koff, k0, Tkv, stride);
+  load_rows<kRows, D, true>(Vs, v + koff, k0, Tkv, stride);
+  if (n_tiles > 0) {
+    fetch(0);  // k, v and query tile 0 in one group
+  } else {
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (n_tiles > 0) convert();
+  if (n_tiles > 1) fetch(1);
+
+  float acc_k[NO][4], acc_v[NO][4];
+  zero(acc_k);
+  zero(acc_v);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (first + it) * QT;
+    // a warp whose keys all lie after the tile's queries (causal), or
+    // past Tkv, skips it
+    if (kw < Tkv && !(causal && kw > q0 + QT - 1)) {
+      // p^T = exp(s^T - lse): rows are keys, columns queries
+      float p[NS][4];
+      zero(p);
+      gemm_abt<NS, D>(p, Ks, m0, Qh, Ql);
+      const bool interior = q0 + QT <= Tq && warp_keep && (!causal || kw + 15 <= q0);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * c + (e & 1);
+          float x = p[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, q0 + col, kr[e >> 1], Tq, Tkv, causal, keep[e >> 1]);
+          }
+          p[nt][e] = expf(x - lse_s[col]);
+        }
+      }
+      gemm_pb<NS, D>(acc_v, p, Dh, Dl);
+      // ds^T = p^T (dp^T - delta)
+      float dp[NS][4];
+      zero(dp);
+      gemm_abt<NS, D>(dp, Vs, m0, Dh, Dl);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dp[nt][e] = p[nt][e] * (dp[nt][e] - delta_s[8 * nt + 2 * c + (e & 1)]);
+        }
+      }
+      gemm_pb<NS, D>(acc_k, dp, Qh, Ql);
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait_all();
+      __syncthreads();  // the planes are read and the next stage has landed
+      convert();
+      if (it + 2 < n_tiles) fetch(it + 2);
+    }
+  }
+
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kr[i] < Tkv) {
+        const int64_t row = koff + kr[i] * stride + 8 * nt + 2 * c;
+        put2(dk + row, scale * acc_k[nt][2 * i], scale * acc_k[nt][2 * i + 1]);
+        put2(dv + row, acc_v[nt][2 * i], acc_v[nt][2 * i + 1]);
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers
 
 template <typename Kernel, typename... Args>
@@ -1439,54 +2108,82 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-constexpr size_t tile_bytes() { return sizeof(T) * kTile * ld_in<T, D>(); }
-template <typename T>
-constexpr size_t p_bytes() { return sizeof(T) * kTile * ld_p<T>(); }
+template <int D>
+constexpr size_t tile_bytes() { return sizeof(bf16) * kTile * ld_in<bf16, D>(); }
+constexpr size_t p_bytes() { return sizeof(bf16) * kTile * ld_p<bf16>(); }
 
 struct Args {
   const void *q, *k, *v, *pad, *dout, *o, *lse_in;
-  void *delta;  // read, or written by the Hopper dq kernel (o non-null)
+  void *delta;  // read, or written by the fp32 and Hopper dq kernels (o non-null)
   void *out_o, *lse, *dq, *dk, *dv;
   int B, Tq, Tkv, H, causal;
   float scale;
 };
 
-// which: 0 forward, 1 dq, 2 dk/dv
-template <typename T, int D>
+// which: 0 forward, 1 dq, 2 dk/dv (the bf16 mma.sync kernels)
+template <int D>
 size_t smem_bytes(int which) {
-  if (which == 0) return 3 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
-  if (which == 1) return 4 * tile_bytes<T, D>() + p_bytes<T>() + kTile * sizeof(int);
-  return 4 * tile_bytes<T, D>() + 2 * p_bytes<T>() +
-         kTile * (2 * sizeof(float) + sizeof(int));
+  if (which == 0) return 3 * tile_bytes<D>() + p_bytes() + kTile * sizeof(int);
+  if (which == 1) return 4 * tile_bytes<D>() + p_bytes() + kTile * sizeof(int);
+  return 4 * tile_bytes<D>() + 2 * p_bytes() + kTile * (2 * sizeof(float) + sizeof(int));
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t run(int which, const Args& a, cudaStream_t s) {
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
   const int* pad = static_cast<const int*>(a.pad);
   const int n_q = (a.Tq + kTile - 1) / kTile, n_kv = (a.Tkv + kTile - 1) / kTile;
-  const size_t smem = smem_bytes<T, D>(which);
+  const size_t smem = smem_bytes<D>(which);
   if (which == 0) {
-    return launch(flash_fwd_kernel<T, D>, dim3(n_q, a.H, a.B), kThreads, smem,
-                  s, q, k, v, pad, static_cast<T*>(a.out_o),
+    return launch(flash_fwd_kernel<bf16, D>, dim3(n_q, a.H, a.B), kThreads, smem,
+                  s, q, k, v, pad, static_cast<bf16*>(a.out_o),
                   static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
                   a.scale);
   }
   if (a.o != nullptr) return cudaErrorInvalidValue;  // delta is an input here
-  const T* dout = static_cast<const T*>(a.dout);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse_in);
   const float* delta = static_cast<const float*>(a.delta);
   if (which == 1) {
-    return launch(flash_dq_kernel<T, D>, dim3(n_q, a.H, a.B), kThreads, smem, s,
-                  q, k, v, pad, dout, lse, delta, static_cast<T*>(a.dq), a.Tq,
+    return launch(flash_dq_kernel<bf16, D>, dim3(n_q, a.H, a.B), kThreads, smem,
+                  s, q, k, v, pad, dout, lse, delta, static_cast<bf16*>(a.dq),
+                  a.Tq, a.Tkv, a.H, a.causal, a.scale);
+  }
+  return launch(flash_dkv_kernel<bf16, D>, dim3(n_kv, a.H, a.B), kThreads, smem,
+                s, q, k, v, pad, dout, lse, delta, static_cast<bf16*>(a.dk),
+                static_cast<bf16*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
+}
+
+// the split-TF32 kernels (fp32): grids of (head, 128-row tile, batch)
+template <int D>
+cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const int* pad = static_cast<const int*>(a.pad);
+  const int n_q = (a.Tq + tf32::kRows - 1) / tf32::kRows;
+  const int n_kv = (a.Tkv + tf32::kRows - 1) / tf32::kRows;
+  if (which == 0) {
+    return launch(flash_fwd_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
+                  tf32::fwd_smem<D>(), s, q, k, v, pad,
+                  static_cast<float*>(a.out_o), static_cast<float*>(a.lse), a.Tq,
                   a.Tkv, a.H, a.causal, a.scale);
   }
-  return launch(flash_dkv_kernel<T, D>, dim3(n_kv, a.H, a.B), kThreads, smem, s,
-                q, k, v, pad, dout, lse, delta, static_cast<T*>(a.dk),
-                static_cast<T*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
+  const float* dout = static_cast<const float*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse_in);
+  if (which == 1) {
+    if (a.o == nullptr) return cudaErrorInvalidValue;  // delta is computed here
+    return launch(flash_dq_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
+                  tf32::dq_smem<D>(), s, q, k, v, pad, dout,
+                  static_cast<const float*>(a.o), lse, static_cast<float*>(a.delta),
+                  static_cast<float*>(a.dq), a.Tq, a.Tkv, a.H, a.causal, a.scale);
+  }
+  return launch(flash_dkv_kernel_tf32<D>, dim3(a.H, n_kv, a.B), tf32::kThreads,
+                tf32::dkv_smem<D>(), s, q, k, v, pad, dout, lse,
+                static_cast<const float*>(a.delta), static_cast<float*>(a.dk),
+                static_cast<float*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
 
 // the Hopper kernels (bf16, D = 128): the tensor maps are encoded on the
@@ -1527,52 +2224,44 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
                 a.H, a.causal, a.scale);
 }
 
-// bf16 at D = 128 takes the Hopper kernels; fp32 (bit parity with the
-// plain version) and bf16 at D = 32 and 64 keep the mma.sync / FMA
-// kernels above
+// bf16 at D = 128 takes the Hopper kernels, fp32 the split-TF32 ones and
+// bf16 at D = 32 and 64 the mma.sync kernels above
 bool uses_sm90(int D, int dtype) { return dtype == 1 && D == wgp::kD; }
-
-// bf16 at D = 128 is the Hopper kernels' (uses_sm90): not instantiated here
-template <typename T>
-cudaError_t run_d(int which, int D, const Args& a, cudaStream_t s) {
-  switch (D) {
-    case 32: return run<T, 32>(which, a, s);
-    case 64: return run<T, 64>(which, a, s);
-    case 128:
-      if constexpr (std::is_same<T, bf16>::value) return cudaErrorInvalidValue;
-      else return run<T, 128>(which, a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uses_sm90(D, dtype)) return static_cast<int>(run_sm90(which, a, s));
-  if (dtype == 0) return static_cast<int>(run_d<float>(which, D, a, s));
-  if (dtype == 1) return static_cast<int>(run_d<bf16>(which, D, a, s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <typename T, int D>
-cudaError_t kernel_of(int which, const void** fn, size_t* smem) {
-  *smem = smem_bytes<T, D>(which);
-  *fn = which == 0 ? reinterpret_cast<const void*>(flash_fwd_kernel<T, D>)
-        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel<T, D>)
-                     : reinterpret_cast<const void*>(flash_dkv_kernel<T, D>);
-  return cudaSuccess;
-}
-
-template <typename T>
-cudaError_t kernel_of_d(int which, int D, const void** fn, size_t* smem) {
-  switch (D) {
-    case 32: return kernel_of<T, 32>(which, fn, smem);
-    case 64: return kernel_of<T, 64>(which, fn, smem);
-    case 128:
-      if constexpr (std::is_same<T, bf16>::value) return cudaErrorInvalidValue;
-      else return kernel_of<T, 128>(which, fn, smem);
-    default: return cudaErrorInvalidValue;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (uses_sm90(D, dtype)) {
+    e = run_sm90(which, a, s);
+  } else if (dtype == 0) {
+    if (D == 32) e = run_tf32<32>(which, a, s);
+    if (D == 64) e = run_tf32<64>(which, a, s);
+    if (D == 128) e = run_tf32<128>(which, a, s);
+  } else if (dtype == 1) {
+    if (D == 32) e = run<32>(which, a, s);
+    if (D == 64) e = run<64>(which, a, s);
   }
+  return static_cast<int>(e);
+}
+
+// the kernel `which` launches, and its dynamic shared memory
+template <int D>
+void kernel_of(int which, const void** fn, size_t* smem) {
+  *smem = smem_bytes<D>(which);
+  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel<bf16, D>)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel<bf16, D>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel<bf16, D>);
+}
+
+template <int D>
+void kernel_of_tf32(int which, const void** fn, size_t* smem) {
+  *smem = which == 0   ? tf32::fwd_smem<D>()
+          : which == 1 ? tf32::dq_smem<D>()
+                       : tf32::dkv_smem<D>();
+  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_tf32<D>)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_tf32<D>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel_tf32<D>);
 }
 
 }  // namespace
@@ -1591,9 +2280,9 @@ extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch(0, D, dtype, a, stream);
 }
 
-// `o`: non-null exactly when the Hopper kernel runs (bf16, D = 128), which
-// computes delta = sum(dO * O) itself and writes it to `delta`; otherwise
-// `delta` is read.
+// `o`: non-null exactly when the fp32 or the Hopper kernel runs (fp32, or
+// bf16 at D = 128), which computes delta = sum(dO * O) itself and writes
+// it to `delta`; otherwise `delta` is read.
 extern "C" int hyperion_flash_dq(const void* q, const void* k, const void* v,
                                  const void* pad, const void* dout,
                                  const void* o, const void* lse, void* delta,
@@ -1624,7 +2313,6 @@ extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
   int threads = kThreads;
-  cudaError_t e = cudaSuccess;
   if (uses_sm90(D, dtype)) {
     threads = wgp::kThreads;
     fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90)
@@ -1634,15 +2322,17 @@ extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
             : which == 1 ? sizeof(wgp::DqSmem)
                          : sizeof(wgp::DkvSmem)) + 1024;
   } else if (dtype == 0) {
-    e = kernel_of_d<float>(which, D, &fn, &smem);
+    threads = tf32::kThreads;
+    if (D == 32) kernel_of_tf32<32>(which, &fn, &smem);
+    if (D == 64) kernel_of_tf32<64>(which, &fn, &smem);
+    if (D == 128) kernel_of_tf32<128>(which, &fn, &smem);
   } else if (dtype == 1) {
-    e = kernel_of_d<bf16>(which, D, &fn, &smem);
-  } else {
-    e = cudaErrorInvalidValue;
+    if (D == 32) kernel_of<32>(which, &fn, &smem);
+    if (D == 64) kernel_of<64>(which, &fn, &smem);
   }
-  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, fn);
+  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);

@@ -15,9 +15,10 @@ p·v, accumulated in fp32; o = acc / max(l, 1e-30) in the input dtype;
 lse = m + log(max(l, 1e-30)), a compact `[B, H, Tq]` fp32 array. The
 backward recomputes p = exp(s − lse) from the saved lse and takes
 delta = Σ dO·O in fp32: outside the kernels, as `_flash_backward` does
-(`:479-484`), except on the bf16 D = 128 path, whose dq kernel computes
-it (`fused_delta`). Rows whose keys are all masked give garbage outputs
-and clean gradients, as the reference documents (`:43-46`).
+(`:479-484`), except on the fp32 and the bf16 D = 128 paths, whose dq
+kernels compute it (`fused_delta`). Rows whose keys are all masked give
+garbage outputs and clean gradients, as the reference documents
+(`:43-46`).
 
 Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
 when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
@@ -31,8 +32,11 @@ gradients are sliced back: zero columns add exact zeros to q·kᵀ, and
 the padded columns of v only fill columns that are cut away. bf16 at a
 kernel D of 128 runs that file's Hopper kernels (wgmma, TMA,
 warp-specialised) for the forward and both backward kernels
-(`hopper_forward`, `fused_delta`); fp32 and the other head dims run
-its first, mma.sync and FMA, kernels.
+(`hopper_forward`); fp32 runs its split-TF32 kernels (each product as
+three TF32 tensor-core passes over operands split as x = hi + lo,
+`split_tf32` being the split's plain model), within the reference's
+fp32 bounds of the plain versions; bf16 at kernel D 32 and 64 runs its
+first, mma.sync, kernels.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
 spills, shared memory). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
@@ -237,18 +241,35 @@ def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
 def hopper_forward(q: torch.Tensor) -> bool:
     """Whether the forward of `q`'s dtype and head_dim runs the Hopper
     kernel (bf16 at a kernel D of 128, so any D from 65 to 128: wgmma,
-    TMA, warp-specialised). fp32 keeps the FMA kernel (bit parity with the
-    plain version) and bf16 at kernel D 32 and 64 the mma.sync one."""
+    TMA, warp-specialised). fp32 runs the split-TF32 kernel (mma.sync,
+    within the reference's fp32 bounds of the plain version) and bf16 at
+    kernel D 32 and 64 the first mma.sync one."""
     return q.dtype == torch.bfloat16 and kernel_head_dim(q.shape[-1]) == 128
 
 
 def fused_delta(q: torch.Tensor) -> bool:
-    """Whether the backward of `q`'s dtype and head_dim runs the Hopper
-    kernels (bf16 at a kernel D of 128: wgmma, TMA, warp-specialised),
-    whose dq launch computes delta = Σ dO·O itself. fp32 keeps the FMA
-    kernels (bit parity with the plain version) and bf16 at kernel D 32
-    and 64 the mma.sync ones; both read a delta computed here."""
-    return q.dtype == torch.bfloat16 and kernel_head_dim(q.shape[-1]) == 128
+    """Whether the dq kernel of `q`'s dtype and head_dim computes
+    delta = Σ dO·O itself and hands it to dk/dv: fp32 (the split-TF32
+    kernels) and bf16 at a kernel D of 128 (the Hopper kernels). bf16 at
+    kernel D 32 and 64 keeps the first mma.sync kernels, which read a
+    delta computed here."""
+    return q.dtype == torch.float32 or hopper_forward(q)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with x ≈ hi + lo: the fp32 kernels' operand split, in
+    plain PyTorch. hi is x rounded to TF32 (10 mantissa bits; nearest,
+    ties away from zero) by integer ops on the fp32 bits, as
+    `csrc/flash_attention.cu`'s `round_tf32` does; lo is the remainder
+    x − hi rounded the same way. Three TF32 products lo·hi + hi·lo +
+    hi·hi then carry a product to ~2⁻²² of its terms."""
+
+    def rnd(t: torch.Tensor) -> torch.Tensor:
+        bits = t.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rnd(x)
+    return hi, rnd(x.float() - hi)
 
 
 def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
@@ -272,7 +293,7 @@ def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
 
 
 def _launch_dq(dims, pad, q, k, v, g, o, lse, delta, causal):
-    """(dq, delta). With `delta` None the kernel (the Hopper one) computes
+    """(dq, delta). With `delta` None the kernel (`fused_delta`) computes
     delta from g and o and returns it for the dk/dv launch."""
     B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
@@ -366,8 +387,8 @@ flash_attention_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal=False,
                         padding_mask=None):
     """(dq, dk, dv): both backward kernels on one delta on the card (the
-    Hopper dq kernel computes it and hands it to dk/dv), the plain
-    backward on the CPU."""
+    fp32 and Hopper dq kernels compute it and hand it to dk/dv), the
+    plain backward on the CPU."""
     if not _on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                          padding_mask=padding_mask)

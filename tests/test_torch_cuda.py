@@ -389,14 +389,19 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "two_tails_d128": (2, 256, 256, 2, 128, True, (0.25, 0.1)),
                # D 80 and 96 run zero-padded to the D 128 kernels
                "causal_pad_d96": (2, 192, 192, 2, 96, True, 0.25),
-               "cross_causal_d80": (2, 70, 200, 2, 80, True, 0.2)}
+               "cross_causal_d80": (2, 70, 200, 2, 80, True, 0.2),
+               # q scaled by 4 (FLASH_Q_SCALE): large logits, where a
+               # TF32 term the fp32 kernels lost would show
+               "scaled_q_d128": (2, 192, 192, 2, 128, True, 0.25)}
+FLASH_Q_SCALE = {"scaled_q_d128": 4.0}
 
 
 def _flash_inputs(dev, dtype, case, seed=45):
     B, Tq, Tkv, H, D, causal, padded = FLASH_CASES[case]
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, o_g = (torch.randn(B, Tq, H, D, generator=g, device=dev).to(dtype)
+    q, o_g = (torch.randn(B, Tq, H, D, generator=g, device=dev)
               for _ in range(2))
+    q, o_g = (q * FLASH_Q_SCALE.get(case, 1.0)).to(dtype), o_g.to(dtype)
     k, v = (torch.randn(B, Tkv, H, D, generator=g, device=dev).to(dtype)
             for _ in range(2))
     pad = None
@@ -456,9 +461,10 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                   "cross_causal_d128", "ragged_causal_d32",
                                   "causal_pad_d96"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
-    """Two runs of the whole backward (one delta for both kernels; on the
-    bf16 D 128 path the dq kernel computes it) give the same bits, and
-    match the plain backward. No gradient row has two writers."""
+    """Two runs of the whole backward (one delta for both kernels; in fp32
+    and on the bf16 D 128 path the dq kernel computes it) give the same
+    bits, and match the plain backward. No gradient row has two
+    writers."""
     q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, case, seed=47)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
     runs = [fa.flash_attention_bwd(q, k, v, o, lse, g, causal=causal,
@@ -483,12 +489,19 @@ def test_flash_hopper_backward_keeps_to_registers(cuda):
 def test_flash_hopper_forward_keeps_to_registers(cuda):
     """The bf16 D 128 forward is the warp-specialised kernel (three
     warpgroups), spills nothing to local memory and fits one block's
-    shared memory; fp32 and the narrower head dims keep 4-warp kernels."""
+    shared memory; bf16 at the narrower head dims keeps 4-warp kernels.
+    The fp32 forward, dq and dk/dv are the split-TF32 kernels (8 warps)
+    at every kernel head dim, none spilling, each within 227 KB."""
     attrs = fa.kernel_attrs("fwd", 128, torch.bfloat16)
     assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, attrs
     assert attrs["smem_bytes"] <= 227 * 1024
-    for D, dtype in ((128, torch.float32), (64, torch.bfloat16)):
-        assert fa.kernel_attrs("fwd", D, dtype)["threads"] == 128
+    assert fa.kernel_attrs("fwd", 64, torch.bfloat16)["threads"] == 128
+    for D in fa.HEAD_DIMS:
+        for which in ("fwd", "dq", "dkv"):
+            attrs = fa.kernel_attrs(which, D, torch.float32)
+            assert attrs["threads"] == 256 and attrs["spill_bytes"] == 0, \
+                (which, D, attrs)
+            assert attrs["smem_bytes"] <= 227 * 1024
 
 
 def test_flash_autograd_runs_the_three_kernels(cuda):

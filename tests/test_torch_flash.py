@@ -136,12 +136,13 @@ def test_d128_forward_and_lse_match_jax(case, dtype):
 def test_hopper_kernels_take_bf16_at_d128(D, dtype):
     """On the card bf16 at kernel head_dim 128 (D 80 and 96 run
     zero-padded to it) runs the Hopper forward and the Hopper backward
-    (whose dq launch computes delta); fp32 and the narrower head dims
-    keep the first kernels."""
+    (whose dq launch computes delta); bf16 at the narrower head dims
+    keeps the first kernels, and fp32 at every head dim runs the
+    split-TF32 kernels, whose dq launch computes delta too."""
     q = torch.empty(1, 4, 2, D, dtype=dtype)
     hopper = dtype == torch.bfloat16 and D > 64
     assert fa.hopper_forward(q) is hopper
-    assert fa.fused_delta(q) is hopper
+    assert fa.fused_delta(q) is (hopper or dtype == torch.float32)
 
 
 def test_bf16_forward_close_to_jax():
@@ -316,3 +317,101 @@ def test_padded_d96_matches_jax(monkeypatch):
     for t, r in zip(grads, ref_grads):
         np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=2e-4,
                                    rtol=2e-4)
+
+
+# The fp32 kernels' split-TF32 products, modelled on the CPU: every
+# operand x enters as hi + lo (`split_tf32`), and a product is the three
+# TF32 products lo·hi + hi·lo + hi·hi summed in fp32 (hi·hi alone: one
+# pass). TF32 keeps 10 mantissa bits, so each split term is exact in a
+# TF32 product and the model's products are the kernels' up to fp32
+# summation order.
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-30, 1e30, 0.0],
+                         ids=["normal", "tiny", "huge", "zero"])
+def test_split_tf32_is_tf32_and_recovers_x(scale):
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(4096)
+                         .astype(np.float32)) * scale
+    hi, lo = fa.split_tf32(x)
+    for t in (hi, lo):  # 10 mantissa bits: the low 13 are zero
+        assert (t.view(torch.int32) & 0x1FFF).eq(0).all()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert (err <= 2.0 ** -22 * x.double().abs()).all()
+    assert (hi - x).abs().max() <= 2.0 ** -11 * x.abs().max()
+
+
+def _mm(a, b, passes):
+    """a @ b in fp32 through the TF32 split: three passes, or one."""
+    (ah, al), (bh, bl) = fa.split_tf32(a), fa.split_tf32(b)
+    return ah @ bh if passes == 1 else al @ bh + ah @ bl + ah @ bh
+
+
+def _split_attention(q, k, v, g, mask, causal, passes):
+    """(o, lse, dq, dk, dv) of the forward and backward kernels' math
+    with every product through `_mm`: [B, T, H, D] in, as the kernels."""
+    qh, kh, vh, gh = (torch.from_numpy(a).permute(0, 2, 1, 3)
+                      for a in (q, k, v, g))
+    Tq, Tkv, scale = qh.shape[2], kh.shape[2], fa._scale(qh.shape[-1])
+    keep = torch.ones(1, 1, Tq, Tkv, dtype=torch.bool)
+    if causal:
+        keep = keep & torch.ones(Tq, Tkv, dtype=torch.bool).tril()
+    if mask is not None:
+        keep = keep & torch.from_numpy(mask).bool()[:, None, None, :]
+    s = (_mm(qh, kh.transpose(-1, -2), passes) * scale).masked_fill(
+        ~keep, fa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = _mm(p, vh, passes) / l
+    lse = m + torch.log(l)
+    p = torch.exp(s - lse)
+    delta = (gh * o).sum(-1, keepdim=True)
+    ds = p * (_mm(gh, vh.transpose(-1, -2), passes) - delta)
+    grads = (_mm(ds, kh, passes) * scale,
+             _mm(ds.transpose(-1, -2), qh, passes) * scale,
+             _mm(p.transpose(-1, -2), gh, passes))
+    return (o.permute(0, 2, 1, 3), lse[..., 0],
+            *(t.permute(0, 2, 1, 3) for t in grads))
+
+
+def _jax_attention(q, k, v, g, mask, causal):
+    """(o, lse, dq, dk, dv) of the JAX kernels in interpret mode."""
+    jm = None if mask is None else jnp.asarray(mask)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    o, lse = _flash_forward(jq, jk, jv, jm, causal, 16, 32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash(q, k, v, causal=causal, padding_mask=jm,
+                              **BLOCKS) * jnp.asarray(g))
+
+    grads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    return (o, np.asarray(lse)[..., 0], *grads)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_split_tf32_products_hold_the_fp32_bounds(masked, causal, q_scale):
+    """Three split passes hold the JAX kernels to the reference's fp32
+    bounds: o and lse 2e-5, gradients 2e-4, also with q scaled by 4
+    (large logits, where a lost TF32 term would show)."""
+    q, k, v, g, mask = _inputs(seed=11)
+    q = q * np.float32(q_scale)
+    m = mask if masked else None
+    got = _split_attention(q, k, v, g, m, causal, passes=3)
+    want = _jax_attention(q, k, v, g, m, causal)
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = 2e-5 if i < 2 else 2e-4
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol,
+                                   rtol=tol)
+
+
+def test_one_tf32_pass_misses_the_fp32_bound():
+    """hi·hi alone (one TF32 pass) misses the o bound with q scaled by 4:
+    why the kernels take three."""
+    q, k, v, g, mask = _inputs(seed=11)
+    q = q * np.float32(4.0)
+    want = np.asarray(_jax_attention(q, k, v, g, mask, True)[0])
+    err = {p: np.abs(_split_attention(q, k, v, g, mask, True, passes=p)[0]
+                     .numpy() - want).max() for p in (1, 3)}
+    assert err[3] <= 2e-5 < err[1], err
