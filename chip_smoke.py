@@ -25,10 +25,12 @@ script exits non-zero):
               [8*512, 4096]; LayerNorm on its warp-a-row kernel at
               [4096, 256] (bf16, fp32, with and without residual) and
               [4096, 768], on its block-a-row kernel at [4096, 1001] and
-              a misaligned [4096, 256] view, each call's kernel named;
+              a misaligned [4096, 256] view, each call's kernel named,
+              and at the train_long step's [32768, 256];
               cross-entropy forward and backward at the train step's
-              [32, 127, 50257] fp32 logits view, its rows in bf16 and a
-              ragged [37, 5003];
+              [32, 127, 50257] fp32 logits view, its rows in bf16, the
+              train_long step's [8, 4095, 50257] view and a ragged
+              [37, 5003];
               the norms' gradients through the kernels against the plain
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
@@ -36,13 +38,17 @@ script exits non-zero):
               causal and not and with q scaled by 4 (the split-TF32
               kernels), at a ragged T = 1000, at [2, 200, 8,
               128] bf16 with one batch row all padding, bf16 at
-              [1, 4096, 8, 64] causal and at head dims 80 and 96
-              (zero-padded to 128, each kernel launched), alone
+              [1, 4096, 8, 64] and [1, 4096, 8, 32] causal (the D 64
+              Hopper kernels; D 32 zero-padded to them), at one
+              train_long layer ([8, 4096, 4, 64] causal with the
+              synthetic split's ragged key padding) and at head dims
+              80 and 96 (zero-padded to 128, each kernel launched), alone
               and through
               `flash_attention_bwd` (two runs bit-identical, from the
               forward kernel's own o and lse), each with its registers,
-              spill and shared-memory bytes (the Hopper and split-TF32
-              kernels must not spill); the cross-entropy at Llama's
+              spill and shared-memory bytes (no kernel may spill, and
+              bf16 must run the three-warpgroup Hopper kernels); the
+              cross-entropy at Llama's
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
               backward in turns (library, kernel, kernel, library).
@@ -54,29 +60,37 @@ script exits non-zero):
               synthetic validation): the loss falls, one CSV row, the
               export reloads, launch counters exact; step time p50 (CUDA
               events), tokens/s, peak memory as smoke readings.
-  6. llama_train_model  a tiny fp32 LoRA Llama (GQA, remat "full",
+  6. train_long  the same trainer at seq 4096, batch 8, 30 steps and 30
+              validation batches, where "auto" attention resolves to the
+              flash kernels at head_dim 64 (the D 64 Hopper kernels, with
+              ragged key padding and the causal mask together): finite
+              losses that fall, launch counters exact for flash,
+              LayerNorm and cross-entropy; step time p50, tokens/s, peak
+              memory as smoke readings.
+  7. llama_train_model  a tiny fp32 LoRA Llama (GQA, remat "full",
               attention and norm at "pallas", a padding mask) on the CPU
               against the card: the loss and every adapter gradient, and
               the card's launches exact.
-  7. llama_train  `train_llama` at Llama-2-7B widths and depth: bf16,
+  8. llama_train  `train_llama` at Llama-2-7B widths and depth: bf16,
               LoRA r 16 on q/k/v/o, remat "full", jit+pallas, seq 4096,
               batch 1, 8 steps and 2 validation batches: losses finite
               from ln 32000, the base bit-identical, the B factors moved,
               one CSV row, the adapter export reloads, every kernel's
               launches exact; step time p50, tokens/s, peak memory as
               smoke readings. The model is freed before the serve phases.
-  8. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
+  9. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
               16, GQA rep 2) on the CPU (plain versions) against the same
               weights on the card (kernels), through the three paged
               window shapes.
-  9. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
+ 10. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
               streams equal the port's `generate`.
- 10. serve    full Llama-2-7B (32 layers, bf16, seeded random weights,
+ 11. serve    full Llama-2-7B (32 layers, bf16, seeded random weights,
               the fused RMSNorm) behind `serve_jsonl`: 8 requests, prefix
               hits, a COW copy, launch counters exactly forwards x layers.
- 11. the `kernels` line: per kernel its launches on its path's run (the
-              serve run, the language_ddp train run, or the Llama train
-              run), its error against the plain version and its times.
+ 12. the `kernels` line: one record per kernel and run (`run`: serve,
+              train, train_long, llama_train) at that run's shapes, with
+              its launches on the run, its error against the plain
+              version and its times.
 
 Kernel times are device times with host dispatch taken out: a run of
 launches captured in one CUDA graph and replayed, on copies of the
@@ -505,14 +519,15 @@ def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
                   and torch.allclose(lse, ref_lse, rtol=1e-5, atol=0))
     bwd_ok, bwd_worst = rms_ulp_ok(d, ref_d) if dtype == torch.bfloat16 \
         else ce_bwd_fp32_ok(d, ref_d)
+    bwd_err = float((d.float() - ref_d.float()).abs().max())
+    del d, ref_d  # logits-sized: free before the timings' copies
     base = {"phase": "kernels", "case": name, "dtype": str(dtype)
             .split(".")[-1], "shape": list(logits.shape),
             "strided": not logits.is_contiguous()}
     fwd = {**base, "kernel": "fused_softmax_xent_fwd", "max_abs_err": fwd_err,
            "tol": "1e-5 rel", "ok": fwd_ok}
     bwd = {**base, "kernel": "fused_softmax_xent_bwd",
-           "max_abs_err": float((d.float() - ref_d.float()).abs().max()),
-           "worst": bwd_worst,
+           "max_abs_err": bwd_err, "worst": bwd_worst,
            "tol": "1 ulp" if dtype == torch.bfloat16 else "1e-6 rel",
            "ok": bwd_ok}
     if timing:
@@ -604,8 +619,9 @@ def check_norm_grads() -> None:
 
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the records of
-    the training path's shapes for the `kernels` line."""
-    recs = {}
+    the training paths' shapes for the `kernels` line, by run ("train",
+    "train_long")."""
+    recs = {"train": {}, "train_long": {}}
     for dtype in (torch.bfloat16, torch.float32):
         for H, Hkv, tag in ((32, 32, "7b"), (64, 8, "70b")):
             check_paged(f"decode_{tag}", paged_geometry(8, 1, H, Hkv, dtype),
@@ -639,7 +655,7 @@ def phase_kernels() -> dict:
             rec = check_ln(f"train_4096x{d}", x, w, b, None, path,
                            timing=True)
             if d == 256 and dtype == torch.bfloat16:
-                recs["fused_layernorm"] = rec
+                recs["train"]["fused_layernorm"] = rec
             if d == 256:
                 check_ln(f"train_4096x{d}_residual", x, w, b, r, path,
                          timing=True)
@@ -650,13 +666,27 @@ def phase_kernels() -> dict:
                 view.copy_(x)
                 check_ln(f"misaligned_4096x{d}", view, w, b, None, "block",
                          timing=False)
+    # LayerNorm at the train_long step's [B*T, d] = [32768, 256]
+    w = 1.0 + 0.1 * torch.randn(256, generator=g, device="cuda")
+    b = 0.1 * torch.randn(256, generator=g, device="cuda")
+    x = (torch.randn(8 * 4096, 256, generator=g, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    recs["train_long"]["fused_layernorm"] = check_ln(
+        "train_long_32768x256", x, w, b, None, "warp", timing=True)
+    del x
     # cross-entropy at the train step's [32, 127, 50257] fp32 logits view
-    # (4064 rows), the same rows contiguous in bf16, and a small ragged
-    # vocab
-    recs["fused_softmax_xent_fwd"], recs["fused_softmax_xent_bwd"] = \
-        check_ce("train_step_view_32x127", *ce_case(
-            32, 127, 50257, torch.float32, SEED + 12, strided=True),
-            timing=True)
+    # (4064 rows), at the train_long step's [8, 4095, 50257] one (32,760
+    # rows, 6.6 GB of logits), the train step's rows contiguous in bf16,
+    # and a small ragged vocab
+    for run, (B, T), seed in (("train", (32, 127), SEED + 12),
+                              ("train_long", (8, 4095), SEED + 15)):
+        recs[run]["fused_softmax_xent_fwd"], \
+            recs[run]["fused_softmax_xent_bwd"] = check_ce(
+                f"{run}_step_view_{B}x{T}", *ce_case(
+                    B, T, 50257, torch.float32, seed, strided=True),
+                timing=True)
+        gc.collect()
+        torch.cuda.empty_cache()
     check_ce("rows_4064_bf16", *ce_case(32, 127, 50257, torch.bfloat16,
                                         SEED + 13, strided=False),
              timing=True)
@@ -713,6 +743,15 @@ def flash_case(B, T, H, D, dtype, pad_tail, seed, q_scale=1.0):
     return q, k, v, do, pad
 
 
+def ragged_pad(B, T, seed) -> torch.Tensor:
+    """A [B, T] int8 key mask of true lengths drawn as the synthetic
+    language-model split draws them (`data/text.py`): uniform in
+    [T / 4, T]."""
+    lengths = np.random.default_rng(seed).integers(T // 4, T + 1, size=B)
+    return torch.as_tensor(np.arange(T)[None] < lengths[:, None],
+                           dtype=torch.int8, device="cuda")
+
+
 def flash_pairs(B, T, causal, pad) -> float:
     """(query, key) pairs the masks keep, over the batch: the work each
     of the kernels' products does on these inputs."""
@@ -727,12 +766,10 @@ def flash_pairs(B, T, causal, pad) -> float:
 def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     """The forward, dq and dk/dv kernels against the plain versions (the
     backward from the kernel's own o and lse), standalone and through
-    `flash_attention_bwd` (one delta for both kernels; in fp32 and on the
-    bf16 D 128 path the dq kernel computes it), whose two runs must be
-    bit-identical;
-    each kernel's registers, spill and shared-memory bytes, and no spill
-    on the Hopper kernels (bf16 at D 128) or the split-TF32 ones (fp32),
-    forward and backward. With
+    `flash_attention_bwd` (one delta for both kernels, which the dq
+    kernel computes), whose two runs must be bit-identical;
+    each kernel's registers, spill and shared-memory bytes: no kernel
+    spills, and bf16 runs the Hopper kernels (three warpgroups). With
     `timing`, kernel, plain, bound and library times, and the whole
     backward against SDPA's in turns.
     Returns the three kernel records."""
@@ -772,10 +809,11 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         which = kn.split("_")[-1]
         attrs = fa.kernel_attrs(which, D, dtype)
         ok = all(ok for ok, _ in c)
-        # the Hopper kernels (bf16, D 128) and the split-TF32 ones (fp32)
-        # keep everything in registers
-        redesigned = fa.hopper_forward(q) or dtype == torch.float32
-        ok = ok and not (redesigned and attrs["spill_bytes"])
+        # the Hopper kernels (bf16: three warpgroups, 384 threads) and
+        # the split-TF32 ones (fp32: 256 threads) keep everything in
+        # registers
+        ok = ok and not attrs["spill_bytes"] and \
+            (attrs["threads"] == 384) == (dtype == torch.bfloat16)
         if which != "fwd":
             # two runs of the backward agree to the bit
             ok = ok and deterministic
@@ -810,22 +848,16 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), attn_mask=mask4),
             (q, k, v), nf)
-        # the launchers alone: dq computes delta itself in fp32 and on the
-        # Hopper path (and reads o), otherwise delta = sum(dO * O) is a
-        # plain reduction made once, outside the timing
-        fused = fa.fused_delta(q)
-        dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad,
-                                          delta=not fused)
+        # the launchers alone: dq computes delta (reading o) and hands it
+        # to dk/dv
+        dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad)
         delta = fa._launch_dq(dims, pad32, *ins, causal)[1]
-        ndq = (6 if fused else 5) * n + 2 * stats + pad_bytes
-        ndkv = 6 * n + 2 * stats + pad_bytes
-        none = (None,) if fused else ()  # the delta argument dq fills
+        ndq = ndkv = 6 * n + 2 * stats + pad_bytes  # each moves six [T, D]
         dqr["kernel_ms"] = time_ms(
-            lambda *a: fa._launch_dq(dims, pad32, *a, *none, causal),
-            ins[:-1] if fused else ins, ndq)
+            lambda *a: fa._launch_dq(dims, pad32, *a, causal), ins, ndq)
         dkvr["kernel_ms"] = time_ms(
             lambda *a: fa._launch_dkv(dims, pad32, *a, causal),
-            (*ins[:-1], delta), ndkv)
+            (*ins, delta), ndkv)
         dqr["bound_ms"], dqr["bound_by"] = bound(ndq, 6.0 * D * H * pairs,
                                                  dtype)
         dkvr["bound_ms"], dkvr["bound_by"] = bound(ndkv, 8.0 * D * H * pairs,
@@ -882,10 +914,14 @@ def phase_flash() -> dict:
     not at [2, 1024, 8, 128] and with q scaled by 4 (large logits), a
     ragged T = 1000, [2, 200, 8, 128] bf16 with one batch row all
     padding, bf16 at D 64 ([1, 4096, 8, 64] causal, the language_ddp
-    heads at a length where "auto" picks flash) and [2, 1000, 8, D] bf16
-    at D 80 and 96 (run zero-padded to the D 128 kernels); the
-    cross-entropy at Llama's [1, 4095, 32000] fp32 logits view. Returns
-    the train step's records for the `kernels` line."""
+    heads at a length where "auto" picks flash), at D 32 ([1, 4096, 8,
+    32] causal, run zero-padded to the D 64 kernels) and [2, 1000, 8, D]
+    bf16 at D 80 and 96 (run zero-padded to the D 128 kernels); the
+    cross-entropy at Llama's [1, 4095, 32000] fp32 logits view; one
+    train_long layer ([8, 4096, 4, 64] bf16, causal, ragged key padding
+    drawn as the synthetic split draws it). Returns the records of the
+    Llama step and of the train_long layer for the `kernels` line, by
+    run ("llama_train", "train_long")."""
     recs = check_flash("llama_train_step", *flash_case(
         1, 4096, 32, 128, torch.bfloat16, 0.25, SEED + 20), causal=True,
         timing=True)
@@ -912,6 +948,16 @@ def phase_flash() -> dict:
     check_flash("d64_bf16_4096", *flash_case(
         1, 4096, 8, 64, torch.bfloat16, 0.0, SEED + 27), causal=True,
         timing=True)
+    # one layer of the train_long step: its [8, 4096, 4, 64] under the
+    # causal mask and the synthetic split's ragged key padding
+    long_recs = check_flash("train_long_layer", *flash_case(
+        8, 4096, 4, 64, torch.bfloat16, 0.0, SEED + 29)[:4],
+        ragged_pad(8, 4096, SEED + 29), causal=True, timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_flash("d32_bf16_4096", *flash_case(
+        1, 4096, 8, 32, torch.bfloat16, 0.0, SEED + 28), causal=True,
+        timing=True)
     # head dims of no kernel instantiation run zero-padded to D 128 (the
     # Hopper kernels in bf16): the forward and whole backward against the
     # plain versions, each kernel launched, and their times
@@ -930,7 +976,7 @@ def phase_flash() -> dict:
         1, 4095, 32000, torch.float32, SEED + 23, strided=True), timing=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return recs
+    return {"llama_train": recs, "train_long": long_recs}
 
 
 def _flash_launches() -> dict:
@@ -1094,6 +1140,99 @@ def phase_train(smi: str) -> dict:
                         f"{rec['launches_expected']}")
     if problems:
         raise AssertionError("train: " + "; ".join(problems))
+    return rec
+
+
+LONG_STEPS, LONG_BATCH, LONG_SEQ = 30, 8, 4096
+
+
+def long_train_config(base: Path, steps: int = LONG_STEPS):
+    """The language_ddp trainer at 4096 tokens: `train_config`'s defaults
+    (d 256 over 4 heads, so head_dim 64; 2 layers; GPT-2 vocab; bf16 over
+    fp32 masters; dropout 0.1; jit+pallas; the synthetic splits) with
+    seq_len 4096, where "auto" attention resolves to the flash kernels,
+    and batch 8 (32,768 tokens a step, against 4,096 at 32 x 128). Cut
+    to one epoch of `steps` steps; validation takes as many batches of
+    its 58 (the trainer caps it at the step count)."""
+    cfg = train_config(base, steps=steps)
+    cfg.train.seq_len, cfg.train.batch_size = LONG_SEQ, LONG_BATCH
+    return cfg
+
+
+def phase_train_long(smi: str) -> dict:
+    """`train_language_model` on the card at 4096 tokens
+    (`long_train_config`): every layer's attention runs the flash kernels
+    at head_dim 64 (the D 64 Hopper kernels), with the synthetic split's
+    ragged key padding under the causal mask. Every loss finite, the last
+    10 steps' mean below the first 10's, and every kernel's launches
+    exact: flash forward layers x (steps + evals), dq = dk/dv = layers x
+    steps, LayerNorm 5 x (steps + evals), cross-entropy forward steps +
+    evals and backward steps. Step time p50 (CUDA events), tokens/s and
+    peak memory are smoke readings."""
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.train.trainer import train_language_model
+
+    base = Path(__file__).resolve().parent / "build" / "chip_smoke_train_long"
+    cfg = long_train_config(base)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    fused_layernorm.launches = 0
+    t0 = time.perf_counter()
+    res = train_language_model(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**_launch_counts(), "fused_layernorm": fused_layernorm.launches}
+    peak = torch.cuda.max_memory_allocated()
+    lm = res.model.cfg
+    res.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spans = [json.loads(x) for x in
+             (base / "telemetry.jsonl").read_text().splitlines()]
+    evals = sum(r.get("batches", 0) for r in spans if r.get("name") == "eval")
+    steps = len(res.step_losses)
+    losses = np.asarray(res.step_losses)
+    step_ms = np.asarray(res.step_ms)
+    p50 = float(np.percentile(step_ms, 50))
+    tokens = cfg.train.batch_size * cfg.train.seq_len
+    rec = {
+        "phase": "train_long", "nvidia_smi": smi, "wall_s": wall,
+        "seq_len": cfg.train.seq_len, "batch": cfg.train.batch_size,
+        "head_dim": lm.d_model // lm.n_heads, "layers": lm.n_layers,
+        "steps": steps, "eval_batches": evals,
+        "loss_first10": float(losses[:10].mean()),
+        "loss_last10": float(losses[-10:].mean()),
+        "val_loss": res.history[-1].extra.get("val_loss"),
+        "step_ms": step_ms.tolist(), "step_ms_p50": p50,
+        "tokens_per_s": tokens / (p50 / 1e3), "peak_mem_gb": peak / 1e9,
+        "launches": launches,
+        "launches_expected": {
+            "flash_attention_fwd": lm.n_layers * (steps + evals),
+            "flash_attention_dq": lm.n_layers * steps,
+            "flash_attention_dkv": lm.n_layers * steps,
+            "fused_rmsnorm": 0,
+            "fused_softmax_xent_fwd": steps + evals,
+            "fused_softmax_xent_bwd": steps,
+            "fused_layernorm": 5 * (steps + evals)},
+    }
+    emit(rec)
+    problems = []
+    if (steps, evals, rec["head_dim"]) != (LONG_STEPS, LONG_STEPS, 64):
+        problems.append(f"{steps} steps, {evals} eval batches, head_dim "
+                        f"{rec['head_dim']}")
+    if not (np.isfinite(losses).all() and np.isfinite(rec["val_loss"])):
+        problems.append("non-finite loss")
+    if not rec["loss_last10"] < rec["loss_first10"]:
+        problems.append("loss did not fall")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch counts {launches} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("train_long: " + "; ".join(problems))
     return rec
 
 
@@ -1552,13 +1691,14 @@ def phase_serve() -> dict:
     return rec
 
 
-def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict,
-                 llama_rec: dict, flash_kernels: dict) -> dict:
-    """Per-kernel record at its path's shapes, with its launches on that
-    path's run: the serve kernels at the decode tick (S=4 slots, one
-    token, bf16, 7B widths), LayerNorm and the cross-entropy at the
-    language_ddp train step, the flash kernels at the Llama-2-7B LoRA
-    train step (the kernels phases' records)."""
+def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
+                 llama_rec: dict, kernel_recs: dict, flash_recs: dict) -> dict:
+    """One record per kernel and run, at that run's shapes, with the
+    kernel's launches on the run: the serve kernels at the decode tick
+    (S=4 slots, one token, bf16, 7B widths); LayerNorm and the
+    cross-entropy at the language_ddp train step and at the train_long
+    step; the flash kernels at the train_long step's layer (D 64) and
+    at the Llama-2-7B LoRA train step (D 128). `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -1568,41 +1708,42 @@ def kernels_line(serve_rec: dict, train_rec: dict, train_kernels: dict,
     x = torch.randn(4, 1, 4096, generator=g, device="cuda").to(torch.bfloat16)
     w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
     rn = check_rms("decode_tick_S4", x, w, timing=True)
-    out = []
     csrc = "hyperion_tpu_torch/ops/csrc/"
     pallas = "hyperion_tpu/ops/pallas/"
-    for rec, name, src, rep, run in (
-        (pa, "paged_attention", csrc + "paged_attention.cu",
-         pallas + "paged_attention.py:105", serve_rec),
-        (rn, "fused_rmsnorm", csrc + "fused_norm.cu",
-         pallas + "fused_norm.py:135", serve_rec),
-        (train_kernels["fused_layernorm"], "fused_layernorm",
-         csrc + "fused_norm.cu", pallas + "fused_norm.py:32", train_rec),
-        (train_kernels["fused_softmax_xent_fwd"], "fused_softmax_xent_fwd",
-         csrc + "fused_ce.cu", pallas + "fused_ce.py:61", train_rec),
-        (train_kernels["fused_softmax_xent_bwd"], "fused_softmax_xent_bwd",
-         csrc + "fused_ce.cu", pallas + "fused_ce.py:94", train_rec),
-        (flash_kernels["flash_attention_fwd"], "flash_attention_fwd",
-         csrc + "flash_attention.cu", pallas + "flash_attention.py:207",
-         llama_rec),
-        (flash_kernels["flash_attention_dq"], "flash_attention_dq",
-         csrc + "flash_attention.cu", pallas + "flash_attention.py:351",
-         llama_rec),
-        (flash_kernels["flash_attention_dkv"], "flash_attention_dkv",
-         csrc + "flash_attention.cu", pallas + "flash_attention.py:405",
-         llama_rec),
-    ):
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": rep,
-                    "launches": run["launches"][name],
-                    "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
-                    "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                    "bound_by": rec["bound_by"],
-                    "library_ms": rec["library_ms"],
-                    "checked": rec["ok"], "shape": rec["shape"],
-                    "dtype": rec["dtype"],
-                    **{key: rec[key] for key in (*ATTR_KEYS, "path")
-                       if key in rec}})
+    where = {"paged_attention": ("paged_attention.cu",
+                                 "paged_attention.py:105"),
+             "fused_rmsnorm": ("fused_norm.cu", "fused_norm.py:135"),
+             "fused_layernorm": ("fused_norm.cu", "fused_norm.py:32"),
+             "fused_softmax_xent_fwd": ("fused_ce.cu", "fused_ce.py:61"),
+             "fused_softmax_xent_bwd": ("fused_ce.cu", "fused_ce.py:94"),
+             "flash_attention_fwd": ("flash_attention.cu",
+                                     "flash_attention.py:207"),
+             "flash_attention_dq": ("flash_attention.cu",
+                                    "flash_attention.py:351"),
+             "flash_attention_dkv": ("flash_attention.cu",
+                                     "flash_attention.py:405")}
+    runs = (("serve", serve_rec, {"paged_attention": pa,
+                                  "fused_rmsnorm": rn}),
+            ("train", train_rec, kernel_recs["train"]),
+            ("train_long", long_rec, {**kernel_recs["train_long"],
+                                      **flash_recs["train_long"]}),
+            ("llama_train", llama_rec, flash_recs["llama_train"]))
+    out = []
+    for run, run_rec, recs in runs:
+        for name, rec in recs.items():
+            src, rep = where[name]
+            out.append({"name": name, "route": "cuda", "source": csrc + src,
+                        "replaces": pallas + rep, "run": run,
+                        "launches": run_rec["launches"][name],
+                        "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"],
+                        "checked": rec["ok"], "case": rec["case"],
+                        "shape": rec["shape"], "dtype": rec["dtype"],
+                        **{key: rec[key] for key in (*ATTR_KEYS, "path")
+                           if key in rec}})
     return {"kernels": out}
 
 
@@ -1618,17 +1759,18 @@ def main() -> int:
     t0 = time.perf_counter()
     dev = phase_device()
     phase_build()
-    train_kernels = phase_kernels()
-    flash_kernels = phase_flash()
+    kernel_recs = phase_kernels()
+    flash_recs = phase_flash()
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
+    long_rec = phase_train_long(dev["nvidia_smi"])
     phase_llama_train_model()
     llama_rec = phase_llama_train(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
     serve_rec = phase_serve()
-    emit(kernels_line(serve_rec, train_rec, train_kernels, llama_rec,
-                      flash_kernels))
+    emit(kernels_line(serve_rec, train_rec, long_rec, llama_rec,
+                      kernel_recs, flash_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,7 @@
 //   p . v, which accumulates in fp32; o = acc / max(l, 1e-30) cast to the
 //   input dtype; lse = m + log(max(l, 1e-30)), written only when asked
 //   for. Backward from the saved lse and delta = sum(dO * O) (computed by
-//   the caller, or by the fp32 and the bf16 D = 128 dq kernels):
+//   every dq kernel in its prologue and handed to dk/dv):
 //   p = exp(s - lse), dp = dO . v^T, ds = p * (dp - delta),
 //   dq = scale * ds->dtype . k, dv = p->dtype^T . dO,
 //   dk = scale * ds->dtype^T . q, each cast to the input dtype. Key columns past Tkv (the ragged last tile) are left out
@@ -32,24 +32,6 @@
 // design below therefore works at keeping the tensor cores fed: operands
 // reach them from shared memory filled by TMA (or from registers), and
 // the softmax arithmetic runs beside the products, not between them.
-//
-// bf16 at D = 32 and 64 (`flash_fwd_kernel`, `flash_dq_kernel`,
-// `flash_dkv_kernel`; right and simple first):
-//   * One block of 4 warps per (tile, head, batch). The forward and dq
-//     kernels take a 64-row query tile and loop over 64-row key tiles up
-//     to the causal frontier: the loop replaces the TPU's ordered kv grid
-//     axis and its m/l/acc scratch, which live in registers here. The
-//     dk/dv kernel takes a 64-row key tile and loops over the query tiles
-//     from the diagonal down, so no two blocks write one gradient row and
-//     no atomics are needed. Causal grids start with the longest tiles.
-//   * Tiles are copied from device memory to shared memory with 16-byte
-//     loads, rows padded by 16 bytes so the fragment reads hit 32 banks;
-//     rows past T are zero-filled (a ragged T is a bound check).
-//   * Each warp owns 16 rows of its tile's products, on the tensor cores
-//     (mma.sync m16n8k16, fp32 accumulators), the fragments read from
-//     shared memory.
-//   * p (and ds) go through shared memory in bf16 to feed the second
-//     product; the fp32 values stay in registers for ds.
 //
 // fp32 at D = 32, 64 and 128 (`flash_fwd_kernel_tf32`,
 // `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`): the same products on
@@ -90,41 +72,49 @@
 //     tiles (the diagonal, padded or ragged keys, a ragged query tail)
 //     take the per-element mask.
 //
-// bf16 at D = 128 (`flash_fwd_kernel_sm90`, `flash_dq_kernel_sm90`,
-// `flash_dkv_kernel_sm90`), built from sm90.cuh for the tensor cores'
-// full rate:
+// bf16 at D = 64 and 128 (`flash_fwd_kernel_sm90<D>`,
+// `flash_dq_kernel_sm90<D>`, `flash_dkv_kernel_sm90<D>`; any D up to 64
+// runs zero-padded to 64, up to 128 to 128), built from sm90.cuh for the
+// tensor cores' full rate:
 //   * A block of three warpgroups per (head, 128-row tile, batch): two
 //     consumers of 64 rows each and a producer, whose first warp issues
 //     every TMA load. The block's own 128 rows (q for the forward; q and
 //     dO for dq; k and v for dk/dv) stay resident in shared memory; the
 //     other side's tiles stream through a ring with full/empty mbarriers,
 //     so the next tiles' loads overlap this tile's products. The forward
-//     streams 128-key tiles through three stages (~227 KB), the backward
-//     64-row tiles through two (~130 KB): one block an SM.
+//     streams 128-key tiles, the backward R-row tiles: 64 rows at D 128,
+//     128 at D 64, where the tiles are half as wide (`Ring` has the rows
+//     and stages of each D).
 //   * TMA reads [B, T, H, D] in place as a 4-D map (D, H, T, B), boxes of
-//     64 columns under the 128-byte swizzle; rows past T arrive as zeros,
-//     so a ragged T needs no bound check. The maps are encoded on the host
-//     at each launch and passed as __grid_constant__ parameters.
-//   * forward: s = q . k^T on wgmma m64n128k16 with q's A fragments in
-//     registers (read once from the resident tile) and k K-major in shared
-//     memory; the online softmax in registers (running max, per-thread
-//     partial sums, exp2 with the scale folded in); the m64n128 fp32
-//     accumulator is, element for element, the bf16 A fragment of
-//     o += p . v, whose B (v) is read MN-major through the descriptor's
-//     transpose bit. Each consumer issues tile j's s product and tile
-//     j - 1's p . v together, then runs tile j's softmax while p . v runs;
-//     and the two consumers take turns at the tensor cores (a named-
-//     barrier ping-pong), so one's softmax runs beside the other's
-//     products. No wgmma sits under a condition (ptxas would serialise
-//     them). Rows whose keys are all padding take every tile, so their o
-//     is the plain version's mean of v.
-//   * dk/dv: s^T = k . q^T and dp^T = v . dO^T run on wgmma m64n64k16 with
+//     64 columns under the 128-byte swizzle, D / 64 boxes side by side
+//     for a row (at D 64 one box: each row is one 128-byte swizzle span);
+//     rows past T arrive as zeros, so a ragged T needs no bound check. The
+//     maps are encoded on the host at each launch and passed as
+//     __grid_constant__ parameters.
+//   * forward: s = q . k^T on wgmma m64n128k16 (D / 16 k-steps) with q's A
+//     fragments in registers (read once from the resident tile) and k
+//     K-major in shared memory; the online softmax in registers (running
+//     max, per-thread partial sums, exp2 with the scale folded in); the
+//     m64n128 fp32 accumulator is, element for element, the bf16 A
+//     fragment of o += p . v (m64nDk16), whose B (v) is read MN-major
+//     through the descriptor's transpose bit. Each consumer issues tile
+//     j's s product and tile j - 1's p . v together, then runs tile j's
+//     softmax while p . v runs; and the two consumers take turns at the
+//     tensor cores (a named-barrier ping-pong), so one's softmax runs
+//     beside the other's products. At D 64 the products halve and the
+//     softmax does not, so that overlap carries more of the time. No
+//     wgmma sits under a condition (ptxas would serialise them). Rows
+//     whose keys are all padding take every tile, so their o is the plain
+//     version's mean of v.
+//   * dk/dv: s^T = k . q^T and dp^T = v . dO^T run on wgmma m64nRk16 with
 //     both operands K-major in shared memory, as they lie in [T, D]. p^T
 //     and ds^T stay in registers as the A fragments of dv += p^T . dO and
-//     dk += ds^T . q (wgmma m64n128k16, B = dO or q read MN-major). The dk
-//     and dv accumulators are 64 + 64 floats a consumer thread; setmaxnreg
-//     gives the consumers 240 registers and the producer 24, as in the
-//     forward and dq.
+//     dk += ds^T . q (wgmma m64nDk16, B = dO or q read MN-major). The dk
+//     and dv accumulators are D / 2 + D / 2 floats a consumer thread;
+//     setmaxnreg gives the consumers 240 registers and the producer 24, as
+//     in the forward and dq. At D 64 the R = 128 tiles double the work
+//     between two waits on the ring, and s^T, dp^T and the accumulators
+//     (192 floats) still fit.
 //   * dq: s = q . k^T and dp = dO . v^T likewise, dq += ds . k with k read
 //     MN-major. The dq block also computes delta = sum(dO * O) for its
 //     rows in its prologue (dO from the resident tile, O read once) and
@@ -148,79 +138,9 @@
 
 namespace {
 
-constexpr int kTile = 64;     // rows of the block's tile and of each loop tile
-constexpr int kThreads = 128; // 4 warps, 16 rows each
 constexpr float kNegInf = -1073741824.0f;  // -2^30, the reference's NEG_INF
 
 using bf16 = __nv_bfloat16;
-
-// shared-memory row strides: 16 bytes of padding a row
-template <typename T>
-__host__ __device__ constexpr int pad_elems() { return 16 / sizeof(T); }
-template <typename T, int D>
-__host__ __device__ constexpr int ld_in() { return D + pad_elems<T>(); }
-template <typename T>
-__host__ __device__ constexpr int ld_p() { return kTile + pad_elems<T>(); }
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// (M(i, j), M(i, j + 1)): an A fragment register (pairs along k = j)
-template <bool kTrans>
-__device__ __forceinline__ uint32_t pair_cols(const bf16* p, int ld, int i, int j) {
-  if constexpr (!kTrans) {
-    return *reinterpret_cast<const uint32_t*>(p + i * ld + j);
-  } else {
-    return pack(p[j * ld + i], p[(j + 1) * ld + i]);
-  }
-}
-
-// (M(i, j), M(i + 1, j)): a B fragment register (pairs along k = i)
-template <bool kTrans>
-__device__ __forceinline__ uint32_t pair_rows(const bf16* p, int ld, int i, int j) {
-  if constexpr (kTrans) {
-    return *reinterpret_cast<const uint32_t*>(p + j * ld + i);
-  } else {
-    return pack(p[i * ld + j], p[(i + 1) * ld + j]);
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c[16 x 8*NT] += A[m0 .. m0+15, 0 .. K) . B[0 .. K, 0 .. 8*NT), one warp,
-// bf16 on the tensor cores. The accumulator is the m16n8 fragment: thread
-// `lane` holds rows lane/4 (c[.][0..1]) and lane/4 + 8 (c[.][2..3]),
-// columns 2*(lane%4) and 2*(lane%4) + 1 of each 8-column tile.
-template <bool kTransA, bool kTransB, int NT>
-__device__ __forceinline__ void warp_gemm(float (&c)[NT][4], const bf16* A, int lda,
-                                          int m0, const bf16* Bm, int ldb, int K) {
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 2, cc = (lane & 3) * 2;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    a[0] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc);
-    a[1] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc);
-    a[2] = pair_cols<kTransA>(A, lda, m0 + r, k0 + cc + 8);
-    a[3] = pair_cols<kTransA>(A, lda, m0 + r + 8, k0 + cc + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t b[2];
-      b[0] = pair_rows<kTransB>(Bm, ldb, k0 + cc, nt * 8 + r);
-      b[1] = pair_rows<kTransB>(Bm, ldb, k0 + cc + 8, nt * 8 + r);
-      mma_bf16(c[nt], a, b);
-    }
-  }
-}
 
 template <int NT>
 __device__ __forceinline__ void zero(float (&c)[NT][4]) {
@@ -228,27 +148,7 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
   for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
 }
 
-// rows row0 .. row0+63 of one head of a [B, T, H, D] tensor (`src` points
-// at its batch and head, rows `stride` elements apart) into a padded
-// [64][D + pad] tile; rows at or past `rows` are zeros
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int rows,
-                                          int64_t stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  constexpr int LD = ld_in<T, D>();
-  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
-// one thread's two columns of an m16n8 fragment row, stored to shared
-// memory in T (row-major, `ld` apart)
+// one thread's two columns of an m16n8 fragment row, stored in T
 template <typename T>
 __device__ __forceinline__ void put2(T* p, float x, float y) {
   if constexpr (std::is_same<T, bf16>::value) {
@@ -278,388 +178,92 @@ __device__ __forceinline__ float masked(float s, int qi, int ki, int Tq, int Tkv
   return s;
 }
 
-// the causal grids run their longest tiles first
-__device__ __forceinline__ int tile_index(int causal, bool reverse) {
-  return (causal && reverse) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-}
-
-// ------------------------------------------------------------- forward
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ pad,
-                 T* __restrict__ o, float* __restrict__ lse, int Tq, int Tkv,
-                 int H, int causal, float scale) {
-  constexpr int LD = ld_in<T, D>(), PLD = ld_p<T>();
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* Ks = Qs + kTile * LD;
-  T* Vs = Ks + kTile * LD;
-  T* Ps = Vs + kTile * LD;
-  int* keep_s = reinterpret_cast<int*>(Ps + kTile * PLD);
-
-  const int qt = tile_index(causal, true);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const int64_t stride = static_cast<int64_t>(H) * D;
-  const T* qb = q + static_cast<int64_t>(b) * Tq * stride + h * D;
-  const T* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
-  const T* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = warp * 16, r = lane >> 2, cc = (lane & 3) * 2;
-  const int rows[2] = {q0 + m0 + r, q0 + m0 + r + 8};
-
-  load_tile<T, D>(Qs, qb, q0, Tq, stride);
-
-  float acc[NO][4];
-  zero(acc);
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-
-  const int n_kv = (Tkv + kTile - 1) / kTile;
-  int last = n_kv - 1;
-  if (causal) last = min(last, min(q0 + kTile - 1, Tq - 1) / kTile);
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(Ks, kb, k0, Tkv, stride);
-    load_tile<T, D>(Vs, vb, k0, Tkv, stride);
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      keep_s[j] = (k0 + j < Tkv) && (pad == nullptr || pad[b * Tkv + k0 + j] != 0);
-    }
-    __syncthreads();
-
-    float s[8][4];
-    zero(s);
-    warp_gemm<false, true>(s, Qs, LD, m0, Ks, LD, D);
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + cc + (e & 1);
-        s[nt][e] = masked(s[nt][e] * scale, rows[e >> 1], k0 + col, Tq, Tkv,
-                          causal, keep_s[col]);
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - m[e >> 1]);
-        sum[e >> 1] += s[nt][e];
-      }
-      put2(Ps + (m0 + r) * PLD + nt * 8 + cc, s[nt][0], s[nt][1]);
-      put2(Ps + (m0 + r + 8) * PLD + nt * 8 + cc, s[nt][2], s[nt][3]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    __syncwarp();  // the warp's p rows are in shared memory
-    warp_gemm<false, false>(acc, Ps, PLD, m0, Vs, LD, kTile);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = fmaxf(l[i], 1e-30f);
-    if (lse != nullptr && (lane & 3) == 0 && rows[i] < Tq) {
-      lse[(static_cast<int64_t>(b) * H + h) * Tq + rows[i]] = m[i] + logf(l[i]);
-    }
-  }
-  T* ob = o + static_cast<int64_t>(b) * Tq * stride + h * D;
-#pragma unroll
-  for (int nt = 0; nt < NO; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rows[i] < Tq) {
-        put2(ob + rows[i] * stride + nt * 8 + cc, acc[nt][2 * i] / l[i],
-             acc[nt][2 * i + 1] / l[i]);
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------- backward dq
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ pad,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int Tq,
-                int Tkv, int H, int causal, float scale) {
-  constexpr int LD = ld_in<T, D>(), PLD = ld_p<T>();
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* dOs = Qs + kTile * LD;
-  T* Ks = dOs + kTile * LD;
-  T* Vs = Ks + kTile * LD;
-  T* dSs = Vs + kTile * LD;
-  int* keep_s = reinterpret_cast<int*>(dSs + kTile * PLD);
-
-  const int qt = tile_index(causal, true);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * kTile;
-  const int64_t stride = static_cast<int64_t>(H) * D;
-  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
-  const T* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
-  const T* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
-  const float* lse_b = lse + (static_cast<int64_t>(b) * H + h) * Tq;
-  const float* delta_b = delta + (static_cast<int64_t>(b) * H + h) * Tq;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = warp * 16, r = lane >> 2, cc = (lane & 3) * 2;
-  const int rows[2] = {q0 + m0 + r, q0 + m0 + r + 8};
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_lse[i] = rows[i] < Tq ? lse_b[rows[i]] : 0.f;
-    row_delta[i] = rows[i] < Tq ? delta_b[rows[i]] : 0.f;
-  }
-
-  load_tile<T, D>(Qs, q + qoff, q0, Tq, stride);
-  load_tile<T, D>(dOs, dout + qoff, q0, Tq, stride);
-
-  float acc[NO][4];
-  zero(acc);
-  const int n_kv = (Tkv + kTile - 1) / kTile;
-  int last = n_kv - 1;
-  if (causal) last = min(last, min(q0 + kTile - 1, Tq - 1) / kTile);
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(Ks, kb, k0, Tkv, stride);
-    load_tile<T, D>(Vs, vb, k0, Tkv, stride);
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      keep_s[j] = (k0 + j < Tkv) && (pad == nullptr || pad[b * Tkv + k0 + j] != 0);
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    warp_gemm<false, true>(s, Qs, LD, m0, Ks, LD, D);
-    warp_gemm<false, true>(dp, dOs, LD, m0, Vs, LD, D);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + cc + (e & 1);
-        const int i = e >> 1;
-        const float x = masked(s[nt][e] * scale, rows[i], k0 + col, Tq, Tkv,
-                               causal, keep_s[col]);
-        const float p = expf(x - row_lse[i]);
-        s[nt][e] = p * (dp[nt][e] - row_delta[i]);
-      }
-      put2(dSs + (m0 + r) * PLD + nt * 8 + cc, s[nt][0], s[nt][1]);
-      put2(dSs + (m0 + r + 8) * PLD + nt * 8 + cc, s[nt][2], s[nt][3]);
-    }
-    __syncwarp();
-    warp_gemm<false, false>(acc, dSs, PLD, m0, Ks, LD, kTile);
-  }
-
-  T* dqb = dq + qoff;
-#pragma unroll
-  for (int nt = 0; nt < NO; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rows[i] < Tq) {
-        put2(dqb + rows[i] * stride + nt * 8 + cc, scale * acc[nt][2 * i],
-             scale * acc[nt][2 * i + 1]);
-      }
-    }
-  }
-}
-
-// -------------------------------------------------------- backward dk/dv
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ pad,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int Tq, int Tkv, int H, int causal,
-                 float scale) {
-  constexpr int LD = ld_in<T, D>(), PLD = ld_p<T>();
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);
-  T* Vs = Ks + kTile * LD;
-  T* Qs = Vs + kTile * LD;
-  T* dOs = Qs + kTile * LD;
-  T* Ps = dOs + kTile * LD;
-  T* dSs = Ps + kTile * PLD;
-  float* lse_s = reinterpret_cast<float*>(dSs + kTile * PLD);
-  float* delta_s = lse_s + kTile;
-  int* keep_s = reinterpret_cast<int*>(delta_s + kTile);
-
-  // causal: the first key tiles see the most query tiles
-  const int kt = tile_index(causal, false);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kTile;
-  const int64_t stride = static_cast<int64_t>(H) * D;
-  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
-  const int64_t koff = static_cast<int64_t>(b) * Tkv * stride + h * D;
-  const float* lse_b = lse + (static_cast<int64_t>(b) * H + h) * Tq;
-  const float* delta_b = delta + (static_cast<int64_t>(b) * H + h) * Tq;
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = warp * 16, r = lane >> 2, cc = (lane & 3) * 2;
-  const int rows[2] = {k0 + m0 + r, k0 + m0 + r + 8};  // key rows
-
-  load_tile<T, D>(Ks, k + koff, k0, Tkv, stride);
-  load_tile<T, D>(Vs, v + koff, k0, Tkv, stride);
-  for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    keep_s[j] = (k0 + j < Tkv) && (pad == nullptr || pad[b * Tkv + k0 + j] != 0);
-  }
-
-  float acc_k[NO][4], acc_v[NO][4];
-  zero(acc_k);
-  zero(acc_v);
-  const int n_q = (Tq + kTile - 1) / kTile;
-  const int first = causal ? k0 / kTile : 0;
-
-  for (int qt = first; qt < n_q; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<T, D>(Qs, q + qoff, q0, Tq, stride);
-    load_tile<T, D>(dOs, dout + qoff, q0, Tq, stride);
-    for (int j = threadIdx.x; j < kTile; j += kThreads) {
-      const bool in = q0 + j < Tq;
-      lse_s[j] = in ? lse_b[q0 + j] : 0.f;
-      delta_s[j] = in ? delta_b[q0 + j] : 0.f;
-    }
-    __syncthreads();
-
-    // s^T: rows are keys, columns queries
-    float p[8][4];
-    zero(p);
-    warp_gemm<false, true>(p, Ks, LD, m0, Qs, LD, D);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + cc + (e & 1);
-        const int kr = rows[e >> 1];
-        const float x = masked(p[nt][e] * scale, q0 + col, kr, Tq, Tkv, causal,
-                               keep_s[kr - k0]);
-        p[nt][e] = expf(x - lse_s[col]);
-      }
-      put2(Ps + (m0 + r) * PLD + nt * 8 + cc, p[nt][0], p[nt][1]);
-      put2(Ps + (m0 + r + 8) * PLD + nt * 8 + cc, p[nt][2], p[nt][3]);
-    }
-    __syncwarp();
-    warp_gemm<false, false>(acc_v, Ps, PLD, m0, dOs, LD, kTile);
-
-    float dp[8][4];
-    zero(dp);
-    warp_gemm<false, true>(dp, Vs, LD, m0, dOs, LD, D);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + cc + (e & 1);
-        dp[nt][e] = p[nt][e] * (dp[nt][e] - delta_s[col]);
-      }
-      put2(dSs + (m0 + r) * PLD + nt * 8 + cc, dp[nt][0], dp[nt][1]);
-      put2(dSs + (m0 + r + 8) * PLD + nt * 8 + cc, dp[nt][2], dp[nt][3]);
-    }
-    __syncwarp();
-    warp_gemm<false, false>(acc_k, dSs, PLD, m0, Qs, LD, kTile);
-  }
-
-  T* dkb = dk + koff;
-  T* dvb = dv + koff;
-#pragma unroll
-  for (int nt = 0; nt < NO; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rows[i] < Tkv) {
-        put2(dkb + rows[i] * stride + nt * 8 + cc, scale * acc_k[nt][2 * i],
-             scale * acc_k[nt][2 * i + 1]);
-        put2(dvb + rows[i] * stride + nt * 8 + cc, acc_v[nt][2 * i],
-             acc_v[nt][2 * i + 1]);
-      }
-    }
-  }
-}
-
-// ------------------------------------- backward, bf16 at D = 128 (sm_90a)
+// ------------------------------------- bf16 at D = 64 and 128 (sm_90a)
 //
 // Three warpgroups a block: two consumers of 64 rows each and one
 // producer. The producer's first warp issues every TMA load and fills the
 // small per-tile arrays; the consumers run wgmma and the softmax
 // arithmetic. A block's own 128 rows stay resident; the other side's
-// 64-row tiles come through a ring of kStages stages, each with a "full"
-// mbarrier (the producer warp's 32 arrivals plus the TMA bytes) and an
-// "empty" one (the 256 consumer threads' arrivals).
+// tiles come through a ring of stages, each with a "full" mbarrier (the
+// producer warp's 32 arrivals plus the TMA bytes) and an "empty" one (the
+// 256 consumer threads' arrivals).
 
 namespace wgp {
 
-constexpr int kD = 128;          // the only head dim of this path
 constexpr int kBox = 8192;       // one TMA box: 64 rows x 64 bf16 columns
-constexpr int kHalf = 2 * kBox;  // 64 rows x D, two boxes side by side
-constexpr int kStages = 2;
 constexpr int kThreads = 384;    // consumers 0..255, producer 256..383
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct DkvSmem {
-  uint8_t k[2 * kHalf];  // the block's 128 key rows: [consumer][box]
-  uint8_t v[2 * kHalf];
-  uint8_t q[kStages][kHalf];  // a 64-row query tile: [box]
-  uint8_t dout[kStages][kHalf];
-  float lse[kStages][64];
-  float delta[kStages][64];
-  uint64_t kv_full, full[kStages], empty[kStages];
-};
-
-struct DqSmem {
-  uint8_t q[2 * kHalf];  // the block's 128 query rows: [consumer][box]
-  uint8_t dout[2 * kHalf];
-  uint8_t k[kStages][kHalf];  // a 64-row key tile: [box]
-  uint8_t v[kStages][kHalf];
-  int keep[kStages][64];  // key kept (in range and not padding)
-  int all_keep[kStages];
-  float delta[128];
-  uint64_t qd_full, full[kStages], empty[kStages];
-};
+// R rows x D columns: D / 64 boxes of R rows x 64 columns side by side
+template <int D, int R>
+constexpr int kTile = D / 64 * R * 128;
+// the block's own rows come in halves of 64, one a consumer
+template <int D>
+constexpr int kHalf = kTile<D, 64>;
 
 // the forward streams 128-key tiles (boxes of 128 rows x 64 columns)
-// through three stages: a consumer holds two at once (k of tile it, v of
-// tile it - 1), so the third is the one being loaded. 226.6 KB with q,
-// just under the 227 KB a block may have.
 constexpr int kFwdKeys = 128;
 constexpr int kFwdBox = kFwdKeys * 128;
-constexpr int kFwdStages = 3;
 
+// The streamed side's ring: its stages (forward, backward) and the rows
+// of the backward's tiles (q and dO for dk/dv, k and v for dq; the
+// forward's are 128 keys). A forward consumer holds two tiles at once (k
+// of tile it, v of tile it - 1), so the third of three stages is the one
+// being loaded. At D 128 that is 226.6 KB with q, just under the 227 KB
+// a block may have, and the backward's two stages of 64 rows ~130 KB.
+template <int D>
+struct Ring {
+  static constexpr int kFwd = 3;
+  static constexpr int kBwd = 2;
+  static constexpr int kBwdRows = 64;
+};
+
+// D 64 halves every tile. On an H100 at [8, 4096, 4, 64] causal, four
+// stages ran faster than three (forward) and two or three (backward),
+// six forward stages no faster than four; then 128-row backward tiles
+// ran 11 % faster than 64-row ones (forward 150.6 KB, dq 167.5 KB,
+// dk/dv 169.0 KB of shared memory).
+template <>
+struct Ring<64> {
+  static constexpr int kFwd = 4;
+  static constexpr int kBwd = 4;
+  static constexpr int kBwdRows = 128;
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr int S = Ring<D>::kBwd, R = Ring<D>::kBwdRows;
+  uint8_t k[2 * kHalf<D>];  // the block's 128 key rows: [consumer][box]
+  uint8_t v[2 * kHalf<D>];
+  uint8_t q[S][kTile<D, R>];  // an R-row query tile: [box]
+  uint8_t dout[S][kTile<D, R>];
+  float lse[S][R];
+  float delta[S][R];
+  uint64_t kv_full, full[S], empty[S];
+};
+
+template <int D>
+struct DqSmem {
+  static constexpr int S = Ring<D>::kBwd, R = Ring<D>::kBwdRows;
+  uint8_t q[2 * kHalf<D>];  // the block's 128 query rows: [consumer][box]
+  uint8_t dout[2 * kHalf<D>];
+  uint8_t k[S][kTile<D, R>];  // an R-row key tile: [box]
+  uint8_t v[S][kTile<D, R>];
+  int keep[S][R];  // key kept (in range and not padding)
+  int all_keep[S];
+  float delta[128];
+  uint64_t qd_full, full[S], empty[S];
+};
+
+template <int D>
 struct FwdSmem {
-  uint8_t q[2 * kHalf];  // the block's 128 query rows: [consumer][box]
-  uint8_t k[kFwdStages][2 * kFwdBox];  // a 128-row key tile: [box]
-  uint8_t v[kFwdStages][2 * kFwdBox];
-  int keep[kFwdStages][kFwdKeys];  // key kept (in range and not padding)
-  int all_keep[kFwdStages];
-  uint64_t q_full, full[kFwdStages], empty[kFwdStages];
+  static constexpr int S = Ring<D>::kFwd;
+  uint8_t q[2 * kHalf<D>];  // the block's 128 query rows: [consumer][box]
+  uint8_t k[S][kTile<D, kFwdKeys>];  // a 128-row key tile: [box]
+  uint8_t v[S][kTile<D, kFwdKeys>];
+  int keep[S][kFwdKeys];  // key kept (in range and not padding)
+  int all_keep[S];
+  uint64_t q_full, full[S], empty[S];
 };
 
 // the block's shared memory, its start rounded up to 1024 bytes (the
@@ -671,19 +275,45 @@ __device__ __forceinline__ S& smem_block() {
   return *reinterpret_cast<S*>(smem_ws + off);
 }
 
-// K-major operand: a tile of D = 128 columns (two boxes of `box` bytes:
-// 64 rows, or 128 for the forward's key tiles); k-step kk covers columns
-// 16kk .. 16kk + 15
+// K-major operand: a tile of D columns (D / 64 boxes of `box` bytes: 64
+// or 128 rows of 128 bytes); k-step kk covers columns 16kk .. 16kk + 15
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk,
                                            int box = kBox) {
   return sm90::desc_sw128(tile + (kk >> 2) * box + (kk & 3) * 32, 16, 1024);
 }
 
 // MN-major operand: the same tile read with its rows as k; k-step kk
-// covers rows 16kk .. 16kk + 15, all 128 columns (the second box lbo on)
+// covers rows 16kk .. 16kk + 15, all D columns (each further box lbo on)
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk,
                                             int box = kBox) {
   return sm90::desc_sw128(tile + kk * 2048, box, 1024);
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers, B MN-major: the
+// products whose N is the head dim (o += p . v, dv, dk, dq)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (N == 128) {
+    sm90::wgmma_m64n128k16_rs_mn(d, a, db);
+  } else {
+    static_assert(N == 64, "N is 64 or 128");
+    sm90::wgmma_m64n64k16_rs_mn(d, a, db);
+  }
+}
+
+// d[64 x N] (+)= A[64 x 16] . B[16 x N], both K-major in shared memory:
+// the backward's s and dp over a streamed tile of N rows
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  if constexpr (N == 128) {
+    sm90::wgmma_m64n128k16_ss(d, da, db, accumulate);
+  } else {
+    static_assert(N == 64, "N is 64 or 128");
+    sm90::wgmma_m64n64k16_ss(d, da, db, accumulate);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -784,8 +414,9 @@ __device__ __forceinline__ void online_softmax(
 // computing s = q . k^T (wgmma, q from registers, k K-major in shared
 // memory), the online softmax in registers, then o += p . v (A from
 // registers, v read MN-major). The running max m, the per-thread partial
-// sum l and the 64 o accumulators stay in registers across tiles; l is
+// sum l and the D / 2 o accumulators stay in registers across tiles; l is
 // summed over the row's quad once, in the epilogue.
+template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -794,7 +425,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       float* __restrict__ lse, int Tq, int Tkv, int H,
                       int causal, float scale) {
   using namespace wgp;
-  FwdSmem& sm = smem_block<FwdSmem>();
+  constexpr int S = FwdSmem<D>::S, kH = kHalf<D>, KK = D / 16;
+  FwdSmem<D>& sm = smem_block<FwdSmem<D>>();
   const int h = blockIdx.x, b = blockIdx.z;
   // causal: the last query blocks see the most key tiles; launch them first
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
@@ -806,7 +438,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     sm90::mbar_init(&sm.q_full, 1);
 #pragma unroll
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       sm90::mbar_init(&sm.full[s], 32);
       sm90::mbar_init(&sm.empty[s], 256);
     }
@@ -819,19 +451,19 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     if (tid < 288) {
       const int lane = tid & 31;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kHalf);
+        sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            sm90::tma_load_4d(sm.q + w * kHalf + x * kBox, &tq, &sm.q_full,
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.q + w * kH + x * kBox, &tq, &sm.q_full,
                               64 * x, h, q0 + 64 * w, b);
           }
         }
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kFwdStages;
-        sm90::mbar_wait(&sm.empty[s], ((it / kFwdStages) & 1) ^ 1);
+        const int s = it % S;
+        sm90::mbar_wait(&sm.empty[s], ((it / S) & 1) ^ 1);
         const int k0 = it * kFwdKeys;
         bool all = true;
 #pragma unroll
@@ -847,9 +479,9 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         all = __all_sync(0xffffffffu, all);
         if (lane == 0) {
           sm.all_keep[s] = all;
-          sm90::mbar_arrive_expect_tx(&sm.full[s], 4 * kFwdBox);
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, kFwdKeys>);
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
+          for (int x = 0; x < D / 64; ++x) {
             sm90::tma_load_4d(sm.k[s] + x * kFwdBox, &tk, &sm.full[s], 64 * x,
                               h, k0, b);
             sm90::tma_load_4d(sm.v[s] + x * kFwdBox, &tv, &sm.full[s], 64 * x,
@@ -868,25 +500,25 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     const int qw = row0 + 16 * warp;   // the warp's first query row
     const int qr[2] = {qw + g, qw + g + 8};
 
-    float acc[64];
+    float acc[D / 2];
     zero(acc);
     // m starts at NEG_INF, not -inf: a first tile wholly masked then
     // gives alpha = exp(0), never exp(-inf + inf)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     sm90::mbar_wait(&sm.q_full, 0);
-    // this warp's 16 query rows as the bf16 A fragments of the 8 k16 steps
-    // of s = q . k^T, read once from the swizzled tile: the product then
-    // reads only k from shared memory
-    uint32_t qa[8][4];
+    // this warp's 16 query rows as the bf16 A fragments of the D / 16 k16
+    // steps of s = q . k^T, read once from the swizzled tile: the product
+    // then reads only k from shared memory
+    uint32_t qa[KK][4];
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < KK; ++kk) {
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int row = 16 * warp + g + 8 * (r & 1);
         const int col = 16 * kk + 2 * c + 8 * (r >> 1);
         const int cb = col & 63;  // column within its 64-column box
         qa[kk][r] = *reinterpret_cast<const uint32_t*>(
-            sm.q + wg * kHalf + (col >> 6) * kBox + row * 128 +
+            sm.q + wg * kH + (col >> 6) * kBox + row * 128 +
             (((cb >> 3) ^ (row & 7)) << 4) + (cb & 7) * 2);
       }
     }
@@ -911,7 +543,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::named_sync(turn, 256);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
         sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
                                   kk > 0);
       }
@@ -926,23 +558,22 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       to_a_frags(pa, sc);  // o is still zero: no rescale
     }
     for (int it = 1; it < n_tiles; ++it) {
-      const int s = it % kFwdStages;
+      const int s = it % S;
       const int k0 = it * kFwdKeys;
-      sm90::mbar_wait(&sm.full[s], (it / kFwdStages) & 1);
+      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
       const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
-      const uint32_t v_prev = sm90::smem_u32(sm.v[(it - 1) % kFwdStages]);
+      const uint32_t v_prev = sm90::smem_u32(sm.v[(it - 1) % S]);
       sm90::named_sync(turn, 256);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KK; ++kk) {
         sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
                                   kk > 0);
       }
       sm90::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk],
-                                     desc_mn(v_prev, kk, kFwdBox));
+        wgmma_rs_mn<D>(acc, pa[kk], desc_mn(v_prev, kk, kFwdBox));
       }
       sm90::wgmma_commit();
       sm90::named_arrive(other, 256);
@@ -959,20 +590,19 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
       sm90::fence_regs(pa);
-      sm90::mbar_arrive(&sm.empty[(it - 1) % kFwdStages]);
+      sm90::mbar_arrive(&sm.empty[(it - 1) % S]);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       to_a_frags(pa, sc);
     }
     {  // the last tile's o += p . v
-      const int s = (n_tiles - 1) % kFwdStages;
+      const int s = (n_tiles - 1) % S;
       const uint32_t v_tile = sm90::smem_u32(sm.v[s]);
       sm90::named_sync(turn, 256);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-        sm90::wgmma_m64n128k16_rs_mn(acc, pa[kk],
-                                     desc_mn(v_tile, kk, kFwdBox));
+        wgmma_rs_mn<D>(acc, pa[kk], desc_mn(v_tile, kk, kFwdBox));
       }
       sm90::wgmma_commit();
       sm90::named_arrive(other, 256);
@@ -985,7 +615,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     // take it, so that both barriers end balanced
     if (wg == 0) sm90::named_sync(1, 256);
 
-    const int64_t stride = static_cast<int64_t>(H) * kD;
+    const int64_t stride = static_cast<int64_t>(H) * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
@@ -993,9 +623,9 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (lse != nullptr && c == 0) {
           lse[(static_cast<int64_t>(b) * H + h) * Tq + qr[i]] = m[i] + logf(l[i]);
         }
-        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * kD;
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           put2(o + row + 8 * j + 2 * c, acc[4 * j + 2 * i] / l[i],
                acc[4 * j + 2 * i + 1] / l[i]);
         }
@@ -1005,10 +635,11 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 }
 
 // dk, dv for 128 key rows of one head: each consumer owns 64 key rows and
-// walks the query tiles from the causal diagonal down, computing
+// walks the R-row query tiles from the causal diagonal down, computing
 // s^T = k . q^T and dp^T = v . dO^T (wgmma, both operands K-major in shared
 // memory), p^T and ds^T in registers, then dv += p^T . dO and
 // dk += ds^T . q (wgmma, A from registers, B = dO or q read MN-major).
+template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -1020,21 +651,23 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       bf16* __restrict__ dv, int Tq, int Tkv, int H, int causal,
                       float scale) {
   using namespace wgp;
-  DkvSmem& sm = smem_block<DkvSmem>();
+  constexpr int S = DkvSmem<D>::S, R = DkvSmem<D>::R, kH = kHalf<D>;
+  constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
+  DkvSmem<D>& sm = smem_block<DkvSmem<D>>();
   // causal: the first key blocks see the most query tiles, and the tile
   // index is the grid's slower axis, so every head's longest blocks start
   // first
   const int h = blockIdx.x, b = blockIdx.z;
   const int k0 = blockIdx.y * 128;
-  const int n_q = (Tq + 63) / 64;
-  const int first = causal ? k0 / 64 : 0;
+  const int n_q = (Tq + R - 1) / R;
+  const int first = causal ? k0 / R : 0;
   const int n_tiles = max(n_q - first, 0);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     sm90::mbar_init(&sm.kv_full, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       sm90::mbar_init(&sm.full[s], 32);
       sm90::mbar_init(&sm.empty[s], 256);
     }
@@ -1047,12 +680,12 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     if (tid < 288) {
       const int lane = tid & 31;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(&sm.kv_full, 4 * kHalf);
+        sm90::mbar_arrive_expect_tx(&sm.kv_full, 4 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int off = w * kHalf + x * kBox;
+          for (int x = 0; x < D / 64; ++x) {
+            const int off = w * kH + x * kBox;
             sm90::tma_load_4d(sm.k + off, &tk, &sm.kv_full, 64 * x, h,
                               k0 + 64 * w, b);
             sm90::tma_load_4d(sm.v + off, &tv, &sm.kv_full, 64 * x, h,
@@ -1062,23 +695,23 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       }
       const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
-        const int q0 = (first + it) * 64;
+        const int s = it % S;
+        sm90::mbar_wait(&sm.empty[s], ((it / S) & 1) ^ 1);
+        const int q0 = (first + it) * R;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = lane + 32 * half;
+        for (int part = 0; part < R / 32; ++part) {
+          const int j = lane + 32 * part;
           const bool in = q0 + j < Tq;
           sm.lse[s][j] = in ? lse[row0 + q0 + j] : 0.f;
           sm.delta[s][j] = in ? delta[row0 + q0 + j] : 0.f;
         }
         if (lane == 0) {
-          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kHalf);
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, R>);
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            sm90::tma_load_4d(sm.q[s] + x * kBox, &tq, &sm.full[s], 64 * x, h,
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.q[s] + x * kRB, &tq, &sm.full[s], 64 * x, h,
                               q0, b);
-            sm90::tma_load_4d(sm.dout[s] + x * kBox, &tdo, &sm.full[s],
+            sm90::tma_load_4d(sm.dout[s] + x * kRB, &tdo, &sm.full[s],
                               64 * x, h, q0, b);
           }
         } else {
@@ -1101,33 +734,31 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
     const float sl2 = scale * kLog2e;
 
-    float acc_k[64], acc_v[64];
+    float acc_k[D / 2], acc_v[D / 2];
     zero(acc_k);
     zero(acc_v);
-    const uint32_t k_tile = sm90::smem_u32(sm.k + wg * kHalf);
-    const uint32_t v_tile = sm90::smem_u32(sm.v + wg * kHalf);
+    const uint32_t k_tile = sm90::smem_u32(sm.k + wg * kH);
+    const uint32_t v_tile = sm90::smem_u32(sm.v + wg * kH);
     sm90::mbar_wait(&sm.kv_full, 0);
 
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
-      const int q0 = (first + it) * 64;
-      sm90::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const int s = it % S;
+      const int q0 = (first + it) * R;
+      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
       // a tile wholly above the diagonal for this consumer's keys is skipped
-      if (!causal || k0 + 64 * wg <= q0 + 63) {
+      if (!causal || k0 + 64 * wg <= q0 + R - 1) {
         const uint32_t q_tile = sm90::smem_u32(sm.q[s]);
         const uint32_t do_tile = sm90::smem_u32(sm.dout[s]);
-        float st[32], dpt[32];
+        float st[R / 2], dpt[R / 2];
         sm90::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          sm90::wgmma_m64n64k16_ss(st, desc_k(k_tile, kk), desc_k(q_tile, kk),
-                                   kk > 0);
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(st, desc_k(k_tile, kk), desc_k(q_tile, kk, kRB), kk > 0);
         }
         sm90::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          sm90::wgmma_m64n64k16_ss(dpt, desc_k(v_tile, kk),
-                                   desc_k(do_tile, kk), kk > 0);
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(dpt, desc_k(v_tile, kk), desc_k(do_tile, kk, kRB), kk > 0);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
@@ -1136,11 +767,11 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         // p^T = exp(s^T - lse): rows are keys, columns queries. Only edge
         // tiles (the diagonal, padded or ragged keys, a ragged query tail)
         // take the per-element mask.
-        const bool interior = q0 + 63 < Tq && warp_keep &&
+        const bool interior = q0 + R - 1 < Tq && warp_keep &&
                               (!causal || kw + 15 <= q0);
         if (interior) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const float l = sm.lse[s][8 * j + 2 * c + (e & 1)];
@@ -1149,7 +780,7 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
           }
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = 8 * j + 2 * c + (e & 1);
@@ -1162,27 +793,28 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_wait<0>();
         sm90::fence_regs(dpt);
 
-        // ds^T = p^T (dp^T - delta); both cast to bf16 as A fragments
-        uint32_t pa[4][4], dsa[4][4];
-        to_a_frags(pa, st);
+        // ds^T = p^T (dp^T - delta); then both cast to bf16 as A
+        // fragments, each fp32 value dying as it is packed
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float d = sm.delta[s][8 * j + 2 * c + (e & 1)];
             dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - d);
           }
         }
+        uint32_t pa[R / 16][4], dsa[R / 16][4];
+        to_a_frags(pa, st);
         to_a_frags(dsa, dpt);
 
         sm90::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          sm90::wgmma_m64n128k16_rs_mn(acc_v, pa[kk], desc_mn(do_tile, kk));
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc_v, pa[kk], desc_mn(do_tile, kk, kRB));
         }
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          sm90::wgmma_m64n128k16_rs_mn(acc_k, dsa[kk], desc_mn(q_tile, kk));
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc_k, dsa[kk], desc_mn(q_tile, kk, kRB));
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -1194,13 +826,13 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_arrive(&sm.empty[s]);
     }
 
-    const int64_t stride = static_cast<int64_t>(H) * kD;
+    const int64_t stride = static_cast<int64_t>(H) * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (kr[i] < Tkv) {
-        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * kD;
+        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * D;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           const int col = 8 * j + 2 * c;
           put2(dk + row + col, scale * acc_k[4 * j + 2 * i],
                scale * acc_k[4 * j + 2 * i + 1]);
@@ -1213,9 +845,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
 // dq for 128 query rows of one head, and delta = sum(dO * O) for them
 // (written for the dk/dv launch that follows): each consumer owns 64
-// query rows and walks the key tiles up to its causal frontier, computing
+// query rows and walks the R-row key tiles up to its causal frontier, computing
 // s = q . k^T and dp = dO . v^T (wgmma from shared memory), ds in
 // registers, then dq += ds . k (A from registers, k read MN-major).
+template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -1226,18 +859,20 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                      bf16* __restrict__ dq, int Tq, int Tkv, int H, int causal,
                      float scale) {
   using namespace wgp;
-  DqSmem& sm = smem_block<DqSmem>();
+  constexpr int S = DqSmem<D>::S, R = DqSmem<D>::R, kH = kHalf<D>;
+  constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
+  DqSmem<D>& sm = smem_block<DqSmem<D>>();
   const int h = blockIdx.x, b = blockIdx.z;
   // causal: the last query blocks see the most key tiles; launch them first
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
-  const int n_kv = (Tkv + 63) / 64;
-  const int n_tiles = causal ? min(n_kv, min(q0 + 127, Tq - 1) / 64 + 1) : n_kv;
+  const int n_kv = (Tkv + R - 1) / R;
+  const int n_tiles = causal ? min(n_kv, min(q0 + 127, Tq - 1) / R + 1) : n_kv;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     sm90::mbar_init(&sm.qd_full, 1);
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       sm90::mbar_init(&sm.full[s], 32);
       sm90::mbar_init(&sm.empty[s], 256);
     }
@@ -1250,12 +885,12 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     if (tid < 288) {
       const int lane = tid & 31;
       if (lane == 0) {
-        sm90::mbar_arrive_expect_tx(&sm.qd_full, 4 * kHalf);
+        sm90::mbar_arrive_expect_tx(&sm.qd_full, 4 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            const int off = w * kHalf + x * kBox;
+          for (int x = 0; x < D / 64; ++x) {
+            const int off = w * kH + x * kBox;
             sm90::tma_load_4d(sm.q + off, &tq, &sm.qd_full, 64 * x, h,
                               q0 + 64 * w, b);
             sm90::tma_load_4d(sm.dout + off, &tdo, &sm.qd_full, 64 * x, h,
@@ -1264,13 +899,13 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         }
       }
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        sm90::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
-        const int k0 = it * 64;
+        const int s = it % S;
+        sm90::mbar_wait(&sm.empty[s], ((it / S) & 1) ^ 1);
+        const int k0 = it * R;
         bool all = true;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = lane + 32 * half;
+        for (int part = 0; part < R / 32; ++part) {
+          const int j = lane + 32 * part;
           const int key = k0 + j;
           const bool kp = key < Tkv &&
                           (pad == nullptr ||
@@ -1281,12 +916,12 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         all = __all_sync(0xffffffffu, all);
         if (lane == 0) {
           sm.all_keep[s] = all;
-          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kHalf);
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, R>);
 #pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            sm90::tma_load_4d(sm.k[s] + x * kBox, &tk, &sm.full[s], 64 * x, h,
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.k[s] + x * kRB, &tk, &sm.full[s], 64 * x, h,
                               k0, b);
-            sm90::tma_load_4d(sm.v[s] + x * kBox, &tv, &sm.full[s], 64 * x, h,
+            sm90::tma_load_4d(sm.v[s] + x * kRB, &tv, &sm.full[s], 64 * x, h,
                               k0, b);
           }
         } else {
@@ -1298,25 +933,27 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     sm90::regs_alloc<240>();
     const int t = tid & 127, wg = tid >> 7, warp = t >> 5, lane = tid & 31;
     const int g = lane >> 2, c = lane & 3;
-    const int64_t stride = static_cast<int64_t>(H) * kD;
+    const int64_t stride = static_cast<int64_t>(H) * D;
     const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
     sm90::mbar_wait(&sm.qd_full, 0);
 
     // delta = sum(dO * O) over this consumer's 64 rows: two threads a row,
-    // one box (64 columns) each; dO from the resident (swizzled) tile
+    // D / 2 columns (D / 16 chunks of 16 bytes) each; dO from the resident
+    // (swizzled) tile
     {
       const int row = t >> 1, x = t & 1;
       const int qrow = q0 + 64 * wg + row;
       float sum = 0.f;
       if (qrow < Tq) {
-        const uint8_t* tile = sm.dout + wg * kHalf + x * kBox + row * 128;
+        const uint8_t* tile = sm.dout + wg * kH + row * 128;
         const bf16* orow = o + (static_cast<int64_t>(b) * Tq + qrow) * stride +
-                           h * kD + 64 * x;
+                           h * D;
 #pragma unroll
-        for (int ch = 0; ch < 8; ++ch) {
-          const uint4 dv4 =
-              *reinterpret_cast<const uint4*>(tile + ((ch ^ (row & 7)) << 4));
-          const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + 8 * ch);
+        for (int ch = 0; ch < D / 16; ++ch) {
+          const int gc = x * (D / 16) + ch;  // the chunk's place in the row
+          const uint4 dv4 = *reinterpret_cast<const uint4*>(
+              tile + (gc >> 3) * kBox + (((gc & 7) ^ (row & 7)) << 4));
+          const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + 8 * gc);
           const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
           const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov4);
 #pragma unroll
@@ -1346,41 +983,39 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     }
     const float sl2 = scale * kLog2e;
 
-    float acc[64];
+    float acc[D / 2];
     zero(acc);
-    const uint32_t q_tile = sm90::smem_u32(sm.q + wg * kHalf);
-    const uint32_t do_tile = sm90::smem_u32(sm.dout + wg * kHalf);
+    const uint32_t q_tile = sm90::smem_u32(sm.q + wg * kH);
+    const uint32_t do_tile = sm90::smem_u32(sm.dout + wg * kH);
 
     for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kStages;
-      const int k0 = it * 64;
-      sm90::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const int s = it % S;
+      const int k0 = it * R;
+      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
       // a tile wholly past this consumer's causal frontier is skipped
       if (!causal || k0 <= q0 + 64 * wg + 63) {
         const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
         const uint32_t v_tile = sm90::smem_u32(sm.v[s]);
-        float sc[32], dp[32];
+        float sc[R / 2], dp[R / 2];
         sm90::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          sm90::wgmma_m64n64k16_ss(sc, desc_k(q_tile, kk), desc_k(k_tile, kk),
-                                   kk > 0);
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk, kRB), kk > 0);
         }
         sm90::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < 8; ++kk) {
-          sm90::wgmma_m64n64k16_ss(dp, desc_k(do_tile, kk), desc_k(v_tile, kk),
-                                   kk > 0);
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(dp, desc_k(do_tile, kk), desc_k(v_tile, kk, kRB), kk > 0);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
         sm90::fence_regs(sc);
 
-        const bool interior = qw + 15 < Tq && k0 + 63 < Tkv &&
-                              sm.all_keep[s] != 0 && (!causal || k0 + 63 <= qw);
+        const bool interior = qw + 15 < Tq && k0 + R - 1 < Tkv &&
+                              sm.all_keep[s] != 0 && (!causal || k0 + R - 1 <= qw);
         if (interior) {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2,
@@ -1389,7 +1024,7 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
           }
         } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+          for (int j = 0; j < R / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = 8 * j + 2 * c + (e & 1);
@@ -1402,17 +1037,17 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_wait<0>();
         sm90::fence_regs(dp);
 
-        uint32_t dsa[4][4];
+        uint32_t dsa[R / 16][4];
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < R / 2; ++i) {
           dp[i] = sc[i] * (dp[i] - row_delta[(i >> 1) & 1]);
         }
         to_a_frags(dsa, dp);
 
         sm90::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          sm90::wgmma_m64n128k16_rs_mn(acc, dsa[kk], desc_mn(k_tile, kk));
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc, dsa[kk], desc_mn(k_tile, kk, kRB));
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -1425,9 +1060,9 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (qr[i] < Tq) {
-        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * kD;
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           put2(dq + row + 8 * j + 2 * c, scale * acc[4 * j + 2 * i],
                scale * acc[4 * j + 2 * i + 1]);
         }
@@ -2108,53 +1743,13 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int D>
-constexpr size_t tile_bytes() { return sizeof(bf16) * kTile * ld_in<bf16, D>(); }
-constexpr size_t p_bytes() { return sizeof(bf16) * kTile * ld_p<bf16>(); }
-
 struct Args {
   const void *q, *k, *v, *pad, *dout, *o, *lse_in;
-  void *delta;  // read, or written by the fp32 and Hopper dq kernels (o non-null)
+  void *delta;  // written by the dq kernels (from dout and o), read by dk/dv
   void *out_o, *lse, *dq, *dk, *dv;
   int B, Tq, Tkv, H, causal;
   float scale;
 };
-
-// which: 0 forward, 1 dq, 2 dk/dv (the bf16 mma.sync kernels)
-template <int D>
-size_t smem_bytes(int which) {
-  if (which == 0) return 3 * tile_bytes<D>() + p_bytes() + kTile * sizeof(int);
-  if (which == 1) return 4 * tile_bytes<D>() + p_bytes() + kTile * sizeof(int);
-  return 4 * tile_bytes<D>() + 2 * p_bytes() + kTile * (2 * sizeof(float) + sizeof(int));
-}
-
-template <int D>
-cudaError_t run(int which, const Args& a, cudaStream_t s) {
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const bf16* v = static_cast<const bf16*>(a.v);
-  const int* pad = static_cast<const int*>(a.pad);
-  const int n_q = (a.Tq + kTile - 1) / kTile, n_kv = (a.Tkv + kTile - 1) / kTile;
-  const size_t smem = smem_bytes<D>(which);
-  if (which == 0) {
-    return launch(flash_fwd_kernel<bf16, D>, dim3(n_q, a.H, a.B), kThreads, smem,
-                  s, q, k, v, pad, static_cast<bf16*>(a.out_o),
-                  static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
-                  a.scale);
-  }
-  if (a.o != nullptr) return cudaErrorInvalidValue;  // delta is an input here
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse_in);
-  const float* delta = static_cast<const float*>(a.delta);
-  if (which == 1) {
-    return launch(flash_dq_kernel<bf16, D>, dim3(n_q, a.H, a.B), kThreads, smem,
-                  s, q, k, v, pad, dout, lse, delta, static_cast<bf16*>(a.dq),
-                  a.Tq, a.Tkv, a.H, a.causal, a.scale);
-  }
-  return launch(flash_dkv_kernel<bf16, D>, dim3(n_kv, a.H, a.B), kThreads, smem,
-                s, q, k, v, pad, dout, lse, delta, static_cast<bf16*>(a.dk),
-                static_cast<bf16*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
-}
 
 // the split-TF32 kernels (fp32): grids of (head, 128-row tile, batch)
 template <int D>
@@ -2174,7 +1769,6 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
-    if (a.o == nullptr) return cudaErrorInvalidValue;  // delta is computed here
     return launch(flash_dq_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
                   tf32::dq_smem<D>(), s, q, k, v, pad, dout,
                   static_cast<const float*>(a.o), lse, static_cast<float*>(a.delta),
@@ -2186,72 +1780,76 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
                 static_cast<float*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
 
-// the Hopper kernels (bf16, D = 128): the tensor maps are encoded on the
-// host at every launch and passed by value
+// the Hopper kernels (bf16, D 64 and 128): the tensor maps are encoded on
+// the host at every launch and passed by value
+template <int D>
 cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
-  // the forward streams 128-row key tiles, the backward 64-row ones
-  const int kv_rows = which == 0 ? wgp::kFwdKeys : 64;
-  if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, wgp::kD, kv_rows)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, wgp::kD, kv_rows)) != cudaSuccess) {
+  // the block's own rows come in 64-row boxes, the streamed side's in
+  // boxes of its tile's rows: 128 keys in the forward, R rows (q and dO
+  // for dk/dv, k and v for dq) in the backward
+  constexpr int R = wgp::Ring<D>::kBwdRows;
+  const int q_rows = which == 2 ? R : 64;
+  const int kv_rows = which == 0 ? wgp::kFwdKeys : which == 1 ? R : 64;
+  if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess) {
     return e;
   }
   const int* pad = static_cast<const int*>(a.pad);
   if (which == 0) {
-    return launch(flash_fwd_kernel_sm90, dim3(a.H, (a.Tq + 127) / 128, a.B),
-                  wgp::kThreads, sizeof(wgp::FwdSmem) + 1024, s, mq, mk, mv,
+    return launch(flash_fwd_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                  wgp::kThreads, sizeof(wgp::FwdSmem<D>) + 1024, s, mq, mk, mv,
                   pad, static_cast<bf16*>(a.out_o), static_cast<float*>(a.lse),
                   a.Tq, a.Tkv, a.H, a.causal, a.scale);
   }
-  if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, wgp::kD, 64)) != cudaSuccess) {
+  if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess) {
     return e;
   }
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
-    if (a.o == nullptr) return cudaErrorInvalidValue;  // delta is computed here
-    return launch(flash_dq_kernel_sm90, dim3(a.H, (a.Tq + 127) / 128, a.B),
-                  wgp::kThreads, sizeof(wgp::DqSmem) + 1024, s, mq, mk, mv, mdo,
-                  static_cast<const bf16*>(a.o), pad, lse,
+    return launch(flash_dq_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                  wgp::kThreads, sizeof(wgp::DqSmem<D>) + 1024, s, mq, mk, mv,
+                  mdo, static_cast<const bf16*>(a.o), pad, lse,
                   static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
                   a.Tkv, a.H, a.causal, a.scale);
   }
-  return launch(flash_dkv_kernel_sm90, dim3(a.H, (a.Tkv + 127) / 128, a.B),
-                wgp::kThreads, sizeof(wgp::DkvSmem) + 1024, s, mq, mk, mv, mdo,
+  return launch(flash_dkv_kernel_sm90<D>, dim3(a.H, (a.Tkv + 127) / 128, a.B),
+                wgp::kThreads, sizeof(wgp::DkvSmem<D>) + 1024, s, mq, mk, mv, mdo,
                 pad, lse, static_cast<const float*>(a.delta),
                 static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq, a.Tkv,
                 a.H, a.causal, a.scale);
 }
 
-// bf16 at D = 128 takes the Hopper kernels, fp32 the split-TF32 ones and
-// bf16 at D = 32 and 64 the mma.sync kernels above
-bool uses_sm90(int D, int dtype) { return dtype == 1 && D == wgp::kD; }
-
+// bf16 at D 64 and 128 takes the Hopper kernels, fp32 at D 32, 64 and 128
+// the split-TF32 ones
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
+  // the dq kernels compute delta from dout and o
+  if (which == 1 && a.o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
-  if (uses_sm90(D, dtype)) {
-    e = run_sm90(which, a, s);
-  } else if (dtype == 0) {
+  if (dtype == 0) {
     if (D == 32) e = run_tf32<32>(which, a, s);
     if (D == 64) e = run_tf32<64>(which, a, s);
     if (D == 128) e = run_tf32<128>(which, a, s);
   } else if (dtype == 1) {
-    if (D == 32) e = run<32>(which, a, s);
-    if (D == 64) e = run<64>(which, a, s);
+    if (D == 64) e = run_sm90<64>(which, a, s);
+    if (D == 128) e = run_sm90<128>(which, a, s);
   }
   return static_cast<int>(e);
 }
 
 // the kernel `which` launches, and its dynamic shared memory
 template <int D>
-void kernel_of(int which, const void** fn, size_t* smem) {
-  *smem = smem_bytes<D>(which);
-  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel<bf16, D>)
-        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel<bf16, D>)
-                     : reinterpret_cast<const void*>(flash_dkv_kernel<bf16, D>);
+void kernel_of_sm90(int which, const void** fn, size_t* smem) {
+  *smem = (which == 0   ? sizeof(wgp::FwdSmem<D>)
+           : which == 1 ? sizeof(wgp::DqSmem<D>)
+                        : sizeof(wgp::DkvSmem<D>)) + 1024;
+  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90<D>)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90<D>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel_sm90<D>);
 }
 
 template <int D>
@@ -2269,7 +1867,8 @@ void kernel_of_tf32(int which, const void** fn, size_t* smem) {
 // Every tensor is contiguous: q, o, dq [B, Tq, H, D]; k, v, dk, dv
 // [B, Tkv, H, D], all in dtype (0 = float32, 1 = bfloat16), 16-byte
 // aligned; pad [B, Tkv] int32 or null; lse, delta [B, H, Tq] float32.
-// D is 32, 64 or 128. `lse` may be null (no gradient will be taken).
+// D is 32, 64 or 128 in float32, 64 or 128 in bfloat16. `lse` may be
+// null (no gradient will be taken).
 
 extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
                                   const void* pad, void* o, void* lse, int B,
@@ -2280,9 +1879,8 @@ extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
   return dispatch(0, D, dtype, a, stream);
 }
 
-// `o`: non-null exactly when the fp32 or the Hopper kernel runs (fp32, or
-// bf16 at D = 128), which computes delta = sum(dO * O) itself and writes
-// it to `delta`; otherwise `delta` is read.
+// The dq kernel computes delta = sum(dO * O) from `dout` and `o` and
+// writes it to `delta` for the dk/dv launch.
 extern "C" int hyperion_flash_dq(const void* q, const void* k, const void* v,
                                  const void* pad, const void* dout,
                                  const void* o, const void* lse, void* delta,
@@ -2312,23 +1910,16 @@ extern "C" int hyperion_flash_dkv(const void* q, const void* k, const void* v,
 extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
-  int threads = kThreads;
-  if (uses_sm90(D, dtype)) {
-    threads = wgp::kThreads;
-    fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90)
-         : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90)
-                      : reinterpret_cast<const void*>(flash_dkv_kernel_sm90);
-    smem = (which == 0   ? sizeof(wgp::FwdSmem)
-            : which == 1 ? sizeof(wgp::DqSmem)
-                         : sizeof(wgp::DkvSmem)) + 1024;
-  } else if (dtype == 0) {
+  int threads = 0;
+  if (dtype == 0) {
     threads = tf32::kThreads;
     if (D == 32) kernel_of_tf32<32>(which, &fn, &smem);
     if (D == 64) kernel_of_tf32<64>(which, &fn, &smem);
     if (D == 128) kernel_of_tf32<128>(which, &fn, &smem);
   } else if (dtype == 1) {
-    if (D == 32) kernel_of<32>(which, &fn, &smem);
-    if (D == 64) kernel_of<64>(which, &fn, &smem);
+    threads = wgp::kThreads;
+    if (D == 64) kernel_of_sm90<64>(which, &fn, &smem);
+    if (D == 128) kernel_of_sm90<128>(which, &fn, &smem);
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

@@ -14,29 +14,27 @@ accumulated in fp32, times 1/√D in fp32; masked entries (causal
 p·v, accumulated in fp32; o = acc / max(l, 1e-30) in the input dtype;
 lse = m + log(max(l, 1e-30)), a compact `[B, H, Tq]` fp32 array. The
 backward recomputes p = exp(s − lse) from the saved lse and takes
-delta = Σ dO·O in fp32: outside the kernels, as `_flash_backward` does
-(`:479-484`), except on the fp32 and the bf16 D = 128 paths, whose dq
-kernels compute it (`fused_delta`). Rows whose keys are all masked give
-garbage outputs and clean gradients, as the reference documents
-(`:43-46`).
+delta = Σ dO·O in fp32, which the reference computes outside its kernels
+(`_flash_backward` `:479-484`) and the dq kernel computes here, for the
+dk/dv launch. Rows whose keys are all masked give garbage outputs and
+clean gradients, as the reference documents (`:43-46`).
 
 Wrappers, each with its launch count: `flash_attention_fwd` (o, and lse
 when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
-`csrc/flash_attention.cu` or raises. The kernels are built at D 32, 64
-and 128; any other D up to 128 (the reference's kernel tiles the full
-D and takes them all) runs zero-padded to the next of those
-(`kernel_head_dim`) with the scale of its true D, and o and the
-gradients are sliced back: zero columns add exact zeros to q·kᵀ, and
-the padded columns of v only fill columns that are cut away. bf16 at a
-kernel D of 128 runs that file's Hopper kernels (wgmma, TMA,
-warp-specialised) for the forward and both backward kernels
-(`hopper_forward`); fp32 runs its split-TF32 kernels (each product as
-three TF32 tensor-core passes over operands split as x = hi + lo,
-`split_tf32` being the split's plain model), within the reference's
-fp32 bounds of the plain versions; bf16 at kernel D 32 and 64 runs its
-first, mma.sync, kernels.
+`csrc/flash_attention.cu` or raises. The kernels are built per dtype
+(`HEAD_DIMS`): bf16 at D 64 and 128, fp32 at D 32, 64 and 128; any other
+D up to 128 (the reference's kernel tiles the full D and takes them
+all) runs zero-padded to the next of its dtype's (`kernel_head_dim`)
+with the scale of its true D, and o and the gradients are sliced back:
+zero columns add exact zeros to q·kᵀ, and the padded columns of v only
+fill columns that are cut away. bf16 runs that file's Hopper kernels
+(wgmma, TMA, warp-specialised) for the forward and both backward
+kernels; fp32 runs its split-TF32 kernels (each
+product as three TF32 tensor-core passes over operands split as
+x = hi + lo, `split_tf32` being the split's plain model), within the
+reference's fp32 bounds of the plain versions.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
 spills, shared memory). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
@@ -61,7 +59,8 @@ import torch
 from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import NEG_INF
 
-HEAD_DIMS = (32, 64, 128)  # the kernels' instantiations; D up to 128 pads
+# the kernels' instantiations per dtype; any D up to 128 pads to the next
+HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -81,14 +80,15 @@ def _scale(D: int) -> float:
     return 1.0 / math.sqrt(D)
 
 
-def kernel_head_dim(D: int) -> int:
-    """The kernel head_dim that runs a head_dim D: the least of
-    HEAD_DIMS at or above it. Raises ValueError past 128."""
-    for Dk in HEAD_DIMS:
+def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The kernel head_dim that runs a head_dim D in `dtype`: the least
+    of its HEAD_DIMS at or above it. Raises ValueError past 128."""
+    dims = HEAD_DIMS[dtype]
+    for Dk in dims:
         if 0 < D <= Dk:
             return Dk
     raise ValueError(f"flash_attention kernel takes head_dim 1 to "
-                     f"{HEAD_DIMS[-1]}, got {D}")
+                     f"{dims[-1]}, got {D}")
 
 
 def pad_head_dim(t: torch.Tensor, Dk: int) -> torch.Tensor:
@@ -186,7 +186,7 @@ def _check(q, k, v, padding_mask):
         raise TypeError("flash_attention kernel takes q, k and v in one dtype")
     B, Tq, H, D = q.shape
     Tkv = k.shape[1]
-    Dk = kernel_head_dim(D)
+    Dk = kernel_head_dim(D, q.dtype)
     if max(B, H, B * Tq * H * Dk, B * Tkv * H * Dk) >= 2 ** 31:
         raise ValueError(f"flash_attention kernel: shape {tuple(q.shape)} "
                          "out of range")
@@ -238,24 +238,6 @@ def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
     return _unpad(o, D), lse
 
 
-def hopper_forward(q: torch.Tensor) -> bool:
-    """Whether the forward of `q`'s dtype and head_dim runs the Hopper
-    kernel (bf16 at a kernel D of 128, so any D from 65 to 128: wgmma,
-    TMA, warp-specialised). fp32 runs the split-TF32 kernel (mma.sync,
-    within the reference's fp32 bounds of the plain version) and bf16 at
-    kernel D 32 and 64 the first mma.sync one."""
-    return q.dtype == torch.bfloat16 and kernel_head_dim(q.shape[-1]) == 128
-
-
-def fused_delta(q: torch.Tensor) -> bool:
-    """Whether the dq kernel of `q`'s dtype and head_dim computes
-    delta = Σ dO·O itself and hands it to dk/dv: fp32 (the split-TF32
-    kernels) and bf16 at a kernel D of 128 (the Hopper kernels). bf16 at
-    kernel D 32 and 64 keeps the first mma.sync kernels, which read a
-    delta computed here."""
-    return q.dtype == torch.float32 or hopper_forward(q)
-
-
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) with x ≈ hi + lo: the fp32 kernels' operand split, in
     plain PyTorch. hi is x rounded to TF32 (10 mantissa bits; nearest,
@@ -272,10 +254,9 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, rnd(x.float() - hi)
 
 
-def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
-    """Checked, aligned backward inputs (q, k, v, g, o, lse, delta), the
-    first five zero-padded to the kernel head_dim; delta = Σ dO·O
-    [B, H, Tq] is computed here when `delta`, else None."""
+def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
+    """Checked, aligned backward inputs (q, k, v, g, o, lse), the first
+    five zero-padded to the kernel head_dim."""
     dims, pad = _check(q, k, v, padding_mask)
     B, Tq, _, H, Dk, _ = dims
     for name, t in (("o", o), ("g", g)):
@@ -286,24 +267,20 @@ def _bwd_inputs(q, k, v, o, lse, g, padding_mask, *, delta: bool):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq):
         raise ValueError(f"lse must be float32 [{B}, {H}, {Tq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    d = ((g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-         if delta else None)
     return dims, pad, (*(_aligned(pad_head_dim(t, Dk))
-                         for t in (q, k, v, g, o)), lse.contiguous(), d)
+                         for t in (q, k, v, g, o)), lse.contiguous())
 
 
-def _launch_dq(dims, pad, q, k, v, g, o, lse, delta, causal):
-    """(dq, delta). With `delta` None the kernel (`fused_delta`) computes
-    delta from g and o and returns it for the dk/dv launch."""
+def _launch_dq(dims, pad, q, k, v, g, o, lse, causal):
+    """(dq, delta): the kernel computes delta = Σ dO·O [B, H, Tq] from g
+    and o and returns it for the dk/dv launch."""
     B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
     dq = torch.empty_like(q)
-    fused = delta is None
-    if fused:
-        delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
-                    g.data_ptr(), o.data_ptr() if fused else None,
+                    g.data_ptr(), o.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Tq,
                     Tkv, H, Dk, int(causal), _scale(D), _DTYPES[q.dtype],
                     _stream(q))
@@ -336,8 +313,9 @@ def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     fn = build.function("flash_attention", "hyperion_flash_attrs",
                         _ATTRS_ARGTYPES)
     out = (ctypes.c_int * 4)()
-    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], kernel_head_dim(D),
-                   _DTYPES[dtype], out), "flash_attention kernel attributes")
+    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which],
+                   kernel_head_dim(D, dtype), _DTYPES[dtype], out),
+                "flash_attention kernel attributes")
     return {"registers": out[0], "spill_bytes": out[1],
             "smem_bytes": out[2], "threads": out[3]}
 
@@ -360,8 +338,7 @@ def flash_attention_dq(q, k, v, o, lse, g, *, causal=False,
                        padding_mask=None):
     """The dq kernel: dq in q's shape and dtype."""
     if _on_card("flash_attention_dq", q):
-        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
-                                     delta=not fused_delta(q))
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
         return _launch_dq(dims, pad, *ins, causal)[0]
     return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                      padding_mask=padding_mask)[0]
@@ -372,11 +349,12 @@ flash_attention_dq.launches = 0
 
 def flash_attention_dkv(q, k, v, o, lse, g, *, causal=False,
                         padding_mask=None):
-    """The dk/dv kernel: (dk, dv) in k's shape and dtype."""
+    """The dk/dv kernel: (dk, dv) in k's shape and dtype, from a
+    delta = Σ dO·O made here (`flash_attention_bwd` takes dq's)."""
     if _on_card("flash_attention_dkv", q):
-        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
-                                     delta=True)
-        return _launch_dkv(dims, pad, *ins, causal)
+        dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
+        delta = (g.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return _launch_dkv(dims, pad, *ins, delta, causal)
     return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                      padding_mask=padding_mask)[1:]
 
@@ -387,15 +365,14 @@ flash_attention_dkv.launches = 0
 def flash_attention_bwd(q, k, v, o, lse, g, *, causal=False,
                         padding_mask=None):
     """(dq, dk, dv): both backward kernels on one delta on the card (the
-    fp32 and Hopper dq kernels compute it and hand it to dk/dv), the
-    plain backward on the CPU."""
+    dq kernel computes it and hands it to dk/dv), the plain backward on
+    the CPU."""
     if not _on_card("flash_attention_bwd", q):
         return flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                          padding_mask=padding_mask)
-    dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask,
-                                 delta=not fused_delta(q))
+    dims, pad, ins = _bwd_inputs(q, k, v, o, lse, g, padding_mask)
     dq, delta = _launch_dq(dims, pad, *ins, causal)
-    dk, dv = _launch_dkv(dims, pad, *ins[:-1], delta, causal)
+    dk, dv = _launch_dkv(dims, pad, *ins, delta, causal)
     return dq, dk, dv
 
 

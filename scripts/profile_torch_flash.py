@@ -1,17 +1,22 @@
-"""The fp32 flash-attention kernels' times against SDPA on one CUDA card:
-the forward and the whole backward (the dq and dk/dv launches, delta
-included) at [2, 1024, 8, 128] fp32, causal and full, and at
-[1, 4096, 8, 64] fp32 causal (the language_ddp TransformerLM's heads at
-the length where `impl="auto"` picks flash under `precision="fp32"`).
+"""The flash-attention kernels' times against SDPA on one CUDA card: the
+forward and the whole backward (the dq and dk/dv launches, delta
+included), all causal but one. bf16: [1, 4096, 8, 64] and
+[1, 4096, 8, 32] (the D 64 Hopper kernels, D 32 zero-padded to them),
+[8, 4096, 4, 64] with the ragged key padding of the language_ddp
+synthetic split (chip_smoke.py's long train phase: d 256, 4 heads, seq
+4096, batch 8), and the Llama-2-7B train step [1, 4096, 32, 128] with
+its last 1024 keys padding (the D 128 Hopper kernels). fp32: [2, 1024,
+8, 128] causal and full, and [1, 4096, 8, 64] (the split-TF32 kernels).
 
     python3 scripts/profile_torch_flash.py [--root DIR]
 
 Each of the forward and the backward is timed in turns with
 `scaled_dot_product_attention` over the same boolean mask: library,
 kernel, kernel, library. Each case is checked against the plain versions
-first (o and lse within 2e-5, gradients within 2e-4), and its bounds are
-this checkout's `chip_smoke.bound` (fp32: three TF32 passes at the dense
-TF32 rate). For a causal case SDPA is also timed once with
+first (`chip_smoke.flash_close`: fp32 o and lse within 2e-5, gradients
+within 2e-4; bf16 as that function states), and its bounds are this
+checkout's `chip_smoke.bound` (fp32: three TF32 passes at the dense TF32
+rate). For a causal case without padding SDPA is also timed once with
 `is_causal=True`, which takes no mask.
 
 `--root` runs the kernels of another checkout of this repo (for example
@@ -33,9 +38,16 @@ from pathlib import Path
 import torch
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = (("fp32_causal", (2, 1024, 8, 128), True),
-         ("fp32_full", (2, 1024, 8, 128), False),
-         ("fp32_causal_4096_d64", (1, 4096, 8, 64), True))
+BF16, FP32 = torch.bfloat16, torch.float32
+# name: (shape, dtype, causal, key padding: None, the last fraction of
+# every row, or "ragged" (chip_smoke.ragged_pad))
+CASES = {"bf16_causal_4096_d64": ((1, 4096, 8, 64), BF16, True, None),
+         "bf16_long_train_d64": ((8, 4096, 4, 64), BF16, True, "ragged"),
+         "bf16_causal_4096_d32": ((1, 4096, 8, 32), BF16, True, None),
+         "bf16_llama_step_d128": ((1, 4096, 32, 128), BF16, True, 0.25),
+         "fp32_causal": ((2, 1024, 8, 128), FP32, True, None),
+         "fp32_full": ((2, 1024, 8, 128), FP32, False, None),
+         "fp32_causal_4096_d64": ((1, 4096, 8, 64), FP32, True, None)}
 
 
 def load_smoke():
@@ -48,26 +60,31 @@ def load_smoke():
     return mod
 
 
-def profile_case(cs, fa, name, shape, causal) -> dict:
+def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
     B, T, H, D = shape
-    q, k, v, do, pad = cs.flash_case(B, T, H, D, torch.float32, 0.0,
-                                     cs.SEED + 30)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
-    checks = [cs.flash_close(o, ro, q.dtype, "o"),
-              cs.flash_close(lse, rlse, q.dtype, "lse")]
-    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
-    checks += [cs.flash_close(a, r, q.dtype, w)
+    seed = cs.SEED + 30
+    q, k, v, do, pad = cs.flash_case(
+        B, T, H, D, dtype, 0.0 if padding == "ragged" else padding, seed)
+    if padding == "ragged":
+        pad = cs.ragged_pad(B, T, seed)
+    mask = dict(causal=causal, padding_mask=pad)
+    o, lse = fa.flash_attention_fwd(q, k, v, **mask)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **mask)
+    checks = [cs.flash_close(o, ro, dtype, "o"),
+              cs.flash_close(lse, rlse, dtype, "lse")]
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
+    checks += [cs.flash_close(a, r, dtype, w)
                for a, r, w in zip(grads, refs, ("dq", "dk", "dv"))]
     del ro, rlse, refs, grads
     n = q.numel() * q.element_size()
-    stats = B * H * T * 4
+    stats = B * H * T * 4 + (0 if pad is None else pad.numel())  # lse, mask
     pairs = cs.flash_pairs(B, T, causal, pad)
     keep = torch.ones(T, T, dtype=torch.bool, device="cuda")
     if causal:
         keep = torch.tril(keep)
-    mask4 = keep[None, None]
+    mask4 = keep[None, None] if pad is None \
+        else keep[None, None] & pad.bool()[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     side = cs.side_stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -81,7 +98,7 @@ def profile_case(cs, fa, name, shape, causal) -> dict:
                                  c.transpose(1, 2), attn_mask=mask4),
             (q, k, v), nf),
         ("fwd", "kernel"): lambda: cs.time_ms(
-            lambda a, b, c: fa._launch_fwd(a, b, c, None, causal, True),
+            lambda a, b, c: fa._launch_fwd(a, b, c, pad, causal, True),
             (q, k, v), nf),
         ("bwd", "library"): lambda: cs.replay_ms(
             lambda lo, a, b, c, g: torch.autograd.grad(
@@ -89,11 +106,13 @@ def profile_case(cs, fa, name, shape, causal) -> dict:
             [(lib_o, *leaves, do.transpose(1, 2))]),
         ("bwd", "kernel"): lambda: cs.time_ms(
             lambda a, b, c, oo, ll, g: fa.flash_attention_bwd(
-                a, b, c, oo, ll, g, causal=causal),
+                a, b, c, oo, ll, g, **mask),
             (q, k, v, o, lse, do), nb),
     }
-    rec = {"case": name, "shape": list(shape), "dtype": "float32",
-           "causal": causal, "ok": all(ok for ok, _ in checks),
+    rec = {"case": name, "shape": list(shape),
+           "dtype": str(dtype).split(".")[-1], "causal": causal,
+           "padded_keys": 0 if pad is None else int((pad == 0).sum()),
+           "ok": all(ok for ok, _ in checks),
            "max_abs_err": {w: e for w, (_, e) in
                            zip(("o", "lse", "dq", "dk", "dv"), checks)}}
     for part in ("fwd", "bwd"):
@@ -101,15 +120,15 @@ def profile_case(cs, fa, name, shape, causal) -> dict:
             rec.setdefault(f"{part}_{who}_ms", []).append(
                 timers[(part, who)]())
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = cs.bound(
-        nf, 4.0 * D * H * pairs, torch.float32)
+        nf, 4.0 * D * H * pairs, dtype)
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = cs.bound(
-        nb, 10.0 * D * H * pairs, torch.float32)
-    if causal:
+        nb, 10.0 * D * H * pairs, dtype)
+    if causal and pad is None:
         rec["fwd_library_is_causal_ms"] = cs.time_ms(
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), is_causal=True),
             (q, k, v), nf)
-    rec["attrs"] = {w: fa.kernel_attrs(w, D, torch.float32)
+    rec["attrs"] = {w: fa.kernel_attrs(w, D, dtype)
                     for w in ("fwd", "dq", "dkv")}
     del leaves, lib_o
     return rec
@@ -118,7 +137,8 @@ def profile_case(cs, fa, name, shape, causal) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=HERE)
-    root = ap.parse_args().root.resolve()
+    args = ap.parse_args()
+    root = args.root.resolve()
     if not torch.cuda.is_available():
         print("profile_torch_flash: needs a CUDA device", file=sys.stderr)
         return 1
@@ -130,8 +150,8 @@ def main() -> int:
         raise RuntimeError(f"imported {fa.__file__}, not from {root}")
     cs.emit({"root": str(root), "device": torch.cuda.get_device_name(0)})
     ok = True
-    for name, shape, causal in CASES:
-        rec = profile_case(cs, fa, name, shape, causal)
+    for name, case in CASES.items():
+        rec = profile_case(cs, fa, name, *case)
         cs.emit({**rec, "root": root.name})
         ok = ok and rec["ok"]
     print(json.dumps({"done": True, "ok": ok}), flush=True)

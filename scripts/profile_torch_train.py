@@ -2,10 +2,13 @@
 (the TransformerLM at its published widths, bf16, jit+pallas, batch 32,
 seq 128) through `train_language_model`, under `torch.profiler`.
 
-    python3 scripts/profile_torch_train.py
+    python3 scripts/profile_torch_train.py [--long]
 
+`--long` takes chip_smoke.py's long-context config instead (seq 4096,
+batch 8, where attention runs the flash kernels at head_dim 64).
 Trains twice, from the same seed: once plain (50 steps and validation,
-chip_smoke.py's train phase), for the step time p50 by CUDA events, and
+chip_smoke.py's train phase; with `--long` its 30 steps and 30
+validation batches), for the step time p50 by CUDA events, and
 once for 10 steps without validation under the profiler, for the device
 time of every CUDA kernel. Prints JSON lines: the step p50, the kernel
 time and launches per step and their share of the step p50 (the card's
@@ -17,6 +20,7 @@ kernels. Needs one CUDA card.
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 from pathlib import Path
@@ -32,6 +36,9 @@ STEPS = 10  # profiled steps
 
 GROUPS = (  # first match wins, on the lowercased kernel name
     ("memcpy / memset", ("memcpy", "memset")),
+    ("flash forward (hand-written)", ("flash_fwd_kernel",)),
+    ("flash dq (hand-written)", ("flash_dq_kernel",)),
+    ("flash dk/dv (hand-written)", ("flash_dkv_kernel",)),
     ("fused_softmax_xent fwd+bwd (hand-written)", ("ce_fwd_kernel",
                                                    "ce_bwd_kernel")),
     ("fused_layernorm (hand-written)", ("layernorm",)),  # both kernels
@@ -55,6 +62,10 @@ def emit(obj) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--long", action="store_true",
+                    help="chip_smoke.long_train_config: seq 4096, batch 8")
+    long = ap.parse_args().long
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
         return 1
@@ -62,11 +73,13 @@ def main() -> int:
     from hyperion_tpu_torch.train.trainer import train_language_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    config = chip_smoke.long_train_config if long else chip_smoke.train_config
     base = ROOT / "build" / "profile_torch_train"
-    res = train_language_model(chip_smoke.train_config(base / "plain"))
+    res = train_language_model(config(base / "plain"))
     step_p50 = float(np.percentile(res.step_ms, 50))
+    del res
 
-    cfg = chip_smoke.train_config(base / "profiled", steps=STEPS)
+    cfg = config(base / "profiled", steps=STEPS)
     cfg.train.validate = False
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CUDA])
@@ -87,8 +100,10 @@ def main() -> int:
             launches += e.count
     kernel_ms = sum(v for k, v in groups.items() if k != "memcpy / memset")
     rows.sort(reverse=True)
+    tokens = cfg.train.batch_size * cfg.train.seq_len
     emit({"device": torch.cuda.get_device_name(0),
-          "step_ms_p50": step_p50, "tokens_per_s": 32 * 128 / (step_p50 / 1e3),
+          "config": "long" if long else "default", "tokens_per_step": tokens,
+          "step_ms_p50": step_p50, "tokens_per_s": tokens / (step_p50 / 1e3),
           "profiled_steps": STEPS, "kernel_ms_per_step": kernel_ms,
           "kernel_launches_per_step": launches / STEPS,
           "kernel_share_of_step_p50": kernel_ms / step_p50})

@@ -16,11 +16,11 @@ widths, both LayerNorm kernels (a warp a row up to 1024 wide, a block a
 row past that, for odd widths and misaligned views), the widest
 LayerNorm row (64 KB of shared memory), a ragged
 vocab and the strided [B, T-1, V] logits view, flash head dims 32 to
-128 (80 and 96 zero-padded to 128), a ragged sequence, unequal query
-and key lengths,
-the Hopper kernels' edges (a sequence shorter than one tile, causal
-with unequal lengths, a padding tail per row, a row all padding) and the
-backward's determinism.
+128 (in bf16 48 zero-padded to 64, 80 and 96 to 128), a ragged
+sequence, unequal query and key lengths,
+the Hopper kernels' edges at D 64 and 128 (a sequence shorter than one
+tile, causal with unequal lengths, a padding tail per row, a row all
+padding) and the backward's determinism.
 """
 
 from __future__ import annotations
@@ -368,9 +368,9 @@ def test_softmax_xent_refuses_out_of_range_targets(cuda):
 
 
 # flash attention: (B, Tq, Tkv, H, D, causal, padded fraction of keys —
-# one for every row, or one per row; 1.0 pads the whole row). bf16 at D
-# 128 runs the Hopper kernels: T = 200 is no multiple of their 64- or
-# 128-row tiles, T = 40 is shorter than one tile, causal Tq != Tkv both
+# one for every row, or one per row; 1.0 pads the whole row). bf16 runs
+# the Hopper kernels at D 64 and 128: T = 200 is no multiple of their 64-
+# or 128-row tiles, T = 40 is shorter than one tile, causal Tq != Tkv both
 # ways, two rows with different padding tails, and a row whose keys are
 # all padding: every s is NEG_INF, so its o is the mean of v over the Tkv
 # keys. Not causal: a causal kernel skips the tiles past a row's frontier
@@ -390,6 +390,14 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                # D 80 and 96 run zero-padded to the D 128 kernels
                "causal_pad_d96": (2, 192, 192, 2, 96, True, 0.25),
                "cross_causal_d80": (2, 70, 200, 2, 80, True, 0.2),
+               # the D 64 Hopper kernels' edges; D 48 runs zero-padded
+               # to them in bf16
+               "causal_pad_d64": (2, 192, 192, 2, 64, True, 0.25),
+               "two_tails_d64": (2, 256, 256, 2, 64, True, (0.25, 0.1)),
+               "ragged_200_d64": (1, 200, 200, 2, 64, True, 0.25),
+               "all_pad_row_d64": (2, 200, 200, 2, 64, False, (1.0, 0.1)),
+               "cross_causal_d64": (2, 70, 200, 2, 64, True, 0.2),
+               "causal_pad_d48": (2, 192, 192, 2, 48, True, 0.25),
                # q scaled by 4 (FLASH_Q_SCALE): large logits, where a
                # TF32 term the fp32 kernels lost would show
                "scaled_q_d128": (2, 192, 192, 2, 128, True, 0.25)}
@@ -459,12 +467,12 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", ["causal_pad_d128", "two_tails_d128",
                                   "cross_causal_d128", "ragged_causal_d32",
-                                  "causal_pad_d96"])
+                                  "causal_pad_d96", "causal_pad_d64",
+                                  "two_tails_d64"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
-    """Two runs of the whole backward (one delta for both kernels; in fp32
-    and on the bf16 D 128 path the dq kernel computes it) give the same
-    bits, and match the plain backward. No gradient row has two
-    writers."""
+    """Two runs of the whole backward (one delta for both kernels, which
+    the dq kernel computes) give the same bits, and match the plain
+    backward. No gradient row has two writers."""
     q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, case, seed=47)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
     runs = [fa.flash_attention_bwd(q, k, v, o, lse, g, causal=causal,
@@ -487,16 +495,18 @@ def test_flash_hopper_backward_keeps_to_registers(cuda):
 
 
 def test_flash_hopper_forward_keeps_to_registers(cuda):
-    """The bf16 D 128 forward is the warp-specialised kernel (three
-    warpgroups), spills nothing to local memory and fits one block's
-    shared memory; bf16 at the narrower head dims keeps 4-warp kernels.
-    The fp32 forward, dq and dk/dv are the split-TF32 kernels (8 warps)
-    at every kernel head dim, none spilling, each within 227 KB."""
-    attrs = fa.kernel_attrs("fwd", 128, torch.bfloat16)
-    assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, attrs
-    assert attrs["smem_bytes"] <= 227 * 1024
-    assert fa.kernel_attrs("fwd", 64, torch.bfloat16)["threads"] == 128
-    for D in fa.HEAD_DIMS:
+    """The bf16 forward, dq and dk/dv at D 64 and 128 are the
+    warp-specialised kernels (three warpgroups), spill nothing to local
+    memory and fit one block's shared memory. The fp32 forward, dq and
+    dk/dv are the split-TF32 kernels (8 warps) at every kernel head dim,
+    none spilling, each within 227 KB."""
+    for D in fa.HEAD_DIMS[torch.bfloat16]:
+        for which in ("fwd", "dq", "dkv"):
+            attrs = fa.kernel_attrs(which, D, torch.bfloat16)
+            assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, \
+                (which, D, attrs)
+            assert attrs["smem_bytes"] <= 227 * 1024
+    for D in fa.HEAD_DIMS[torch.float32]:
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.float32)
             assert attrs["threads"] == 256 and attrs["spill_bytes"] == 0, \

@@ -133,16 +133,54 @@ def test_d128_forward_and_lse_match_jax(case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
-def test_hopper_kernels_take_bf16_at_d128(D, dtype):
-    """On the card bf16 at kernel head_dim 128 (D 80 and 96 run
-    zero-padded to it) runs the Hopper forward and the Hopper backward
-    (whose dq launch computes delta); bf16 at the narrower head dims
-    keeps the first kernels, and fp32 at every head dim runs the
-    split-TF32 kernels, whose dq launch computes delta too."""
-    q = torch.empty(1, 4, 2, D, dtype=dtype)
-    hopper = dtype == torch.bfloat16 and D > 64
-    assert fa.hopper_forward(q) is hopper
-    assert fa.fused_delta(q) is (hopper or dtype == torch.float32)
+def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
+    """On the card bf16 at every head_dim runs the Hopper forward and
+    backward, at a kernel head_dim of 64 or 128 (D 32 runs zero-padded to
+    64, D 80 and 96 to 128); fp32 at every head dim runs the split-TF32
+    kernels. Either way the whole backward is two launches: dq, which
+    computes delta, then dk/dv on that delta. The tensors are claimed to
+    be on the card and the launchers recorded, so what reaches them is
+    checked here; the kernels each dtype and D launch (threads,
+    registers) are checked on the card."""
+    Dk = fa.kernel_head_dim(D, dtype)
+    assert Dk in fa.HEAD_DIMS[dtype]
+    calls = []
+
+    def dq(dims, pad, q, k, v, g, o, lse, causal):
+        assert dims[4:] == (Dk, D) and q.shape[-1] == o.shape[-1] == Dk
+        delta = torch.zeros(lse.shape)
+        calls.append(("dq", delta))
+        return q[..., :D], delta
+
+    def dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
+        calls.append(("dkv", delta))
+        return k[..., :D], v[..., :D]
+
+    monkeypatch.setattr(fa, "_on_card", lambda name, t: True)
+    monkeypatch.setattr(fa, "_launch_dq", dq)
+    monkeypatch.setattr(fa, "_launch_dkv", dkv)
+    q, k, v, o, g = (torch.zeros(1, 4, 2, D, dtype=dtype) for _ in range(5))
+    lse = torch.zeros(1, 2, 4)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, g, causal=True)
+    assert [t.shape for t in grads] == [q.shape] * 3
+    assert [c for c, _ in calls] == ["dq", "dkv"]
+    assert calls[1][1] is calls[0][1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("D", [1, 16, 32, 48, 63, 64, 65, 96, 128, 129])
+def test_kernel_head_dim(D, dtype):
+    """The kernel head_dim that runs D: the least of the dtype's
+    instantiations at or above it (bf16 64 and 128, the Hopper kernels;
+    fp32 32, 64 and 128); past 128 it raises."""
+    if D > 128:
+        with pytest.raises(ValueError, match="head_dim 1 to 128"):
+            fa.kernel_head_dim(D, dtype)
+        return
+    want = min(Dk for Dk in ((64, 128) if dtype == torch.bfloat16
+                             else (32, 64, 128)) if Dk >= D)
+    assert fa.kernel_head_dim(D, dtype) == want
 
 
 def test_bf16_forward_close_to_jax():
@@ -261,8 +299,8 @@ def _padded_path(monkeypatch, q, k, v, g, mask, causal):
     backward on `_bwd_inputs`' zero-padded tensors, sliced back."""
     monkeypatch.setattr(fa, "_run_fwd", _plain_run_fwd)
     o, lse = fa._launch_fwd(q, k, v, mask, causal, True)
-    dims, pad, (qp, kp, vp, gp, op, lse_c, _) = fa._bwd_inputs(
-        q, k, v, o, lse, g, mask, delta=True)
+    dims, pad, (qp, kp, vp, gp, op, lse_c) = fa._bwd_inputs(
+        q, k, v, o, lse, g, mask)
     Dk, D = dims[4:]
     assert qp.shape[-1] == Dk > D
     grads = fa.flash_attention_bwd_plain(qp, kp, vp, op, lse_c, gp,
@@ -271,16 +309,20 @@ def _padded_path(monkeypatch, q, k, v, g, mask, causal):
     return (o, lse, *(t[..., :D] for t in grads))
 
 
-@pytest.mark.parametrize("D", [80, 96])
+@pytest.mark.parametrize("D", [16, 32, 48, 80, 96])
 def test_padded_head_dim_equals_unpadded(D, monkeypatch):
-    """On the card D 80 and 96 run the D 128 kernels on zero-padded
-    q, k, v (and dO, o): zero columns add exact zeros to q·kᵀ and the
-    padded columns of v only fill the columns cut away. Through the
-    plain versions, in fp32, the padded path gives the unpadded one's
-    o, lse and gradients (to fp32 summation order)."""
+    """On the card bf16 runs D 16, 32 and 48 on the D 64 kernels and D 80
+    and 96 on the D 128 ones, on zero-padded q, k, v (and dO, o): zero
+    columns add exact zeros to q·kᵀ and the padded columns of v only
+    fill the columns cut away. Through the plain versions, in fp32 under
+    bf16's padding rule, the padded path gives the unpadded one's o, lse
+    and gradients (to fp32 summation order)."""
     q, k, v, g, mask = (torch.from_numpy(a) for a in
                         _inputs(shape=(2, 48, 2, D), seed=8, pad_from=30))
-    assert fa.kernel_head_dim(D) == 128
+    rule = fa.kernel_head_dim
+    assert rule(D, torch.bfloat16) == (64 if D < 64 else 128)
+    monkeypatch.setattr(fa, "kernel_head_dim",
+                        lambda D, dtype: rule(D, torch.bfloat16))
     got = _padded_path(monkeypatch, q, k, v, g, mask, True)
     o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
                                           padding_mask=mask)
@@ -291,10 +333,11 @@ def test_padded_head_dim_equals_unpadded(D, monkeypatch):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
 
 
-def test_padded_d96_matches_jax(monkeypatch):
-    """The padded path at D 96 against the JAX kernel in interpret mode,
-    which tiles the full D: o and lse within 2e-5, gradients 2e-4."""
-    q, k, v, g, mask = _inputs(shape=(2, 64, 2, 96), seed=9)
+def _padded_matches_jax(monkeypatch, D, seed):
+    """The padded path at head_dim D (fp32, the plain versions doing the
+    padding) against the JAX kernel in interpret mode, which tiles the
+    full D: o and lse within 2e-5, gradients 2e-4."""
+    q, k, v, g, mask = _inputs(shape=(2, 64, 2, D), seed=seed)
     jm = jnp.asarray(mask)
     ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                  causal=True, padding_mask=jm, **BLOCKS)
@@ -317,6 +360,16 @@ def test_padded_d96_matches_jax(monkeypatch):
     for t, r in zip(grads, ref_grads):
         np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=2e-4,
                                    rtol=2e-4)
+
+
+def test_padded_d96_matches_jax(monkeypatch):
+    """D 96 runs zero-padded to 128, in either dtype."""
+    _padded_matches_jax(monkeypatch, 96, seed=9)
+
+
+def test_padded_d48_matches_jax(monkeypatch):
+    """D 48 runs zero-padded to 64, in either dtype."""
+    _padded_matches_jax(monkeypatch, 48, seed=12)
 
 
 # The fp32 kernels' split-TF32 products, modelled on the CPU: every

@@ -412,6 +412,27 @@ class TestTrainer:
                     pc.optimization.attention_impl = attn
                 assert _tier_impls(pc) == jax_tier_impls(jc)
 
+    def test_long_train_config_runs_flash_at_d64(self, tmp_path):
+        """chip_smoke.py's long-context phase: the language_ddp model at
+        4096 tokens, whose "auto" attention resolves to the flash kernel
+        (the reference's rule, `hyperion_tpu/ops/attention.py`) at head_dim
+        64. Builds the config only; trains nothing."""
+        import chip_smoke
+        from hyperion_tpu.ops.attention import (
+            select_attention_impl as jax_select,
+        )
+
+        cfg = chip_smoke.long_train_config(tmp_path / "long")
+        lm = tt.simple_lm_config(max_len=cfg.train.seq_len,
+                                 **{k: v for k, v in _tier_impls(cfg).items()
+                                    if k != "loss_impl"})
+        head_dim = lm.d_model // lm.n_heads
+        assert (cfg.train.seq_len, cfg.train.batch_size, head_dim,
+                cfg.optimization.precision) == (4096, 8, 64, "bf16")
+        assert lm.attention_impl == "auto"
+        assert select_attention_impl(cfg.train.seq_len, head_dim) \
+            == jax_select(cfg.train.seq_len, head_dim) == "pallas"
+
     def test_train_language_model_on_cpu(self, tmp_path):
         cfg = Config()
         cfg.train.epochs = 1
