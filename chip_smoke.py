@@ -30,7 +30,10 @@ script exits non-zero):
               cross-entropy forward and backward at the train step's
               [32, 127, 50257] fp32 logits view, its rows in bf16, the
               train_long step's [8, 4095, 50257] view and a ragged
-              [37, 5003];
+              [37, 5003]; on a view the backward as the loss path runs
+              it, the gradient of the whole [B, T, V] logits with row
+              T-1 exactly zero, and the public backward's contiguous
+              output of the view;
               the norms' gradients through the kernels against the plain
               versions'; the flash forward, dq and dk/dv kernels at the
               Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
@@ -496,13 +499,30 @@ def ce_bwd_fp32_ok(d, ref) -> tuple[bool, float]:
             float((err / (ref.abs() + tiny)).max()))
 
 
+def ce_bwd_full_plain(full, tgt, lse, g):
+    """The plain version of the loss path's backward: the gradient of the
+    whole [B, T, V] logits of a loss over their view [:, :-1], row T-1
+    zero."""
+    from hyperion_tpu_torch.ops import fused_ce as ce
+
+    out = torch.zeros_like(full)
+    out[:, :-1] = ce.fused_softmax_xent_bwd_plain(full[:, :-1], tgt, lse, g)
+    return out
+
+
 def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
     """The forward and backward kernels against their plain versions:
     loss and lse within 1e-5 relative; dlogits within 1e-6 relative
-    (fp32) or one bf16 ulp."""
+    (fp32) or one bf16 ulp. Where the logits are the [B, T-1, V] view of
+    [B, T, V] ones, the backward is checked and timed as the loss path
+    runs it (`_run_bwd_shifted`): the gradient of the whole [B, T, V]
+    tensor, row T-1 exactly zero; the public backward's contiguous
+    [B, T-1, V] output of the same view (at an odd vocab its rows sit
+    off the view's 16-byte grid) is checked too."""
     from hyperion_tpu_torch.ops import fused_ce as ce
 
     logits = take(src)
+    shifted = logits is not src
     dtype = logits.dtype
     V = logits.shape[-1]
     rows = logits.numel() // V
@@ -510,29 +530,45 @@ def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
     ref_loss, ref_lse = ce._plain_fwd(logits, tgt)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     g = torch.rand(loss.shape, generator=gen, device="cuda") / rows
-    d = ce.fused_softmax_xent_bwd(logits, tgt, lse, g)
+    t32 = ce._checked_targets(logits, tgt)
     ref_d = ce.fused_softmax_xent_bwd_plain(logits, tgt, lse, g)
+
+    def held(d):
+        return rms_ulp_ok(d, ref_d) if dtype == torch.bfloat16 \
+            else ce_bwd_fp32_ok(d, ref_d)
+
+    d = ce.fused_softmax_xent_bwd(logits, tgt, lse, g)
+    extra = {}
+    if shifted:
+        extra["view_output_ok"], extra["view_output_worst"] = held(d)
+        del d
+        full = ce._run_bwd_shifted(src, t32, lse, g)
+        extra["last_row_zero"] = not bool(full[:, -1].any())
+        d = full[:, :-1]
     torch.cuda.synchronize()
     fwd_err = max(float((loss - ref_loss).abs().max()),
                   float((lse - ref_lse).abs().max()))
     fwd_ok = bool(torch.allclose(loss, ref_loss, rtol=1e-5, atol=1e-6)
                   and torch.allclose(lse, ref_lse, rtol=1e-5, atol=0))
-    bwd_ok, bwd_worst = rms_ulp_ok(d, ref_d) if dtype == torch.bfloat16 \
-        else ce_bwd_fp32_ok(d, ref_d)
+    bwd_ok, bwd_worst = held(d)
+    bwd_ok = bwd_ok and all(v for k, v in extra.items()
+                            if not k.endswith("worst"))
     bwd_err = float((d.float() - ref_d.float()).abs().max())
     del d, ref_d  # logits-sized: free before the timings' copies
+    if shifted:
+        del full
     base = {"phase": "kernels", "case": name, "dtype": str(dtype)
             .split(".")[-1], "shape": list(logits.shape),
             "strided": not logits.is_contiguous()}
     fwd = {**base, "kernel": "fused_softmax_xent_fwd", "max_abs_err": fwd_err,
            "tol": "1e-5 rel", "ok": fwd_ok}
     bwd = {**base, "kernel": "fused_softmax_xent_bwd",
+           "grad_shape": list((src if shifted else logits).shape),
            "max_abs_err": bwd_err, "worst": bwd_worst,
            "tol": "1 ulp" if dtype == torch.bfloat16 else "1e-6 rel",
-           "ok": bwd_ok}
+           **extra, "ok": bwd_ok}
     if timing:
         it = logits.element_size()
-        t32 = ce._checked_targets(logits, tgt)
         # forward: the logits once, int32 targets, loss and lse out
         nf = rows * V * it + 3 * 4 * rows
         fwd["kernel_ms"] = time_ms(lambda a, t: ce._run_fwd(take(a), t),
@@ -545,14 +581,19 @@ def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
         fwd["library_ms"] = time_ms(
             lambda a, t: torch.nn.functional.cross_entropy(
                 a, t, reduction="none"), (flat, tl), nf)
-        # backward: the logits in, dlogits out, targets, lse and g
-        nb = 2 * rows * V * it + 3 * 4 * rows
-        bwd["kernel_ms"] = time_ms(
-            lambda a, t, l, gg: ce._run_bwd(take(a), t, l, gg),
-            (src, t32, lse, g), nb)
-        bwd["plain_ms"] = time_ms(
-            lambda a, t, l, gg: ce.fused_softmax_xent_bwd_plain(
-                take(a), t, l, gg), (src, tgt, lse, g), nb)
+        # backward: the logits in, the gradient out (the whole [B, T, V]
+        # where shifted), targets, lse and g
+        nb = (rows * V + (src if shifted else logits).numel()) * it \
+            + 3 * 4 * rows
+        if shifted:
+            bwd["kernel_ms"] = time_ms(ce._run_bwd_shifted,
+                                       (src, t32, lse, g), nb)
+            bwd["plain_ms"] = time_ms(ce_bwd_full_plain,
+                                      (src, tgt, lse, g), nb)
+        else:
+            bwd["kernel_ms"] = time_ms(ce._run_bwd, (src, t32, lse, g), nb)
+            bwd["plain_ms"] = time_ms(ce.fused_softmax_xent_bwd_plain,
+                                      (src, tgt, lse, g), nb)
         bwd["bound_ms"], bwd["bound_by"] = bound(nb, 4.0 * rows * V, dtype)
         side_stream().wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side_stream()):  # the graph's stream
@@ -568,7 +609,8 @@ def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
     emit(bwd)
     if not (fwd_ok and bwd_ok):
         raise AssertionError(f"fused_softmax_xent {name} {dtype}: forward "
-                             f"err {fwd_err}, backward worst {bwd_worst}")
+                             f"err {fwd_err}, backward worst {bwd_worst}, "
+                             f"{extra}")
     return fwd, bwd
 
 
@@ -920,8 +962,8 @@ def phase_flash() -> dict:
     cross-entropy at Llama's [1, 4095, 32000] fp32 logits view; one
     train_long layer ([8, 4096, 4, 64] bf16, causal, ragged key padding
     drawn as the synthetic split draws it). Returns the records of the
-    Llama step and of the train_long layer for the `kernels` line, by
-    run ("llama_train", "train_long")."""
+    Llama step (flash and cross-entropy) and of the train_long layer for
+    the `kernels` line, by run ("llama_train", "train_long")."""
     recs = check_flash("llama_train_step", *flash_case(
         1, 4096, 32, 128, torch.bfloat16, 0.25, SEED + 20), causal=True,
         timing=True)
@@ -972,8 +1014,10 @@ def phase_flash() -> dict:
         if not all(rose.values()):
             raise AssertionError(f"flash at D {D}: a kernel did not launch "
                                  f"({rose})")
-    check_ce("llama_step_view_1x4095", *ce_case(
-        1, 4095, 32000, torch.float32, SEED + 23, strided=True), timing=True)
+    recs["fused_softmax_xent_fwd"], recs["fused_softmax_xent_bwd"] = \
+        check_ce("llama_step_view_1x4095", *ce_case(
+            1, 4095, 32000, torch.float32, SEED + 23, strided=True),
+            timing=True)
     gc.collect()
     torch.cuda.empty_cache()
     return {"llama_train": recs, "train_long": long_recs}
@@ -1698,7 +1742,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
     (S=4 slots, one token, bf16, 7B widths); LayerNorm and the
     cross-entropy at the language_ddp train step and at the train_long
     step; the flash kernels at the train_long step's layer (D 64) and
-    at the Llama-2-7B LoRA train step (D 128). `run` names the run."""
+    at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
+    that step's vocab. `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -1742,8 +1787,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
                         "library_ms": rec["library_ms"],
                         "checked": rec["ok"], "case": rec["case"],
                         "shape": rec["shape"], "dtype": rec["dtype"],
-                        **{key: rec[key] for key in (*ATTR_KEYS, "path")
-                           if key in rec}})
+                        **{key: rec[key] for key in
+                           (*ATTR_KEYS, "path", "grad_shape") if key in rec}})
     return {"kernels": out}
 
 

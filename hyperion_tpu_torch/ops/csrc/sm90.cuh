@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: shared-memory
-// addresses, mbarriers, TMA tile loads, wgmma descriptors and products,
-// register rebalancing between warpgroups, and the host-side encoding of
-// TMA tensor maps. Header-only; each .cu that includes it gets its own
+// addresses, mbarriers, TMA tile loads and 1-D bulk copies, wgmma
+// descriptors and products, register rebalancing between warpgroups, and
+// the host-side encoding of TMA tensor maps. Header-only; each .cu that includes it gets its own
 // copy. Every tile it describes is bf16 in the 128-byte swizzle that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of R rows of 64 columns
 // lies row after row, 128 bytes a row, the eight 16-byte chunks of row r
@@ -90,6 +90,40 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// 1-D bulk copies: `bytes` (a multiple of 16) between 16-byte-aligned
+// global and shared memory, no tensor map. A load counts its bytes on
+// `bar`; stores go out in bulk groups, and `bulk_wait_read<N>` returns once
+// all but the newest N committed groups have read their shared memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], "
+      "%2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// this thread's shared-memory writes, made visible to later bulk copies
+// (the async proxy); a barrier then orders them before the copy's issue
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------- registers

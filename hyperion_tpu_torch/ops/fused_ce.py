@@ -10,9 +10,12 @@ g`, recomputed from the saved lse.
 
 Shapes: logits [..., V] (fp32 or bf16), targets [...] integer in
 [0, V); loss [...] fp32. The JAX functions take [N, V]; the port also
-takes the [B, T-1, V] view `logits[:, :-1]` that `next_token_loss`
-builds, and the kernels read it in place by its strides — no copy of
-the step's largest tensor.
+takes a row-strided [B, R, V] view, which the kernels read in place.
+`fused_softmax_xent_shifted` is the loss path's entry: it takes the
+model's whole [B, T, V] logits and [B, T-1] targets, scores rows
+t < T-1 by strides, and its backward kernel writes the gradient of the
+whole [B, T, V] tensor, the last position zero, so autograd runs no
+slice backward (a zero-fill and a copy of the step's largest tensor).
 
 `fused_softmax_xent_fwd` and `fused_softmax_xent_bwd` are the two kernel
 wrappers, each with its own launch count. On a CPU tensor they run the
@@ -25,6 +28,7 @@ reuses the targets its forward checked.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -35,9 +39,11 @@ _MAX_ROWS = 2 ** 31 - 1  # the kernels' grid: one block per row
 # logits, targets, loss, lse; B, R, V; sb, sr; dtype; stream
 _FWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
     ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-# logits, targets, lse, g, dlogits; B, R, V; sb, sr; dtype; stream
+# logits, targets, lse, g, dlogits; B, R, V; sb, sr; Rd; dsb, dsr; dtype;
+# stream
 _BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-    ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_longlong] * 2 + [
+    ctypes.c_int, ctypes.c_void_p]
 
 
 # ------------------------------------------------------------ plain math
@@ -143,8 +149,21 @@ def _launch_fwd(logits, targets):
     return _run_fwd(logits, _checked_targets(logits, targets))
 
 
-def _run_bwd(logits, t32, lse, g):
-    """Launch the backward kernel on checked targets."""
+def _like_on_grid(src: torch.Tensor, shape) -> torch.Tensor:
+    """An uninitialised contiguous tensor of `shape` in src's dtype whose
+    first element sits where src's does against the 16-byte grid, so a
+    row of each at the same element offset takes the kernel's 16-byte
+    body, whatever src's storage offset."""
+    skew = src.data_ptr() % 16 // src.element_size()
+    buf = torch.empty(math.prod(shape) + skew, dtype=src.dtype,
+                      device=src.device)
+    return buf[skew:].view(shape)
+
+
+def _run_bwd_into(logits, t32, lse, g, dst):
+    """Launch the backward kernel on checked targets into `dst`, [B, Rd,
+    V] with Rd >= R (or [N, V] for [N, V] logits): the first R rows of
+    each batch get dlogits, the rest zeros."""
     B, R, V, sb, sr = _kernel_geometry(logits, t32)
     rows_shape = tuple(logits.shape[:-1])
     for name, v in (("lse", lse), ("g", g)):
@@ -153,18 +172,38 @@ def _run_bwd(logits, t32, lse, g):
                              f"got {v.dtype} {tuple(v.shape)}")
         if v.device != logits.device:
             raise ValueError("fused_softmax_xent: all inputs on one device")
+    d3 = dst if dst.dim() == 3 else dst.unsqueeze(0)
+    if (dst.dim() != logits.dim() or d3.shape[0] != B or d3.shape[1] < R
+            or d3.shape[2] != V or dst.dtype != logits.dtype
+            or dst.device != logits.device or dst.stride(-1) != 1
+            or B * d3.shape[1] > _MAX_ROWS):
+        raise ValueError(f"dlogits {dst.dtype} {tuple(dst.shape)} cannot "
+                         f"take the gradient of {logits.dtype} "
+                         f"{tuple(logits.shape)}")
     lse, g = lse.contiguous(), g.contiguous()
     fn = build.function("fused_ce", "hyperion_fused_ce_bwd", _BWD_ARGTYPES)
-    dlogits = torch.empty(logits.shape, dtype=logits.dtype,
-                          device=logits.device)
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         status = fn(logits.data_ptr(), t32.data_ptr(), lse.data_ptr(),
-                    g.data_ptr(), dlogits.data_ptr(), B, R, V, sb, sr,
+                    g.data_ptr(), dst.data_ptr(), B, R, V, sb, sr,
+                    d3.shape[1], d3.stride(0), d3.stride(1),
                     _DTYPES[logits.dtype], stream)
     build.check(status, "fused_softmax_xent backward launch")
     fused_softmax_xent_bwd.launches += 1
-    return dlogits
+    return dst
+
+
+def _run_bwd(logits, t32, lse, g):
+    """dlogits in the logits' shape, contiguous."""
+    return _run_bwd_into(logits, t32, lse, g,
+                         _like_on_grid(logits, logits.shape))
+
+
+def _run_bwd_shifted(logits, t32, lse, g):
+    """The gradient of the whole [B, T, V] logits of a loss over their
+    rows t < T-1 (t32, lse, g: [B, T-1]); row T-1 zero."""
+    return _run_bwd_into(logits[:, :-1], t32, lse, g,
+                         _like_on_grid(logits, logits.shape))
 
 
 def _launch_bwd(logits, targets, lse, g):
@@ -239,3 +278,41 @@ def fused_softmax_xent_fwd_only(logits: torch.Tensor,
                                 targets: torch.Tensor) -> torch.Tensor:
     """Forward without residuals (eval paths): nothing is saved."""
     return fused_softmax_xent_fwd(logits, targets)[0]
+
+
+class _ShiftedSoftmaxXent(torch.autograd.Function):
+    """On the card only: the forward kernel over `logits[:, :-1]` by
+    strides; the backward kernel writes the whole [B, T, V] gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        view = logits[:, :-1]
+        t32 = _checked_targets(view, targets)
+        loss, lse = _run_fwd(view, t32)
+        ctx.save_for_backward(logits, t32, lse)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, t32, lse = ctx.saved_tensors
+        return _run_bwd_shifted(logits, t32, lse, g), None
+
+
+def fused_softmax_xent_shifted(logits: torch.Tensor,
+                               targets: torch.Tensor) -> torch.Tensor:
+    """Next-token cross entropy: [B, T, V] logits x [B, T-1] targets →
+    [B, T-1] fp32 losses, position t scored against targets[:, t] and
+    position T-1 unscored — `fused_softmax_xent(logits[:, :-1],
+    targets)`, whose gradient is that of the whole [B, T, V] tensor. On
+    the card one backward launch writes it, the last position zero; CPU
+    tensors take the plain version on the view and its autograd."""
+    if logits.dim() != 3 or tuple(targets.shape) != (
+            logits.shape[0], logits.shape[1] - 1):
+        raise ValueError(f"fused_softmax_xent_shifted takes [B, T, V] "
+                         f"logits and [B, T-1] targets, got "
+                         f"{tuple(logits.shape)} and {tuple(targets.shape)}")
+    if not _on_card("fused_softmax_xent_shifted", logits):
+        return fused_softmax_xent_plain(logits[:, :-1], targets)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _ShiftedSoftmaxXent.apply(logits, targets)
+    return fused_softmax_xent_fwd_only(logits[:, :-1], targets)

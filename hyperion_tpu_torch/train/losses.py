@@ -3,9 +3,12 @@
 `next_token_loss` keeps the reference's shift-and-ignore-pad semantics:
 position t's logits are scored against token t+1, in fp32, and only
 real (non-pad) targets count toward the mean. `impl="pallas"` runs the
-fused cross-entropy kernel (`ops.fused_ce`) over the `[B, T-1, V]` view
-of the logits in place; `"xla"` runs its plain version. The CIFAR loss
-waits for the CIFAR trainer (ROADMAP A9).
+fused cross-entropy kernels (`ops.fused_ce.fused_softmax_xent_shifted`)
+on the whole `[B, T, V]` logits: the forward reads rows t < T-1 in place
+by strides, and the backward writes the gradient of the whole tensor,
+so no slice backward zero-fills and copies it. `"xla"` runs the plain
+version on the `[B, T-1, V]` view. The CIFAR loss waits for the CIFAR
+trainer (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -13,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from hyperion_tpu_torch.ops.fused_ce import (
-    fused_softmax_xent,
     fused_softmax_xent_plain,
+    fused_softmax_xent_shifted,
 )
 
 
@@ -24,11 +27,10 @@ def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor,
     """Causal-LM loss. logits [B, T, V]; input_ids and attention_mask
     [B, T] (mask 1 = real token)."""
     targets = input_ids[:, 1:]
-    pred = logits[:, :-1].float()  # a view when the logits are fp32
-    if impl == "pallas":
-        per_tok = fused_softmax_xent(pred, targets)
+    if impl == "pallas":  # .float(): no copy when the logits are fp32
+        per_tok = fused_softmax_xent_shifted(logits.float(), targets)
     elif impl == "xla":
-        per_tok = fused_softmax_xent_plain(pred, targets)
+        per_tok = fused_softmax_xent_plain(logits[:, :-1].float(), targets)
     else:
         raise ValueError(f"unknown loss impl {impl!r}")
     if attention_mask is None:

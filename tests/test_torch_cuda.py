@@ -15,7 +15,10 @@ determinism and null-block poison, odd rows and
 widths, both LayerNorm kernels (a warp a row up to 1024 wide, a block a
 row past that, for odd widths and misaligned views), the widest
 LayerNorm row (64 KB of shared memory), a ragged
-vocab and the strided [B, T-1, V] logits view, flash head dims 32 to
+vocab and the strided [B, T-1, V] logits view (at an odd vocab its rows
+sit off the contiguous output's 16-byte grid), the loss entry's
+gradient of the whole [B, T, V] logits (odd and multiple-of-8 vocabs,
+a base one element off the grid), flash head dims 32 to
 128 (in bf16 48 zero-padded to 64, 80 and 96 to 128), a ragged
 sequence, unequal query and key lengths,
 the Hopper kernels' edges at D 64 and 128 (a sequence shorter than one
@@ -35,6 +38,7 @@ from hyperion_tpu_torch.ops.fused_ce import (
     fused_softmax_xent_bwd_plain,
     fused_softmax_xent_fwd,
     fused_softmax_xent_plain,
+    fused_softmax_xent_shifted,
 )
 from hyperion_tpu_torch.ops import flash_attention as fa
 from hyperion_tpu_torch.ops.fused_norm import (
@@ -314,6 +318,9 @@ def _ce_inputs(dev, dtype, shape, seed, strided=False):
 FP32_TINY = torch.finfo(torch.float32).tiny
 CE_CASES = {"ragged_37x5003": ((37, 5003), False),
             "strided_3x6x1000": ((3, 6, 1000), True),
+            # rows of the view and of the contiguous output off the
+            # 16-byte grid by different amounts: the scalar row loop
+            "strided_3x6x5003": ((3, 6, 5003), True),
             "one_row_7": ((1, 7), False)}
 
 
@@ -356,6 +363,65 @@ def test_softmax_xent_autograd_runs_both_kernels(cuda):
         fused_softmax_xent(view, targets)
     assert fused_softmax_xent_bwd.launches == before[1] + 1
     assert fused_softmax_xent_fwd.launches == before[0] + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("V", [5003, 1000, 32000])
+def test_softmax_xent_shifted_matches_plain(cuda, V, dtype, offset):
+    """The loss entry over the whole [B, T, V] logits: its losses against
+    the plain forward on the view; its gradient, the whole tensor,
+    against the plain backward from the kernel's own lse (the kernel's
+    tolerance) and against the plain version's autograd through the
+    view, whose own lse may differ from the kernel's by the forward's
+    error: exp(x - lse) carries that difference as a relative error, and
+    x - lse rounds on each side to within 2**-24 of its size, so fp32
+    adds the largest lse difference and 2**-23 of the largest |x - lse|
+    to 1e-6. Row T-1 exactly zero,
+    reruns bit-identical, one launch of each kernel a step. `offset`
+    puts the logits one element off the 16-byte grid, so every row runs
+    the scalar head and tail beside the 16-byte body."""
+    B, T = 2, 7
+    g = torch.Generator(device=cuda).manual_seed(45)
+    buf = torch.empty(B * T * V + 8, device=cuda, dtype=dtype)
+    logits = buf[offset:offset + B * T * V].view(B, T, V)
+    logits.copy_(3 * torch.randn(B, T, V, generator=g, device=cuda))
+    targets = torch.randint(0, V, (B, T - 1), generator=g, device=cuda)
+    gy = torch.rand(B, T - 1, generator=g, device=cuda) / (B * T)
+    grads = []
+    for _ in range(2):
+        leaf = logits.detach().requires_grad_()
+        before = (fused_softmax_xent_fwd.launches,
+                  fused_softmax_xent_bwd.launches)
+        loss = fused_softmax_xent_shifted(leaf, targets)
+        loss.backward(gy)
+        assert (fused_softmax_xent_fwd.launches,
+                fused_softmax_xent_bwd.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        grads.append(leaf.grad)
+    d = grads[0]
+    assert torch.equal(grads[0], grads[1])
+    assert d.shape == logits.shape and d.dtype == dtype
+    assert not d[:, -1].any()
+    view = logits[:, :-1]
+    ref_loss, ref_lse = fused_softmax_xent_fwd(view.cpu(), targets.cpu())
+    torch.testing.assert_close(loss.detach().cpu(), ref_loss, atol=1e-6,
+                               rtol=1e-5)
+    _, lse = fused_softmax_xent_fwd(view, targets)
+    ref_d = torch.zeros_like(d)
+    ref_d[:, :-1] = fused_softmax_xent_bwd_plain(view, targets, lse, gy)
+    ref = logits.detach().clone().requires_grad_()
+    fused_softmax_xent_plain(ref[:, :-1], targets).backward(gy)
+    if dtype == torch.bfloat16:
+        assert _ulps(d, ref_d) <= 1
+        assert _ulps(d, ref.grad) <= 1
+    else:
+        torch.testing.assert_close(d, ref_d, atol=FP32_TINY, rtol=1e-6)
+        dlse = float((lse.cpu() - ref_lse).abs().max())
+        spread = float((view - lse.unsqueeze(-1)).abs().max())
+        torch.testing.assert_close(d, ref.grad, atol=FP32_TINY,
+                                   rtol=1e-6 + dlse + 2.0 ** -23 * spread)
 
 
 def test_softmax_xent_refuses_out_of_range_targets(cuda):
