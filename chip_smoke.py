@@ -22,7 +22,12 @@ script exits non-zero):
               8192 query rows at 70B heads;
               the null-block poison check and a rerun, both
               bit-identical; RMSNorm at
-              [8*512, 4096]; LayerNorm on its warp-a-row kernel at
+              [8*512, 4096] (the Llama step's rows, a block a row), at
+              [4096, 1024] (a warp a row), [4096, 1001] and a misaligned
+              [4096, 4096] view (scalar loads), each call's kernel named;
+              its backward kernel at [4096, 4096] against its closed form
+              and autograd's gradient, with and without dw, reruns
+              bit-identical; LayerNorm on its warp-a-row kernel at
               [4096, 256] (bf16, fp32, with and without residual) and
               [4096, 768], on its block-a-row kernel at [4096, 1001] and
               a misaligned [4096, 256] view, each call's kernel named,
@@ -35,9 +40,10 @@ script exits non-zero):
               T-1 exactly zero, and the public backward's contiguous
               output of the view;
               the norms' gradients through the kernels against the plain
-              versions'; the flash forward, dq and dk/dv kernels at the
-              Llama-2-7B train step ([1, 4096, 32, 128] bf16, causal, the
-              last quarter of the keys padding), at [2, 1024, 8, 128] fp32
+              versions' autograd; the flash forward, dq and dk/dv
+              kernels at the Llama-2-7B train step ([1, 4096, 32, 128]
+              bf16, causal, the last quarter of the keys padding), at
+              [2, 1024, 8, 128] fp32
               causal and not and with q scaled by 4 (the split-TF32
               kernels), at a ragged T = 1000, at [2, 200, 8,
               128] bf16 with one batch row all padding, bf16 at
@@ -79,7 +85,9 @@ script exits non-zero):
               batch 1, 8 steps and 2 validation batches: losses finite
               from ln 32000, the base bit-identical, the B factors moved,
               one CSV row, the adapter export reloads, every kernel's
-              launches exact; step time p50, tokens/s, peak memory as
+              launches exact (the RMSNorm backward kernel once a step for
+              each norm but the first, whose input is the frozen
+              embedding's output); step time p50, tokens/s, peak memory as
               smoke readings. The model is freed before the serve phases.
   9. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
               16, GQA rep 2) on the CPU (plain versions) against the same
@@ -366,21 +374,27 @@ def rms_ulp_ok(out, ref) -> tuple[bool, float]:
     return bool((err <= 2e-5 + 2e-5 * ref.abs()).all()), float(err.max())
 
 
-def check_rms(name, x, w, timing: bool) -> dict:
+def check_rms(name, x, w, path, timing: bool) -> dict:
+    """The RMSNorm forward kernel against its plain version, and that the
+    call took the kernel `path` ("warp", "block" or "scalar") names."""
     from hyperion_tpu_torch.ops.fused_norm import (
         fused_rmsnorm,
         fused_rmsnorm_plain,
+        rmsnorm_path,
     )
 
     out = fused_rmsnorm(x, w, eps=1e-5)
     ref = fused_rmsnorm_plain(x, w, eps=1e-5)
     torch.cuda.synchronize()
     ok, worst = rms_ulp_ok(out, ref)
+    took = rmsnorm_path(x, w)
     rec = {"phase": "kernels", "kernel": "fused_rmsnorm", "case": name,
            "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+           "path": took,
            "max_abs_err": float((out.float() - ref.float()).abs().max()),
            "worst": worst,
-           "tol": "1 ulp" if x.dtype == torch.bfloat16 else 2e-5, "ok": ok}
+           "tol": "1 ulp" if x.dtype == torch.bfloat16 else 2e-5,
+           "ok": ok and took == path}
     if timing:
         d = x.shape[-1]
         rows = x.numel() // d
@@ -389,23 +403,119 @@ def check_rms(name, x, w, timing: bool) -> dict:
         rec["plain_ms"] = time_ms(fused_rmsnorm_plain, (x, w), nbytes)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * rows * d,
                                                  x.dtype)
-        rms_norm = getattr(torch.nn.functional, "rms_norm", None)
-        rec["library_ms"] = (
-            time_ms(lambda xs, ws: rms_norm(xs, (d,), ws, 1e-5),
-                    (x, w.to(x.dtype)), nbytes)
-            if rms_norm is not None else None)
+        rec["library_ms"] = time_ms(
+            lambda xs, ws: torch.nn.functional.rms_norm(xs, (d,), ws, 1e-5),
+            (x, w.to(x.dtype)), nbytes)
     emit(rec)
-    if not ok:
+    if not rec["ok"]:
         raise AssertionError(f"fused_rmsnorm {name} {x.dtype}: {worst} "
-                             "over tolerance")
+                             f"over tolerance, or the {took} kernel where "
+                             f"the {path} kernel was due")
+    return rec
+
+
+def rms_dw_ok(dw, ref, rows: int) -> tuple[bool, float]:
+    """dw (fp32, a sum over `rows` rows taken in another order) within
+    4 sqrt(rows) 2**-24 max|dw|."""
+    err = float((dw - ref).abs().max())
+    return err <= 4 * rows ** 0.5 * 2.0 ** -24 * float(ref.abs().max()), err
+
+
+def bwd_replay_ms(forward, sets: list[tuple]) -> float:
+    """Device time of one whole autograd backward of `forward(x, w)`
+    against cotangent g, the forward left out of the timed window: one
+    forward a set of (x, w, g) (x a leaf that needs a gradient; the
+    gradient of w is taken too where w needs one), then `replay_ms` of
+    `torch.autograd.grad` over them. The forwards run on the warm-up
+    stream, where the capture puts their backward."""
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graphs = []
+    with torch.cuda.stream(side):
+        for x, w, g in sets:
+            leaf = x.detach().requires_grad_()
+            wrt = (leaf, w) if w.requires_grad else (leaf,)
+            graphs.append((forward(leaf, w), wrt, g))
+    torch.cuda.current_stream().wait_stream(side)
+    return replay_ms(lambda y, wrt, g: torch.autograd.grad(
+        y, wrt, g, retain_graph=True), graphs)
+
+
+def check_rms_bwd(name, x, w, g, timing: bool) -> dict:
+    """The RMSNorm backward kernel against its closed form
+    (`fused_rmsnorm_bwd_plain`) and against autograd of the plain
+    forward, dx alone (the Llama LoRA step: the norm weights are frozen)
+    and with dw: dx as `ln_ulp_ok`, dw as `rms_dw_ok`, two runs
+    bit-identical. Timed, dx alone: the kernel, its closed form, and
+    `F.rms_norm`'s own backward (the forward outside the window)."""
+    from hyperion_tpu_torch.ops.fused_norm import (
+        fused_rmsnorm_bwd,
+        fused_rmsnorm_bwd_plain,
+        fused_rmsnorm_plain,
+        rmsnorm_bwd_path,
+    )
+
+    d = x.shape[-1]
+    rows = x.numel() // d
+    # dx alone and dx with dw take other block layouts, so their dx may
+    # differ in the last bit; each reruns bit-identically
+    dx, none = fused_rmsnorm_bwd(x, w, g, need_dw=False)
+    dx_w, dw = fused_rmsnorm_bwd(x, w, g)
+    again = (fused_rmsnorm_bwd(x, w, g, need_dw=False)[0],
+             *fused_rmsnorm_bwd(x, w, g))
+    ref_dx, ref_dw = fused_rmsnorm_bwd_plain(x, w, g)
+    xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+    fused_rmsnorm_plain(xs, ws).backward(g)
+    torch.cuda.synchronize()
+    checks = {"dx": ln_ulp_ok(dx, ref_dx),
+              "dx_with_dw": ln_ulp_ok(dx_w, ref_dx),
+              "dw": rms_dw_ok(dw, ref_dw, rows),
+              "dx_autograd": ln_ulp_ok(dx, xs.grad),
+              "dw_autograd": rms_dw_ok(dw, ws.grad, rows)}
+    rerun = (none is None and all(
+        torch.equal(a, b) for a, b in zip((dx, dx_w, dw), again)))
+    rec = {"phase": "kernels", "kernel": "fused_rmsnorm_bwd", "case": name,
+           "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+           "path": rmsnorm_bwd_path(x, w, g),
+           "max_abs_err": float((dx.float() - ref_dx.float()).abs().max()),
+           "dw_max_abs_err": checks["dw"][1],
+           "worst": {k: v for k, (_, v) in checks.items()},
+           "tol": {"dx": "1 ulp, at least 2^-16" if x.dtype == torch.bfloat16
+                   else 2e-5, "dw": "4 sqrt(rows) 2^-24 max|dw|"},
+           "rerun_bit_identical": rerun,
+           "ok": rerun and all(ok for ok, _ in checks.values())}
+    del xs, ws, again, dx_w
+    if timing:
+        # dx alone: x and g read, dx written, the weight read
+        nbytes = 3 * x.numel() * x.element_size() + 4 * d
+        rec["kernel_ms"] = time_ms(
+            lambda xs, ws, gs: fused_rmsnorm_bwd(xs, ws, gs, need_dw=False),
+            (x, w, g), nbytes)
+        rec["plain_ms"] = time_ms(fused_rmsnorm_bwd_plain, (x, w, g), nbytes)
+        # ~10 flops an element: two sums, w g, the two products of dx
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 10.0 * rows * d,
+                                                 x.dtype)
+        copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+        sets = [(x, w.to(x.dtype), g)] + [
+            (x.clone(), w.to(x.dtype), g.clone()) for _ in range(copies - 1)]
+        rec["library_ms"] = bwd_replay_ms(
+            lambda xs, ws: torch.nn.functional.rms_norm(xs, (d,), ws, 1e-5),
+            sets)
+        rec["dw_kernel_ms"] = time_ms(fused_rmsnorm_bwd, (x, w, g),
+                                      nbytes + 4 * d)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"fused_rmsnorm_bwd {name} {x.dtype}: "
+                             f"{rec['worst']}, rerun identical {rerun}")
     return rec
 
 
 def ln_ulp_ok(out, ref) -> tuple[bool, float]:
     """`rms_ulp_ok`, with the bf16 ulp taken at no less than 2**-8: where
-    `... * w + b` cancels towards zero, the two sides' fp32 statistics
-    (summed in other orders) differ by more than the tiny output's own
-    ulp, so the error is held to 2**-16 absolute there."""
+    `... * w + b` cancels towards zero (LayerNorm), or r w g and
+    x r^3 S / d do (the RMSNorm backward's dx), the two sides' fp32
+    statistics (summed in other orders) differ by more than the tiny
+    output's own ulp, so the error is held to 2**-16 absolute there."""
     if out.dtype != torch.bfloat16:
         return rms_ulp_ok(out, ref)
     ulps = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
@@ -615,9 +725,10 @@ def check_ce(name, src, take, tgt, timing: bool) -> tuple[dict, dict]:
 
 
 def check_norm_grads() -> None:
-    """Gradients through the norm kernels (autograd of the plain version
-    on the saved inputs) equal the plain versions' own gradients, within
-    the forward tolerances."""
+    """Gradients through the norm kernels equal autograd of the plain
+    versions: LayerNorm's (autograd of the plain version on the saved
+    inputs) within the forward tolerances, RMSNorm's (the backward
+    kernel) dx as `ln_ulp_ok` and dw as `rms_dw_ok`."""
     from hyperion_tpu_torch.ops.fused_norm import (
         fused_layernorm,
         fused_layernorm_plain,
@@ -649,7 +760,12 @@ def check_norm_grads() -> None:
             f(*leaves).backward(gy)
             grads.append([t.grad for t in leaves])
         torch.cuda.synchronize()
-        worst = [rms_ulp_ok(a, c) for a, c in zip(*grads)]
+        if kernel == "fused_rmsnorm":
+            (dx, dw), (ref_dx, ref_dw) = grads
+            worst = [ln_ulp_ok(dx, ref_dx),
+                     rms_dw_ok(dw, ref_dw, ins[0].shape[0])]
+        else:
+            worst = [rms_ulp_ok(a, c) for a, c in zip(*grads)]
         ok = all(o for o, _ in worst)
         emit({"phase": "kernels", "kernel": kernel, "case": "gradients",
               "dtype": str(dtype).split(".")[-1],
@@ -662,8 +778,8 @@ def check_norm_grads() -> None:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the records of
     the training paths' shapes for the `kernels` line, by run ("train",
-    "train_long")."""
-    recs = {"train": {}, "train_long": {}}
+    "train_long", "llama_train")."""
+    recs = {"train": {}, "train_long": {}, "llama_train": {}}
     for dtype in (torch.bfloat16, torch.float32):
         for H, Hkv, tag in ((32, 32, "7b"), (64, 8, "70b")):
             check_paged(f"decode_{tag}", paged_geometry(8, 1, H, Hkv, dtype),
@@ -676,10 +792,27 @@ def phase_kernels() -> dict:
                                        seed=2), dtype, timing=True)
         check_poison(dtype)
         paged_edge_cases(dtype)
+        # RMSNorm at the Llama step's [4096, 4096] (a block a row), its
+        # backward there, one width per other kernel and a view one
+        # element into its buffer (off the 16-byte grid: checked only)
         g = torch.Generator(device="cuda").manual_seed(3)
-        x = torch.randn(8 * 512, 4096, generator=g, device="cuda").to(dtype)
+        x, gy = (torch.randn(8 * 512, 4096, generator=g, device="cuda")
+                 .to(dtype) for _ in range(2))
         w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
-        check_rms("prefill_8x512", x, w, timing=True)
+        rec = check_rms("prefill_8x512", x, w, "block", timing=True)
+        bwd = check_rms_bwd("llama_step_4096x4096", x, w, gy, timing=True)
+        if dtype == torch.bfloat16:
+            recs["llama_train"] = {"fused_rmsnorm": rec,
+                                   "fused_rmsnorm_bwd": bwd}
+        flat = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)
+        view = flat[1:].view_as(x)
+        view.copy_(x)
+        check_rms("misaligned_4096x4096", view, w, "scalar", timing=False)
+        del x, gy, flat, view
+        for d, path in ((1024, "warp"), (1001, "scalar")):
+            x = torch.randn(4096, d, generator=g, device="cuda").to(dtype)
+            w = 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")
+            check_rms(f"4096x{d}", x, w, path, timing=True)
 
     # LayerNorm at the language_ddp train step's [B*T, d] = [4096, 256]
     # and at the GPT-2-shaped width 768 (the warp-a-row kernel), at a
@@ -1259,6 +1392,7 @@ def phase_train_long(smi: str) -> dict:
             "flash_attention_dq": lm.n_layers * steps,
             "flash_attention_dkv": lm.n_layers * steps,
             "fused_rmsnorm": 0,
+            "fused_rmsnorm_bwd": 0,
             "fused_softmax_xent_fwd": steps + evals,
             "fused_softmax_xent_bwd": steps,
             "fused_layernorm": 5 * (steps + evals)},
@@ -1289,6 +1423,7 @@ def _launch_counts() -> dict:
             "flash_attention_dq": fa.flash_attention_dq.launches,
             "flash_attention_dkv": fa.flash_attention_dkv.launches,
             "fused_rmsnorm": fused_norm.fused_rmsnorm.launches,
+            "fused_rmsnorm_bwd": fused_norm.fused_rmsnorm_bwd.launches,
             "fused_softmax_xent_fwd":
                 fused_ce.fused_softmax_xent_fwd.launches,
             "fused_softmax_xent_bwd":
@@ -1301,7 +1436,7 @@ def _reset_launch_counts() -> None:
 
     for fn in (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv, fused_norm.fused_rmsnorm,
-               fused_ce.fused_softmax_xent_fwd,
+               fused_norm.fused_rmsnorm_bwd, fused_ce.fused_softmax_xent_fwd,
                fused_ce.fused_softmax_xent_bwd):
         fn.launches = 0
 
@@ -1310,14 +1445,16 @@ def llama_launches_expected(n_layers: int, steps: int, evals: int) -> dict:
     """Launches of one LoRA fine-tune under remat "full": each train step
     runs every block's forward twice (once more inside the backward's
     recompute, where the flash forward and both norms launch again; the
-    final norm is outside remat), then dq and dk/dv once per layer; an
-    eval batch runs the forward once. The norms' backward is autograd of
-    the plain version, so it launches nothing."""
+    final norm is outside remat), then dq and dk/dv once per layer and
+    the RMSNorm backward kernel once per norm whose input needs a
+    gradient: every norm but the first, which takes the frozen
+    embedding's output; an eval batch runs the forward once."""
     return {"flash_attention_fwd": n_layers * (2 * steps + evals),
             "flash_attention_dq": n_layers * steps,
             "flash_attention_dkv": n_layers * steps,
             "fused_rmsnorm": (2 * n_layers + 1) * (steps + evals)
             + 2 * n_layers * steps,
+            "fused_rmsnorm_bwd": 2 * n_layers * steps,
             "fused_softmax_xent_fwd": steps + evals,
             "fused_softmax_xent_bwd": steps}
 
@@ -1743,7 +1880,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
     cross-entropy at the language_ddp train step and at the train_long
     step; the flash kernels at the train_long step's layer (D 64) and
     at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
-    that step's vocab. `run` names the run."""
+    that step's vocab and RMSNorm, forward and backward, at its
+    [4096, 4096] rows. `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -1752,12 +1890,13 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
     g = torch.Generator(device="cuda").manual_seed(6)
     x = torch.randn(4, 1, 4096, generator=g, device="cuda").to(torch.bfloat16)
     w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
-    rn = check_rms("decode_tick_S4", x, w, timing=True)
+    rn = check_rms("decode_tick_S4", x, w, "block", timing=True)
     csrc = "hyperion_tpu_torch/ops/csrc/"
     pallas = "hyperion_tpu/ops/pallas/"
     where = {"paged_attention": ("paged_attention.cu",
                                  "paged_attention.py:105"),
              "fused_rmsnorm": ("fused_norm.cu", "fused_norm.py:135"),
+             "fused_rmsnorm_bwd": ("fused_norm.cu", "fused_norm.py:171"),
              "fused_layernorm": ("fused_norm.cu", "fused_norm.py:32"),
              "fused_softmax_xent_fwd": ("fused_ce.cu", "fused_ce.py:61"),
              "fused_softmax_xent_bwd": ("fused_ce.cu", "fused_ce.py:94"),
@@ -1772,7 +1911,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
             ("train", train_rec, kernel_recs["train"]),
             ("train_long", long_rec, {**kernel_recs["train_long"],
                                       **flash_recs["train_long"]}),
-            ("llama_train", llama_rec, flash_recs["llama_train"]))
+            ("llama_train", llama_rec, {**kernel_recs["llama_train"],
+                                        **flash_recs["llama_train"]}))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs.items():

@@ -14,22 +14,29 @@ Counterparts in `hyperion_tpu/ops/pallas/fused_norm.py`:
 
 Each public wrapper runs its plain version for a CPU tensor and
 launches `csrc/fused_norm.cu` for a CUDA one — or raises on what the
-kernel does not take. Neither falls back. LayerNorm has two kernels
-there, chosen by the C entry point from the row width and alignment (a
-warp a row up to 1024 wide, else a block a row); `layernorm_path` asks
-which one a call takes.
+kernel does not take. Neither falls back. Each norm has more than one
+kernel there, chosen by the C entry point from the row width and
+alignment (a warp a row up to 1024 wide, a block a row past that, and
+for RMSNorm scalar loads for any other width or a misaligned view);
+`rmsnorm_path`, `rmsnorm_bwd_path` and `layernorm_path` ask which one a
+call takes.
 
-Gradients follow the reference's `custom_vjp`s: the backward is autograd
-of the plain version on the saved inputs (`_rms_bwd` `:171`, `_bwd`
-`:117-126`), not a kernel. On the card that runs through a
-`torch.autograd.Function` around the kernel launch; a call that cannot
-need a gradient (grad mode off, or no input requiring one, as on the
-serve path) launches the kernel directly and saves nothing.
+Gradients follow the reference's `custom_vjp`s (`_rms_bwd` `:171`,
+`_bwd` `:117-126`), which take the VJP of the plain formula. On the
+card, RMSNorm's is a kernel of its own (`fused_rmsnorm_bwd`: dx, and dw
+when the weight needs one, in one pass over x and g), whose closed form
+is `fused_rmsnorm_bwd_plain`; LayerNorm's is still autograd of the plain
+version on the saved inputs (`_vjp_of`), not a kernel. Both run through
+a `torch.autograd.Function` around the forward launch; a call that
+cannot need a gradient (grad mode off, or no input requiring one, as on
+the serve path) launches the forward kernel directly and saves nothing.
+On the CPU the gradient is autograd of the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,6 +54,19 @@ _LN_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_void_p]
 # x, residual, weight, bias, y (each may be null), d, dtype
 _LN_PATH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int]
+# x, weight, y, d, dtype
+_RMS_PATH_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
+# x, weight, g, dx, dw_part, dw (the last three may be null), rows,
+# rows_per_block, d, eps, dtype, stream
+_RMS_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_float,
+                                             ctypes.c_int, ctypes.c_void_p]
+# x, weight, g, dx (may be null), d, dtype
+_RMS_BWD_PATH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
+_RMS_PATHS = {0: "scalar", 1: "warp", 2: "block"}
+# row blocks a dw reduction spreads over, per SM: each block leaves one
+# fp32 row of partial sums, which the second launch adds up
+_DW_BLOCKS_PER_SM = 4
 
 
 def _needs_grad(*ts) -> bool:
@@ -116,25 +136,133 @@ def _launch_rms(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
+def rmsnorm_path(x: torch.Tensor, weight: torch.Tensor) -> str:
+    """Which kernel `fused_rmsnorm` launches for these CUDA inputs: "warp"
+    (a warp a row: d a whole number of 16-byte chunks, at most 1024, x
+    and the weight 16-byte aligned), "block" (a block a row, the same
+    rule past 1024 wide) or "scalar" (a block a row with scalar loads:
+    any other width or a misaligned view). The C entry point's own rule;
+    the output, fresh from the allocator, is aligned. Needs the card."""
+    fn = build.function("fused_norm", "hyperion_rmsnorm_path",
+                        _RMS_PATH_ARGTYPES)
+    return _RMS_PATHS[fn(x.data_ptr(), weight.data_ptr(), None, x.shape[-1],
+                         _DTYPES[x.dtype])]
+
+
+def rmsnorm_bwd_path(x: torch.Tensor, weight: torch.Tensor,
+                     g: torch.Tensor) -> str:
+    """Which kernel `fused_rmsnorm_bwd` launches for these CUDA inputs:
+    "vector" (16-byte chunks: d a whole number of them, x, g and the
+    weight 16-byte aligned) or "scalar". Needs the card."""
+    fn = build.function("fused_norm", "hyperion_rmsnorm_bwd_path",
+                        _RMS_BWD_PATH_ARGTYPES)
+    path = fn(x.data_ptr(), weight.data_ptr(), g.data_ptr(), None,
+              x.shape[-1], _DTYPES[x.dtype])
+    return "vector" if path == 1 else "scalar"
+
+
+def fused_rmsnorm_bwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                            g: torch.Tensor, *, eps: float = 1e-5
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The VJP of `fused_rmsnorm_plain` in closed form, in fp32 with
+    r = rsqrt(mean(x^2) + eps):
+
+        dx = r (w g) - x r^3 sum(w g x) / d    (cast once to x's dtype)
+        dw = sum over rows of g (x r)          (fp32)
+
+    x, g: [..., d]; weight: [d] float32. Returns (dx, dw)."""
+    d = x.shape[-1]
+    h = x.float()
+    gf = g.float()
+    r = torch.rsqrt(h.square().mean(dim=-1, keepdim=True) + eps)
+    wg = gf * weight.float()
+    s = (wg * h).sum(dim=-1, keepdim=True)
+    dx = (r * wg - h * (r.pow(3) * s / d)).to(x.dtype)
+    dw = (gf * (h * r)).reshape(-1, d).sum(dim=0)
+    return dx, dw
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_rms_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                    eps: float, need_dx: bool, need_dw: bool):
+    d = _check_row_input("fused_rmsnorm_bwd", x, {"weight": weight})
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must match x ({x.dtype} {tuple(x.shape)}), got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError("fused_rmsnorm_bwd kernel needs contiguous inputs")
+    rows = x.numel() // d
+    dx = torch.empty_like(x) if need_dx else None
+    dw = part = None
+    rows_per_block = 1  # dx alone: a block a row
+    if need_dw:
+        blocks = max(1, min(rows, _DW_BLOCKS_PER_SM * _sm_count(x.device)))
+        rows_per_block = max(1, -(-rows // blocks))
+        part = torch.empty(-(-rows // rows_per_block), d, device=x.device)
+        # no rows, no launch: the sum over none is zero
+        dw = (torch.empty if rows else torch.zeros)(d, device=x.device)
+    fn = build.function("fused_norm", "hyperion_rmsnorm_bwd",
+                        _RMS_BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        status = fn(x.data_ptr(), weight.data_ptr(), g.data_ptr(),
+                    None if dx is None else dx.data_ptr(),
+                    None if part is None else part.data_ptr(),
+                    None if dw is None else dw.data_ptr(),
+                    rows, rows_per_block, d, eps, _DTYPES[x.dtype],
+                    _stream(x))
+    build.check(status, "fused_rmsnorm_bwd launch")
+    fused_rmsnorm_bwd.launches += 1
+    return dx, dw
+
+
+def fused_rmsnorm_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+                      *, eps: float = 1e-5, need_dx: bool = True,
+                      need_dw: bool = True):
+    """The gradients of `fused_rmsnorm(x, weight)` against cotangent g:
+    (dx or None, dw or None), as `fused_rmsnorm_bwd_plain` computes them.
+    CPU tensors take that plain version; CUDA tensors one pass of
+    `rmsnorm_bwd_kernel` over x and g (and, for dw, a fixed-order
+    reduction of its per-block partial sums). g is made contiguous where
+    it is not."""
+    if x.device.type == "cpu":
+        dx, dw = fused_rmsnorm_bwd_plain(x, weight, g, eps=eps)
+        return dx if need_dx else None, dw if need_dw else None
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_rmsnorm_bwd: unsupported device {x.device}")
+    return _launch_rms_bwd(x, weight, g.contiguous(), eps, need_dx, need_dw)
+
+
+fused_rmsnorm_bwd.launches = 0  # backward launches since the last reset
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, eps):
-        ctx.save_for_backward(x, weight)
-        ctx.eps = eps
-        return _launch_rms(x, weight, eps)
+        with torch.profiler.record_function("fused_rmsnorm.forward"):
+            ctx.save_for_backward(x, weight)
+            ctx.eps = eps
+            return _launch_rms(x, weight, eps)
 
     @staticmethod
     def backward(ctx, g):
-        return _vjp_of(fused_rmsnorm_plain, ctx.saved_tensors,
-                       ctx.needs_input_grad[:2], g, eps=ctx.eps) + (None,)
+        with torch.profiler.record_function("fused_rmsnorm.backward"):
+            x, weight = ctx.saved_tensors
+            need_dx, need_dw = ctx.needs_input_grad[:2]
+            dx, dw = fused_rmsnorm_bwd(x, weight, g, eps=ctx.eps,
+                                       need_dx=need_dx, need_dw=need_dw)
+        return dx, dw, None
 
 
 def fused_rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
                   eps: float = 1e-5) -> torch.Tensor:
     """`x * rsqrt(mean(x^2) + eps) * weight`, one pass over x.
     x: [..., d] float32 or bfloat16; weight: [d] float32.
-    CPU tensors take the plain version; CUDA tensors the kernel, with
-    the plain version's gradient."""
+    CPU tensors take the plain version (and its autograd); CUDA tensors
+    the kernel, and `fused_rmsnorm_bwd`'s kernel for the gradient."""
     if x.device.type == "cpu":
         return fused_rmsnorm_plain(x, weight, eps=eps)
     if x.device.type != "cuda":

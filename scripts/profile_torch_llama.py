@@ -35,7 +35,10 @@ GROUPS = (  # first match wins, on the lowercased kernel name
     ("flash forward (hand-written)", ("flash_fwd_kernel",)),
     ("flash dq (hand-written)", ("flash_dq_kernel",)),
     ("flash dk/dv (hand-written)", ("flash_dkv_kernel",)),
-    ("fused_rmsnorm (hand-written)", ("rmsnorm_kernel",)),
+    ("fused_rmsnorm backward (hand-written)", ("rmsnorm_bwd_",
+                                               "rmsnorm_dw_kernel")),
+    ("fused_rmsnorm (hand-written)", ("rmsnorm_kernel", "rmsnorm_warp_kernel",
+                                      "rmsnorm_block_kernel")),
     ("fused_softmax_xent fwd+bwd (hand-written)", ("ce_fwd_kernel",
                                                    "ce_bwd_kernel")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),

@@ -32,7 +32,9 @@ TOP = 15  # kernels listed one by one
 GROUPS = (  # first match wins, on the lowercased kernel name
     ("paged_attention (hand-written)", ("paged_attention_kernel",
                                         "paged_attention_combine_kernel")),
-    ("fused_rmsnorm (hand-written)", ("rmsnorm_kernel",)),
+    ("fused_rmsnorm (hand-written)", ("rmsnorm_kernel", "rmsnorm_warp_kernel",
+                                      "rmsnorm_block_kernel", "rmsnorm_bwd_",
+                                      "rmsnorm_dw_kernel")),
     ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")),
     ("kv scatter / gather / index", ("index", "scatter", "gather")),
     ("copies and casts", ("copy", "cast", "convert")),

@@ -12,7 +12,10 @@ running past the table, head dims from 16 to 256, the paged kernel's
 plans (chains split across blocks, with rows that end inside, on and at
 the end of a split; prefill row tiles at base 0 and mid-block), its
 determinism and null-block poison, odd rows and
-widths, both LayerNorm kernels (a warp a row up to 1024 wide, a block a
+widths, the three RMSNorm forward kernels and both backward kernels (a
+warp a row up to 1024 wide, a block a row past that, scalar loads for
+odd widths and misaligned views; dx with and without dw, reruns
+bit-identical), both LayerNorm kernels (a warp a row up to 1024 wide, a block a
 row past that, for odd widths and misaligned views), the widest
 LayerNorm row (64 KB of shared memory), a ragged
 vocab and the strided [B, T-1, V] logits view (at an odd vocab its rows
@@ -41,12 +44,17 @@ from hyperion_tpu_torch.ops.fused_ce import (
     fused_softmax_xent_shifted,
 )
 from hyperion_tpu_torch.ops import flash_attention as fa
+from hyperion_tpu_torch.ops import fused_norm as fn_mod
 from hyperion_tpu_torch.ops.fused_norm import (
     fused_layernorm,
     fused_layernorm_plain,
     fused_rmsnorm,
+    fused_rmsnorm_bwd,
+    fused_rmsnorm_bwd_plain,
     fused_rmsnorm_plain,
     layernorm_path,
+    rmsnorm_bwd_path,
+    rmsnorm_path,
 )
 from hyperion_tpu_torch.ops import paged_attention as pa_mod
 from hyperion_tpu_torch.ops.paged_attention import (
@@ -193,6 +201,10 @@ def test_rmsnorm_matches_plain(cuda, shape, dtype):
 
 
 def test_rmsnorm_grads_equal_plain_grads(cuda):
+    """The gradient through the kernels (forward, then the backward
+    kernel) against autograd of the plain version: dx within the
+    forward's tolerances (one bf16 ulp; 2e-5 in fp32), dw (fp32) within
+    2e-5 — the two sum in other orders."""
     g = torch.Generator(device=cuda).manual_seed(40)
     for dtype in (torch.float32, torch.bfloat16):
         x = torch.randn(6, 512, generator=g, device=cuda).to(dtype)
@@ -201,12 +213,126 @@ def test_rmsnorm_grads_equal_plain_grads(cuda):
         grads = []
         for fn in (fused_rmsnorm, fused_rmsnorm_plain):
             xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
-            before = fused_rmsnorm.launches
+            before = fused_rmsnorm.launches, fused_rmsnorm_bwd.launches
             fn(xs, ws).backward(gy)
-            assert fused_rmsnorm.launches == before + (fn is fused_rmsnorm)
+            kernel = fn is fused_rmsnorm
+            assert (fused_rmsnorm.launches, fused_rmsnorm_bwd.launches) == (
+                before[0] + kernel, before[1] + kernel)
             grads.append((xs.grad, ws.grad))
-        for a, b in zip(*grads):
-            torch.testing.assert_close(a, b, atol=0, rtol=0)
+        (dx, dw), (ref_dx, ref_dw) = grads
+        if dtype == torch.bfloat16:
+            assert _ulps(dx, ref_dx) <= 1
+        else:
+            torch.testing.assert_close(dx, ref_dx, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(dw, ref_dw, atol=2e-5, rtol=2e-5)
+
+
+def _rms_inputs(dev, dtype, rows, d, offset, seed):
+    """x and g [rows, d] at `offset` elements into flat buffers (off the
+    16-byte grid for an offset of 1), and a weight."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ts = []
+    for _ in range(2):
+        flat = torch.empty(rows * d + offset, device=dev, dtype=dtype)
+        t = flat[offset:].view(rows, d)
+        t.copy_(torch.randn(rows, d, generator=gen, device=dev))
+        ts.append(t)
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    return ts[0], w, ts[1]
+
+
+def _rms_close(out, ref):
+    if out.dtype == torch.bfloat16:
+        assert _ulps(out, ref) <= 1
+    else:
+        torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+
+
+def _rms_dx_close(dx, ref):
+    """dx within one bf16 ulp, at least 2**-16 absolute (where r w g and
+    x r^3 S / d cancel, the two sides' sums in other orders differ by
+    more than a tiny dx's own ulp), or 2e-5 in fp32."""
+    if dx.dtype != torch.bfloat16:
+        return _rms_close(dx, ref)
+    ulps = (dx.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    near_zero = (dx.float() - ref.float()).abs() <= 2.0 ** -16
+    assert bool(((ulps <= 1) | near_zero).all())
+
+
+RMS_PATHS = {  # id: (d, offset, forward kernel, backward kernel)
+    "8": (8, 0, "warp", "vector"),
+    "256": (256, 0, "warp", "vector"),
+    "1024": (1024, 0, "warp", "vector"),
+    "1032": (1032, 0, "block", "vector"),
+    "4096": (4096, 0, "block", "vector"),
+    "16384": (16384, 0, "block", "vector"),
+    "102": (102, 0, "scalar", "scalar"),
+    "4096_misaligned": (4096, 1, "scalar", "scalar"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", list(RMS_PATHS))
+def test_rmsnorm_paths(cuda, case, dtype):
+    """Each width and alignment takes the forward kernel its rule names
+    and matches the plain version, one launch a call."""
+    d, offset, path, _ = RMS_PATHS[case]
+    x, w, _ = _rms_inputs(cuda, dtype, 37, d, offset, d + offset)
+    assert rmsnorm_path(x, w) == path
+    before = fused_rmsnorm.launches
+    out = fused_rmsnorm(x, w)
+    assert fused_rmsnorm.launches == before + 1
+    _rms_close(out, fused_rmsnorm_plain(x, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("need", ["dx", "dx_dw", "dw"])
+@pytest.mark.parametrize("case", list(RMS_PATHS))
+def test_rmsnorm_bwd_matches_plain(cuda, case, need, dtype):
+    """The backward kernel against `fused_rmsnorm_bwd_plain`: dx as
+    `_rms_dx_close`; dw (fp32) within 4 sqrt(rows)
+    2**-24 max|dw| of sums over rows taken in another order. 1100 rows
+    put more than one row in each dw block. One launch a call, reruns
+    bit-identical."""
+    d, offset, _, path = RMS_PATHS[case]
+    rows = 1100 if d <= 4096 else 37
+    x, w, g = _rms_inputs(cuda, dtype, rows, d, offset, 7 * d + offset)
+    assert rmsnorm_bwd_path(x, w, g) == path
+    need_dx, need_dw = "dx" in need, "dw" in need
+    before = fused_rmsnorm_bwd.launches
+    dx, dw = fused_rmsnorm_bwd(x, w, g, need_dx=need_dx, need_dw=need_dw)
+    assert fused_rmsnorm_bwd.launches == before + 1
+    again = fused_rmsnorm_bwd(x, w, g, need_dx=need_dx, need_dw=need_dw)
+    ref_dx, ref_dw = fused_rmsnorm_bwd_plain(x, w, g)
+    assert (dx is None) == (not need_dx) and (dw is None) == (not need_dw)
+    if need_dx:
+        assert torch.equal(dx, again[0])
+        _rms_dx_close(dx, ref_dx)
+    if need_dw:
+        assert torch.equal(dw, again[1])
+        tol = 4 * rows ** 0.5 * 2.0 ** -24 * float(ref_dw.abs().max())
+        torch.testing.assert_close(dw, ref_dw, atol=tol, rtol=0)
+
+
+def test_rmsnorm_backward_runs_no_eager_vjp(cuda, monkeypatch):
+    """On the card the RMSNorm gradient is the backward kernel alone:
+    `_vjp_of` (LayerNorm's eager VJP) is never called, and a strided
+    cotangent is made contiguous first."""
+    def refuse(*a, **k):
+        raise AssertionError("_vjp_of called for RMSNorm")
+
+    monkeypatch.setattr(fn_mod, "_vjp_of", refuse)
+    x, w, g = _rms_inputs(cuda, torch.bfloat16, 64, 4096, 0, 3)
+    xs = x.clone().requires_grad_()
+    g_strided = torch.stack([g, g], dim=-1)[..., 0]  # g's values, stride 2
+    before = fused_rmsnorm_bwd.launches
+    fused_rmsnorm(xs, w).backward(g_strided)
+    assert fused_rmsnorm_bwd.launches == before + 1
+    ref_dx, _ = fused_rmsnorm_bwd_plain(x, w, g_strided)
+    assert torch.equal(xs.grad, fused_rmsnorm_bwd(x, w, g, need_dw=False)[0])
+    _rms_dx_close(xs.grad, ref_dx)
 
 
 def test_paged_attention_refuses_grad(cuda):

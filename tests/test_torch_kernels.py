@@ -13,8 +13,10 @@ Tolerances: paged attention 2e-5 abs/rel, the reference's own bound
 between its online-softmax kernel and the one-shot gather read; the
 norms 1e-6 (RMS) and 1e-5 (Layer) in fp32, where the two frameworks sum
 in another order, and one bf16 ulp in bf16 (both compute in fp32 and
-round once, so at most the last bit may differ); their gradients 1e-5;
-cross-entropy losses 1e-5 relative and dlogits 1e-6 absolute.
+round once, so at most the last bit may differ); their gradients 1e-5
+(RMSNorm's closed-form backward in bf16: dx one ulp, dw in fp32 within
+4 sqrt(rows) 2**-24 max|dw|, the rounding of sums over rows taken in
+another order); cross-entropy losses 1e-5 relative and dlogits 1e-6 absolute.
 
 The CUDA kernels themselves are held to these plain versions on the
 card by tests/test_torch_cuda.py and chip_smoke.py.
@@ -51,6 +53,8 @@ from hyperion_tpu_torch.ops.fused_norm import (
     fused_layernorm,
     fused_layernorm_plain,
     fused_rmsnorm,
+    fused_rmsnorm_bwd,
+    fused_rmsnorm_bwd_plain,
     fused_rmsnorm_plain,
 )
 from hyperion_tpu_torch.ops.paged_attention import (
@@ -301,6 +305,103 @@ class TestRMSNormGradient:
         for out, r in zip((xt.grad, wt.grad), ref):
             np.testing.assert_allclose(out.numpy(), np.asarray(r),
                                        atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("zero_row", [False, True], ids=["", "zero_row"])
+    @pytest.mark.parametrize("shape", [(5, 48), (3, 7, 64), (2, 4096)],
+                             ids=["5x48", "3x7x64", "2x4096"])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_bwd_plain_matches_jax_vjp(self, dtype, shape, zero_row):
+        """`fused_rmsnorm_bwd_plain` (the card kernel's closed form)
+        against `jax.vjp` of the reference's custom_vjp. fp32: dx and dw
+        within 1e-5. bf16 (x and g bf16, weight fp32): dx within one ulp
+        of the reference's cast; dw, fp32 sums over rows, within
+        4 sqrt(rows) 2**-24 max|dw|. A row of zeros has r = eps**-0.5."""
+        rng = np.random.default_rng(sum(shape) + zero_row)
+        x = rng.standard_normal(shape).astype(np.float32)
+        if zero_row:
+            x.reshape(-1, shape[-1])[0] = 0.0
+        w = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+        g = rng.standard_normal(shape).astype(np.float32)
+        xj, gj = (jnp.asarray(a).astype(dtype) for a in (x, g))
+        _, vjp = jax.vjp(jax_rmsnorm, xj, jnp.asarray(w))
+        ref_dx, ref_dw = vjp(gj)
+        xt, gt = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for a in (xj, gj))
+        dx, dw = fused_rmsnorm_bwd_plain(xt, torch.from_numpy(w), gt)
+        assert dx.dtype == xt.dtype and dw.dtype == torch.float32
+        ref_dw = np.asarray(ref_dw)
+        if dtype == "float32":
+            np.testing.assert_allclose(dx.numpy(), np.asarray(ref_dx),
+                                       atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(dw.numpy(), ref_dw, atol=1e-5,
+                                       rtol=1e-5)
+            return
+        ref_dx = torch.from_numpy(np.array(ref_dx.astype(jnp.float32)))
+        assert _ulps(dx, ref_dx.bfloat16()) <= 1
+        rows = x.size // shape[-1]
+        tol = 4 * np.sqrt(rows) * 2.0 ** -24 * np.abs(ref_dw).max()
+        np.testing.assert_allclose(dw.numpy(), ref_dw, atol=tol, rtol=0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["fp32", "bf16"])
+    def test_cpu_path_launches_nothing_and_matches_bwd_plain(self, dtype):
+        """On the CPU `fused_rmsnorm`'s gradient is autograd of the plain
+        version: no kernel launches, forward or backward, and it agrees
+        with the closed form within the tolerances above."""
+        rng = np.random.default_rng(22)
+        x, g = (torch.from_numpy(rng.standard_normal((6, 128))
+                                 .astype(np.float32)).to(dtype)
+                for _ in range(2))
+        w = torch.from_numpy((1.0 + 0.1 * rng.standard_normal(128))
+                             .astype(np.float32))
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = (fused_rmsnorm.launches, fused_rmsnorm_bwd.launches)
+        fused_rmsnorm(xs, ws).backward(g)
+        assert (fused_rmsnorm.launches, fused_rmsnorm_bwd.launches) == before
+        dx, dw = fused_rmsnorm_bwd_plain(x, w, g)
+        if dtype == torch.bfloat16:
+            assert _ulps(xs.grad, dx) <= 1
+        else:
+            torch.testing.assert_close(xs.grad, dx, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(ws.grad, dw, atol=1e-5, rtol=1e-5)
+
+    @pytest.mark.parametrize("need_dx, need_dw",
+                             [(True, True), (True, False), (False, True)])
+    def test_cpu_bwd_wrapper_is_the_plain_version(self, need_dx, need_dw):
+        rng = np.random.default_rng(23)
+        x, g = _torch(*(rng.standard_normal((4, 32)).astype(np.float32)
+                        for _ in range(2)))
+        w = torch.ones(32)
+        before = fused_rmsnorm_bwd.launches
+        dx, dw = fused_rmsnorm_bwd(x, w, g, need_dx=need_dx, need_dw=need_dw)
+        assert fused_rmsnorm_bwd.launches == before
+        ref_dx, ref_dw = fused_rmsnorm_bwd_plain(x, w, g)
+        assert (dx is None) == (not need_dx) and (dw is None) == (not need_dw)
+        for out, ref in ((dx, ref_dx), (dw, ref_dw)):
+            if out is not None:
+                assert torch.equal(out, ref)
+
+    @pytest.mark.parametrize("bad, match", [
+        ("dtype", "float32 or bfloat16"),
+        ("weight", "weight must be float32"),
+        ("g_shape", "g must match"),
+        ("g_dtype", "g must match"),
+        ("strided_g", "contiguous"),
+    ])
+    def test_bwd_kernel_rejects_what_it_cannot_take(self, bad, match):
+        x, g, w = torch.ones(4, 64), torch.ones(4, 64), torch.ones(64)
+        if bad == "dtype":
+            x, g = x.double(), g.double()
+        elif bad == "weight":
+            w = w.bfloat16()
+        elif bad == "g_shape":
+            g = torch.ones(4, 32)
+        elif bad == "g_dtype":
+            g = g.bfloat16()
+        elif bad == "strided_g":
+            g = torch.ones(64, 4).T
+        with pytest.raises((TypeError, ValueError), match=match):
+            fn_mod._launch_rms_bwd(x, w, g, 1e-5, True, True)
 
 
 class TestFusedLayerNormPlain:
