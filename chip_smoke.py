@@ -13,8 +13,10 @@ script exits non-zero):
               for sm_90a (all sources at once).
   3. kernels  each kernel against its plain PyTorch version on CUDA
               tensors: paged attention at Llama-2-7B heads (decode [8,1],
-              verify [8,5], prefill [1,512]) and 70B heads, bf16 and
-              fp32, each with its plan (rows a block, splits of the
+              verify [8,5], prefill [1,512]; serve_features' spec verify
+              [4,5] at ragged bases and chunk segments [1,256] at base
+              256 and 263) and 70B heads, bf16 and fp32, each with its
+              plan (rows a block, splits of the
               chain), registers and spill bytes; at head dims 16, 80 and
               256; decode rows shorter than one split, ending on a split
               boundary and covering the whole table; prefill windows at
@@ -94,14 +96,33 @@ script exits non-zero):
               weights on the card (kernels), through the three paged
               window shapes.
  10. oracle   Llama-2-7B widths at 2 layers, fp32: temperature-0 engine
-              streams equal the port's `generate`.
+              streams equal the port's `generate` (a divergence only at a
+              near tie, top-2 margin <= 1e-3), for the default engine and
+              for a feature engine (spec_k 4 with n-gram drafts, 64-token
+              chunks, a 24-block pool the radix must evict from and a host
+              tier that holds what it evicts; spills, restores, chunk
+              segments and accepted drafts each >= 1); and
+              `generate_speculative` with a 1-layer draft equals
+              `generate`.
  11. serve    full Llama-2-7B (32 layers, bf16, seeded random weights,
               the fused RMSNorm) behind `serve_jsonl`: 8 requests, prefix
               hits, a COW copy, launch counters exactly forwards x layers.
- 12. the `kernels` line: one record per kernel and run (`run`: serve,
-              train, train_long, llama_train) at that run's shapes, with
-              its launches on the run, its error against the plain
-              version and its times.
+ 12. serve_features  the same model through `serve_jsonl` on the
+              deferred decode paths at once (spec_k 4, n-gram drafts,
+              256-token chunks, a 96-block pool, a 2 GiB host tier), in
+              three waves: the serve phase's 8 requests and two prompts
+              of one token repeated, four 600-token prompts that push the
+              first wave's chains to the host, then the shared 200-token
+              prefix again.
+              Every request done, chunk segments, accepted drafts, spills
+              and restores each >= 1, launches exact; tick p50, tokens per
+              tick, acceptance rate, TTFT and TPOT p50, peak memory,
+              bytes spilled and restored, and how many greedy streams
+              equal the serve phase's, as smoke readings.
+ 13. the `kernels` line: one record per kernel and run (`run`: serve,
+              serve_features, train, train_long, llama_train) at that
+              run's shapes, with its launches on the run, its error
+              against the plain version and its times.
 
 Kernel times are device times with host dispatch taken out: a run of
 launches captured in one CUDA graph and replayed, on copies of the
@@ -779,7 +800,8 @@ def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the records of
     the training paths' shapes for the `kernels` line, by run ("train",
     "train_long", "llama_train")."""
-    recs = {"train": {}, "train_long": {}, "llama_train": {}}
+    recs = {"train": {}, "train_long": {}, "llama_train": {},
+            "serve_features": []}
     for dtype in (torch.bfloat16, torch.float32):
         for H, Hkv, tag in ((32, 32, "7b"), (64, 8, "70b")):
             check_paged(f"decode_{tag}", paged_geometry(8, 1, H, Hkv, dtype),
@@ -790,6 +812,20 @@ def phase_kernels() -> dict:
             check_paged(f"prefill_{tag}",
                         paged_geometry(1, 512, H, Hkv, dtype, base=[256],
                                        seed=2), dtype, timing=True)
+        # the serve_features run's windows at 7B heads: the spec tick's
+        # verify window [4, 5] at ragged bases, and a chunk segment
+        # [1, 256] at base 256 and at a base no multiple of 16
+        for name, geo in (
+                ("spec_verify_4x5", paged_geometry(
+                    4, 5, 32, 32, dtype, base=[37, 300, 611, 950],
+                    seed=40)),
+                ("chunk_1x256_base256", paged_geometry(
+                    1, 256, 32, 32, dtype, base=[256], seed=41)),
+                ("chunk_1x256_base263", paged_geometry(
+                    1, 256, 32, 32, dtype, base=[263], seed=42))):
+            rec = check_paged(name, geo, dtype, timing=True)
+            if dtype == torch.bfloat16 and name != "chunk_1x256_base263":
+                recs["serve_features"].append(("paged_attention", rec))
         check_poison(dtype)
         paged_edge_cases(dtype)
         # RMSNorm at the Llama step's [4096, 4096] (a block a row), its
@@ -1704,13 +1740,72 @@ def first_divergence(a, b):
     return None
 
 
+def near_tie_record(model, cfg, rid, prompt, got, ref) -> dict:
+    """`got` against the reference stream `ref`: equal, or where they part
+    the reference's top-2 logit margin there (a near tie lets another
+    rounding of the same sums pick the other token)."""
+    from hyperion_tpu_torch.models.llama import init_cache
+
+    i = first_divergence(got, ref)
+    rec = {"id": rid, "equal": i is None and len(got) == len(ref)}
+    if i is not None:
+        ids = np.concatenate([prompt, np.asarray(ref[:i])])[None]
+        logits, _ = model(torch.as_tensor(ids), cache=init_cache(
+            cfg, 1, ids.shape[1], device="cuda"), cache_index=0)
+        top2 = torch.topk(logits[0, -1], 2).values
+        rec.update(first_divergence=i, top2_margin=float(top2[0] - top2[1]))
+    return rec
+
+
+def beyond_near_tie(results: list[dict]) -> list[dict]:
+    """Unequal streams not explained by a near tie (a stream that ends
+    short of the reference has no margin: it always counts)."""
+    return [r for r in results if not r["equal"]
+            and r.get("top2_margin", math.inf) > 1e-3]
+
+
+def drive(eng, reqs) -> None:
+    for r in reqs:
+        ok, why = eng.submit(r)
+        assert ok, why
+    while not eng.idle:
+        eng.step()
+
+
+def oracle_feature_requests(rng) -> list[list]:
+    """Three waves through the feature engine: (1) an 80-token shared
+    prefix (5 full blocks) with a tail, two prompts of one token
+    repeated (a random-weight model then emits runs of one token, where
+    n-gram drafts hit), a 150-token prompt (chunks of 64); (2) three
+    120-token prompts whose blocks overflow the 23-block pool, so the
+    radix evicts wave 1's chains to the host; (3) the shared prefix
+    again, restored from the host."""
+    from hyperion_tpu_torch.serve.queue import Request
+
+    def req(ids, rid, n=16):
+        return Request(prompt_ids=np.asarray(ids, np.int32),
+                       max_new_tokens=n, id=rid)
+
+    shared = rng.integers(1, 32000, 80)
+    wave1 = [req(np.concatenate([shared, rng.integers(1, 32000, 30)]), "f0"),
+             req(np.full(60, rng.integers(1, 32000)), "f1", 32),
+             req(np.full(40, rng.integers(1, 32000)), "f2", 32),
+             req(rng.integers(1, 32000, 150), "f3")]
+    wave2 = [req(rng.integers(1, 32000, 120), f"f{4 + i}") for i in range(3)]
+    wave3 = [req(np.concatenate([shared, rng.integers(1, 32000, 20)]), "f7")]
+    return [wave1, wave2, wave3]
+
+
 def phase_oracle() -> None:
+    """Llama-2-7B widths at 2 layers, fp32, against the port's `generate`
+    under the near-tie rule: the default engine; the feature engine
+    (spec_k 4 with n-gram drafts, 64-token chunks, a pool small enough
+    that the radix evicts and a host tier that holds what it evicts),
+    whose spills, restores, chunk segments and accepted drafts must each
+    happen; and `generate_speculative` with a 1-layer draft."""
     from hyperion_tpu_torch.infer.generate import generate
-    from hyperion_tpu_torch.models.llama import (
-        Llama,
-        init_cache,
-        llama2_7b_config,
-    )
+    from hyperion_tpu_torch.infer.speculative import generate_speculative
+    from hyperion_tpu_torch.models.llama import Llama, llama2_7b_config
     from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
     from hyperion_tpu_torch.serve.queue import Request
 
@@ -1718,6 +1813,10 @@ def phase_oracle() -> None:
                            norm_impl="pallas")
     model = Llama(cfg, device="cuda").init_params(
         torch.Generator(device="cuda").manual_seed(SEED))
+
+    def ref(prompt, n=16):
+        return generate(model, prompt[None], n, device="cuda")[0].tolist()
+
     eng = Engine(model, EngineConfig(slots=3, max_len=256, block_size=16),
                  device="cuda")
     eng.warmup([100])
@@ -1728,34 +1827,56 @@ def phase_oracle() -> None:
                rng.integers(1, 32000, 24), rng.integers(1, 32000, 90)]
     reqs = [Request(prompt_ids=p.astype(np.int32), max_new_tokens=16,
                     id=f"o{i}") for i, p in enumerate(prompts)]
-    for r in reqs:
-        ok, why = eng.submit(r)
-        assert ok, why
-    while not eng.idle:
-        eng.step()
-    results = []
-    for r in reqs:
-        ref = generate(model, r.prompt_ids[None], 16, device="cuda")[0]
-        ref = ref.tolist()
-        i = first_divergence(r.tokens, ref)
-        rec = {"id": r.id, "equal": i is None}
-        if i is not None:
-            # near-tie test: the reference's top-2 margin where the
-            # streams part ways
-            ids = np.concatenate([r.prompt_ids, np.asarray(ref[:i])])[None]
-            logits, _ = model(torch.as_tensor(ids), cache=init_cache(
-                cfg, 1, ids.shape[1], device="cuda"), cache_index=0)
-            top2 = torch.topk(logits[0, -1], 2).values
-            rec.update(first_divergence=i,
-                       top2_margin=float(top2[0] - top2[1]))
-        results.append(rec)
+    drive(eng, reqs)
+    results = [near_tie_record(model, cfg, r.id, r.prompt_ids, r.tokens,
+                               ref(r.prompt_ids)) for r in reqs]
+    prefix_hits = eng.metrics.summary()["prefix_hits"]
+    del eng
+
+    feat = Engine(model, EngineConfig(
+        slots=3, max_len=256, block_size=16, num_blocks=24, spec_k=4,
+        draft="ngram", prefill_chunk=64, host_cache_mb=256), device="cuda")
+    feat.warmup([150])
+    feat_reqs = []
+    for wave in oracle_feature_requests(rng):
+        drive(feat, wave)
+        feat_reqs += wave
+    feat_results = [near_tie_record(model, cfg, r.id, r.prompt_ids,
+                                    r.tokens,
+                                    ref(r.prompt_ids, r.max_new_tokens))
+                    for r in feat_reqs]
+    s = feat.metrics.summary()
+    counts = {"host_spilled_blocks": s["host_spilled_blocks"],
+              "host_restored_blocks": s["host_restored_blocks"],
+              "chunk_segments": feat.chunk_segments,
+              "spec_accepted": s["spec_accepted"]}
+    del feat
+
+    draft = Llama(llama2_7b_config(n_layers=1, max_len=256,
+                                   dtype="float32", norm_impl="pallas"),
+                  device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 1))
+    spec_results = []
+    for i, p in enumerate((feat_reqs[0].prompt_ids, feat_reqs[1].prompt_ids,
+                           prompts[3])):
+        out = generate_speculative(model, draft, p[None], 16, k=4,
+                                   device="cuda")[0].tolist()
+        spec_results.append(near_tie_record(model, cfg, f"g{i}", p, out,
+                                            ref(p)))
     emit({"phase": "oracle", "layers": cfg.n_layers, "requests": results,
-          "prefix_hits": eng.metrics.summary()["prefix_hits"]})
-    bad = [r for r in results if not r["equal"]
-           and r["top2_margin"] > 1e-3]
-    if bad:
-        raise AssertionError(f"oracle: engine streams diverge from generate "
-                             f"beyond a near-tie: {bad}")
+          "prefix_hits": prefix_hits, "feature_requests": feat_results,
+          "feature_counts": counts,
+          "generate_speculative": spec_results})
+    problems = []
+    for what, res in (("engine", results), ("feature engine", feat_results),
+                      ("generate_speculative", spec_results)):
+        if beyond_near_tie(res):
+            problems.append(f"{what} streams diverge from generate beyond "
+                            f"a near-tie: {beyond_near_tie(res)}")
+    problems += [f"feature engine: no {k}" for k, v in counts.items()
+                 if v < 1]
+    if problems:
+        raise AssertionError("oracle: " + "; ".join(problems))
 
 
 def serve_requests(rng) -> list[dict]:
@@ -1783,7 +1904,9 @@ def serve_requests(rng) -> list[dict]:
     return reqs
 
 
-def phase_serve() -> dict:
+def phase_serve() -> tuple[dict, torch.nn.Module, list[dict], dict]:
+    """Returns the record, the model (for serve_features), the requests
+    and their token streams."""
     from hyperion_tpu_torch.models.llama import Llama, llama2_7b_config
     from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
     from hyperion_tpu_torch.ops.paged_attention import paged_attention
@@ -1869,14 +1992,140 @@ def phase_serve() -> dict:
                         f"{rec['launches_expected']}")
     if problems:
         raise AssertionError("serve: " + "; ".join(problems))
+    return rec, model, reqs, toks
+
+
+def serve_feature_waves(serve_reqs: list[dict], rng) -> list[list[dict]]:
+    """Three waves through `serve_jsonl`: (1) the serve phase's eight
+    (the 500- and 350-token prompts chunk at 256) and two prompts of one
+    token repeated, 288 tokens (chunked) and 48 (a random-weight model
+    then emits runs of one token, where n-gram drafts hit); (2) four
+    600-token prompts, 40 blocks each with their budget, that overflow
+    the 95-block pool, so the radix evicts wave 1's chains — the shared
+    200-token prefix among them — to the host; (3) that prefix with a
+    new 50-token tail, restored from the host."""
+    def req(rid, ids):
+        return {"id": rid, "prompt_ids": np.asarray(ids).astype(int).tolist(),
+                "max_new_tokens": 32}
+
+    shared = serve_reqs[0]["prompt_ids"][:200]
+    wave1 = [dict(r) for r in serve_reqs] + [
+        req(f"t{i}", np.full(n, rng.integers(1, 32000)))
+        for i, n in enumerate((288, 48))]
+    wave2 = [req(f"p{i}", rng.integers(1, 32000, 600)) for i in range(4)]
+    wave3 = [req("rehit", np.concatenate(
+        [shared, rng.integers(1, 32000, 50)]))]
+    return [wave1, wave2, wave3]
+
+
+def phase_serve_features(model, serve_reqs: list[dict], serve_toks: dict,
+                         smi: str) -> dict:
+    """Full Llama-2-7B (the serve phase's model) through `serve_jsonl` on
+    the deferred decode paths at once: spec_k 4 with n-gram drafts,
+    256-token chunks, a 96-block pool that forces radix eviction and a
+    2 GiB host tier that holds what it evicts."""
+    from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.server import serve_jsonl
+
+    n_layers = model.cfg.n_layers
+    eng = Engine(model, EngineConfig(
+        slots=4, max_len=1024, block_size=16, spec_k=4, draft="ngram",
+        prefill_chunk=256, num_blocks=96, host_cache_mb=2048),
+        device="cuda")
+    eng.warmup([600])
+    waves = serve_feature_waves(serve_reqs,
+                                np.random.default_rng(SEED + 7))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    fused_rmsnorm.launches = 0
+    eng.forwards = eng.chunk_segments = 0
+    lines = []
+    t0 = time.perf_counter()
+    for wave in waves:
+        outfile = io.StringIO()
+        summary = serve_jsonl(
+            eng, io.StringIO("".join(json.dumps(r) + "\n" for r in wave)),
+            outfile)
+        lines += [json.loads(x) for x in outfile.getvalue().splitlines()]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": paged_attention.launches,
+                "fused_rmsnorm": fused_rmsnorm.launches}
+    fwd = eng.forwards
+    done = {x["id"] for x in lines if x.get("event") == "done"}
+    toks: dict[str, list[int]] = {}
+    for x in lines:
+        if x.get("event") == "token":
+            toks.setdefault(x["id"], []).append(x["token"])
+    # the bf16 greedy streams against the plain serve phase's: where
+    # they part, the serve stream's top-2 margin there (another GEMM
+    # shape rounds the same sums differently)
+    greedy = [near_tie_record(model, model.cfg, r["id"],
+                              np.asarray(r["prompt_ids"]),
+                              toks.get(r["id"], []), serve_toks[r["id"]])
+              for r in serve_reqs if "temperature" not in r]
+    reg = eng.metrics.reg
+    rec = {
+        "phase": "serve_features", "nvidia_smi": smi, "layers": n_layers,
+        "requests": sum(len(w) for w in waves), "done": len(done),
+        "serve_wall_s": wall, "tokens": summary["tokens"],
+        "ticks": summary["ticks"], "forwards": fwd,
+        "chunk_segments": eng.chunk_segments,
+        "tick_ms_p50": reg.histogram("serve_tick_ms").percentile(50),
+        "tokens_per_tick": summary["tokens_per_tick"],
+        "spec_drafted": summary["spec_drafted"],
+        "spec_accepted": summary["spec_accepted"],
+        "accept_rate": summary["accept_rate"],
+        "ttft_ms_p50": summary["ttft_ms"].get("p50"),
+        "tpot_ms_p50": summary["tpot_ms"].get("p50"),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "blocks_evicted": summary["blocks_evicted"],
+        "host_spilled_blocks": summary["host_spilled_blocks"],
+        "host_restored_blocks": summary["host_restored_blocks"],
+        "spill_bytes": int(reg.counter("serve_spill_bytes").value),
+        "restore_bytes": summary["restore_bytes"],
+        "tier_hits_host": summary["tier_hits_host"],
+        "prefix_hits": summary["prefix_hits"],
+        "greedy_equal_to_serve": sum(g["equal"] for g in greedy),
+        "greedy_vs_serve": greedy,
+        "launches": launches,
+        "launches_expected": {"paged_attention": fwd * n_layers,
+                              "fused_rmsnorm": fwd * (2 * n_layers + 1)},
+    }
+    emit(rec)
+    problems = []
+    for r in (r for w in waves for r in w):
+        got = toks.get(r["id"], [])
+        if r["id"] not in done or len(got) != 32:
+            problems.append(f"{r['id']}: done={r['id'] in done} "
+                            f"tokens={len(got)}")
+        elif not all(0 <= t < model.cfg.vocab_size for t in got):
+            problems.append(f"{r['id']}: token out of range")
+    for key in ("chunk_segments", "spec_accepted", "host_spilled_blocks",
+                "host_restored_blocks"):
+        if rec[key] < 1:
+            problems.append(f"no {key}")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch counts {launches} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("serve_features: " + "; ".join(problems))
     return rec
 
 
-def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
-                 llama_rec: dict, kernel_recs: dict, flash_recs: dict) -> dict:
+def kernels_line(serve_rec: dict, features_rec: dict, train_rec: dict,
+                 long_rec: dict, llama_rec: dict, kernel_recs: dict,
+                 flash_recs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
-    (S=4 slots, one token, bf16, 7B widths); LayerNorm and the
+    (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
+    attention at the spec tick's verify window [4, 5] and a chunk
+    segment [1, 256], RMSNorm at the verify window's [4, 5, 4096];
+    LayerNorm and the
     cross-entropy at the language_ddp train step and at the train_long
     step; the flash kernels at the train_long step's layer (D 64) and
     at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
@@ -1891,6 +2140,8 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
     x = torch.randn(4, 1, 4096, generator=g, device="cuda").to(torch.bfloat16)
     w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
     rn = check_rms("decode_tick_S4", x, w, "block", timing=True)
+    x = torch.randn(4, 5, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    rn_spec = check_rms("spec_tick_S4x5", x, w, "block", timing=True)
     csrc = "hyperion_tpu_torch/ops/csrc/"
     pallas = "hyperion_tpu/ops/pallas/"
     where = {"paged_attention": ("paged_attention.cu",
@@ -1906,16 +2157,18 @@ def kernels_line(serve_rec: dict, train_rec: dict, long_rec: dict,
                                     "flash_attention.py:351"),
              "flash_attention_dkv": ("flash_attention.cu",
                                      "flash_attention.py:405")}
-    runs = (("serve", serve_rec, {"paged_attention": pa,
-                                  "fused_rmsnorm": rn}),
-            ("train", train_rec, kernel_recs["train"]),
-            ("train_long", long_rec, {**kernel_recs["train_long"],
-                                      **flash_recs["train_long"]}),
-            ("llama_train", llama_rec, {**kernel_recs["llama_train"],
-                                        **flash_recs["llama_train"]}))
+    runs = (("serve", serve_rec, [("paged_attention", pa),
+                                  ("fused_rmsnorm", rn)]),
+            ("serve_features", features_rec,
+             kernel_recs["serve_features"] + [("fused_rmsnorm", rn_spec)]),
+            ("train", train_rec, list(kernel_recs["train"].items())),
+            ("train_long", long_rec, [*kernel_recs["train_long"].items(),
+                                      *flash_recs["train_long"].items()]),
+            ("llama_train", llama_rec, [*kernel_recs["llama_train"].items(),
+                                        *flash_recs["llama_train"].items()]))
     out = []
     for run, run_rec, recs in runs:
-        for name, rec in recs.items():
+        for name, rec in recs:
             src, rep = where[name]
             out.append({"name": name, "route": "cuda", "source": csrc + src,
                         "replaces": pallas + rep, "run": run,
@@ -1953,9 +2206,14 @@ def main() -> int:
     llama_rec = phase_llama_train(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
-    serve_rec = phase_serve()
-    emit(kernels_line(serve_rec, train_rec, long_rec, llama_rec,
-                      kernel_recs, flash_recs))
+    serve_rec, model, serve_reqs, serve_toks = phase_serve()
+    gc.collect()  # the serve engine's pools go before the second engine's
+    torch.cuda.empty_cache()
+    features_rec = phase_serve_features(model, serve_reqs, serve_toks,
+                                        dev["nvidia_smi"])
+    del model
+    emit(kernels_line(serve_rec, features_rec, train_rec, long_rec,
+                      llama_rec, kernel_recs, flash_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -197,6 +197,12 @@ class MetricsRegistry:
         self._hists: dict[str, Histogram] = {}
         self._labels: dict[str, str] = {}
 
+    @property
+    def clock(self):
+        """The time source every instrument of this registry stamps with
+        (what a reader of its windows must take `now` from)."""
+        return self._clock
+
     def counter(self, name: str) -> Counter:
         c = self._counters.get(name)
         if c is None:

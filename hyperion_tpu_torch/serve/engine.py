@@ -1,11 +1,11 @@
 """Slot-based continuous-batching decode engine on a paged KV pool —
-`hyperion_tpu/serve/engine.py` in PyTorch, its default-config path.
+`hyperion_tpu/serve/engine.py` in PyTorch.
 
 Continuous batching (Yu et al., OSDI '22): the unit of scheduling is
 one decode TICK, and membership of the batch is re-decided between
 ticks. Requests arrive when they arrive and finish when they finish;
 each `step()` admits queued requests into free slots (prefilling
-them), advances every live slot one token, and routes the emissions.
+them), advances every live slot, and routes the emissions.
 
   * The KV cache is a `[num_blocks, block_size]` POOL per layer
     (`models/llama.py:init_paged_cache`). A slot addresses it through
@@ -18,11 +18,25 @@ them), advances every live slot one token, and routes the emissions.
     requests prefill only their suffix, attending over the shared
     blocks through the table. A prompt that diverges mid-block reuses
     the agreeing positions through one copy-on-write block copy.
+    With `host_cache_mb`, eviction DEMOTES a chain to host RAM
+    (`serve/hostcache.py`) and a later same-prefix admission restores
+    it instead of re-prefilling.
   * Admission is block-aware: the queue pops a request only when its
     block demand fits (`_can_admit`). Under `optimistic` admission the
     pool can still run dry mid-decode; the engine then PREEMPTS the
     youngest slot back to the queue head (its tokens ride along and
     re-prefill) instead of crashing.
+  * Speculative decoding (`spec_k` + `serve/draft.py`) turns the tick
+    into a draft/verify/accept round: a host-side draft source
+    proposes up to k tokens per slot, ONE target forward over a
+    `[S, k+1]` window scores them through the paged path (a [S]
+    `cache_index` vector), and the longest prefix the target agrees
+    with plus its own correction is emitted — 1..k+1 tokens per slot.
+  * Chunked prefill (`prefill_chunk`) fills a long prompt in `[1, C]`
+    segments, one per step, between decode ticks (Sarathi-Serve).
+  * Overload brownout (`brownout*`) sheds doomed queued requests and
+    clamps budgets; SLO burn-rate alerting (`slo_*`, `obs/slo.py`)
+    raises and clears alerts from the windowed instruments.
 
 What differs from the JAX engine. Torch runs eagerly, so there are no
 executables to keep shape-stable: the [S] per-slot state (depth,
@@ -30,25 +44,26 @@ budget, sampling params, seed) lives on the host as numpy rows, and
 each tick uploads the two the forward needs (last token, depth). The
 tick fetches its tokens to the host anyway, so this adds no sync.
 The KV pools are updated in place (`index_put_`), where the JAX
-engine donates its buffers. `warmup` still runs every prefill bucket
-and one tick once — that builds the CUDA kernels and touches the
-shapes — but there is no compile ledger.
+engine donates its buffers. `warmup` still runs every prefill bucket,
+the tick, the spec tick and the chunk window once — that builds the
+CUDA kernels and touches the shapes — but there is no compile ledger.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item when set): speculative decoding, chunked prefill, the host KV
-tier, brownout, SLO alerting, the request journal, chaos, and the
-compile ledger / tick profiler / flight recorder.
+item when set): the request journal, chaos, and the compile ledger /
+tick profiler / flight recorder.
 
-Semantics contract (tests/test_torch_serve.py pins it): at
+Semantics contract (tests/test_torch_serve*.py pin it): at
 temperature 0 a request decoded through this engine — while other
-slots churn, share its blocks, or preempt around it — emits the same
-tokens as `infer/generate.generate` on the same prompt.
+slots churn, share its blocks, or preempt around it, with or without
+speculation, chunking or a host restore — emits the same tokens as
+`infer/generate.generate` on the same prompt.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import sys
 import time
 from typing import Any, Callable
 
@@ -57,7 +72,9 @@ import torch
 
 from hyperion_tpu_torch import resolve_device
 from hyperion_tpu_torch.infer.generate import sample_token_slots
+from hyperion_tpu_torch.infer.speculative import accept_draft
 from hyperion_tpu_torch.obs import heartbeat as hb_mod
+from hyperion_tpu_torch.obs import slo as slo_mod
 from hyperion_tpu_torch.obs import trace as trace_mod
 from hyperion_tpu_torch.serve.blocks import (
     BlockManager,
@@ -65,21 +82,38 @@ from hyperion_tpu_torch.serve.blocks import (
     SeqAlloc,
     blocks_for,
 )
+from hyperion_tpu_torch.serve.draft import DraftSource, NgramDraft
+from hyperion_tpu_torch.serve.hostcache import (
+    HostBlockStore,
+    HotRootTracker,
+    prefix_root_digest,
+)
 from hyperion_tpu_torch.serve.metrics import ServeMetrics
 from hyperion_tpu_torch.serve.queue import (
     CLASS_BATCH,
     CLASS_INTERACTIVE,
     REJECT_BAD_REQUEST,
     REJECT_DRAINING,
+    REJECT_SHED,
     AdmissionQueue,
+    BrownoutGovernor,
     Request,
 )
 from hyperion_tpu_torch.utils.clock import SYSTEM as _CLOCK
 
 _SNAPSHOT_EVERY = 32  # ticks between metric snapshots on the stream
 
+# `_admit`'s third outcome: the slot was claimed but prefill proceeds
+# in chunks across later steps (distinct from None = allocation race,
+# which requeues). No token exists yet; the caller just moves on.
+_CHUNK_ADMIT = object()
 
-# --- the three device surfaces ------------------------------------------
+# host payloads are a pool block's raw bits: an integer dtype of the
+# pool dtype's width (numpy has no bfloat16)
+_RAW_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+# --- the device surfaces ------------------------------------------------
 # Module-level bodies mirroring the reference's jitted surfaces. Each
 # mutates the engine's pools and host state rows in place.
 
@@ -108,6 +142,75 @@ def _tick_impl(model, eos_id, pad_id, cache, st, bt, live):
     st["last_token"] = np.where(act, nxt, st["last_token"]).astype(np.int32)
     st["active"] = act & ~finished
     return nxt, finished
+
+
+def _spec_tick_impl(model, eos_id, pad_id, cache, st, bt, live, drafts):
+    # the speculative tick: every live slot advances 1..k+1 tokens in
+    # ONE target forward. The verify window [last_token, d_1..d_k]
+    # writes K/V at positions lengths..lengths+k through each slot's
+    # block-table row, and row i's logits predict position
+    # lengths+i+1. Rejected positions hold stale K/V that the causal
+    # mask keeps invisible until a later window overwrites them.
+    act = st["active"] & live
+    S, k = drafts.shape
+    dev = model.device
+    window = np.concatenate([st["last_token"][:, None], drafts], axis=1)
+    logits, _ = model(
+        torch.as_tensor(window, device=dev), cache=cache,
+        cache_index=torch.as_tensor(st["lengths"], device=dev),
+        block_tables=bt)
+    # t[s, i] = the token the SEQUENTIAL tick would emit at position
+    # lengths[s]+i given this window prefix: all S*(k+1) rows in one
+    # call, each drawn at that position, so a seeded stream does not
+    # depend on whether its drafts hit or miss
+    def per_row(a):
+        return np.repeat(a, k + 1)
+
+    pos = st["lengths"][:, None] + np.arange(k + 1, dtype=np.int32)
+    t_arr = sample_token_slots(
+        logits.reshape(S * (k + 1), -1),
+        per_row(np.where(act, st["temperature"], 0.0)),
+        per_row(st["top_k"]), per_row(st["top_p"]), per_row(st["seeds"]),
+        pos.reshape(-1))
+    m, v = accept_draft(torch.as_tensor(drafts, device=dev),
+                        t_arr.view(S, k + 1))
+    # one [S, k+2] host fetch is the tick's fence, as in the plain tick
+    mv = torch.cat([m[:, None], v], dim=1).cpu().numpy()
+    m, v = mv[:, 0], mv[:, 1:]
+    # emit v[:, j] iff j is within the accepted prefix (+correction),
+    # within the remaining budget, with no earlier eos in the window;
+    # an active row always emits >= 1
+    iota = np.arange(k + 1)[None, :]
+    is_eos = (v == eos_id) if eos_id is not None \
+        else np.zeros(v.shape, bool)
+    eos_before = np.cumsum(is_eos, axis=1) - is_eos
+    remaining = st["budget"] - st["generated"]
+    emit = (iota <= m[:, None]) & (iota < remaining[:, None]) \
+        & (eos_before == 0) & act[:, None]
+    cnt = emit.sum(axis=1).astype(np.int32)
+    out = np.where(emit, v, np.int32(pad_id)).astype(np.int32)
+    last_i = np.maximum(cnt - 1, 0)
+    rows = np.arange(S)
+    ended_eos = is_eos[rows, last_i] & (cnt > 0)
+    st["generated"] += cnt
+    st["lengths"] += cnt
+    finished = act & (ended_eos | (st["generated"] >= st["budget"]))
+    st["last_token"] = np.where(act & (cnt > 0), v[rows, last_i],
+                                st["last_token"]).astype(np.int32)
+    st["active"] = act & ~finished
+    # accepted DRAFTS only (the correction is a normal decode token)
+    return out, cnt, np.minimum(m, cnt), finished
+
+
+def _chunk_impl(model, cache, window, bt_row, start):
+    # one chunked-prefill segment (Sarathi-Serve, OSDI '24): write the
+    # K/V of `window`'s positions start..start+C-1 through this slot's
+    # block-table row and DISCARD the logits. Sampling waits for the
+    # final segment (`_prefill_impl`, drawn at the total prompt length
+    # - 1), so chunking never shifts a stream, and K/V at position p
+    # depend only on tokens 0..p, which earlier segments already wrote.
+    model(torch.as_tensor(window, device=model.device), cache=cache,
+          cache_index=start, block_tables=bt_row[None])
 
 
 def _prefill_impl(model, eos_id, cache, st, prompt, bt_row, slot, start,
@@ -163,50 +266,50 @@ class EngineConfig:
     num_blocks: int = 0            # pool size incl. null block (0 = auto:
     #                                slots * ceil(L/bs) + 1, the slab equivalent)
     prefix_cache: bool = True      # radix prefix reuse on/off
+    # ---- tiered KV (serve/hostcache.py) ----
+    # > 0 enables the host-RAM spill tier: radix eviction demotes cold
+    # prefix chains to host buffers under this LRU budget, and a later
+    # same-prefix admission restores them with one host->device copy
+    # instead of a re-prefill. Needs the prefix cache on.
+    host_cache_mb: int = 0
+    # where the store serializes on drain and loads at construction
+    # (empty = no persistence)
+    host_cache_dir: str = ""
     # "reserve": admit only when the WORST-CASE block demand (prompt +
     # full budget, minus shared prefix) is covered — pool exhaustion is
     # impossible by accounting. "optimistic": admit on prompt-fit only
     # and preempt-to-queue when the pool runs dry.
     admission: str = "reserve"
-    # ---- SLO classes ----
+    # ---- speculative decoding (serve/draft.py) ----
+    # spec_k > 0 with a draft source turns each decode tick into a
+    # draft/verify/accept round emitting 1..spec_k+1 tokens per slot
+    spec_k: int = 0                # draft tokens per slot per tick (0 = off)
+    draft: str = "off"             # "ngram" (self-drafting) | "off"
+    # ---- SLO classes + chunked prefill ----
+    # prompts whose uncached suffix exceeds `prefill_chunk` prefill in
+    # [1, chunk] segments, one per step, interleaved with decode ticks
+    prefill_chunk: int = 0         # 0 = one-shot prefill (off)
     interactive_weight: int = 3    # weighted-fair picks per pattern round
     batch_weight: int = 1
     batch_capacity: int = 0        # batch queue depth cap (0 = shared cap)
     batch_deadline_s: float = 0.0  # default batch deadline (0 = none)
-    # ---- not ported yet: non-default values raise ----
-    spec_k: int = 0
-    draft: str = "off"
-    prefill_chunk: int = 0
-    host_cache_mb: int = 0
-    host_cache_dir: str = ""
-    brownout: bool = False
-    brownout_depth: int = 0
-    brownout_wait_s: float = 0.0
-    brownout_clamp: int = 0
-    slo_ttft_p99_ms: float = 0.0
-    slo_reject_rate: float = 0.0
-    slo_availability: float = 0.0
-    slo_fast_s: float = 0.0
-    slo_slow_s: float = 0.0
+    # ---- overload brownout (serve/queue.py:BrownoutGovernor) ----
+    brownout: bool = False         # enable the governor
+    brownout_depth: int = 0        # enter watermark (0 = 3/4 of capacity)
+    brownout_wait_s: float = 0.0   # queue-wait p95 enter watermark (0 = off)
+    brownout_clamp: int = 0        # clamp max_new_tokens while active (0 = off)
+    # ---- SLO burn-rate alerting (obs/slo.py) — 0 = that target off ----
+    slo_ttft_p99_ms: float = 0.0   # windowed TTFT p99 must stay under this
+    slo_reject_rate: float = 0.0   # windowed reject fraction budget
+    slo_availability: float = 0.0  # windowed completed/(completed+failed) floor
+    slo_fast_s: float = 0.0        # fast burn window (0 = obs/slo default 60s)
+    slo_slow_s: float = 0.0        # slow burn window (0 = obs/slo default 600s)
+    # ---- not ported yet: a non-default value raises ----
     ledger_costs: bool = False
 
 
 # field -> (default, the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "spec_k": (0, "A1a speculative decoding"),
-    "draft": ("off", "A1a speculative decoding"),
-    "prefill_chunk": (0, "A1b chunked prefill"),
-    "host_cache_mb": (0, "A1c tiered KV host cache"),
-    "host_cache_dir": ("", "A1c tiered KV host cache"),
-    "brownout": (False, "A1d brownout"),
-    "brownout_depth": (0, "A1d brownout"),
-    "brownout_wait_s": (0.0, "A1d brownout"),
-    "brownout_clamp": (0, "A1d brownout"),
-    "slo_ttft_p99_ms": (0.0, "A1e SLO alerting"),
-    "slo_reject_rate": (0.0, "A1e SLO alerting"),
-    "slo_availability": (0.0, "A1e SLO alerting"),
-    "slo_fast_s": (0.0, "A1e SLO alerting"),
-    "slo_slow_s": (0.0, "A1e SLO alerting"),
     "ledger_costs": (False, "A1g compile ledger and tick profiler"),
 }
 
@@ -281,6 +384,16 @@ class Engine:
         if cfg.admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or 'optimistic', "
                              f"got {cfg.admission!r}")
+        if cfg.draft not in ("off", "ngram"):
+            raise ValueError(
+                f"draft must be 'off' or 'ngram', got {cfg.draft!r}")
+        if cfg.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {cfg.spec_k}")
+        # speculation needs both a window (spec_k) and a proposer
+        # (draft): either alone leaves the sequential tick in charge
+        self._spec = cfg.spec_k > 0 and cfg.draft != "off"
+        self._drafter: DraftSource | None = \
+            NgramDraft() if self._spec else None
         bs = cfg.block_size
         self._mb = blocks_for(L, bs)          # block-table width per slot
         num_blocks = cfg.num_blocks or cfg.slots * self._mb + 1
@@ -289,6 +402,10 @@ class Engine:
                 f"num_blocks {num_blocks} cannot hold one worst-case "
                 f"request ({self._mb} blocks + the null block); raise "
                 f"--num-blocks or --block-size")
+        if cfg.prefill_chunk < 0 or cfg.prefill_chunk > L:
+            raise ValueError(
+                f"prefill_chunk must be in [0, max_len={L}], "
+                f"got {cfg.prefill_chunk}")
         self.cfg = dataclasses.replace(cfg, max_len=L, num_blocks=num_blocks)
         self.queue = AdmissionQueue(
             cfg.queue_capacity, max_total_tokens=L,
@@ -308,10 +425,57 @@ class Engine:
         self._draining = False
         self._drain_deadline: float | None = None
         self._unparsed = itertools.count()
+        # chunked-prefill slots: slot -> {prompt, budget, pos, resumed}.
+        # While a slot chunks, its device table row stays zeroed (the
+        # segments take the row from its SeqAlloc): the decode tick
+        # writes K/V at lengths[slot] for every lane whatever the live
+        # mask says, and a reused slot's stale state must null-route,
+        # not land in the prompt's blocks mid-prefill.
+        self._chunking: dict[int, dict] = {}
+        # the router-ordered batch brownout (the `class_brownout`
+        # control verb, ROADMAP A1g) stays off until that verb exists
+        self._class_brownout = False
+        self._governor: BrownoutGovernor | None = None
+        if cfg.brownout:
+            depth_high = cfg.brownout_depth or max(
+                1, (3 * cfg.queue_capacity) // 4)
+            self._governor = BrownoutGovernor(
+                depth_high=depth_high, wait_high_s=cfg.brownout_wait_s)
+        # SLO burn-rate alerting, evaluated from the serve loop (step
+        # AND idle ticks: an alert must be able to clear while the
+        # engine sits idle after load drops)
+        self.slo = None
+        targets = slo_mod.standard_targets(
+            cfg.slo_ttft_p99_ms, cfg.slo_reject_rate, cfg.slo_availability)
+        if targets:
+            self.slo = slo_mod.SLOMonitor(
+                targets, self.metrics.reg,
+                fast_s=cfg.slo_fast_s or slo_mod.DEFAULT_FAST_S,
+                slow_s=cfg.slo_slow_s or slo_mod.DEFAULT_SLOW_S,
+                clock=self.metrics.reg.clock)
         self._slots: list[Request | None] = [None] * cfg.slots
         self._seqs: list[SeqAlloc | None] = [None] * cfg.slots
         self.mgr = BlockManager(num_blocks, bs)
         self.prefix = RadixPrefixCache(self.mgr) if cfg.prefix_cache else None
+        # tiered KV: the host-RAM spill tier behind the radix cache —
+        # eviction demotes, admission restores
+        self.host: HostBlockStore | None = None
+        self._hot_roots = HotRootTracker()
+        if cfg.host_cache_mb > 0 and self.prefix is not None:
+            self.host = HostBlockStore(
+                cfg.host_cache_mb, bs,
+                dtype=str(mcfg.compute_dtype).removeprefix("torch."))
+            self.prefix.spill = self._spill_block
+            if cfg.host_cache_dir:
+                n_loaded = self.host.load(cfg.host_cache_dir)
+                if n_loaded:
+                    self.tracer.event(
+                        "hostcache_loaded", chains=n_loaded,
+                        mb=round(self.host.occupancy_mb, 3),
+                        path=cfg.host_cache_dir)
+            # an enabled-but-cold tier reads 0, not absent
+            self.metrics.observe_host_cache(
+                self.host.occupancy_mb, len(self.host))
         self._bt = np.zeros((cfg.slots, self._mb), np.int32)
         self._bt_dev: tuple | None = None   # device mirror of (_bt, live)
         self._pending_reserve: dict[str, int] = {}
@@ -321,7 +485,9 @@ class Engine:
                                        device=self.device)
         self._state = self._init_state()
         self._tick_no = 0
-        self.forwards = 0   # model forwards run (prefills + ticks)
+        # model forwards run: prefills, chunk segments, ticks, spec ticks
+        self.forwards = 0
+        self.chunk_segments = 0  # K/V-only chunked-prefill segments run
         self._sink_s = 0.0  # cumulative transport-sink seconds
 
     # ------------------------------------------------------ device state
@@ -356,11 +522,15 @@ class Engine:
         builds the CUDA kernels and the allocator sees every shape before
         a request is timed. The ladder covers every bucket a live request
         can reach: up to the largest `prompt_lens` under `reserve`, up to
-        max_len under `optimistic` (a preemption resume grows the prompt).
-        Returns {step name: seconds}."""
+        max_len under `optimistic` (a preemption resume grows the prompt),
+        and up to bucket(prefill_chunk) when chunking (every sampling
+        prefill is then a final segment of at most one chunk). Returns
+        {step name: seconds}."""
         want = self.bucket(max(prompt_lens or [self.cfg.min_bucket]))
         if self.cfg.admission == "optimistic":
             want = self.cfg.max_len
+        if self.cfg.prefill_chunk > 0:
+            want = self.bucket(self.cfg.prefill_chunk)
         lens: list[int] = []
         b = self.cfg.min_bucket
         while True:
@@ -383,12 +553,27 @@ class Engine:
             t0 = time.perf_counter()
             self._tick_device()
             seconds["tick"] = round(time.perf_counter() - t0, 4)
+            if self._spec:
+                # all-zero drafts run the shapes live traffic will
+                t0 = time.perf_counter()
+                self._spec_tick_device(
+                    np.zeros((self.cfg.slots, self.cfg.spec_k), np.int32))
+                seconds["spec_tick"] = round(time.perf_counter() - t0, 4)
+            if self.cfg.prefill_chunk > 0:
+                # an all-null bt row: the dummy's K/V land in the null block
+                t0 = time.perf_counter()
+                self._chunk_call(
+                    np.full((self.cfg.prefill_chunk,), self.cfg.pad_id,
+                            np.int32),
+                    np.zeros((self._mb,), np.int32), 0)
+                seconds["chunk"] = round(time.perf_counter() - t0, 4)
             zero = torch.zeros((1,), dtype=torch.long, device=self.device)
             _copy_impl(self._cache, zero, zero)
             sp.set(buckets=lens)
         self._state = self._init_state()
         self._slots = [None] * self.cfg.slots
         self._seqs = [None] * self.cfg.slots
+        self._chunking = {}
         self._bt[:] = 0
         self._bt_dev = None
         self.tracer.event("serve_warmup_done", buckets=lens, seconds=seconds)
@@ -412,20 +597,52 @@ class Engine:
             int(req.max_new_tokens if budget is None else budget),
             int(req.seed))
 
-    def _live_mask(self) -> np.ndarray:
-        """Slots the decode tick may advance: occupied ones."""
-        return np.fromiter((r is not None for r in self._slots), bool,
-                           len(self._slots))
+    def _chunk_call(self, window: np.ndarray, row: np.ndarray,
+                    start: int) -> None:
+        self.forwards += 1
+        self.chunk_segments += 1
+        _chunk_impl(self.model, self._cache, window[None],
+                    torch.as_tensor(row, device=self.device), start)
 
-    def _tick_device(self):
+    def _live_mask(self) -> np.ndarray:
+        """Slots the decode tick may advance: occupied AND not mid-chunk.
+        A chunking slot's state rows are a previous occupant's leftovers
+        and its device row is zeroed; the mask keeps the tick from
+        decoding garbage into it."""
+        return np.fromiter(
+            (r is not None and s not in self._chunking
+             for s, r in enumerate(self._slots)), bool, len(self._slots))
+
+    def _device_table(self) -> tuple:
         if self._bt_dev is None:
             # upload only when the table or slot liveness changed
             self._bt_dev = (torch.as_tensor(self._bt, device=self.device),
                             self._live_mask())
-        bt, live = self._bt_dev
+        return self._bt_dev
+
+    def _tick_device(self):
+        bt, live = self._device_table()
         self.forwards += 1
         return _tick_impl(self.model, self.cfg.eos_id, self.cfg.pad_id,
                           self._cache, self._state, bt, live)
+
+    def _collect_drafts(self) -> np.ndarray:
+        """[S, spec_k] proposals for this tick, one drafter call per live,
+        non-chunking slot over its visible context. Other lanes stay
+        zero (the tick masks them out)."""
+        k = self.cfg.spec_k
+        drafts = np.zeros((self.cfg.slots, k), np.int32)
+        for s, req in enumerate(self._slots):
+            if req is not None and s not in self._chunking:
+                drafts[s] = self._drafter.propose(
+                    s, req.prompt_ids, req.tokens, k)
+        return drafts
+
+    def _spec_tick_device(self, drafts: np.ndarray):
+        bt, live = self._device_table()
+        self.forwards += 1
+        return _spec_tick_impl(self.model, self.cfg.eos_id, self.cfg.pad_id,
+                               self._cache, self._state, bt, live, drafts)
 
     # --------------------------------------------------- block plumbing
 
@@ -479,6 +696,36 @@ class Engine:
             self.mgr.release(take)
         return blocks
 
+    def _spill_block(self, chain_tokens: tuple[int, ...],
+                     block: int) -> None:
+        """Radix eviction's demotion hook (`RadixPrefixCache.spill`): the
+        dying block's K/V of every layer, stacked on the device and read
+        to the host in ONE copy as raw bits, go to the host tier keyed by
+        the block's full chain prefix."""
+        stacked = torch.stack([layer[kv][block] for layer in self._cache
+                               for kv in ("k", "v")])  # [2L, bs, H, D]
+        raw = stacked.view(_RAW_BITS[stacked.element_size()]).cpu().numpy()
+        payload = raw.reshape(len(self._cache), 2, *raw.shape[1:])
+        if self.host.put(chain_tokens, payload):
+            self.metrics.on_host_spill(payload.nbytes)
+            self.metrics.observe_host_cache(
+                self.host.occupancy_mb, len(self.host))
+
+    def _restore_blocks(self, blocks: list[int],
+                        payloads: list[np.ndarray]) -> int:
+        """The promotion half: one host->device copy of the stacked
+        payloads, viewed back as the pool's dtype (bit-exact: a restored
+        stream matches the never-evicted run), scattered into freshly
+        allocated blocks layer by layer. Returns bytes moved."""
+        stacked = np.stack(payloads)  # [n, L, 2, bs, H, D] raw bits
+        pool_dtype = self._cache[0]["k"].dtype
+        dev = torch.from_numpy(stacked).to(self.device).view(pool_dtype)
+        ids = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        for li, layer in enumerate(self._cache):
+            layer["k"][ids] = dev[:, li, 0]
+            layer["v"][ids] = dev[:, li, 1]
+        return int(stacked.nbytes)
+
     def _free_slot(self, slot: int) -> None:
         seq = self._seqs[slot]
         if seq is not None:
@@ -486,14 +733,16 @@ class Engine:
             self.mgr.decref(seq.blocks)
         self._seqs[slot] = None
         self._slots[slot] = None
+        self._chunking.pop(slot, None)
         self._bt[slot, :] = 0
         self._bt_dev = None
 
     def _admit(self, req: Request, slot: int) -> TokenEvent | None:
         """Prefill `req` into `slot` through the paged pool: radix
         lookup -> share/COW -> allocate exclusives -> prefill the suffix
-        -> register prompt blocks. Returns the first-token event, or
-        None when allocation lost a race (caller requeues)."""
+        -> register prompt blocks. Returns the first-token event,
+        `_CHUNK_ADMIT` when the prompt prefills in chunks over later
+        steps, or None when allocation lost a race (caller requeues)."""
         reserve = self._pending_reserve.pop(req.id, 0)
         prompt, budget = self._effective(req)
         P = int(prompt.shape[0])
@@ -501,9 +750,26 @@ class Engine:
         shared: list[int] = []
         cow_src: int | None = None
         start = 0
+        host_payloads: list[np.ndarray] = []
+        device_start = 0
         if self.prefix is not None:
             m = self.prefix.lookup(prompt, P - 1)
             shared, start, cow_src = m.blocks, m.tokens, m.cow_src
+            device_start = start
+            if self.host is not None:
+                # device miss -> host hit: probe the host tier for
+                # full-block chain links beyond the device match. It wins
+                # only when it covers MORE than the device walk (its
+                # mid-block COW extension included); then the restore
+                # supersedes the COW copy.
+                base = len(shared) * bs
+                host_payloads = self.host.match(prompt, base, P - 1)
+                if host_payloads \
+                        and base + len(host_payloads) * bs > start:
+                    start = base + len(host_payloads) * bs
+                    cow_src = None
+                else:
+                    host_payloads = []
         need_now = blocks_for(P, bs) - len(shared)
         # pin the matched chain (and the COW source) BEFORE allocating:
         # allocation may evict radix holds, and a trie-only block just
@@ -535,18 +801,75 @@ class Engine:
                        torch.tensor([fresh[0]], device=self.device))
             self.mgr.decref([cow_src])  # the pin; the copy is ours now
             self.metrics.on_cow()
+        if host_payloads:
+            # the first len(host_payloads) fresh blocks are exactly the
+            # logical positions after the device-shared span; the
+            # post-prefill `prefix.insert` re-registers the whole chain
+            moved = self._restore_blocks(
+                fresh[:len(host_payloads)], host_payloads)
+            host_tokens = len(host_payloads) * bs
+            self.metrics.on_host_restore(len(host_payloads), moved)
+            self.metrics.observe_host_cache(
+                self.host.occupancy_mb, len(self.host))
+            self.tracer.event(
+                "host_restore", request=req.id, tick=self._tick_no,
+                blocks=len(host_payloads), tokens=host_tokens,
+                bytes=moved, **_tr(req))
         if self.prefix is not None:
             self.metrics.on_prefix_lookup(P, start)
+            # under a host hit the device's share is the full-block walk
+            # (the superseded COW extension never ran), so device + host
+            # sum to exactly `start`
+            self.metrics.on_tier_lookup(
+                device_tokens=len(shared) * bs if host_payloads
+                else device_start,
+                host_tokens=len(host_payloads) * bs)
+            self._hot_roots.note(prefix_root_digest(prompt))
         resumed = req.first_token_at is not None
-        self._bt[slot, :len(seq.blocks)] = seq.blocks
-        self._bt[slot, len(seq.blocks):] = 0
+        C = self.cfg.prefill_chunk
+        if C > 0 and P - start > C:
+            # chunked prefill: claim the slot and its blocks NOW (the
+            # gate reserved them) but keep the device row zeroed until
+            # the final segment installs real state; the prefix enters
+            # the radix only once the blocks hold it
+            self._bt[slot, :] = 0
+            self._bt_dev = None
+            seq.n_filled = start
+            self._slots[slot] = req
+            self._seqs[slot] = seq
+            self._chunking[slot] = {"prompt": prompt, "budget": budget,
+                                    "pos": start, "resumed": resumed}
+            self.tracer.event(
+                "prefill_chunked", request=req.id, tick=self._tick_no,
+                slot=slot, prompt_len=P, cached_tokens=start, chunk=C,
+                segments=-(-(P - start) // C), resumed=resumed,
+                **_tr(req))
+            return _CHUNK_ADMIT
+        return self._prefill_first(req, slot, seq, prompt, budget, start,
+                                   resumed)
+
+    def _table_row(self, blocks: list[int]) -> np.ndarray:
+        row = np.zeros((self._mb,), np.int32)
+        row[:len(blocks)] = blocks
+        return row
+
+    def _prefill_first(self, req: Request, slot: int, seq: SeqAlloc,
+                       prompt: np.ndarray, budget: int, start: int,
+                       resumed: bool, chunked: bool = False) -> TokenEvent:
+        """Install the slot's table row, run the sampling prefill of
+        `prompt[start:]` and register the prompt's blocks; returns the
+        first-token event (the final segment of a chunked prefill lands
+        here too, at the total-length draw position)."""
+        P = int(prompt.shape[0])
+        self._bt[slot] = self._table_row(seq.blocks)
         self._bt_dev = None
+        extra = {"chunked": True} if chunked else {}
         with self.tracer.span("serve_prefill", step=self._tick_no) as sp:
             first, finished = self._prefill_call(
                 req, slot, start=start, prompt=prompt, budget=budget)
             sp.set(request=req.id, slot=slot, prompt_len=P,
                    cached_tokens=start, bucket=self.bucket(P - start),
-                   resumed=resumed)
+                   resumed=resumed, **extra)
         seq.n_filled = P
         if self.prefix is not None:
             self.prefix.insert(prompt, seq.blocks)
@@ -567,7 +890,7 @@ class Engine:
                 ttft_s=round(now - req.submitted_at, 6),
                 queue_wait_s=round(req.queue_wait_s, 6),
                 gate_wait_s=round(req.gate_wait_s, 6),
-                prefill_s=round(req.prefill_s, 6), **_tr(req))
+                prefill_s=round(req.prefill_s, 6), **extra, **_tr(req))
         req._last_emit_at = now
         req._sink_mark = self._sink_s
         self.metrics.count_tokens(1)  # the prefill-sampled token
@@ -576,6 +899,39 @@ class Engine:
         if finished:
             self._free_slot(slot)
         return TokenEvent(req, first, finished)
+
+    def _advance_chunks(self) -> list[TokenEvent]:
+        """Run at most ONE prefill segment this step — the oldest
+        chunking slot's — so long prompts interleave with decode ticks
+        instead of stalling them (Sarathi-Serve's stall-free schedule).
+        Intermediate segments write K/V only; the final one (suffix <=
+        chunk, so its bucket is on the warmup ladder) is the sampling
+        prefill from the chunk boundary, drawn at the total prompt length
+        - 1 like a one-shot prefill."""
+        if not self._chunking:
+            return []
+        C = self.cfg.prefill_chunk
+        slot = min(self._chunking, key=lambda s: self._seqs[s].order)
+        ck = self._chunking[slot]
+        req, seq = self._slots[slot], self._seqs[slot]
+        prompt, pos = ck["prompt"], ck["pos"]
+        if int(prompt.shape[0]) - pos > C:
+            t0 = _CLOCK()
+            self._chunk_call(np.asarray(prompt[pos:pos + C], np.int32),
+                             self._table_row(seq.blocks), pos)
+            # fence: the segment's wall time belongs to this step
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = _CLOCK() - t0
+            if ck["resumed"]:
+                req.replay_s += dt
+            else:
+                req.prefill_s += dt
+            ck["pos"] = seq.n_filled = pos + C
+            return []
+        del self._chunking[slot]
+        return [self._prefill_first(req, slot, seq, prompt, ck["budget"],
+                                    pos, ck["resumed"], chunked=True)]
 
     def _preempt(self, slot: int, reason: str = "pool_exhausted") -> None:
         """Push this slot's request back to the queue HEAD (recompute
@@ -611,6 +967,10 @@ class Engine:
         else:
             req.gate_wait_s += gate
             req.queue_wait_s += wait - gate
+        if self._governor is not None:
+            # every completed wait (replay stints included) feeds the
+            # brownout p95 window, tagged with its class for shed_doomed
+            self._governor.observe_wait(wait, req.sla_class)
         self.tracer.event(
             "request_scheduled", request=req.id, tick=self._tick_no,
             resumed=resumed,
@@ -631,7 +991,21 @@ class Engine:
         ):
             while self._slots[s] is not None:
                 seq = self._seqs[s]
-                needed = seq.n_filled // self.cfg.block_size + 1
+                lookahead = 0
+                if self._spec:
+                    # the verify window writes positions n_filled ..
+                    # n_filled+k, and an ACCEPTED token must land in a
+                    # real block (else it lands in the null block and the
+                    # next tick reads garbage). Acceptance is capped by
+                    # the remaining budget, and writes past the chain
+                    # null-route harmlessly, so the lookahead stays
+                    # within the reserve-mode worst-case span.
+                    req = self._slots[s]
+                    lookahead = max(0, min(
+                        self.cfg.spec_k,
+                        req.max_new_tokens - len(req.tokens) - 1))
+                needed = (seq.n_filled + lookahead) \
+                    // self.cfg.block_size + 1
                 if len(seq.blocks) >= needed:
                     break
                 got = self._alloc(1, seq)
@@ -706,9 +1080,23 @@ class Engine:
     def submit(self, req: Request) -> tuple[bool, str | None]:
         """Queue a request (thread-safe). Rejections emit immediately —
         backpressure the caller can act on, not a silent drop."""
+        gov = self._governor
+        gov_active = gov is not None and gov.active
+        # batch clamps whenever any brownout holds; interactive only
+        # when the local governor is active AND the batch queue is
+        # already empty: batch absorbs every degradation first
+        clamp_this = (gov_active or self._class_brownout) \
+            if req.sla_class == CLASS_BATCH \
+            else (gov_active and self.queue.depth_of(CLASS_BATCH) == 0)
+        if clamp_this and self.cfg.brownout_clamp > 0 \
+                and req.max_new_tokens > self.cfg.brownout_clamp:
+            req.clamped_from = req.max_new_tokens
+            req.max_new_tokens = self.cfg.brownout_clamp
         ok, reason = self.queue.submit(req)
         if ok:
             self.metrics.on_accept(req.sla_class)
+            if req.clamped_from is not None:
+                self.metrics.on_clamp(req.sla_class)
             self.tracer.event("request_admitted", request=req.id,
                               prompt_len=req.prompt_len,
                               max_new_tokens=req.max_new_tokens,
@@ -716,6 +1104,8 @@ class Engine:
                               sla_class=req.sla_class,
                               **({"tenant": req.tenant}
                                  if req.tenant else {}),
+                              **({"clamped_from": req.clamped_from}
+                                 if req.clamped_from is not None else {}),
                               **_tr(req))
         else:
             req.finish_reason = "rejected"
@@ -763,13 +1153,84 @@ class Engine:
     def idle(self) -> bool:
         return self.n_active == 0 and len(self.queue) == 0
 
+    def _phase(self) -> str:
+        if self._draining:
+            return "drain"
+        return "serve" if (self.n_active or len(self.queue)) \
+            else "serve_idle"
+
+    def _slo_tick(self) -> None:
+        """Advance the SLO burn-rate state machines (rate-limited inside
+        the monitor). Transitions emit alert_raised / alert_cleared and
+        an unconditional heartbeat pulse carrying the active alerts."""
+        if self.slo is None:
+            return
+        trs = self.slo.evaluate()
+        if trs:
+            slo_mod.publish(trs, self.tracer, self.metrics.reg,
+                            step=self._tick_no, active=len(self.slo.active))
+            self.hb.pulse(step=self._tick_no, phase=self._phase(),
+                          active=self.n_active, queue=len(self.queue),
+                          alerts=self.slo.active_names())
+
+    def _beat_extra(self) -> dict:
+        """The heartbeat's optional fields: active alerts, hot roots."""
+        roots = self._hot_roots.top()
+        return {**({"alerts": self.slo.active_names()}
+                   if self.slo is not None else {}),
+                **({"prefix_roots": roots} if roots else {})}
+
     def step(self) -> list[TokenEvent]:
-        """One scheduling round: admit from the queue into free slots
-        (block-gated, prefill, budget-limited), ensure every live slot
-        owns its next write block (preempting on exhaustion), advance
-        all active slots one token, and route emissions."""
+        """One scheduling round: brownout shedding, admit from the queue
+        into free slots (block-gated, prefill, budget-limited), one
+        chunked-prefill segment, ensure every live slot owns the blocks
+        its next writes land in (preempting on exhaustion), advance all
+        active slots — one token each, or 1..spec_k+1 under the
+        speculative tick — and route emissions."""
         emissions: list[TokenEvent] = []
         now = _CLOCK()
+        if self._governor is not None:
+            tr = self._governor.update(len(self.queue))
+            if tr == "enter":
+                self.metrics.set_brownout(True)
+                self.tracer.event(
+                    "brownout_enter", tick=self._tick_no,
+                    depth=len(self.queue),
+                    wait_p95_ms=round(self._governor.wait_p95() * 1e3, 3))
+            elif tr == "exit":
+                self.metrics.set_brownout(False)
+                self.tracer.event("brownout_exit", tick=self._tick_no,
+                                  depth=len(self.queue))
+        gov_active = self._governor is not None and self._governor.active
+        if gov_active or self._class_brownout:
+            # shed deadline-aware, BATCH FIRST: queued requests that
+            # cannot meet their deadline even if service began after
+            # their class's estimated wait are doomed — reject them now
+            # so the client retries elsewhere. Interactive is swept only
+            # when the local governor is active and batch is empty.
+            shed_classes = [CLASS_BATCH]
+            if gov_active and self.queue.depth_of(CLASS_BATCH) == 0:
+                shed_classes = [CLASS_INTERACTIVE]
+            est = {cls: self._governor.wait_p95(cls)
+                   for cls in shed_classes} \
+                if self._governor is not None else {}
+            for req in self.queue.shed_doomed(
+                    now, est_wait_by_class=est,
+                    classes=tuple(shed_classes)):
+                self.metrics.on_shed(req.sla_class)
+                req.finish_reason = REJECT_SHED
+                self.tracer.event(
+                    "request_rejected", request=req.id,
+                    tick=self._tick_no, reason=REJECT_SHED, shed=True,
+                    sla_class=req.sla_class,
+                    **({"tenant": req.tenant} if req.tenant else {}),
+                    queued_s=round(max(0.0, now - req.enqueued_at), 6),
+                    deadline_s=req.deadline_s)
+                ev = TokenEvent(req, None, True, kind="rejected",
+                                reason=REJECT_SHED)
+                self._emit(ev)
+                emissions.append(ev)
+
         free = [s for s, r in enumerate(self._slots) if r is None]
         if free:
             admit, expired = self.queue.pop_ready(
@@ -806,6 +1267,8 @@ class Engine:
             slot = free.pop(0)
             resumed = self._account_pop(req)
             ev = self._admit(req, slot)
+            if ev is _CHUNK_ADMIT:
+                continue  # prefilling in chunks: no token yet
             if ev is None:
                 # allocation raced an eviction between gate and admit:
                 # requeue head-first in arrival order, retry next round
@@ -823,41 +1286,64 @@ class Engine:
             emissions.append(ev)
             if ev.finished:
                 self._on_finished(req)
+        # one chunked-prefill segment per step, between decode ticks
+        for ev in self._advance_chunks():
+            self._emit(ev)
+            emissions.append(ev)
+            if ev.finished:
+                self._on_finished(ev.request)
 
         if self.n_active:
             self._ensure_blocks()
-        if self.n_active:
+        if self.n_active - len(self._chunking) > 0:
+            spec = self._spec
+            drafts = self._collect_drafts() if spec else None
             with self.tracer.span("serve_tick", step=self._tick_no) as sp:
                 t0 = _CLOCK()
-                toks, fins = self._tick_device()
+                if spec:
+                    toks, cnts, accs, fins = self._spec_tick_device(drafts)
+                else:
+                    toks, fins = self._tick_device()
                 dur = _CLOCK() - t0
                 sp.set(active=self.n_active)
             emitted = 0
+            slot_ticks = 0
             tnow = _CLOCK()
             for s, req in enumerate(self._slots):
-                if req is None:
+                if req is None or s in self._chunking:
+                    continue  # a chunking lane computed pad into null
+                slot_ticks += 1
+                n = int(cnts[s]) if spec else 1
+                if spec:
+                    self.metrics.on_spec(self.cfg.spec_k, int(accs[s]))
+                if n == 0:
                     continue
-                self._seqs[s].n_filled += 1
+                self._seqs[s].n_filled += n
                 gap_from = getattr(req, "_last_emit_at", None)
                 if gap_from is not None:
                     # net the gap of ALL sink writes since this request's
                     # previous emission: a slow neighbour's client must
-                    # not masquerade as decode time
-                    self.metrics.on_token_gap(tnow - gap_from, req.sla_class)
+                    # not masquerade as decode time. One verify pass
+                    # produced n tokens, so TPOT charges it pro rata.
+                    for _ in range(n):
+                        self.metrics.on_token_gap((tnow - gap_from) / n,
+                                                  req.sla_class)
                     sink = self._sink_s - getattr(req, "_sink_mark",
                                                   self._sink_s)
                     req.decode_s += max(0.0, tnow - gap_from - sink)
                 req._last_emit_at = tnow
                 req._sink_mark = self._sink_s
                 fin = bool(fins[s])
-                ev = TokenEvent(req, int(toks[s]), fin)
-                self._emit(ev)
-                emissions.append(ev)
-                emitted += 1
+                for j in range(n):
+                    tok = int(toks[s, j]) if spec else int(toks[s])
+                    ev = TokenEvent(req, tok, fin and j == n - 1)
+                    self._emit(ev)
+                    emissions.append(ev)
+                    emitted += 1
                 if fin:
                     self._on_finished(req)
                     self._free_slot(s)
-            self.metrics.on_tick(dur, emitted, emitted)
+            self.metrics.on_tick(dur, emitted, slot_ticks)
             self._tick_no += 1
             if self.cfg.snapshot_every \
                     and self._tick_no % self.cfg.snapshot_every == 0:
@@ -868,8 +1354,10 @@ class Engine:
         self.metrics.observe_cache(
             self.mgr.in_use, self.mgr.num_free, self.n_active,
             self._block_bytes)
+        self._slo_tick()
         self.hb.beat(step=self._tick_no, phase="serve",
-                     active=self.n_active, queue=len(self.queue))
+                     active=self.n_active, queue=len(self.queue),
+                     **self._beat_extra())
         return emissions
 
     def run(
@@ -887,7 +1375,8 @@ class Engine:
         self.tracer.event(
             "serve_start", slots=self.cfg.slots, max_len=self.cfg.max_len,
             block_size=self.cfg.block_size, num_blocks=self.cfg.num_blocks,
-            prefix_cache=self.cfg.prefix_cache, device=str(self.device))
+            prefix_cache=self.cfg.prefix_cache,
+            host_cache_mb=self.cfg.host_cache_mb, device=str(self.device))
         self.hb.pulse(phase="serve", step=self._tick_no)
         try:
             while True:
@@ -903,8 +1392,13 @@ class Engine:
                     # transport's last submit happens-before its EOF flag
                     if (self._draining or drain_when()) and self.idle:
                         break
+                    # an alert raised under load must be able to clear
+                    # while the loop sits idle: the idle loop owns the
+                    # evaluation cadence here
+                    self._slo_tick()
                     self.hb.beat(step=self._tick_no, phase="serve_idle",
-                                 active=0, queue=len(self.queue))
+                                 active=0, queue=len(self.queue),
+                                 **self._beat_extra())
                     time.sleep(idle_sleep_s)
                     continue
                 self.step()
@@ -918,7 +1412,24 @@ class Engine:
                 timed_out=summary["timed_out"],
                 tokens=summary["tokens"],
                 prefix_hits=summary["prefix_hits"],
-                preempted=summary["preempted"])
+                preempted=summary["preempted"],
+                alerts_raised=summary["alerts_raised"],
+                tier_hits_host=summary["tier_hits_host"],
+                tier_hits_device=summary["tier_hits_device"],
+                tier_miss=summary["tier_miss"],
+                host_spilled_blocks=summary["host_spilled_blocks"],
+                host_restored_blocks=summary["host_restored_blocks"])
+            if self.host is not None and self.cfg.host_cache_dir:
+                try:
+                    st = self.host.save(self.cfg.host_cache_dir)
+                    self.tracer.event(
+                        "hostcache_saved", chains=st["chains"],
+                        mb=st["mb"], path=self.cfg.host_cache_dir)
+                except OSError as e:
+                    # persistence is an optimization, never a crash on
+                    # the drain path: say so and finish the drain
+                    print(f"[serve] host-cache save failed: {e}",
+                          file=sys.stderr)
             self.hb.close(phase="done", tokens=summary["tokens"],
                           active=self.n_active, queue=len(self.queue))
         return summary

@@ -16,8 +16,11 @@ Every response line carries the request id:
 
 The engine loop runs on the main thread and drains on EOF; a reader
 thread only submits into the (thread-safe) admission queue. SIGTERM or
-SIGINT drains gracefully, a second one stops at once. Not ported yet:
-text prompts (the tokenizer), the unix socket, stream resume, the
+SIGINT drains gracefully, a second one stops at once. The engine's
+deferred decode paths are flags: `--spec-k`/`--draft`,
+`--prefill-chunk`, `--host-cache-mb` (persisted next to the telemetry
+stream when one is written), `--brownout*` and `--slo-*`. Not ported
+yet: text prompts (the tokenizer), the unix socket, stream resume, the
 supervisor and the request journal (ROADMAP A2).
 """
 
@@ -202,8 +205,49 @@ def build_parser() -> argparse.ArgumentParser:
                    help="block-aware admission: 'reserve' covers each "
                         "request's worst case up front; 'optimistic' admits "
                         "on prompt fit and preempts when the pool runs dry")
+    p.add_argument("--host-cache-mb", type=int, default=0,
+                   help="tiered KV: host-RAM spill tier for the radix "
+                        "cache in MB (0 = off). Evicted prefix chains "
+                        "demote to host buffers under this LRU budget and "
+                        "a re-hit restores them with one host->device "
+                        "copy instead of a re-prefill; with telemetry on, "
+                        "the store is saved next to the stream on drain "
+                        "and loaded at start. Needs --prefix-cache")
+    p.add_argument("--queue-capacity", type=int, default=64,
+                   help="admission queue bound; beyond it requests are "
+                        "rejected with reason queue_full")
+    p.add_argument("--prefill-budget", type=int, default=512,
+                   help="prompt tokens admitted per scheduling round")
+    p.add_argument("--prefill-chunk", type=int, default=0,
+                   help="chunked prefill: prompts longer than this fill "
+                        "the cache in chunks of this size, one per step, "
+                        "interleaved with decode ticks (0 = off); "
+                        "temperature-0 output is unchanged")
     p.add_argument("--max-new-default", type=int, default=32,
                    help="max_new_tokens when a request omits it")
+    # ---- SLO classes (serve/queue.py) ----
+    p.add_argument("--interactive-weight", type=int, default=3,
+                   help="weighted-fair admission: interactive picks per "
+                        "round-robin cycle (vs --batch-weight)")
+    p.add_argument("--batch-weight", type=int, default=1,
+                   help="weighted-fair admission: batch picks per cycle")
+    p.add_argument("--batch-capacity", type=int, default=0,
+                   help="separate queue bound for class=batch requests "
+                        "(0 = share --queue-capacity)")
+    p.add_argument("--batch-deadline-s", type=float, default=0.0,
+                   help="default deadline for class=batch requests that "
+                        "omit deadline_s (0 = none)")
+    # ---- speculative decoding (serve/draft.py) ----
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="speculative decoding: draft tokens verified per "
+                        "slot per tick (0 = off); each tick then emits "
+                        "1..k+1 tokens per slot for ONE target forward, "
+                        "and temperature-0 output is unchanged. Needs "
+                        "--draft")
+    p.add_argument("--draft", choices=("ngram", "off"), default="off",
+                   help="draft source for --spec-k: 'ngram' = suffix "
+                        "lookup over each slot's prompt + generated "
+                        "tokens; 'off' disables speculation")
     p.add_argument("--eos-id", type=int, default=None,
                    help="eos token id (default: none)")
     p.add_argument("--device", default="cuda",
@@ -214,6 +258,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--drain-timeout", type=float, default=30.0,
                    help="SIGTERM/SIGINT: seconds granted to in-flight and "
                         "queued requests before a hard stop")
+    # ---- overload brownout ----
+    p.add_argument("--brownout", action="store_true",
+                   help="degrade gracefully under overload: past the "
+                        "queue-depth or queue-wait p95 watermark, shed "
+                        "queued requests whose deadline is already "
+                        "unmeetable (reason shed_deadline) and optionally "
+                        "clamp max_new_tokens; exits at half the watermark")
+    p.add_argument("--brownout-depth", type=int, default=0,
+                   help="queue-depth enter watermark (0 = 3/4 of "
+                        "--queue-capacity)")
+    p.add_argument("--brownout-wait-s", type=float, default=0.0,
+                   help="queue-wait p95 enter watermark in seconds "
+                        "(0 = depth watermark only)")
+    p.add_argument("--brownout-clamp", type=int, default=0,
+                   help="while browned out, clamp each new admission's "
+                        "max_new_tokens to this (0 = shed only)")
+    # ---- SLO burn-rate alerting (obs/slo.py) ----
+    p.add_argument("--slo-ttft-p99-ms", type=float, default=0.0,
+                   help="SLO target: windowed TTFT p99 under this many ms "
+                        "(0 = off); breaching it in BOTH burn windows "
+                        "raises an alert_raised event and an `alerts` "
+                        "heartbeat field, clearing needs both under 90%%")
+    p.add_argument("--slo-reject-rate", type=float, default=0.0,
+                   help="SLO target: windowed rejected/(accepted+rejected) "
+                        "budget (e.g. 0.05; 0 = off)")
+    p.add_argument("--slo-availability", type=float, default=0.0,
+                   help="SLO target: windowed completed/(completed+"
+                        "rejected+timed_out) floor (e.g. 0.99; 0 = off)")
+    p.add_argument("--slo-fast-s", type=float, default=0.0,
+                   help="fast burn window in seconds (0 = 60)")
+    p.add_argument("--slo-slow-s", type=float, default=0.0,
+                   help="slow burn window in seconds (0 = 600)")
     return p
 
 
@@ -244,12 +320,35 @@ def main(argv=None, *, device=None) -> int:
         model = model_from_npz(load_gathered(args.ckpt), args.max_len,
                                dtype=args.dtype, device=dev)
         ld.set(ckpt=args.ckpt, device=str(dev), dtype=args.dtype)
+    # the host tier persists next to the telemetry stream, or nowhere
+    host_cache_dir = ""
+    if args.host_cache_mb > 0 and tracer.enabled:
+        host_cache_dir = str(tracer.path.parent / "hostcache")
     engine = Engine(
         model,
         EngineConfig(
             slots=args.slots, max_len=args.max_len, eos_id=args.eos_id,
+            queue_capacity=args.queue_capacity,
+            prefill_budget=args.prefill_budget,
+            prefill_chunk=args.prefill_chunk,
+            interactive_weight=args.interactive_weight,
+            batch_weight=args.batch_weight,
+            batch_capacity=args.batch_capacity,
+            batch_deadline_s=args.batch_deadline_s,
             block_size=args.block_size, num_blocks=args.num_blocks,
             prefix_cache=args.prefix_cache, admission=args.admission,
+            host_cache_mb=args.host_cache_mb,
+            host_cache_dir=host_cache_dir,
+            spec_k=args.spec_k, draft=args.draft,
+            brownout=args.brownout,
+            brownout_depth=args.brownout_depth,
+            brownout_wait_s=args.brownout_wait_s,
+            brownout_clamp=args.brownout_clamp,
+            slo_ttft_p99_ms=args.slo_ttft_p99_ms,
+            slo_reject_rate=args.slo_reject_rate,
+            slo_availability=args.slo_availability,
+            slo_fast_s=args.slo_fast_s,
+            slo_slow_s=args.slo_slow_s,
         ),
         tracer=tracer, heartbeat=hb, device=dev,
     )

@@ -1,5 +1,7 @@
 """The port stands alone: `hyperion_tpu_torch`, `chip_smoke.py` and
-the port's profiling scripts import neither jax nor anything of the JAX package `hyperion_tpu`.
+the port's profiling scripts import neither jax nor anything of the JAX package `hyperion_tpu`,
+nor `ml_dtypes` (the card's machine has none: bf16 host buffers stay
+raw bits).
 
 On the card a CUDA jax would compete with torch for device memory, and
 importing any `hyperion_tpu.utils.*` or `hyperion_tpu.serve.*` module
@@ -31,7 +33,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hyperion_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ml_dtypes",
+                                    "hyperion_tpu"))
 print(len(names), bad)
 sys.exit(1 if bad else 0)
 """
@@ -45,7 +48,8 @@ def test_fresh_interpreter_loads_no_jax():
     assert n_modules >= 15, proc.stdout  # every module was walked
 
 
-_IMPORT_JAX = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
+_IMPORT_JAX = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|ml_dtypes)\b", re.M)
 _IMPORT_REF = re.compile(r"^\s*(import|from)\s+hyperion_tpu\b", re.M)
 _DOTTED_REF = re.compile(r"\bhyperion_tpu\.")
 
