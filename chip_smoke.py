@@ -103,10 +103,20 @@ script exits non-zero):
               tier that holds what it evicts; spills, restores, chunk
               segments and accepted drafts each >= 1); and
               `generate_speculative` with a 1-layer draft equals
-              `generate`.
+              `generate`. Both engines run their captured CUDA graphs.
  11. serve    full Llama-2-7B (32 layers, bf16, seeded random weights,
               the fused RMSNorm) behind `serve_jsonl`: 8 requests, prefix
-              hits, a COW copy, launch counters exactly forwards x layers.
+              hits, a COW copy, launch counters exactly forwards x layers
+              (the wrappers' eager launches plus each graph's captured
+              launches at every replay). The engine's compile tier: one
+              CUDA graph per surface and shape (`compile_stats()`), each
+              graph's build seconds, the graphs' pool bytes, no recompile.
+              The tick graph replayed once against the model's eager
+              forward on a copy of the pools (logits bit-identical, else
+              within 2 ulps of the largest logit; greedy tokens and K/V
+              equal), and 8 ticks under torch.profiler counting paged
+              attention (and its combine kernel) 32 times and RMSNorm 65
+              times a tick by kernel name inside the replays.
  12. serve_features  the same model through `serve_jsonl` on the
               deferred decode paths at once (spec_k 4, n-gram drafts,
               256-token chunks, a 96-block pool, a 2 GiB host tier), in
@@ -115,11 +125,24 @@ script exits non-zero):
               first wave's chains to the host, then the shared 200-token
               prefix again.
               Every request done, chunk segments, accepted drafts, spills
-              and restores each >= 1, launches exact; tick p50, tokens per
-              tick, acceptance rate, TTFT and TPOT p50, peak memory,
-              bytes spilled and restored, and how many greedy streams
-              equal the serve phase's, as smoke readings.
- 13. the `kernels` line: one record per kernel and run (`run`: serve,
+              and restores each >= 1, launches exact, no recompile; tick
+              p50, tokens per tick, acceptance rate, TTFT and TPOT p50,
+              peak memory, bytes spilled and restored, and how many greedy
+              streams equal the serve phase's, as smoke readings.
+ 13. crash    the port's server over a seeded random Llama-2-7B-width
+              export (2 layers, fp32) with `--journal --supervise
+              --chaos crash@tick=2`: the first life dies hard mid-decode,
+              the second replays the journal; every token on the one
+              stdout stream once and in order, equal to an uninterrupted
+              in-process engine over the same export, the journal
+              drained, one restart, the heartbeat's attempt 1, a flight
+              record, a compile ledger in each life and no recompile.
+ 14. introspect  an engine behind a `MetricsExporter`: the exposition
+              carries compile counts, tick profiler and memory ledger;
+              `class_brownout` on and off is acknowledged and its gauge
+              follows; `profile` for 2 s writes a trace holding the paged
+              kernel.
+ 15. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, train, train_long, llama_train) at that
               run's shapes, with its launches on the run, its error
               against the plain version and its times.
@@ -274,20 +297,14 @@ def paged_geometry(B, T, H, Hkv, dtype, *, D=128, bs=16, MB=64, base=None,
 
 
 def paged_cost(q, kp, bt, base) -> tuple[float, float]:
-    """(bytes, flops) the function needs for these inputs: q, the K/V
-    positions the frontier covers and the output once each; 4*D flops
-    per visible (query, position) pair."""
+    """(bytes, flops) the function needs for these inputs
+    (`paged_attention.cost`: q, the K/V positions the frontier covers and
+    the output once each; 4*D flops per visible (query, position) pair)."""
+    from hyperion_tpu_torch.ops.paged_attention import cost
+
     B, T, H, D = q.shape
-    bs, Hkv = kp.shape[1], kp.shape[2]
-    L = bt.shape[1] * bs
-    it = q.element_size()
-    bases = base.cpu().numpy().astype(np.int64)
-    visible = np.minimum(bases + T, L)
-    nbytes = 2 * q.numel() * it + 2 * int(visible.sum()) * Hkv * D * it \
-        + bt.numel() * 4 + base.numel() * 4
-    pairs = sum(int(np.minimum(bases[b] + t + 1, L))
-                for b in range(B) for t in range(T))
-    return nbytes, 4.0 * D * H * pairs
+    return cost(B, T, H, kp.shape[2], D, kp.shape[1], bt.shape[1],
+                base.cpu().numpy(), q.element_size())
 
 
 def check_paged(name, geo, dtype, timing: bool) -> dict:
@@ -1922,7 +1939,7 @@ def phase_serve() -> tuple[dict, torch.nn.Module, list[dict], dict]:
     init_s = time.perf_counter() - t0
     eng = Engine(model, EngineConfig(slots=4, max_len=1024, block_size=16),
                  device="cuda")
-    eng.warmup([500])
+    stats = eng.warmup([500])
     reqs = serve_requests(np.random.default_rng(SEED + 3))
     infile = io.StringIO("".join(json.dumps(r) + "\n" for r in reqs))
     outfile = io.StringIO()
@@ -1974,9 +1991,15 @@ def phase_serve() -> tuple[dict, torch.nn.Module, list[dict], dict]:
         "launches": launches,
         "launches_expected": {"paged_attention": fwd * n_layers,
                               "fused_rmsnorm": fwd * (2 * n_layers + 1)},
+        **graph_record(eng, stats),
     }
+    problems = graph_problems(eng, stats)
+    rec["graph_vs_eager"] = graph_vs_eager(eng)
+    rec["profiler_window"] = profiler_window(
+        eng, np.random.default_rng(SEED + 8))
     emit(rec)
-    problems = []
+    problems += rec["graph_vs_eager"]["problems"] \
+        + rec["profiler_window"]["problems"]
     for r in reqs:
         n = len(toks.get(r["id"], []))
         if r["id"] not in done or n != 32:
@@ -2034,7 +2057,7 @@ def phase_serve_features(model, serve_reqs: list[dict], serve_toks: dict,
         slots=4, max_len=1024, block_size=16, spec_k=4, draft="ngram",
         prefill_chunk=256, num_blocks=96, host_cache_mb=2048),
         device="cuda")
-    eng.warmup([600])
+    stats = eng.warmup([600])
     waves = serve_feature_waves(serve_reqs,
                                 np.random.default_rng(SEED + 7))
     gc.collect()
@@ -2095,9 +2118,10 @@ def phase_serve_features(model, serve_reqs: list[dict], serve_toks: dict,
         "launches": launches,
         "launches_expected": {"paged_attention": fwd * n_layers,
                               "fused_rmsnorm": fwd * (2 * n_layers + 1)},
+        **graph_record(eng, stats),
     }
     emit(rec)
-    problems = []
+    problems = graph_problems(eng, stats)
     for r in (r for w in waves for r in w):
         got = toks.get(r["id"], [])
         if r["id"] not in done or len(got) != 32:
@@ -2114,6 +2138,383 @@ def phase_serve_features(model, serve_reqs: list[dict], serve_toks: dict,
                         f"{rec['launches_expected']}")
     if problems:
         raise AssertionError("serve_features: " + "; ".join(problems))
+    return rec
+
+
+def graph_record(eng, stats: dict) -> dict:
+    """The compile tier after a run: graphs per surface (`compile_stats`,
+    the JAX engine's keys), each graph's build seconds, recompiles, the
+    graphs' shared pool."""
+    return {"compile_stats": eng.compile_stats(), "warmup_stats": stats,
+            "capture_s": eng.tier.capture_seconds(),
+            "warmup_compile_s": eng.ledger.warmup["compile_s"],
+            "recompiles": eng.ledger.recompiles,
+            "graph_pool_bytes": eng.tier.pool_bytes()}
+
+
+def graph_problems(eng, stats: dict) -> list[str]:
+    problems = []
+    if not eng.tier.graphs:
+        problems.append("no CUDA graph captured")
+    if eng.ledger.recompiles or eng.compile_stats() != stats:
+        problems.append(f"recompiles {eng.ledger.recompiles}: "
+                        f"{eng.compile_stats()} != {stats}")
+    return problems
+
+
+def graph_vs_eager(eng) -> dict:
+    """One replay of the captured tick against the model's eager forward
+    on the same inputs over a copy of the pools: logits bit-identical, or
+    else within 2 ulps of the largest logit in the compute dtype (cuBLAS
+    may pick another algorithm under capture), the greedy tokens equal,
+    and the same K/V written."""
+    rng = np.random.default_rng(SEED + 9)
+    S, MB = eng.cfg.slots, eng._mb
+    starts = np.array([37, 300, 611, 950], np.int32)[:S]
+    bt = np.zeros((S, MB), np.int32)
+    perm = rng.permutation(np.arange(1, eng.cfg.num_blocks))
+    for b in range(S):
+        n = int(starts[b]) // eng.cfg.block_size + 1
+        bt[b, :n] = perm[b * MB:b * MB + n]
+    inputs = {"ids": rng.integers(1, 32000, (S, 1)).astype(np.int32),
+              "start": starts, "bt": bt}
+    pools = [{kv: layer[kv].clone() for kv in ("k", "v")}
+             for layer in eng._cache]
+    graph = eng.tier.run("tick", eng._forward, inputs).clone()
+    dev = eng.device
+    eager, _ = eng.model(torch.as_tensor(inputs["ids"], device=dev),
+                         cache=pools,
+                         cache_index=torch.as_tensor(starts, device=dev),
+                         block_tables=torch.as_tensor(bt, device=dev))
+    torch.cuda.synchronize()
+    err = float((graph - eager).abs().max())
+    eps = torch.finfo(eng.model.cfg.compute_dtype).eps
+    tol = 2 * eps * float(eager.abs().max())
+    kv_equal = all(torch.equal(a[kv], b[kv])
+                   for a, b in zip(eng._cache, pools) for kv in ("k", "v"))
+    rec = {"bit_identical": bool(torch.equal(graph, eager)),
+           "max_abs_err": err, "tol_2ulp_of_max": tol,
+           "greedy_equal": bool(torch.equal(graph.argmax(-1),
+                                             eager.argmax(-1))),
+           "kv_equal": kv_equal}
+    del pools
+    rec["problems"] = [f"graph vs eager: {k}" for k in
+                       ("greedy_equal", "kv_equal") if not rec[k]]
+    if err > tol:
+        rec["problems"].append(f"graph vs eager: logits differ by {err} "
+                               f"> {tol}")
+    return rec
+
+
+def profiler_window(eng, rng, ticks: int = 8) -> dict:
+    """`ticks` serve ticks of 4 decoding slots under torch.profiler: the
+    hand kernels counted by name in what CUPTI saw run — the proof,
+    apart from the wrappers' own counts, that they run inside the
+    replayed graphs: paged attention (and its combine kernel, when the
+    decode plan splits the chain) once a layer and RMSNorm 2 * layers +
+    1 times a tick."""
+    from hyperion_tpu_torch.ops import paged_attention as pa
+    from hyperion_tpu_torch.serve.queue import Request
+
+    cfg, S = eng.model.cfg, eng.cfg.slots
+    reqs = [Request(prompt_ids=rng.integers(1, 32000, 24 + 8 * i)
+                    .astype(np.int32), max_new_tokens=4 * ticks,
+                    id=f"w{i}") for i in range(S)]
+    for r in reqs:
+        ok, why = eng.submit(r)
+        assert ok, why
+    while len(eng.queue) or any(r.first_token_at is None for r in reqs):
+        eng.step()
+    tick0, fwd0 = eng._tick_no, eng.forwards
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            eng.step()
+        torch.cuda.synchronize()
+    ran = {"ticks": eng._tick_no - tick0, "forwards": eng.forwards - fwd0}
+    while not eng.idle:
+        eng.step()
+    counts = {"paged_attention_kernel": 0, "paged_attention_combine_kernel": 0,
+              "rmsnorm": 0, "graph_launches": 0}
+    names = {}
+    for e in prof.key_averages():
+        name = e.key
+        names[name[:80]] = e.count
+        if "paged_attention_combine_kernel" in name:
+            counts["paged_attention_combine_kernel"] += e.count
+        elif "paged_attention_kernel" in name:
+            counts["paged_attention_kernel"] += e.count
+        elif "rmsnorm" in name and "bwd" not in name and "dw" not in name:
+            counts["rmsnorm"] += e.count
+        elif "cudaGraphLaunch" in name:
+            counts["graph_launches"] += e.count
+    plan = pa.plan(S, 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                   eng.cfg.block_size, eng._mb)
+    L = cfg.n_layers
+    expected = {"paged_attention_kernel": ticks * L,
+                "paged_attention_combine_kernel":
+                    ticks * L if plan.n_splits > 1 else 0,
+                "rmsnorm": ticks * (2 * L + 1)}
+    rec = {"ran": ran, "counts": counts, "expected": expected,
+           "plan": dataclasses.asdict(plan), "problems": []}
+    if ran != {"ticks": ticks, "forwards": ticks}:
+        rec["problems"].append(f"profiler window ran {ran}")
+    for k, v in expected.items():
+        if counts[k] != v:
+            rec["problems"].append(f"profiler window: {k} {counts[k]} != {v}")
+    if rec["problems"]:
+        rec["events"] = dict(sorted(names.items(), key=lambda kv: -kv[1])[:25])
+    return rec
+
+
+CRASH_DIR = Path("build/chip_smoke_crash")
+
+
+def crash_requests(rng) -> list[dict]:
+    """Three requests, one sampled with a seed: prompts of 20, 33 and 47
+    tokens (the 64-token bucket warms them), 16-24 tokens each."""
+    reqs = []
+    for i, (n, budget) in enumerate(((20, 16), (33, 20), (47, 24))):
+        r = {"id": f"c{i}", "prompt_ids": rng.integers(1, 32000, n)
+             .astype(int).tolist(), "max_new_tokens": budget}
+        if i == 1:
+            r.update(temperature=0.8, top_p=0.9, seed=7)
+        reqs.append(r)
+    return reqs
+
+
+def phase_crash() -> tuple[dict, torch.nn.Module]:
+    """Leg 6 of scripts/serve_smoke.sh on the card: the port's server
+    over a seeded random Llama-2-7B-width export (2 layers, fp32) runs
+    under `--supervise` with a journal and `--chaos crash@tick=2`, so its
+    first life dies hard (`os._exit`) mid-decode and the second replays
+    the journal. The client's one stdout stream must carry every token
+    once, in index order, bit-identical to an uninterrupted in-process
+    engine over the same export; the journal drains clean; one restart,
+    the heartbeat's `attempt` 1, a flight record with its final tick,
+    and a compile ledger in each life with no recompile. Returns the
+    record and the reference model (for the introspect phase)."""
+    import os
+    import shutil
+
+    from hyperion_tpu_torch.checkpoint.io import export_gathered, load_gathered
+    from hyperion_tpu_torch.infer.generate import model_from_npz
+    from hyperion_tpu_torch.models.llama import (
+        Llama,
+        llama2_7b_config,
+        params_to_jax,
+    )
+    from hyperion_tpu_torch.obs.heartbeat import read_heartbeat
+    from hyperion_tpu_torch.obs.tickprof import flight_final_tick, read_flight
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.journal import RequestJournal
+    from hyperion_tpu_torch.serve.queue import Request
+
+    t0 = time.perf_counter()
+    shutil.rmtree(CRASH_DIR, ignore_errors=True)
+    CRASH_DIR.mkdir(parents=True)
+    ckpt, journal = CRASH_DIR / "llama.npz", CRASH_DIR / "journal.jsonl"
+    tele = CRASH_DIR / "tele" / "telemetry.jsonl"
+    src = Llama(llama2_7b_config(n_layers=2, max_len=256, dtype="float32"),
+                device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 10))
+    export_gathered(ckpt, params_to_jax(src))
+    del src
+    model = model_from_npz(load_gathered(ckpt), 256, dtype="float32",
+                           device="cuda")
+    export_s = time.perf_counter() - t0
+    reqs = crash_requests(np.random.default_rng(SEED + 11))
+
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, HYPERION_TELEMETRY=str(tele),
+               PYTHONPATH=str(repo))
+    env.pop("HYPERION_ATTEMPT", None)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "hyperion_tpu_torch.serve.server",
+         "--ckpt", str(ckpt), "--no-tokenizer", "--device", "cuda",
+         "--dtype", "float32", "--max-len", "256", "--slots", "4",
+         "--warmup-lens", "64", "--journal", str(journal), "--supervise",
+         "--max-restarts", "2", "--hang-timeout", "0",
+         "--chaos", "crash@tick=2"],
+        input="".join(json.dumps(r) + "\n" for r in reqs), env=env,
+        capture_output=True, text=True, timeout=400, cwd=repo)
+    serve_s = time.perf_counter() - t1
+
+    streams: dict[str, list] = {}
+    dones: dict[str, int] = {}
+    for line in proc.stdout.splitlines():
+        try:
+            x = json.loads(line)
+        except json.JSONDecodeError:
+            continue  # chaos chatter on the shared stdout
+        if x.get("event") == "token":
+            streams.setdefault(x["id"], []).append((x["i"], x["token"]))
+        elif x.get("event") == "done":
+            dones[x["id"]] = dones.get(x["id"], 0) + 1
+
+    ref = Engine(model, EngineConfig(slots=4, max_len=256), device="cuda")
+    ref.warmup([64])
+    ref_reqs = [Request(prompt_ids=np.asarray(r["prompt_ids"], np.int32),
+                        max_new_tokens=r["max_new_tokens"], id=r["id"],
+                        temperature=r.get("temperature", 0.0),
+                        top_p=r.get("top_p", 1.0), seed=r.get("seed", 0))
+                for r in reqs]
+    drive(ref, ref_reqs)
+    del ref
+    records = [json.loads(x) for x in tele.read_text().splitlines()
+               if x.strip()]
+    ledgers = [r for r in records if r.get("name") == "compile_ledger"]
+    hb = read_heartbeat(tele.parent / "heartbeat.json") or {}
+    flight = read_flight(tele.parent / "flight.json")
+    rec = {
+        "phase": "crash", "layers": 2, "dtype": "float32",
+        "export_s": export_s, "serve_s": serve_s, "rc": proc.returncode,
+        "restarts": proc.stderr.count("[serve-supervisor] child exit 70"),
+        "requests": len(reqs), "dones": dones,
+        "tokens": {k: len(v) for k, v in streams.items()},
+        "equal": {r.id: [t for _, t in streams.get(r.id, [])] == r.tokens
+                  for r in ref_reqs},
+        "replayed": sum(1 for r in records
+                        if r.get("name") == "request_admitted"
+                        and r.get("replayed")),
+        "pending": RequestJournal(journal).pending_count(),
+        "heartbeat_attempt": hb.get("attempt"),
+        "flight_final_tick": flight_final_tick(flight) if flight else None,
+        "compile_ledgers": len(ledgers),
+        "ledger_stats": [{k: v for k, v in r.items()
+                          if k.endswith("_executables")} for r in ledgers],
+        "recompiles": sum(1 for r in records
+                          if r.get("name") == "recompile_after_warmup"),
+    }
+    emit(rec)
+    problems = []
+    if proc.returncode != 0:
+        problems.append(f"server exit {proc.returncode}: "
+                        f"{proc.stderr[-2000:]}")
+    if rec["restarts"] != 1:
+        problems.append(f"{rec['restarts']} restarts, not 1")
+    for r in ref_reqs:
+        idx = [i for i, _ in streams.get(r.id, [])]
+        if idx != list(range(len(r.tokens))):
+            problems.append(f"{r.id}: stream indices {idx}")
+        if dones.get(r.id) != 1:
+            problems.append(f"{r.id}: {dones.get(r.id, 0)} done lines")
+        if not rec["equal"][r.id]:
+            problems.append(f"{r.id}: continuation differs from the "
+                            "uninterrupted engine")
+    if rec["replayed"] < 1:
+        problems.append("nothing replayed: the crash missed the decode")
+    if rec["pending"]:
+        problems.append(f"journal still owes {rec['pending']}")
+    if rec["heartbeat_attempt"] != 1:
+        problems.append(f"heartbeat attempt {rec['heartbeat_attempt']}")
+    if rec["flight_final_tick"] is None:
+        problems.append("no well-formed flight record")
+    if rec["compile_ledgers"] != 2 or rec["recompiles"]:
+        problems.append(f"{rec['compile_ledgers']} compile ledgers, "
+                        f"{rec['recompiles']} recompiles")
+    if problems:
+        raise AssertionError("crash: " + "; ".join(problems))
+    return rec, model
+
+
+def phase_introspect(model) -> dict:
+    """A port engine serving behind a `MetricsExporter`: the exposition
+    snapshot carries the compile counts, the tick profiler and the memory
+    ledger; `class_brownout` on and off is acknowledged and its gauge
+    follows; `profile` for 2 s writes a trace in which the paged kernel
+    appears."""
+    import shutil
+
+    from hyperion_tpu_torch.obs.export import (
+        MetricsExporter,
+        read_exposition,
+        request_control,
+    )
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.graphs import STAT_KEYS
+    from hyperion_tpu_torch.serve.queue import Request
+    from hyperion_tpu_torch.utils.profiling import TRACE_NAME
+
+    base = Path("build/chip_smoke_introspect")
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 12)
+    eng = Engine(model, EngineConfig(slots=4, max_len=256), device="cuda")
+    eng.warmup([64])
+    n = 0
+
+    def serve_for(seconds: float) -> None:
+        nonlocal n
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            while len(eng.queue) + eng.n_active < 4:
+                eng.submit(Request(prompt_ids=rng.integers(1, 32000, 40)
+                                   .astype(np.int32), max_new_tokens=64,
+                                   id=f"x{n}"))
+                n += 1
+            eng.step()
+
+    problems = []
+    sock = base / "obs.sock"
+    with MetricsExporter(sock, eng.exposition, label="smoke-obs",
+                         control_fn=eng.control):
+        serve_for(0.5)
+        doc = read_exposition(sock) or {}
+        comp = doc.get("compile", {})
+        if set(comp) != {*STAT_KEYS.values(), "recompiles"} \
+                or comp.get("recompiles"):
+            problems.append(f"exposition compile {comp}")
+        if not (doc.get("tickprof") or {}).get("ticks"):
+            problems.append("exposition: no tickprof ticks")
+        mem = doc.get("memory") or {}
+        if mem.get("kv_gather_bytes_per_tick") != 0 \
+                or not mem.get("kv_pool_bytes"):
+            problems.append(f"exposition memory {mem}")
+        gauge = []
+        for active in (True, False):
+            ack = request_control(sock, {"cmd": "class_brownout",
+                                         "active": active}) or {}
+            if ack.get("status") != "ok" or not ack.get("changed"):
+                problems.append(f"class_brownout {active}: {ack}")
+            serve_for(0.1)
+            g = ((read_exposition(sock) or {}).get("metrics") or {}) \
+                .get("gauges", {}).get("serve_class_brownout")
+            gauge.append(g)
+        if gauge != [1.0, 0.0]:
+            problems.append(f"serve_class_brownout gauge {gauge}")
+        prof_dir = base / "profile"
+        started = request_control(sock, {"cmd": "profile",
+                                         "out": str(prof_dir),
+                                         "seconds": 2.0}) or {}
+        if started.get("status") != "started":
+            problems.append(f"profile: {started}")
+        serve_for(2.5)
+    trace = prof_dir / TRACE_NAME
+    deadline = time.perf_counter() + 60
+    while not trace.exists() and time.perf_counter() < deadline:
+        time.sleep(0.5)
+    time.sleep(1.0)  # the writer may still be finishing the file
+    paged = 0
+    if trace.exists():
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        paged = sum(1 for e in events
+                    if "paged_attention_kernel" in str(e.get("name", "")))
+    if not paged:
+        problems.append(f"profile trace {trace} holds no paged kernel")
+    while not eng.idle:
+        eng.step()
+    rec = {"phase": "introspect", "compile": comp,
+           "tickprof_ticks": (doc.get("tickprof") or {}).get("ticks"),
+           "dominant_segment": (doc.get("tickprof") or {}).get("dominant"),
+           "memory": mem, "class_brownout_gauge": gauge,
+           "profile": started, "trace_paged_kernels": paged,
+           "requests_served": n}
+    emit(rec)
+    if problems:
+        raise AssertionError("introspect: " + "; ".join(problems))
     return rec
 
 
@@ -2212,6 +2613,11 @@ def main() -> int:
     features_rec = phase_serve_features(model, serve_reqs, serve_toks,
                                         dev["nvidia_smi"])
     del model
+    gc.collect()  # the 7B weights go before the crash phase's children
+    torch.cuda.empty_cache()
+    _, crash_model = phase_crash()
+    phase_introspect(crash_model)
+    del crash_model
     emit(kernels_line(serve_rec, features_rec, train_rec, long_rec,
                       llama_rec, kernel_recs, flash_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})

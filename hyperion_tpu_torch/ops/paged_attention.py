@@ -30,6 +30,7 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from hyperion_tpu_torch.ops import build
@@ -106,6 +107,29 @@ def plan_for(q: torch.Tensor, k_pool: torch.Tensor,
     B, T, H, D = q.shape
     _, bs, Hkv, _ = k_pool.shape
     return plan(B, T, H, Hkv, D, bs, block_tables.shape[1])
+
+
+def cost(B: int, T: int, H: int, Hkv: int, D: int, bs: int, MB: int,
+         bases, itemsize: int) -> tuple[float, float]:
+    """(bytes, FLOPs) one call needs at these shapes and per-row window
+    starts `bases` [B], counting what the data needs, not the table's
+    worst case:
+
+      * bytes: q read and the output written once each (B*T*H*D
+        elements apiece), the K and V of every position a row's frontier
+        covers (min(base + T, MB*bs) per row, Hkv*D elements each) read
+        once, and the int32 block tables [B, MB] and bases [B];
+      * FLOPs: 4*D per visible (query head, position) pair — 2*D for
+        q.k and 2*D for p.v — where the query at window offset t of row
+        b sees min(base_b + t + 1, MB*bs) positions."""
+    L = MB * bs
+    bases = np.asarray(bases, np.int64)
+    visible = np.minimum(bases + T, L)
+    nbytes = 2 * B * T * H * D * itemsize \
+        + 2 * int(visible.sum()) * Hkv * D * itemsize + B * MB * 4 + B * 4
+    pairs = int(np.minimum(bases[:, None] + np.arange(T)[None, :] + 1,
+                           L).sum())
+    return float(nbytes), 4.0 * D * H * pairs
 
 
 def _check_shapes(q, k_pool, v_pool, block_tables, base):

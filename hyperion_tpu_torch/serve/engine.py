@@ -38,19 +38,25 @@ them), advances every live slot, and routes the emissions.
     clamps budgets; SLO burn-rate alerting (`slo_*`, `obs/slo.py`)
     raises and clears alerts from the windowed instruments.
 
-What differs from the JAX engine. Torch runs eagerly, so there are no
-executables to keep shape-stable: the [S] per-slot state (depth,
-budget, sampling params, seed) lives on the host as numpy rows, and
-each tick uploads the two the forward needs (last token, depth). The
-tick fetches its tokens to the host anyway, so this adds no sync.
-The KV pools are updated in place (`index_put_`), where the JAX
-engine donates its buffers. `warmup` still runs every prefill bucket,
-the tick, the spec tick and the chunk window once — that builds the
-CUDA kernels and touches the shapes — but there is no compile ledger.
+What differs from the JAX engine. Torch runs eagerly, so the [S]
+per-slot state (depth, budget, sampling params, seed) lives on the host
+as numpy rows. The device surfaces — the tick, one prefill per bucket,
+the spec tick, the chunk window and the COW copy — go through the
+compile tier (`serve/graphs.py`): on the card one CUDA graph per surface
+and shape, captured at `warmup`, whose static inputs take the host rows
+each call; on the CPU eager calls. `compile_stats()` counts them under
+the JAX engine's keys and the compile ledger (`obs/ledger.py`) pins the
+counts after warmup, so a shape nobody warmed shows as a recompile.
+Sampling, the draft acceptance and the one host fetch that fences a
+tick stay outside the graphs. The KV pools are updated in place
+(`index_put_`), where the JAX engine donates its buffers.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item when set): the request journal, chaos, and the compile ledger /
-tick profiler / flight recorder.
+The crash and introspection planes are the reference's: the request
+journal (`serve/journal.py`) write-ahead-logs admissions and tokens
+and `replay_pending` recovers them, chaos hooks fire before ticks, in
+token delivery and at slot admission (`testing/chaos.py`), and the tick
+profiler, flight recorder, exposition payload and control verbs
+(`obs/tickprof.py`, `obs/export.py`) read host state only.
 
 Semantics contract (tests/test_torch_serve*.py pin it): at
 temperature 0 a request decoded through this engine — while other
@@ -76,6 +82,15 @@ from hyperion_tpu_torch.infer.speculative import accept_draft
 from hyperion_tpu_torch.obs import heartbeat as hb_mod
 from hyperion_tpu_torch.obs import slo as slo_mod
 from hyperion_tpu_torch.obs import trace as trace_mod
+from hyperion_tpu_torch.obs.export import DEFAULT_WINDOW_S
+from hyperion_tpu_torch.obs.heartbeat import host_rss_mb as hb_host_rss_mb
+from hyperion_tpu_torch.obs.ledger import CompileLedger
+from hyperion_tpu_torch.obs.tickprof import (
+    FlightRecorder,
+    TickProfiler,
+    null_flight_recorder,
+)
+from hyperion_tpu_torch.ops import paged_attention as pa_mod
 from hyperion_tpu_torch.serve.blocks import (
     BlockManager,
     RadixPrefixCache,
@@ -83,17 +98,20 @@ from hyperion_tpu_torch.serve.blocks import (
     blocks_for,
 )
 from hyperion_tpu_torch.serve.draft import DraftSource, NgramDraft
+from hyperion_tpu_torch.serve.graphs import GraphTier
 from hyperion_tpu_torch.serve.hostcache import (
     HostBlockStore,
     HotRootTracker,
     prefix_root_digest,
 )
+from hyperion_tpu_torch.serve.journal import MAX_REPLAYS_DEFAULT
 from hyperion_tpu_torch.serve.metrics import ServeMetrics
 from hyperion_tpu_torch.serve.queue import (
     CLASS_BATCH,
     CLASS_INTERACTIVE,
     REJECT_BAD_REQUEST,
     REJECT_DRAINING,
+    REJECT_POISONED,
     REJECT_SHED,
     AdmissionQueue,
     BrownoutGovernor,
@@ -114,21 +132,42 @@ _RAW_BITS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 # --- the device surfaces ------------------------------------------------
-# Module-level bodies mirroring the reference's jitted surfaces. Each
-# mutates the engine's pools and host state rows in place.
+# Two bodies run on the device, each through the compile tier
+# (serve/graphs.py): the model forward, which the tick, the spec tick,
+# every prefill bucket and the chunk window run at their own shapes,
+# and the COW block copy. The `_*_impl` functions are the host halves
+# that read a forward's logits: sampling, acceptance and the state rows.
 
-def _tick_impl(model, eos_id, pad_id, cache, st, bt, live):
-    # every live slot advances one token: write last_token's K/V at its
-    # own depth through its block-table row, attend its own filled
-    # prefix, sample with its own params. Dead lanes (freed or
-    # preempted — `live` is the host slot table as a mask) still
-    # compute but write to the null block and emit pad.
+def _forward_body(model, cache):
+    """ids [B, T] at per-row start positions [B] through block tables
+    [B, MB], writing K/V into `cache` in place -> fp32 logits [B, T, V].
+    Every input is a tensor on the model's device, so the body captures
+    whole into a CUDA graph."""
+    def forward(ids, start, bt):
+        logits, _ = model(ids, cache=cache, cache_index=start,
+                          block_tables=bt)
+        return logits
+    return forward
+
+
+def _copy_body(cache):
+    """Whole-block K/V copy (copy-on-write fork): block dst [n] becomes a
+    private duplicate of src [n], which the writer may overwrite from its
+    divergence offset on. In place: the pools keep their storage."""
+    def copy(src, dst):
+        for layer in cache:
+            for kv in ("k", "v"):
+                layer[kv][dst] = layer[kv][src]
+    return copy
+
+
+def _tick_impl(eos_id, pad_id, logits, st, live):
+    # every live slot advanced one token through the forward: it wrote
+    # last_token's K/V at its own depth through its block-table row and
+    # attended its own filled prefix; sample with its own params. Dead
+    # lanes (freed or preempted — `live` is the host slot table as a
+    # mask) still computed but wrote to the null block and emit pad.
     act = st["active"] & live
-    dev = model.device
-    logits, _ = model(
-        torch.as_tensor(st["last_token"][:, None], device=dev),
-        cache=cache, cache_index=torch.as_tensor(st["lengths"], device=dev),
-        block_tables=bt)
     nxt = sample_token_slots(
         logits[:, 0], np.where(act, st["temperature"], 0.0),
         st["top_k"], st["top_p"], st["seeds"], st["lengths"])
@@ -144,21 +183,16 @@ def _tick_impl(model, eos_id, pad_id, cache, st, bt, live):
     return nxt, finished
 
 
-def _spec_tick_impl(model, eos_id, pad_id, cache, st, bt, live, drafts):
-    # the speculative tick: every live slot advances 1..k+1 tokens in
-    # ONE target forward. The verify window [last_token, d_1..d_k]
-    # writes K/V at positions lengths..lengths+k through each slot's
+def _spec_tick_impl(eos_id, pad_id, logits, st, live, drafts):
+    # the speculative tick: every live slot advances 1..k+1 tokens from
+    # ONE target forward. The verify window [last_token, d_1..d_k] wrote
+    # K/V at positions lengths..lengths+k through each slot's
     # block-table row, and row i's logits predict position
     # lengths+i+1. Rejected positions hold stale K/V that the causal
     # mask keeps invisible until a later window overwrites them.
     act = st["active"] & live
     S, k = drafts.shape
-    dev = model.device
-    window = np.concatenate([st["last_token"][:, None], drafts], axis=1)
-    logits, _ = model(
-        torch.as_tensor(window, device=dev), cache=cache,
-        cache_index=torch.as_tensor(st["lengths"], device=dev),
-        block_tables=bt)
+    dev = logits.device
     # t[s, i] = the token the SEQUENTIAL tick would emit at position
     # lengths[s]+i given this window prefix: all S*(k+1) rows in one
     # call, each drawn at that position, so a seeded stream does not
@@ -202,28 +236,14 @@ def _spec_tick_impl(model, eos_id, pad_id, cache, st, bt, live, drafts):
     return out, cnt, np.minimum(m, cnt), finished
 
 
-def _chunk_impl(model, cache, window, bt_row, start):
-    # one chunked-prefill segment (Sarathi-Serve, OSDI '24): write the
-    # K/V of `window`'s positions start..start+C-1 through this slot's
-    # block-table row and DISCARD the logits. Sampling waits for the
-    # final segment (`_prefill_impl`, drawn at the total prompt length
-    # - 1), so chunking never shifts a stream, and K/V at position p
-    # depend only on tokens 0..p, which earlier segments already wrote.
-    model(torch.as_tensor(window, device=model.device), cache=cache,
-          cache_index=start, block_tables=bt_row[None])
-
-
-def _prefill_impl(model, eos_id, cache, st, prompt, bt_row, slot, start,
-                  true_len, temperature, top_k, top_p, budget, seed):
-    # prompt [1, Pb]: the UNCACHED suffix, bucket-padded, whose
-    # positions are start..start+Pb-1. `start` > 0 is a prefix-cache
-    # hit: positions 0..start-1 already sit in shared blocks of bt_row
-    # and are attended, never recomputed. Pad positions beyond the
-    # table's coverage write to the null block; pad K/V inside the tail
-    # block stays masked until decode overwrites it.
-    dev = model.device
-    logits, _ = model(torch.as_tensor(prompt, device=dev), cache=cache,
-                      cache_index=start, block_tables=bt_row[None])
+def _prefill_impl(eos_id, logits, st, slot, start, true_len, temperature,
+                  top_k, top_p, budget, seed):
+    # the forward ran the UNCACHED suffix [1, Pb], bucket-padded, at
+    # positions start..start+Pb-1. `start` > 0 is a prefix-cache hit:
+    # positions 0..start-1 already sat in shared blocks of the row and
+    # were attended, never recomputed. Pad positions beyond the table's
+    # coverage wrote to the null block; pad K/V inside the tail block
+    # stays masked until decode overwrites it.
     last = logits[0, true_len - 1:true_len]  # [1, V]
     # draw position = total prompt length - 1: identical whether the
     # prefix came from cache or compute, so a hit never shifts a stream
@@ -243,12 +263,37 @@ def _prefill_impl(model, eos_id, cache, st, prompt, bt_row, slot, start,
     return first, finished
 
 
-def _copy_impl(cache, src, dst):
-    # whole-block K/V copy (copy-on-write fork): dst becomes a private
-    # duplicate the writer may overwrite from its divergence offset on
-    for layer in cache:
-        for kv in ("k", "v"):
-            layer[kv][dst] = layer[kv][src]
+def tick_cost(mcfg, slots: int, block_size: int,
+              blocks_per_row: int) -> dict[str, float]:
+    """FLOPs and bytes of one decode tick at these shapes, counted from
+    the shapes as the JAX engine's `cost_analysis` counts its compiled
+    tick: every slot live at full depth (its window attends all
+    `block_size * blocks_per_row` positions of its table).
+
+      * FLOPs: 2 per weight per slot for every projection and the LM
+        head (q, k, v, o and the gate/up/down MLP of each layer, then
+        d x vocab), plus paged attention's 4 * head_dim per visible
+        (query head, position) pair in each layer (`paged_attention.cost`).
+      * Bytes: every projection and LM-head weight read once, the fp32
+        norm weights, the S embedding rows, each layer's paged-attention
+        traffic (q, the K/V the frontier covers, the output, the table
+        and bases), each layer's K/V write of the new token, and the
+        fp32 logits written."""
+    d, H, Hkv, Dh = mcfg.d_model, mcfg.n_heads, mcfg.n_kv_heads, \
+        mcfg.head_dim
+    it = torch.empty((), dtype=mcfg.compute_dtype).element_size()
+    layer_w = d * H * Dh + 2 * d * Hkv * Dh + H * Dh * d + 3 * d * mcfg.ff_dim
+    gemm_w = mcfg.n_layers * layer_w + d * mcfg.vocab_size
+    full = block_size * blocks_per_row
+    pa_bytes, pa_flops = pa_mod.cost(
+        slots, 1, H, Hkv, Dh, block_size, blocks_per_row,
+        np.full(slots, full - 1), it)
+    flops = 2.0 * slots * gemm_w + mcfg.n_layers * pa_flops
+    nbytes = (gemm_w * it + (2 * mcfg.n_layers + 1) * d * 4
+              + slots * d * it
+              + mcfg.n_layers * (pa_bytes + 2 * slots * Hkv * Dh * it)
+              + slots * mcfg.vocab_size * 4)
+    return {"tick_flops": float(flops), "tick_bytes_accessed": float(nbytes)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -304,14 +349,10 @@ class EngineConfig:
     slo_availability: float = 0.0  # windowed completed/(completed+failed) floor
     slo_fast_s: float = 0.0        # fast burn window (0 = obs/slo default 60s)
     slo_slow_s: float = 0.0        # slow burn window (0 = obs/slo default 600s)
-    # ---- not ported yet: a non-default value raises ----
+    # ---- introspection (obs/ledger.py, obs/tickprof.py) ----
+    # record one decode tick's FLOPs and bytes (`tick_cost`, counted
+    # from the shapes) in the warmup ledger
     ledger_costs: bool = False
-
-
-# field -> (default, the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "ledger_costs": (False, "A1g compile ledger and tick profiler"),
-}
 
 
 @dataclasses.dataclass
@@ -364,17 +405,6 @@ class Engine:
         if model.device != self.device:
             raise ValueError(
                 f"model is on {model.device}, engine device is {self.device}")
-        for name, (default, item) in _NOT_PORTED.items():
-            if getattr(cfg, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet (ROADMAP {item})")
-        if journal is not None or chaos is not None:
-            raise NotImplementedError(
-                "the request journal and chaos are not ported yet "
-                "(ROADMAP A1f)")
-        if flight_path is not None:
-            raise NotImplementedError(
-                "the flight recorder is not ported yet (ROADMAP A1g)")
         self.model = model
         mcfg = model.cfg
         L = cfg.max_len or mcfg.max_len
@@ -421,7 +451,11 @@ class Engine:
         self.tracer = tracer if tracer is not None else trace_mod.null_tracer()
         self.hb = heartbeat if heartbeat is not None \
             else hb_mod.null_heartbeat()
+        self.chaos = chaos
         self.on_event = on_event
+        # crash safety: the write-ahead request journal
+        self.journal = journal
+        self._journal_err_reported = False
         self._draining = False
         self._drain_deadline: float | None = None
         self._unparsed = itertools.count()
@@ -432,8 +466,11 @@ class Engine:
         # mask says, and a reused slot's stale state must null-route,
         # not land in the prompt's blocks mid-prefill.
         self._chunking: dict[int, dict] = {}
-        # the router-ordered batch brownout (the `class_brownout`
-        # control verb, ROADMAP A1g) stays off until that verb exists
+        # router-ordered batch-class brownout (the `class_brownout`
+        # control verb): batch sheds and clamps as under the local
+        # governor, interactive is never touched. Written by the
+        # exporter thread, read by the engine thread; a bool flip is
+        # atomic under the GIL.
         self._class_brownout = False
         self._governor: BrownoutGovernor | None = None
         if cfg.brownout:
@@ -477,7 +514,6 @@ class Engine:
             self.metrics.observe_host_cache(
                 self.host.occupancy_mb, len(self.host))
         self._bt = np.zeros((cfg.slots, self._mb), np.int32)
-        self._bt_dev: tuple | None = None   # device mirror of (_bt, live)
         self._pending_reserve: dict[str, int] = {}
         self._order = itertools.count()
         self._block_bytes = paged_cache_block_bytes(mcfg, bs)
@@ -489,6 +525,20 @@ class Engine:
         self.forwards = 0
         self.chunk_segments = 0  # K/V-only chunked-prefill segments run
         self._sink_s = 0.0  # cumulative transport-sink seconds
+        # the compile tier: every device surface runs through it
+        self.tier = GraphTier(self.device)
+        self._forward = _forward_body(model, self._cache)
+        self._copy = _copy_body(self._cache)
+        # introspection plane: compile ledger + host-tick profiler +
+        # flight recorder (all host-only — none touch the device)
+        self.ledger = CompileLedger()
+        self.tickprof = TickProfiler()
+        self.flight = (FlightRecorder(flight_path, run=self.tracer.run)
+                       if flight_path else null_flight_recorder())
+        self._journal_s = 0.0     # cumulative journal seconds (see _sink_s)
+        self._last_prefill_bucket: int | None = None
+        self._param_bytes = int(sum(
+            p.numel() * p.element_size() for p in model.parameters()))
 
     # ------------------------------------------------------ device state
 
@@ -516,16 +566,25 @@ class Engine:
             b *= 2
         return min(b, self.cfg.max_len)
 
+    def compile_stats(self) -> dict:
+        """Graphs per device surface under the JAX engine's executable
+        keys (on the CPU: the distinct surface shapes run) — the
+        no-recompile guarantee made measurable: after `warmup` these
+        stay flat across slot churn, prefix hits, COW forks,
+        preemptions, spec ticks and chunks."""
+        return self.tier.stats()
+
     def warmup(self, prompt_lens: list[int] | None = None) -> dict:
-        """Run one prefill per bucket and one tick, then reset serving
-        state. Nothing compiles in eager PyTorch, but the first launch
-        builds the CUDA kernels and the allocator sees every shape before
-        a request is timed. The ladder covers every bucket a live request
-        can reach: up to the largest `prompt_lens` under `reserve`, up to
-        max_len under `optimistic` (a preemption resume grows the prompt),
-        and up to bucket(prefill_chunk) when chunking (every sampling
-        prefill is then a final segment of at most one chunk). Returns
-        {step name: seconds}."""
+        """Build the tick, the COW block copy, and one prefill per
+        bucket (plus the spec tick and the chunk window when on), then
+        reset serving state; on the card each becomes a captured CUDA
+        graph. The ladder covers every bucket a live request can reach:
+        up to the largest `prompt_lens` under `reserve`, up to max_len
+        under `optimistic` (a preemption resume grows the prompt), and
+        up to bucket(prefill_chunk) when chunking (every sampling
+        prefill is then a final segment of at most one chunk). Records
+        the compile ledger and pins its baseline; returns
+        `compile_stats()`."""
         want = self.bucket(max(prompt_lens or [self.cfg.min_bucket]))
         if self.cfg.admission == "optimistic":
             want = self.cfg.max_len
@@ -540,44 +599,51 @@ class Engine:
             if pb >= want:
                 break
             b *= 2
-        seconds: dict[str, float] = {}
+        compile_s: dict[str, float] = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            fn(*args)
+            compile_s[name] = round(time.perf_counter() - t0, 4)
+
         with self.tracer.span("serve_warmup") as sp:
             for pb in lens:
                 dummy = Request(prompt_ids=np.ones((min(pb, 2),), np.int32),
                                 max_new_tokens=2)
                 # bt row is all-null during warmup: the dummy's writes
                 # land in the garbage block, real state is untouched
-                t0 = time.perf_counter()
-                self._prefill_call(dummy, slot=0, bucket_len=pb)
-                seconds[f"prefill_b{pb}"] = round(time.perf_counter() - t0, 4)
-            t0 = time.perf_counter()
-            self._tick_device()
-            seconds["tick"] = round(time.perf_counter() - t0, 4)
+                timed(f"prefill_b{pb}", lambda: self._prefill_call(
+                    dummy, slot=0, bucket_len=pb))
+            timed("tick", self._tick_device)
             if self._spec:
                 # all-zero drafts run the shapes live traffic will
-                t0 = time.perf_counter()
-                self._spec_tick_device(
-                    np.zeros((self.cfg.slots, self.cfg.spec_k), np.int32))
-                seconds["spec_tick"] = round(time.perf_counter() - t0, 4)
+                timed("spec_tick", self._spec_tick_device,
+                      np.zeros((self.cfg.slots, self.cfg.spec_k), np.int32))
             if self.cfg.prefill_chunk > 0:
                 # an all-null bt row: the dummy's K/V land in the null block
-                t0 = time.perf_counter()
-                self._chunk_call(
-                    np.full((self.cfg.prefill_chunk,), self.cfg.pad_id,
-                            np.int32),
-                    np.zeros((self._mb,), np.int32), 0)
-                seconds["chunk"] = round(time.perf_counter() - t0, 4)
-            zero = torch.zeros((1,), dtype=torch.long, device=self.device)
-            _copy_impl(self._cache, zero, zero)
+                timed("chunk", self._chunk_call,
+                      np.full((self.cfg.prefill_chunk,), self.cfg.pad_id,
+                              np.int32),
+                      np.zeros((self._mb,), np.int32), 0)
+            timed("copy", self._copy_blocks, 0, 0)
+            costs = tick_cost(self.model.cfg, self.cfg.slots,
+                              self.cfg.block_size, self._mb) \
+                if self.cfg.ledger_costs else None
             sp.set(buckets=lens)
         self._state = self._init_state()
         self._slots = [None] * self.cfg.slots
         self._seqs = [None] * self.cfg.slots
         self._chunking = {}
         self._bt[:] = 0
-        self._bt_dev = None
-        self.tracer.event("serve_warmup_done", buckets=lens, seconds=seconds)
-        return seconds
+        stats = self.compile_stats()
+        total_s = round(sp.dur_s or 0.0, 4)
+        self.ledger.record_warmup(stats, compile_s=compile_s, costs=costs,
+                                  total_s=total_s)
+        self.ledger.set_baseline(stats)
+        self.tracer.event("serve_warmup_done", **stats)
+        self.tracer.event("compile_ledger", total_s=total_s,
+                          compile_s=compile_s, costs=costs or {}, **stats)
+        return stats
 
     def _prefill_call(self, req: Request, slot: int, *, start: int = 0,
                       prompt: np.ndarray | None = None,
@@ -587,44 +653,54 @@ class Engine:
         suffix = ids[start:]
         P = int(suffix.shape[0])
         Pb = bucket_len or self.bucket(P)
+        self._last_prefill_bucket = Pb   # churn context for the ledger
         buf = np.full((1, Pb), self.cfg.pad_id, np.int32)
         buf[0, :P] = suffix
         self.forwards += 1
+        logits = self.tier.run("prefill", self._forward, {
+            "ids": buf, "start": np.array([start], np.int32),
+            "bt": self._bt[slot][None]})
         return _prefill_impl(
-            self.model, self.cfg.eos_id, self._cache, self._state, buf,
-            torch.as_tensor(self._bt[slot], device=self.device), slot, start,
-            P, float(req.temperature), int(req.top_k), float(req.top_p),
+            self.cfg.eos_id, logits, self._state, slot, start, P,
+            float(req.temperature), int(req.top_k), float(req.top_p),
             int(req.max_new_tokens if budget is None else budget),
             int(req.seed))
 
     def _chunk_call(self, window: np.ndarray, row: np.ndarray,
                     start: int) -> None:
+        # one chunked-prefill segment (Sarathi-Serve, OSDI '24): write
+        # the K/V of `window`'s positions start..start+C-1 through this
+        # slot's block-table row and DISCARD the logits. Sampling waits
+        # for the final segment (`_prefill_impl`, drawn at the total
+        # prompt length - 1), so chunking never shifts a stream
         self.forwards += 1
         self.chunk_segments += 1
-        _chunk_impl(self.model, self._cache, window[None],
-                    torch.as_tensor(row, device=self.device), start)
+        self.tier.run("chunk", self._forward, {
+            "ids": window[None], "start": np.array([start], np.int32),
+            "bt": row[None]})
+
+    def _copy_blocks(self, src: int, dst: int) -> None:
+        self.tier.run("copy", self._copy, {
+            "src": np.array([src], np.int64),
+            "dst": np.array([dst], np.int64)})
 
     def _live_mask(self) -> np.ndarray:
         """Slots the decode tick may advance: occupied AND not mid-chunk.
         A chunking slot's state rows are a previous occupant's leftovers
-        and its device row is zeroed; the mask keeps the tick from
+        and its table row is zeroed; the mask keeps the tick from
         decoding garbage into it."""
         return np.fromiter(
             (r is not None and s not in self._chunking
              for s, r in enumerate(self._slots)), bool, len(self._slots))
 
-    def _device_table(self) -> tuple:
-        if self._bt_dev is None:
-            # upload only when the table or slot liveness changed
-            self._bt_dev = (torch.as_tensor(self._bt, device=self.device),
-                            self._live_mask())
-        return self._bt_dev
-
     def _tick_device(self):
-        bt, live = self._device_table()
+        st = self._state
         self.forwards += 1
-        return _tick_impl(self.model, self.cfg.eos_id, self.cfg.pad_id,
-                          self._cache, self._state, bt, live)
+        logits = self.tier.run("tick", self._forward, {
+            "ids": st["last_token"][:, None], "start": st["lengths"],
+            "bt": self._bt})
+        return _tick_impl(self.cfg.eos_id, self.cfg.pad_id, logits, st,
+                          self._live_mask())
 
     def _collect_drafts(self) -> np.ndarray:
         """[S, spec_k] proposals for this tick, one drafter call per live,
@@ -639,10 +715,13 @@ class Engine:
         return drafts
 
     def _spec_tick_device(self, drafts: np.ndarray):
-        bt, live = self._device_table()
+        st = self._state
         self.forwards += 1
-        return _spec_tick_impl(self.model, self.cfg.eos_id, self.cfg.pad_id,
-                               self._cache, self._state, bt, live, drafts)
+        window = np.concatenate([st["last_token"][:, None], drafts], axis=1)
+        logits = self.tier.run("spec_tick", self._forward, {
+            "ids": window, "start": st["lengths"], "bt": self._bt})
+        return _spec_tick_impl(self.cfg.eos_id, self.cfg.pad_id, logits,
+                               st, self._live_mask(), drafts)
 
     # --------------------------------------------------- block plumbing
 
@@ -735,7 +814,6 @@ class Engine:
         self._slots[slot] = None
         self._chunking.pop(slot, None)
         self._bt[slot, :] = 0
-        self._bt_dev = None
 
     def _admit(self, req: Request, slot: int) -> TokenEvent | None:
         """Prefill `req` into `slot` through the paged pool: radix
@@ -796,9 +874,7 @@ class Engine:
         if cow_src is not None:
             # mid-block divergence: duplicate the agreeing block so our
             # writes (suffix prefill + decode) never touch the original
-            _copy_impl(self._cache,
-                       torch.tensor([cow_src], device=self.device),
-                       torch.tensor([fresh[0]], device=self.device))
+            self._copy_blocks(cow_src, fresh[0])
             self.mgr.decref([cow_src])  # the pin; the copy is ours now
             self.metrics.on_cow()
         if host_payloads:
@@ -833,7 +909,6 @@ class Engine:
             # the final segment installs real state; the prefix enters
             # the radix only once the blocks hold it
             self._bt[slot, :] = 0
-            self._bt_dev = None
             seq.n_filled = start
             self._slots[slot] = req
             self._seqs[slot] = seq
@@ -862,7 +937,6 @@ class Engine:
         here too, at the total-length draw position)."""
         P = int(prompt.shape[0])
         self._bt[slot] = self._table_row(seq.blocks)
-        self._bt_dev = None
         extra = {"chunked": True} if chunked else {}
         with self.tracer.span("serve_prefill", step=self._tick_no) as sp:
             first, finished = self._prefill_call(
@@ -1012,7 +1086,6 @@ class Engine:
                 if got is not None:
                     self._bt[s, len(seq.blocks)] = got[0]
                     seq.blocks.append(got[0])
-                    self._bt_dev = None
                     continue
                 live = [t for t in range(self.cfg.slots)
                         if self._slots[t] is not None]
@@ -1024,12 +1097,46 @@ class Engine:
 
     # ------------------------------------------------------------ events
 
+    def _journal_guard(self) -> None:
+        """Surface a journal IO failure exactly once: the engine keeps
+        serving (durability degraded beats dead), but the stream and the
+        counters say so."""
+        j = self.journal
+        if j is not None and not j.enabled and not self._journal_err_reported:
+            self._journal_err_reported = True
+            self.metrics.on_journal_error()
+            self.tracer.event("journal_io_error", error=j.error)
+            print(f"[serve] journal disabled after IO error: {j.error} — "
+                  "serving continues WITHOUT crash recovery",
+                  file=sys.stderr)
+
     def _emit(self, ev: TokenEvent) -> None:
         req = ev.request
         if ev.kind == "token" and ev.token is not None:
             req.tokens.append(ev.token)
         if ev.finished and ev.kind == "token":
             req.status = "done"
+        # journal BEFORE the sink write, flushed to the kernel inside
+        # `token`/`finish` (serve/journal.py's ordering contract): any
+        # token a client received is already durable, so a replay never
+        # re-computes — hence never re-delivers — it
+        if self.journal is not None and req._journaled:
+            jt0 = _CLOCK()
+            if ev.kind == "token" and ev.token is not None:
+                self.journal.token(req.id, ev.token)
+            if ev.finished:
+                self.journal.finish(
+                    req.id,
+                    "done" if ev.kind in ("token", "done")
+                    else (ev.reason or ev.kind))
+            if ev.kind in ("token", "timed_out"):
+                # engine-thread emissions only (as for _sink_s below)
+                self._journal_s += _CLOCK() - jt0
+            self._journal_guard()
+        if self.chaos is not None:
+            # the request rides along so tenant-targeted client chaos
+            # (slowloris@tenant=...) can pick its victim
+            self.chaos.on_client(self._tick_no, req)
         if req.sink is not None:
             t0 = _CLOCK()
             try:
@@ -1090,8 +1197,18 @@ class Engine:
             else (gov_active and self.queue.depth_of(CLASS_BATCH) == 0)
         if clamp_this and self.cfg.brownout_clamp > 0 \
                 and req.max_new_tokens > self.cfg.brownout_clamp:
+            # clamped BEFORE the journal sees the request: the WAL
+            # records the budget actually served
             req.clamped_from = req.max_new_tokens
             req.max_new_tokens = self.cfg.brownout_clamp
+        if self.journal is not None:
+            # write-AHEAD of queue.submit: once queued, the engine thread
+            # may emit the first token, whose record needs the admit
+            # record on disk. A door rejection below closes it with a
+            # terminal record, so it never replays.
+            self.journal.admit(req)
+            req._journaled = True
+            self._journal_guard()
         ok, reason = self.queue.submit(req)
         if ok:
             self.metrics.on_accept(req.sla_class)
@@ -1128,6 +1245,12 @@ class Engine:
             reason=REJECT_BAD_REQUEST, error=str(error)[:200],
             queued_s=0.0)
 
+    # ------------------------------------------------- drain + recovery
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
     def begin_drain(self, timeout_s: float = 30.0) -> None:
         """Flip to graceful drain (idempotent): the queue closes with
         `reject(reason="draining")`, in-flight slots and already-queued
@@ -1144,6 +1267,70 @@ class Engine:
     def drain_expired(self) -> bool:
         return (self._draining and self._drain_deadline is not None
                 and _CLOCK() > self._drain_deadline)
+
+    def replay_pending(self, sink=None, *,
+                       max_replays: int = MAX_REPLAYS_DEFAULT) -> dict:
+        """Recover the journal into this engine — called once, after
+        `warmup`, before the serve loop. Unfinished journaled requests
+        re-enter the HEAD of the queue in admit order with their
+        generated tokens riding along; the next pop re-prefills prompt +
+        generated through the preemption recompute path, so the
+        continuation is bit-identical (every draw is seeded by seed and
+        position). Requests whose output was already complete owe the
+        client only a terminal event; requests that crashed the engine
+        `max_replays` times are quarantined (`request_poisoned`)."""
+        if self.journal is None:
+            return {"resumed": 0, "finished": 0, "poisoned": 0,
+                    "clean": True}
+        resume, finished, poisoned, clean = self.journal.recover(
+            max_replays=max_replays, eos_id=self.cfg.eos_id)
+        self._journal_guard()
+        for req in finished:
+            req.sink = sink
+            req.status = "done"
+            req.finish_reason = "recovered_complete"
+            self.tracer.event(
+                "request_finished", request=req.id, tick=self._tick_no,
+                reason="recovered_complete", prompt_len=req.prompt_len,
+                n_tokens=len(req.tokens), preempts=req.preempts,
+                replayed=True, **_tr(req))
+            self._emit(TokenEvent(req, None, True, kind="done",
+                                  reason="recovered_complete"))
+        for req in poisoned:
+            req.sink = sink
+            req.status = "rejected"
+            req.finish_reason = REJECT_POISONED
+            self.metrics.on_poisoned()
+            self.tracer.event(
+                "request_poisoned", request=req.id, replays=req.replays,
+                prompt_len=req.prompt_len, generated=len(req.tokens),
+                **_tr(req))
+            self._emit(TokenEvent(req, None, True, kind="rejected",
+                                  reason=REJECT_POISONED))
+        for req in reversed(resume):  # reversed: first-admitted at head
+            req.sink = sink
+            req._journaled = True
+            if req.tokens:
+                # resumed mid-decode: its next queue wait banks as
+                # replay, its prefill as replay_prefill, and no second
+                # first-token event fires
+                req._preempted = True
+                req.first_token_at = req.submitted_at
+            self.metrics.on_replay()
+            self.tracer.event(
+                "request_admitted", request=req.id,
+                prompt_len=req.prompt_len,
+                max_new_tokens=req.max_new_tokens,
+                deadline_s=req.deadline_s, replayed=True,
+                replay_n=req.replays, generated=len(req.tokens),
+                **_tr(req))
+            self.queue.push_front(req)
+        if resume or finished or poisoned:
+            self.tracer.event("journal_replayed", resumed=len(resume),
+                              finished=len(finished),
+                              poisoned=len(poisoned))
+        return {"resumed": len(resume), "finished": len(finished),
+                "poisoned": len(poisoned), "clean": clean}
 
     @property
     def n_active(self) -> int:
@@ -1180,6 +1367,122 @@ class Engine:
                    if self.slo is not None else {}),
                 **({"prefix_roots": roots} if roots else {})}
 
+    # ------------------------------------------------ introspection
+
+    def exposition(self, window_s: float = DEFAULT_WINDOW_S) -> dict:
+        """Live snapshot for the exposition socket (obs/export.py):
+        current loop state + lifetime metrics + the last-`window_s`
+        windowed roll-up. Host floats and bounded ring copies only —
+        answering never touches the device, whatever thread asks."""
+        reg = self.metrics.reg
+        gov = self._governor
+        return {
+            "role": "engine",
+            "run": self.tracer.run,
+            "phase": self._phase(),
+            "tick": self._tick_no,
+            "active": self.n_active,
+            "slots": self.cfg.slots,
+            "occupancy": round(self.n_active / self.cfg.slots, 4)
+            if self.cfg.slots else 0.0,
+            "queue": len(self.queue),
+            "queue_by_class": self.queue.depth_by_class(),
+            "draining": self._draining,
+            "brownout": bool(gov.active) if gov is not None else False,
+            # what degradation/scheduling posture this engine is in NOW
+            "act": {
+                "class_brownout": self._class_brownout,
+                "brownout": bool(gov.active) if gov is not None else False,
+                "chunking": len(self._chunking),
+            },
+            "blocks_in_use": self.mgr.in_use,
+            "blocks_free": self.mgr.num_free,
+            "alerts": (self.slo.active_names()
+                       if self.slo is not None else []),
+            "metrics": reg.snapshot(),
+            "windows": reg.windowed_snapshot(window_s),
+            "memory": self.memory_ledger(),
+            "tickprof": self.tickprof.snapshot(window_s),
+            "compile": {**self.ledger.last_seen,
+                        "recompiles": self.ledger.recompiles},
+        }
+
+    def memory_ledger(self) -> dict:
+        """Live memory accounting from known shapes — param bytes, the
+        KV pool's full and in-use footprint, host RSS. Pure host
+        arithmetic, so any thread may ask."""
+        bb = self._block_bytes
+        # device bytes the paged read copies per decode tick: the plain
+        # version (the CPU path) gathers every slot's whole [MB] chain
+        # into a contiguous view; the kernel reads the pools in place
+        gather = 0 if self.device.type == "cuda" else \
+            int(self.cfg.slots * self._mb * bb)
+        return {
+            "param_bytes": self._param_bytes,
+            "kv_pool_bytes": int(self.cfg.num_blocks * bb),
+            "blocks_in_use_bytes": int(self.mgr.in_use * bb),
+            "kv_gather_bytes_per_tick": gather,
+            "host_cache_mb": round(self.host.occupancy_mb, 3)
+            if self.host is not None else 0.0,
+            "host_cache_budget_mb": self.cfg.host_cache_mb,
+            "rss_mb": hb_host_rss_mb(),
+        }
+
+    def _flight_payload(self) -> dict:
+        """What a flight-record spill captures: loop state, the tick
+        ring's tail, the windowed breakdown, compile counts, memory."""
+        return {
+            "phase": self._phase(),
+            "active": self.n_active,
+            "queue": len(self.queue),
+            "ticks": self.tickprof.tail(32),
+            "tickprof": self.tickprof.snapshot(),
+            "compile": {**self.ledger.last_seen,
+                        "recompiles": self.ledger.recompiles},
+            "memory": self.memory_ledger(),
+        }
+
+    def flight_spill(self, reason: str, **extra) -> None:
+        """Spill the flight record NOW — the server's SIGTERM handler,
+        the fatal-exception path and the final drain call this.
+        Host-only, so safe from a signal handler's frame."""
+        if extra:
+            self.flight.note(reason, **extra)
+        self.flight.spill(reason, self._flight_payload(),
+                          tick=self._tick_no)
+
+    def control(self, req: dict) -> dict:
+        """Control verbs arriving on the exposition socket (the
+        request-line protocol in obs/export.py). `profile` brackets a
+        `torch.profiler` trace on demand (utils/profiling.py);
+        `class_brownout` sets the router-ordered batch brownout;
+        anything unknown answers an error dict instead of raising — the
+        exporter thread must never die of a bad request."""
+        cmd = req.get("cmd")
+        if cmd == "profile":
+            from hyperion_tpu_torch.utils.profiling import on_demand_trace
+
+            out = req.get("out")
+            if not out:
+                return {"status": "error", "error": "profile needs 'out'"}
+            res = on_demand_trace(str(out),
+                                  float(req.get("seconds") or 5.0))
+            self.tracer.event("profile_requested", **res)
+            return res
+        if cmd == "class_brownout":
+            # shed/clamp the batch class as if the local governor were
+            # active, never interactive: the order means "yield batch
+            # capacity to the fleet". Idempotent.
+            active = bool(req.get("active", True))
+            changed = active != self._class_brownout
+            self._class_brownout = active
+            if changed:
+                self.metrics.set_class_brownout(active)
+                self.tracer.event("class_brownout", tick=self._tick_no,
+                                  active=active, source="control")
+            return {"status": "ok", "active": active, "changed": changed}
+        return {"status": "error", "error": f"unknown cmd {cmd!r}"}
+
     def step(self) -> list[TokenEvent]:
         """One scheduling round: brownout shedding, admit from the queue
         into free slots (block-gated, prefill, budget-limited), one
@@ -1189,6 +1492,13 @@ class Engine:
         speculative tick — and route emissions."""
         emissions: list[TokenEvent] = []
         now = _CLOCK()
+        # host-tick profiler (obs/tickprof.py): stamp each segment of
+        # this step into `seg`. Journal/sink time accumulates inside
+        # _emit wherever it happens, so enclosing segments NET those
+        # deltas out rather than double-charging them.
+        seg: dict[str, float] = {}
+        p_start = now
+        j_start, s_start = self._journal_s, self._sink_s
         if self._governor is not None:
             tr = self._governor.update(len(self.queue))
             if tr == "enter":
@@ -1207,7 +1517,8 @@ class Engine:
             # cannot meet their deadline even if service began after
             # their class's estimated wait are doomed — reject them now
             # so the client retries elsewhere. Interactive is swept only
-            # when the local governor is active and batch is empty.
+            # when the local governor is active and batch is empty (a
+            # router-ordered class brownout alone never touches it).
             shed_classes = [CLASS_BATCH]
             if gov_active and self.queue.depth_of(CLASS_BATCH) == 0:
                 shed_classes = [CLASS_INTERACTIVE]
@@ -1231,6 +1542,7 @@ class Engine:
                 self._emit(ev)
                 emissions.append(ev)
 
+        t_seg = _CLOCK()
         free = [s for s, r in enumerate(self._slots) if r is None]
         if free:
             admit, expired = self.queue.pop_ready(
@@ -1250,6 +1562,9 @@ class Engine:
             if batch_live:
                 victim = max(batch_live, key=lambda t: self._seqs[t].order)
                 self._preempt(victim, reason="interactive_gate")
+        seg["queue_pop"] = _CLOCK() - t_seg
+        t_seg = _CLOCK()
+        j_mark, s_mark = self._journal_s, self._sink_s
         for req in expired:
             self.metrics.on_timeout()
             req.finish_reason = "timed_out"
@@ -1265,6 +1580,11 @@ class Engine:
         while admit:
             req = admit.pop(0)
             slot = free.pop(0)
+            if self.chaos is not None:
+                # poison_request@id=... fires as the request is about to
+                # occupy a slot: the journal already holds its admit
+                # record, so the replay counter sees every death it causes
+                self.chaos.on_request(req.id)
             resumed = self._account_pop(req)
             ev = self._admit(req, slot)
             if ev is _CHUNK_ADMIT:
@@ -1286,18 +1606,33 @@ class Engine:
             emissions.append(ev)
             if ev.finished:
                 self._on_finished(req)
+        # admit covers expiry + admission + their prefill calls, net of
+        # the journal/sink writes those paths perform
+        seg["admit"] = max(0.0, (_CLOCK() - t_seg)
+                           - (self._journal_s - j_mark)
+                           - (self._sink_s - s_mark))
         # one chunked-prefill segment per step, between decode ticks
+        t_seg = _CLOCK()
+        j_mark, s_mark = self._journal_s, self._sink_s
         for ev in self._advance_chunks():
             self._emit(ev)
             emissions.append(ev)
             if ev.finished:
                 self._on_finished(ev.request)
+        seg["chunk"] = max(0.0, (_CLOCK() - t_seg)
+                           - (self._journal_s - j_mark)
+                           - (self._sink_s - s_mark))
 
         if self.n_active:
             self._ensure_blocks()
         if self.n_active - len(self._chunking) > 0:
+            if self.chaos is not None:
+                self.chaos.on_tick(self._tick_no)
             spec = self._spec
+            t_seg = _CLOCK()
             drafts = self._collect_drafts() if spec else None
+            seg["draft"] = _CLOCK() - t_seg
+            u_mark = self.tier.upload_s
             with self.tracer.span("serve_tick", step=self._tick_no) as sp:
                 t0 = _CLOCK()
                 if spec:
@@ -1306,9 +1641,14 @@ class Engine:
                     toks, fins = self._tick_device()
                 dur = _CLOCK() - t0
                 sp.set(active=self.n_active)
+            # the device call's wall splits into the host->device copy of
+            # the tick's inputs (tables, depths, tokens) and dispatch+wait
+            seg["bt_upload"] = self.tier.upload_s - u_mark
+            seg["device"] = max(0.0, dur - seg["bt_upload"])
             emitted = 0
             slot_ticks = 0
             tnow = _CLOCK()
+            j_mark, s_mark = self._journal_s, self._sink_s
             for s, req in enumerate(self._slots):
                 if req is None or s in self._chunking:
                     continue  # a chunking lane computed pad into null
@@ -1334,6 +1674,9 @@ class Engine:
                 req._last_emit_at = tnow
                 req._sink_mark = self._sink_s
                 fin = bool(fins[s])
+                # every accepted token takes the per-token path of the
+                # sequential tick: one journal record, one stream index,
+                # one sink write apiece
                 for j in range(n):
                     tok = int(toks[s, j]) if spec else int(toks[s])
                     ev = TokenEvent(req, tok, fin and j == n - 1)
@@ -1343,12 +1686,44 @@ class Engine:
                 if fin:
                     self._on_finished(req)
                     self._free_slot(s)
+            # accept host path: token routing + gap netting, minus the
+            # journal/sink writes _emit charged to their own segments
+            seg["accept"] = max(0.0, (_CLOCK() - tnow)
+                                - (self._journal_s - j_mark)
+                                - (self._sink_s - s_mark))
             self.metrics.on_tick(dur, emitted, slot_ticks)
             self._tick_no += 1
             if self.cfg.snapshot_every \
                     and self._tick_no % self.cfg.snapshot_every == 0:
-                self.tracer.snapshot(self.metrics.reg, step=self._tick_no)
+                rss = hb_host_rss_mb()
+                if rss is not None:
+                    # a gauge SERIES across snapshots: doctor reads the
+                    # trend for its host-leak warning
+                    self.metrics.reg.gauge("host_rss_mb").set(rss)
+                self.tracer.snapshot(self.metrics.reg, step=self._tick_no,
+                                     tickprof=self.tickprof.snapshot())
 
+        # compile ledger: any growth after warmup is a broken invariant
+        # (a shape nobody warmed captured a new graph) — count it, name
+        # the surface, and leave churn context for doctor
+        growth = self.ledger.check(self.compile_stats())
+        if growth:
+            self.metrics.on_recompile(
+                sum(g["after"] - g["before"] for g in growth))
+            for g in growth:
+                ctx = dict(tick=self._tick_no, active=self.n_active,
+                           queue=len(self.queue),
+                           last_prefill_bucket=self._last_prefill_bucket)
+                self.tracer.event("recompile_after_warmup",
+                                  executable=g["executable"],
+                                  before=g["before"], after=g["after"],
+                                  **ctx)
+                self.flight.note("recompile_after_warmup",
+                                 executable=g["executable"], **ctx)
+
+        seg["journal"] = self._journal_s - j_start
+        seg["sink"] = self._sink_s - s_start
+        t_seg = _CLOCK()
         self.metrics.observe_state(
             len(self.queue), self.n_active, self.cfg.slots)
         self.metrics.observe_cache(
@@ -1358,6 +1733,11 @@ class Engine:
         self.hb.beat(step=self._tick_no, phase="serve",
                      active=self.n_active, queue=len(self.queue),
                      **self._beat_extra())
+        seg["slo"] = _CLOCK() - t_seg
+        self.tickprof.record(self._tick_no, seg, _CLOCK() - p_start)
+        if self.flight.due(self._tick_no):
+            self.flight.spill("periodic", self._flight_payload(),
+                              tick=self._tick_no)
         return emissions
 
     def run(
@@ -1402,6 +1782,11 @@ class Engine:
                     time.sleep(idle_sleep_s)
                     continue
                 self.step()
+        except BaseException as e:
+            # the flight record IS the post-mortem: spill before the
+            # exception unwinds, so doctor can cite the final ticks
+            self.flight_spill("fatal_exception", error=repr(e)[:200])
+            raise
         finally:
             summary = self.metrics.summary()
             self.tracer.snapshot(self.metrics.reg, step=self._tick_no)
@@ -1430,6 +1815,7 @@ class Engine:
                     # the drain path: say so and finish the drain
                     print(f"[serve] host-cache save failed: {e}",
                           file=sys.stderr)
+            self.flight_spill("serve_end")
             self.hb.close(phase="done", tokens=summary["tokens"],
                           active=self.n_active, queue=len(self.queue))
         return summary

@@ -16,12 +16,25 @@ Every response line carries the request id:
 
 The engine loop runs on the main thread and drains on EOF; a reader
 thread only submits into the (thread-safe) admission queue. SIGTERM or
-SIGINT drains gracefully, a second one stops at once. The engine's
-deferred decode paths are flags: `--spec-k`/`--draft`,
-`--prefill-chunk`, `--host-cache-mb` (persisted next to the telemetry
-stream when one is written), `--brownout*` and `--slo-*`. Not ported
-yet: text prompts (the tokenizer), the unix socket, stream resume, the
-supervisor and the request journal (ROADMAP A2).
+SIGINT drains gracefully (and spills the flight record), a second one
+stops at once. The engine's deferred decode paths are flags:
+`--spec-k`/`--draft`, `--prefill-chunk`, `--host-cache-mb` (persisted
+next to the journal, else next to the telemetry stream), `--brownout*`
+and `--slo-*`.
+
+Crash safety and live observation, as in the reference: `--journal`
+write-ahead-logs every admission and token, and a restart replays
+unfinished requests bit-identically before serving; `--supervise` runs
+the server as a child under the restart loop of `supervisor.py`
+(journal replay, poison-pill quarantine, `--hang-timeout` heartbeat
+watchdog), logging to stderr because stdout is the wire; `--chaos`
+injects the serve faults of `testing/chaos.py`. With telemetry on
+(`HYPERION_TELEMETRY`), the heartbeat, `flight.json` and the exposition
+socket `obs.sock` (snapshots, `profile` and `class_brownout` verbs) sit
+next to the stream.
+
+Not ported yet (ROADMAP A2): text prompts (the tokenizer), the unix
+socket transport and stream resume.
 """
 
 from __future__ import annotations
@@ -142,6 +155,12 @@ def serve_jsonl(engine, infile, outfile, tok=None,
     def sink(ev):
         out.write(event_record(ev, tok))
 
+    # journal recovery first: requests a previous life owed resume at
+    # the head of the queue, streaming to the same stdout the crashed
+    # process used (the supervisor shares the pipe across restarts, so
+    # the client sees one continuous stream)
+    engine.replay_pending(sink)
+
     def reader():
         try:
             for line in infile:
@@ -174,6 +193,9 @@ def serve_jsonl(engine, infile, outfile, tok=None,
     summary = engine.run(should_stop=should_stop, drain_when=eof.is_set)
     t.join(timeout=5)
     return summary
+
+
+DEFAULT_JOURNAL = "data/serve_journal.jsonl"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -255,9 +277,43 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch path runs with --device cpu)")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16", help="compute dtype")
+    p.add_argument("--socket", default=None, metavar="PATH",
+                   help="unix-socket transport: not ported yet (ROADMAP "
+                        "A2); refused")
+    p.add_argument("--warmup-lens", default="8,32",
+                   help="comma-separated prompt lengths to build prefill "
+                        "graphs for (the tick always warms)")
+    p.add_argument("--heartbeat-every", type=int, default=25,
+                   help="serve-phase heartbeat cadence in ticks")
+    p.add_argument("--chaos", default="",
+                   help="deterministic fault plan (testing/chaos.py): "
+                        "stall@tick=N:SECS, slow_client@tick=N:SECS, "
+                        "kill@tick=N, crash@tick=N, journal_io_fail@p=X, "
+                        "poison_request@id=ID, ... (tick faults fire once "
+                        "per supervisor lineage)")
+    # ---- crash safety: journal + supervised restarts + drain ----
+    p.add_argument("--journal", default="", metavar="PATH",
+                   help="append-only request journal (JSONL WAL): every "
+                        "admission and emitted token is recorded so a "
+                        "crashed server's restart replays unfinished "
+                        "requests to bit-identical completion "
+                        "(serve/journal.py); --supervise defaults this to "
+                        f"{DEFAULT_JOURNAL}")
+    p.add_argument("--supervise", action="store_true",
+                   help="run the server as a supervised child: on a crash, "
+                        "restart with backoff and replay the journal; a "
+                        "request that crashes the server repeatedly is "
+                        "quarantined (request_poisoned)")
+    p.add_argument("--max-restarts", type=int, default=2,
+                   help="--supervise: restarts before giving up with exit 3")
+    p.add_argument("--hang-timeout", type=float, default=120.0,
+                   help="--supervise: SIGKILL a child whose heartbeat goes "
+                        "stale this many seconds (0 = off; needs telemetry "
+                        "for the heartbeat file)")
     p.add_argument("--drain-timeout", type=float, default=30.0,
                    help="SIGTERM/SIGINT: seconds granted to in-flight and "
-                        "queued requests before a hard stop")
+                        "queued requests before a hard stop; a fully "
+                        "drained journal is marked clean")
     # ---- overload brownout ----
     p.add_argument("--brownout", action="store_true",
                    help="degrade gracefully under overload: past the "
@@ -293,16 +349,74 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _strip_supervise_flags(argv: list[str]) -> list[str]:
+    from hyperion_tpu_torch.supervisor import strip_flags
+
+    return strip_flags(argv, {"--supervise"},
+                       {"--max-restarts", "--hang-timeout"})
+
+
+def _env_telemetry_path() -> str | None:
+    """The stream path the child's `from_env` resolves, computed without
+    importing the serving stack (the supervisor parent needs only the
+    heartbeat file's place)."""
+    import os
+
+    val = os.environ.get("HYPERION_TELEMETRY", "")
+    if val in ("", "0"):
+        return None
+    return "data/telemetry.jsonl" if val == "1" else val
+
+
+def supervise_serve(argv: list[str], args) -> int:
+    """`--supervise`: the crash loop around the serving child — the
+    restart core of `supervisor.py` with the serve policy: any crash
+    restarts with backoff (the child replays its request journal on the
+    way up), and a heartbeat gone stale past --hang-timeout gets the
+    child SIGKILLed (a wedged engine never exits by itself). The parent
+    never touches the card."""
+    from pathlib import Path
+
+    from hyperion_tpu_torch.supervisor import (
+        Decision,
+        heartbeat_watchdog,
+        run_child,
+        supervise_loop,
+    )
+
+    def log(msg: str) -> None:
+        # stderr, always: the children's stdout is the client's wire
+        print(msg, file=sys.stderr, flush=True)
+
+    tele = _env_telemetry_path()
+    hb_path = str(Path(tele).parent / "heartbeat.json") if tele else None
+    runner = run_child
+    if args.hang_timeout > 0 and hb_path:
+        runner = heartbeat_watchdog(hb_path, args.hang_timeout, log=log)
+
+    def decide(rc: int) -> Decision:
+        log(f"[serve-supervisor] child exit {rc}; restarting with journal "
+            "replay")
+        return Decision.restart()
+
+    child_argv = _strip_supervise_flags(argv)
+    if "--journal" not in " ".join(child_argv):
+        # replay is the point of a supervised restart: default the WAL
+        # on and pin its path so every child shares it
+        child_argv += ["--journal", args.journal or DEFAULT_JOURNAL]
+    child = [sys.executable, "-m", "hyperion_tpu_torch.serve.server",
+             *child_argv]
+    return supervise_loop(child, decide=decide,
+                          max_restarts=args.max_restarts,
+                          run_child=runner, label="serve-supervisor",
+                          log=log)
+
+
 def main(argv=None, *, device=None) -> int:
     """CLI entry. `device` overrides `--device` for embedded callers."""
+    import os
     import signal
-
-    from hyperion_tpu_torch import resolve_device
-    from hyperion_tpu_torch.checkpoint.io import load_gathered
-    from hyperion_tpu_torch.infer.generate import model_from_npz
-    from hyperion_tpu_torch.obs import heartbeat as obs_heartbeat
-    from hyperion_tpu_torch.obs import trace as obs_trace
-    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from pathlib import Path
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
@@ -310,20 +424,62 @@ def main(argv=None, *, device=None) -> int:
         print("the tokenizer is not ported yet (ROADMAP A2): pass "
               "--no-tokenizer and send prompt_ids", file=sys.stderr)
         return 2
-    dev = resolve_device(device if device is not None else args.device)
+    if args.socket:
+        print("the unix-socket transport is not ported yet (ROADMAP A2): "
+              "serve on stdin/stdout", file=sys.stderr)
+        return 2
+    if args.supervise:
+        return supervise_serve(argv, args)
 
+    from hyperion_tpu_torch import resolve_device
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+    from hyperion_tpu_torch.infer.generate import model_from_npz
+    from hyperion_tpu_torch.obs import heartbeat as obs_heartbeat
+    from hyperion_tpu_torch.obs import trace as obs_trace
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.journal import RequestJournal
+
+    dev = resolve_device(device if device is not None else args.device)
+    attempt = int(os.environ.get("HYPERION_ATTEMPT", "0") or 0)
     tracer = obs_trace.from_env("data/telemetry.jsonl",
                                 run=f"serve_torch_{int(time.time())}")
-    hb = obs_heartbeat.Heartbeat.for_tracer(tracer)
+    hb = obs_heartbeat.Heartbeat.for_tracer(
+        tracer, every=args.heartbeat_every, static={"attempt": attempt})
     hb.pulse(phase="load")
+    chaos = None
+    if args.chaos:
+        from hyperion_tpu_torch.testing import chaos as chaos_mod
+
+        # state file next to the journal (or the stream): tick faults
+        # fire once per supervisor LINEAGE, so a restarted child does
+        # not re-die at the already-fired tick
+        state_dir = None
+        if args.journal:
+            state_dir = Path(args.journal).parent
+        elif _env_telemetry_path():
+            state_dir = Path(_env_telemetry_path()).parent
+        chaos = chaos_mod.activate(
+            args.chaos,
+            state_path=(state_dir / "serve_chaos_state.json"
+                        if state_dir is not None else None))
+    journal = None
+    if args.journal:
+        journal = RequestJournal(
+            args.journal,
+            fault=chaos.journal_io if chaos is not None else None)
     with tracer.span("load") as ld:
         model = model_from_npz(load_gathered(args.ckpt), args.max_len,
                                dtype=args.dtype, device=dev)
         ld.set(ckpt=args.ckpt, device=str(dev), dtype=args.dtype)
-    # the host tier persists next to the telemetry stream, or nowhere
+    # the host tier persists next to the journal when there is one,
+    # next to the telemetry stream otherwise, or nowhere
     host_cache_dir = ""
-    if args.host_cache_mb > 0 and tracer.enabled:
-        host_cache_dir = str(tracer.path.parent / "hostcache")
+    if args.host_cache_mb > 0:
+        if args.journal:
+            host_cache_dir = str(Path(args.journal).parent / "hostcache")
+        elif _env_telemetry_path():
+            host_cache_dir = str(
+                Path(_env_telemetry_path()).parent / "hostcache")
     engine = Engine(
         model,
         EngineConfig(
@@ -350,10 +506,28 @@ def main(argv=None, *, device=None) -> int:
             slo_fast_s=args.slo_fast_s,
             slo_slow_s=args.slo_slow_s,
         ),
-        tracer=tracer, heartbeat=hb, device=dev,
+        tracer=tracer, heartbeat=hb, chaos=chaos, journal=journal,
+        flight_path=(hb.path.parent / "flight.json" if hb.enabled
+                     else None),
+        device=dev,
     )
     hb.pulse(phase="warmup")
-    engine.warmup()
+    warm = [int(x) for x in args.warmup_lens.split(",") if x.strip()]
+    engine.warmup(warm or None)
+
+    # live exposition socket (obs/export.py): obs.sock next to the
+    # heartbeat file, answering one JSON snapshot per connection and the
+    # control verbs. Rides the heartbeat's enablement.
+    exporter = None
+    if hb.enabled:
+        from hyperion_tpu_torch.obs.export import (
+            MetricsExporter,
+            exposition_path,
+        )
+
+        exporter = MetricsExporter(exposition_path(hb.path),
+                                   engine.exposition, label="serve-obs",
+                                   control_fn=engine.control).start()
 
     drain_evt = threading.Event()
     hard_evt = threading.Event()
@@ -365,6 +539,12 @@ def main(argv=None, *, device=None) -> int:
             print(f"[serve] signal {signum}: draining (timeout "
                   f"{args.drain_timeout:.0f}s; signal again to stop now)",
                   file=sys.stderr)
+            # spill the flight record NOW: if the drain never finishes
+            # the post-mortem still has the final ticks
+            try:
+                engine.flight_spill("sigterm", signum=int(signum))
+            except Exception:  # noqa: BLE001 — never die in a handler
+                pass
         drain_evt.set()
 
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -381,6 +561,18 @@ def main(argv=None, *, device=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        if exporter is not None:
+            exporter.close()
+        if journal is not None:
+            if engine.idle:
+                # fully drained: mark the WAL clean so the next start
+                # replays nothing
+                journal.close_clean()
+            else:
+                journal.close()
+                print(f"[serve] {len(engine.queue) + engine.n_active} "
+                      "request(s) still owed — journaled for replay at "
+                      "the next start", file=sys.stderr)
         tracer.close()
     return 0
 

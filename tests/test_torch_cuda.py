@@ -733,3 +733,125 @@ def test_flash_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_fwd(q, q, q)
+
+
+# ------------------------------------------ the serve engine's graphs
+
+
+def _tiny_engine(dev, dtype="float32", **kw):
+    from hyperion_tpu_torch.models.llama import Llama, llama_tiny_config
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+
+    cfg = llama_tiny_config(n_kv_heads=2, max_len=64, norm_impl="pallas",
+                            dtype=dtype)
+    model = Llama(cfg, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    ecfg = dict(slots=3, max_len=64, block_size=4)
+    ecfg.update(kw)
+    return Engine(model, EngineConfig(**ecfg), device=dev)
+
+
+def _serve(eng, prompts, n=8):
+    from hyperion_tpu_torch.serve.queue import Request
+
+    reqs = [Request(prompt_ids=p, max_new_tokens=n, id=f"g{i}")
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        ok, why = eng.submit(r)
+        assert ok, why
+    while not eng.idle:
+        eng.step()
+    return reqs
+
+
+def _graph_prompts(seed=0, lens=(5, 9, 14, 7, 20)):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, 250, 6)
+    return [np.concatenate([shared, rng.integers(1, 250, n)]).astype(np.int32)
+            if i % 2 else rng.integers(1, 250, n).astype(np.int32)
+            for i, n in enumerate(lens)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_tick_graph_equals_eager_forward(cuda, dtype):
+    """One replay of the captured tick against the model's eager forward
+    on the same inputs, over a copy of the pools: logits within 2 ulps of
+    the largest logit in the compute dtype (bit-identical when cuBLAS
+    picks the same algorithm under capture), the same greedy tokens, and
+    the same K/V written."""
+    eng = _tiny_engine(cuda, dtype)
+    eng.warmup([32])
+    _serve(eng, _graph_prompts())
+    rng = np.random.default_rng(1)
+    S = eng.cfg.slots
+    inputs = {"ids": rng.integers(1, 250, (S, 1)).astype(np.int32),
+              "start": np.array([3, 17, 30], np.int32),
+              "bt": np.stack([rng.permutation(np.arange(1, eng.cfg.num_blocks))
+                              [:eng._mb] for _ in range(S)]).astype(np.int32)}
+    pools = [{kv: layer[kv].clone() for kv in ("k", "v")}
+             for layer in eng._cache]
+    assert eng.tier.key("tick", inputs) in eng.tier.graphs
+    graph = eng.tier.run("tick", eng._forward, inputs).clone()
+    eager, _ = eng.model(torch.as_tensor(inputs["ids"], device=cuda),
+                         cache=pools,
+                         cache_index=torch.as_tensor(inputs["start"],
+                                                     device=cuda),
+                         block_tables=torch.as_tensor(inputs["bt"],
+                                                      device=cuda))
+    eps = torch.finfo(eng.model.cfg.compute_dtype).eps
+    tol = 2 * eps * float(eager.abs().max())
+    assert float((graph - eager).abs().max()) <= tol
+    assert torch.equal(graph.argmax(-1), eager.argmax(-1))
+    for a, b in zip(eng._cache, pools):
+        for kv in ("k", "v"):
+            assert torch.equal(a[kv], b[kv])
+
+
+def test_engine_launches_count_replays(cuda):
+    """Launches = the wrappers' eager launches plus, per replay, what the
+    graph captured: forwards x layers for paged attention and forwards x
+    (2 layers + 1) for RMSNorm, with spec ticks, chunks and COW copies in
+    the mix; compile_stats flat after warmup."""
+    eng = _tiny_engine(cuda, spec_k=2, draft="ngram", prefill_chunk=16)
+    stats = eng.warmup([32])
+    assert stats["spec_tick_executables"] == 1
+    assert stats["chunk_executables"] == 1 and stats["copy_executables"] == 1
+    paged_attention.launches = fused_rmsnorm.launches = 0
+    eng.forwards = 0
+    _serve(eng, _graph_prompts(lens=(5, 9, 30, 7, 40)))
+    L = eng.model.cfg.n_layers
+    assert eng.forwards > 0
+    assert paged_attention.launches == eng.forwards * L
+    assert fused_rmsnorm.launches == eng.forwards * (2 * L + 1)
+    assert eng.compile_stats() == stats and eng.ledger.recompiles == 0
+    assert eng.metrics.summary()["cow_copies"] >= 1
+
+
+def test_engine_streams_equal_eager_generate(cuda):
+    """The captured engine's temperature-0 streams equal the eager
+    `generate` (no graphs) on the same fp32 weights."""
+    from hyperion_tpu_torch.infer.generate import generate
+
+    eng = _tiny_engine(cuda)
+    eng.warmup([32])
+    reqs = _serve(eng, _graph_prompts())
+    for r in reqs:
+        ref = generate(eng.model, r.prompt_ids[None], r.max_new_tokens,
+                       device=cuda)[0].tolist()
+        assert r.tokens == ref, r.id
+
+
+def test_unwarmed_bucket_captures_one_new_graph(cuda):
+    """A prompt past the warmed ladder captures its bucket's graph while
+    serving: the ledger counts exactly one recompile, nothing runs
+    eagerly in its place, and the stream is still right."""
+    from hyperion_tpu_torch.infer.generate import generate
+
+    eng = _tiny_engine(cuda)
+    stats = eng.warmup([8])
+    (r,) = _serve(eng, _graph_prompts(lens=(20,)), n=4)
+    assert eng.ledger.recompiles == 1
+    grown = eng.compile_stats()
+    assert grown["prefill_executables"] == stats["prefill_executables"] + 1
+    assert r.tokens == generate(eng.model, r.prompt_ids[None], 4,
+                                device=cuda)[0].tolist()

@@ -251,12 +251,44 @@ class TestEngineContract:
 
     @pytest.mark.parametrize("field, value", [("ledger_costs", True)])
     def test_unported_features_raise(self, pair, field, value):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(pair, **{field: value})
+        """Every EngineConfig field of the JAX engine is ported: with
+        `ledger_costs` the warmup ledger records one tick's FLOPs and
+        bytes under the JAX slugs, counted from the shapes."""
+        from hyperion_tpu_torch.serve.engine import tick_cost
 
-    def test_journal_is_not_ported(self, pair):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(pair[2], EngineConfig(), journal=object(), device="cpu")
+        eng = _engine(pair, **{field: value})
+        eng.warmup([8])
+        costs = eng.ledger.warmup["costs"]
+        assert set(costs) == {"tick_flops", "tick_bytes_accessed"}
+        assert costs == tick_cost(pair[2].cfg, 3, 16, eng._mb)
+        # the projections alone: 2 FLOPs per weight per slot
+        c = pair[2].cfg
+        gemm = c.n_layers * (4 * c.d_model * c.n_heads * c.head_dim
+                             + 3 * c.d_model * c.ff_dim) \
+            + c.d_model * c.vocab_size
+        assert costs["tick_flops"] > 2 * 3 * gemm
+
+    def test_journal_is_not_ported(self, pair, tmp_path):
+        """The journal, chaos and the flight recorder are ported: the
+        engine takes all three, journals a request to completion and
+        spills its flight record at the end of `run`."""
+        from hyperion_tpu_torch.obs.tickprof import read_flight
+        from hyperion_tpu_torch.serve.journal import RequestJournal
+        from hyperion_tpu_torch.testing import chaos
+
+        eng = Engine(pair[2], EngineConfig(slots=3, max_len=48),
+                     journal=RequestJournal(tmp_path / "j.jsonl"),
+                     chaos=chaos.ChaosPlan(chaos.parse_plan("stall@tick=1:0")),
+                     flight_path=tmp_path / "flight.json", device="cpu")
+        eng.warmup([8])
+        req = Request(prompt_ids=ORACLE_PROMPTS[0], max_new_tokens=3,
+                      id="j0")
+        eng.submit(req)
+        eng.run()
+        assert req.status == "done"
+        assert "stall@tick=1:0.0" in eng.chaos._fired
+        assert RequestJournal(tmp_path / "j.jsonl").pending_count() == 0
+        assert read_flight(tmp_path / "flight.json")["reason"] == "serve_end"
 
     def test_default_device_raises_without_cuda(self, pair):
         """No silent CPU fallback: the default device is cuda:0."""

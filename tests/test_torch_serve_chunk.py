@@ -50,8 +50,9 @@ class TestChunkedPrefill:
     def test_chunked_churn_preemption(self, pair, monkeypatch):
         eng = _engine(pair, **CHUNK)
         # bucket(16) caps the sampling-prefill ladder
-        assert [k for k in eng.warmup() if k.startswith("prefill_b")] \
-            == ["prefill_b8", "prefill_b16"]
+        eng.warmup()
+        assert [k for k in eng.ledger.warmup["compile_s"]
+                if k.startswith("prefill_b")] == ["prefill_b8", "prefill_b16"]
         calls = _counting(monkeypatch)
         eng.forwards = eng.chunk_segments = 0
         reqs = long_requests(77)
