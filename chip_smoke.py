@@ -129,7 +129,16 @@ script exits non-zero):
               p50, tokens per tick, acceptance rate, TTFT and TPOT p50,
               peak memory, bytes spilled and restored, and how many greedy
               streams equal the serve phase's, as smoke readings.
- 13. crash    the port's server over a seeded random Llama-2-7B-width
+ 13. load     the same model under the load generator's seeded Poisson
+              traffic (`serve/loadgen.py` `run_load`, closed loop with a
+              fresh 4-slot engine warmed to 456-token prompts): 48
+              requests at 8/s, a 200-token shared prefix, every fourth
+              request class batch. Every request done, no reject, exactly
+              the serving report's keys, prefix hits, no recompile,
+              launches exact; tokens/s, TTFT and e2e p50/p99, the prefix
+              hit rate, each class's TTFT p99 and peak memory as smoke
+              readings.
+ 14. crash    the port's server over a seeded random Llama-2-7B-width
               export (2 layers, fp32) with `--journal --supervise
               --chaos crash@tick=2`: the first life dies hard mid-decode,
               the second replays the journal; every token on the one
@@ -137,13 +146,26 @@ script exits non-zero):
               in-process engine over the same export, the journal
               drained, one restart, the heartbeat's attempt 1, a flight
               record, a compile ledger in each life and no recompile.
- 14. introspect  an engine behind a `MetricsExporter`: the exposition
+ 15. route    `python -m hyperion_tpu_torch.cli.main route` over two port
+              replicas (own processes and CUDA contexts) serving the crash
+              phase's export, with a tokenizer trained here (512 merges):
+              8 requests on stdin (a text prompt, a seeded sampled one,
+              two sharing a session) while replica 1 crashes at its third
+              tick, then a socket router under `--supervise` that dies at
+              its fifth dispatch while `ServeClient(resume=True)` streams
+              ride across. Every stream done once, indices 0..n-1, equal
+              to the in-process engine; a re-dispatch; the crashed
+              replica back with its journal drained; no recompile in any
+              replica; a replica's `profile` trace holds the paged
+              kernel; the router holds no CUDA context. The failover gap,
+              re-dispatches, adoptions and recovered orphans as readings.
+ 16. introspect  an engine behind a `MetricsExporter`: the exposition
               carries compile counts, tick profiler and memory ledger;
               `class_brownout` on and off is acknowledged and its gauge
               follows; `profile` for 2 s writes a trace holding the paged
               kernel.
- 15. the `kernels` line: one record per kernel and run (`run`: serve,
-              serve_features, train, train_long, llama_train) at that
+ 17. the `kernels` line: one record per kernel and run (`run`: serve,
+              serve_features, load, train, train_long, llama_train) at that
               run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
@@ -2141,6 +2163,87 @@ def phase_serve_features(model, serve_reqs: list[dict], serve_toks: dict,
     return rec
 
 
+LOAD_SPEC = dict(n_requests=48, rate_hz=8.0, prompt_lens=(32, 64, 128, 256),
+                 max_new=(16, 32), vocab=32000, shared_prefix_tokens=200,
+                 batch_every=4, temperature=0.0, seed=SEED + 20)
+
+
+def phase_load(model, smi: str, device: str = "cuda") -> dict:
+    """Full Llama-2-7B (the serve phase's model) under the load
+    generator's seeded Poisson traffic (`run_load`, closed loop with a
+    fresh 4-slot engine): every request done, no reject at queue capacity
+    64, exactly the serving report's keys, prefix hits, no recompile and
+    the kernels' launches exactly forwards x layers. Its readings are
+    smoke readings, not a benchmark cell. `device` is for rehearsing the
+    flow on the CPU with a tiny model."""
+    from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.loadgen import (
+        SERVING_REPORT_KEYS,
+        LoadSpec,
+        run_load,
+    )
+
+    t0 = time.perf_counter()
+    n_layers = model.cfg.n_layers
+    spec = LoadSpec(**LOAD_SPEC)
+    eng = Engine(model, EngineConfig(slots=4, max_len=1024, block_size=16,
+                                     queue_capacity=64), device=device)
+    # every prefill bucket the spec reaches: the shared prefix plus the
+    # longest tail
+    stats = eng.warmup([spec.shared_prefix_tokens + max(spec.prompt_lens)])
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    fused_rmsnorm.launches = 0
+    eng.forwards = 0
+    report = run_load(eng, spec)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "fused_rmsnorm": fused_rmsnorm.launches}
+    fwd = eng.forwards
+    rec = {
+        "phase": "load", "nvidia_smi": smi, "layers": n_layers,
+        "spec": LOAD_SPEC, "forwards": fwd,
+        **{k: report[k] for k in (
+            "requests", "completed", "rejected", "timed_out", "tokens",
+            "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "e2e_p50_ms",
+            "e2e_p99_ms", "elapsed_s", "prefix_hit_rate",
+            "prefill_tokens_saved", "interactive_ttft_p99_ms",
+            "batch_ttft_p99_ms", "interactive_completed",
+            "batch_completed", "dominant_phase_p99", "recompiles")},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "launches_expected": {"paged_attention": fwd * n_layers,
+                              "fused_rmsnorm": fwd * (2 * n_layers + 1)},
+        "report_keys_exact": set(report) == set(SERVING_REPORT_KEYS),
+        **graph_record(eng, stats),
+        "seconds": time.perf_counter() - t0,
+    }
+    emit(rec)
+    problems = graph_problems(eng, stats)
+    if report["completed"] != spec.n_requests or report["rejected"] \
+            or report["timed_out"]:
+        problems.append(f"completed {report['completed']}, rejected "
+                        f"{report['rejected']}, timed out "
+                        f"{report['timed_out']} of {spec.n_requests}")
+    if not rec["report_keys_exact"]:
+        problems.append("report keys differ by "
+                        f"{sorted(set(report) ^ set(SERVING_REPORT_KEYS))}")
+    if not report["prefix_hit_rate"]:
+        problems.append("no prefix hit")
+    if report["recompiles"]:
+        problems.append(f"{report['recompiles']} recompiles")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launch counts {launches} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("load: " + "; ".join(problems))
+    return rec
+
+
 def graph_record(eng, stats: dict) -> dict:
     """The compile tier after a run: graphs per surface (`compile_stats`,
     the JAX engine's keys), each graph's build seconds, recompiles, the
@@ -2420,6 +2523,417 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     return rec, model
 
 
+ROUTE_DIR = Path("build/chip_smoke_route")
+ROUTE_WORDS = ("the model serves tokens over a socket and the router sends "
+               "each request to the replica with the least load while the "
+               "journal keeps every dispatch so a crash loses nothing and a "
+               "client resumes its stream from the next index it is owed "
+               "in order once").split()
+
+
+def route_corpus(rng) -> list[str]:
+    """The text the route phase trains its tokenizer on: seeded lines of
+    400 words built from 60 syllables, so pairs repeat and all 512 merges
+    are learned."""
+    syllables = ["".join(rng.choice(list("bcdfghklmnprstvz"))
+                         + rng.choice(list("aeiou"))
+                         + ("" if rng.random() < 0.5
+                            else rng.choice(list("nrst"))))
+                 for _ in range(60)]
+    words = ["".join(rng.choice(syllables, int(rng.integers(1, 4))))
+             for _ in range(400)]
+    return [" ".join(rng.choice(words + list(ROUTE_WORDS), 14))
+            for _ in range(4000)]
+
+
+def route_requests(rng, n: int, tag: str) -> list[dict]:
+    """`n` requests of 20..60 tokens (the 64-token bucket every replica
+    warms), 16-24 new tokens: one text prompt, one sampled with a seed,
+    two sharing a session, the rest prompt_ids."""
+    reqs = []
+    for i in range(n):
+        r = {"id": f"{tag}{i}", "max_new_tokens": int(rng.integers(16, 25))}
+        if i == 0:
+            r["prompt"] = " ".join(rng.choice(ROUTE_WORDS, 12))
+        else:
+            r["prompt_ids"] = rng.integers(1, 32000, int(rng.integers(
+                20, 61))).astype(int).tolist()
+        if i == 1:
+            r.update(temperature=0.8, top_p=0.9, seed=int(rng.integers(1e6)))
+        if i in (2, 3):
+            r["session_id"] = f"{tag}_sess"
+        reqs.append(r)
+    return reqs
+
+
+def _wait_for(pred, timeout_s: float, what: str, proc=None) -> None:
+    end = time.perf_counter() + timeout_s
+    while not pred():
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"route: {what}: router exited "
+                                 f"{proc.returncode}")
+        if time.perf_counter() > end:
+            raise AssertionError(f"route: {what} not within {timeout_s} s")
+        time.sleep(0.2)
+
+
+def _records(path: Path) -> list[dict]:
+    out = []
+    if path.exists():
+        for line in path.read_text().splitlines():
+            try:
+                out.append(json.loads(line))
+            except json.JSONDecodeError:
+                pass  # a torn tail of a killed life
+    return out
+
+
+def _reap_group(pgid: int, grace_s: float = 30.0) -> None:
+    """Wait for the router's process group (its replicas, adopted ones
+    included) to exit, then SIGKILL whatever is left."""
+    import os
+    import signal
+
+    end = time.perf_counter() + grace_s
+    while time.perf_counter() < end:
+        try:
+            os.killpg(pgid, 0)
+        except ProcessLookupError:
+            return
+        time.sleep(0.2)
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def _cuda_pids() -> list[int]:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _maps_cuda(pid: int) -> bool:
+    """Whether the process has the CUDA driver or runtime mapped."""
+    try:
+        maps = Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+    return "libcuda.so" in maps or "libcudart" in maps
+
+
+def _route_argv(base: Path, ckpt: Path, tok_dir: Path,
+                device: str) -> list[str]:
+    return [sys.executable, "-m", "hyperion_tpu_torch.cli.main", "route",
+            "--replicas", "2", "--min-ready", "2", "--device", device,
+            "--dtype", "float32", "--ckpt", str(ckpt),
+            "--tokenizer-dir", str(tok_dir), "--base-dir", str(base),
+            "--max-len", "256", "--slots", "4", "--warmup-lens", "64",
+            "--replica-heartbeat-every", "1", "--hang-timeout", "0",
+            "--ready-timeout", "300",
+            # an idle replica beats every 15 s (obs/heartbeat.py), past
+            # the router's 10 s default: the pauses here (a profiler's
+            # first start takes seconds) would eject idle replicas as
+            # stale
+            "--stale-s", "30"]
+
+
+def _stream_problems(tag: str, streams: dict, dones: dict, ref) -> list:
+    problems = []
+    for r in ref:
+        got = streams.get(r.id, [])
+        if [i for i, _ in got] != list(range(len(got))) or not got:
+            problems.append(f"{tag} {r.id}: stream indices "
+                            f"{[i for i, _ in got]}")
+        if dones.get(r.id) != 1:
+            problems.append(f"{tag} {r.id}: {dones.get(r.id, 0)} done lines")
+        if [t for _, t in got] != r.tokens:
+            problems.append(f"{tag} {r.id}: stream differs from the "
+                            "uninterrupted engine")
+    return problems
+
+
+def phase_route(model, smi: str, device: str = "cuda") -> dict:
+    """The port's router over two port replicas on the card, each a
+    process with its own CUDA context, serving the crash phase's export
+    (Llama-2-7B widths, 2 layers, fp32; the same `model` is the
+    uninterrupted in-process reference). A tokenizer trained here with
+    512 merges serves a text prompt. Leg 1, stdin: replica 1 dies at its
+    third tick (`--replica-chaos 1:crash@tick=3`), the router re-dispatches
+    its streams, the replica restarts and its journal drains, and one
+    replica's `profile` verb traces the paged kernel. Leg 2, a socket:
+    the router itself runs `--supervise` and dies at its fifth dispatch
+    (`--chaos crash@dispatch=5`); the next life adopts the replicas and
+    recovers the WAL, and `ServeClient(resume=True)` streams ride across.
+    Every stream exactly once, in order, equal to the in-process engine;
+    no recompile in any replica; the router holds no CUDA context.
+    `device` is for rehearsing the flow on the CPU with a tiny export."""
+    import os
+    import shutil
+    import signal
+    import threading
+
+    from hyperion_tpu_torch.data.bpe import train_bpe
+    from hyperion_tpu_torch.obs.export import exposition_path, request_control
+    from hyperion_tpu_torch.obs.heartbeat import read_heartbeat
+    from hyperion_tpu_torch.serve.client import ServeClient
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.journal import RequestJournal
+    from hyperion_tpu_torch.serve.queue import Request
+    from hyperion_tpu_torch.utils.profiling import TRACE_NAME
+
+    t0 = time.perf_counter()
+    shutil.rmtree(ROUTE_DIR, ignore_errors=True)
+    ROUTE_DIR.mkdir(parents=True)
+    ckpt = CRASH_DIR / "llama.npz"
+    rng = np.random.default_rng(SEED + 30)
+    tok = train_bpe(route_corpus(rng), vocab_size=256 + 1 + 512)
+    tok_dir = ROUTE_DIR / "tokenizer"
+    tok.save(tok_dir)
+    leg1 = route_requests(rng, 8, "r")
+    leg2 = route_requests(rng, 6, "v")
+    for r in leg2:
+        r["max_new_tokens"] = 48  # streams still open at the crash
+
+    def reference(reqs):
+        # the replicas' eos is the tokenizer's
+        eng = Engine(model, EngineConfig(slots=4, max_len=256,
+                                         eos_id=tok.eos_id), device=device)
+        eng.warmup([64])
+        out = [Request(prompt_ids=np.asarray(
+            r["prompt_ids"] if "prompt_ids" in r else tok.encode(r["prompt"]),
+            np.int32), max_new_tokens=r["max_new_tokens"], id=r["id"],
+            temperature=r.get("temperature", 0.0), top_p=r.get("top_p", 1.0),
+            seed=r.get("seed", 0)) for r in reqs]
+        drive(eng, out)
+        return out
+
+    ref1, ref2 = reference(leg1), reference(leg2)
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    for k in ("HYPERION_TELEMETRY", "HYPERION_ATTEMPT", "HYPERION_HEARTBEAT"):
+        env.pop(k, None)
+    problems: list[str] = []
+    rec: dict = {"phase": "route", "nvidia_smi": smi, "layers": 2,
+                 "dtype": "float32", "merges": len(tok.merges)}
+
+    # ---- leg 1: a replica crash under the stdin router
+    base1 = ROUTE_DIR / "leg1"
+    wal1 = ROUTE_DIR / "leg1_router_journal.jsonl"
+    err1 = open(ROUTE_DIR / "leg1.err", "w")
+    t1 = time.perf_counter()
+    proc = subprocess.Popen(
+        _route_argv(base1, ckpt, tok_dir, device)
+        + ["--router-journal", str(wal1), "--replica-chaos", "1:crash@tick=3"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err1, text=True,
+        env=env, cwd=repo, start_new_session=True)
+    lines: list[dict] = []
+
+    def read_wire():
+        for line in proc.stdout:
+            lines.append(json.loads(line))  # the router's stdout is wire only
+
+    reader = threading.Thread(target=read_wire, daemon=True)
+    reader.start()
+    try:
+        hb_paths = [base1 / f"replica_{i}" / "heartbeat.json" for i in (0, 1)]
+        _wait_for(lambda: all((read_heartbeat(p) or {}).get("phase", "")
+                              .startswith("serve") for p in hb_paths)
+                  and exposition_path(hb_paths[0]).exists(), 300,
+                  "both replicas serving", proc)
+        rec["replicas_ready_s"] = time.perf_counter() - t1
+        prof_dir = ROUTE_DIR / "profile"
+        # the verb answers once the profiler runs; its first start in a
+        # process (CUPTI's setup) takes seconds, so the requests go out
+        # after the answer and their ticks fall inside the 2 s window
+        tp = time.perf_counter()
+        rec["profile"] = request_control(
+            exposition_path(hb_paths[0]),
+            {"cmd": "profile", "out": str(prof_dir), "seconds": 2.0},
+            timeout_s=120.0) or {}
+        rec["profile_start_s"] = time.perf_counter() - tp
+        proc.stdin.write("".join(json.dumps(r) + "\n" for r in leg1))
+        proc.stdin.flush()
+        _wait_for(lambda: sum(x.get("event") == "done" for x in lines)
+                  >= len(leg1), 180, "every leg-1 request done", proc)
+        rec["leg1_served_s"] = time.perf_counter() - t1
+        j1 = base1 / "replica_1" / "journal.jsonl"
+        _wait_for(lambda: (read_heartbeat(hb_paths[1]) or {}).get("attempt")
+                  == 1 and RequestJournal(j1).pending_count() == 0, 180,
+                  "replica 1 restarted with its journal drained", proc)
+        rec["replica_restart_s"] = time.perf_counter() - t1
+        replica_pids = [(read_heartbeat(p) or {}).get("pid")
+                        for p in hb_paths]
+        cuda_pids = _cuda_pids()
+        rec["cuda_context"] = {
+            "router_pid": proc.pid, "replica_pids": replica_pids,
+            "compute_apps": cuda_pids,
+            "router_in_compute_apps": proc.pid in cuda_pids,
+            "router_maps_cuda": _maps_cuda(proc.pid),
+            "replicas_map_cuda": [_maps_cuda(p) for p in replica_pids]}
+        proc.stdin.close()
+        rc1 = proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        _reap_group(proc.pid)
+        err1.close()
+    reader.join(timeout=10)
+    rec["leg1_s"] = time.perf_counter() - t1
+    streams: dict = {}
+    dones: dict = {}
+    for x in lines:
+        if x.get("event") == "token":
+            streams.setdefault(x["id"], []).append((x["i"], x["token"]))
+        elif x.get("event") == "done":
+            dones[x["id"]] = dones.get(x["id"], 0) + 1
+    if rc1 != 0:
+        problems.append(f"leg 1 router exit {rc1}: "
+                        f"{(ROUTE_DIR / 'leg1.err').read_text()[-2000:]}")
+    problems += _stream_problems("leg 1", streams, dones, ref1)
+    route1 = _records(base1 / "telemetry.jsonl")
+    ends = [x for x in route1 if x.get("name") == "router_end"]
+    end1 = ends[-1] if ends else {}
+    rec["leg1_router_end"] = {k: end1.get(k) for k in (
+        "dispatched", "completed", "redispatched", "rejected",
+        "failover_gap_p99_ms", "adopted", "orphans_recovered",
+        "per_replica_restarts")}
+    def t_of(recs, name, replica, after=0.0):
+        return next((x["t_wall"] for x in recs if x.get("name") == name
+                     and x.get("replica") == replica
+                     and x["t_wall"] > after), None)
+
+    died = t_of(route1, "replica_exit", 1)
+    back = t_of(route1, "replica_readmitted", 1, after=died or 0.0)
+    # the crashed replica's way back: process start, CUDA context, the
+    # export's load, graph warmup (the kernels are built already)
+    rec["replica1_exit_to_readmit_s"] = (back - died if died and back
+                                         else None)
+    if not end1.get("redispatched"):
+        problems.append(f"leg 1: router_end {rec['leg1_router_end']}")
+    if RequestJournal(base1 / "replica_1" / "journal.jsonl").pending_count():
+        problems.append("leg 1: replica 1's journal still owes requests")
+    for i in (0, 1):
+        tele = _records(base1 / f"replica_{i}" / "telemetry.jsonl")
+        rec[f"leg1_replica{i}_ledgers"] = sum(
+            x.get("name") == "compile_ledger" for x in tele)
+        if any(x.get("name") == "recompile_after_warmup" for x in tele):
+            problems.append(f"leg 1: replica {i} recompiled")
+    trace = prof_dir / TRACE_NAME
+    _wait_for(trace.exists, 60, "the profile trace")
+    time.sleep(1.0)  # the writer may still be finishing the file
+    rec["trace_paged_kernels"] = sum(
+        "paged_attention_kernel" in str(e.get("name", ""))
+        for e in json.loads(trace.read_text()).get("traceEvents", []))
+    if rec["merges"] != 512:
+        problems.append(f"the tokenizer learned {rec['merges']} merges")
+    if rec["profile"].get("status") != "started":
+        problems.append(f"leg 1: profile verb answered {rec['profile']}")
+    if not rec["trace_paged_kernels"]:
+        problems.append("leg 1: the replica's profile trace holds no paged "
+                        "kernel")
+    # in a container nvidia-smi may list other pid numbers than the
+    # processes see (pid 1 for each), so the maps are the check that
+    # binds; the compute-apps list is recorded beside them
+    cc = rec["cuda_context"]
+    if cc["router_in_compute_apps"] or cc["router_maps_cuda"] \
+            or not all(cc["replicas_map_cuda"]):
+        problems.append(f"leg 1: CUDA contexts {cc}")
+
+    # ---- leg 2: the router dies under --supervise, clients resume
+    base2 = ROUTE_DIR / "leg2"
+    sock = str(ROUTE_DIR / "route.sock")
+    err2 = open(ROUTE_DIR / "leg2.err", "w")
+    out2 = open(ROUTE_DIR / "leg2.out", "w")
+    t2 = time.perf_counter()
+    proc = subprocess.Popen(
+        _route_argv(base2, ckpt, tok_dir, device)
+        + ["--supervise", "--socket", sock, "--chaos", "crash@dispatch=5"],
+        stdout=out2, stderr=err2, env=env, cwd=repo, start_new_session=True)
+    results: dict = {}
+    errors: list = []
+    try:
+        _wait_for(lambda: os.path.exists(sock), 300, "the router socket",
+                  proc)
+        rec["leg2_ready_s"] = time.perf_counter() - t2
+
+        def client(r):
+            got: list = []
+            try:
+                with ServeClient(sock, timeout_s=120.0, resume=True) as c:
+                    for x in c.stream(**r):
+                        got.append(x)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"{r['id']}: {e!r}")
+            results[r["id"]] = got
+
+        threads = [threading.Thread(target=client, args=(r,)) for r in leg2]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=240)
+        rec["leg2_served_s"] = time.perf_counter() - t2
+        hb = read_heartbeat(base2 / "heartbeat.json") or {}
+        if hb.get("pid"):
+            os.kill(int(hb["pid"]), signal.SIGTERM)  # drain the router life
+        rc2 = proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+        _reap_group(proc.pid)
+        err2.close()
+        out2.close()
+    rec["leg2_s"] = time.perf_counter() - t2
+    streams, dones = {}, {}
+    for rid, recs in results.items():
+        for x in recs:
+            if x.get("event") == "token":
+                streams.setdefault(rid, []).append((x["i"], x["token"]))
+            elif x.get("event") == "done":
+                dones[rid] = dones.get(rid, 0) + 1
+    if errors or rc2 != 0:
+        problems.append(f"leg 2: exit {rc2}, client errors {errors}: "
+                        f"{(ROUTE_DIR / 'leg2.err').read_text()[-2000:]}")
+    problems += _stream_problems("leg 2", streams, dones, ref2)
+    route2 = _records(base2 / "telemetry.jsonl")
+    names = [x.get("name") for x in route2]
+    end2 = [x for x in route2 if x.get("name") == "router_end"]
+    end2 = end2[-1] if end2 else {}
+    rec["leg2_router_end"] = {k: end2.get(k) for k in (
+        "dispatched", "completed", "redispatched", "adopted", "resumes",
+        "orphans_recovered", "failover_gap_p99_ms")}
+    rec["leg2_router_restarts"] = (ROUTE_DIR / "leg2.err").read_text().count(
+        "[route-supervisor] router exit")
+    life1 = route2[0].get("run") if route2 else None
+    starts = [x["t_wall"] for x in route2 if x.get("name") == "router_start"
+              and x.get("run") != life1]
+    last1 = max((x.get("t_wall", 0.0) for x in route2
+                 if x.get("run") == life1), default=None)
+    # the router's own death to its next life's start
+    rec["leg2_router_restart_s"] = (starts[0] - last1 if starts and last1
+                                    else None)
+    rec["leg2_events"] = {n: names.count(n) for n in (
+        "replica_adopted", "route_resume", "route_orphan_recovered")}
+    if rec["leg2_router_restarts"] != 1 \
+            or rec["leg2_events"]["replica_adopted"] < 2 \
+            or not (rec["leg2_events"]["route_resume"]
+                    or rec["leg2_events"]["route_orphan_recovered"]):
+        problems.append(f"leg 2: restarts {rec['leg2_router_restarts']}, "
+                        f"events {rec['leg2_events']}")
+    for i in (0, 1):
+        if any(x.get("name") == "recompile_after_warmup" for x in _records(
+                base2 / f"replica_{i}" / "telemetry.jsonl")):
+            problems.append(f"leg 2: replica {i} recompiled")
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    if problems:
+        raise AssertionError("route: " + "; ".join(problems))
+    return rec
+
+
 def phase_introspect(model) -> dict:
     """A port engine serving behind a `MetricsExporter`: the exposition
     snapshot carries the compile counts, the tick profiler and the memory
@@ -2518,15 +3032,17 @@ def phase_introspect(model) -> dict:
     return rec
 
 
-def kernels_line(serve_rec: dict, features_rec: dict, train_rec: dict,
-                 long_rec: dict, llama_rec: dict, kernel_recs: dict,
-                 flash_recs: dict) -> dict:
+def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
+                 train_rec: dict, long_rec: dict, llama_rec: dict,
+                 kernel_recs: dict, flash_recs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
     attention at the spec tick's verify window [4, 5] and a chunk
-    segment [1, 256], RMSNorm at the verify window's [4, 5, 4096];
-    LayerNorm and the
+    segment [1, 256], RMSNorm at the verify window's [4, 5, 4096]; at
+    load, the decode tick's records and paged attention at the window of
+    a 456-token prompt whose 192-token prefix the radix holds; LayerNorm
+    and the
     cross-entropy at the language_ddp train step and at the train_long
     step; the flash kernels at the train_long step's layer (D 64) and
     at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
@@ -2543,6 +3059,9 @@ def kernels_line(serve_rec: dict, features_rec: dict, train_rec: dict,
     rn = check_rms("decode_tick_S4", x, w, "block", timing=True)
     x = torch.randn(4, 5, 4096, generator=g, device="cuda").to(torch.bfloat16)
     rn_spec = check_rms("spec_tick_S4x5", x, w, "block", timing=True)
+    pa_hit = check_paged("load_prefix_hit_1x264_base192", paged_geometry(
+        1, 264, 32, 32, torch.bfloat16, base=[192], seed=9),
+        torch.bfloat16, timing=True)
     csrc = "hyperion_tpu_torch/ops/csrc/"
     pallas = "hyperion_tpu/ops/pallas/"
     where = {"paged_attention": ("paged_attention.cu",
@@ -2562,6 +3081,9 @@ def kernels_line(serve_rec: dict, features_rec: dict, train_rec: dict,
                                   ("fused_rmsnorm", rn)]),
             ("serve_features", features_rec,
              kernel_recs["serve_features"] + [("fused_rmsnorm", rn_spec)]),
+            ("load", load_rec, [("paged_attention", pa),
+                                ("paged_attention", pa_hit),
+                                ("fused_rmsnorm", rn)]),
             ("train", train_rec, list(kernel_recs["train"].items())),
             ("train_long", long_rec, [*kernel_recs["train_long"].items(),
                                       *flash_recs["train_long"].items()]),
@@ -2612,14 +3134,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     features_rec = phase_serve_features(model, serve_reqs, serve_toks,
                                         dev["nvidia_smi"])
+    gc.collect()  # the features engine's pools go before the load engine's
+    torch.cuda.empty_cache()
+    load_rec = phase_load(model, dev["nvidia_smi"])
     del model
     gc.collect()  # the 7B weights go before the crash phase's children
     torch.cuda.empty_cache()
     _, crash_model = phase_crash()
+    phase_route(crash_model, dev["nvidia_smi"])
     phase_introspect(crash_model)
     del crash_model
-    emit(kernels_line(serve_rec, features_rec, train_rec, long_rec,
-                      llama_rec, kernel_recs, flash_recs))
+    emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
+                      long_rec, llama_rec, kernel_recs, flash_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -414,3 +414,203 @@ class ServeMetrics:
             # compile ledger (obs/ledger.py): the zero-pinned diff gate
             "recompiles": int(c.get("serve_recompiles", 0)),
         }
+
+
+class RouterMetrics:
+    """Fleet-level instruments for the replica router (serve/router.py)
+    — same registry/snapshot discipline as ServeMetrics, different
+    questions: not "how fast is one engine" but "how evenly is the
+    fleet loaded, how sticky is affinity, and how often did health
+    ejection fire". Unlike ServeMetrics (single engine-thread writer),
+    these instruments are hit from MANY relay threads concurrently, so
+    every mutation takes the lock — a lost increment here would skew
+    the fairness/scaleup numbers bench reads back from router_end."""
+
+    def __init__(self, registry: MetricsRegistry | None = None):
+        import threading
+
+        self.reg = registry or MetricsRegistry()
+        self._lock = threading.Lock()
+        for name in ("route_dispatched", "route_redispatched",
+                     "route_rejected", "route_completed",
+                     "route_affinity_lookups", "route_affinity_hits",
+                     "replica_ejections", "replica_readmits",
+                     # SLO alerting: the router's OWN burn-rate alerts
+                     # (obs/slo.py publishes with prefix="route") plus
+                     # the fleet tally of alerts its replicas report on
+                     # their heartbeats — both pre-created so 0 renders
+                     "route_alerts_raised", "route_alerts_cleared",
+                     "fleet_alerts_raised",
+                     # the acting router (alert-driven control): every
+                     # steer/scale/brownout decision is counted so a
+                     # flapping policy is visible as a number, not vibes
+                     "router_steers", "router_unsteers",
+                     "router_scale_up", "router_scale_down",
+                     "class_brownouts_ordered",
+                     "class_brownouts_lifted",
+                     # router crash safety: client streams resumed
+                     # across a disconnect, WAL orphans recovered by a
+                     # new router life, replicas adopted (taken over
+                     # live, no respawn) from a previous life
+                     "route_resumes", "route_orphans_recovered",
+                     "route_adopted",
+                     # cache-aware routing (serve/hostcache.py): the
+                     # dispatch went to a replica ADVERTISING the
+                     # request's prefix root on its heartbeat — prefix
+                     # locality without a session id
+                     "route_cache_steered"):
+            self.reg.counter(name)
+        self.reg.gauge("fleet_ready").set(0.0)
+        self.reg.gauge("fleet_inflight").set(0.0)
+        self.reg.gauge("fleet_alerts_active").set(0.0)
+        self.reg.gauge("route_alerts_active").set(0.0)
+        self.reg.gauge("fleet_steered").set(0.0)
+
+    def on_dispatch(self, replica: int, affinity_hit: bool,
+                    had_key: bool, cache_hit: bool = False) -> None:
+        with self._lock:
+            self.reg.counter("route_dispatched").inc()
+            self.reg.counter(f"route_dispatched_replica_{replica}").inc()
+            if cache_hit:
+                self.reg.counter("route_cache_steered").inc()
+            if had_key:
+                lookups = self.reg.counter("route_affinity_lookups")
+                hits = self.reg.counter("route_affinity_hits")
+                lookups.inc()
+                if affinity_hit:
+                    hits.inc()
+                self.reg.gauge("route_affinity_hit_rate").set(
+                    hits.value / lookups.value)
+
+    def on_redispatch(self, reason: str) -> None:
+        with self._lock:
+            self.reg.counter("route_redispatched").inc()
+            self.reg.counter(f"route_redispatched_{reason}").inc()
+
+    def on_reject(self, reason: str) -> None:
+        with self._lock:
+            self.reg.counter("route_rejected").inc()
+            self.reg.counter(f"route_rejected_{reason}").inc()
+
+    def on_complete(self) -> None:
+        with self._lock:
+            self.reg.counter("route_completed").inc()
+
+    def on_eject(self) -> None:
+        with self._lock:
+            self.reg.counter("replica_ejections").inc()
+
+    def on_readmit(self) -> None:
+        with self._lock:
+            self.reg.counter("replica_readmits").inc()
+
+    def observe_fleet(self, ready: int, inflight: int,
+                      alerts_active: int | None = None) -> None:
+        with self._lock:
+            self.reg.gauge("fleet_ready").set(ready)
+            self.reg.gauge("fleet_inflight").set(inflight)
+            if alerts_active is not None:
+                self.reg.gauge("fleet_alerts_active").set(alerts_active)
+
+    def on_steer(self, on: bool) -> None:
+        """One steering transition: `on` = interactive traffic moved
+        OFF a burning replica, False = hysteresis-clean reversal."""
+        with self._lock:
+            self.reg.counter(
+                "router_steers" if on else "router_unsteers").inc()
+
+    def on_scale(self, up: bool) -> None:
+        with self._lock:
+            self.reg.counter(
+                "router_scale_up" if up else "router_scale_down").inc()
+
+    def on_class_brownout(self, on: bool) -> None:
+        with self._lock:
+            self.reg.counter("class_brownouts_ordered" if on
+                             else "class_brownouts_lifted").inc()
+
+    def observe_steered(self, n: int) -> None:
+        with self._lock:
+            self.reg.gauge("fleet_steered").set(n)
+
+    def on_resume(self) -> None:
+        """One client resume verb answered (reconnect after a wire cut
+        or a router death)."""
+        with self._lock:
+            self.reg.counter("route_resumes").inc()
+
+    def on_failover_gap(self, gap_s: float) -> None:
+        """One failover gap closed: seconds from detecting a replica
+        death mid-stream to the first record the client saw from the
+        replacement (connect retries against the restart included)."""
+        with self._lock:
+            self.reg.histogram("route_failover_gap_ms").observe(
+                max(0.0, gap_s) * 1000.0)
+
+    def on_orphans(self, n: int) -> None:
+        """`n` orphaned dispatches recovered from a previous router
+        life's WAL."""
+        if n:
+            with self._lock:
+                self.reg.counter("route_orphans_recovered").inc(n)
+
+    def on_adopt(self) -> None:
+        """One still-live replica adopted from a previous router life
+        (taken over from its heartbeat, not respawned)."""
+        with self._lock:
+            self.reg.counter("route_adopted").inc()
+
+    def on_fleet_alerts(self, n_new: int) -> None:
+        """`n_new` alert names appeared on replica heartbeats since the
+        last monitor sweep (serve/router.py counts the transitions —
+        this is the fleet-wide raise tally bench's serving_scale row
+        reads back from router_end)."""
+        if n_new:
+            with self._lock:
+                self.reg.counter("fleet_alerts_raised").inc(n_new)
+
+    def summary(self) -> dict:
+        with self._lock:
+            snap = self.reg.snapshot()
+            gaps = self.reg.histogram("route_failover_gap_ms")
+            failover_gap_p99_ms = (round(gaps.percentile(99), 3)
+                                   if gaps.summary()["count"] else 0.0)
+        c, g = snap["counters"], snap["gauges"]
+        share = {
+            k.removeprefix("route_dispatched_replica_"): int(v)
+            for k, v in c.items()
+            if k.startswith("route_dispatched_replica_")
+        }
+        return {
+            "dispatched": int(c.get("route_dispatched", 0)),
+            "redispatched": int(c.get("route_redispatched", 0)),
+            "rejected": int(c.get("route_rejected", 0)),
+            "completed": int(c.get("route_completed", 0)),
+            "affinity_lookups": int(c.get("route_affinity_lookups", 0)),
+            "affinity_hits": int(c.get("route_affinity_hits", 0)),
+            "affinity_hit_rate": g.get("route_affinity_hit_rate"),
+            "cache_steered": int(c.get("route_cache_steered", 0)),
+            "ejections": int(c.get("replica_ejections", 0)),
+            "readmits": int(c.get("replica_readmits", 0)),
+            "per_replica_dispatched": share,
+            # SLO alerting: router-local raises + the fleet tally of
+            # replica-reported alerts (both ride router_end)
+            "alerts_raised": int(c.get("route_alerts_raised", 0)),
+            "fleet_alerts_raised": int(c.get("fleet_alerts_raised", 0)),
+            "fleet_alerts_active": int(g.get("fleet_alerts_active") or 0),
+            # the acting router: control decisions taken this run
+            "steers": int(c.get("router_steers", 0)),
+            "unsteers": int(c.get("router_unsteers", 0)),
+            "scale_up": int(c.get("router_scale_up", 0)),
+            "scale_down": int(c.get("router_scale_down", 0)),
+            "class_brownouts": int(c.get("class_brownouts_ordered", 0)),
+            "steered_now": int(g.get("fleet_steered") or 0),
+            # router crash safety (rides router_end for bench/doctor)
+            "resumes": int(c.get("route_resumes", 0)),
+            "orphans_recovered": int(c.get("route_orphans_recovered", 0)),
+            "adopted": int(c.get("route_adopted", 0)),
+            # failover-gap tail (ms): 0.0 when no failover fired, so
+            # the bench `serving_scale` row and the diff gate stay live
+            # on healthy runs instead of going missing
+            "failover_gap_p99_ms": failover_gap_p99_ms,
+        }

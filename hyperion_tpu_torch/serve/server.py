@@ -1,21 +1,36 @@
-"""JSONL serving front end — `hyperion_tpu/serve/server.py` in PyTorch,
-stdin/stdout transport.
+"""JSONL serving front end — `hyperion_tpu/serve/server.py` in PyTorch.
 
-    python -m hyperion_tpu_torch.serve.server --ckpt model.npz \\
-        --no-tokenizer < requests.jsonl
+    python -m hyperion_tpu_torch.cli.main serve --ckpt model.npz \\
+        [--tokenizer-dir DIR | --no-tokenizer] [--socket PATH]
 
-One JSON object per line. A request line:
-    {"id": "r1", "prompt_ids": [1, 2, 3], "max_new_tokens": 32,
+Two transports over one wire protocol, one JSON object per line:
+stdin/stdout (the default; drains on EOF) and a local unix socket
+(`--socket PATH`: a threaded acceptor, each connection receives exactly
+its own requests' events; `serve/client.py` is the matching client).
+A request line:
+    {"id": "r1", "prompt": "text", "max_new_tokens": 32,
      "temperature": 0.0, "top_k": 0, "top_p": 1.0, "seed": 0,
-     "deadline_s": 5.0, "class": "interactive"}
+     "deadline_s": 5.0, "class": "interactive", "tenant": "team-a"}
+`prompt_ids` (a raw int list) stands in for `prompt`; text prompts need
+the byte-level BPE tokenizer (`--tokenizer-dir`, `data/bpe.py`).
 Every response line carries the request id:
-    {"id": "r1", "event": "token", "token": 17, "i": 0}
+    {"id": "r1", "event": "token", "token": 17, "i": 0, "text": "..."}
     {"id": "r1", "event": "done", "n_tokens": 32, "ttft_ms": 12.3}
     {"id": "r1", "event": "rejected"|"timed_out", "reason": "..."}
     {"id": null, "event": "error", "error": "..."}   (unparseable line)
 
-The engine loop runs on the main thread and drains on EOF; a reader
-thread only submits into the (thread-safe) admission queue. SIGTERM or
+A client cut off mid-stream reconnects and sends the resume verb
+    {"kind": "resume", "request_id": "r1", "next_index": 7,
+     "request": {...the original request line...}}
+and receives the rest of the stream (tokens with index >= 7, then the
+terminal line) under the original id: the request is recomputed under a
+suffixed wire id (sampling is seeded by seed and position, so the
+stream is the same) and the sink drops the indices the client holds.
+
+The engine loop runs on the main thread; transports only submit host
+requests (numpy prompts) into the thread-safe admission queue, and the
+sinks run on the engine thread, so no other thread touches the card.
+The socket listens only after `warmup` has captured every graph. SIGTERM or
 SIGINT drains gracefully (and spills the flight record), a second one
 stops at once. The engine's deferred decode paths are flags:
 `--spec-k`/`--draft`, `--prefill-chunk`, `--host-cache-mb` (persisted
@@ -32,14 +47,12 @@ injects the serve faults of `testing/chaos.py`. With telemetry on
 (`HYPERION_TELEMETRY`), the heartbeat, `flight.json` and the exposition
 socket `obs.sock` (snapshots, `profile` and `class_brownout` verbs) sit
 next to the stream.
-
-Not ported yet (ROADMAP A2): text prompts (the tokenizer), the unix
-socket transport and stream resume.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import sys
 import threading
@@ -50,6 +63,11 @@ def event_record(ev, tok=None) -> dict | list:
     """TokenEvent -> one wire record (a token line and the terminal line
     when the token finishes the request)."""
     req = ev.request
+    if ev.kind == "done":
+        # journal recovery found the output already complete: the
+        # client is owed only the terminal line the crash swallowed
+        return {"id": req.id, "event": "done",
+                "n_tokens": len(req.tokens), "recovered": True}
     if ev.kind != "token":
         return {"id": req.id, "event": ev.kind, "reason": ev.reason}
     # `i` is the token's index in the request's stream (the engine
@@ -93,7 +111,8 @@ def parse_request_line(line: str, tok=None, defaults: dict | None = None):
     elif "prompt" in doc:
         if tok is None:
             return {"id": doc.get("id"), "event": "error",
-                    "error": "text prompt needs a tokenizer; send prompt_ids"}
+                    "error": "text prompt needs a tokenizer "
+                             "(--tokenizer-dir); send prompt_ids"}
         ids = tok.encode(str(doc["prompt"]))
     else:
         return {"id": doc.get("id"), "event": "error",
@@ -119,6 +138,79 @@ def parse_request_line(line: str, tok=None, defaults: dict | None = None):
     except (TypeError, ValueError) as e:
         return {"id": doc.get("id"), "event": "error",
                 "error": f"bad request field: {e}"}
+
+
+# ------------------------------------------------------ stream resume
+#
+# The recompute runs under a suffixed wire id, so the engine and the
+# journal never see one id twice; the sink rewrites it back before the
+# client sees a byte, and drops the indices below `next_index`.
+
+_RESUME_SEQ = itertools.count(1)
+
+
+def maybe_resume_doc(line: str) -> dict | None:
+    """Parse `line` as a resume verb, or None (a plain request)."""
+    if '"resume"' not in line:
+        return None
+    try:
+        doc = json.loads(line)
+    except json.JSONDecodeError:
+        return None
+    if isinstance(doc, dict) and doc.get("kind") == "resume":
+        return doc
+    return None
+
+
+def resume_sink(writer, tok, rid: str, next_index: int):
+    """Sink for a resume recompute: drop already-delivered indices,
+    rewrite the suffixed wire id back to the client's."""
+    def sink(ev):
+        recs = event_record(ev, tok)
+        recs = recs if isinstance(recs, list) else [recs]
+        out = []
+        for r in recs:
+            if r.get("event") == "token":
+                i = r.get("i")
+                if isinstance(i, int) and i < next_index:
+                    continue  # the client already holds it
+            r = dict(r)
+            r["id"] = rid
+            out.append(r)
+        if out:
+            writer.write(out)
+    return sink
+
+
+def submit_resume(engine, doc: dict, writer, tok=None,
+                  defaults: dict | None = None):
+    """Answer one resume verb: resubmit the carried request under a
+    fresh wire id with a dedup-filtering sink. Returns the submitted
+    Request, or None when the verb was rejected on the spot."""
+    rid = str(doc.get("request_id") or "")
+    try:
+        next_index = max(0, int(doc.get("next_index", 0)))
+    except (TypeError, ValueError):
+        next_index = 0
+    carried = doc.get("request")
+    if not rid or not isinstance(carried, dict):
+        writer.write({"id": rid or None, "event": "rejected",
+                      "reason": "unknown_request"})
+        return None
+    carried = dict(carried)
+    carried["id"] = f"{rid}~r{next(_RESUME_SEQ)}"
+    parsed = parse_request_line(
+        json.dumps(carried, separators=(",", ":")), tok, defaults)
+    if isinstance(parsed, dict):  # error record
+        parsed["id"] = rid
+        engine.reject_unparsed(rid, parsed.get("error") or "")
+        writer.write(parsed)
+        return None
+    parsed.sink = resume_sink(writer, tok, rid, next_index)
+    engine.tracer.event("stream_resume", request=rid,
+                        wire_id=parsed.id, next_index=next_index)
+    engine.submit(parsed)
+    return parsed
 
 
 class _LineWriter:
@@ -168,6 +260,9 @@ def serve_jsonl(engine, infile, outfile, tok=None,
                     line = line.strip()
                     if not line:
                         continue
+                    if (rdoc := maybe_resume_doc(line)) is not None:
+                        submit_resume(engine, rdoc, out, tok, defaults)
+                        continue
                     parsed = parse_request_line(line, tok, defaults)
                     if isinstance(parsed, dict):  # error record
                         engine.reject_unparsed(parsed.get("id"),
@@ -195,6 +290,109 @@ def serve_jsonl(engine, infile, outfile, tok=None,
     return summary
 
 
+def prepare_socket_path(socket_path: str, bind=None):
+    """Make `socket_path` bindable: a stale socket file left by a crash
+    is unlinked, a live server's is refused (obs/export.py's probe, under
+    its flock). Pass the bind as `bind() -> server` so it happens inside
+    the lock; returns the bound server."""
+    from hyperion_tpu_torch.obs.export import (
+        prepare_socket_path as _prepare,
+    )
+
+    return _prepare(socket_path, owner="live server", bind=bind)
+
+
+def serve_socket(engine, socket_path: str, tok=None,
+                 defaults: dict | None = None,
+                 should_stop=None, ready=None,
+                 drain=None, drain_timeout_s: float = 30.0,
+                 hard_stop=None) -> dict:
+    """Unix-socket mode: a threaded acceptor submits, the engine loop
+    (this thread) decodes, and each connection gets exactly its own
+    requests' events. `ready` (an optional threading.Event) is set once
+    the socket listens. `drain` flips graceful shutdown as on stdin;
+    journal-replayed requests have no surviving connection, so their
+    continuations run sink-less (a reconnecting client resumes)."""
+    import os
+    import socketserver
+
+    engine.replay_pending(None)
+
+    class Handler(socketserver.StreamRequestHandler):
+        def handle(self):
+            writer = _LineWriter(self.wfile)
+            pending: list = []
+            for raw in self.rfile:
+                try:
+                    line = raw.decode("utf-8", "replace").strip()
+                    if not line:
+                        continue
+                    if (rdoc := maybe_resume_doc(line)) is not None:
+                        resumed = submit_resume(engine, rdoc, writer,
+                                                tok, defaults)
+                        if resumed is not None:
+                            pending.append(resumed)
+                        continue
+                    parsed = parse_request_line(line, tok, defaults)
+                    if isinstance(parsed, dict):
+                        engine.reject_unparsed(parsed.get("id"),
+                                               parsed.get("error") or "")
+                        writer.write(parsed)
+                        continue
+                    parsed.sink = lambda ev: writer.write(
+                        event_record(ev, tok))
+                    pending.append(parsed)
+                    engine.submit(parsed)
+                except Exception as e:  # noqa: BLE001 — a hostile or
+                    # half-dead connection is its own problem, never
+                    # the engine's
+                    engine.reject_unparsed(None, repr(e))
+                    break
+            for req in pending:  # connection half-closed: finish streams
+                req.done.wait(timeout=600)
+
+    class Server(socketserver.ThreadingMixIn,
+                 socketserver.UnixStreamServer):
+        daemon_threads = True
+        allow_reuse_address = True
+
+        def handle_error(self, request, client_address):
+            # a client that died mid-stream: evidence, never a server death
+            engine.tracer.event("client_error",
+                                client=str(client_address))
+
+    srv = prepare_socket_path(
+        socket_path, bind=lambda: Server(socket_path, Handler))
+    acceptor = threading.Thread(target=srv.serve_forever,
+                                name="serve-accept", daemon=True)
+    acceptor.start()
+    if ready is not None:
+        ready.set()
+
+    def _stop():
+        if drain is not None and drain.is_set():
+            engine.begin_drain(drain_timeout_s)  # idempotent
+        if hard_stop is not None and hard_stop.is_set():
+            return True  # second signal: stop now, journal holds the rest
+        return bool(should_stop and should_stop())
+
+    try:
+        summary = engine.run(
+            should_stop=_stop,
+            # a socket server idles between connections; only an
+            # explicit stop (or the drain signal) drains it
+            drain_when=lambda: bool(should_stop and should_stop()),
+        )
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        try:
+            os.unlink(socket_path)
+        except OSError:
+            pass
+    return summary
+
+
 DEFAULT_JOURNAL = "data/serve_journal.jsonl"
 
 
@@ -206,9 +404,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--ckpt", required=True,
                    help="gathered-export .npz (written by the trainers)")
+    p.add_argument("--tokenizer-dir", default="data/tokenizer",
+                   help="byte-level BPE tokenizer (vocab.json + "
+                        "merges.txt, data/bpe.py) for text prompts")
     p.add_argument("--no-tokenizer", action="store_true",
-                   help="serve raw prompt_ids only; text prompts and the "
-                        "tokenizer are not ported yet, so this is required")
+                   help="serve raw prompt_ids only (no text encode/"
+                        "decode; eos disabled unless --eos-id)")
     p.add_argument("--max-len", type=int, default=256,
                    help="per-slot KV-cache length: prompt + max_new_tokens "
                         "must fit (also the admission bound)")
@@ -271,15 +472,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "lookup over each slot's prompt + generated "
                         "tokens; 'off' disables speculation")
     p.add_argument("--eos-id", type=int, default=None,
-                   help="eos token id (default: none)")
+                   help="override the eos token id (default: the "
+                        "tokenizer's)")
     p.add_argument("--device", default="cuda",
                    help="torch device for weights and KV pools (the plain "
                         "PyTorch path runs with --device cpu)")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16", help="compute dtype")
     p.add_argument("--socket", default=None, metavar="PATH",
-                   help="unix-socket transport: not ported yet (ROADMAP "
-                        "A2); refused")
+                   help="listen on a local unix socket instead of "
+                        "stdin/stdout")
     p.add_argument("--warmup-lens", default="8,32",
                    help="comma-separated prompt lengths to build prefill "
                         "graphs for (the tick always warms)")
@@ -420,14 +622,6 @@ def main(argv=None, *, device=None) -> int:
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    if not args.no_tokenizer:
-        print("the tokenizer is not ported yet (ROADMAP A2): pass "
-              "--no-tokenizer and send prompt_ids", file=sys.stderr)
-        return 2
-    if args.socket:
-        print("the unix-socket transport is not ported yet (ROADMAP A2): "
-              "serve on stdin/stdout", file=sys.stderr)
-        return 2
     if args.supervise:
         return supervise_serve(argv, args)
 
@@ -440,11 +634,27 @@ def main(argv=None, *, device=None) -> int:
     from hyperion_tpu_torch.serve.journal import RequestJournal
 
     dev = resolve_device(device if device is not None else args.device)
+    tok = None
+    if not args.no_tokenizer:
+        from hyperion_tpu_torch.data.bpe import ByteBPE
+
+        tok = ByteBPE.load(args.tokenizer_dir)
     attempt = int(os.environ.get("HYPERION_ATTEMPT", "0") or 0)
+    # under a router each replica stamps its index onto every record
+    # (the tracer's proc field) and heartbeat: the fleet doctor and the
+    # timeline's replica tags read it back
+    replica = os.environ.get("HYPERION_REPLICA", "")
+    replica_idx = int(replica) if replica.isdigit() else None
+    run_tag = ("serve_torch" if replica_idx is None
+               else f"serve_r{replica_idx}")
     tracer = obs_trace.from_env("data/telemetry.jsonl",
-                                run=f"serve_torch_{int(time.time())}")
+                                run=f"{run_tag}_{int(time.time())}",
+                                proc=replica_idx)
+    static = {"attempt": attempt}
+    if replica_idx is not None:
+        static["replica"] = replica_idx
     hb = obs_heartbeat.Heartbeat.for_tracer(
-        tracer, every=args.heartbeat_every, static={"attempt": attempt})
+        tracer, every=args.heartbeat_every, static=static)
     hb.pulse(phase="load")
     chaos = None
     if args.chaos:
@@ -480,10 +690,13 @@ def main(argv=None, *, device=None) -> int:
         elif _env_telemetry_path():
             host_cache_dir = str(
                 Path(_env_telemetry_path()).parent / "hostcache")
+    eos_id = args.eos_id
+    if eos_id is None and tok is not None:
+        eos_id = tok.eos_id
     engine = Engine(
         model,
         EngineConfig(
-            slots=args.slots, max_len=args.max_len, eos_id=args.eos_id,
+            slots=args.slots, max_len=args.max_len, eos_id=eos_id,
             queue_capacity=args.queue_capacity,
             prefill_budget=args.prefill_budget,
             prefill_chunk=args.prefill_chunk,
@@ -553,11 +766,21 @@ def main(argv=None, *, device=None) -> int:
         except ValueError:
             pass  # not the main thread (embedded use): no signal drain
 
+    defaults = {"max_new_tokens": args.max_new_default}
     try:
-        serve_jsonl(engine, sys.stdin, sys.stdout, None,
-                    {"max_new_tokens": args.max_new_default},
-                    drain=drain_evt, drain_timeout_s=args.drain_timeout,
-                    hard_stop=hard_evt)
+        if args.socket:
+            print(f"[serve] listening on {args.socket} "
+                  f"({args.slots} slots, max_len {args.max_len})",
+                  file=sys.stderr)
+            serve_socket(engine, args.socket, tok, defaults,
+                         drain=drain_evt,
+                         drain_timeout_s=args.drain_timeout,
+                         hard_stop=hard_evt)
+        else:
+            serve_jsonl(engine, sys.stdin, sys.stdout, tok, defaults,
+                        drain=drain_evt,
+                        drain_timeout_s=args.drain_timeout,
+                        hard_stop=hard_evt)
     except KeyboardInterrupt:
         pass
     finally:
