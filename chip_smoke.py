@@ -68,9 +68,14 @@ script exits non-zero):
               loss and every gradient.
   5. train    `train_language_model` at the language_ddp widths (bf16,
               jit+pallas, batch 32, seq 128, 50 steps, dropout 0.1,
-              synthetic validation): the loss falls, one CSV row, the
-              export reloads, launch counters exact; step time p50 (CUDA
-              events), tokens/s, peak memory as smoke readings.
+              synthetic validation) with the reference's defaults
+              (health "warn", prefetch 2, an async epoch-boundary
+              checkpoint): the loss falls, one CSV row, the export
+              reloads, launch counters exact, the checkpoint verifies,
+              the MFU gauge in (0, 1) against the datasheet peak; step
+              time p50 (CUDA events), tokens/s, peak memory, the
+              checkpoint's dispatch and commit seconds and bytes, MFU and
+              input wait as smoke readings.
   6. train_long  the same trainer at seq 4096, batch 8, 30 steps and 30
               validation batches, where "auto" attention resolves to the
               flash kernels at head_dim 64 (the D 64 Hopper kernels, with
@@ -78,6 +83,20 @@ script exits non-zero):
               losses that fall, launch counters exact for flash,
               LayerNorm and cross-entropy; step time p50, tokens/s, peak
               memory as smoke readings.
+     train_resume  language_ddp at the same widths on the committed
+              real WikiText-2 splits (train on `test`, 90 steps an
+              epoch; validate on `validation`, 76 batches; both read by
+              the port's numpy Arrow reader), 2 epochs, in four legs: A
+              uninterrupted; B preempted by `sigterm@step=120` and
+              resumed in-process at (epoch 1, step 30); C the supervised
+              `train` verb through `kill@step=150` (one restart, the
+              epoch-1 save adopted by its commit marker); D
+              `nan_loss@step=100` under health "abort" (exit 4, the
+              newest checkpoint quarantined, a fresh restart). B, C and D
+              end bit-identical to A, B's CSV loss column too; B's CE and
+              LayerNorm launches, over both calls, exactly A's; the
+              supervising process maps no CUDA library. Then step p50
+              and input wait at prefetch 2 and 0, in turns.
   7. llama_train_model  a tiny fp32 LoRA Llama (GQA, remat "full",
               attention and norm at "pallas", a padding mask) on the CPU
               against the card: the loss and every adapter gradient, and
@@ -89,8 +108,11 @@ script exits non-zero):
               one CSV row, the adapter export reloads, every kernel's
               launches exact (the RMSNorm backward kernel once a step for
               each norm but the first, whose input is the frozen
-              embedding's output); step time p50, tokens/s, peak memory as
-              smoke readings. The model is freed before the serve phases.
+              embedding's output); the epoch-boundary checkpoint (the
+              base, the adapters and their AdamW state) verified and
+              restored; step time p50, tokens/s, peak memory, the
+              checkpoint's seconds and bytes and MFU as smoke readings.
+              The model is freed before the serve phases.
   9. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
               16, GQA rep 2) on the CPU (plain versions) against the same
               weights on the card (kernels), through the three paged
@@ -165,7 +187,8 @@ script exits non-zero):
               follows; `profile` for 2 s writes a trace holding the paged
               kernel.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
-              serve_features, load, train, train_long, llama_train) at that
+              serve_features, load, train, train_resume, train_long,
+              llama_train) at that
               run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
@@ -1238,6 +1261,57 @@ def _flash_launches() -> dict:
         fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)}
 
 
+def ckpt_readings(base: Path, job_dir: str) -> dict:
+    """A training run's checkpoint readings from its telemetry and its
+    newest step dir: each save's dispatch and commit seconds (the
+    `ckpt_dispatch` and `ckpt_commit` spans; an async save's commit is
+    the wait for its write at the next save or the run's exit, and its
+    manifest), each restore's seconds (`ckpt_restore`), the newest
+    step's bytes (its manifest's files) and whether it deep-verifies."""
+    from hyperion_tpu_torch.checkpoint import integrity
+
+    recs = [json.loads(x) for x in
+            (base / "telemetry.jsonl").read_text().splitlines()]
+
+    def secs(name):
+        return [r["dur_ms"] / 1e3 for r in recs
+                if r.get("kind") == "span" and r.get("name") == name]
+
+    steps = sorted((base / "checkpoints" / job_dir).glob("step_*[0-9]"))
+    newest = steps[-1] if steps else None
+    manifest = integrity.read_manifest(newest) if newest else None
+    return {"dispatch_s": secs("ckpt_dispatch"),
+            "commit_s": secs("ckpt_commit"),
+            "restore_s": secs("ckpt_restore"),
+            "newest": newest.name if newest else None,
+            "bytes": sum(f["bytes"] for f in manifest["files"])
+            if manifest else None,
+            "verified": bool(newest) and integrity.verify(newest)[0]}
+
+
+def gauge_readings(res) -> dict:
+    """The run's last per-epoch gauges: MFU (against the H100's datasheet
+    peak, `utils/chips.py`), FLOPs a step, input wait, throughput."""
+    g = res.metrics.get("gauges", {})
+    return {k: g.get(k) for k in ("mfu", "flops_per_step", "input_wait_frac",
+                                  "step_time_fenced_ms", "tokens_per_s")} \
+        | {"mfu_peak_source": res.metrics.get("labels", {}).get(
+            "mfu_peak_source")}
+
+
+def train_problems(name: str, ckpt: dict, gauges: dict) -> list[str]:
+    """The checks every training phase makes of its checkpoint and
+    gauges: a verified epoch-boundary checkpoint, an MFU in (0, 1)
+    against the datasheet peak."""
+    out = []
+    if not (ckpt["verified"] and ckpt["bytes"] and ckpt["dispatch_s"]):
+        out.append(f"{name}: checkpoint {ckpt}")
+    if not (gauges["mfu"] and 0 < gauges["mfu"] < 1
+            and gauges["mfu_peak_source"] == "nominal"):
+        out.append(f"{name}: mfu {gauges}")
+    return out
+
+
 TINY_LM = dict(vocab_size=1000, d_model=32, n_heads=2, n_layers=2,
                ff_dim=64, max_len=16, dropout=0.0)
 
@@ -1373,9 +1447,11 @@ def phase_train(smi: str) -> dict:
             "fused_layernorm": 5 * (steps + eval_batches),
             "fused_softmax_xent_fwd": steps + eval_batches,
             "fused_softmax_xent_bwd": steps},
+        "checkpoint": ckpt_readings(base, "language_ddp_1dev"),
+        "gauges": gauge_readings(res),
     }
     emit(rec)
-    problems = []
+    problems = train_problems("train", rec["checkpoint"], rec["gauges"])
     if steps != 50 or eval_batches != 14:
         problems.append(f"{steps} steps, {eval_batches} eval batches")
     if not (np.isfinite(losses).all() and np.isfinite(rec["val_loss"])):
@@ -1471,9 +1547,11 @@ def phase_train_long(smi: str) -> dict:
             "fused_softmax_xent_fwd": steps + evals,
             "fused_softmax_xent_bwd": steps,
             "fused_layernorm": 5 * (steps + evals)},
+        "checkpoint": ckpt_readings(base, "language_ddp_1dev"),
+        "gauges": gauge_readings(res),
     }
     emit(rec)
-    problems = []
+    problems = train_problems("train_long", rec["checkpoint"], rec["gauges"])
     if (steps, evals, rec["head_dim"]) != (LONG_STEPS, LONG_STEPS, 64):
         problems.append(f"{steps} steps, {evals} eval batches, head_dim "
                         f"{rec['head_dim']}")
@@ -1652,6 +1730,20 @@ def phase_llama_train(smi: str) -> dict:
     model = res.model
     lcfg = model.cfg
     moved_b = all(bool(ab["b"].any()) for ab in model.lora_params().values())
+    # the epoch-boundary checkpoint (the 7B base, the adapters and their
+    # AdamW state) restored into the trained model: the walk-back's
+    # deep verification and the load, timed
+    from hyperion_tpu_torch.checkpoint import io as ckpt_io
+    from hyperion_tpu_torch.train.state import TrainState, make_optimizer
+
+    template = TrainState(0, model, make_optimizer(model.parameters(), 1e-5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = ckpt_io.restore(base / "checkpoints" / "llama_1dev", template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_step = restored.step if restored is not None else None
+    del template, restored
     # the base: bit-identical to a fresh model drawn from the same seed
     fresh = Llama(dataclasses.replace(lcfg, lora_rank=0), device="cuda")
     fresh.init_params(torch.Generator(device="cuda").manual_seed(
@@ -1693,9 +1785,15 @@ def phase_llama_train(smi: str) -> dict:
         "launches": launches,
         "launches_expected": llama_launches_expected(
             lcfg.n_layers, len(losses), LLAMA_EVALS),
+        "checkpoint": ckpt_readings(base, "llama_1dev")
+        | {"restore_s": restore_s, "restored_step": restored_step},
+        "gauges": gauge_readings(res),
     }
     emit(rec)
-    problems = []
+    problems = train_problems("llama_train", rec["checkpoint"],
+                              rec["gauges"])
+    if restored_step != LLAMA_STEPS:
+        problems.append(f"7B checkpoint restored at {restored_step}")
     if len(losses) != LLAMA_STEPS or not np.isfinite(losses).all() \
             or not np.isfinite(rec["val_loss"]):
         problems.append(f"losses {losses.tolist()}, val {rec['val_loss']}")
@@ -1721,6 +1819,282 @@ def phase_llama_train(smi: str) -> dict:
                         f"{rec['launches_expected']}")
     if problems:
         raise AssertionError("llama_train: " + "; ".join(problems))
+    return rec
+
+
+RESUME_DIR = Path("build/chip_smoke_resume")
+
+
+def resume_config(base: Path, *, epochs: int = 2, steps: int = 0,
+                  batch: int = 32, chaos: str = "", prefetch: int = 2,
+                  validate: bool = True):
+    """language_ddp at its published widths (d 256, 4 heads, 2 layers,
+    GPT-2 vocab, seq 128, batch 32, bf16 over fp32 masters, dropout 0.1,
+    jit+pallas) on the committed real WikiText-2 splits: train on
+    `test` (2891 rows, 90 steps an epoch), validate on `validation`
+    (2461 rows, 76 batches), both read by the port's numpy arrow reader;
+    health "warn", async checkpoints. `steps` caps an epoch (a CPU
+    rehearsal); `base` is emptied first."""
+    import shutil
+
+    from hyperion_tpu_torch.config import Config
+
+    shutil.rmtree(base, ignore_errors=True)
+    cfg = Config()
+    t = cfg.train
+    t.epochs, t.steps_per_epoch, t.batch_size = epochs, steps, batch
+    t.train_split, t.validate, t.chaos = "test", validate, chaos
+    t.prefetch_depth = prefetch
+    t.base_dir = str(base)
+    t.data_dir = str(Path(__file__).resolve().parent / "data")
+    cfg.optimization.compile_tier = "jit+pallas"
+    assert (t.seq_len, cfg.optimization.precision, t.health_policy,
+            t.async_checkpoint) == (128, "bf16", "warn", True)
+    return cfg
+
+
+def _resume_argv(base: Path, chaos: str, device: str, steps: int,
+                 batch: int, *extra: str) -> list[str]:
+    """A supervised `train` command over `resume_config`'s run."""
+    argv = [sys.executable, "-m", "hyperion_tpu_torch.cli.main", "train",
+            "--model", "language_ddp", "--train-split", "test",
+            "--epochs", "2", "--supervise", "--max-restarts", "2",
+            "--chaos", chaos, "--base_dir", str(base), "--data_dir", "data",
+            "--compile-tier", "jit+pallas", "--device", device,
+            "--batch_size", str(batch), *extra]
+    if steps:
+        argv += ["--steps-per-epoch", str(steps)]
+    return argv
+
+
+def _supervised(argv: list[str], timeout_s: float) -> dict:
+    """Run a supervised `train` command from the checkout's root; sample
+    the supervising process's memory maps while it runs (it must map no
+    CUDA library)."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    samples, cuda = 0, False
+    out: list[str] = []
+    import threading
+
+    reader = threading.Thread(target=lambda: out.extend(proc.stdout),
+                              daemon=True)
+    reader.start()
+    try:
+        while proc.poll() is None:
+            if time.perf_counter() - t0 > timeout_s:
+                raise TimeoutError(f"{argv} ran past {timeout_s} s")
+            samples += 1
+            cuda |= _maps_cuda(proc.pid)
+            time.sleep(0.5)
+    finally:
+        if proc.poll() is None:
+            _reap_group(proc.pid, grace_s=5.0)
+        proc.wait()
+        reader.join(timeout=10)
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "log": "".join(out), "maps_samples": samples,
+            "supervisor_maps_cuda": cuda}
+
+
+def _export_equal(a: Path, b: Path) -> bool:
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    fa, fb = dict(flat(load_gathered(a))), dict(flat(load_gathered(b)))
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and np.array_equal(fa[k], fb[k])
+        for k in fa)
+
+
+def _csv_rows(base: Path) -> list[list[str]]:
+    """Every epoch row of every run's CSV under `base`, in epoch order."""
+    rows = []
+    for path in sorted((base / "distributed").glob("*_metrics.csv")):
+        with open(path) as f:
+            rows += list(csv.reader(f))[1:]
+    return sorted(rows, key=lambda r: int(r[0]))
+
+
+def phase_train_resume(smi: str, device: str = "cuda", steps: int = 0,
+                       batch: int = 32) -> dict:
+    """language_ddp on the real splits (`resume_config`), 2 epochs, in
+    four legs. A: uninterrupted, in-process (its launch counts are the
+    phase's main-path counts). B: `sigterm@step=S+30` latches the guard
+    before epoch 2's batch 30; the loop saves a mid-epoch checkpoint and
+    returns preempted; a second call resumes at (epoch 1, step 30). Its
+    export and CSV loss column bit-identical to A's, and its CE and
+    LayerNorm launches, summed over both calls, exactly A's. C: the
+    supervised CLI with `kill@step=S+60`: one restart, the child adopts
+    the epoch-1 save (written, no manifest) and retrains epoch 2; exit 0,
+    export bit-identical to A's, the supervisor maps no CUDA library. D:
+    `nan_loss@step=S+10` under `--health-policy abort`: the child exits
+    4, the supervisor quarantines the newest checkpoint and restarts;
+    the chaos record keeps the fault from firing again. Then the step
+    p50 and input wait at prefetch 2 and 0, in turns (p2, p0, p0, p2).
+    S is the steps of an epoch (90 on the card; `steps` caps it for a
+    CPU rehearsal, with `batch`)."""
+    from hyperion_tpu_torch.ops.fused_ce import (
+        fused_softmax_xent_bwd,
+        fused_softmax_xent_fwd,
+    )
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.train.trainer import train_language_model
+
+    root = Path(__file__).resolve().parent / RESUME_DIR
+    counted = (fused_layernorm, fused_softmax_xent_fwd,
+               fused_softmax_xent_bwd)
+
+    def launches() -> dict:
+        return {f.__name__: f.launches for f in counted}
+
+    def reset() -> None:
+        for f in counted:
+            f.launches = 0
+
+    from hyperion_tpu_torch.data.text import load_wikitext2
+
+    data = load_wikitext2(Path(__file__).resolve().parent / "data",
+                          splits=("test", "validation"))
+    splits = {k: {"rows": len(v), "source": v.source}
+              for k, v in data.items()}
+    del data
+
+    # A: uninterrupted
+    gc.collect()
+    reset()
+    a = train_language_model(resume_config(root / "a", steps=steps,
+                                           batch=batch), device=device)
+    a_launch = launches()
+    S = len(a.step_losses) // 2
+    evals = sum(r.get("batches", 0) for r in
+                map(json.loads, (root / "a" / "telemetry.jsonl")
+                    .read_text().splitlines()) if r.get("name") == "eval")
+    a_export = root / "a" / "checkpoints" / "language_ddp_final.npz"
+    a.model = None
+
+    # B: graceful preemption, then an in-process resume
+    reset()
+    cfg = resume_config(root / "b", steps=steps, batch=batch,
+                        chaos=f"sigterm@step={S + S // 3}")
+    b1 = train_language_model(cfg, device=device)
+    b1.model = None
+    cfg.train.chaos = ""
+    b2 = train_language_model(cfg, device=device)
+    b2.model = None
+    b_launch = launches()
+    b_ckpt = ckpt_readings(root / "b", "language_ddp_1dev")
+    b_export = root / "b" / "checkpoints" / "language_ddp_final.npz"
+
+    # C: supervised crash; D: divergence under abort
+    c = _supervised(_resume_argv(root / "c", f"kill@step={S + 2 * S // 3}",
+                                 device, steps, batch), 600)
+    d = _supervised(_resume_argv(root / "d", f"nan_loss@step={S + S // 9}",
+                                 device, steps, batch, "--health-policy",
+                                 "abort"), 600)
+    c_export = root / "c" / "checkpoints" / "language_ddp_final.npz"
+    d_export = root / "d" / "checkpoints" / "language_ddp_final.npz"
+    d_ckpts = root / "d" / "checkpoints" / "language_ddp_1dev"
+    quarantined = sorted(p.name for p in d_ckpts.glob("*.corrupt*"))
+
+    # prefetch 2 and 0, in turns: one epoch each, no validation
+    turns = []
+    for i, depth in enumerate((2, 0, 0, 2)):
+        r = train_language_model(resume_config(
+            root / f"prefetch_{i}", epochs=1, steps=steps, batch=batch,
+            prefetch=depth, validate=False), device=device)
+        r.model = None
+        turns.append({"prefetch": depth,
+                      "step_ms_p50": float(np.percentile(r.step_ms, 50))
+                      if r.step_ms else None,
+                      "input_wait_frac":
+                          r.metrics["gauges"].get("input_wait_frac"),
+                      "epoch_s": r.history[-1].duration_s})
+
+    def lines(log: str, *keys: str) -> list[str]:
+        return [x for x in log.splitlines() if any(k in x for k in keys)]
+
+    rec = {
+        "phase": "train_resume", "nvidia_smi": smi,
+        "steps_per_epoch": S, "eval_batches": evals,
+        "splits": splits, "pyarrow_imported": "pyarrow" in sys.modules,
+        "losses": [{"epoch": h.epoch, "train_loss": h.loss,
+                    "val_loss": h.extra.get("val_loss")}
+                   for h in a.history],
+        "gauges": gauge_readings(a),
+        "checkpoint": ckpt_readings(root / "a", "language_ddp_1dev"),
+        "restore_s": b_ckpt["restore_s"],
+        "launches": a_launch,
+        "launches_expected": {
+            "fused_layernorm": 5 * (2 * S + evals),
+            "fused_softmax_xent_fwd": 2 * S + evals,
+            "fused_softmax_xent_bwd": 2 * S},
+        "b": {"first_preempted": b1.preempted, "first_steps":
+              len(b1.step_losses), "resumed_steps": len(b2.step_losses),
+              "launches": b_launch,
+              "export_equal": _export_equal(a_export, b_export),
+              "csv_loss_equal": [r[1] for r in _csv_rows(root / "b")]
+              == [r[1] for r in _csv_rows(root / "a")]},
+        "c": {"rc": c["rc"], "seconds": c["seconds"],
+              "supervisor_maps_cuda": c["supervisor_maps_cuda"],
+              "maps_samples": c["maps_samples"],
+              "export_equal": c_export.exists()
+              and _export_equal(a_export, c_export),
+              "log": lines(c["log"], "[supervisor]", "[chaos]", "adopted",
+                           "resumed", "epoch ")},
+        "d": {"rc": d["rc"], "seconds": d["seconds"],
+              "quarantined": quarantined,
+              "export_equal": d_export.exists()
+              and _export_equal(a_export, d_export),
+              "log": lines(d["log"], "[supervisor]", "[chaos]", "health",
+                           "resumed", "quarantined", "epoch ")},
+        "prefetch_turns": turns,
+    }
+    emit(rec)
+    problems = []
+    if rec["pyarrow_imported"] or [v["rows"] for v in splits.values()] \
+            != [2891, 2461] or not all(v["source"].startswith("arrow:")
+                                       for v in splits.values()):
+        problems.append(f"splits {splits}, pyarrow imported "
+                        f"{rec['pyarrow_imported']}")
+    if not (a.history and len(a.history) == 2 and S > 0
+            and all(np.isfinite([h.loss, h.extra.get("val_loss")]).all()
+                    for h in a.history)):
+        problems.append(f"A: {rec['losses']}")
+    if a_launch != rec["launches_expected"]:
+        problems.append(f"A launches {a_launch}")
+    if not (b1.preempted is True and b2.preempted is False
+            and len(b1.step_losses) == S + S // 3
+            and len(b1.step_losses) + len(b2.step_losses) == 2 * S):
+        problems.append(f"B: {rec['b']}")
+    if b_launch != a_launch or not rec["b"]["export_equal"] \
+            or not rec["b"]["csv_loss_equal"]:
+        problems.append(f"B against A: {rec['b']}")
+    c_log = c["log"]
+    if not (c["rc"] == 0 and rec["c"]["export_equal"]
+            and not c["supervisor_maps_cuda"] and c["maps_samples"]
+            and "attempt 1:" in c_log and "attempt 2:" not in c_log
+            and f"adopted step_{S:08d}" in c_log
+            and f"resumed from step {S} " in c_log):
+        problems.append(f"C: {rec['c']}")
+    d_log = d["log"]
+    if not (d["rc"] == 0 and "child exit 4" in d_log
+            and f"step_{S:08d}.corrupt" in quarantined
+            and "attempt 1:" in d_log and "attempt 2:" not in d_log
+            and d_log.count("[chaos] firing") == 1
+            and rec["d"]["export_equal"]):
+        problems.append(f"D: {rec['d']}")
+    if problems:
+        raise AssertionError("train_resume: " + "; ".join(problems))
     return rec
 
 
@@ -3034,7 +3408,8 @@ def phase_introspect(model) -> dict:
 
 def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  train_rec: dict, long_rec: dict, llama_rec: dict,
-                 kernel_recs: dict, flash_recs: dict) -> dict:
+                 resume_rec: dict, kernel_recs: dict,
+                 flash_recs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -3043,8 +3418,9 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     load, the decode tick's records and paged attention at the window of
     a 456-token prompt whose 192-token prefix the radix holds; LayerNorm
     and the
-    cross-entropy at the language_ddp train step and at the train_long
-    step; the flash kernels at the train_long step's layer (D 64) and
+    cross-entropy at the language_ddp train step (the train and
+    train_resume runs, with leg A's launches for the latter) and at the
+    train_long step; the flash kernels at the train_long step's layer (D 64) and
     at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
     that step's vocab and RMSNorm, forward and backward, at its
     [4096, 4096] rows. `run` names the run."""
@@ -3085,6 +3461,7 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                                 ("paged_attention", pa_hit),
                                 ("fused_rmsnorm", rn)]),
             ("train", train_rec, list(kernel_recs["train"].items())),
+            ("train_resume", resume_rec, list(kernel_recs["train"].items())),
             ("train_long", long_rec, [*kernel_recs["train_long"].items(),
                                       *flash_recs["train_long"].items()]),
             ("llama_train", llama_rec, [*kernel_recs["llama_train"].items(),
@@ -3125,6 +3502,7 @@ def main() -> int:
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
     long_rec = phase_train_long(dev["nvidia_smi"])
+    resume_rec = phase_train_resume(dev["nvidia_smi"])
     phase_llama_train_model()
     llama_rec = phase_llama_train(dev["nvidia_smi"])
     phase_model()
@@ -3145,7 +3523,8 @@ def main() -> int:
     phase_introspect(crash_model)
     del crash_model
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
-                      long_rec, llama_rec, kernel_recs, flash_recs))
+                      long_rec, llama_rec, resume_rec, kernel_recs,
+                      flash_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

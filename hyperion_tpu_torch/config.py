@@ -2,12 +2,9 @@
 `hyperion_tpu/config.py` that the port's language and Llama trainers
 read, with the reference's defaults.
 
-Fields for features the port does not have yet stay, so that asking
-for one raises `NotImplementedError` naming its ROADMAP item instead of
-being ignored. Two defaults differ from the reference's because the
-reference's default turns such a feature on: `health_policy` is "off"
-(the reference's "warn" runs the health monitor) and `prefetch_depth`
-is 0 (the reference's 2 runs the background prefetcher).
+`moe_experts` stays for a feature the port does not have yet: asking
+for it raises `NotImplementedError` naming its ROADMAP item instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -48,12 +45,12 @@ class TrainConfig:
     lora_alpha: float = 32.0
     lora_dropout: float = 0.05       # read by nothing, as in the reference
     export_merged: bool = False      # also export base + adapters merged
-    # not ported: set, they raise (ROADMAP A7, A8)
-    health_policy: str = "off"
-    prefetch_depth: int = 0
-    chaos: str = ""
-    profile_dir: str = ""
-    moe_experts: int = 0
+    health_policy: str = "warn"      # off | warn | checkpoint | abort
+    prefetch_depth: int = 2          # batches assembled ahead (0 = inline)
+    async_checkpoint: bool = True    # epoch saves write in the background
+    chaos: str = ""                  # fault plan (testing/chaos.py)
+    profile_dir: str = ""            # torch.profiler trace of one epoch
+    moe_experts: int = 0             # not ported: set, it raises (A8)
 
 
 @dataclasses.dataclass

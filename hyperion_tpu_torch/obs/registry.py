@@ -15,8 +15,13 @@ instead of "since the process started" — `Histogram.windowed`,
 all reads copy the ring first (`list(deque)` is atomic under the GIL),
 so another thread can snapshot while the owning loop keeps writing.
 
-The device half (device memory, MFU from compiled cost analysis) is
-still to port.
+The built-ins at the bottom are the trainers' gauges, under the names
+the reference's `obs` tools read: step time, throughput, input wait
+(`input_wait_frac`), device memory (`hbm_live_mb`, `hbm_peak_mb`) and
+MFU (`mfu`). The reference takes a step's FLOPs from XLA's cost
+analysis; the port has no compiler to ask, so `compiled_flops` counts
+one step's products with `torch.utils.flop_counter` on a shape-only
+(meta) twin of the model.
 """
 
 from __future__ import annotations
@@ -266,3 +271,182 @@ class MetricsRegistry:
             "histograms": {k: h.windowed(window_s, now)
                            for k, h in list(self._hists.items())},
         }
+
+
+# ------------------------------------------------------------ built-ins
+
+
+def observe_step(
+    reg: MetricsRegistry, duration_s: float, tokens: int | None = None,
+    samples: int | None = None,
+) -> None:
+    """One step's duration (+ what it processed) into the step-time
+    histogram/EMA and the work counters. On a card a per-step host
+    duration is launch time, not device time — so this feeds the
+    histogram and counters but NOT the throughput gauges, which come
+    from `observe_throughput` with the epoch's synchronized duration."""
+    ms = duration_s * 1e3
+    reg.histogram("step_time_ms").observe(ms)
+    reg.gauge("step_time_ema_ms").ema(ms)
+    reg.counter("steps").inc()
+    if tokens:
+        reg.counter("tokens").inc(tokens)
+    if samples:
+        reg.counter("samples").inc(samples)
+
+
+def observe_throughput(
+    reg: MetricsRegistry, duration_s: float, steps: int,
+    tokens: int | None = None, samples: int | None = None,
+) -> None:
+    """Throughput gauges from a synchronized wall-clock window covering
+    `steps` steps (tokens/samples are totals over the window), and the
+    per-step time `step_time_fenced_ms` that MFU divides by."""
+    if duration_s <= 0 or steps <= 0:
+        return
+    reg.gauge("step_time_fenced_ms").set(duration_s / steps * 1e3)
+    if tokens:
+        reg.gauge("tokens_per_s").set(tokens / duration_s)
+    if samples:
+        reg.gauge("samples_per_s").set(samples / duration_s)
+
+
+def observe_input_wait(
+    reg: MetricsRegistry, wait_s: float, window_s: float | None = None,
+) -> None:
+    """Time the step loop spent BLOCKED on the input queue over one
+    epoch window (`data.prefetch.Prefetcher.wait_s`), and the
+    data-starved fraction of that window."""
+    reg.gauge("input_wait_s").set(wait_s)
+    if window_s and window_s > 0:
+        reg.gauge("input_wait_frac").set(min(wait_s / window_s, 1.0))
+
+
+def observe_device_memory(reg: MetricsRegistry, device=None) -> None:
+    """Allocator live/peak bytes as MB gauges; the CPU reports None,
+    not 0 — absent evidence stays distinguishable from an empty card."""
+    from hyperion_tpu_torch.utils.memory import device_memory_stats
+
+    stats = device_memory_stats(device)
+    live = stats.get("bytes_in_use")
+    peak = stats.get("peak_bytes_in_use", live)
+    reg.gauge("hbm_live_mb").set(None if live is None else live / 1e6)
+    g = reg.gauge("hbm_peak_mb")
+    mb = None if peak is None else peak / 1e6
+    # high-water: a later epoch must never lower the reported peak
+    if mb is not None and (g.value is None or mb > g.value):
+        g.set(mb)
+
+
+def compiled_flops(model, loss_fn, batch: dict) -> float | None:
+    """FLOPs of one train step's forward and backward: `loss_fn(twin,
+    batch)` and its backward, counted by `FlopCounterMode` on a twin of
+    `model` built on the meta device (shapes only: no memory, no
+    kernels) with the plain attention and norms, whose products the
+    counter sees (the hand kernels are ctypes calls it cannot). Each
+    twin parameter takes its original's dtype and `requires_grad`, so a
+    frozen LoRA base runs no weight-gradient products, and remat's
+    recompute is counted as it runs. Elementwise work (the optimizer's
+    update, softmax, norms) is not a product and is not counted; XLA's
+    cost analysis counts it too, so the reference's count is the
+    larger. None when the model cannot be rebuilt so."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        cfg = dataclasses.replace(model.cfg, attention_impl="xla",
+                                  norm_impl="xla")
+        twin = type(model)(cfg, device="meta")
+        live = dict(model.named_parameters())
+        for name, p in twin.named_parameters():
+            p.data = p.data.to(live[name].dtype)
+            p.requires_grad_(live[name].requires_grad)
+        meta = {k: torch.empty_like(v, device="meta")
+                for k, v in batch.items()}
+        with FlopCounterMode(display=False) as counter:
+            loss_fn(twin, meta).backward()
+        flops = counter.get_total_flops()
+        return float(flops) if flops > 0 else None
+    except Exception:  # noqa: BLE001 — telemetry must never kill a run
+        return None
+
+
+_MEASURED_HOST_PEAK: list[float | None] = []  # one-element memo
+
+
+def _measured_host_peak_tflops() -> float | None:
+    """Fallback "peak" for devices `utils.chips` does not tabulate (the
+    CPU): the best achieved TFLOP/s of a 256 fp32 matmul, measured once
+    per process. Model FLOP throughput on the same host is bounded by
+    it, so the derived MFU stays in (0, 1] — utilisation *of this
+    host's measured matmul rate*, labelled `mfu_peak_source:
+    "measured_host"`, never comparable to a nominal-peak MFU."""
+    if _MEASURED_HOST_PEAK:
+        return _MEASURED_HOST_PEAK[0]
+    try:
+        import torch
+
+        n = 256
+        a = torch.ones(n, n)
+        b = torch.ones(n, n) / n
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(8):
+                a = a @ b
+            best = min(best, (time.perf_counter() - t0) / 8)
+        peak = 2 * n ** 3 / best / 1e12
+        _MEASURED_HOST_PEAK.append(peak if peak > 0 else None)
+    except Exception:  # noqa: BLE001
+        _MEASURED_HOST_PEAK.append(None)
+    return _MEASURED_HOST_PEAK[0]
+
+
+def mfu_value(
+    flops_per_step: float | None,
+    step_time_s: float,
+    *,
+    dtype: str = "bfloat16",
+    n_devices: int = 1,
+    peak_tflops: float | None = None,
+    device=None,
+) -> tuple[float | None, str]:
+    """(mfu fraction, peak source): `flops / (t * peak * n_devices)`;
+    the peak is the explicit argument, else the device's datasheet peak
+    (`utils.chips.nominal_peak_tflops`), else the measured host rate,
+    else None."""
+    if not flops_per_step or step_time_s <= 0:
+        return None, "none"
+    source = "explicit"
+    if peak_tflops is None:
+        from hyperion_tpu_torch.utils.chips import nominal_peak_tflops
+
+        peak_tflops = nominal_peak_tflops(dtype, device)
+        source = "nominal"
+    if peak_tflops is None:
+        peak_tflops = _measured_host_peak_tflops()
+        source = "measured_host"
+    if not peak_tflops:
+        return None, "none"
+    mfu = flops_per_step / (step_time_s * peak_tflops * 1e12 * n_devices)
+    return mfu, source
+
+
+def observe_mfu(
+    reg: MetricsRegistry,
+    flops_per_step: float | None,
+    step_time_s: float,
+    *,
+    dtype: str = "bfloat16",
+    n_devices: int = 1,
+    device=None,
+) -> float | None:
+    mfu, source = mfu_value(flops_per_step, step_time_s, dtype=dtype,
+                            n_devices=n_devices, device=device)
+    reg.gauge("mfu").set(mfu)
+    if mfu is not None:
+        reg.gauge("flops_per_step").set(flops_per_step)
+        reg.set_label("mfu_peak_source", source)
+    return mfu

@@ -250,8 +250,19 @@ class ChaosPlan:
                 continue
             print(f"[chaos] firing {f.key}", flush=True)
             if f.kind == "kill":
-                # the port's checkpoints are written synchronously,
-                # so no save is in flight to flush before the kill
+                # Let an in-flight ASYNC checkpoint write finish before
+                # the no-grace kill, so "kill@step=N" is step-exact and
+                # deterministic: steps 0..N-1 completed and the last
+                # epoch-boundary save is on disk. Its commit point (the
+                # manifest) does not run, as after any kill: the
+                # walk-back adopts the save by its commit marker. (The
+                # reference's hook commits the save instead.)
+                try:
+                    from hyperion_tpu_torch.checkpoint import io as ckpt_io
+
+                    ckpt_io.join_pending()
+                except Exception:  # noqa: BLE001 — chaos must still fire
+                    pass
                 os.kill(os.getpid(), signal.SIGKILL)
             elif f.kind == "sigterm":
                 os.kill(os.getpid(), signal.SIGTERM)

@@ -150,8 +150,12 @@ def make_optimizer(params, learning_rate: float, weight_decay: float = 0.0,
 class TrainState:
     """What the reference's `TrainState` pytree holds, as live objects:
     the update count, the model (its params) and the optimizer (its
-    state)."""
+    state). `epoch_losses` is the port's addition: the per-step losses
+    of an interrupted epoch's completed steps, which a mid-epoch
+    checkpoint carries so that the resumed epoch's CSV row is the mean
+    over all of its steps, as an uninterrupted run's is."""
 
     step: int
     model: torch.nn.Module
     optimizer: Optimizer
+    epoch_losses: torch.Tensor | None = None

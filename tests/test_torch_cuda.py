@@ -26,7 +26,10 @@ a base one element off the grid), flash head dims 32 to
 sequence, unequal query and key lengths,
 the Hopper kernels' edges at D 64 and 128 (a sequence shorter than one
 tile, causal with unequal lengths, a padding tail per row, a row all
-padding) and the backward's determinism.
+padding) and the backward's determinism; and the trainer's host-side
+paths on the card: an async train-state save against the in-place
+optimizer steps launched right behind it, and a prefetched epoch
+against `depth=0`.
 """
 
 from __future__ import annotations
@@ -855,3 +858,88 @@ def test_unwarmed_bucket_captures_one_new_graph(cuda):
     assert grown["prefill_executables"] == stats["prefill_executables"] + 1
     assert r.tokens == generate(eng.model, r.prompt_ids[None], 4,
                                 device=cuda)[0].tolist()
+
+
+# ------------------------------------------- train-state checkpoints
+
+
+def _card_train_state(dev):
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.train.losses import next_token_loss
+    from hyperion_tpu_torch.train.state import TrainState, make_optimizer
+    from hyperion_tpu_torch.train.step import make_train_step
+
+    cfg = simple_lm_config(vocab_size=4096, d_model=256, n_heads=4,
+                           n_layers=2, ff_dim=1024, max_len=64, dropout=0.1,
+                           norm_impl="pallas")
+    model = TransformerLM(cfg, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(0))
+    state = TrainState(0, model, make_optimizer(model.parameters(), 1e-3))
+
+    def loss_fn(m, b, gen):
+        logits = m(b["input_ids"], deterministic=gen is None, generator=gen)
+        loss = next_token_loss(logits, b["input_ids"], impl="pallas")
+        return loss, {"loss": loss}
+
+    rng = np.random.default_rng(5)
+    batch = {"input_ids": torch.as_tensor(
+        rng.integers(0, 4096, (16, 64)), dtype=torch.int32, device=dev)}
+    return state, make_train_step(loss_fn, dropout=True), batch
+
+
+def test_async_save_holds_the_pre_step_state(cuda, tmp_path):
+    """`save(wait=False)` queues its copies on the compute stream, and
+    the next steps' optimizer kernels update the same parameters in
+    place right after: the written checkpoint holds the state as of the
+    save, byte for byte, and restores it."""
+    from hyperion_tpu_torch.checkpoint import io as ckpt_io
+
+    state, train_step, batch = _card_train_state(cuda)
+    for _ in range(2):
+        train_step(state, batch, 0)
+    torch.cuda.synchronize()
+    want = {k: v.detach().cpu().clone()
+            for k, v in state.model.state_dict().items()}
+    want_m = [s["exp_avg"].cpu().clone()
+              for s in state.optimizer.adamw.state.values()]
+    path = ckpt_io.save(tmp_path / "ck", state, wait=False)
+    for _ in range(3):  # launched at once behind the save's copies
+        train_step(state, batch, 0)
+    assert ckpt_io.wait_pending() == path
+    blob = torch.load(path / ckpt_io.STATE_FILE, weights_only=True)
+    assert blob["step"] == 2
+    for k, v in want.items():
+        assert torch.equal(blob["model"][k], v), k
+    got_m = [s["exp_avg"] for s in blob["adamw"]["state"].values()]
+    assert all(torch.equal(a, b) for a, b in zip(got_m, want_m))
+    assert not torch.equal(state.model.state_dict()["lm_head.weight"].cpu(),
+                           want["lm_head.weight"])  # training moved on
+    fresh, _, _ = _card_train_state(cuda)
+    assert ckpt_io.restore(tmp_path / "ck", fresh).step == 2
+    for k, v in fresh.model.state_dict().items():
+        assert torch.equal(v.cpu(), want[k]), k
+    ckpt_io.release_host_buffers()
+
+
+def test_prefetched_epoch_equals_sync_on_the_card(cuda):
+    """Host rows assembled ahead on the prefetcher's thread, copied to
+    the card on the consumer's stream: batch for batch bit-identical to
+    `depth=0`."""
+    from hyperion_tpu_torch.data.prefetch import Prefetcher
+    from hyperion_tpu_torch.data.sharding import ShardedBatches
+    from hyperion_tpu_torch.data.text import synthetic_lm_split
+
+    split = synthetic_lm_split(200, seq_len=64, seed=3)
+    batches = ShardedBatches(split.arrays(), 8, cuda, seed=7)
+    runs = []
+    for depth in (0, 3):
+        with Prefetcher(batches.host_epoch(2, 1), depth=depth) as feed:
+            got = [batches.to_device(b) for b in feed]
+        runs.append([{k: v.cpu() for k, v in b.items()} for b in got])
+    assert len(runs[0]) == len(runs[1]) == len(batches) - 1
+    for a, b in zip(*runs):
+        for k in a:
+            assert torch.equal(a[k], b[k])

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import csv
 import json
+import shutil
 import sys
 
 import jax
@@ -36,6 +37,7 @@ from hyperion_tpu.metrics.csv_logger import CsvLogger as JaxCsvLogger
 from hyperion_tpu.models import transformer_lm as jt
 from hyperion_tpu.train.losses import next_token_loss as jax_next_token_loss
 from hyperion_tpu.train.state import make_optimizer as jax_make_optimizer
+from hyperion_tpu_torch.checkpoint import integrity
 from hyperion_tpu_torch.checkpoint.io import export_gathered, load_gathered
 from hyperion_tpu_torch.config import Config
 from hyperion_tpu_torch.data.sharding import ShardedBatches
@@ -124,12 +126,14 @@ class TestData:
 
     def test_arrow_split_without_pyarrow_raises(self, tmp_path,
                                                 monkeypatch):
-        """A split on disk is never replaced by synthetic data."""
+        """A split on disk is never replaced by synthetic data: without
+        pyarrow the port's own reader reads it, and a damaged file
+        raises."""
         split_dir = tmp_path / "wikitext2_tokenized" / "validation"
         split_dir.mkdir(parents=True)
         (split_dir / "data-00000-of-00001.arrow").write_bytes(b"")
         monkeypatch.setitem(sys.modules, "pyarrow", None)
-        with pytest.raises(ModuleNotFoundError, match="pyarrow"):
+        with pytest.raises(ValueError, match="no schema"):
             load_wikitext2(tmp_path, splits=("validation",))
 
 
@@ -466,10 +470,14 @@ class TestTrainer:
             jax.tree.map(lambda s: s.shape, shapes)
         assert jax.tree.structure(load_gathered(npz)) == \
             jax.tree.structure(exported)
+        # the epoch's train-state checkpoint verified; its 329 MB go now
+        # rather than with pytest's retained temp dirs
+        ckpts = tmp_path / "checkpoints" / "language_ddp_1dev"
+        assert integrity.verify(ckpts / "step_00000002")[0]
+        shutil.rmtree(tmp_path / "checkpoints")
 
     @pytest.mark.parametrize("field, value, item", [
-        ("health_policy", "warn", "A7"), ("chaos", "kill@step=1", "A7"),
-        ("prefetch_depth", 2, "A7"), ("moe_experts", 4, "A8")])
+        ("moe_experts", 4, "A8")])
     def test_unported_features_raise(self, tmp_path, field, value, item):
         cfg = Config()
         cfg.train.base_dir = str(tmp_path)
