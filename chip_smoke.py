@@ -113,6 +113,40 @@ script exits non-zero):
               restored; step time p50, tokens/s, peak memory, the
               checkpoint's seconds and bytes and MFU as smoke readings.
               The model is freed before the serve phases.
+  8a. dist    one rank under `torchrun --standalone --nproc-per-node 1`
+              (NCCL) runs every sharded run of 8a-8c in turn
+              (`sharded_runs`, `worker_sharded`), first
+              `runtime/comm_check.py`'s collectives at world 1
+              (all-reduce sum and max, all-gather, reduce-scatter each
+              checked, the ring shift the identity at world 1, said so),
+              each one's milliseconds; beside it the `--host-only`
+              check of the C++ host coordinator between two host
+              processes (no card).
+  8b. train_fsdp  `cli.main`'s `train --model language_fsdp` job at the
+              train phase's config (its job's lr 1e-4 and clip 1.0) in
+              that rank (FSDP2's all-gathers and reduce-scatters at
+              world 1): LayerNorm and
+              cross-entropy launches exact, the per-step losses
+              bit-identical to an unsharded run of the same config in
+              this process (the largest difference printed), one CSV
+              row, a sharded checkpoint that verifies; then
+              `sigterm@step=30` and a resume from the sharded
+              checkpoint, whose losses and export are bit-identical to
+              the uninterrupted run's. Step p50 as a reading.
+  8c. llama_fsdp  `train_llama` on Llama-2-7B `fsdp_bf16` (every
+              parameter trained, bf16 throughout, AdamW moments in bf16)
+              under FSDP2 at world 1, the rank's last run: full widths and
+              depth, seq 4096, batch 1, remat "full", 4 steps and 1
+              validation batch, no checkpoint or export (40 GB of
+              state). Flash forward, dq and dk/dv, RMSNorm and its
+              backward (every norm's, the first included: the embedding
+              trains) and cross-entropy launches exact, every loss
+              finite; step p50 and the allocator's peak as readings.
+  8d. dry_init  `cli.main train --model llama --llama_size 7b
+              --dry-init --mesh 1,4,1,1` in this process: the memory
+              plan on an abstract fsdp-4 mesh (no process group, no
+              memory); bytes per device of params, grads and AdamW
+              state.
   9. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
               16, GQA rep 2) on the CPU (plain versions) against the same
               weights on the card (kernels), through the three paged
@@ -188,7 +222,7 @@ script exits non-zero):
               kernel.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, load, train, train_resume, train_long,
-              llama_train) at that
+              llama_train, train_fsdp, llama_fsdp) at that
               run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
@@ -200,7 +234,9 @@ inputs cold (see `time_ms`). Where a train step's device time goes is
 
 The last line is {"ok": true, "device": {...}}. Without CUDA the
 script prints no result and exits 1. The script takes no arguments; a
-subset of phases runs by importing the phase functions.
+subset of phases runs by importing the phase functions. The sharded
+phases run it again under torchrun as a rank (`chip_smoke.py --worker
+sharded OUT ...`, `worker_main`), which writes its readings to OUT.
 """
 
 from __future__ import annotations
@@ -524,13 +560,16 @@ def bwd_replay_ms(forward, sets: list[tuple]) -> float:
         y, wrt, g, retain_graph=True), graphs)
 
 
-def check_rms_bwd(name, x, w, g, timing: bool) -> dict:
+def check_rms_bwd(name, x, w, g, timing: bool) -> tuple[dict, dict | None]:
     """The RMSNorm backward kernel against its closed form
     (`fused_rmsnorm_bwd_plain`) and against autograd of the plain
     forward, dx alone (the Llama LoRA step: the norm weights are frozen)
-    and with dw: dx as `ln_ulp_ok`, dw as `rms_dw_ok`, two runs
-    bit-identical. Timed, dx alone: the kernel, its closed form, and
-    `F.rms_norm`'s own backward (the forward outside the window)."""
+    and with dw (the full fine-tune: the dw variant of the backward
+    kernel and `rmsnorm_dw_kernel`): dx as `ln_ulp_ok`, dw as
+    `rms_dw_ok`, two runs bit-identical. Timed, each variant: the
+    kernel, its closed form, and `F.rms_norm`'s own backward (the
+    forward outside the window). Returns the dx-alone record and, when
+    timed, the record of the variant with dw (`<name>_with_dw`)."""
     from hyperion_tpu_torch.ops.fused_norm import (
         fused_rmsnorm_bwd,
         fused_rmsnorm_bwd_plain,
@@ -567,7 +606,7 @@ def check_rms_bwd(name, x, w, g, timing: bool) -> dict:
                    else 2e-5, "dw": "4 sqrt(rows) 2^-24 max|dw|"},
            "rerun_bit_identical": rerun,
            "ok": rerun and all(ok for ok, _ in checks.values())}
-    del xs, ws, again, dx_w
+    del xs, ws, again
     if timing:
         # dx alone: x and g read, dx written, the weight read
         nbytes = 3 * x.numel() * x.element_size() + 4 * d
@@ -584,13 +623,33 @@ def check_rms_bwd(name, x, w, g, timing: bool) -> dict:
         rec["library_ms"] = bwd_replay_ms(
             lambda xs, ws: torch.nn.functional.rms_norm(xs, (d,), ws, 1e-5),
             sets)
-        rec["dw_kernel_ms"] = time_ms(fused_rmsnorm_bwd, (x, w, g),
-                                      nbytes + 4 * d)
+        # with dw: the fp32 dw written too; ~3 more flops an element
+        # (x r g and its sum over the rows)
+        dw_bytes = nbytes + 4 * d
+        dw_rec = {**rec, "case": f"{name}_with_dw",
+                  "max_abs_err": max(
+                      float((dx_w.float() - ref_dx.float()).abs().max()),
+                      float((dw.float() - ref_dw.float()).abs().max())),
+                  "kernel_ms": time_ms(fused_rmsnorm_bwd, (x, w, g),
+                                       dw_bytes),
+                  "plain_ms": time_ms(fused_rmsnorm_bwd_plain, (x, w, g),
+                                      dw_bytes),
+                  "library_ms": bwd_replay_ms(
+                      lambda xs, ws: torch.nn.functional.rms_norm(
+                          xs, (d,), ws, 1e-5),
+                      [(a, b.detach().clone().requires_grad_(), c)
+                       for a, b, c in sets])}
+        dw_rec["bound_ms"], dw_rec["bound_by"] = bound(
+            dw_bytes, 13.0 * rows * d, x.dtype)
+        del sets
+    del dx_w
     emit(rec)
+    if timing:
+        emit(dw_rec)
     if not rec["ok"]:
         raise AssertionError(f"fused_rmsnorm_bwd {name} {x.dtype}: "
                              f"{rec['worst']}, rerun identical {rerun}")
-    return rec
+    return rec, (dw_rec if timing else None)
 
 
 def ln_ulp_ok(out, ref) -> tuple[bool, float]:
@@ -861,7 +920,7 @@ def check_norm_grads() -> None:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the records of
     the training paths' shapes for the `kernels` line, by run ("train",
-    "train_long", "llama_train")."""
+    "train_long", "llama_train", "llama_fsdp")."""
     recs = {"train": {}, "train_long": {}, "llama_train": {},
             "serve_features": []}
     for dtype in (torch.bfloat16, torch.float32):
@@ -898,10 +957,14 @@ def phase_kernels() -> dict:
                  .to(dtype) for _ in range(2))
         w = 1.0 + 0.1 * torch.randn(4096, generator=g, device="cuda")
         rec = check_rms("prefill_8x512", x, w, "block", timing=True)
-        bwd = check_rms_bwd("llama_step_4096x4096", x, w, gy, timing=True)
+        bwd, bwd_dw = check_rms_bwd("llama_step_4096x4096", x, w, gy,
+                                    timing=True)
         if dtype == torch.bfloat16:
             recs["llama_train"] = {"fused_rmsnorm": rec,
                                    "fused_rmsnorm_bwd": bwd}
+            # the full fine-tune computes every norm's dw
+            recs["llama_fsdp"] = {"fused_rmsnorm": rec,
+                                  "fused_rmsnorm_bwd": bwd_dw}
         flat = torch.empty(x.numel() + 1, device="cuda", dtype=dtype)
         view = flat[1:].view_as(x)
         view.copy_(x)
@@ -1670,7 +1733,8 @@ def phase_llama_train_model() -> None:
 LLAMA_STEPS, LLAMA_EVALS = 8, 2
 
 
-def llama_train_config(base: Path, steps: int = LLAMA_STEPS):
+def llama_train_config(base: Path, steps: int = LLAMA_STEPS,
+                       evals: int = LLAMA_EVALS, seq: int = 4096):
     """`train_llama` as the reference's Llama job runs it, cut to one
     card and a smoke's length: Llama-2-7B at its published widths and
     full depth, bf16, LoRA r 16 alpha 32 on q/k/v/o, remat "full",
@@ -1686,13 +1750,13 @@ def llama_train_config(base: Path, steps: int = LLAMA_STEPS):
     shutil.rmtree(base, ignore_errors=True)
     data = base / "data" / "wikitext2_tokenized"
     data.mkdir(parents=True)
-    val = synthetic_lm_split(LLAMA_EVALS, seq_len=4096, seed=SEED + 26)
+    val = synthetic_lm_split(evals, seq_len=seq, seed=SEED + 26)
     np.savez(data / "validation.npz", input_ids=val.input_ids,
              attention_mask=val.attention_mask)
     cfg = Config()
     t = cfg.train
     t.model, t.lora, t.lora_rank, t.lora_alpha = "llama_7b", True, 16, 32.0
-    t.epochs, t.steps_per_epoch, t.batch_size, t.seq_len = 1, steps, 1, 4096
+    t.epochs, t.steps_per_epoch, t.batch_size, t.seq_len = 1, steps, 1, seq
     t.learning_rate, t.weight_decay = 1e-5, 0.01
     t.base_dir, t.data_dir = str(base), str(base / "data")
     o = cfg.optimization
@@ -3312,8 +3376,10 @@ def phase_introspect(model) -> dict:
     """A port engine serving behind a `MetricsExporter`: the exposition
     snapshot carries the compile counts, the tick profiler and the memory
     ledger; `class_brownout` on and off is acknowledged and its gauge
-    follows; `profile` for 2 s writes a trace in which the paged kernel
-    appears."""
+    follows; `profile` for 2 s, with the engine serving across the
+    profiler's stop, writes a trace in which the paged kernel appears.
+    A hang dumps every thread's stack and ends the script."""
+    import faulthandler
     import shutil
 
     from hyperion_tpu_torch.obs.export import (
@@ -3330,6 +3396,7 @@ def phase_introspect(model) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
     rng = np.random.default_rng(SEED + 12)
+    faulthandler.dump_traceback_later(300, exit=True)
     eng = Engine(model, EngineConfig(slots=4, max_len=256), device="cuda")
     eng.warmup([64])
     n = 0
@@ -3379,7 +3446,7 @@ def phase_introspect(model) -> dict:
                                          "seconds": 2.0}) or {}
         if started.get("status") != "started":
             problems.append(f"profile: {started}")
-        serve_for(2.5)
+        serve_for(2.5)  # serving goes on across the profiler's stop
     trace = prof_dir / TRACE_NAME
     deadline = time.perf_counter() + 60
     while not trace.exists() and time.perf_counter() < deadline:
@@ -3394,6 +3461,7 @@ def phase_introspect(model) -> dict:
         problems.append(f"profile trace {trace} holds no paged kernel")
     while not eng.idle:
         eng.step()
+    faulthandler.cancel_dump_traceback_later()
     rec = {"phase": "introspect", "compile": comp,
            "tickprof_ticks": (doc.get("tickprof") or {}).get("ticks"),
            "dominant_segment": (doc.get("tickprof") or {}).get("dominant"),
@@ -3406,10 +3474,427 @@ def phase_introspect(model) -> dict:
     return rec
 
 
+# --- the distributed runtime and the sharded layouts ------------------
+
+FSDP_DIR = Path("build/chip_smoke_fsdp")
+FSDP_STEPS, FSDP_SIGTERM = 50, 30
+LLAMA_FSDP_STEPS, LLAMA_FSDP_EVALS = 4, 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run(argv: list[str], timeout_s: float, env: dict | None = None) -> dict:
+    """Run a command from the checkout's root in its own session; kill
+    the session at `timeout_s` or on any exit path."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env={**os.environ, **(env or {})})
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired as e:
+        raise TimeoutError(f"{argv} ran past {timeout_s} s") from e
+    finally:
+        if proc.poll() is None:
+            _reap_group(proc.pid, grace_s=5.0)
+            proc.wait()
+    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+            "log": out}
+
+
+def _torchrun(*argv: str, timeout_s: float = 600,
+              env: dict | None = None) -> dict:
+    """`torchrun --standalone --nproc-per-node 1 ARGV` (one rank)."""
+    return _run([sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "1", *argv],
+                timeout_s, env)
+
+
+def _zero_lm_launches() -> None:
+    from hyperion_tpu_torch.ops.fused_ce import (
+        fused_softmax_xent_bwd,
+        fused_softmax_xent_fwd,
+    )
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+
+    for fn in (fused_layernorm, fused_softmax_xent_fwd,
+               fused_softmax_xent_bwd):
+        fn.launches = 0
+
+
+def _lm_launches() -> dict:
+    from hyperion_tpu_torch.ops.fused_ce import (
+        fused_softmax_xent_bwd,
+        fused_softmax_xent_fwd,
+    )
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+
+    return {"fused_layernorm": fused_layernorm.launches,
+            "fused_softmax_xent_fwd": fused_softmax_xent_fwd.launches,
+            "fused_softmax_xent_bwd": fused_softmax_xent_bwd.launches}
+
+
+def _param_kinds(model) -> str:
+    """"DTensor" when every parameter is sharded (FSDP2's), else the
+    kinds found."""
+    return "/".join(sorted({type(p).__name__ for p in model.parameters()}))
+
+
+def fsdp_argv(base: Path, device: str = "cuda", steps: int = FSDP_STEPS,
+              batch: int = 32, *extra: str) -> list[str]:
+    """`train --model language_fsdp` at the train phase's config
+    (`train_config`: one epoch of `steps`, jit+pallas, batch 32, seq
+    128, bf16, the synthetic splits under `base`), the job's own lr and
+    clip."""
+    return ["--model", "language_fsdp", "--epochs", "1", "--steps-per-epoch",
+            str(steps), "--batch_size", str(batch), "--compile-tier",
+            "jit+pallas", "--base_dir", str(base), "--data_dir",
+            str(base / "no_data"), "--device", device, *extra]
+
+
+def worker_sharded(out: str, root: str, device: str, steps: str,
+                   batch: str, sigterm: str, model: str, seq: str) -> dict:
+    """One torchrun rank, one process group, every sharded run in turn,
+    each kernel count set to 0 just before its run: the comm check;
+    `cli.main`'s job runner on `fsdp_argv` (language_fsdp under FSDP2),
+    uninterrupted; the same stopped by `sigterm@step=N` and resumed
+    from its sharded checkpoint; `train_llama` fsdp_bf16 at
+    `llama_train_config` (LoRA off, no checkpoint or export)."""
+    import torch.distributed as tdist
+
+    from hyperion_tpu_torch.cli.main import build_parser, run_job
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.comm_check import comm_check
+    from hyperion_tpu_torch.train.trainer import train_llama
+
+    root = Path(root)
+    on_card = device == "cuda"
+
+    def lm(base: Path, *extra: str) -> dict:
+        args = build_parser().parse_args(
+            fsdp_argv(base, device, int(steps), int(batch), *extra))
+        _zero_lm_launches()
+        t0 = time.perf_counter()
+        res = run_job(args, "language_fsdp")
+        return {"preempted": res.preempted, "wall_s": time.perf_counter() - t0,
+                "step_losses": res.step_losses, "step_ms": res.step_ms,
+                "launches": _lm_launches(), "csv_path": res.csv_path,
+                "params": _param_kinds(res.model),
+                "gauges": gauge_readings(res)}
+
+    def llama() -> dict:
+        cfg = llama_train_config(root / "llama", LLAMA_FSDP_STEPS,
+                                 LLAMA_FSDP_EVALS, int(seq))
+        cfg.train.lora, cfg.train.model = False, model
+        cfg.distributed.data, cfg.distributed.fsdp = 1, -1  # the CLI's
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_llama(cfg, device=device, save_state=False)
+        m = res.model
+        return {"wall_s": time.perf_counter() - t0, "model": model,
+                "seq_len": cfg.train.seq_len, "params": _param_kinds(m),
+                "param_dtype": str(next(m.parameters()).dtype),
+                "layers": m.cfg.n_layers, "d_model": m.cfg.d_model,
+                "n_params": sum(p.numel() for p in m.parameters()),
+                "trained": sum(p.numel() for p in m.parameters()
+                               if p.requires_grad),
+                "losses": res.step_losses, "step_ms": res.step_ms,
+                "val_loss": res.history[-1].extra.get("val_loss")
+                if res.history else None,
+                "launches": _launch_counts(), "csv_path": res.csv_path,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+                if on_card else None,
+                "reserved_peak_gb": torch.cuda.max_memory_reserved() / 1e9
+                if on_card else None}
+
+    try:
+        dist.setup(device)
+        rec = {"world": dist.process_count(), "backend": tdist.get_backend(),
+               "comm_check": comm_check()}
+        rec["sharded"] = lm(root / "sharded")
+        rec["stopped"] = lm(root / "stopped", "--chaos",
+                            f"sigterm@step={sigterm}")
+        rec["resumed"] = lm(root / "stopped")
+        rec["llama"] = llama()
+        return rec
+    finally:
+        dist.cleanup()
+
+
+def sharded_runs(device: str = "cuda", steps: int = FSDP_STEPS,
+                 batch: int = 32, sigterm: int = FSDP_SIGTERM,
+                 model: str = "llama_7b", seq: int = 4096) -> dict:
+    """`worker_sharded` under `torchrun --standalone --nproc-per-node 1`
+    (NCCL on the card), with the `--host-only` check of the host
+    coordinator between two host processes (no card) beside it; the
+    rank's readings, the host processes' exit codes and logs.
+    `device="cpu"` (gloo), fewer steps, a smaller batch, `sigterm=3`,
+    `model="llama_tiny"` and `seq=64` rehearse it on the CPU."""
+    import os
+    import shutil
+
+    root = Path(__file__).resolve().parent / FSDP_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    for name in ("sharded", "stopped", "plain"):
+        (root / name / "no_data").mkdir(parents=True)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    parent_gb = (torch.cuda.memory_reserved() / 1e9 if device == "cuda"
+                 else None)  # what this process holds meanwhile
+    port = str(_free_port())
+    hosts = [subprocess.Popen(
+        [sys.executable, "-m", "hyperion_tpu_torch.runtime.comm_check",
+         "--host-only"], cwd=Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "RANK": str(r), "WORLD_SIZE": "2",
+             "MASTER_ADDR": "127.0.0.1", "HYPERION_COORD_PORT": port})
+        for r in (0, 1)]
+    out = root / "rank0.json"
+    try:
+        run = _torchrun(str(Path(__file__).resolve()), "--worker", "sharded",
+                        str(out), str(root), device, str(steps), str(batch),
+                        str(sigterm), model, str(seq), timeout_s=900,
+                        env={"PYTORCH_CUDA_ALLOC_CONF":
+                             "expandable_segments:True"})
+        host_out = [h.communicate(timeout=120)[0] for h in hosts]
+    finally:
+        for h in hosts:
+            if h.poll() is None:
+                h.kill()
+                h.wait()
+    if run["rc"] != 0 or not out.exists():
+        raise AssertionError(f"sharded rank: rc {run['rc']}\n"
+                             + run["log"][-6000:])
+    rec = json.loads(out.read_text())
+    rec.update(process_s=run["seconds"], parent_reserved_gb=parent_gb,
+               host_only_rcs=[h.returncode for h in hosts],
+               host_only_logs=host_out, root=str(root))
+    return rec
+
+
+def phase_dist(smi: str, runs: dict) -> dict:
+    """The collectives over the rank's group at world 1 (NCCL on the
+    card) and the host coordinator between two host processes."""
+    cc = runs["comm_check"]
+    rec = {"phase": "dist", "nvidia_smi": smi, "world": runs["world"],
+           "backend": runs["backend"],
+           "collectives_ok": {k: v["ok"] for k, v in cc.items()},
+           "collectives_ms": {k: v["ms"] for k, v in cc.items()},
+           "ring_shift_note": cc.get("ring_shift", {}).get("note"),
+           "host_only_rcs": runs["host_only_rcs"]}
+    emit(rec)
+    problems = []
+    if set(cc) != {"all_reduce_sum", "all_reduce_max", "all_gather",
+                   "reduce_scatter", "ring_shift"} \
+            or not all(rec["collectives_ok"].values()):
+        problems.append(f"collectives {rec['collectives_ok']}")
+    if rec["ring_shift_note"] != "identity at world 1":
+        problems.append("the ring shift did not say it is the identity")
+    if runs["host_only_rcs"] != [0, 0] or not all(
+            "HOST LAYER OK" in o for o in runs["host_only_logs"]):
+        problems.append("host-only:\n" + "\n".join(
+            o[-1500:] for o in runs["host_only_logs"]))
+    if problems:
+        raise AssertionError("dist: " + "; ".join(problems))
+    return rec
+
+
+def phase_train_fsdp(smi: str, runs: dict, device: str = "cuda",
+                     steps: int = FSDP_STEPS, batch: int = 32) -> dict:
+    """language_fsdp under FSDP2 at world 1 (the rank's runs) against
+    the same config unsharded in this process, and the stopped run's
+    resume against the uninterrupted one (see the module docstring)."""
+    from hyperion_tpu_torch.cli.main import build_parser, make_config
+    from hyperion_tpu_torch.train.trainer import train_language_model
+
+    root = Path(runs["root"])
+    a, b1, b2 = runs["sharded"], runs["stopped"], runs["resumed"]
+    # the same config, unsharded: no process group in this process
+    cfg = make_config(build_parser().parse_args(
+        fsdp_argv(root / "plain", device, steps, batch)), "language_fsdp")
+    plain = train_language_model(cfg, "language_fsdp", device=device)
+    plain.model = None
+    losses = np.asarray(a["step_losses"])
+    ref = np.asarray(plain.step_losses)
+    resumed = np.asarray(b1["step_losses"] + b2["step_losses"])
+    with open(a["csv_path"]) as f:
+        rows = list(csv.reader(f))
+    spans = [json.loads(x) for x in (root / "sharded" / "telemetry.jsonl")
+             .read_text().splitlines()]
+    eval_batches = sum(r.get("batches", 0) for r in spans
+                       if r.get("name") == "eval")
+    final = "checkpoints/language_fsdp_final.npz"
+    p50 = float(np.percentile(a["step_ms"], 50)) if a["step_ms"] else None
+    sigterm = len(b1["step_losses"])
+    rec = {
+        "phase": "train_fsdp", "nvidia_smi": smi, "world": runs["world"],
+        "params": a["params"], "steps": len(losses),
+        "eval_batches": eval_batches,
+        "loss_first10": float(losses[:10].mean()),
+        "loss_last10": float(losses[-10:].mean()),
+        "max_abs_loss_diff_vs_unsharded": float(np.abs(losses - ref).max())
+        if len(ref) == len(losses) else None,
+        "losses_bit_identical": bool(np.array_equal(losses, ref)),
+        "step_ms_p50": p50,
+        "unsharded_step_ms_p50": float(np.percentile(plain.step_ms, 50))
+        if plain.step_ms else None,
+        "tokens_per_s": batch * 128 / (p50 / 1e3) if p50 else None,
+        "run_wall_s": a["wall_s"], "csv_rows": len(rows) - 1,
+        "launches": a["launches"],
+        "launches_expected": {
+            "fused_layernorm": 5 * (steps + eval_batches),
+            "fused_softmax_xent_fwd": steps + eval_batches,
+            "fused_softmax_xent_bwd": steps},
+        "checkpoint": ckpt_readings(root / "sharded", "language_fsdp_1dev"),
+        "stopped_preempted": b1["preempted"], "stopped_steps": sigterm,
+        "resumed_steps": len(b2["step_losses"]),
+        "resume_losses_bit_identical": bool(np.array_equal(resumed, losses)),
+        "resume_export_bit_identical": _export_equal(
+            root / "sharded" / final, root / "stopped" / final),
+        "gauges": a["gauges"],
+    }
+    emit(rec)
+    problems = train_problems("train_fsdp", rec["checkpoint"], rec["gauges"])
+    if runs["world"] != 1 or a["params"] != "DTensor":
+        problems.append(f"world {runs['world']}, params {a['params']}")
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        problems.append(f"losses {losses.tolist()}")
+    if not rec["losses_bit_identical"]:
+        problems.append("losses differ from the unsharded run by "
+                        f"{rec['max_abs_loss_diff_vs_unsharded']}")
+    if rec["csv_rows"] != 1:
+        problems.append(f"csv {rows}")
+    if b1["preempted"] is not True or not 0 < sigterm < steps:
+        problems.append(f"sigterm leg: preempted {b1['preempted']}, "
+                        f"{sigterm} steps")
+    if not (rec["resume_losses_bit_identical"]
+            and rec["resume_export_bit_identical"]):
+        problems.append("the resumed run differs from the uninterrupted")
+    if a["launches"] != rec["launches_expected"]:
+        problems.append(f"launch counts {a['launches']} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("train_fsdp: " + "; ".join(problems))
+    return rec
+
+
+def llama_full_launches_expected(n_layers: int, steps: int,
+                                 evals: int) -> dict:
+    """`llama_launches_expected` for a full fine-tune: the same forward
+    and attention launches, and the RMSNorm backward kernel once a step
+    for every norm, the first included (the embedding trains, so the
+    first norm's input needs a gradient, and every norm weight does)."""
+    return llama_launches_expected(n_layers, steps, evals) | {
+        "fused_rmsnorm_bwd": (2 * n_layers + 1) * steps}
+
+
+def phase_llama_fsdp(smi: str, runs: dict) -> dict:
+    """Llama-2-7B fsdp_bf16 under FSDP2 at world 1 (the rank's last
+    run; see the module docstring)."""
+    r = runs["llama"]
+    losses = np.asarray(r["losses"])
+    p50 = float(np.percentile(r["step_ms"], 50)) if r["step_ms"] else None
+    seq = r["seq_len"]
+    with open(r["csv_path"]) as f:
+        rows = list(csv.reader(f))
+    rec = {"phase": "llama_fsdp", "nvidia_smi": smi, "world": runs["world"],
+           "params": r["params"], "param_dtype": r["param_dtype"],
+           "layers": r["layers"], "d_model": r["d_model"],
+           "n_params": r["n_params"], "trained_params": r["trained"],
+           "seq_len": seq, "batch": 1, "losses": losses.tolist(),
+           "val_loss": r["val_loss"], "step_ms": r["step_ms"],
+           "step_ms_p50": p50,
+           "tokens_per_s": seq / (p50 / 1e3) if p50 else None,
+           "peak_mem_gb": r["peak_mem_gb"],
+           "reserved_peak_gb": r["reserved_peak_gb"],
+           "parent_reserved_gb": runs["parent_reserved_gb"],
+           "run_wall_s": r["wall_s"], "rank_process_s": runs["process_s"],
+           "csv_rows": len(rows) - 1, "launches": r["launches"],
+           "launches_expected": llama_full_launches_expected(
+               r["layers"], len(losses), LLAMA_FSDP_EVALS)}
+    emit(rec)
+    problems = []
+    if runs["world"] != 1 or r["params"] != "DTensor" \
+            or r["trained"] != r["n_params"]:
+        problems.append(f"layout {runs['world']} {r['params']} "
+                        f"{r['trained']}/{r['n_params']}")
+    if r["model"] == "llama_7b" and (
+            r["layers"], r["d_model"], r["param_dtype"], seq) != (
+            32, 4096, "torch.bfloat16", 4096):
+        problems.append("not Llama-2-7B's widths and depth in bf16 at "
+                        "seq 4096")
+    if len(losses) != LLAMA_FSDP_STEPS or not np.isfinite(losses).all() \
+            or not np.isfinite(r["val_loss"]):
+        problems.append(f"losses {losses.tolist()}, val {r['val_loss']}")
+    if len(rows) != 2 or rows[1][rows[0].index("mode")] != "fsdp_bf16":
+        problems.append(f"csv {rows}")
+    if r["launches"] != rec["launches_expected"]:
+        problems.append(f"launch counts {r['launches']} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("llama_fsdp: " + "; ".join(problems))
+    return rec
+
+
+def phase_dry_init(smi: str) -> dict:
+    """The `--dry-init` plan of Llama-2-7B fsdp_bf16 on an abstract
+    fsdp-4 mesh, through the CLI in this process."""
+    import contextlib
+
+    from hyperion_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["train", "--model", "llama", "--llama_size", "7b",
+                       "--dry-init", "--mesh", "1,4,1,1"])
+    line = next((x for x in buf.getvalue().splitlines()
+                 if "dry-init memory plan" in x), "")
+    plan = json.loads(line.split("plan: ", 1)[1]) if line else {}
+    rec = {"phase": "dry_init", "nvidia_smi": smi, "rc": rc,
+           "seconds": time.perf_counter() - t0, "plan": plan}
+    emit(rec)
+    if rc != 0 or plan.get("param_count") != 6_738_415_616 \
+            or plan.get("mesh", {}).get("fsdp") != 4 \
+            or not math.isclose(4 * plan["per_device_gb"], plan["total_gb"],
+                                rel_tol=1e-3):
+        raise AssertionError(f"dry_init: rc {rc}, plan {plan}")
+    return rec
+
+
+def worker_main(argv: list[str]) -> int:
+    """`chip_smoke.py --worker sharded OUT ARGS...`: the torchrun rank
+    of the sharded phases; its readings go to OUT as JSON."""
+    name, out, *args = argv
+    if name != "sharded":
+        raise ValueError(f"unknown worker {name!r}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = worker_sharded(out, *args)
+    Path(out).write_text(json.dumps(rec))
+    return 0
+
+
 def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  train_rec: dict, long_rec: dict, llama_rec: dict,
                  resume_rec: dict, kernel_recs: dict,
-                 flash_recs: dict) -> dict:
+                 flash_recs: dict, fsdp_rec: dict,
+                 llama_fsdp_rec: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -3423,7 +3908,10 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     train_long step; the flash kernels at the train_long step's layer (D 64) and
     at the Llama-2-7B LoRA train step (D 128), with the cross-entropy at
     that step's vocab and RMSNorm, forward and backward, at its
-    [4096, 4096] rows. `run` names the run."""
+    [4096, 4096] rows; the same records at the sharded runs of the same
+    shapes (train_fsdp: language_fsdp under FSDP2; llama_fsdp: the 7B
+    full fine-tune, whose RMSNorm backward is the variant with dw), with
+    those runs' launches. `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -3465,7 +3953,11 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
             ("train_long", long_rec, [*kernel_recs["train_long"].items(),
                                       *flash_recs["train_long"].items()]),
             ("llama_train", llama_rec, [*kernel_recs["llama_train"].items(),
-                                        *flash_recs["llama_train"].items()]))
+                                        *flash_recs["llama_train"].items()]),
+            ("train_fsdp", fsdp_rec, list(kernel_recs["train"].items())),
+            ("llama_fsdp", llama_fsdp_rec,
+             [*kernel_recs["llama_fsdp"].items(),
+              *flash_recs["llama_train"].items()]))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
@@ -3486,6 +3978,8 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs on the H100",
               file=sys.stderr)
@@ -3505,6 +3999,11 @@ def main() -> int:
     resume_rec = phase_train_resume(dev["nvidia_smi"])
     phase_llama_train_model()
     llama_rec = phase_llama_train(dev["nvidia_smi"])
+    runs = sharded_runs()
+    phase_dist(dev["nvidia_smi"], runs)
+    fsdp_rec = phase_train_fsdp(dev["nvidia_smi"], runs)
+    llama_fsdp_rec = phase_llama_fsdp(dev["nvidia_smi"], runs)
+    phase_dry_init(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
     serve_rec, model, serve_reqs, serve_toks = phase_serve()
@@ -3524,7 +4023,7 @@ def main() -> int:
     del crash_model
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
-                      flash_recs))
+                      flash_recs, fsdp_rec, llama_fsdp_rec))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,9 +19,10 @@ with teeth:
 
 The manifest's schema is the reference's (`v` 1, `step`, `files` with
 `path`/`bytes`/`sha256`, `mesh_shape`, `kernel_rev`, `written_at`), so
-either package's `verify` passes the other's step dirs. The port runs
-one device: `mesh_shape` is null and `device` names the card (or
-"cpu"); `kernel_rev` is the hash that keys the CUDA build.
+either package's `verify` passes the other's step dirs. `device` names
+the card (or "cpu"); a single process's save has a null `mesh_shape`,
+a sharded one (`checkpoint/io.py`) the mesh's axis sizes and its
+`world`; `kernel_rev` is the hash that keys the CUDA build.
 
 The module imports nothing heavy at import time: the restart
 supervisor quarantines with it and never imports torch.
@@ -51,9 +52,8 @@ def _sha256(path: Path, chunk: int = 1 << 20) -> str:
 
 def device_of(state) -> str:
     """The device the state's tensors live on, by name: the card's
-    (`torch.cuda.get_device_name`) or "cpu". The port runs one device,
-    so this takes the place of the reference's mesh shape as the
-    manifest's provenance."""
+    (`torch.cuda.get_device_name`) or "cpu": the manifest's provenance
+    beside the mesh's shape."""
     try:
         dev = next(state.model.parameters()).device
         if dev.type == "cuda":

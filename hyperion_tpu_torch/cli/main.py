@@ -8,13 +8,25 @@ launcher (the default surface, `train` its explicit alias) and the
     python -m hyperion_tpu_torch.cli.main route --replicas 2 --ckpt ...
 
 `serve/server.py` and `serve/router.py` own their verbs' flags. The
-trainer launcher takes the reference's flags that apply on one card,
-plus `--device` (cuda by default, `--device cpu` for the plain PyTorch
-path), and returns the reference's exit codes: 0 done, 4 the health
-policy aborted a diverged run, 75 preempted with a resumable
-checkpoint (2 a usage error; 3 a supervisor that gave up). Jobs and
-verbs not ported yet exit 2 and name their ROADMAP item. The module
-imports no torch: `--supervise` runs the trainer as a child process.
+trainer launcher takes the reference's flags, plus `--device` (cuda by
+default, `--device cpu` for the plain PyTorch path), and returns the
+reference's exit codes: 0 done, 4 the health policy aborted a diverged
+run, 75 preempted with a resumable checkpoint (2 a usage error; 3 a
+supervisor that gave up). Jobs and verbs not ported yet exit 2 and name
+their ROADMAP item. The module imports no torch: `--supervise` runs the
+trainer as a child process.
+
+Several ranks, as the reference launched them:
+
+    torchrun --nproc-per-node N -m hyperion_tpu_torch.cli.main train \
+        --model language_fsdp [--mesh data,fsdp,model,seq] ...
+    python -m torch.distributed.run --nproc-per-node 2 -m \
+        hyperion_tpu_torch.cli.main train --device cpu ...    # gloo
+
+`--mesh` sets the axes (default: all data, or all fsdp for
+language_fsdp and a full Llama fine-tune); `--dry-init` prints the
+TrainState's memory plan on the mesh and trains nothing (with explicit
+axes it needs no process group and no device).
 """
 
 from __future__ import annotations
@@ -23,13 +35,13 @@ import argparse
 import sys
 
 MODELS = ("language_ddp", "cifar", "language_fsdp", "llama", "all", "scaling")
-DEFERRED_JOBS = {"language_fsdp": "A8", "cifar": "A9", "all": "A9",
-                 "scaling": "A9"}
+DEFERRED_JOBS = {"cifar": "A9", "all": "A9", "scaling": "A9"}
 DEFERRED_VERBS = {"obs": "A6", "simulate": "A9"}
 
 _JOB_DEFAULTS = {
     # the reference's per-job hyperparameters
     "language_ddp": dict(batch_size=32, learning_rate=2e-4),
+    "language_fsdp": dict(batch_size=32, learning_rate=1e-4),
     "llama": dict(batch_size=8, learning_rate=1e-5, weight_decay=0.01),
 }
 
@@ -60,7 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                    default="bf16")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dry-init", action="store_true",
-                   help="plan-only memory plan (not ported yet: exits 2)")
+                   help="plan-only: print the TrainState's memory plan "
+                        "(global and per-device bytes of params, grads "
+                        "and AdamW state) on the mesh, and train nothing")
+    p.add_argument("--mesh", default=None,
+                   help="axis sizes data,fsdp,model,seq[,pipe[,expert]] "
+                        "(e.g. 2,2,1,1); default: all-data, or all-fsdp "
+                        "for language_fsdp and a full Llama fine-tune; "
+                        "seq, pipe and expert > 1 are ROADMAP A8")
     p.add_argument("--no-validate", action="store_true",
                    help="skip the per-epoch validation pass")
     p.add_argument("--no-telemetry", action="store_true",
@@ -146,8 +165,10 @@ def make_config(args, job: str):
     t.seed = args.seed
     t.lora = args.lora
     t.export_merged = args.export_merged
+    t.dry_init = args.dry_init
     if job == "llama":
         t.model = f"llama_{args.llama_size}"
+    if job in ("language_fsdp", "llama"):
         o.grad_clip_norm = 1.0  # the reference's clip 1.0
     o.precision = args.precision
     o.grad_accum_steps = args.grad_accum
@@ -155,6 +176,17 @@ def make_config(args, job: str):
     o.remat = args.remat or ("full" if needs_remat else "none")
     o.compile_tier = args.compile_tier
     o.attention_impl = args.attention_impl
+    dcfg = cfg.distributed
+    if args.mesh:
+        sizes = [int(x) for x in args.mesh.split(",")]
+        if len(sizes) not in (4, 5, 6):
+            raise SystemExit("--mesh wants data,fsdp,model,seq[,pipe"
+                             f"[,expert]], got {args.mesh!r}")
+        for name, v in zip(("data", "fsdp", "model", "seq", "pipe",
+                            "expert"), sizes):
+            setattr(dcfg, name, v)
+    elif job == "language_fsdp" or (job == "llama" and not args.lora):
+        dcfg.data, dcfg.fsdp = 1, -1  # the whole world on the fsdp axis
     return cfg
 
 
@@ -175,10 +207,6 @@ def train_main(argv: list[str]) -> int:
               f"ported yet (ROADMAP {DEFERRED_JOBS[args.model]})",
               file=sys.stderr)
         return 2
-    if args.dry_init:
-        print("hyperion_tpu_torch.cli.main: --dry-init is not ported yet "
-              "(ROADMAP A7)", file=sys.stderr)
-        return 2
     if args.supervise:
         # the supervisor imports no torch and re-execs THIS command
         # (minus the supervision flags) as the child it watches
@@ -195,10 +223,17 @@ def train_main(argv: list[str]) -> int:
         EXIT_PREEMPTED,
     )
 
-    res = run_job(args, args.model)
-    print("hyperion_tpu_torch.cli.main: the scaling report waits for "
-          "metrics/scaling_report.py (ROADMAP A9); skipped",
-          file=sys.stderr)
+    from hyperion_tpu_torch.runtime import dist
+
+    try:
+        res = run_job(args, args.model)
+        primary = dist.is_primary()  # cleanup forgets the rank
+    finally:
+        dist.cleanup()
+    if primary:
+        print("hyperion_tpu_torch.cli.main: the scaling report waits for "
+              "metrics/scaling_report.py (ROADMAP A9); skipped",
+              file=sys.stderr)
     if res.preempted == "health_abort":
         return EXIT_HEALTH_ABORT
     return EXIT_PREEMPTED if res.preempted else 0

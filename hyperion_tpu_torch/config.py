@@ -1,6 +1,6 @@
-"""The trainers' configuration — the `train` and `optimization` fields of
-`hyperion_tpu/config.py` that the port's language and Llama trainers
-read, with the reference's defaults.
+"""The trainers' configuration — the `train`, `optimization` and
+`distributed` fields of `hyperion_tpu/config.py` that the port's
+language and Llama trainers read, with the reference's defaults.
 
 `moe_experts` stays for a feature the port does not have yet: asking
 for it raises `NotImplementedError` naming its ROADMAP item instead of
@@ -10,6 +10,8 @@ being ignored.
 from __future__ import annotations
 
 import dataclasses
+
+from hyperion_tpu_torch.runtime.mesh import MeshSpec
 
 
 @dataclasses.dataclass
@@ -51,6 +53,25 @@ class TrainConfig:
     chaos: str = ""                  # fault plan (testing/chaos.py)
     profile_dir: str = ""            # torch.profiler trace of one epoch
     moe_experts: int = 0             # not ported: set, it raises (A8)
+    dry_init: bool = False           # plan the TrainState's memory only
+
+
+@dataclasses.dataclass
+class DistributedConfig:
+    """The mesh's axis sizes (`runtime/mesh.py`): -1 on one axis means
+    the rest of the world; seq, pipe and expert > 1 are the next slice
+    (ROADMAP A8) and raise."""
+
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
+    seq: int = 1
+    pipe: int = 1
+    expert: int = 1
+
+    def mesh_spec(self) -> MeshSpec:
+        return MeshSpec(data=self.data, fsdp=self.fsdp, model=self.model,
+                        seq=self.seq, pipe=self.pipe, expert=self.expert)
 
 
 @dataclasses.dataclass
@@ -58,3 +79,5 @@ class Config:
     optimization: OptimizationConfig = dataclasses.field(
         default_factory=OptimizationConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    distributed: DistributedConfig = dataclasses.field(
+        default_factory=DistributedConfig)

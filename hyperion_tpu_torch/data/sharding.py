@@ -1,6 +1,5 @@
-"""One-device batching — `ShardedBatches` of
-`hyperion_tpu/data/sharding.py:26-120` with one device in place of the
-mesh.
+"""Batching over the mesh — `ShardedBatches` of
+`hyperion_tpu/data/sharding.py:26-120`.
 
 The epoch order is the reference's: a permutation of the rows seeded by
 `(seed, epoch)` (`np.random.default_rng((seed, epoch)).shuffle`, the
@@ -11,8 +10,14 @@ card, the `data_iter` chaos seam before each) and copied to the device
 (`to_device`): from pinned memory the copy is queued on the current
 stream and does not wait for the device. `epoch` chains the two; the
 trainers run `host_epoch` on the prefetcher's thread and `to_device`
-on their own. Meshes and sequence sharding wait for the distributed
-runtime (ROADMAP A8).
+on their own.
+
+With a mesh (`mesh=`), every rank draws the same global permutation from
+the seed and keeps the rows of each global batch that its (data, fsdp)
+coordinate owns (`runtime/mesh.py` `batch_rows`), the rows
+`make_array_from_callback` hands that shard in the JAX package; ranks
+that differ only on `model` get the same rows. Sequence sharding is the
+next slice (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -22,15 +27,16 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from hyperion_tpu_torch.runtime.mesh import batch_rows
 from hyperion_tpu_torch.utils.retry import fault_point
 
 
 class ShardedBatches:
     """Iterate dict-of-arrays data as device batches of `global_batch`
-    rows (drop-last)."""
+    rows (drop-last); with a mesh, this rank's rows of each."""
 
     def __init__(self, arrays: dict[str, np.ndarray], global_batch: int,
-                 device, shuffle: bool = True, seed: int = 0):
+                 device, shuffle: bool = True, seed: int = 0, mesh=None):
         lens = {k: v.shape[0] for k, v in arrays.items()}
         if len(set(lens.values())) != 1:
             raise ValueError(f"ragged arrays: {lens}")
@@ -44,6 +50,9 @@ class ShardedBatches:
         self.shuffle = shuffle
         self.seed = seed
         self.steps_per_epoch = self.n // global_batch
+        # this rank's rows of a global batch (all of them without a mesh)
+        self.rows = (slice(0, global_batch) if mesh is None
+                     else batch_rows(mesh, global_batch))
 
     def host_epoch(self, epoch: int,
                    start_step: int = 0) -> Iterator[dict[str, torch.Tensor]]:
@@ -56,7 +65,8 @@ class ShardedBatches:
         pin = self.device.type == "cuda"
         for s in range(start_step, self.steps_per_epoch):
             fault_point("data_iter")
-            idx = order[s * self.global_batch:(s + 1) * self.global_batch]
+            idx = order[s * self.global_batch:
+                        (s + 1) * self.global_batch][self.rows]
             rows = {k: torch.from_numpy(v[idx]) for k, v in self.arrays.items()}
             yield {k: t.pin_memory() if pin else t for k, t in rows.items()}
 

@@ -2,8 +2,9 @@
 
 Same schemas, run ids (`{job}_{n}gpus_{YYYYmmdd_HHMMSS}`), file layout
 (`{base_dir}/distributed/{run_id}_metrics.csv`) and number format as the
-reference, so its report tooling reads either package's CSVs. The port
-runs one process, so the logger is always the primary's.
+reference, so its report tooling reads either package's CSVs. Only the
+primary process writes (`runtime/dist.py` `is_primary`), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import csv
 import datetime
 from pathlib import Path
+
+from hyperion_tpu_torch.runtime import dist
 
 SCHEMAS: dict[str, tuple[str, ...]] = {
     "language_ddp": ("epoch", "loss", "duration_s", "gpus"),
@@ -28,7 +31,8 @@ def run_id(job: str, n_devices: int,
 
 
 class CsvLogger:
-    """Append-per-epoch CSV writer; the header is written at creation."""
+    """Append-per-epoch CSV writer; the header is written at creation.
+    Inactive (writes nothing) off the primary process."""
 
     def __init__(self, job: str, n_devices: int,
                  base_dir: str | Path = "data",
@@ -40,6 +44,9 @@ class CsvLogger:
             raise ValueError(f"no schema for job {job!r}; pass schema=")
         self.run = run or run_id(job, n_devices)
         self.path = Path(base_dir) / "distributed" / f"{self.run}_metrics.csv"
+        self.active = dist.is_primary()
+        if not self.active:
+            return
         self.path.parent.mkdir(parents=True, exist_ok=True)
         with self.path.open("w", newline="") as f:
             csv.writer(f).writerow(self.schema)
@@ -48,6 +55,8 @@ class CsvLogger:
         missing = set(self.schema) - row.keys()
         if missing:
             raise ValueError(f"row missing columns {sorted(missing)}")
+        if not self.active:
+            return
         with self.path.open("a", newline="") as f:
             csv.writer(f).writerow([_fmt(row[c]) for c in self.schema])
 

@@ -237,12 +237,14 @@ class LlamaAttention(nn.Module):
         c = self.c
         B, T, _ = x.shape
         Dh = c.head_dim
-        q = self.q_proj(x).view(B, T, c.n_heads, Dh)
-        k = self.k_proj(x).view(B, T, c.n_kv_heads, Dh)
-        v = self.v_proj(x).view(B, T, c.n_kv_heads, Dh)
+        # heads by the projections' output: under tensor parallelism a
+        # rank holds a share of them
+        q = self.q_proj(x).view(B, T, -1, Dh)
+        k = self.k_proj(x).view(B, T, -1, Dh)
+        v = self.v_proj(x).view(B, T, -1, Dh)
         q = apply_rope(q, rope_table, cache_index)
         k = apply_rope(k, rope_table, cache_index)
-        rep = c.n_heads // c.n_kv_heads
+        rep = q.shape[2] // k.shape[2]
         if cache is None:
             if rep != 1:  # GQA: repeat the kv heads
                 k = k.repeat_interleave(rep, dim=2)
@@ -250,7 +252,7 @@ class LlamaAttention(nn.Module):
             out = dot_product_attention(q, k, v, causal=True,
                                         padding_mask=padding_mask,
                                         impl=c.attention_impl)
-            return self.o_proj(out.reshape(B, T, c.n_heads * Dh))
+            return self.o_proj(out.reshape(B, T, -1))
         ck, cv = cache["k"], cache["v"]
         dev = x.device
 
@@ -548,20 +550,22 @@ def params_from_jax(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     return sd
 
 
-def params_to_jax(model: Llama) -> dict:
+def params_to_jax(model: Llama, named: dict | None = None) -> dict:
     """The inverse of `params_from_jax` over the base weights (adapters
     left out): the JAX Llama's nested tree of fp32 numpy arrays, the
-    tree `hyperion_tpu/checkpoint/io.py`'s `export_gathered` writes."""
+    tree `hyperion_tpu/checkpoint/io.py`'s `export_gathered` writes.
+    `named`: the weights by parameter name, when not the model's own
+    (a sharded model's, gathered)."""
     cfg = model.cfg
+    sd = dict(model.named_parameters()) if named is None else named
 
     def a(p) -> np.ndarray:
         return p.detach().float().cpu().numpy()
 
-    tree = {"embed_tokens": {"embedding": a(model.embed_tokens)},
-            "final_norm": {"weight": a(model.final_norm.weight)},
+    tree = {"embed_tokens": {"embedding": a(sd["embed_tokens"])},
+            "final_norm": {"weight": a(sd["final_norm.weight"])},
             "lm_head": {"kernel": np.ascontiguousarray(
-                a(model.lm_head.weight).T)}}
-    sd = dict(model.named_parameters())
+                a(sd["lm_head.weight"]).T)}}
     for i in range(cfg.n_layers):
         layer: dict = {}
         for path, name in _LAYER_MAP.items():

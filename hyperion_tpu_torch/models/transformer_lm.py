@@ -194,14 +194,16 @@ class MHA(nn.Module):
         self.o_proj = Dense(hd, d, dt, device)
 
     def forward(self, x, padding_mask):
+        # heads by the projections' output: under tensor parallelism a
+        # rank holds n_heads / model of them
         c = self.cfg
         B, T, _ = x.shape
-        q, k, v = (p(x).view(B, T, c.n_heads, c.head_dim)
+        q, k, v = (p(x).view(B, T, -1, c.head_dim)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
         out = dot_product_attention(q, k, v, causal=c.causal,
                                     padding_mask=padding_mask,
                                     impl=c.attention_impl)
-        return self.o_proj(out.reshape(B, T, c.n_heads * c.head_dim))
+        return self.o_proj(out.reshape(B, T, -1))
 
 
 class Block(nn.Module):

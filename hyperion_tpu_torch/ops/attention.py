@@ -11,7 +11,7 @@ in it, masked logits set to `NEG_INF`, softmax in fp32 and cast back,
 then the p·v product. `impl="pallas"` is the flash kernel
 (`ops/flash_attention.py`), and `impl="auto"` resolves per geometry
 exactly as the reference does; the sequence-parallel impls raise until
-the mesh runtime is ported (ROADMAP A8).
+the seq axis is ported, the next slice (ROADMAP A8).
 """
 
 from __future__ import annotations

@@ -70,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import sys
+import threading
 import time
 from typing import Any, Callable
 
@@ -533,6 +534,9 @@ class Engine:
         # flight recorder (all host-only — none touch the device)
         self.ledger = CompileLedger()
         self.tickprof = TickProfiler()
+        # held across each tick and by an on-demand trace while the
+        # profiler starts or stops (`control`), so the two never overlap
+        self._tick_gate = threading.Lock()
         self.flight = (FlightRecorder(flight_path, run=self.tracer.run)
                        if flight_path else null_flight_recorder())
         self._journal_s = 0.0     # cumulative journal seconds (see _sink_s)
@@ -1466,7 +1470,8 @@ class Engine:
             if not out:
                 return {"status": "error", "error": "profile needs 'out'"}
             res = on_demand_trace(str(out),
-                                  float(req.get("seconds") or 5.0))
+                                  float(req.get("seconds") or 5.0),
+                                  gate=self._tick_gate)
             self.tracer.event("profile_requested", **res)
             return res
         if cmd == "class_brownout":
@@ -1484,6 +1489,11 @@ class Engine:
         return {"status": "error", "error": f"unknown cmd {cmd!r}"}
 
     def step(self) -> list[TokenEvent]:
+        """One scheduling round (`_step`), under the tick gate."""
+        with self._tick_gate:
+            return self._step()
+
+    def _step(self) -> list[TokenEvent]:
         """One scheduling round: brownout shedding, admit from the queue
         into free slots (block-gated, prefill, budget-limited), one
         chunked-prefill segment, ensure every live slot owns the blocks

@@ -24,8 +24,21 @@ reference's `optax.multi_transform` with `set_to_zero` on the base
 update, and the clipping norm is taken over the adapters alone, as the
 reference's partitioned chain takes it over its "train" subtree.
 
-The reference's sharded-state planning (meshes, FSDP) waits for the
-distributed runtime (ROADMAP A8).
+Over sharded parameters (FSDP2's and tensor parallelism's DTensors,
+`parallel/partition.py`) the same chain runs on each rank's shards:
+`global_norm` sums each gradient's local squares, all-reduces the sums
+of the sharded ones over the mesh axes they are split on (one
+all-reduce per set of axes), and adds them in parameter order, so the
+clip scale is the global norm's on every rank (and, at world 1,
+bit-identical to the unsharded sum); the clip scales the local shards;
+AdamW updates the shards, with DTensor and plain parameters in
+separate groups so each runs torch's own implementation for its kind.
+
+`plan_train_state` is the reference's `--dry-init` plan
+(`hyperion_tpu/train/state.py:176`): the model built on the meta
+device (shapes only), each parameter's placement from the partition
+rules (`parallel/partition.py` `torch_layouts`), and the bytes per
+device of parameters, gradients and AdamW state at the policy's dtypes.
 """
 
 from __future__ import annotations
@@ -92,9 +105,35 @@ def make_schedule(learning_rate: float, schedule: str = "constant",
         0.0, learning_rate, min(warmup_steps, total_steps - 1), total_steps)
 
 
+def _shard_groups(t) -> tuple:
+    """The process groups of the mesh axes a DTensor is split on (size
+    > 1); () for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return ()
+    mesh = t.device_mesh
+    return tuple(mesh.get_group(i) for i, pl in enumerate(t.placements)
+                 if pl.is_shard() and mesh.size(i) > 1)
+
+
 def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in fp32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    """sqrt of the sum of squares of every gradient, in fp32, over every
+    shard of a sharded one (see the module docstring)."""
+    import torch.distributed as tdist
+
+    from hyperion_tpu_torch.parallel.partition import local
+
+    sq = [local(g).float().square().sum() for g in grads]
+    keys = [_shard_groups(g) for g in grads]
+    for key in dict.fromkeys(k for k in keys if k):
+        idx = [i for i, k in enumerate(keys) if k == key]
+        v = torch.stack([sq[i] for i in idx])
+        for group in key:
+            tdist.all_reduce(v, group=group)
+        for j, i in enumerate(idx):
+            sq[i] = v[j]
+    return torch.sqrt(sum(sq))
 
 
 class Optimizer:
@@ -105,13 +144,18 @@ class Optimizer:
     def __init__(self, params, learning_rate: float, weight_decay: float,
                  grad_clip_norm: float, b1: float, b2: float,
                  schedule: Callable[[int], float]):
+        from torch.distributed.tensor import DTensor
+
         self.params = [p for p in params if p.requires_grad]
         self.grad_clip_norm = grad_clip_norm
         self.schedule = schedule
         self.count = 0  # updates applied, the schedule's argument
-        self.adamw = torch.optim.AdamW(self.params, lr=learning_rate,
-                                       betas=(b1, b2), eps=1e-8,
-                                       weight_decay=weight_decay)
+        groups = [[p for p in self.params if isinstance(p, DTensor)],
+                  [p for p in self.params if not isinstance(p, DTensor)]]
+        self.adamw = torch.optim.AdamW(
+            [{"params": g} for g in groups if g] or self.params,
+            lr=learning_rate, betas=(b1, b2), eps=1e-8,
+            weight_decay=weight_decay)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -127,8 +171,10 @@ class Optimizer:
             scale = torch.where(norm < self.grad_clip_norm,
                                 torch.ones_like(norm),
                                 self.grad_clip_norm / norm)
+            from hyperion_tpu_torch.parallel.partition import local
+
             for g in grads:
-                g.mul_(scale.to(g.dtype))
+                local(g).mul_(scale.to(g.dtype))
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
@@ -159,3 +205,61 @@ class TrainState:
     model: torch.nn.Module
     optimizer: Optimizer
     epoch_losses: torch.Tensor | None = None
+
+
+def plan_train_state(model: torch.nn.Module, mesh, fsdp: bool = True,
+                     fsdp_min_size: int = 2**14) -> dict:
+    """The memory plan of a TrainState over `model` — a model built on
+    the meta device, its parameters at the policy's dtypes and with the
+    `requires_grad` the trainer sets — laid out on `mesh` (an
+    `AbstractMesh` plans any size; a DeviceMesh works too): global and
+    per-device bytes of the parameters, their gradients and the AdamW
+    state, per the port's layouts. Keys as the reference's
+    `memory_plan` (`params_gb`, `opt_state_gb`, `batch_stats_gb`,
+    `param_count`, `params_by_dtype_gb`, `total_gb`, `per_device_gb`
+    over parameters and optimizer state, `mesh`), plus the gradients'
+    `grads_gb` and each section's per-device bytes. The AdamW state is
+    the two moments of each trained parameter in its dtype and a 4-byte
+    step count each (optax's one int32 count is the rounding's
+    difference)."""
+    from hyperion_tpu_torch.parallel.partition import model_layouts
+    from hyperion_tpu_torch.runtime.mesh import AxisName, axis_sizes
+
+    sizes = axis_sizes(mesh)
+    layouts = model_layouts(model, mesh, fsdp=fsdp,
+                            fsdp_min_size=fsdp_min_size)
+    tot = {"params": 0, "grads": 0, "opt_state": 0}
+    dev = {"params": 0.0, "grads": 0.0, "opt_state": 0.0}
+    by_dtype: dict[str, int] = {}
+    n_params = 0
+    for name, p in model.named_parameters():
+        lay = layouts[name]
+        div = ((sizes[AxisName.MODEL] if lay.model is not None else 1)
+               * (sizes[AxisName.FSDP] if lay.fsdp is not None else 1))
+        nbytes = p.numel() * p.element_size()
+        n_params += p.numel()
+        key = str(p.dtype).removeprefix("torch.")
+        by_dtype[key] = by_dtype.get(key, 0) + nbytes
+        parts = {"params": nbytes}
+        if p.requires_grad:
+            parts["grads"] = nbytes
+            parts["opt_state"] = 2 * nbytes
+        for k, v in parts.items():
+            tot[k] += v
+            dev[k] += v / div
+        if p.requires_grad:  # the step count, replicated
+            tot["opt_state"] += 4
+            dev["opt_state"] += 4
+    gb = lambda v: round(v / 1e9, 4)  # noqa: E731
+    return {
+        "mesh": sizes,
+        "params_gb": gb(tot["params"]), "grads_gb": gb(tot["grads"]),
+        "opt_state_gb": gb(tot["opt_state"]), "batch_stats_gb": 0.0,
+        "param_count": n_params,
+        "params_by_dtype_gb": {k: gb(v) for k, v in sorted(by_dtype.items())},
+        "total_gb": gb(tot["params"] + tot["opt_state"]),
+        "per_device_gb": gb(dev["params"] + dev["opt_state"]),
+        "params_per_device_gb": gb(dev["params"]),
+        "grads_per_device_gb": gb(dev["grads"]),
+        "opt_state_per_device_gb": gb(dev["opt_state"]),
+    }

@@ -1,16 +1,26 @@
 """The trainers — `train_language_model` (`:778-1033`) and `train_llama`
-(`:1138-1400`) of `hyperion_tpu/train/trainer.py` on one card, with the
-reference's epoch loop (`:167-775`).
+(`:1138-1400`) of `hyperion_tpu/train/trainer.py`, with the reference's
+epoch loop (`:167-775`), on one card or on a mesh of ranks.
 
-    train_language_model(cfg, job="language_ddp", device=None)
+    train_language_model(cfg, job="language_ddp" | "language_fsdp",
+                         device=None)
     train_llama(cfg, job="llama", device=None)
 
-Data (`load_wikitext2`, one-device `ShardedBatches`) → the
-SimpleTransformerLM at the configured precision and compile tier →
-AdamW → `_prepare_run` (CSV logger, tracer, chaos activation, then the
-verified walk-back restore from `{base_dir}/checkpoints/{job}_1dev/`
-and the resume epoch and step) → the epoch loop → the final `.npz`
-export. `_tier_impls` resolves the kernels exactly as the reference
+`runtime/dist.py` `setup` (a no-op in a single process; under torchrun
+the process group, NCCL on the card, gloo with `device="cpu"`) →
+`_build_mesh` (the `distributed` config's axes over the ranks; None for
+a single process) → data (`load_wikitext2`, `ShardedBatches` holding
+this rank's rows) → the SimpleTransformerLM at the configured precision
+and compile tier, laid out by `_parallelize` (tensor parallelism over
+`model`, then FSDP2 when the job is language_fsdp or the fsdp axis is
+> 1, else the DDP gradient all-reduce) → AdamW → `_prepare_run` (CSV
+logger, tracer, chaos activation, then the verified walk-back restore
+from `{base_dir}/checkpoints/{job}_{world}dev/` and the resume epoch
+and step) → the epoch loop → the final `.npz` export, gathered. The
+loss is the mean over the global batch (`train/step.py` `BatchSync`).
+With `cfg.train.dry_init` nothing trains: the model is built on the
+meta device and `_dry_init` prints the TrainState's memory plan on the
+mesh (an abstract one when the axes are explicit: no process group). `_tier_impls` resolves the kernels exactly as the reference
 does: tier "jit" runs plain PyTorch ops (no `torch.compile`, no
 kernels); "jit+pallas" runs the fused LayerNorm and cross-entropy
 kernels, and attention "auto", which is the plain einsum below 4096
@@ -20,8 +30,9 @@ tokens.
 or llama_70b) in the reference's two modes: `cfg.train.lora` trains
 adapters on a frozen base ("lora_bf16": AdamW, clipping and decay over
 the adapters only — the reference's `optax.multi_transform` freeze, so
-the base has no gradient and no optimizer state), else every parameter
-("fsdp_bf16", on one device). Ids are clamped into the Llama vocab;
+the base has no gradient and no optimizer state; over ranks the
+adapters are replicated, DDP), else every parameter ("fsdp_bf16",
+FSDP2 over the fsdp axis). Ids are clamped into the Llama vocab;
 weights are seeded random, or HF weights from
 `{data_dir or base_dir}/llama2_hf` when that holds any. Each run writes
 the CSV (schema "llama" + `mode`), a summary JSON with step time,
@@ -47,7 +58,15 @@ stream (no host sync), and the intervals between them are
 epoch mean the CSV row already fetched; on the CPU, where each step
 has run to its end anyway, it reads each step's loss and grad norm.
 
-Not ported yet: FSDP, multi-device meshes, pipeline and MoE (A8).
+Over several ranks every rank runs the loop in step: they agree on a
+preemption signal at each step boundary (`dist.any_rank`) before any of
+them saves or stops, the health monitor judges the global loss and
+norm (so every rank decides alike), checkpoints are sharded
+(`checkpoint/io.py`), and the CSV, telemetry, heartbeat, summary and
+exports are the primary's.
+
+Not ported yet: the seq, pipe and expert axes, pipeline and MoE (the
+next slice, A8).
 """
 
 from __future__ import annotations
@@ -70,14 +89,14 @@ from hyperion_tpu_torch.checkpoint.io import export_gathered
 from hyperion_tpu_torch.config import Config
 from hyperion_tpu_torch.data.prefetch import Prefetcher
 from hyperion_tpu_torch.data.sharding import ShardedBatches
-from hyperion_tpu_torch.data.text import load_wikitext2
+from hyperion_tpu_torch.data.text import GPT2_VOCAB_SIZE, load_wikitext2
 from hyperion_tpu_torch.metrics.csv_logger import SCHEMAS, CsvLogger
 from hyperion_tpu_torch.models import llama as llama_mod
 from hyperion_tpu_torch.models import lora as lora_mod
 from hyperion_tpu_torch.models.transformer_lm import (
     TransformerLM,
-    params_to_jax,
     simple_lm_config,
+    state_to_jax,
 )
 from hyperion_tpu_torch.obs import heartbeat as obs_heartbeat
 from hyperion_tpu_torch.obs import trace as obs_trace
@@ -96,11 +115,34 @@ from hyperion_tpu_torch.obs.registry import (
     observe_step,
     observe_throughput,
 )
+from hyperion_tpu_torch.parallel.partition import (
+    GradSync,
+    apply_fsdp,
+    apply_tp,
+    model_layouts,
+)
 from hyperion_tpu_torch.precision.policy import get_policy
+from hyperion_tpu_torch.runtime import dist
+from hyperion_tpu_torch.runtime.mesh import (
+    AxisName,
+    axis_sizes,
+    batch_groups,
+    check_ported,
+    data_parallel_index,
+    data_parallel_size,
+    make_abstract_mesh,
+    make_mesh,
+    set_active_mesh,
+)
 from hyperion_tpu_torch.testing import chaos as chaos_mod
 from hyperion_tpu_torch.train.losses import next_token_loss
-from hyperion_tpu_torch.train.state import TrainState, make_optimizer
+from hyperion_tpu_torch.train.state import (
+    TrainState,
+    make_optimizer,
+    plan_train_state,
+)
 from hyperion_tpu_torch.train.step import (
+    BatchSync,
     make_eval_step,
     make_train_step,
     seeded_generator,
@@ -143,6 +185,12 @@ class TrainResult:
         return self.history[-1].loss if self.history else float("nan")
 
 
+def _say(msg: str) -> None:
+    """Print on the primary process only."""
+    if dist.is_primary():
+        print(msg)
+
+
 def _steps_per_epoch(cfg: Config, batches) -> int:
     """Optimizer steps one epoch runs: the dataset's batch count, capped
     by cfg.train.steps_per_epoch (0 = full pass)."""
@@ -182,7 +230,8 @@ def _lm_eval_cols(vm: list) -> dict:
     return {"val_loss": vl, "val_ppl": math.exp(min(vl, 20.0))}
 
 
-def _lm_validation(cfg: Config, splits, device, loss_fn, transform=None):
+def _lm_validation(cfg: Config, splits, device, loss_fn, transform=None,
+                   mesh=None, sync: BatchSync | None = None):
     """(eval_step, val_batches, eval_cols, extra_schema); all-None/()
     when validation is off or the split is absent. `transform` maps the
     split to arrays (the Llama trainer's id clamping)."""
@@ -191,9 +240,10 @@ def _lm_validation(cfg: Config, splits, device, loss_fn, transform=None):
     split = splits["validation"]
     val_batches = ShardedBatches(
         transform(split) if transform else split.arrays(),
-        cfg.train.batch_size, device, shuffle=False, seed=cfg.train.seed)
+        cfg.train.batch_size, device, shuffle=False, seed=cfg.train.seed,
+        mesh=mesh)
     eval_step = make_eval_step(
-        lambda model, b: {"loss": loss_fn(model, b, None)[0]})
+        lambda model, b: {"loss": loss_fn(model, b, None)[0]}, sync=sync)
     return eval_step, val_batches, _lm_eval_cols, ("val_loss", "val_ppl")
 
 
@@ -201,6 +251,74 @@ def _check_supported(cfg: Config) -> None:
     if cfg.train.moe_experts > 0:
         raise NotImplementedError(
             "MoE (moe_experts) is not ported yet (ROADMAP A8)")
+
+
+def _build_mesh(cfg: Config, device: torch.device | None):
+    """The training mesh (`:676`): an abstract one for `dry_init` (no
+    process group: explicit axes, or -1 resolved against the world),
+    the process group's ranks over the configured axes, or None for a
+    single process (whose axes must then all be 1). Registered as the
+    active mesh."""
+    spec = cfg.distributed.mesh_spec()
+    if cfg.train.dry_init:
+        if -1 in spec.shape:
+            spec = spec.resolve(dist.process_count())
+        mesh = make_abstract_mesh(spec)
+    elif dist.is_distributed():
+        mesh = make_mesh(spec, device.type)
+    else:
+        check_ported(spec.resolve(1))
+        mesh = None
+    set_active_mesh(mesh)
+    return mesh
+
+
+def _tree_tag(mesh, cfg: Config) -> str:
+    """Checkpoint-name tag for knobs that change the parameter tree
+    (`:697`): a pipe axis stacks stages, MoE adds sparse blocks. Neither
+    is ported yet, so every tree the port trains has the empty tag."""
+    if mesh is None:
+        return ""
+    tag = (f"_pipe{axis_sizes(mesh)[AxisName.PIPE]}"
+           if axis_sizes(mesh)[AxisName.PIPE] > 1 else "")
+    if cfg.train.moe_experts:
+        tag += f"_moe{cfg.train.moe_experts}"
+    return tag
+
+
+def _world(mesh) -> int:
+    return 1 if mesh is None else math.prod(axis_sizes(mesh).values())
+
+
+def _parallelize(model: torch.nn.Module, mesh, fsdp: bool, blocks
+                 ) -> tuple[BatchSync, GradSync | None]:
+    """Lay `model` out on `mesh` (None: leave it whole): tensor
+    parallelism over `model` when that axis is > 1, then FSDP2 over the
+    fsdp axis (`fsdp`) or DDP. Returns the step's `BatchSync` and its
+    gradient all-reduce (DDP's, or the FSDP-ignored parameters')."""
+    if mesh is None:
+        return BatchSync(), None
+    layouts = model_layouts(model, mesh, fsdp=fsdp)
+    if axis_sizes(mesh)[AxisName.MODEL] > 1:
+        apply_tp(model, mesh, layouts)
+    groups = batch_groups(mesh)
+    world = data_parallel_size(mesh)
+    sync = BatchSync(groups, world, data_parallel_index(mesh))
+    averaged = (apply_fsdp(model, mesh, layouts, blocks) if fsdp
+                else list(model.parameters()))
+    trained = [p for p in averaged if p.requires_grad]
+    return sync, (GradSync(trained, groups, world)
+                  if groups and trained else None)
+
+
+def _dry_init(job: str, model: torch.nn.Module, mesh, fsdp: bool
+              ) -> "TrainResult":
+    """`--dry-init` (`:112`): the memory plan of the TrainState over a
+    meta-device `model` on `mesh`, printed on the primary; nothing
+    trains."""
+    plan = plan_train_state(model, mesh, fsdp=fsdp)
+    _say(f"[{job}] dry-init memory plan: {json.dumps(plan)}")
+    return TrainResult(job, "dry_init", "", None, [], metrics=plan)
 
 
 def _save_checkpoint(ckpt_dir: str, state: TrainState, tracer=None,
@@ -227,7 +345,7 @@ def _health_react(job: str, action: str, monitor: HealthMonitor,
     the optimizer already applied the non-finite update."""
     fired = monitor.last_escalated or monitor.anomalies[-1:]
     for anom in fired:
-        print(f"[{job}] health[{action}]: {anom.kind} at step "
+        _say(f"[{job}] health[{action}]: {anom.kind} at step "
               f"{anom.step} (value {anom.value}"
               f"{', ' + str(anom.detail) if anom.detail else ''})")
     if action == "checkpoint" and ckpt_dir \
@@ -252,7 +370,7 @@ class LoopResult:
 
 def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 state: TrainState, train_step, logger: CsvLogger,
-                n_devices: int, device: torch.device,
+                n_devices: int, device: torch.device, mfu_devices: int = 1,
                 ckpt_dir: str | None = None, resume_epoch: int = 0,
                 resume_step: int = 0, eval_step=None,
                 eval_batches: ShardedBatches | None = None,
@@ -260,11 +378,13 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 tracer: obs_trace.Tracer | None = None,
                 extra_cols: dict | None = None,
                 flops_fn: Callable[[dict], float | None]) -> LoopResult:
-    """The reference's epoch loop on one device; the state trains in
-    place. `preempted` set means the run stopped early — callers then
-    skip the exports the reference skips. `extra_cols`: constant
+    """The reference's epoch loop; the state trains in place, on every
+    rank in step. `preempted` set means the run stopped early — callers
+    then skip the exports the reference skips. `extra_cols`: constant
     columns of every CSV row (the Llama trainer's `mode`); `flops_fn(
-    batch)`: one step's FLOPs, for the MFU gauge."""
+    batch)`: one step's FLOPs on this rank's rows, for the MFU gauge,
+    which divides them over `mfu_devices` (the ranks that share a batch
+    shard: the model axis)."""
     history: list[EpochRecord] = []
     step_losses: list[float] = []
     step_ms: list[float] = []
@@ -323,7 +443,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
         tracer.event("health_abort", epoch=epoch, steps_done=n_steps,
                      **monitor.summary())
         hb.close(phase="aborted")
-        print(f"[{job}] health policy ABORTED the run at global step "
+        _say(f"[{job}] health policy ABORTED the run at global step "
               f"{state.step} (epoch {epoch}); exports skipped — the last "
               "epoch-boundary checkpoint is the last good state")
         return done("health_abort")
@@ -359,7 +479,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                     # stop check BEFORE the step: a signal that lands
                     # during validation or checkpoint IO must not burn
                     # one more training step on the way out
-                    if guard.triggered:
+                    if dist.any_rank(guard.triggered):
                         stopping = True
                         break
                     with tracer.span("train_step", step=gstep) as sp:
@@ -409,7 +529,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                     flops_known = True
                 observe_mfu(reg, flops_per_step,
                             duration / len(device_metrics), dtype=dtype,
-                            n_devices=n_devices, device=device)
+                            n_devices=mfu_devices, device=device)
                 tracer.snapshot(reg, step=epoch * steps_per_epoch + start
                                 + len(device_metrics), epoch=epoch + 1)
             if prefix is not None:
@@ -432,7 +552,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                                           else epoch_losses.cpu())
                     _save_checkpoint(ckpt_dir, state, tracer=tracer)
                     state.epoch_losses = None
-                print(f"[{job}] preempted at global step {state.step} "
+                _say(f"[{job}] preempted at global step {state.step} "
                       f"(epoch {epoch + 1}); "
                       + ("checkpoint saved — rerun to resume mid-epoch"
                          if ckpt_dir else "no checkpoint dir — state lost"))
@@ -462,6 +582,10 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                         if max_steps and i >= max_steps:
                             break
                         val_metrics.append(eval_step(state, vbatch))
+                    if hasattr(state.model, "reshard"):
+                        # FSDP2 keeps the root's parameters gathered
+                        # after a forward with no backward: free them
+                        state.model.reshard()
                     if on_card:
                         torch.cuda.synchronize(device)
                     ev_span.set(epoch=epoch + 1, batches=len(val_metrics))
@@ -472,7 +596,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                        duration_s=row.duration_s, gpus=n_devices, **extra,
                        **(extra_cols or {}))
             extras = "".join(f" {k}={v:.4f}" for k, v in extra.items())
-            print(f"[{job}] epoch {row.epoch}/{cfg.train.epochs} "
+            _say(f"[{job}] epoch {row.epoch}/{cfg.train.epochs} "
                   f"loss={loss:.4f}{extras} ({duration:.2f}s)")
             if ckpt_dir:
                 hb.pulse(step=end_gstep, phase="checkpoint", epoch=epoch + 1)
@@ -484,7 +608,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 # trained, logged and saved; resume starts the next one
                 tracer.event("preempted", epoch=epoch + 1, mid_epoch=False)
                 hb.close(phase="preempted")
-                print(f"[{job}] preempted at epoch boundary "
+                _say(f"[{job}] preempted at epoch boundary "
                       f"{epoch + 1}/{cfg.train.epochs}; rerun to resume")
                 return done(True)
     hb.close(phase="done")
@@ -492,14 +616,17 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
 
 
 def _prepare_run(job: str, cfg: Config, state: TrainState, batches,
-                 n_devices: int, device: torch.device, schema: tuple):
+                 n_devices: int, device: torch.device, schema: tuple,
+                 tree_tag: str = "", save_state: bool = True):
     """CSV logger + tracer + checkpoint restore and resume bookkeeping,
     shared by the trainers. Returns (logger, tracer, ckpt_dir,
     resume_epoch, resume_step); a restore fills `state` in place."""
     logger = CsvLogger(job, n_devices, cfg.train.base_dir, schema=schema)
-    tracer = obs_trace.from_env(f"{cfg.train.base_dir}/telemetry.jsonl",
-                                run=logger.run,
-                                enabled_by_default=cfg.train.telemetry)
+    # telemetry and its heartbeat: the primary's only
+    tracer = (obs_trace.from_env(f"{cfg.train.base_dir}/telemetry.jsonl",
+                                 run=logger.run,
+                                 enabled_by_default=cfg.train.telemetry)
+              if dist.is_primary() else obs_trace.null_tracer())
     t = cfg.train
     tracer.event("train_start", job=job, n_devices=n_devices,
                  batch_size=t.batch_size, seq_len=t.seq_len,
@@ -512,18 +639,19 @@ def _prepare_run(job: str, cfg: Config, state: TrainState, batches,
     chaos_mod.activate(t.chaos, state_path=f"{t.base_dir}/chaos_state.json",
                        seed=t.seed,
                        checkpoint_root=f"{t.base_dir}/checkpoints")
-    # per world size, as the reference names it (its param-tree tag is
-    # empty without pipeline or MoE, which the port does not run yet)
-    ckpt_dir = f"{t.base_dir}/checkpoints/{job}_{n_devices}dev"
+    # per world size, as the reference names it, and per parameter tree
+    ckpt_dir = f"{t.base_dir}/checkpoints/{job}_{n_devices}dev{tree_tag}"
     steps_per_epoch = _steps_per_epoch(cfg, batches)
     resume_epoch, resume_step = 0, 0
+    if not save_state:
+        return logger, tracer, None, resume_epoch, resume_step
     if ckpt.restore(ckpt_dir, state, tracer=tracer) is not None:
         # step-level resume: the interrupted epoch continues from its
         # next untrained batch of the same seeded permutation
         resume_epoch = state.step // steps_per_epoch
         resume_step = state.step % steps_per_epoch
         at = f" step {resume_step}" if resume_step else ""
-        print(f"[{job}] resumed from step {state.step} "
+        _say(f"[{job}] resumed from step {state.step} "
               f"(epoch {resume_epoch}{at})")
         tracer.event("resumed", step=state.step, epoch=resume_epoch)
     return logger, tracer, ckpt_dir, resume_epoch, resume_step
@@ -553,41 +681,59 @@ def _lm_flops(model: torch.nn.Module):
 def train_language_model(cfg: Config, job: str = "language_ddp",
                          device=None) -> TrainResult:
     """Train the SimpleTransformerLM on WikiText-2 (its arrow, npz or
-    synthetic split under `data_dir or base_dir`) on one device (None =
-    cuda:0). Writes `{base_dir}/distributed/<run>_metrics.csv`,
+    synthetic split under `data_dir or base_dir`), in one process or on
+    every rank of a torchrun world (None = this rank's card; "cpu" =
+    gloo). language_ddp replicates (DDP), language_fsdp shards (FSDP2),
+    and either shards when the fsdp axis is > 1, as the reference's
+    `:778-786` decides. Writes `{base_dir}/distributed/<run>_metrics.csv`,
     `{base_dir}/telemetry.jsonl` (+ `heartbeat.json`) and
-    `{base_dir}/checkpoints/{job}_final.npz`."""
-    dev = resolve_device(device)
-    if job != "language_ddp":
-        raise NotImplementedError(
-            f"job {job!r}: the port trains language_ddp here and Llama in "
-            "train_llama, on one device; FSDP and meshes are ROADMAP A8")
+    `{base_dir}/checkpoints/{job}_final.npz` (the primary's)."""
+    if job not in ("language_ddp", "language_fsdp"):
+        raise ValueError(f"unknown language job {job!r}")
     _check_supported(cfg)
-    n_dev = 1
     t = cfg.train
+    dev = None if t.dry_init else dist.setup(device)
+    mesh = _build_mesh(cfg, dev)
+    n_dev = _world(mesh)
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    is_fsdp = job == "language_fsdp" or sizes.get(AxisName.FSDP, 1) > 1
+
+    policy = get_policy(cfg.optimization.precision)
+    tier_impl = _tier_impls(cfg)
+    # TP shards lm_head and tok_emb on the vocab dim: GPT-2's 50257 pads
+    # to the next multiple of the model axis, as the reference pads it
+    vocab_kw = {}
+    model_ax = sizes.get(AxisName.MODEL, 1)
+    if model_ax > 1 and GPT2_VOCAB_SIZE % model_ax:
+        vocab_kw = {"vocab_size": -(-GPT2_VOCAB_SIZE // model_ax) * model_ax}
+        _say(f"[{job}] tp: vocab padded {GPT2_VOCAB_SIZE} -> "
+             f"{vocab_kw['vocab_size']} (divisible by model={model_ax})")
+    lm_cfg = simple_lm_config(
+        max_len=t.seq_len, dropout=0.1, remat=cfg.optimization.remat,
+        dtype=str(policy.compute_dtype).removeprefix("torch."),
+        **_model_impls(tier_impl), **vocab_kw)
+    if t.dry_init:
+        return _dry_init(job, TransformerLM(lm_cfg, device="meta").to(
+            policy.param_dtype), mesh, is_fsdp)
 
     tsplit = t.train_split
     want = (tsplit, "validation") if t.validate else (tsplit,)
     splits = load_wikitext2(t.data_dir or t.base_dir, splits=want,
                             seq_len=t.seq_len, seed=t.seed)
-    print(f"[{job}] train split {tsplit!r}: {len(splits[tsplit])} rows, "
-          f"source={splits[tsplit].source}")
+    _say(f"[{job}] train split {tsplit!r}: {len(splits[tsplit])} rows, "
+         f"source={splits[tsplit].source}")
     batches = ShardedBatches(splits[tsplit].arrays(), t.batch_size, dev,
-                             shuffle=True, seed=t.seed)
+                             shuffle=True, seed=t.seed, mesh=mesh)
     steps_per_epoch = _steps_per_epoch(cfg, batches)
     if steps_per_epoch <= 0:
         raise ValueError(
             f"zero steps per epoch: batch_size {t.batch_size} vs dataset "
             f"of {batches.n} examples (drop_last semantics)")
 
-    policy = get_policy(cfg.optimization.precision)
-    tier_impl = _tier_impls(cfg)
-    model = TransformerLM(simple_lm_config(
-        max_len=t.seq_len, dropout=0.1, remat=cfg.optimization.remat,
-        dtype=str(policy.compute_dtype).removeprefix("torch."),
-        **_model_impls(tier_impl)), device=dev)
+    model = TransformerLM(lm_cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(t.seed))
     model.to(policy.param_dtype)
+    sync, grad_sync = _parallelize(model, mesh, is_fsdp, model.blocks)
     optimizer = make_optimizer(
         model.parameters(), t.learning_rate, t.weight_decay,
         cfg.optimization.grad_clip_norm, schedule=t.lr_schedule,
@@ -601,21 +747,22 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
                        deterministic=generator is None, generator=generator)
         loss = next_token_loss(logits, batch["input_ids"],
                                batch["attention_mask"],
-                               impl=tier_impl["loss_impl"])
+                               impl=tier_impl["loss_impl"], sync=sync)
         return loss, {"loss": loss}
 
     train_step = make_train_step(
-        loss_fn, grad_accum=cfg.optimization.grad_accum_steps, dropout=True)
+        loss_fn, grad_accum=cfg.optimization.grad_accum_steps, dropout=True,
+        sync=sync, grad_sync=grad_sync)
     eval_step, val_batches, eval_cols, extra_schema = _lm_validation(
-        cfg, splits, dev, loss_fn)
+        cfg, splits, dev, loss_fn, mesh=mesh, sync=sync)
 
     logger, tracer, ckpt_dir, resume_epoch, resume_step = _prepare_run(
         job, cfg, state, batches, n_dev, dev,
-        SCHEMAS[job] + tuple(extra_schema))
+        SCHEMAS[job] + tuple(extra_schema), _tree_tag(mesh, cfg))
     loop = _epoch_loop(
         job=job, cfg=cfg, batches=batches, state=state,
         train_step=train_step, logger=logger, n_devices=n_dev, device=dev,
-        ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
+        mfu_devices=model_ax, ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
         resume_step=resume_step, eval_step=eval_step,
         eval_batches=val_batches, eval_cols=eval_cols, tracer=tracer,
         flops_fn=_lm_flops(model))
@@ -623,8 +770,11 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
     if not loop.preempted:
         # skipped on preemption and abort: a half-trained or diverged
         # tree must not overwrite a previous final export
-        export_gathered(f"{t.base_dir}/checkpoints/{job}_final.npz",
-                        params_to_jax(model))
+        named = ckpt.gathered_state(model)  # every rank: a collective
+        if dist.is_primary():
+            export_gathered(
+                f"{t.base_dir}/checkpoints/{job}{_tree_tag(mesh, cfg)}"
+                "_final.npz", state_to_jax(named, model.cfg))
     return TrainResult(job, logger.run, str(logger.path), ckpt_dir,
                        loop.history, loop.preempted,
                        step_losses=loop.step_losses, step_ms=loop.step_ms,
@@ -638,19 +788,26 @@ _LLAMA_SIZES = {
 }
 
 
-def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
-    """Fine-tune Llama on one device (None = cuda:0), LoRA or full (see
-    the module docstring). Writes `{base_dir}/distributed/<run>_metrics.csv`
-    and `<run>_summary.json`, `{base_dir}/telemetry.jsonl` (+
+def train_llama(cfg: Config, job: str = "llama", device=None,
+                save_state: bool = True) -> TrainResult:
+    """Fine-tune Llama in one process or on every rank of a torchrun
+    world (None = this rank's card; "cpu" = gloo), LoRA (adapters
+    replicated, DDP) or full (FSDP2 over the fsdp axis; see the module
+    docstring). Writes `{base_dir}/distributed/<run>_metrics.csv` and
+    `<run>_summary.json`, `{base_dir}/telemetry.jsonl` (+
     `heartbeat.json`) and `{base_dir}/checkpoints/{job}_{mode}_final.npz`
-    (+ `_merged.npz` with `export_merged`)."""
-    dev = resolve_device(device)
+    (+ `_merged.npz` with `export_merged`), the primary's;
+    `save_state=False` skips the checkpoints and the exports (a 7B full
+    fine-tune's state is 40 GB)."""
     _check_supported(cfg)
     if cfg.train.model not in _LLAMA_SIZES:
         raise ValueError(f"unknown Llama size {cfg.train.model!r}; have "
                          f"{sorted(_LLAMA_SIZES)}")
-    n_dev = 1
     t = cfg.train
+    dev = None if t.dry_init else dist.setup(device)
+    mesh = _build_mesh(cfg, dev)
+    n_dev = _world(mesh)
+    model_ax = axis_sizes(mesh)[AxisName.MODEL] if mesh is not None else 1
     tier_impl = _tier_impls(cfg)
     llcfg = _LLAMA_SIZES[t.model](
         # the tiny config's 64-token context stretches to the data's
@@ -659,13 +816,39 @@ def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
         remat=cfg.optimization.remat, **_model_impls(tier_impl))
     mode = "lora_bf16" if t.lora else "fsdp_bf16"
     lora_cfg = lora_mod.LoraConfig(rank=t.lora_rank, alpha=t.lora_alpha)
+    # the reference's policy: bf16 params throughout ("bf16_full") at a
+    # bf16 compute dtype, else fp32; the rope table stays fp32
+    policy = get_policy("bf16_full" if llcfg.compute_dtype == torch.bfloat16
+                        else "fp32")
+    shapes = llama_mod.jax_kernel_shapes(llcfg)
+    if t.lora:
+        # the adapters' module targets come from the adapter dict itself,
+        # so the two lists cannot diverge (`target_module_names`)
+        targets = lora_mod.target_module_names(lora_mod.init_lora_params(
+            torch.Generator().manual_seed(0), shapes, lora_cfg))
+        llcfg = dataclasses.replace(
+            llcfg, lora_rank=lora_cfg.rank, lora_scale=lora_cfg.scale,
+            lora_targets=targets)
+
+    def with_policy(model):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(policy.param_dtype)
+        if not t.lora:
+            for p in model.parameters():
+                p.requires_grad_(True)
+        return model
+
+    if t.dry_init:
+        return _dry_init(job, with_policy(llama_mod.Llama(
+            llcfg, device="meta")), mesh, not t.lora)
 
     tsplit = t.train_split
     want = (tsplit, "validation") if t.validate else (tsplit,)
     splits = load_wikitext2(t.data_dir or t.base_dir, splits=want,
                             seq_len=t.seq_len, seed=t.seed)
-    print(f"[{job}] train split {tsplit!r}: {len(splits[tsplit])} rows, "
-          f"source={splits[tsplit].source}")
+    _say(f"[{job}] train split {tsplit!r}: {len(splits[tsplit])} rows, "
+         f"source={splits[tsplit].source}")
 
     def clamped(split):  # GPT-2-vocab ids clamped into the Llama vocab
         return {"input_ids": np.minimum(split.input_ids,
@@ -673,22 +856,15 @@ def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
                 "attention_mask": split.attention_mask}
 
     batches = ShardedBatches(clamped(splits[tsplit]), t.batch_size, dev,
-                             shuffle=True, seed=t.seed)
+                             shuffle=True, seed=t.seed, mesh=mesh)
     steps_per_epoch = _steps_per_epoch(cfg, batches)
     if steps_per_epoch <= 0:
         raise ValueError(
             f"zero steps per epoch: batch_size {t.batch_size} vs dataset "
             f"of {batches.n} examples (drop_last semantics)")
 
-    # the adapters' module targets come from the adapter dict itself, so
-    # the two lists cannot diverge (`target_module_names`)
-    shapes = llama_mod.jax_kernel_shapes(llcfg)
     lora = (lora_mod.init_lora_params(seeded_generator(dev, t.seed, 1),
                                       shapes, lora_cfg) if t.lora else None)
-    if lora is not None:
-        llcfg = dataclasses.replace(
-            llcfg, lora_rank=lora_cfg.rank, lora_scale=lora_cfg.scale,
-            lora_targets=lora_mod.target_module_names(lora))
     model = llama_mod.Llama(llcfg, device=dev).init_params(
         torch.Generator(device=dev).manual_seed(t.seed))
     if lora is not None:
@@ -702,23 +878,15 @@ def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
                 not k.endswith(("lora_a", "lora_b")) for k in res.missing_keys):
             raise ValueError(f"HF weights in {hf_dir} do not fit the model: "
                              f"{res}")
-        print(f"[{job}] loaded HF weights from {hf_dir}")
-    # the reference's policy: bf16 params throughout ("bf16_full") at a
-    # bf16 compute dtype, else fp32; the rope table stays fp32
-    policy = get_policy("bf16_full" if llcfg.compute_dtype == torch.bfloat16
-                        else "fp32")
-    with torch.no_grad():
-        for p in model.parameters():
-            p.data = p.data.to(policy.param_dtype)
-    if lora is None:
-        for p in model.parameters():
-            p.requires_grad_(True)
+        _say(f"[{job}] loaded HF weights from {hf_dir}")
+    with_policy(model)
     base_count = sum(p.numel() for n, p in model.named_parameters()
                      if not n.endswith(("lora_a", "lora_b")))
     if lora is not None:
         frac = lora_mod.count_params(model.lora_params()) / base_count
-        print(f"[{job}] mode={mode} trainable params: {100 * frac:.3f}% "
-              "of base")
+        _say(f"[{job}] mode={mode} trainable params: {100 * frac:.3f}% "
+             "of base")
+    sync, grad_sync = _parallelize(model, mesh, not t.lora, model.layers)
     optimizer = make_optimizer(
         model.parameters(), t.learning_rate, t.weight_decay,
         cfg.optimization.grad_clip_norm, schedule=t.lr_schedule,
@@ -730,46 +898,52 @@ def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
                        padding_mask=batch["attention_mask"])
         loss = next_token_loss(logits, batch["input_ids"],
                                batch["attention_mask"],
-                               impl=tier_impl["loss_impl"])
+                               impl=tier_impl["loss_impl"], sync=sync)
         return loss, {"loss": loss}
 
     train_step = make_train_step(
-        loss_fn, grad_accum=cfg.optimization.grad_accum_steps)
+        loss_fn, grad_accum=cfg.optimization.grad_accum_steps, sync=sync,
+        grad_sync=grad_sync)
     eval_step, val_batches, eval_cols, extra_schema = _lm_validation(
-        cfg, splits, dev, loss_fn, transform=clamped)
+        cfg, splits, dev, loss_fn, transform=clamped, mesh=mesh, sync=sync)
 
     logger, tracer, ckpt_dir, resume_epoch, resume_step = _prepare_run(
         job, cfg, state, batches, n_dev, dev,
-        SCHEMAS["llama"] + tuple(extra_schema))
+        SCHEMAS["llama"] + tuple(extra_schema), _tree_tag(mesh, cfg),
+        save_state)
     loop = _epoch_loop(
         job=job, cfg=cfg, batches=batches, state=state,
         train_step=train_step, logger=logger, n_devices=n_dev, device=dev,
-        ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
+        mfu_devices=model_ax, ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
         resume_step=resume_step, eval_step=eval_step,
         eval_batches=val_batches, eval_cols=eval_cols, tracer=tracer,
         extra_cols={"mode": mode}, flops_fn=_lm_flops(model))
     _finish(tracer, loop)
     history = loop.history
-    if history and not loop.preempted:
+    if history and not loop.preempted and dist.is_primary():
         _write_llama_summary(cfg, job, mode, logger.run, history, model,
                              base_count, splits[tsplit].source,
-                             steps_per_epoch, dev)
+                             steps_per_epoch, dev, n_dev)
 
     # the reference's rule: a preempted run still exports (the tree is
     # merely early-stopped); a health-aborted one must not (non-finite)
     ckpts = f"{t.base_dir}/checkpoints/{job}_{mode}"
-    if loop.preempted == "health_abort":
+    if loop.preempted == "health_abort" or not save_state:
         pass
     elif lora is not None:
-        adapters = lora_mod.lora_params_to_jax(model.lora_params(), shapes,
-                                               lora_cfg)
-        export_gathered(f"{ckpts}_final.npz", adapters)
-        if t.export_merged:
-            merged = lora_mod.merge_lora(llama_mod.params_to_jax(model),
-                                         adapters, lora_cfg)
-            export_gathered(f"{ckpts}_merged.npz", merged)
+        if dist.is_primary():
+            adapters = lora_mod.lora_params_to_jax(model.lora_params(),
+                                                   shapes, lora_cfg)
+            export_gathered(f"{ckpts}_final.npz", adapters)
+            if t.export_merged:
+                merged = lora_mod.merge_lora(llama_mod.params_to_jax(model),
+                                             adapters, lora_cfg)
+                export_gathered(f"{ckpts}_merged.npz", merged)
     else:
-        export_gathered(f"{ckpts}_final.npz", llama_mod.params_to_jax(model))
+        named = ckpt.gathered_state(model)  # every rank: a collective
+        if dist.is_primary():
+            export_gathered(f"{ckpts}_final.npz",
+                            llama_mod.params_to_jax(model, named))
     return TrainResult(job, logger.run, str(logger.path), ckpt_dir, history,
                        loop.preempted, step_losses=loop.step_losses,
                        step_ms=loop.step_ms, metrics=loop.metrics,
@@ -779,7 +953,7 @@ def train_llama(cfg: Config, job: str = "llama", device=None) -> TrainResult:
 def _write_llama_summary(cfg: Config, job: str, mode: str, run: str,
                          history: list[EpochRecord], model, base_count: int,
                          data_source: str, steps: int,
-                         device: torch.device) -> dict:
+                         device: torch.device, n_devices: int = 1) -> dict:
     """The reference's evidence row for the Llama path (`:1308-1380`):
     step time and tokens/s from the best epoch, the peak device memory
     from the allocator (None on the CPU, which has none)."""
@@ -804,7 +978,7 @@ def _write_llama_summary(cfg: Config, job: str, mode: str, run: str,
         "data_source": data_source, "train_split": t.train_split,
         "remat": cfg.optimization.remat,
         "grad_accum": cfg.optimization.grad_accum_steps,
-        "devices": 1, "backend": device.type,
+        "devices": n_devices, "backend": device.type,
     }
     if t.lora:
         summary["lora_rank"] = t.lora_rank

@@ -55,16 +55,20 @@ _TRACE_LOCK = threading.Lock()
 _TRACE_ACTIVE: list[str] = []
 
 
-def on_demand_trace(out_dir: str | Path, seconds: float) -> dict:
+def on_demand_trace(out_dir: str | Path, seconds: float,
+                    gate=None) -> dict:
     """Trace for `seconds` into `out_dir/trace.json` without blocking the
     caller (a live serving loop answering its exposition socket): a
     daemon thread starts the profiler, sleeps, stops it and writes the
     trace; this returns `{"status": "started"}` once the profiler runs.
     The profiler's state belongs to the thread that started it, so that
     thread also stops it; the CUDA kernels are traced device-wide, the
-    CPU ops of that thread only. Degrades to a structured answer — never
-    an exception — when the profiler cannot start (`"unsupported"`) or a
-    trace is already running (`"busy"`)."""
+    CPU ops of that thread only. `gate` (a lock, or None) is held while
+    the profiler starts and while it stops: a serving loop that holds
+    the same lock across each tick launches no kernel and replays no
+    CUDA graph while the tracer turns on or off. Degrades to a
+    structured answer — never an exception — when the profiler cannot
+    start (`"unsupported"`) or a trace is already running (`"busy"`)."""
     seconds = max(0.1, min(float(seconds), 600.0))
     out = str(out_dir)
     with _TRACE_LOCK:
@@ -74,11 +78,14 @@ def on_demand_trace(out_dir: str | Path, seconds: float) -> dict:
     started = threading.Event()
     outcome: dict = {}
 
+    held = gate if gate is not None else contextlib.nullcontext()
+
     def _run():
         try:
             Path(out).mkdir(parents=True, exist_ok=True)
             prof = torch.profiler.profile(activities=_activities())
-            prof.start()
+            with held:
+                prof.start()
         except Exception as e:  # noqa: BLE001 — answer, don't raise
             outcome["error"] = repr(e)[:300]
             with _TRACE_LOCK:
@@ -88,7 +95,8 @@ def on_demand_trace(out_dir: str | Path, seconds: float) -> dict:
         started.set()
         time.sleep(seconds)
         try:
-            prof.stop()
+            with held:
+                prof.stop()
             prof.export_chrome_trace(str(Path(out) / TRACE_NAME))
         except Exception:  # noqa: BLE001 — best-effort teardown
             pass

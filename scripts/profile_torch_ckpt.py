@@ -7,7 +7,7 @@ the language_ddp state, through `hyperion_tpu_torch/checkpoint/io.py`.
 For each state, in turns: the host snapshot into pinned buffers (first
 call, which allocates them, then reused), the same copies into
 pageable memory (`Tensor.to("cpu")`, synchronous), the write
-(`torch.save` into a staging dir, rename, marker), the manifest
+(`torch.save` of the single-process shard file), the manifest
 (sha256 of every byte), and a restore (deep verify and load). Prints
 one JSON line per state, with the card's name and power limit. Writes
 under `build/profile_torch_ckpt/`.
@@ -50,7 +50,7 @@ def profile(name: str, state) -> dict:
 
     root = OUT / name
     shutil.rmtree(root, ignore_errors=True)
-    tree = ckpt.state_tree(state)
+    tree = ckpt._shard_tree(state)
     ckpt.release_host_buffers()
     rec = {"state": name}
     rec["pinned_first_s"], _ = _secs(lambda: ckpt._snapshot(tree))
@@ -67,8 +67,7 @@ def profile(name: str, state) -> dict:
 
     rec["pageable_s"], _ = _secs(lambda: pageable(tree))
     path = ckpt._step_path(root, state.step)
-    rec["write_s"], _ = _secs(lambda: ckpt._write_step(path, host, None,
-                                                        True))
+    rec["write_s"], _ = _secs(lambda: ckpt._write_shard(path, host, None))
     rec["manifest_s"], _ = _secs(lambda: integrity.write_manifest(
         path, state.step, state))
     rec["bytes"] = sum(p.stat().st_size for p in path.iterdir())

@@ -110,7 +110,8 @@ class TestSaveRestore:
         listed = {f["path"] for f in m["files"]}
         on_disk = {p.relative_to(path).as_posix() for p in path.rglob("*")
                    if p.is_file() and p.name != MANIFEST_NAME}
-        assert listed == on_disk == {ckpt.STATE_FILE, ckpt.COMMIT_MARKER}
+        assert listed == on_disk == {ckpt.SHARD_FILE.format(rank=0, world=1),
+                                     ckpt.COMMIT_MARKER}
         assert all(f["sha256"] and f["bytes"] >= 0 for f in m["files"])
         assert integrity.verify(path) == (True, "ok")
 
@@ -188,9 +189,10 @@ class TestAsyncSave:
             for p in state.model.parameters():
                 p.add_(1.0)
         ckpt.wait_pending()
-        blob = torch.load(path / ckpt.STATE_FILE, weights_only=True)
+        blob = torch.load(path / ckpt.SHARD_FILE.format(rank=0, world=1),
+                          weights_only=True)
         for k, v in want.items():
-            assert torch.equal(blob["model"][k], v), k
+            assert torch.equal(blob["entries"][f"model/{k}"]["data"], v), k
 
     def test_span_pair_emitted(self, state, tmp_path):
         tele = tmp_path / "t.jsonl"

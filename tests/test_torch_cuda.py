@@ -909,11 +909,14 @@ def test_async_save_holds_the_pre_step_state(cuda, tmp_path):
     for _ in range(3):  # launched at once behind the save's copies
         train_step(state, batch, 0)
     assert ckpt_io.wait_pending() == path
-    blob = torch.load(path / ckpt_io.STATE_FILE, weights_only=True)
+    blob = torch.load(path / ckpt_io.SHARD_FILE.format(rank=0, world=1),
+                      weights_only=True)
     assert blob["step"] == 2
     for k, v in want.items():
-        assert torch.equal(blob["model"][k], v), k
-    got_m = [s["exp_avg"] for s in blob["adamw"]["state"].values()]
+        assert torch.equal(blob["entries"][f"model/{k}"]["data"], v), k
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    got_m = [blob["entries"][f"adamw/{names[id(p)]}/exp_avg"]["data"]
+             for p in state.optimizer.adamw.state]
     assert all(torch.equal(a, b) for a, b in zip(got_m, want_m))
     assert not torch.equal(state.model.state_dict()["lm_head.weight"].cpu(),
                            want["lm_head.weight"])  # training moved on

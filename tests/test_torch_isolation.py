@@ -74,3 +74,35 @@ def test_router_spawns_port_replicas(tmp_path):
     assert argv[1:4] == ["-m", "hyperion_tpu_torch.cli.main", "serve"]
     assert "hyperion_tpu.cli.main" not in argv
     assert argv[argv.index("--device") + 1] == "cuda"
+
+
+@pytest.mark.parametrize("layer", ["runtime", "parallel", "native"])
+def test_the_distributed_layers_are_covered(layer):
+    """The runtime, the parallel layouts and the native build are port
+    files the checks above read, and the copied C++ source names no
+    module of the reference."""
+    files = [p for p in PORT_FILES
+             if p.parent == REPO / "hyperion_tpu_torch" / layer]
+    assert len(files) >= 2, layer
+    for src in (REPO / "hyperion_tpu_torch" / layer).glob("*.cpp"):
+        assert _DOTTED_REF.search(src.read_text()) is None, src
+
+
+def test_native_build_never_writes_under_the_reference(tmp_path,
+                                                       monkeypatch):
+    """The port compiles its own copy of coord.cpp into its own
+    `_build/`: a fresh build (into a scratch dir here, so that other
+    test processes keep loading the cached one) writes its object
+    there, and no object of the port's (named by the hash of its source
+    and flags) is anywhere under `hyperion_tpu/`."""
+    from hyperion_tpu_torch.native import build
+
+    assert build.BUILD_DIR == REPO / "hyperion_tpu_torch" / "native" / \
+        "_build"
+    assert build.shared_object("coord").parent == build.BUILD_DIR
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    so = build.shared_object("coord")
+    assert so.parent == tmp_path / "_build" and so.exists()
+    assert not list((REPO / "hyperion_tpu").rglob(so.name))
+    lib = build.load("coord")
+    assert lib.hypcoord_serve  # the C ABI resolves

@@ -319,6 +319,50 @@ class TestEngineIntrospection:
         assert names.count("class_brownout") == 2
         assert "profile_requested" in names and "compile_ledger" in names
 
+    def test_profile_starts_and_stops_only_between_ticks(self, pair,
+                                                         tmp_path):
+        """`profile` turns the profiler on and off under the engine's
+        tick gate, which every `step` holds: the start waits for the tick
+        in flight, and the stop for the tick running when the window
+        ends (a stop that overlapped CUDA graph replays on the serving
+        thread hung on the card: scripts/profile_torch_trace_stop.py)."""
+        import threading
+
+        from hyperion_tpu_torch.utils import profiling
+
+        eng = _engine(pair)
+        eng.warmup([8])
+        held, real = [], eng._step
+
+        def step():
+            held.append(eng._tick_gate.locked())
+            return real()
+
+        eng._step = step
+        eng.submit(Request(prompt_ids=_prompts([5], seed=23)[0],
+                           max_new_tokens=3, id="gate0"))
+        eng.step()
+        assert held == [True]
+        out, box = tmp_path / "profile", {}
+        eng._tick_gate.acquire()  # a tick in flight
+        t = threading.Thread(target=lambda: box.update(eng.control(
+            {"cmd": "profile", "out": str(out), "seconds": 0.1})))
+        t.start()
+        t.join(0.5)
+        assert t.is_alive() and not box  # the start waits for the tick
+        eng._tick_gate.release()
+        t.join(30)
+        assert box["status"] == "started"
+        eng._tick_gate.acquire()  # a tick running past the window's end
+        time.sleep(0.6)
+        assert not (out / "trace.json").exists()  # the stop waits for it
+        eng._tick_gate.release()
+        deadline = time.monotonic() + 30
+        while profiling._TRACE_ACTIVE and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert (out / "trace.json").exists()
+        _drain(eng)
+
 
 # ------------------------------------------------- recompile guarantee
 

@@ -10,6 +10,7 @@ exiting 2 with their ROADMAP item.
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
@@ -69,10 +70,12 @@ def test_make_config_matches_the_reference_for_the_ported_jobs():
     from hyperion_tpu_torch.cli.main import make_config
 
     for job, argv in (("language_ddp", []), ("llama", ARGV),
-                      ("llama", ["--llama_size", "7b"])):
+                      ("llama", ["--llama_size", "7b"]),
+                      ("language_fsdp", []),
+                      ("language_ddp", ["--mesh", "2,1,2,1"])):
         ours = make_config(build_parser().parse_args(argv), job)
         ref = jax_make_config(jax_build_parser().parse_args(argv), job)
-        for section in ("train", "optimization"):
+        for section in ("train", "optimization", "distributed"):
             got = vars(getattr(ours, section))
             want = vars(getattr(ref, section))
             for k, v in got.items():
@@ -88,12 +91,32 @@ def test_exit_codes_are_the_references():
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--model", "language_fsdp"], "A8"), (["--model", "cifar"], "A9"),
-    (["--model", "all"], "A9"), (["--model", "scaling"], "A9"),
-    (["--dry-init"], "A7")])
+    (["--model", "cifar"], "A9"), (["--model", "all"], "A9"),
+    (["--model", "scaling"], "A9")])
 def test_deferred_jobs_exit_2_naming_their_item(argv, item, capsys):
     assert main(["train", *argv]) == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv, job", [
+    (["--model", "language_fsdp", "--mesh", "1,2,1,1"], "language_fsdp"),
+    (["--model", "llama", "--llama_size", "7b", "--mesh", "1,4,1,1"],
+     "llama")])
+def test_dry_init_prints_the_plan_without_a_device(argv, job, capsys):
+    """`--dry-init` with explicit axes plans on an abstract mesh: no
+    process group and no card (this box has none), exit 0."""
+    assert main(["train", "--dry-init", *argv]) == 0
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if "dry-init memory plan" in x)
+    plan = json.loads(line.split("plan: ", 1)[1])
+    assert line.startswith(f"[{job}]")
+    assert plan["mesh"]["fsdp"] == int(argv[-1].split(",")[1])
+    assert 0 < plan["per_device_gb"] < plan["total_gb"]
+
+
+def test_seq_pipe_expert_axes_name_the_next_slice():
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        main(["train", "--dry-init", "--mesh", "1,1,1,2"])
 
 
 @pytest.mark.parametrize("verb, item", [("obs", "A6"), ("simulate", "A9")])

@@ -140,13 +140,17 @@ def test_llama_preempt_then_resume_is_bit_identical(tmp_path, lora):
                                     llama_cfg(tmp_path / "b", lora), 8)
     check_resume(ref, parts, 8, tmp_path / "a", tmp_path / "b")
     blob = torch.load(tmp_path / "b" / "checkpoints" / "llama_1dev" /
-                      "step_00000012" / ckpt.STATE_FILE, weights_only=True)
+                      "step_00000012" / ckpt.SHARD_FILE.format(rank=0, world=1),
+                      weights_only=True)
     # the frozen base rides in every checkpoint, as the reference's
     # orbax tree holds it; AdamW state exists for the trained leaves only
-    assert "layers.0.attn.q_proj.weight" in blob["model"]
+    keys = blob["entries"]
+    assert "model/layers.0.attn.q_proj.weight" in keys
+    n_model = sum(k.startswith("model/") for k in keys)
     n_trained = sum(p.requires_grad for p in ref.model.parameters())
-    assert len(blob["adamw"]["state"]) == n_trained
-    assert (n_trained < len(blob["model"])) == lora
+    assert len({k.rpartition("/")[0] for k in keys
+                if k.startswith("adamw/")}) == n_trained
+    assert (n_trained < n_model) == lora
 
 
 def test_health_snapshot_lands_under_health_and_is_never_resumed(
