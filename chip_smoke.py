@@ -147,6 +147,28 @@ script exits non-zero):
               plan on an abstract fsdp-4 mesh (no process group, no
               memory); bytes per device of params, grads and AdamW
               state.
+  8e. prepare  `python -m hyperion_tpu_torch.data.prepare --cifar`
+              (the synthetic source: 5000 + 1000 images) and `--input`
+              on 500 seeded lines with a 300-token BPE, both ending in
+              their reload-verify; `load_wikitext2` reads the text split
+              back from recordio.
+  8f. cifar   `cli.main train --model cifar` in this process: ResNet-18
+              at its published widths, bf16, batch 64, lr 1e-3, 2 epochs
+              over the prepared recordio split: every loss finite, the
+              second epoch's below the first's, validation accuracy above
+              chance, the CSV schema, the scaling report, no hand kernel
+              launched; step p50, images/s, MFU, peak and the
+              checkpoint's readings; then one fp32 step (TF32 off) on the
+              card and on the CPU from the same weights, their largest
+              differences of logits, loss, parameters and statistics,
+              and each leaf's gradient held card against CPU in
+              float64.
+  8g. scaling `cli.main train --model scaling --scaling_devices 1
+              --scaling_jobs cifar --epochs 1 --steps-per-epoch 10`
+              (the default `--device cuda`: `run_scaling_experiment(
+              device_counts=[1], models=["cifar"], simulate_on_cpu=False,
+              ...)`): one torchrun run on the card and a `cifar_ddp` row
+              at one device, speedup 1.0.
   9. model    a tiny fp32 Llama at the JAX tiny config's widths (head_dim
               16, GQA rep 2) on the CPU (plain versions) against the same
               weights on the card (kernels), through the three paged
@@ -220,6 +242,12 @@ script exits non-zero):
               `class_brownout` on and off is acknowledged and its gauge
               follows; `profile` for 2 s writes a trace holding the paged
               kernel.
+ 16a. infer   `python -m hyperion_tpu_torch.infer` at temperature 0, 32
+              new tokens, on train's language_ddp export
+              (`generate_recompute`) and crash's Llama export
+              (`generate`): each printed text equal, byte for byte, to an
+              in-process decode of the same weights, no hand kernel
+              launched.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, load, train, train_resume, train_long,
               llama_train, train_fsdp, llama_fsdp) at that
@@ -2862,8 +2890,8 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
         torch.Generator(device="cuda").manual_seed(SEED + 10))
     export_gathered(ckpt, params_to_jax(src))
     del src
-    model = model_from_npz(load_gathered(ckpt), 256, dtype="float32",
-                           device="cuda")
+    model, _ = model_from_npz(load_gathered(ckpt), 256, dtype="float32",
+                              device="cuda")
     export_s = time.perf_counter() - t0
     reqs = crash_requests(np.random.default_rng(SEED + 11))
 
@@ -3877,6 +3905,401 @@ def phase_dry_init(smi: str) -> dict:
     return rec
 
 
+PREP_DIR = Path("build/chip_smoke_prepare")
+CIFAR_DIR = Path("build/chip_smoke_cifar")
+SCALING_DIR = Path("build/chip_smoke_scaling")
+INFER_DIR = Path("build/chip_smoke_infer")
+
+
+def _all_launch_counts() -> dict:
+    """Every kernel wrapper's launch count: the training paths' and
+    LayerNorm's and paged attention's, to show a path that runs none."""
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+
+    return {**_launch_counts(), "fused_layernorm": fused_layernorm.launches,
+            "paged_attention": paged_attention.launches}
+
+
+def _zero_all_launches() -> None:
+    from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+
+    _reset_launch_counts()
+    fused_layernorm.launches = paged_attention.launches = 0
+
+
+def phase_prepare(smi: str) -> dict:
+    """`python -m hyperion_tpu_torch.data.prepare` twice into PREP_DIR:
+    `--cifar` (the synthetic source: 5000 train and 1000 test images;
+    the repo holds no CIFAR pickles) writes the recordio splits the
+    cifar phase trains on, and `--input` on a seeded corpus (the route
+    phase's text, 500 lines) with a 300-token tokenizer writes a text
+    split that `load_wikitext2` reads back from recordio. Both end in
+    their reload-verify."""
+    import shutil
+
+    from hyperion_tpu_torch.data.recordio import RecordFile
+    from hyperion_tpu_torch.data.text import load_wikitext2
+
+    shutil.rmtree(PREP_DIR, ignore_errors=True)
+    PREP_DIR.mkdir(parents=True)
+    corpus = PREP_DIR / "corpus.txt"
+    corpus.write_text("\n".join(route_corpus(np.random.default_rng(SEED))
+                                [:500]))
+    mod = [sys.executable, "-m", "hyperion_tpu_torch.data.prepare",
+           "--base-dir", str(PREP_DIR)]
+    cifar = _run([*mod, "--cifar"], 300)
+    text = _run([*mod, "--input", str(corpus), "--vocab-size", "300"], 300)
+    rec: dict = {"phase": "prepare", "nvidia_smi": smi,
+                 "cifar_rc": cifar["rc"], "cifar_s": cifar["seconds"],
+                 "text_rc": text["rc"], "text_s": text["seconds"]}
+    rio = PREP_DIR / "cifar10_prepared"
+    rec["cifar_files"] = sorted(p.name for p in rio.glob("*.rio"))
+    for split in ("train", "test"):
+        with RecordFile(rio / f"{split}.images.rio") as f:
+            rec[f"cifar_{split}_images"] = len(f)
+    got = load_wikitext2(PREP_DIR, splits=("train",))["train"]
+    rec.update(text_source=got.source, text_rows=len(got),
+               meta=json.loads((PREP_DIR / "wikitext2_tokenized" /
+                                "prepare_meta.json").read_text()))
+    emit(rec)
+    problems = []
+    for name, run in (("cifar", cifar), ("text", text)):
+        if run["rc"] != 0 or "reload-verify OK" not in run["log"]:
+            problems.append(f"{name}: rc {run['rc']}: {run['log'][-800:]}")
+    if rec["cifar_files"] != ["test.images.rio", "test.labels.rio",
+                              "train.images.rio", "train.labels.rio"] \
+            or rec["cifar_train_images"] != 5000 \
+            or rec["cifar_test_images"] != 1000:
+        problems.append(f"cifar files {rec}")
+    if not got.source.startswith("recordio") or len(got) != 500:
+        problems.append(f"text split {got.source}, {len(got)} rows")
+    if problems:
+        raise AssertionError("prepare: " + "; ".join(problems))
+    return rec
+
+
+def cifar_fp32_step(seed: int = SEED) -> dict:
+    """One fp32 cifar step (ResNet-18, batch 64 of the prepared split,
+    AdamW at the job's 1e-3) from the same weights (the seeded init with
+    each block's last BatchNorm scale 1, not 0, so that every leaf has
+    a gradient) on the card (cuDNN, TF32 off) and on the CPU (the
+    plain path): the largest differences of the train-mode logits, the
+    loss, the BatchNorm running statistics and the parameters after the
+    update (a reading only: AdamW's first step moves an element by lr
+    whatever its gradient's size, so a rounding-noise gradient that
+    flips sign moves it 2 lr apart).
+
+    The backward (cuDNN's convolution backward in channels_last,
+    BatchNorm's in plain ops) is held per leaf in float64, the same
+    model and batch on both sides: fp32 gradients of this network carry
+    rounding errors of a few percent of a leaf's largest gradient on
+    either device (the readings `grad32_*` against float64 show it), so
+    they cannot tell a wrong gradient from rounding; float64's are
+    ~1e-16 relative before the same amplification."""
+    from hyperion_tpu_torch.data.vision import load_cifar10
+    from hyperion_tpu_torch.models.resnet import BatchNorm, resnet18
+    from hyperion_tpu_torch.train.losses import classification_loss
+    from hyperion_tpu_torch.train.state import make_optimizer
+    from hyperion_tpu_torch.train.trainer import nchw
+
+    assert not torch.backends.cudnn.allow_tf32  # main() turns TF32 off
+    split = load_cifar10(PREP_DIR)["train"]
+    images = torch.from_numpy(split.images[:64])
+    labels = torch.from_numpy(split.labels[:64])
+    out = {}
+    ref = resnet18(device="cpu").init_params(
+        torch.Generator().manual_seed(seed))
+    for mod in ref.modules():
+        if isinstance(mod, BatchNorm) and mod.zero_scale:
+            mod.weight.data.fill_(1.0)
+    for dtype in ("float32", "float64"):
+        for dev in ("cuda", "cpu"):
+            model = resnet18(device=dev, dtype=dtype)
+            model.load_state_dict(ref.state_dict())
+            model.to(getattr(torch, dtype))
+            if dev == "cuda":
+                model.to(memory_format=torch.channels_last)
+            opt = make_optimizer(model.parameters(), 1e-3)
+            x = nchw(images.to(dev)).to(getattr(torch, dtype))
+            logits = model(x, train=True)
+            if dtype == "float32":  # the job's loss, in fp32
+                loss, _ = classification_loss(logits, labels.to(dev))
+            else:  # its CE, in float64 too
+                loss = torch.nn.functional.cross_entropy(
+                    logits, labels.to(dev).long())
+            loss.backward()
+            grads = {k: p.grad.detach().cpu().double()
+                     for k, p in model.named_parameters()}
+            opt.step()
+            out[dev, dtype] = {
+                "logits": logits.detach().cpu(), "loss": loss.detach().cpu(),
+                "grads": grads, "state": {
+                    k: v.detach().cpu() for k, v in model.state_dict().items()}}
+    card, cpu = out["cuda", "float32"], out["cpu", "float32"]
+    truth = out["cpu", "float64"]["grads"]
+
+    def grad_rel(a: dict, b: dict) -> tuple[float, str]:
+        """The largest over leaves of max|a - b| / max|b|, and its leaf."""
+        rel = {k: float((a[k] - g).abs().max())
+               / max(float(g.abs().max()), 1e-300) for k, g in b.items()}
+        leaf = max(rel, key=rel.get)
+        return rel[leaf], leaf
+
+    g64, g64_leaf = grad_rel(out["cuda", "float64"]["grads"], truth)
+
+    def worst(keys):
+        return max(float((card["state"][k] - cpu["state"][k]).abs().max())
+                   for k in keys)
+
+    stats = [k for k in cpu["state"] if k.endswith(("running_mean",
+                                                    "running_var"))]
+    return {
+        "tf32": False,
+        "logits_max_abs": float((card["logits"] - cpu["logits"]).abs().max()),
+        "logits_scale": float(cpu["logits"].abs().max()),
+        "loss_abs": float((card["loss"] - cpu["loss"]).abs()),
+        "loss": float(cpu["loss"]),
+        "grad_leaves": len(truth),
+        "grad_zero_leaves": sum(float(g.abs().max()) == 0.0
+                                for g in truth.values()),
+        "grad64_rel_max": g64, "grad64_rel_leaf": g64_leaf,
+        "grad32_card_vs_cpu": grad_rel(card["grads"], cpu["grads"]),
+        "grad32_cpu_vs_fp64": grad_rel(cpu["grads"], truth),
+        "grad32_card_vs_fp64": grad_rel(card["grads"], truth),
+        "params_max_abs": worst([k for k in cpu["state"] if k not in stats]),
+        "stats_max_abs": worst(stats),
+        "stats_scale": max(float(cpu["state"][k].abs().max())
+                           for k in stats)}
+
+
+def phase_cifar(smi: str) -> dict:
+    """`cli.main train --model cifar` on the card, in this process:
+    ResNet-18 at its published widths (CIFAR stem, 11.2M parameters)
+    under the default bf16 policy, batch 64, lr 1e-3, 2 epochs over the
+    prepare phase's recordio split (5000 train, 1000 test images; 78
+    steps an epoch, 15 validation batches). Then `cifar_fp32_step`."""
+    import shutil
+
+    from hyperion_tpu_torch.cli import main as cli
+    from hyperion_tpu_torch.data.vision import load_cifar10
+
+    shutil.rmtree(CIFAR_DIR, ignore_errors=True)
+    results = []
+    run_job = cli.run_job
+    cli.run_job = lambda args, job: results.append(run_job(args, job)) \
+        or results[-1]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_all_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["train", "--model", "cifar", "--epochs", "2",
+                       "--base_dir", str(CIFAR_DIR),
+                       "--data_dir", str(PREP_DIR)])
+    finally:
+        cli.run_job = run_job
+    wall = time.perf_counter() - t0
+    launches = _all_launch_counts()
+    (res,) = results
+    losses = np.asarray(res.step_losses)
+    step_ms = np.asarray(res.step_ms)
+    p50 = float(np.percentile(step_ms, 50))
+    with open(res.csv_path) as f:
+        rows = list(csv.DictReader(f))
+    with open(CIFAR_DIR / "distributed" / "scaling_analysis.csv") as f:
+        report = list(csv.DictReader(f))
+    gauges = gauge_readings(res)
+    gauges["samples_per_s"] = res.metrics.get("gauges", {}).get(
+        "samples_per_s")
+    rec = {"phase": "cifar", "nvidia_smi": smi, "rc": rc, "wall_s": wall,
+           "steps": len(losses), "epoch_loss": [h.loss for h in res.history],
+           "accuracy": [h.extra["accuracy"] for h in res.history],
+           "val_loss": [h.extra["val_loss"] for h in res.history],
+           "val_accuracy": [h.extra["val_accuracy"] for h in res.history],
+           "epoch_s": [h.duration_s for h in res.history],
+           "step_ms_p50": p50, "step_ms_min": float(step_ms.min()),
+           "step_ms_max": float(step_ms.max()),
+           "images_per_s": 64 / (p50 / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": sum(p.numel() for p in res.model.parameters()),
+           "source": load_cifar10(PREP_DIR)["train"].source,
+           "csv_header": list(rows[0]),
+           "report": report, "launches": launches,
+           "checkpoint": ckpt_readings(CIFAR_DIR, "cifar_ddp_1dev"),
+           "gauges": gauges}
+    del res, results
+    gc.collect()
+    rec["fp32_step"] = fp32 = cifar_fp32_step()
+    emit(rec)
+    problems = train_problems("cifar", rec["checkpoint"], gauges)
+    if not rec["source"].startswith("recordio:"):
+        problems.append(f"trained on {rec['source']}, not the prepared split")
+    if rc != 0 or rec["steps"] != 2 * 78 or rec["params"] != 11_173_962:
+        problems.append(f"rc {rc}, {rec['steps']} steps, {rec['params']} "
+                        "params")
+    if not (np.isfinite(losses).all()
+            and all(np.isfinite(rec["val_loss"]))):
+        problems.append("non-finite loss")
+    if not rec["epoch_loss"][1] < rec["epoch_loss"][0]:
+        problems.append(f"loss did not fall: {rec['epoch_loss']}")
+    if not rec["val_accuracy"][-1] > 10.0:
+        problems.append(f"validation accuracy {rec['val_accuracy']} at "
+                        "chance")
+    if rec["csv_header"] != ["epoch", "loss", "accuracy", "duration_s",
+                             "gpus", "val_loss", "val_accuracy"]:
+        problems.append(f"csv header {rec['csv_header']}")
+    if [(r["model"], r["gpus"]) for r in report] != [("cifar_ddp", "1")]:
+        problems.append(f"scaling report {report}")
+    if any(launches.values()):
+        problems.append(f"a hand kernel ran on the cifar path: {launches}")
+    # fp32, TF32 off: cuDNN's and the CPU's convolutions sum in other
+    # orders: 1e-4 of the logits' scale and of the statistics' scale,
+    # 1e-5 relative loss; the gradients in float64, 1e-6 of each leaf's
+    # largest, every leaf with a gradient
+    if not (fp32["logits_max_abs"] <= 1e-4 * fp32["logits_scale"]
+            and fp32["loss_abs"] <= 1e-5 * fp32["loss"]
+            and fp32["grad64_rel_max"] <= 1e-6
+            and fp32["grad_zero_leaves"] == 0
+            and fp32["stats_max_abs"] <= 1e-4 * fp32["stats_scale"]):
+        problems.append(f"fp32 step card vs cpu {fp32}")
+    if problems:
+        raise AssertionError("cifar: " + "; ".join(problems))
+    return rec
+
+
+def phase_scaling(smi: str) -> dict:
+    """The sweep as a user starts it, `cli.main train --model scaling`
+    at the default `--device cuda` (`run_scaling_experiment(
+    device_counts=[1], models=["cifar"], simulate_on_cpu=False,
+    epochs=1, steps_per_epoch=10)`): one `torchrun --nproc-per-node 1`
+    run of the cifar job on the card (NCCL, the synthetic split) and
+    the report over it."""
+    import shutil
+
+    from hyperion_tpu_torch.cli import main as cli
+
+    shutil.rmtree(SCALING_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "--model", "scaling", "--scaling_devices", "1",
+                   "--scaling_jobs", "cifar", "--epochs", "1",
+                   "--steps-per-epoch", "10", "--base_dir", str(SCALING_DIR)])
+    with open(SCALING_DIR / "distributed" / "scaling_analysis.csv") as f:
+        report = list(csv.DictReader(f))
+    rec = {"phase": "scaling", "nvidia_smi": smi, "rc": rc,
+           "seconds": time.perf_counter() - t0, "report_csv": report,
+           "runs": sorted(p.name for p in (SCALING_DIR / "distributed")
+                          .glob("*_metrics.csv"))}
+    emit(rec)
+    if [(r["model"], r["gpus"], r["speedup"]) for r in report] != \
+            [("cifar_ddp", "1", "1.0")] or len(rec["runs"]) != 1 or rc != 0:
+        raise AssertionError(f"scaling: rc {rc}, report {report}, runs "
+                             f"{rec['runs']}")
+    return rec
+
+
+def infer_tokenizer(vocab_size: int = 31_000):
+    """The infer phase's tokenizer: BPE trained here on the route
+    phase's text (300 tokens), then grown with merges of printable
+    characters (pairs, then triples) to `vocab_size`, below both
+    models' vocabularies, so that nearly every id a random-weight model
+    emits decodes to text the check can see."""
+    from hyperion_tpu_torch.data.bpe import ByteBPE, train_bpe
+
+    base = train_bpe(route_corpus(np.random.default_rng(SEED + 1))[:500],
+                     vocab_size=300)
+    vocab, merges = dict(base.vocab), list(base.merges)
+    chars = [chr(c) for c in range(33, 127)]
+    level = chars
+    while len(vocab) < vocab_size:
+        grown = []
+        for a in level:
+            for b in chars:
+                if a + b not in vocab and len(vocab) < vocab_size:
+                    vocab[a + b] = len(vocab)
+                    merges.append((a, b))
+                    grown.append(a + b)
+        level = grown
+    return ByteBPE(vocab, merges)
+
+
+def _infer_cli(ckpt: Path, tok_dir: Path, prompt: str, *extra: str) -> dict:
+    """The CLI's stdout as bytes (the text may hold any character), its
+    one trailing newline dropped."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "hyperion_tpu_torch.infer", "--ckpt",
+         str(ckpt), "--tokenizer-dir", str(tok_dir), "--prompt", prompt,
+         "--max-new-tokens", "32", "--temperature", "0", *extra],
+        capture_output=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    return {"rc": run.returncode, "seconds": time.perf_counter() - t0,
+            "out": run.stdout.removesuffix(b"\n"),
+            "stderr": run.stderr[-800:].decode(errors="replace")}
+
+
+def phase_infer(smi: str) -> dict:
+    """`python -m hyperion_tpu_torch.infer` on the card, temperature 0,
+    32 new tokens, with `infer_tokenizer` (31,000 tokens, below both
+    models' vocabularies): on the train phase's language_ddp export
+    (a TransformerLM: `generate_recompute`) and on the crash phase's
+    2-layer Llama-2-7B-width export (`generate`, bf16 as the loader
+    gives). Each printed text must equal, byte for byte, an in-process
+    decode of the same weights on the card, and show most of its 32
+    tokens."""
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+    from hyperion_tpu_torch.infer.generate import (
+        generate,
+        generate_recompute,
+        model_from_npz,
+    )
+
+    INFER_DIR.mkdir(parents=True, exist_ok=True)
+    tok = infer_tokenizer()
+    tok.save(INFER_DIR / "tok")
+    prompt = "the model serves tokens over a socket"
+    ids = [tok.encode(prompt)]
+    rec: dict = {"phase": "infer", "nvidia_smi": smi,
+                 "prompt_tokens": len(ids[0])}
+    problems = []
+    lm_npz = Path("build/chip_smoke_train/checkpoints/language_ddp_final.npz")
+    cases = (("language_ddp", lm_npz, generate_recompute, ()),
+             ("llama", CRASH_DIR / "llama.npz", generate,
+              ("--max-len", "256")))
+    for name, npz, decode, extra in cases:
+        cli = _infer_cli(npz, INFER_DIR / "tok", prompt, *extra)
+        t0 = time.perf_counter()
+        model, cached = model_from_npz(load_gathered(npz), 256,
+                                       device="cuda")
+        _zero_all_launches()
+        out = decode(model, ids, 32, eos_id=tok.eos_id, pad_id=tok.eos_id)
+        launches = _all_launch_counts()
+        new = [int(t) for t in out[0].tolist() if t != tok.eos_id]
+        want = (prompt + tok.decode(new)).encode()
+        visible = sum(t in tok.id_to_token for t in new)
+        rec[name] = {"cli_rc": cli["rc"], "cli_s": cli["seconds"],
+                     "cached": cached, "ids": new, "visible": visible,
+                     "text": want.decode(), "in_process_s":
+                     time.perf_counter() - t0,
+                     "equal": cli["out"] == want, "launches": launches}
+        if cli["rc"] != 0 or cli["out"] != want:
+            problems.append(f"{name}: rc {cli['rc']}, cli {cli['out']!r} "
+                            f"!= in-process {want!r}; {cli['stderr']}")
+        if visible < 16:
+            problems.append(f"{name}: {visible} of 32 tokens decode")
+        if cached != (name == "llama") or any(launches.values()):
+            problems.append(f"{name}: cached {cached}, launches {launches}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(rec)
+    if problems:
+        raise AssertionError("infer: " + "; ".join(problems))
+    return rec
+
+
 def worker_main(argv: list[str]) -> int:
     """`chip_smoke.py --worker sharded OUT ARGS...`: the torchrun rank
     of the sharded phases; its readings go to OUT as JSON."""
@@ -4004,6 +4427,9 @@ def main() -> int:
     fsdp_rec = phase_train_fsdp(dev["nvidia_smi"], runs)
     llama_fsdp_rec = phase_llama_fsdp(dev["nvidia_smi"], runs)
     phase_dry_init(dev["nvidia_smi"])
+    phase_prepare(dev["nvidia_smi"])
+    phase_cifar(dev["nvidia_smi"])
+    phase_scaling(dev["nvidia_smi"])
     phase_model()
     phase_oracle()
     serve_rec, model, serve_reqs, serve_toks = phase_serve()
@@ -4021,6 +4447,9 @@ def main() -> int:
     phase_route(crash_model, dev["nvidia_smi"])
     phase_introspect(crash_model)
     del crash_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_infer(dev["nvidia_smi"])
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
                       flash_recs, fsdp_rec, llama_fsdp_rec))

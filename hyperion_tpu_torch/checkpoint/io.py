@@ -224,7 +224,8 @@ def _shard_tree(state: TrainState) -> dict:
             entries[key] = {"shape": shape, "offset": offset,
                             "dtype": str(t.dtype), "data": loc.detach()}
     return {"step": int(state.step), "count": int(state.optimizer.count),
-            "epoch_losses": state.epoch_losses, "entries": entries,
+            "epoch_losses": state.epoch_losses,
+            "epoch_counts": state.epoch_counts, "entries": entries,
             "world": dist.process_count()}
 
 
@@ -455,6 +456,7 @@ def _fill(template: TrainState, pieces: dict, meta: dict) -> TrainState:
     opt.count = int(meta["count"])
     template.step = int(meta["step"])
     template.epoch_losses = meta.get("epoch_losses")
+    template.epoch_counts = meta.get("epoch_counts")
     return template
 
 

@@ -9,12 +9,19 @@ launcher (the default surface, `train` its explicit alias) and the
 
 `serve/server.py` and `serve/router.py` own their verbs' flags. The
 trainer launcher takes the reference's flags, plus `--device` (cuda by
-default, `--device cpu` for the plain PyTorch path), and returns the
-reference's exit codes: 0 done, 4 the health policy aborted a diverged
-run, 75 preempted with a resumable checkpoint (2 a usage error; 3 a
-supervisor that gave up). Jobs and verbs not ported yet exit 2 and name
-their ROADMAP item. The module imports no torch: `--supervise` runs the
-trainer as a child process.
+default, `--device cpu` for the plain PyTorch path), and runs the
+reference's jobs: language_ddp, cifar (ResNet-18 on CIFAR-10),
+language_fsdp, llama, `all` (the four in that order) and `scaling` (the
+sweep of `bench/scaling.py`: on the visible cards, or on gloo CPU
+ranks with `--simulate-cpu` or `--device cpu`). The primary
+writes the scaling report over `{base_dir}/distributed` at the end of
+every run that trains (a sweep writes its own; a `--dry-init` plan
+trains nothing). It returns the reference's
+exit codes: 0 done, 4 the health policy aborted a diverged run, 75
+preempted with a resumable checkpoint (under `all` an abort outranks a
+preemption; 2 a usage error; 3 a supervisor that gave up). Verbs not
+ported yet exit 2 and name their ROADMAP item. The module imports no
+torch: `--supervise` runs the trainer as a child process.
 
 Several ranks, as the reference launched them:
 
@@ -35,13 +42,14 @@ import argparse
 import sys
 
 MODELS = ("language_ddp", "cifar", "language_fsdp", "llama", "all", "scaling")
-DEFERRED_JOBS = {"cifar": "A9", "all": "A9", "scaling": "A9"}
-DEFERRED_VERBS = {"obs": "A6", "simulate": "A9"}
+ALL_JOBS = ("language_ddp", "cifar", "language_fsdp", "llama")
+DEFERRED_VERBS = {"obs": "A6", "simulate": "A9b"}
 
 _JOB_DEFAULTS = {
     # the reference's per-job hyperparameters
     "language_ddp": dict(batch_size=32, learning_rate=2e-4),
     "language_fsdp": dict(batch_size=32, learning_rate=1e-4),
+    "cifar": dict(batch_size=64, learning_rate=1e-3),
     "llama": dict(batch_size=8, learning_rate=1e-5, weight_decay=0.01),
 }
 
@@ -56,7 +64,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load corpora from here instead of base_dir "
                         "(base_dir stays the run-output root)")
     p.add_argument("--batch_size", type=int, default=None,
-                   help="global batch (defaults per job: LM 32, llama 8)")
+                   help="global batch (defaults per job: LM 32, CIFAR 64, "
+                        "llama 8)")
     p.add_argument("--lora", action="store_true",
                    help="llama: LoRA adapters instead of a full fine-tune")
     p.add_argument("--export-merged", action="store_true",
@@ -70,6 +79,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "128)")
     p.add_argument("--precision", choices=["fp32", "bf16", "bf16_full"],
                    default="bf16")
+    p.add_argument("--devices", type=int, default=0,
+                   help="the world size this run expects (the sweep's "
+                        "device count; 0 = any): a mismatch is a usage "
+                        "error")
+    p.add_argument("--scaling_devices", type=int, nargs="*", default=None,
+                   help="device counts for --model scaling (default "
+                        "1,2,4,8 cut to the visible cards, or to 8 "
+                        "simulated)")
+    p.add_argument("--scaling_jobs", nargs="*", default=None,
+                   help="jobs for --model scaling (default: the four "
+                        "reference jobs)")
+    p.add_argument("--simulate-cpu", action="store_true",
+                   help="scaling: run the sweep on gloo CPU ranks under "
+                        "<base_dir>/simulated_cpu (also with --device cpu; "
+                        "otherwise it runs on the visible cards)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dry-init", action="store_true",
                    help="plan-only: print the TrainState's memory plan "
@@ -196,17 +220,24 @@ def run_job(args, job: str):
     cfg = make_config(args, job)
     if job == "llama":
         return trainer.train_llama(cfg, "llama", device=args.device)
+    if job == "cifar":
+        return trainer.train_cifar_model(cfg, "cifar_ddp", device=args.device)
     return trainer.train_language_model(cfg, job, device=args.device)
 
 
 def train_main(argv: list[str]) -> int:
+    import os
+
     p = build_parser()
     args = p.parse_args(argv)
-    if args.model in DEFERRED_JOBS:
-        print(f"hyperion_tpu_torch.cli.main: --model {args.model} is not "
-              f"ported yet (ROADMAP {DEFERRED_JOBS[args.model]})",
-              file=sys.stderr)
-        return 2
+    if args.dry_init and args.model == "scaling":
+        p.error("--dry-init plans a single job's TrainState; it does not "
+                "apply to the scaling sweep (pick one of its jobs instead)")
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if args.devices and not args.dry_init and args.devices != world:
+        p.error(f"--devices {args.devices} but the world has {world} "
+                "rank(s): launch it with torchrun --nproc-per-node "
+                f"{args.devices}")
     if args.supervise:
         # the supervisor imports no torch and re-execs THIS command
         # (minus the supervision flags) as the child it watches
@@ -223,20 +254,46 @@ def train_main(argv: list[str]) -> int:
         EXIT_PREEMPTED,
     )
 
+    from hyperion_tpu_torch.metrics.scaling_report import (
+        create_scaling_report,
+    )
     from hyperion_tpu_torch.runtime import dist
 
+    if args.model == "scaling":  # the sweep writes its own report
+        from hyperion_tpu_torch.bench.scaling import (
+            SCALING_JOBS,
+            run_scaling_experiment,
+        )
+
+        try:
+            run_scaling_experiment(
+                device_counts=args.scaling_devices,
+                models=args.scaling_jobs or SCALING_JOBS,
+                epochs=args.epochs, base_dir=args.base_dir,
+                steps_per_epoch=args.steps_per_epoch or 20,
+                simulate_on_cpu=args.simulate_cpu or args.device == "cpu",
+                batch_size=args.batch_size, validate=not args.no_validate,
+                data_dir=args.data_dir)
+        except RuntimeError as e:  # no card for any count
+            p.error(str(e))
+        return 0
+    rc = 0
     try:
-        res = run_job(args, args.model)
+        jobs = ALL_JOBS if args.model == "all" else (args.model,)
+        for job in jobs:  # `all` runs the four jobs in turn
+            res = run_job(args, job)
+            # a diverged verdict outranks a preemption from an earlier
+            # job of `all`
+            if res.preempted == "health_abort":
+                rc = EXIT_HEALTH_ABORT
+            elif res.preempted and rc == 0:
+                rc = EXIT_PREEMPTED
         primary = dist.is_primary()  # cleanup forgets the rank
     finally:
         dist.cleanup()
-    if primary:
-        print("hyperion_tpu_torch.cli.main: the scaling report waits for "
-              "metrics/scaling_report.py (ROADMAP A9); skipped",
-              file=sys.stderr)
-    if res.preempted == "health_abort":
-        return EXIT_HEALTH_ABORT
-    return EXIT_PREEMPTED if res.preempted else 0
+    if primary and not args.dry_init:  # a plan trains nothing to report
+        create_scaling_report(f"{args.base_dir}/distributed")
+    return rc
 
 
 def main(argv=None) -> int:

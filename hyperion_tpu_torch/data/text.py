@@ -4,9 +4,10 @@
 Sources behind one interface, searched per split in the reference's
 order under `{base}/wikitext2_tokenized/`:
 
-  1. `{split}.ids.rio` — the native recordio pair `data.prepare` writes.
-     Its reader is not ported (ROADMAP A7): when the files are present
-     this raises rather than read another source in their place.
+  1. `{split}.ids.rio` + `{split}.mask.rio` — the native recordio pair
+     `data/prepare.py` writes (`data/recordio.py`). A half-written pair
+     (truncated file, broken sidecar) falls through to the next source,
+     as the reference's does.
   2. `{split}/data-*.arrow` — an HF-datasets arrow split, read by the
      port's own numpy reader of the Arrow IPC stream format
      (`read_arrow_stream`): the reference reads it with pyarrow, which
@@ -336,6 +337,19 @@ def load_token_file(path: str | Path) -> TextSplit:
                          source=f"npz:{path}")
 
 
+def load_recordio_split(base: str | Path, split: str) -> TextSplit:
+    """A split written by `data/prepare.py`: ids and mask as native
+    recordio files."""
+    from hyperion_tpu_torch.data.recordio import RecordFile
+
+    base = Path(base)
+    with RecordFile(base / f"{split}.ids.rio") as ids_f, \
+            RecordFile(base / f"{split}.mask.rio") as mask_f:
+        ids = ids_f.read_all()
+        mask = mask_f.read_all()
+    return TextSplit(ids, mask, source=f"recordio:{base / split}")
+
+
 def load_wikitext2(base_dir: str | Path = "data",
                    splits: tuple[str, ...] = ("train", "validation"),
                    synthetic_sizes: dict[str, int] | None = None,
@@ -369,17 +383,22 @@ def load_wikitext2(base_dir: str | Path = "data",
     for i, split in enumerate(splits):
         arrow_dir = base / split
         npz = base / f"{split}.npz"
+        s = None
         if (base / f"{split}.ids.rio").exists():
-            raise NotImplementedError(
-                f"{base / split}.ids.rio is a recordio split; its reader "
-                "is not ported yet (ROADMAP A7)")
-        if arrow_dir.is_dir() and list(arrow_dir.glob("data-*.arrow")):
-            s = _read(lambda: load_arrow_split(arrow_dir))
-        elif npz.exists():
-            s = _read(lambda: load_token_file(npz))
-        else:
-            s = synthetic_lm_split(sizes.get(split, 512), seq_len=seq_len,
-                                   seed=seed + i)
+            try:  # half-written prepare output falls through
+                s = _read(lambda: load_recordio_split(base, split))
+            except (OSError, ValueError, KeyError) as e:
+                # ValueError/KeyError: a truncated or field-less sidecar
+                print(f"[load_wikitext2] recordio {split} unreadable "
+                      f"({e}); falling back")
+        if s is None:  # no recordio split, or an unreadable one
+            if arrow_dir.is_dir() and list(arrow_dir.glob("data-*.arrow")):
+                s = _read(lambda: load_arrow_split(arrow_dir))
+            elif npz.exists():
+                s = _read(lambda: load_token_file(npz))
+            else:
+                s = synthetic_lm_split(sizes.get(split, 512),
+                                       seq_len=seq_len, seed=seed + i)
         s.verify()
         out[split] = s
     return out

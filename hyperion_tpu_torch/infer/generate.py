@@ -1,11 +1,22 @@
-"""Sampling and KV-cache generation — `hyperion_tpu/infer/generate.py`
-in PyTorch (`:45-195`, `:263-346`).
+"""Sampling, generation and the inference CLI —
+`hyperion_tpu/infer/generate.py` in PyTorch.
 
 `generate` decodes one batch of aligned prompts: a prefill writes the
 prompt's K/V into a contiguous cache sized to prompt + new tokens, then
 one forward per new token. At temperature 0 it is argmax all the way,
 and it is the serve engine's oracle: an engine stream at temperature 0
 equals `generate` on the same prompt, token for token.
+`generate_recompute` is the cache-free decode of any causal LM (the
+TransformerLM exports the trainers write): one full forward over a
+fixed-width buffer per new token, with the same contract.
+
+`main` is the reference's inference CLI (`python -m
+hyperion_tpu_torch.infer --ckpt X.npz --prompt ...`): `model_from_npz`
+rebuilds the model from a gathered export, Llama exports decode through
+`generate` and TransformerLM exports through `generate_recompute`,
+`--draft-ckpt` through `infer/speculative.py`. The reference wraps the
+whole decode in one `jit`; the port runs it eagerly, on the card unless
+`--device cpu`.
 
 Random draws. Torch cannot reproduce JAX's threefry bits, so the port
 has its own contract, tested by distribution rather than against JAX:
@@ -191,26 +202,99 @@ def generate(
     return torch.stack(out, dim=1)
 
 
+@torch.no_grad()
+def generate_recompute(
+    model: Any,
+    prompt_ids,
+    max_new_tokens: int,
+    *,
+    eos_id: int | None = None,
+    pad_id: int = 0,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    generator: torch.Generator | None = None,
+    device=None,
+) -> torch.Tensor:
+    """Cache-free decoding for any causal LM (`generate`'s contract):
+    re-runs the full forward over a fixed-width buffer [B, P +
+    max_new_tokens] each step and takes the logits at the last filled
+    position; causality keeps the zero future positions invisible."""
+    dev = resolve_device(device)
+    if model.device != dev:
+        raise ValueError(f"model is on {model.device}, device is {dev}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("temperature > 0 sampling needs a torch.Generator")
+    ids = torch.as_tensor(np.asarray(prompt_ids), device=dev).long()
+    B, P = ids.shape
+    width = P + max_new_tokens
+    if width > model.cfg.max_len:
+        raise ValueError(f"{width} tokens exceeds max_len "
+                         f"{model.cfg.max_len}")
+    buf = torch.zeros(B, width, dtype=torch.long, device=dev)
+    buf[:, :P] = ids
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    out = []
+    for idx in range(P, width):
+        logits = model(buf)
+        logits = logits[0] if isinstance(logits, tuple) else logits
+        nxt = sample_token(logits[:, idx - 1], generator, temperature, top_k,
+                           top_p)
+        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+        if eos_id is not None:
+            done = done | (nxt == eos_id)
+        buf[:, idx] = nxt
+        out.append(nxt)
+    return torch.stack(out, dim=1)
+
+
+def _lm_from_npz(params: dict, device):
+    """A TransformerLM whose shape matches a gathered export, its
+    weights loaded (`_infer_lm_from_npz` of the reference: the default
+    fp32 config with the "xla" attention and norm, dropout off)."""
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        params_from_jax,
+        simple_lm_config,
+    )
+
+    vocab, d_model = params["tok_emb"]["embedding"].shape
+    cfg = simple_lm_config(
+        vocab_size=vocab, d_model=d_model,
+        n_layers=len([k for k in params if k.startswith("block_")]),
+        ff_dim=params["block_0"]["fc1"]["kernel"].shape[1],
+        n_heads=params["block_0"]["attn"]["q_proj"]["kernel"].shape[1],
+        max_len=params["pos_emb"]["embedding"].shape[0], dropout=0.0)
+    model = TransformerLM(cfg, device=device)
+    model.load_state_dict(params_from_jax(params, cfg), strict=True)
+    return model
+
+
 def model_from_npz(params: dict, max_len: int = 4096, *,
                    dtype: str = "bfloat16", device=None):
-    """Rebuild a Llama whose shape matches a gathered export and load
-    its weights. max_len is not recoverable from the weights (RoPE has
-    no table), so it is an argument; `dtype` is the compute dtype (the
-    reference's loader gives bfloat16). Other layouts raise."""
+    """(model, cached) for a gathered export, its weights loaded: a
+    Llama (cached: True, the KV-cache decode of `generate`) or a
+    TransformerLM (False: `generate_recompute`). A Llama's max_len is
+    not recoverable from its weights (RoPE has no table), so it is an
+    argument, and `dtype` is its compute dtype (the reference's loader
+    gives bfloat16); a TransformerLM takes both from its export. MoE
+    and pipeline exports raise: those models are ROADMAP A8."""
     from hyperion_tpu_torch.models.llama import (
         Llama,
         LlamaConfig,
         params_from_jax,
     )
 
+    if "stages" in params or any(k.startswith("moe_block_")
+                                 for k in params):
+        kind = "pipeline" if "stages" in params else "MoE"
+        raise ValueError(f"{kind} checkpoint: the port does not build "
+                         "that model yet (ROADMAP A8)")
     if "embed_tokens" not in params:
-        kind = ("pipeline" if "stages" in params
-                else "TransformerLM/MoE" if "tok_emb" in params
-                else "unrecognized")
-        raise ValueError(
-            f"{kind} checkpoint (top-level keys {sorted(params)[:6]}): the "
-            "port loads Llama exports only; the other models come with "
-            "the training slice (ROADMAP A7)")
+        if "tok_emb" in params:
+            return _lm_from_npz(params, device), False
+        raise ValueError(f"unrecognized checkpoint layout (top-level keys: "
+                         f"{sorted(params)[:6]}...)")
     vocab, d_model = params["embed_tokens"]["embedding"].shape
     n_layers = len([k for k in params if k.startswith("layer_")])
     l0 = params["layer_0"]
@@ -224,4 +308,128 @@ def model_from_npz(params: dict, max_len: int = 4096, *,
     )
     model = Llama(cfg, device=device)
     model.load_state_dict(params_from_jax(params, cfg), strict=True)
-    return model
+    return model, True
+
+
+def main(argv=None) -> int:
+    """The inference CLI (`:349-500` of the reference): decode one
+    prompt from an export and print prompt + continuation."""
+    import argparse
+    import time
+
+    from hyperion_tpu_torch.checkpoint.io import load_gathered
+    from hyperion_tpu_torch.data.bpe import ByteBPE
+    from hyperion_tpu_torch.obs import heartbeat as obs_heartbeat
+    from hyperion_tpu_torch.obs import trace as obs_trace
+    from hyperion_tpu_torch.obs.registry import (
+        MetricsRegistry,
+        observe_step,
+        observe_throughput,
+    )
+
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--prompt", required=True)
+    p.add_argument("--ckpt", default="data/checkpoints/language_ddp_final.npz",
+                   help="gathered-export .npz (written by the trainers)")
+    p.add_argument("--tokenizer-dir", default="data/tokenizer")
+    p.add_argument("--max-new-tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling: keep the smallest prefix of "
+                        "the distribution reaching this mass (1.0 = off)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-len", type=int, default=4096,
+                   help="context length for Llama exports (RoPE has no "
+                        "weight table to infer it from)")
+    p.add_argument("--quant", choices=["none", "int8"], default="none",
+                   help="int8 = weight-only quantized decode (ROADMAP A9b)")
+    p.add_argument("--draft-ckpt", default=None,
+                   help="speculative decoding: a smaller Llama export "
+                        "whose proposals the main model verifies (greedy "
+                        "only; same vocab; infer/speculative.py)")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="speculative proposals per verify round")
+    p.add_argument("--moe-top-k", type=int, default=2,
+                   help="MoE exports' routing top_k: ignored until "
+                        "ROADMAP A8, since an MoE export raises before "
+                        "it is read")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (the plain PyTorch path runs with "
+                        "--device cpu)")
+    args = p.parse_args(argv)
+    if args.quant == "int8":
+        raise SystemExit("--quant int8 is not ported yet: the int8 decode "
+                         "needs its own GEMM kernel (ROADMAP A9b)")
+    dev = resolve_device(args.device)
+
+    # decode telemetry (opt-in: HYPERION_TELEMETRY=1 or =<path>): the
+    # load and decode spans and a tokens/s gauge, the trainers' stream
+    # format; a timestamped run id keeps each invocation separable
+    tracer = obs_trace.from_env("data/telemetry.jsonl",
+                                run=f"generate_{int(time.time())}")
+    hb = obs_heartbeat.Heartbeat.for_tracer(tracer)
+    hb.pulse(phase="load")
+    reg = MetricsRegistry()
+
+    with tracer.span("load") as ld:
+        tok = ByteBPE.load(args.tokenizer_dir)
+        params = load_gathered(args.ckpt)
+        model, cached = model_from_npz(params, args.max_len, device=dev)
+        ld.set(ckpt=args.ckpt, cached=cached)
+    draft_model = None
+    if args.draft_ckpt:
+        if not cached:
+            raise SystemExit("--draft-ckpt needs a Llama (KV-cache) target")
+        if args.temperature > 0:
+            raise SystemExit(
+                "speculative decoding is greedy-only; drop --temperature")
+        draft_model, draft_cached = model_from_npz(
+            load_gathered(args.draft_ckpt), args.max_len, device=dev)
+        if not draft_cached:
+            raise SystemExit("--draft-ckpt must be a Llama export")
+        if args.draft_k < 1:
+            raise SystemExit("--draft-k must be >= 1")
+        n_prompt = len(tok.encode(args.prompt))
+        if n_prompt <= args.draft_k:
+            raise SystemExit(
+                f"prompt encodes to {n_prompt} tokens but speculative "
+                f"decoding needs more than --draft-k={args.draft_k} — "
+                "use a longer prompt or a smaller k")
+    if tok.vocab_size > model.cfg.vocab_size:
+        print(f"[generate] warning: tokenizer vocab {tok.vocab_size} exceeds "
+              f"model vocab {model.cfg.vocab_size} — prompt ids above the "
+              "model's range would be out of the embedding's range; "
+              "retrain the tokenizer at or below the model vocab")
+    ids = [tok.encode(args.prompt)]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    hb.pulse(phase="decode", tokens_requested=args.max_new_tokens)
+    with tracer.span("decode_step", step=0) as sp:
+        if draft_model is not None:
+            from hyperion_tpu_torch.infer.speculative import (
+                generate_speculative,
+            )
+
+            out = generate_speculative(
+                model, draft_model, ids, args.max_new_tokens, k=args.draft_k,
+                eos_id=tok.eos_id, pad_id=tok.eos_id, device=dev)
+        else:
+            decode = generate if cached else generate_recompute
+            out = decode(model, ids, args.max_new_tokens, eos_id=tok.eos_id,
+                         pad_id=tok.eos_id, temperature=args.temperature,
+                         top_k=args.top_k, top_p=args.top_p, generator=gen,
+                         device=dev)
+        out_host = out.cpu().numpy()  # the copy back is the fence
+        n_new = int(out_host.size)
+        sp.set(tokens=n_new)
+    dur = max(sp.dur_s, 1e-9)
+    observe_step(reg, dur, tokens=n_new)
+    observe_throughput(reg, dur, 1, tokens=n_new)
+    tracer.snapshot(reg)
+    tracer.event("generate_done", tokens=n_new,
+                 tokens_per_s=reg.gauge("tokens_per_s").value)
+    hb.close(phase="done", tokens=n_new)
+    tracer.close()
+    text = tok.decode([int(t) for t in out_host[0] if t != tok.eos_id])
+    print(args.prompt + text)
+    return 0

@@ -20,7 +20,7 @@ repeated for GQA, each block rematerialized per `remat`
 (`precision.remat`), and gradients carried. With `lora_rank > 0` the
 projections named in `lora_targets` are `models.lora.LoraDense`: the
 base weights stay frozen and only the adapters train (LoRA and int8
-are mutually exclusive; int8 waits for ROADMAP A9).
+are mutually exclusive; int8 waits for ROADMAP A9b).
 
 Two cache call forms, as in the reference, both without gradients:
 
@@ -76,7 +76,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     attention_impl: str = "xla"   # the cache-free forward's attention
     norm_impl: str = "xla"        # xla | pallas (fused_rmsnorm kernel)
-    quant: str = "none"           # int8 is not ported yet (ROADMAP A9)
+    quant: str = "none"           # int8 is not ported yet (ROADMAP A9b)
     # rank > 0 routes the targeted projections through LoraDense's
     # activation side-path
     lora_rank: int = 0
@@ -94,7 +94,7 @@ class LlamaConfig:
                              "+ quantize)")
         if self.quant != "none":
             raise NotImplementedError(
-                "int8 weight quant is not ported yet (ROADMAP A9)")
+                "int8 weight quant is not ported yet (ROADMAP A9b)")
         if self.norm_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown norm_impl {self.norm_impl!r}")
         normalize_remat(self.remat)

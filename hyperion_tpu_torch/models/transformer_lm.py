@@ -28,7 +28,7 @@ reproduce JAX's dropout bits. `remat` wraps each block with
 `precision.remat.apply_remat`; a rematerialized block's
 recompute restarts the dropout generator where the block's first run
 found it, so it redraws the same masks. `quant="int8"` is not ported
-(ROADMAP A9) and raises.
+(ROADMAP A9b) and raises.
 """
 
 from __future__ import annotations
@@ -65,13 +65,13 @@ class TransformerLMConfig:
     causal: bool = True            # False → bidirectional encoder blocks
     remat: bool | str = False      # precision.remat policy, per block
     dtype: str = "float32"         # compute dtype; params stay fp32
-    quant: str = "none"            # not ported (ROADMAP A9)
+    quant: str = "none"            # not ported (ROADMAP A9b)
 
     def __post_init__(self):
         normalize_remat(self.remat)
         if self.quant != "none":
             raise NotImplementedError(
-                "int8 weight quant is not ported yet (ROADMAP A9)")
+                "int8 weight quant is not ported yet (ROADMAP A9b)")
         if self.activation not in ("relu", "gelu"):
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.norm_impl not in ("xla", "pallas"):

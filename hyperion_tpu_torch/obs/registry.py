@@ -356,8 +356,9 @@ def compiled_flops(model, loss_fn, batch: dict) -> float | None:
     from torch.utils.flop_counter import FlopCounterMode
 
     try:
-        cfg = dataclasses.replace(model.cfg, attention_impl="xla",
-                                  norm_impl="xla")
+        cfg = dataclasses.replace(model.cfg, **{
+            k: "xla" for k in ("attention_impl", "norm_impl")
+            if hasattr(model.cfg, k)})
         twin = type(model)(cfg, device="meta")
         live = dict(model.named_parameters())
         for name, p in twin.named_parameters():

@@ -11,8 +11,10 @@ as pure functions of names, shapes and the mesh's axis sizes:
   * `jax_view(name, shape, head_dim)` — a torch parameter as the JAX
     package holds it: its `/`-joined path, its flax shape (Linear
     weights [out, in] are kernels [in, out]; q/k/v [H*Dh, d] are
-    [d, H, Dh], o_proj [d, H*Dh] is [H, Dh, d]) and the torch dim of
-    each flax dim (None for a head_dim merged into H*Dh);
+    [d, H, Dh], o_proj [d, H*Dh] is [H, Dh, d]; a ResNet conv weight
+    [O, I, kh, kw] is the kernel [kh, kw, I, O], a BatchNorm weight its
+    `scale`) and the torch dim of each flax dim (None for a head_dim
+    merged into H*Dh);
   * `partition_specs(shapes, mesh)` — the JAX algorithm over flax
     paths and shapes, entry for entry;
   * `torch_layouts(named_shapes, head_dim, mesh)` — those specs as
@@ -156,7 +158,14 @@ def jax_view(name: str, shape: tuple, head_dim: int) -> JaxView:
         parts = ["embed_tokens", "embedding"]
     leaf, mod = parts[-1], (parts[-2] if len(parts) > 1 else "")
     shape = tuple(shape)
-    if leaf == "weight" and len(shape) == 2:      # a projection
+    if leaf == "weight" and len(shape) == 4:      # a conv [O, I, kh, kw]
+        o, i, kh, kw = shape
+        jshape, dims = (kh, kw, i, o), (2, 3, 1, 0)
+        parts[-1] = "kernel"
+    elif leaf == "weight" and len(shape) == 1 and "bn" in mod:
+        jshape, dims = shape, (0,)                # BatchNorm scale
+        parts[-1] = "scale"
+    elif leaf == "weight" and len(shape) == 2:    # a projection
         out, inp = shape
         if mod in _HEADS_IN:
             jshape, dims = (inp, out // head_dim, head_dim), (1, 0, None)
@@ -226,7 +235,7 @@ def model_layouts(model, mesh, fsdp: bool = True,
                   fsdp_min_size: int = 2**14) -> dict[str, Layout]:
     """`torch_layouts` of a live (or meta) model's parameters."""
     named = {n: tuple(p.shape) for n, p in model.named_parameters()}
-    return torch_layouts(named, model.cfg.head_dim, mesh,
+    return torch_layouts(named, getattr(model.cfg, "head_dim", 1), mesh,
                          TRANSFORMER_TP_RULES, fsdp, fsdp_min_size)
 
 

@@ -678,8 +678,13 @@ def main(argv=None, *, device=None) -> int:
             args.journal,
             fault=chaos.journal_io if chaos is not None else None)
     with tracer.span("load") as ld:
-        model = model_from_npz(load_gathered(args.ckpt), args.max_len,
-                               dtype=args.dtype, device=dev)
+        model, cached = model_from_npz(load_gathered(args.ckpt),
+                                       args.max_len, dtype=args.dtype,
+                                       device=dev)
+        if not cached:
+            raise SystemExit(f"{args.ckpt}: the server decodes Llama "
+                             "exports (a paged KV pool); decode this one "
+                             "with python -m hyperion_tpu_torch.infer")
         ld.set(ckpt=args.ckpt, device=str(dev), dtype=args.dtype)
     # the host tier persists next to the journal when there is one,
     # next to the telemetry stream otherwise, or nowhere

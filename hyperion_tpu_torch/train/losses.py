@@ -7,8 +7,9 @@ fused cross-entropy kernels (`ops.fused_ce.fused_softmax_xent_shifted`)
 on the whole `[B, T, V]` logits: the forward reads rows t < T-1 in place
 by strides, and the backward writes the gradient of the whole tensor,
 so no slice backward zero-fills and copies it. `"xla"` runs the plain
-version on the `[B, T-1, V]` view. The CIFAR loss waits for the CIFAR
-trainer (ROADMAP A9).
+version on the `[B, T-1, V]` view. `classification_loss` is the cifar
+job's: the mean cross-entropy of fp32 logits and the accuracy counts
+(`:53` there).
 
 Under data parallelism (`sync`, a `train.step.BatchSync`) the mean is
 over the global batch, as the JAX loss over a sharded batch is: each
@@ -20,6 +21,7 @@ numbers of pad tokens give the global mean and not a mean of means.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from hyperion_tpu_torch.ops.fused_ce import (
     fused_softmax_xent_plain,
@@ -50,3 +52,17 @@ def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor,
         return per_tok.mean()
     w = attention_mask[:, 1:].float()
     return (per_tok * w).sum() / w.sum().clamp_min(1.0)
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        sync=None) -> tuple[torch.Tensor, dict]:
+    """CE loss over [B, C] logits (taken in fp32) and [B] labels, plus
+    the accuracy counts `correct` and `total` as fp32 sums, so they sum
+    across ranks (`BatchSync.mean(..., sums=...)`). With `sync`, the
+    loss is this rank's share of the global mean."""
+    per = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    total = per.new_tensor(float(labels.shape[0]))
+    loss = (sync.global_mean(per.sum(), total)
+            if sync is not None and sync.active else per.mean())
+    correct = (logits.argmax(-1) == labels).sum().float()
+    return loss, {"correct": correct, "total": total}

@@ -199,12 +199,15 @@ class TrainState:
     state). `epoch_losses` is the port's addition: the per-step losses
     of an interrupted epoch's completed steps, which a mid-epoch
     checkpoint carries so that the resumed epoch's CSV row is the mean
-    over all of its steps, as an uninterrupted run's is."""
+    over all of its steps, as an uninterrupted run's is; `epoch_counts`
+    likewise the sums of its count metrics (the cifar job's `correct`
+    and `total`), so its accuracy column is the whole epoch's too."""
 
     step: int
     model: torch.nn.Module
     optimizer: Optimizer
     epoch_losses: torch.Tensor | None = None
+    epoch_counts: dict | None = None
 
 
 def plan_train_state(model: torch.nn.Module, mesh, fsdp: bool = True,
@@ -215,9 +218,10 @@ def plan_train_state(model: torch.nn.Module, mesh, fsdp: bool = True,
     `AbstractMesh` plans any size; a DeviceMesh works too): global and
     per-device bytes of the parameters, their gradients and the AdamW
     state, per the port's layouts. Keys as the reference's
-    `memory_plan` (`params_gb`, `opt_state_gb`, `batch_stats_gb`,
-    `param_count`, `params_by_dtype_gb`, `total_gb`, `per_device_gb`
-    over parameters and optimizer state, `mesh`), plus the gradients'
+    `memory_plan` (`params_gb`, `opt_state_gb`, `batch_stats_gb` (a
+    ResNet's BatchNorm running statistics, replicated), `param_count`,
+    `params_by_dtype_gb`, `total_gb`, `per_device_gb` over parameters,
+    optimizer state and batch statistics, `mesh`), plus the gradients'
     `grads_gb` and each section's per-device bytes. The AdamW state is
     the two moments of each trained parameter in its dtype and a 4-byte
     step count each (optax's one int32 count is the rounding's
@@ -250,15 +254,20 @@ def plan_train_state(model: torch.nn.Module, mesh, fsdp: bool = True,
         if p.requires_grad:  # the step count, replicated
             tot["opt_state"] += 4
             dev["opt_state"] += 4
+    # BatchNorm's running statistics (the reference's `batch_stats`
+    # collection), replicated on every device
+    stats = sum(b.numel() * b.element_size() for n, b in
+                model.named_buffers()
+                if n.endswith(("running_mean", "running_var")))
     gb = lambda v: round(v / 1e9, 4)  # noqa: E731
     return {
         "mesh": sizes,
         "params_gb": gb(tot["params"]), "grads_gb": gb(tot["grads"]),
-        "opt_state_gb": gb(tot["opt_state"]), "batch_stats_gb": 0.0,
+        "opt_state_gb": gb(tot["opt_state"]), "batch_stats_gb": gb(stats),
         "param_count": n_params,
         "params_by_dtype_gb": {k: gb(v) for k, v in sorted(by_dtype.items())},
-        "total_gb": gb(tot["params"] + tot["opt_state"]),
-        "per_device_gb": gb(dev["params"] + dev["opt_state"]),
+        "total_gb": gb(tot["params"] + tot["opt_state"] + stats),
+        "per_device_gb": gb(dev["params"] + dev["opt_state"] + stats),
         "params_per_device_gb": gb(dev["params"]),
         "grads_per_device_gb": gb(dev["grads"]),
         "opt_state_per_device_gb": gb(dev["opt_state"]),

@@ -75,13 +75,21 @@ class BatchSync:
         total = self._sum(count.detach().float().clone())
         return num * self.world / total.clamp_min(1.0)
 
-    def mean(self, metrics: dict) -> dict:
-        """Metrics averaged over the ranks, in one all-reduce."""
+    def mean(self, metrics: dict, sums: tuple[str, ...] = ()) -> dict:
+        """Metrics averaged over the ranks, in one all-reduce; the count
+        metrics named in `sums` (`correct`, `total`) summed instead."""
         if not self.active or not metrics:
             return metrics
         keys = sorted(metrics)
         v = self._sum(torch.stack([metrics[k].float() for k in keys]))
-        return dict(zip(keys, (v / self.world).unbind()))
+        return {k: x if k in sums else x / self.world
+                for k, x in zip(keys, v.unbind())}
+
+
+# count metrics: summed over microbatches and over ranks (and, by the
+# epoch loop, over an epoch's steps), where every other metric is
+# averaged
+COUNT_METRICS = ("correct", "total")
 
 # loss_fn(model, batch, generator or None) -> (loss, metrics dict)
 LossFn = Callable[[torch.nn.Module, dict, torch.Generator | None],
@@ -108,7 +116,7 @@ def _split_microbatches(batch: dict, n: int) -> list[dict]:
 
 def make_train_step(loss_fn: LossFn, grad_accum: int = 1,
                     dropout: bool = False,
-                    sum_metrics: tuple[str, ...] = ("correct", "total"),
+                    sum_metrics: tuple[str, ...] = COUNT_METRICS,
                     sync: BatchSync | None = None,
                     grad_sync: Callable[[], None] | None = None):
     """`(state, batch, seed) -> metrics`: one optimizer update of
@@ -147,7 +155,8 @@ def make_train_step(loss_fn: LossFn, grad_accum: int = 1,
                        for k in parts[0]}
         if grad_sync is not None:
             grad_sync()
-        metrics = sync.mean({k: v.detach() for k, v in metrics.items()})
+        metrics = sync.mean({k: v.detach() for k, v in metrics.items()},
+                            sums=sum_metrics)
         metrics["grad_norm"] = global_norm(
             [p.grad for p in opt.params if p.grad is not None])
         opt.step(metrics["grad_norm"])
@@ -160,11 +169,11 @@ def make_train_step(loss_fn: LossFn, grad_accum: int = 1,
 def make_eval_step(eval_fn: Callable[[torch.nn.Module, dict], dict],
                    sync: BatchSync | None = None):
     """`(state, batch) -> metrics` without gradients, averaged over the
-    ranks under `sync`."""
+    ranks under `sync` (the `COUNT_METRICS` summed)."""
     sync = sync or BatchSync()
 
     def step(state: TrainState, batch: dict) -> dict:
         with torch.no_grad():
-            return sync.mean(eval_fn(state.model, batch))
+            return sync.mean(eval_fn(state.model, batch), sums=COUNT_METRICS)
 
     return step

@@ -1,9 +1,11 @@
-"""The trainers — `train_language_model` (`:778-1033`) and `train_llama`
-(`:1138-1400`) of `hyperion_tpu/train/trainer.py`, with the reference's
-epoch loop (`:167-775`), on one card or on a mesh of ranks.
+"""The trainers — `train_language_model` (`:778-1033`),
+`train_cifar_model` (`:1036-1135`) and `train_llama` (`:1138-1400`) of
+`hyperion_tpu/train/trainer.py`, with the reference's epoch loop
+(`:167-775`), on one card or on a mesh of ranks.
 
     train_language_model(cfg, job="language_ddp" | "language_fsdp",
                          device=None)
+    train_cifar_model(cfg, job="cifar_ddp", device=None)
     train_llama(cfg, job="llama", device=None)
 
 `runtime/dist.py` `setup` (a no-op in a single process; under torchrun
@@ -90,9 +92,12 @@ from hyperion_tpu_torch.config import Config
 from hyperion_tpu_torch.data.prefetch import Prefetcher
 from hyperion_tpu_torch.data.sharding import ShardedBatches
 from hyperion_tpu_torch.data.text import GPT2_VOCAB_SIZE, load_wikitext2
+from hyperion_tpu_torch.data.vision import load_cifar10
 from hyperion_tpu_torch.metrics.csv_logger import SCHEMAS, CsvLogger
 from hyperion_tpu_torch.models import llama as llama_mod
 from hyperion_tpu_torch.models import lora as lora_mod
+from hyperion_tpu_torch.models.resnet import resnet18
+from hyperion_tpu_torch.models.resnet import state_to_jax as resnet_state_to_jax
 from hyperion_tpu_torch.models.transformer_lm import (
     TransformerLM,
     simple_lm_config,
@@ -135,13 +140,17 @@ from hyperion_tpu_torch.runtime.mesh import (
     set_active_mesh,
 )
 from hyperion_tpu_torch.testing import chaos as chaos_mod
-from hyperion_tpu_torch.train.losses import next_token_loss
+from hyperion_tpu_torch.train.losses import (
+    classification_loss,
+    next_token_loss,
+)
 from hyperion_tpu_torch.train.state import (
     TrainState,
     make_optimizer,
     plan_train_state,
 )
 from hyperion_tpu_torch.train.step import (
+    COUNT_METRICS,
     BatchSync,
     make_eval_step,
     make_train_step,
@@ -377,11 +386,17 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 eval_cols: Callable[[list], dict] | None = None,
                 tracer: obs_trace.Tracer | None = None,
                 extra_cols: dict | None = None,
+                metric_cols: Callable[[dict], dict] | None = None,
+                work: dict | None = None,
                 flops_fn: Callable[[dict], float | None]) -> LoopResult:
     """The reference's epoch loop; the state trains in place, on every
     rank in step. `preempted` set means the run stopped early — callers
     then skip the exports the reference skips. `extra_cols`: constant
-    columns of every CSV row (the Llama trainer's `mode`); `flops_fn(
+    columns of every CSV row (the Llama trainer's `mode`);
+    `metric_cols(sums)`: columns from the epoch's sums of the count
+    metrics (`COUNT_METRICS`: the cifar job's accuracy); `work`: what
+    one step processes, for the throughput gauges (default `tokens`:
+    batch x seq; the cifar job counts `samples`, images); `flops_fn(
     batch)`: one step's FLOPs on this rank's rows, for the MFU gauge,
     which divides them over `mfu_devices` (the ranks that share a batch
     shard: the model axis)."""
@@ -414,7 +429,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                if cfg.train.health_policy != "off" else None)
     hb.pulse(step=resume_step, phase="init", epoch=resume_epoch + 1)
     steps_per_epoch = _steps_per_epoch(cfg, batches)
-    tokens_per_step = cfg.train.batch_size * cfg.train.seq_len
+    work = work or {"tokens": cfg.train.batch_size * cfg.train.seq_len}
     flops_per_step: float | None = None
     flops_known = False
     dtype = str(state.model.cfg.compute_dtype).removeprefix("torch.")
@@ -454,7 +469,8 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
             # already-trained prefix
             start = resume_step if epoch == resume_epoch else 0
             prefix = state.epoch_losses if start else None
-            state.epoch_losses = None
+            prefix_counts = state.epoch_counts if start else None
+            state.epoch_losses = state.epoch_counts = None
             stopping = aborting = False
             profile_this = cfg.train.profile_dir and epoch == resume_epoch
             # the prefetcher first in the `with`, so every exit drains
@@ -489,7 +505,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                     device_metrics.append(metrics)  # on device until the end
                     if on_card:
                         marks.append(mark())
-                    observe_step(reg, sp.dur_s, tokens=tokens_per_step)
+                    observe_step(reg, sp.dur_s, **work)
                     if cfg.train.heartbeat_every:
                         hb.beat(step=gstep, phase="train", epoch=epoch + 1)
                     if monitor is not None:
@@ -521,8 +537,8 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 # snapshot record; a step's FLOPs are counted once
                 observe_device_memory(reg, device)
                 observe_throughput(reg, duration, len(device_metrics),
-                                   tokens=tokens_per_step
-                                   * len(device_metrics))
+                                   **{k: v * len(device_metrics)
+                                      for k, v in work.items()})
                 observe_input_wait(reg, feed.wait_s, duration)
                 if not flops_known:
                     flops_per_step = flops_fn(host_batch)
@@ -536,6 +552,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 prefix = prefix.to(device)
                 epoch_losses = (prefix if epoch_losses is None
                                 else torch.cat([prefix, epoch_losses]))
+            counts = _count_sums(device_metrics, prefix_counts, device)
             if aborting:
                 return abort_exit(epoch + 1, len(device_metrics))
             planned = steps_per_epoch - start
@@ -550,8 +567,10 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 if ckpt_dir:
                     state.epoch_losses = (None if epoch_losses is None
                                           else epoch_losses.cpu())
+                    state.epoch_counts = {k: v.cpu()
+                                          for k, v in counts.items()} or None
                     _save_checkpoint(ckpt_dir, state, tracer=tracer)
-                    state.epoch_losses = None
+                    state.epoch_losses = state.epoch_counts = None
                 _say(f"[{job}] preempted at global step {state.step} "
                       f"(epoch {epoch + 1}); "
                       + ("checkpoint saved — rerun to resume mid-epoch"
@@ -573,7 +592,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 if action != "none" and _health_react(
                         job, action, monitor, state, ckpt_dir, tracer):
                     return abort_exit(epoch + 1, len(device_metrics))
-            extra: dict = {}
+            extra: dict = metric_cols(counts) if metric_cols else {}
             if eval_step is not None and eval_batches is not None:
                 hb.pulse(step=end_gstep, phase="eval", epoch=epoch + 1)
                 with tracer.span("eval") as ev_span:
@@ -613,6 +632,23 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 return done(True)
     hb.close(phase="done")
     return done(False)
+
+
+def _count_sums(device_metrics: list[dict], prefix: dict | None,
+                device) -> dict:
+    """{key: the epoch's sum} of each `COUNT_METRICS` key the steps
+    report, the interrupted epoch's `prefix` sums included."""
+    keys = [k for k in COUNT_METRICS
+            if device_metrics and k in device_metrics[0]
+            or prefix and k in prefix]
+    out = {}
+    for k in keys:
+        parts = [torch.stack([m[k] for m in device_metrics]).sum()] \
+            if device_metrics else []
+        if prefix and k in prefix:
+            parts.insert(0, prefix[k].to(device))
+        out[k] = torch.stack(parts).sum()
+    return out
 
 
 def _prepare_run(job: str, cfg: Config, state: TrainState, batches,
@@ -775,6 +811,143 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
             export_gathered(
                 f"{t.base_dir}/checkpoints/{job}{_tree_tag(mesh, cfg)}"
                 "_final.npz", state_to_jax(named, model.cfg))
+    return TrainResult(job, logger.run, str(logger.path), ckpt_dir,
+                       loop.history, loop.preempted,
+                       step_losses=loop.step_losses, step_ms=loop.step_ms,
+                       metrics=loop.metrics, model=model)
+
+
+def _cifar_flops(model: torch.nn.Module):
+    """`flops_fn` for the cifar job: one step's products (the
+    convolutions and `fc`, forward and backward) over a host batch."""
+    def loss(m, b):
+        return classification_loss(m(nchw(b["images"]), train=True),
+                                   b["labels"])[0]
+
+    return lambda batch: compiled_flops(model, loss, batch)
+
+
+def _cast_params(model: torch.nn.Module, dtype: torch.dtype
+                 ) -> torch.nn.Module:
+    """The parameters (not the buffers) at `dtype`, as the reference's
+    policy casts `params` and leaves `batch_stats`."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(dtype)
+    return model
+
+
+def nchw(images: torch.Tensor) -> torch.Tensor:
+    """An NHWC image batch as NCHW: a view, in channels_last memory."""
+    return images.permute(0, 3, 1, 2)
+
+
+def _accuracy_cols(sums: dict) -> dict:
+    return {"accuracy": 100.0 * float(sums["correct"])
+            / max(float(sums["total"]), 1.0)}
+
+
+def _cifar_eval_cols(vm: list) -> dict:
+    """val_loss + val_accuracy; NaN when the test split gave no batch."""
+    if not vm:
+        return {"val_loss": float("nan"), "val_accuracy": float("nan")}
+    sums = _count_sums(vm, None, vm[0]["loss"].device)
+    return {"val_loss": _mean_of(vm, "loss"),
+            "val_accuracy": _accuracy_cols(sums)["accuracy"]}
+
+
+def train_cifar_model(cfg: Config, job: str = "cifar_ddp",
+                      device=None) -> TrainResult:
+    """Train ResNet-18 on CIFAR-10 (`load_cifar10` under `data_dir or
+    base_dir`: prepared recordio, pickle batches or the synthetic split)
+    in one process or on every rank of a torchrun world (None = this
+    rank's card; "cpu" = gloo): DDP, or FSDP2 when the fsdp axis is
+    > 1, with every BatchNorm's statistics global over the batch axes
+    (`models/resnet.py`). The loss is the mean CE over the global
+    batch; the CSV adds `accuracy` (the epoch's train accuracy, %) and,
+    with validation on the `test` split, `val_loss` and `val_accuracy`
+    (the reference's `:1036-1135`). Throughput counts images. The
+    checkpoints hold the BatchNorm running statistics; the export
+    `{base_dir}/checkpoints/{job}_final.npz` holds the params only, in
+    the flax layout, as the reference's does."""
+    _check_supported(cfg)
+    t = cfg.train
+    dev = None if t.dry_init else dist.setup(device)
+    mesh = _build_mesh(cfg, dev)
+    n_dev = _world(mesh)
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    is_fsdp = sizes.get(AxisName.FSDP, 1) > 1
+    policy = get_policy(cfg.optimization.precision)
+    dtype = str(policy.compute_dtype).removeprefix("torch.")
+    if t.dry_init:
+        return _dry_init(job, _cast_params(resnet18(
+            dtype=dtype, device="meta"), policy.param_dtype), mesh, is_fsdp)
+
+    splits = load_cifar10(t.data_dir or t.base_dir, seed=t.seed)
+    _say(f"[{job}] train split: {len(splits['train'])} images, "
+         f"source={splits['train'].source}")
+    batches = ShardedBatches(splits["train"].arrays(), t.batch_size, dev,
+                             shuffle=True, seed=t.seed, mesh=mesh)
+    steps_per_epoch = _steps_per_epoch(cfg, batches)
+    if steps_per_epoch <= 0:
+        raise ValueError(
+            f"zero steps per epoch: batch_size {t.batch_size} vs dataset "
+            f"of {batches.n} examples (drop_last semantics)")
+
+    model = resnet18(dtype=dtype, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(t.seed))
+    _cast_params(model, policy.param_dtype)  # the BN statistics stay fp32
+    if dev.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    sync, grad_sync = _parallelize(model, mesh, is_fsdp, model.blocks)
+    model.set_batch_groups(sync.groups)
+    optimizer = make_optimizer(
+        model.parameters(), t.learning_rate, t.weight_decay,
+        cfg.optimization.grad_clip_norm, schedule=t.lr_schedule,
+        warmup_steps=t.warmup_steps, total_steps=steps_per_epoch * t.epochs)
+    state = TrainState(step=0, model=model, optimizer=optimizer)
+
+    def loss_fn(model, batch, generator):
+        logits = model(nchw(batch["images"]), train=True)
+        loss, counts = classification_loss(logits, batch["labels"],
+                                           sync=sync)
+        return loss, {"loss": loss, **counts}
+
+    train_step = make_train_step(
+        loss_fn, grad_accum=cfg.optimization.grad_accum_steps, sync=sync,
+        grad_sync=grad_sync)
+    eval_step = val_batches = eval_cols = None
+    extra_schema: tuple = ()
+    if t.validate and "test" in splits:
+        val_batches = ShardedBatches(splits["test"].arrays(), t.batch_size,
+                                     dev, shuffle=False, seed=t.seed,
+                                     mesh=mesh)
+
+        def eval_fn(model, batch):
+            logits = model(nchw(batch["images"]), train=False)
+            loss, counts = classification_loss(logits, batch["labels"])
+            return {"loss": loss, **counts}
+
+        eval_step = make_eval_step(eval_fn, sync=sync)
+        eval_cols = _cifar_eval_cols
+        extra_schema = ("val_loss", "val_accuracy")
+
+    logger, tracer, ckpt_dir, resume_epoch, resume_step = _prepare_run(
+        job, cfg, state, batches, n_dev, dev, SCHEMAS[job] + extra_schema)
+    loop = _epoch_loop(
+        job=job, cfg=cfg, batches=batches, state=state,
+        train_step=train_step, logger=logger, n_devices=n_dev, device=dev,
+        ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
+        resume_step=resume_step, eval_step=eval_step,
+        eval_batches=val_batches, eval_cols=eval_cols, tracer=tracer,
+        metric_cols=_accuracy_cols, work={"samples": t.batch_size},
+        flops_fn=_cifar_flops(model))
+    _finish(tracer, loop)
+    if not loop.preempted:  # never clobber a final export with half a run
+        named = ckpt.gathered_state(model)  # every rank: a collective
+        if dist.is_primary():
+            export_gathered(f"{t.base_dir}/checkpoints/{job}_final.npz",
+                            resnet_state_to_jax(named)["params"])
     return TrainResult(job, logger.run, str(logger.path), ckpt_dir,
                        loop.history, loop.preempted,
                        step_losses=loop.step_losses, step_ms=loop.step_ms,

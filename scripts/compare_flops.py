@@ -9,10 +9,12 @@ compiled step (`hyperion_tpu/obs/registry.py` `compiled_flops`), which
 also counts elementwise work and the optimizer's update. This prints
 both for the same step, and their ratio, for language_ddp at its
 published widths (seq 128, batch 32, bf16 policy), llama_tiny (full
-fine-tune) and llama_tiny with LoRA, both at seq 64, batch 2; the JAX
-steps at tier "jit", whose attention XLA sees (a Pallas call's
-products are not in its count). Nothing runs a step: XLA compiles
-each for the CPU, and the port's count is shapes only.
+fine-tune) and llama_tiny with LoRA, both at seq 64, batch 2, and the
+cifar job's ResNet-18 (batch 64, bf16 policy; the convolutions are
+products in both counts); the JAX steps at tier "jit", whose attention
+XLA sees (a Pallas call's products are not in its count). Nothing runs
+a step: XLA compiles each for the CPU, and the port's count is shapes
+only.
 """
 
 from __future__ import annotations
@@ -136,8 +138,55 @@ def llama_tiny(lora: bool) -> dict:
             "jax": ref, "port": port_step_flops(model, B, T)}
 
 
+def cifar() -> dict:
+    """The cifar job's step: ResNet-18 at batch 64 under "bf16", the
+    reference's `classification_loss` over BatchNorm's batch
+    statistics."""
+    from hyperion_tpu.models.resnet import resnet18 as jax_resnet18
+    from hyperion_tpu.obs.registry import compiled_flops as jax_flops
+    from hyperion_tpu.runtime.mesh import MeshSpec, make_mesh
+    from hyperion_tpu.train.losses import classification_loss as jax_loss
+    from hyperion_tpu.train.state import create_train_state, make_optimizer
+    from hyperion_tpu.train.step import make_train_step
+    from hyperion_tpu_torch.models.resnet import resnet18
+    from hyperion_tpu_torch.obs.registry import compiled_flops
+    from hyperion_tpu_torch.train.losses import classification_loss
+    from hyperion_tpu_torch.train.trainer import nchw
+
+    B = 64
+    jmodel = jax_resnet18(dtype="bfloat16")
+    mesh = make_mesh(MeshSpec(data=1), devices=jax.devices()[:1])
+    opt = make_optimizer(1e-3)
+    state, sharding = create_train_state(jmodel.init_variables, opt, mesh,
+                                         jax.random.key(0), policy="bf16",
+                                         fsdp=False)
+
+    def loss_fn(params, batch_stats, batch, rngs):
+        logits, mut = jmodel.apply(
+            {"params": params, "batch_stats": batch_stats}, batch["images"],
+            train=True, mutable=["batch_stats"])
+        loss, counts = jax_loss(logits, batch["labels"])
+        return loss, ({"loss": loss, **counts}, mut["batch_stats"])
+
+    step = make_train_step(loss_fn, opt, sharding, donate=False)
+    batch = {"images": jnp.zeros((B, 32, 32, 3), jnp.float32),
+             "labels": jnp.zeros((B,), jnp.int32)}
+    ref = jax_flops(step, state, batch, jax.random.key(1))
+    model = resnet18(dtype="bfloat16", device="meta")
+
+    def loss(m, b):
+        return classification_loss(m(nchw(b["images"]), train=True),
+                                   b["labels"])[0]
+
+    port = compiled_flops(model, loss, {
+        "images": torch.zeros(B, 32, 32, 3),
+        "labels": torch.zeros(B, dtype=torch.int64)})
+    return {"step": "cifar ResNet-18 [64, 32, 32, 3] bf16", "jax": ref,
+            "port": port}
+
+
 def main() -> int:
-    rows = [language_ddp(), llama_tiny(False), llama_tiny(True)]
+    rows = [language_ddp(), llama_tiny(False), llama_tiny(True), cifar()]
     for r in rows:
         r["port_over_jax"] = (r["port"] / r["jax"]
                               if r["port"] and r["jax"] else None)

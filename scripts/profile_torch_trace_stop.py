@@ -61,8 +61,8 @@ def child(mode: str, iters: int) -> None:
         torch.Generator(device="cuda").manual_seed(3))
     export_gathered(ckpt, params_to_jax(src))
     del src
-    model = model_from_npz(load_gathered(ckpt), 256, dtype="float32",
-                           device="cuda")
+    model, _ = model_from_npz(load_gathered(ckpt), 256, dtype="float32",
+                              device="cuda")
     eng = Engine(model, EngineConfig(slots=4, max_len=256), device="cuda")
     eng.warmup([64])
     rng = np.random.default_rng(7)

@@ -173,8 +173,9 @@ class TestWeights:
         flat = traverse_util.flatten_dict(params, sep="/")
         path = tmp_path / "tiny.npz"
         np.savez(path, **{k: np.asarray(v) for k, v in flat.items()})
-        loaded = model_from_npz(load_gathered(path), max_len=64,
-                                dtype="float32", device="cpu")
+        loaded, cached = model_from_npz(load_gathered(path), max_len=64,
+                                        dtype="float32", device="cpu")
+        assert cached
         # the loader keeps the reference's default norm, the "xla"
         # formula, which in fp32 is the fused one op for op
         assert loaded.cfg == dataclasses.replace(model.cfg, norm_impl="xla")
@@ -186,8 +187,15 @@ class TestWeights:
         assert torch.equal(a, b)
 
     def test_other_layouts_raise(self):
-        with pytest.raises(ValueError, match="Llama exports only"):
-            model_from_npz({"tok_emb": {}}, device="cpu")
+        """MoE and pipeline exports name the slice that ports their
+        models; a layout of no model says so (a TransformerLM export
+        loads: tests/test_torch_infer.py)."""
+        with pytest.raises(ValueError, match="ROADMAP A8"):
+            model_from_npz({"stages": {}}, device="cpu")
+        with pytest.raises(ValueError, match="ROADMAP A8"):
+            model_from_npz({"tok_emb": {}, "moe_block_1": {}}, device="cpu")
+        with pytest.raises(ValueError, match="unrecognized"):
+            model_from_npz({"w": {}}, device="cpu")
 
     def test_init_params_is_seeded(self):
         cfg = tl.llama_tiny_config()

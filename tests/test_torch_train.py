@@ -31,6 +31,7 @@ import torch
 
 from hyperion_tpu.checkpoint.io import load_gathered as jax_load_gathered
 from hyperion_tpu.data.sharding import ShardedBatches as JaxBatches
+from hyperion_tpu.data.text import load_wikitext2 as jax_load
 from hyperion_tpu.data.text import synthetic_lm_split as jax_synthetic
 from hyperion_tpu.metrics.csv_logger import SCHEMAS as JAX_SCHEMAS
 from hyperion_tpu.metrics.csv_logger import CsvLogger as JaxCsvLogger
@@ -40,6 +41,7 @@ from hyperion_tpu.train.state import make_optimizer as jax_make_optimizer
 from hyperion_tpu_torch.checkpoint import integrity
 from hyperion_tpu_torch.checkpoint.io import export_gathered, load_gathered
 from hyperion_tpu_torch.config import Config
+from hyperion_tpu_torch.data.recordio import write_records
 from hyperion_tpu_torch.data.sharding import ShardedBatches
 from hyperion_tpu_torch.data.text import load_wikitext2, synthetic_lm_split
 from hyperion_tpu_torch.metrics.csv_logger import SCHEMAS, CsvLogger
@@ -120,9 +122,20 @@ class TestData:
         assert got["validation"].source.startswith("npz:")
         np.testing.assert_array_equal(got["validation"].input_ids,
                                       split.input_ids)
-        (base / "train.ids.rio").write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="A7"):
-            load_wikitext2(tmp_path)
+        # a recordio pair (data/prepare.py's) comes first, as in the
+        # reference; a truncated one falls through to the next source
+        write_records(base / "validation.ids.rio", split.input_ids)
+        write_records(base / "validation.mask.rio", split.attention_mask)
+        got = load_wikitext2(tmp_path, seq_len=8, seed=2)
+        assert got["validation"].source.startswith("recordio:")
+        np.testing.assert_array_equal(got["validation"].attention_mask,
+                                      split.attention_mask)
+        rio = base / "validation.ids.rio"
+        rio.write_bytes(rio.read_bytes()[:-3])
+        got = load_wikitext2(tmp_path, seq_len=8, seed=2)
+        assert got["validation"].source.startswith("npz:")
+        want = jax_load(tmp_path, seq_len=8, seed=2)
+        assert want["validation"].source.startswith("npz:")
 
     def test_arrow_split_without_pyarrow_raises(self, tmp_path,
                                                 monkeypatch):

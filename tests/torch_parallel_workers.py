@@ -217,3 +217,47 @@ def coord_dies(port: int, rank: int) -> None:
     c = HostCoordinator(rank, 3, port=port, timeout_s=20)
     del c
     os._exit(0)
+
+
+def cifar_run(r: dict) -> dict:
+    """A narrow ResNet (`cfg`: `ResNetConfig` kwargs) from the flax
+    `variables`, trained on `batches` (global NHWC images and labels)
+    under a (data, fsdp, model) `mesh` (None: one process) with every
+    BatchNorm's statistics global over the batch ranks, `grad_accum`
+    microbatches a step (default 1): per step the global loss
+    and the summed `correct` and `total`, and on rank 0 the final
+    params and batch_stats in the flax layout."""
+    import torch
+
+    from hyperion_tpu_torch.checkpoint.io import gathered_state
+    from hyperion_tpu_torch.models import resnet as tr
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import batch_rows
+    from hyperion_tpu_torch.train.losses import classification_loss
+    from hyperion_tpu_torch.train.step import make_train_step
+    from hyperion_tpu_torch.train.trainer import nchw
+
+    mesh = _mesh(r["mesh"])
+    model = tr.ResNet(tr.ResNetConfig(**r["cfg"]), device="cpu")
+    model.load_state_dict(tr.params_from_jax(r["variables"]))
+    state, sync, gs = _state(model, mesh, False, r["lr"], 0.0, 0.0)
+    model.set_batch_groups(sync.groups)
+
+    def loss_fn(m, b, gen):
+        loss, counts = classification_loss(m(nchw(b["images"]), train=True),
+                                           b["labels"], sync=sync)
+        return loss, {"loss": loss, **counts}
+
+    step = make_train_step(loss_fn, grad_accum=r.get("grad_accum", 1),
+                           sync=sync, grad_sync=gs)
+    out = {"losses": [], "correct": [], "total": []}
+    for images, labels in r["batches"]:
+        rows = slice(None) if mesh is None else batch_rows(mesh, len(images))
+        m = step(state, {"images": torch.from_numpy(images[rows]),
+                         "labels": torch.from_numpy(labels[rows])}, 0)
+        out["losses"].append(float(m["loss"]))
+        out["correct"].append(float(m["correct"]))
+        out["total"].append(float(m["total"]))
+    named = gathered_state(model)
+    out["state"] = tr.state_to_jax(named) if dist.is_primary() else None
+    return out
