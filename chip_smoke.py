@@ -135,13 +135,27 @@ script exits non-zero):
               the uninterrupted run's. Step p50 as a reading.
   8c. llama_fsdp  `train_llama` on Llama-2-7B `fsdp_bf16` (every
               parameter trained, bf16 throughout, AdamW moments in bf16)
-              under FSDP2 at world 1, the rank's last run: full widths and
+              under FSDP2 at world 1: full widths and
               depth, seq 4096, batch 1, remat "full", 4 steps and 1
               validation batch, no checkpoint or export (40 GB of
               state). Flash forward, dq and dk/dv, RMSNorm and its
               backward (every norm's, the first included: the embedding
               trains) and cross-entropy launches exact, every loss
               finite; step p50 and the allocator's peak as readings.
+  8cc. the seq, pipe and expert axes, in the same rank (each axis 1):
+              train_moe  `cli.main train --moe_experts 4 --moe_top_k 2
+              --moe_every 2` at language_ddp's widths (50 steps + 14
+              evals): losses fall, aux near 1, the dropped share printed,
+              LayerNorm and CE launches exact; one fp32 step of the MoE
+              LM card against CPU (`moe_fp32_step`). train_ulysses
+              train_long's config at `--attention-impl ulysses`: losses
+              and val_loss bit-identical to train_long's (the all-to-alls
+              are the identity), flash launches exact. train_ring the
+              same in fp32, 4 steps + 4 evals, at ring and at xla: losses
+              within RING_RTOL, no flash launch. pipeline_lm
+              `PipelinedLM(n_stages=2, n_microbatches=4)` at language_ddp's
+              widths: weights and logits bit-identical to a TransformerLM
+              from the same init, one train step.
   8d. dry_init  `cli.main train --model llama --llama_size 7b
               --dry-init --mesh 1,4,1,1` in this process: the memory
               plan on an abstract fsdp-4 mesh (no process group, no
@@ -250,8 +264,9 @@ script exits non-zero):
               launched.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, load, train, train_resume, train_long,
-              llama_train, train_fsdp, llama_fsdp) at that
-              run's shapes, with its launches on the run, its error
+              llama_train, train_fsdp, llama_fsdp, train_moe,
+              train_ulysses, train_ring, train_ring_xla, pipeline_lm) at
+              that run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
 Kernel times are device times with host dispatch taken out: a run of
@@ -1037,6 +1052,10 @@ def phase_kernels() -> dict:
         torch.bfloat16)
     recs["train_long"]["fused_layernorm"] = check_ln(
         "train_long_32768x256", x, w, b, None, "warp", timing=True)
+    # and in fp32, the train_ring run's (and its xla baseline's)
+    recs["train_ring"] = {"fused_layernorm": check_ln(
+        "train_ring_32768x256_fp32", x.float(), w, b, None, "warp",
+        timing=True)}
     del x
     # cross-entropy at the train step's [32, 127, 50257] fp32 logits view
     # (4064 rows), at the train_long step's [8, 4095, 50257] one (32,760
@@ -1626,7 +1645,8 @@ def phase_train_long(smi: str) -> dict:
         "loss_first10": float(losses[:10].mean()),
         "loss_last10": float(losses[-10:].mean()),
         "val_loss": res.history[-1].extra.get("val_loss"),
-        "step_ms": step_ms.tolist(), "step_ms_p50": p50,
+        "losses": losses.tolist(), "step_ms": step_ms.tolist(),
+        "step_ms_p50": p50,
         "tokens_per_s": tokens / (p50 / 1e3), "peak_mem_gb": peak / 1e9,
         "launches": launches,
         "launches_expected": {
@@ -3590,6 +3610,176 @@ def fsdp_argv(base: Path, device: str = "cuda", steps: int = FSDP_STEPS,
             str(base / "no_data"), "--device", device, *extra]
 
 
+# the MoE run's flags: language_ddp's widths, 4 experts, top-2, every
+# second block sparse
+MOE_FLAGS = ("--moe_experts", "4", "--moe_top_k", "2", "--moe_every", "2")
+RING_STEPS = 4
+
+
+def axes_argv(base: Path, device: str, *extra: str) -> list[str]:
+    """`train --model language_ddp` at jit+pallas, one epoch, the
+    synthetic splits under `base`, then `extra` (steps, widths, the
+    axes' flags)."""
+    return ["--model", "language_ddp", "--epochs", "1", "--compile-tier",
+            "jit+pallas", "--base_dir", str(base), "--data_dir",
+            str(base / "no_data"), "--device", device, *extra]
+
+
+def pipeline_lm_run(device: str, batch: int) -> dict:
+    """`PipelinedLM(n_stages=2, n_microbatches=4)` at language_ddp's
+    widths (2 layers, one a stage; bf16 compute over fp32 masters,
+    jit+pallas norms) on this rank, against a TransformerLM from the
+    same seeded init: its weights equal the stacked ones leaf for leaf,
+    and the logits of a seeded ragged batch [batch, 128] must be
+    bit-identical. Then one train step (the language trainer's layout
+    and loss at world 1) with the kernel counts set to 0 before it."""
+    from hyperion_tpu_torch.models.pipeline_lm import (
+        PipelinedLM,
+        PipelineLMConfig,
+    )
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.runtime.mesh import (
+        AxisName,
+        MeshSpec,
+        make_mesh,
+        set_active_mesh,
+    )
+    from hyperion_tpu_torch.train.losses import lm_loss
+    from hyperion_tpu_torch.train.state import TrainState, make_optimizer
+    from hyperion_tpu_torch.train.step import make_train_step
+    from hyperion_tpu_torch.train.trainer import _parallelize
+
+    mesh = make_mesh(MeshSpec(), device)  # world 1: every axis 1
+    set_active_mesh(mesh)
+    c = simple_lm_config(max_len=128, dropout=0.1, dtype="bfloat16",
+                         attention_impl="auto", norm_impl="pallas")
+    pipe = PipelinedLM(PipelineLMConfig(c, n_stages=2, n_microbatches=4),
+                       device=device).init_params(
+        torch.Generator(device=device).manual_seed(SEED))
+    plain = TransformerLM(c, device=device).init_params(
+        torch.Generator(device=device).manual_seed(SEED))
+    lps = pipe.pipe_cfg.layers_per_stage
+    weights_equal = all(
+        torch.equal(getattr(plain, f"block_{i}").get_parameter(n),
+                    pipe.stages.get_parameter(n)[i // lps, i % lps])
+        for i in range(c.n_layers) for n in pipe.stage_names) and all(
+        torch.equal(p, pipe.get_parameter(k))
+        for k, p in plain.named_parameters() if not k.startswith("block_"))
+    rng = np.random.default_rng(SEED + 21)
+    ids = torch.from_numpy(rng.integers(0, c.vocab_size, (batch, 128)))
+    lens = rng.integers(64, 129, batch)
+    mask = torch.from_numpy(
+        (np.arange(128)[None] < lens[:, None]).astype(np.int64))
+    ids, mask = ids.to(device), mask.to(device)
+    with torch.no_grad():
+        lp, lt = pipe(ids, padding_mask=mask), plain(ids, padding_mask=mask)
+    rec = {"weights_equal": weights_equal,
+           "logits_bit_identical": bool(torch.equal(lp, lt)),
+           "logits_max_abs": float((lp - lt).abs().max()),
+           "logits_shape": list(lp.shape), "n_stages": 2,
+           "n_microbatches": 4, "layers_per_stage": lps}
+    del lp, lt, plain
+    sync, grad_sync = _parallelize(pipe, mesh, False, pipe.blocks,
+                                   AxisName.LM_REPLICAS)
+    state = TrainState(0, pipe, make_optimizer(pipe.parameters(), 2e-4))
+
+    def loss_fn(model, b, gen):
+        loss = lm_loss(model(b["input_ids"], padding_mask=b["attention_mask"],
+                             deterministic=gen is None, generator=gen),
+                       b, "pallas", sync)
+        return loss, {"loss": loss}
+
+    step = make_train_step(loss_fn, dropout=True, sync=sync,
+                           grad_sync=grad_sync)
+    before = {k: v.detach().clone() for k, v in pipe.state_dict().items()}
+    _zero_all_launches()
+    m = step(state, {"input_ids": ids, "attention_mask": mask}, SEED)
+    rec.update(step_loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               launches=_all_launch_counts(),
+               stage_leaves_moved=all(
+                   not torch.equal(before[f"stages.{n}"],
+                                   pipe.stages.get_parameter(n))
+                   for n in pipe.stage_names))
+    set_active_mesh(None)
+    return rec
+
+
+def axes_run(root: Path, device: str, name: str, *extra: str) -> dict:
+    """`cli.main`'s language_ddp job on `axes_argv` + `extra` under
+    `root / name`, every count set to 0 just before it; the run's
+    readings (the MoE LM's routing counts too)."""
+    from hyperion_tpu_torch.cli.main import build_parser, run_job
+    from hyperion_tpu_torch.models.moe_lm import MoELM
+
+    on_card = device == "cuda"
+    base = root / name
+    args = build_parser().parse_args(axes_argv(base, device, *extra))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _zero_all_launches()
+    t0 = time.perf_counter()
+    res = run_job(args, "language_ddp")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(res.csv_path) as f:
+        rows = list(csv.DictReader(f))
+    spans = [json.loads(x) for x in
+             (base / "telemetry.jsonl").read_text().splitlines()]
+    m = res.model
+    rec = {"wall_s": wall, "losses": res.step_losses,
+           "step_ms": res.step_ms, "launches": _all_launch_counts(),
+           "eval_batches": sum(r.get("batches", 0) for r in spans
+                               if r.get("name") == "eval"),
+           "csv": rows, "layers": m.cfg.n_layers,
+           "val_loss": res.history[-1].extra.get("val_loss")
+           if res.history else None,
+           "attention_impl": m.cfg.attention_impl,
+           "dtype": m.cfg.dtype, "seq_len": m.cfg.max_len,
+           "batch": args.batch_size,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+           if on_card else None,
+           "gauges": gauge_readings(res)}
+    if isinstance(m, MoELM):
+        rec.update(dropped_share=m.dropped_share(),
+                   moe_blocks=len(m.moe_blocks),
+                   experts=m.moe_cfg.moe.n_experts,
+                   top_k=m.moe_cfg.moe.top_k)
+    res.model = None
+    return rec
+
+
+def axes_runs(root: Path, device: str, steps: str, batch: str,
+              seq: str) -> dict:
+    """The seq, pipe and expert runs of the sharded rank (a process
+    group at world 1, so each axis is 1): the MoE LM (`MOE_FLAGS`,
+    `steps` of `batch` at seq 128), train_long's config at Ulysses
+    (seq `seq`), the same in fp32 at ring and at xla (RING_STEPS), and
+    `pipeline_lm_run`. On the CPU the long runs take `batch` and 2
+    steps for ring and xla."""
+    on_card = device == "cuda"
+    long_batch = str(LONG_BATCH) if on_card else batch
+    rec = {"moe": axes_run(root, device, "moe", "--steps-per-epoch", steps,
+                           "--batch_size", batch, *MOE_FLAGS)}
+    rec["ulysses"] = axes_run(
+        root, device, "ulysses", "--steps-per-epoch",
+        str(LONG_STEPS) if on_card else steps, "--seq_len", seq,
+        "--batch_size", long_batch, "--attention-impl", "ulysses")
+    for impl in ("ring", "xla"):
+        rec[impl] = axes_run(
+            root, device, impl, "--steps-per-epoch",
+            str(RING_STEPS if on_card else 2), "--seq_len", seq,
+            "--batch_size", long_batch, "--precision", "fp32",
+            "--attention-impl", impl)
+    rec["pipeline"] = pipeline_lm_run(device, int(batch))
+    return rec
+
+
 def worker_sharded(out: str, root: str, device: str, steps: str,
                    batch: str, sigterm: str, model: str, seq: str) -> dict:
     """One torchrun rank, one process group, every sharded run in turn,
@@ -3597,7 +3787,9 @@ def worker_sharded(out: str, root: str, device: str, steps: str,
     `cli.main`'s job runner on `fsdp_argv` (language_fsdp under FSDP2),
     uninterrupted; the same stopped by `sigterm@step=N` and resumed
     from its sharded checkpoint; `train_llama` fsdp_bf16 at
-    `llama_train_config` (LoRA off, no checkpoint or export)."""
+    `llama_train_config` (LoRA off, no checkpoint or export); then
+    `axes_runs` (the MoE LM, Ulysses, ring and its xla baseline, the
+    pipelined LM)."""
     import torch.distributed as tdist
 
     from hyperion_tpu_torch.cli.main import build_parser, run_job
@@ -3658,6 +3850,7 @@ def worker_sharded(out: str, root: str, device: str, steps: str,
                             f"sigterm@step={sigterm}")
         rec["resumed"] = lm(root / "stopped")
         rec["llama"] = llama()
+        rec.update(axes_runs(root, device, steps, batch, seq))
         return rec
     finally:
         dist.cleanup()
@@ -3677,7 +3870,8 @@ def sharded_runs(device: str = "cuda", steps: int = FSDP_STEPS,
 
     root = Path(__file__).resolve().parent / FSDP_DIR
     shutil.rmtree(root, ignore_errors=True)
-    for name in ("sharded", "stopped", "plain"):
+    for name in ("sharded", "stopped", "plain", "moe", "ulysses", "ring",
+                 "xla"):
         (root / name / "no_data").mkdir(parents=True)
     gc.collect()
     if device == "cuda":
@@ -3818,6 +4012,267 @@ def phase_train_fsdp(smi: str, runs: dict, device: str = "cuda",
                         f"{rec['launches_expected']}")
     if problems:
         raise AssertionError("train_fsdp: " + "; ".join(problems))
+    return rec
+
+
+def moe_fp32_step(batch: int = 8, seed: int = SEED) -> dict:
+    """One MoE LM step (the train_moe widths: d 256, 4 heads, 2 layers,
+    ff 1024, GPT-2 vocab, 4 experts top-2 in the second block; dropout
+    off) from the same seeded weights and batch on the card and on the
+    CPU: fp32 at jit+pallas (the card runs the LayerNorm and CE kernels,
+    the CPU their plain versions), then the same in float64 with the
+    plain ops. The fp32 logits and loss are held to the cifar step's
+    bounds (`phase_cifar`); the gradients are compared per leaf in float64
+    (max|card - cpu| / max|cpu|; the k_proj biases' against the largest
+    gradient of all, `grad_rel`), where the router stays fp32 by the
+    reference's design (`ops/moe.py`), so float64 holds the rest of the
+    network only."""
+    from hyperion_tpu_torch.models.moe_lm import MoELM, MoELMConfig
+    from hyperion_tpu_torch.models.transformer_lm import simple_lm_config
+    from hyperion_tpu_torch.ops.moe import MoEConfig
+    from hyperion_tpu_torch.train.losses import next_token_loss
+
+    assert not torch.backends.cuda.matmul.allow_tf32  # main() turns it off
+    rng = np.random.default_rng(seed + 31)
+    ids = torch.from_numpy(rng.integers(0, 50257, (batch, 128)))
+    lens = rng.integers(64, 129, batch)
+    mask = torch.from_numpy(
+        (np.arange(128)[None] < lens[:, None]).astype(np.int64))
+    out, weights = {}, None
+    for dtype, impl in (("float32", "pallas"), ("float64", "xla")):
+        base = simple_lm_config(max_len=128, dropout=0.0, dtype=dtype,
+                                norm_impl=impl)
+        cfg = MoELMConfig(base, MoEConfig(
+            n_experts=4, top_k=2, d_model=256, ff_dim=1024,
+            activation=base.activation), moe_every=2)
+        for dev in ("cuda", "cpu"):
+            model = MoELM(cfg, device=dev)
+            if weights is None:
+                weights = {k: v.cpu() for k, v in model.init_params(
+                    torch.Generator(device=dev).manual_seed(seed))
+                    .state_dict().items()}
+            model.load_state_dict(weights)
+            model.to(getattr(torch, dtype))
+            logits, aux = model.apply_with_aux(ids.to(dev),
+                                               padding_mask=mask.to(dev))
+            lm = next_token_loss(logits, ids.to(dev), mask.to(dev),
+                                 impl=impl)
+            loss = lm + aux
+            loss.backward()
+            out[dev, dtype] = {
+                "logits": logits.detach().cpu().double(),
+                "loss": float(loss), "aux": float(aux),
+                "dropped": model.dropped_share(),
+                "grads": {k: p.grad.detach().cpu().double()
+                          for k, p in model.named_parameters()}}
+            del model, logits
+    card, cpu = out["cuda", "float32"], out["cpu", "float32"]
+
+    def grad_rel(a: dict, b: dict) -> tuple[float, str]:
+        """The largest over leaves of max|a - b| over the leaf's largest
+        |b|; each k_proj bias, whose gradient is zero in exact
+        arithmetic (a constant on every key's score leaves softmax
+        unchanged: rounding noise on either device, ROADMAP C), over
+        the largest of every leaf."""
+        top = max(float(g.abs().max()) for g in b.values())
+        rel = {k: float((a[k] - g).abs().max())
+               / max(top if k.endswith("k_proj.bias")
+                     else float(g.abs().max()), 1e-300)
+               for k, g in b.items()}
+        leaf = max(rel, key=rel.get)
+        return rel[leaf], leaf
+
+    g64, g64_leaf = grad_rel(out["cuda", "float64"]["grads"],
+                             out["cpu", "float64"]["grads"])
+    return {
+        "batch": batch, "tf32": False,
+        "logits_max_abs": float((card["logits"] - cpu["logits"]).abs().max()),
+        "logits_scale": float(cpu["logits"].abs().max()),
+        "loss_abs": abs(card["loss"] - cpu["loss"]), "loss": cpu["loss"],
+        "aux_card": card["aux"], "aux_cpu": cpu["aux"],
+        "dropped_card": card["dropped"], "dropped_cpu": cpu["dropped"],
+        "grad_leaves": len(cpu["grads"]),
+        "grad_zero_leaves": sum(float(g.abs().max()) == 0.0
+                                for g in out["cpu", "float64"]["grads"]
+                                .values()),
+        "grad64_rel_max": g64, "grad64_rel_leaf": g64_leaf,
+        "grad32_card_vs_cpu": grad_rel(card["grads"], cpu["grads"])}
+
+
+def lm_launches_expected(steps: int, evals: int, flash_layers: int = 0
+                         ) -> dict:
+    """Every counted kernel's launches in a 2-layer language_ddp-width
+    run at jit+pallas: LayerNorm 5 a forward (two per block and the
+    final norm; its backward runs no kernel), the CE forward a step or
+    eval batch and its backward a step, and with `flash_layers` the
+    flash forward once a layer a forward, dq and dk/dv once a layer a
+    step."""
+    return {"flash_attention_fwd": flash_layers * (steps + evals),
+            "flash_attention_dq": flash_layers * steps,
+            "flash_attention_dkv": flash_layers * steps,
+            "fused_rmsnorm": 0, "fused_rmsnorm_bwd": 0,
+            "fused_softmax_xent_fwd": steps + evals,
+            "fused_softmax_xent_bwd": steps,
+            "fused_layernorm": 5 * (steps + evals), "paged_attention": 0}
+
+
+def phase_train_moe(smi: str, runs: dict, steps: int = FSDP_STEPS) -> dict:
+    """The MoE LM through `cli.main train --moe_experts 4 --moe_top_k 2
+    --moe_every 2` at language_ddp's widths (seq 128, batch 32, bf16,
+    jit+pallas), one epoch of 50 steps and the validation batches, in
+    the sharded rank (world 1: the expert all-to-alls are the
+    identity). The losses fall, the aux loss (the CSV's aux_loss over
+    aux_weight 0.01) is finite and near 1, the share of top-k picks
+    dropped for capacity is printed, and the LayerNorm and CE launches
+    are exact. Then `moe_fp32_step`."""
+    r = runs["moe"]
+    losses = np.asarray(r["losses"])
+    row = r["csv"][-1]
+    aux = float(row["aux_loss"]) / 0.01
+    rec = {"phase": "train_moe", "nvidia_smi": smi, "wall_s": r["wall_s"],
+           "steps": len(losses), "eval_batches": r["eval_batches"],
+           "experts": r["experts"], "top_k": r["top_k"],
+           "moe_blocks": r["moe_blocks"], "layers": r["layers"],
+           "loss_first10": float(losses[:10].mean()),
+           "loss_last10": float(losses[-10:].mean()),
+           "lm_loss": float(row["lm_loss"]), "aux": aux,
+           "val_loss": float(row["val_loss"]),
+           "dropped_share": r["dropped_share"],
+           "step_ms_p50": float(np.percentile(r["step_ms"], 50))
+           if r["step_ms"] else None,
+           "peak_mem_gb": r["peak_mem_gb"], "launches": r["launches"],
+           "launches_expected": lm_launches_expected(
+               len(losses), r["eval_batches"])}
+    rec["fp32_step"] = fp32 = moe_fp32_step()
+    emit(rec)
+    print(f"train_moe: {100 * r['dropped_share']:.2f}% of the last "
+          "step's top-2 picks dropped for capacity", flush=True)
+    problems = []
+    if (len(losses), r["eval_batches"], r["moe_blocks"]) != (steps, 14, 1):
+        problems.append(f"{len(losses)} steps, {r['eval_batches']} evals, "
+                        f"{r['moe_blocks']} MoE blocks")
+    if not (np.isfinite(losses).all() and rec["loss_last10"]
+            < rec["loss_first10"]):
+        problems.append("losses not finite or not falling")
+    if not (math.isfinite(aux) and 0.9 <= aux <= 1.5):
+        problems.append(f"aux {aux} not near 1")
+    if r["launches"] != rec["launches_expected"]:
+        problems.append(f"launch counts {r['launches']} != "
+                        f"{rec['launches_expected']}")
+    if not (fp32["logits_max_abs"] <= 1e-4 * fp32["logits_scale"]
+            and fp32["loss_abs"] <= 1e-5 * fp32["loss"]
+            and fp32["grad64_rel_max"] <= 1e-5
+            and fp32["grad_zero_leaves"] == 0):
+        problems.append(f"fp32 step card vs cpu {fp32}")
+    if problems:
+        raise AssertionError("train_moe: " + "; ".join(problems))
+    return rec
+
+
+def phase_train_ulysses(smi: str, runs: dict, long_rec: dict) -> dict:
+    """train_long's config (seq 4096, batch 8, 30 steps and 30 eval
+    batches) at `--attention-impl ulysses` in the sharded rank: at seq 1
+    the all-to-alls are the identity and the local attention is the
+    flash kernels' (the tier maps ulysses to "ulysses:pallas"), so the
+    losses are bit-identical to the train_long run (attention "auto",
+    the flash kernels, in this process), and every launch is exact."""
+    r = runs["ulysses"]
+    rec = {"phase": "train_ulysses", "nvidia_smi": smi, "wall_s": r["wall_s"],
+           "attention_impl": r["attention_impl"], "steps": len(r["losses"]),
+           "eval_batches": r["eval_batches"],
+           "losses_bit_identical": r["losses"] == long_rec["losses"],
+           "val_loss": r["val_loss"], "val_loss_long": long_rec["val_loss"],
+           "step_ms_p50": float(np.percentile(r["step_ms"], 50)),
+           "step_ms_p50_long": long_rec["step_ms_p50"],
+           "peak_mem_gb": r["peak_mem_gb"], "launches": r["launches"],
+           "launches_expected": lm_launches_expected(
+               len(r["losses"]), r["eval_batches"], r["layers"])}
+    emit(rec)
+    problems = []
+    if (rec["steps"], rec["eval_batches"], rec["attention_impl"]) != (
+            LONG_STEPS, LONG_STEPS, "ulysses:pallas"):
+        problems.append(f"{rec['steps']} steps, {rec['eval_batches']} "
+                        f"evals, {rec['attention_impl']}")
+    if not rec["losses_bit_identical"] \
+            or rec["val_loss"] != rec["val_loss_long"]:
+        problems.append("losses differ from the pallas run's")
+    if r["launches"] != rec["launches_expected"]:
+        problems.append(f"launch counts {r['launches']} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("train_ulysses: " + "; ".join(problems))
+    return rec
+
+
+RING_RTOL = 1e-4
+
+
+def phase_train_ring(smi: str, runs: dict) -> dict:
+    """The same config at `--attention-impl ring` and at `xla`, both
+    fp32 (TF32 off), RING_STEPS steps and as many eval batches, in the
+    sharded rank: every loss within RING_RTOL relative of the xla run's
+    (the ring's fp32 online softmax against the dense einsum's softmax;
+    the two reduce in different orders), the flash kernels launched 0
+    times (the ring's inner loop is plain matmuls, as the reference's
+    is XLA einsums), the LayerNorm and CE launches exact."""
+    ring, xla = runs["ring"], runs["xla"]
+    a, b = np.asarray(ring["losses"]), np.asarray(xla["losses"])
+    rec = {"phase": "train_ring", "nvidia_smi": smi,
+           "wall_s": ring["wall_s"], "xla_wall_s": xla["wall_s"],
+           "dtype": ring["dtype"], "steps": len(a),
+           "eval_batches": ring["eval_batches"],
+           "losses": a.tolist(), "xla_losses": b.tolist(),
+           "max_rel": float(np.max(np.abs(a - b) / np.abs(b))),
+           "rtol": RING_RTOL,
+           "val_loss": float(ring["csv"][-1]["val_loss"]),
+           "xla_val_loss": float(xla["csv"][-1]["val_loss"]),
+           "step_ms_p50": float(np.percentile(ring["step_ms"], 50)),
+           "xla_step_ms_p50": float(np.percentile(xla["step_ms"], 50)),
+           "peak_mem_gb": ring["peak_mem_gb"],
+           "xla_peak_mem_gb": xla["peak_mem_gb"],
+           "launches": ring["launches"], "xla_launches": xla["launches"],
+           "launches_expected": lm_launches_expected(
+               len(a), ring["eval_batches"])}
+    emit(rec)
+    problems = []
+    if (len(a), ring["dtype"], ring["attention_impl"]) != (
+            RING_STEPS, "float32", "ring"):
+        problems.append(f"{len(a)} steps {ring['dtype']} "
+                        f"{ring['attention_impl']}")
+    if len(b) != len(a) or not np.isfinite(a).all() \
+            or rec["max_rel"] > RING_RTOL:
+        problems.append(f"ring {a} vs xla {b}")
+    for name, r in (("ring", ring), ("xla", xla)):
+        if r["launches"] != rec["launches_expected"]:
+            problems.append(f"{name} launch counts {r['launches']} != "
+                            f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("train_ring: " + "; ".join(problems))
+    return rec
+
+
+def phase_pipeline_lm(smi: str, runs: dict) -> dict:
+    """`pipeline_lm_run`'s readings: weights equal to the TransformerLM's
+    from the same init, logits bit-identical, one train step (finite
+    loss, every stage leaf updated, LayerNorm 5 and CE 1 + 1
+    launches)."""
+    r = runs["pipeline"]
+    rec = {"phase": "pipeline_lm", "nvidia_smi": smi, **r,
+           "launches_expected": lm_launches_expected(1, 0)}
+    emit(rec)
+    problems = []
+    if not (r["weights_equal"] and r["logits_bit_identical"]):
+        problems.append(f"not the TransformerLM's: weights "
+                        f"{r['weights_equal']}, logits max abs "
+                        f"{r['logits_max_abs']}")
+    if not (math.isfinite(r["step_loss"]) and r["stage_leaves_moved"]):
+        problems.append(f"train step {r['step_loss']} moved "
+                        f"{r['stage_leaves_moved']}")
+    if r["launches"] != rec["launches_expected"]:
+        problems.append(f"launch counts {r['launches']} != "
+                        f"{rec['launches_expected']}")
+    if problems:
+        raise AssertionError("pipeline_lm: " + "; ".join(problems))
     return rec
 
 
@@ -4317,7 +4772,7 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  train_rec: dict, long_rec: dict, llama_rec: dict,
                  resume_rec: dict, kernel_recs: dict,
                  flash_recs: dict, fsdp_rec: dict,
-                 llama_fsdp_rec: dict) -> dict:
+                 llama_fsdp_rec: dict, axes_recs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -4334,7 +4789,10 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     [4096, 4096] rows; the same records at the sharded runs of the same
     shapes (train_fsdp: language_fsdp under FSDP2; llama_fsdp: the 7B
     full fine-tune, whose RMSNorm backward is the variant with dw), with
-    those runs' launches. `run` names the run."""
+    those runs' launches; and the seq, pipe and expert runs' (train_moe
+    and pipeline_lm at the train step's shapes, train_ulysses at
+    train_long's with its flash kernels, train_ring and its xla
+    baseline at train_long's in fp32). `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -4351,6 +4809,10 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
         torch.bfloat16, timing=True)
     csrc = "hyperion_tpu_torch/ops/csrc/"
     pallas = "hyperion_tpu/ops/pallas/"
+    ring_recs = [("fused_layernorm",
+                  kernel_recs["train_ring"]["fused_layernorm"]),
+                 *[(k, v) for k, v in kernel_recs["train_long"].items()
+                   if k.startswith("fused_softmax_xent")]]
     where = {"paged_attention": ("paged_attention.cu",
                                  "paged_attention.py:105"),
              "fused_rmsnorm": ("fused_norm.cu", "fused_norm.py:135"),
@@ -4380,7 +4842,17 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
             ("train_fsdp", fsdp_rec, list(kernel_recs["train"].items())),
             ("llama_fsdp", llama_fsdp_rec,
              [*kernel_recs["llama_fsdp"].items(),
-              *flash_recs["llama_train"].items()]))
+              *flash_recs["llama_train"].items()]),
+            ("train_moe", axes_recs["train_moe"],
+             list(kernel_recs["train"].items())),
+            ("train_ulysses", axes_recs["train_ulysses"],
+             [*kernel_recs["train_long"].items(),
+              *flash_recs["train_long"].items()]),
+            ("train_ring", axes_recs["train_ring"], ring_recs),
+            ("train_ring_xla", {"launches": axes_recs["train_ring"][
+                "xla_launches"]}, ring_recs),
+            ("pipeline_lm", axes_recs["pipeline_lm"],
+             list(kernel_recs["train"].items())))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
@@ -4426,6 +4898,12 @@ def main() -> int:
     phase_dist(dev["nvidia_smi"], runs)
     fsdp_rec = phase_train_fsdp(dev["nvidia_smi"], runs)
     llama_fsdp_rec = phase_llama_fsdp(dev["nvidia_smi"], runs)
+    axes_recs = {
+        "train_moe": phase_train_moe(dev["nvidia_smi"], runs),
+        "train_ulysses": phase_train_ulysses(dev["nvidia_smi"], runs,
+                                             long_rec),
+        "train_ring": phase_train_ring(dev["nvidia_smi"], runs),
+        "pipeline_lm": phase_pipeline_lm(dev["nvidia_smi"], runs)}
     phase_dry_init(dev["nvidia_smi"])
     phase_prepare(dev["nvidia_smi"])
     phase_cifar(dev["nvidia_smi"])
@@ -4452,7 +4930,7 @@ def main() -> int:
     phase_infer(dev["nvidia_smi"])
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
-                      flash_recs, fsdp_rec, llama_fsdp_rec))
+                      flash_recs, fsdp_rec, llama_fsdp_rec, axes_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -31,7 +31,9 @@ Several ranks, as the reference launched them:
         hyperion_tpu_torch.cli.main train --device cpu ...    # gloo
 
 `--mesh` sets the axes (default: all data, or all fsdp for
-language_fsdp and a full Llama fine-tune); `--dry-init` prints the
+language_fsdp and a full Llama fine-tune; seq runs with
+`--attention-impl ring` or `ulysses`, pipe with `--pipe_microbatches`,
+expert with `--moe_experts`); `--dry-init` prints the
 TrainState's memory plan on the mesh and trains nothing (with explicit
 axes it needs no process group and no device).
 """
@@ -101,9 +103,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "and AdamW state) on the mesh, and train nothing")
     p.add_argument("--mesh", default=None,
                    help="axis sizes data,fsdp,model,seq[,pipe[,expert]] "
-                        "(e.g. 2,2,1,1); default: all-data, or all-fsdp "
-                        "for language_fsdp and a full Llama fine-tune; "
-                        "seq, pipe and expert > 1 are ROADMAP A8")
+                        "(e.g. 2,2,1,1 or 2,1,1,1,4); default: all-data, "
+                        "or all-fsdp for language_fsdp and a full Llama "
+                        "fine-tune")
+    p.add_argument("--pipe_microbatches", type=int, default=0,
+                   help="GPipe microbatches when the mesh has a pipe "
+                        "axis (0 = one per stage)")
+    p.add_argument("--moe_experts", type=int, default=0,
+                   help="language jobs: >0 swaps in the MoE LM with this "
+                        "many experts (shard them with --mesh's expert "
+                        "axis)")
+    p.add_argument("--moe_top_k", type=int, default=2)
+    p.add_argument("--moe_every", type=int, default=2,
+                   help="every k-th block of the MoE LM is sparse")
     p.add_argument("--no-validate", action="store_true",
                    help="skip the per-epoch validation pass")
     p.add_argument("--no-telemetry", action="store_true",
@@ -150,7 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention-impl",
                    choices=["xla", "pallas", "auto", "ring", "ulysses"],
                    default=None,
-                   help="override just attention (ring/ulysses: A8)")
+                   help="override just attention; ring/ulysses = "
+                        "sequence parallelism over the mesh's seq axis")
     p.add_argument("--train-split", default="train",
                    help="corpus split LM jobs optimize on; 'test' trains "
                         "on the committed real WikiText-2 test split")
@@ -200,7 +213,11 @@ def make_config(args, job: str):
     o.remat = args.remat or ("full" if needs_remat else "none")
     o.compile_tier = args.compile_tier
     o.attention_impl = args.attention_impl
+    t.moe_experts = args.moe_experts
+    t.moe_top_k = args.moe_top_k
+    t.moe_every = args.moe_every
     dcfg = cfg.distributed
+    dcfg.pipe_microbatches = args.pipe_microbatches
     if args.mesh:
         sizes = [int(x) for x in args.mesh.split(",")]
         if len(sizes) not in (4, 5, 6):

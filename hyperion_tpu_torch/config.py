@@ -1,10 +1,8 @@
 """The trainers' configuration — the `train`, `optimization` and
 `distributed` fields of `hyperion_tpu/config.py` that the port's
-language and Llama trainers read, with the reference's defaults.
-
-`moe_experts` stays for a feature the port does not have yet: asking
-for it raises `NotImplementedError` naming its ROADMAP item instead of
-being ignored.
+language and Llama trainers read, with the reference's defaults: the
+MoE knobs (`moe_experts`, `moe_top_k`, `moe_every`), the six mesh axes
+and the pipeline's microbatch count among them.
 """
 
 from __future__ import annotations
@@ -52,22 +50,25 @@ class TrainConfig:
     async_checkpoint: bool = True    # epoch saves write in the background
     chaos: str = ""                  # fault plan (testing/chaos.py)
     profile_dir: str = ""            # torch.profiler trace of one epoch
-    moe_experts: int = 0             # not ported: set, it raises (A8)
+    moe_experts: int = 0             # >0: language jobs use the MoE LM
+    moe_top_k: int = 2
+    moe_every: int = 2               # every k-th block is sparse
     dry_init: bool = False           # plan the TrainState's memory only
 
 
 @dataclasses.dataclass
 class DistributedConfig:
     """The mesh's axis sizes (`runtime/mesh.py`): -1 on one axis means
-    the rest of the world; seq, pipe and expert > 1 are the next slice
-    (ROADMAP A8) and raise."""
+    the rest of the world; an axis > 1 needs as many ranks (a single
+    process with one raises)."""
 
     data: int = -1
     fsdp: int = 1
     model: int = 1
     seq: int = 1
     pipe: int = 1
-    expert: int = 1
+    pipe_microbatches: int = 0       # 0 = one per stage (GPipe M >= S)
+    expert: int = 1                  # expert-parallel shards (ops.moe)
 
     def mesh_spec(self) -> MeshSpec:
         return MeshSpec(data=self.data, fsdp=self.fsdp, model=self.model,

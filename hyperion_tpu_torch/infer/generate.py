@@ -13,7 +13,8 @@ fixed-width buffer per new token, with the same contract.
 `main` is the reference's inference CLI (`python -m
 hyperion_tpu_torch.infer --ckpt X.npz --prompt ...`): `model_from_npz`
 rebuilds the model from a gathered export, Llama exports decode through
-`generate` and TransformerLM exports through `generate_recompute`,
+`generate` and TransformerLM and MoE LM exports through
+`generate_recompute` (pipeline exports raise, as the reference's do),
 `--draft-ckpt` through `infer/speculative.py`. The reference wraps the
 whole decode in one `jit`; the port runs it eagerly, on the card unless
 `--device cpu`.
@@ -270,27 +271,73 @@ def _lm_from_npz(params: dict, device):
     return model
 
 
+def _moe_from_npz(params: dict, moe_top_k: int, device):
+    """An MoE LM whose shape matches a gathered export, its weights
+    loaded (`_infer_moe_from_npz` of the reference): the sparse block
+    pattern and the expert bank from the weights, top_k from the caller
+    (it is not in the weights), the default config's activation."""
+    from hyperion_tpu_torch.models.moe_lm import MoELM, MoELMConfig
+    from hyperion_tpu_torch.models.transformer_lm import (
+        params_from_jax,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.ops.moe import MoEConfig
+
+    vocab, d_model = params["tok_emb"]["embedding"].shape
+    moe_idx = sorted(int(k.split("_")[-1]) for k in params
+                     if k.startswith("moe_block_"))
+    dense_idx = [int(k.split("_")[-1]) for k in params
+                 if k.startswith("block_")]
+    # blocks (i+1) % moe_every == 0 are sparse: the first sparse index
+    # gives the cadence
+    moe_every = moe_idx[0] + 1
+    E, _, moe_ff = params[f"moe_block_{moe_idx[0]}"]["experts"]["wi"].shape
+    first = (params[f"block_{dense_idx[0]}"] if dense_idx
+             else params[f"moe_block_{moe_idx[0]}"])
+    if not 1 <= moe_top_k <= E:
+        raise ValueError(f"--moe-top-k {moe_top_k} out of range for this "
+                         f"export's {E} experts (need 1..{E}, matching "
+                         "training)")
+    base = simple_lm_config(
+        vocab_size=vocab, d_model=d_model,
+        n_layers=len(moe_idx) + len(dense_idx),
+        ff_dim=(params[f"block_{dense_idx[0]}"]["fc1"]["kernel"].shape[1]
+                if dense_idx else moe_ff),
+        n_heads=first["attn"]["q_proj"]["kernel"].shape[1],
+        max_len=params["pos_emb"]["embedding"].shape[0], dropout=0.0)
+    moe = MoEConfig(n_experts=E, top_k=moe_top_k, d_model=d_model,
+                    ff_dim=moe_ff, activation=base.activation)
+    model = MoELM(MoELMConfig(base=base, moe=moe, moe_every=moe_every),
+                  device=device)
+    model.load_state_dict(params_from_jax(params, base), strict=True)
+    return model
+
+
 def model_from_npz(params: dict, max_len: int = 4096, *,
-                   dtype: str = "bfloat16", device=None):
+                   dtype: str = "bfloat16", device=None,
+                   moe_top_k: int = 2):
     """(model, cached) for a gathered export, its weights loaded: a
-    Llama (cached: True, the KV-cache decode of `generate`) or a
-    TransformerLM (False: `generate_recompute`). A Llama's max_len is
+    Llama (cached: True, the KV-cache decode of `generate`), a
+    TransformerLM or an MoE LM (False: `generate_recompute`; the MoE's
+    routing `moe_top_k` is not in its weights). A Llama's max_len is
     not recoverable from its weights (RoPE has no table), so it is an
     argument, and `dtype` is its compute dtype (the reference's loader
-    gives bfloat16); a TransformerLM takes both from its export. MoE
-    and pipeline exports raise: those models are ROADMAP A8."""
+    gives bfloat16); a TransformerLM takes both from its export.
+    Pipeline exports raise, as the reference's CLI rejects them."""
     from hyperion_tpu_torch.models.llama import (
         Llama,
         LlamaConfig,
         params_from_jax,
     )
 
-    if "stages" in params or any(k.startswith("moe_block_")
-                                 for k in params):
-        kind = "pipeline" if "stages" in params else "MoE"
-        raise ValueError(f"{kind} checkpoint: the port does not build "
-                         "that model yet (ROADMAP A8)")
+    if "stages" in params:
+        raise ValueError(
+            "pipeline checkpoints are not supported by the generation "
+            "CLI — export a dense TransformerLM, MoELM, or Llama "
+            "checkpoint")
     if "embed_tokens" not in params:
+        if any(k.startswith("moe_block_") for k in params):
+            return _moe_from_npz(params, moe_top_k, device), False
         if "tok_emb" in params:
             return _lm_from_npz(params, device), False
         raise ValueError(f"unrecognized checkpoint layout (top-level keys: "
@@ -351,9 +398,8 @@ def main(argv=None) -> int:
     p.add_argument("--draft-k", type=int, default=4,
                    help="speculative proposals per verify round")
     p.add_argument("--moe-top-k", type=int, default=2,
-                   help="MoE exports' routing top_k: ignored until "
-                        "ROADMAP A8, since an MoE export raises before "
-                        "it is read")
+                   help="MoE exports: routing top_k (not recoverable from "
+                        "weights — match training)")
     p.add_argument("--device", default="cuda",
                    help="torch device (the plain PyTorch path runs with "
                         "--device cpu)")
@@ -375,7 +421,8 @@ def main(argv=None) -> int:
     with tracer.span("load") as ld:
         tok = ByteBPE.load(args.tokenizer_dir)
         params = load_gathered(args.ckpt)
-        model, cached = model_from_npz(params, args.max_len, device=dev)
+        model, cached = model_from_npz(params, args.max_len, device=dev,
+                                       moe_top_k=args.moe_top_k)
         ld.set(ckpt=args.ckpt, cached=cached)
     draft_model = None
     if args.draft_ckpt:

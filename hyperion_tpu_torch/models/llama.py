@@ -371,6 +371,22 @@ def paged_cache_block_bytes(cfg: LlamaConfig, block_size: int,
             * cfg.head_dim * itemsize)
 
 
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table. Under tensor parallelism the table is
+    a DTensor split over `model` on its d columns (the reference's
+    `embed_tokens/embedding` rule, P(None, model)): each rank looks up
+    its columns and the pieces are gathered, so every rank holds whole
+    rows; the gradient goes back to each rank's columns."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(table, DTensor):
+        return table[ids]
+    rows = table.to_local()[ids]
+    out = DTensor.from_local(rows, table.device_mesh, [Shard(-1)],
+                             run_check=False)
+    return out.redistribute(table.device_mesh, [Replicate()]).to_local()
+
+
 class Llama(nn.Module):
     """input_ids [B, T] → logits fp32 [B, T, vocab] (cache-free, with
     gradients), or (logits, cache) with a cache (no gradients).
@@ -442,17 +458,31 @@ class Llama(nn.Module):
             with torch.no_grad():
                 return self._decode(input_ids, cache, cache_index,
                                     block_tables)
+        from hyperion_tpu_torch.runtime.mesh import seq_shard
+
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        if ids.shape[1] > self.cfg.max_len:
-            raise ValueError(f"sequence length {ids.shape[1]} exceeds "
+        T = ids.shape[1]
+        # under a seq axis the ids are this rank's slice of each row:
+        # RoPE takes global positions, the attention must be
+        # sequence-parallel
+        i, n = seq_shard()
+        if n > 1 and self.cfg.attention_impl.partition(":")[0] not in (
+                "ring", "ulysses"):
+            raise ValueError(
+                f"a seq axis of {n} shards each row's positions: "
+                f"attention_impl {self.cfg.attention_impl!r} would attend "
+                "within one shard; use 'ring' or 'ulysses'")
+        if T * n > self.cfg.max_len:
+            raise ValueError(f"sequence length {T * n} exceeds "
                              f"max_len {self.cfg.max_len} — the rope table "
                              "has no rows past max_len")
         if padding_mask is not None:
             padding_mask = torch.as_tensor(padding_mask, device=self.device)
-        x = self.embed_tokens[ids]
+        x = embed_lookup(self.embed_tokens, ids)
         policy = self.cfg.remat_policy
         for layer in self.layers:
-            x = apply_remat(layer, policy)(x, self.rope, padding_mask)
+            x = apply_remat(layer, policy)(x, self.rope, padding_mask, None,
+                                           i * T)
         x = self.final_norm(x)
         return self.lm_head(x).float()
 
@@ -465,7 +495,7 @@ class Llama(nn.Module):
             cache_index = torch.as_tensor(cache_index, device=self.device)
             if cache_index.dim() == 0:
                 cache_index = int(cache_index)
-        x = self.embed_tokens[ids]
+        x = embed_lookup(self.embed_tokens, ids)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, self.rope, None, layer_cache, cache_index,
                       block_tables)

@@ -252,23 +252,9 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "TransformerLM":
         """The flax initializers, drawn from `generator` (on the
-        parameters' device) in parameter order: xavier-uniform attention
-        projections, lecun-normal (truncated) MLP, normal(0.02)
-        embeddings and head; zero biases, unit norm scales."""
+        parameters' device) in parameter order (`init_lm_param`)."""
         for name, p in self.named_parameters():
-            mod, leaf = name.rsplit(".", 1)
-            if leaf == "embedding" or mod == "lm_head" and leaf == "weight":
-                p.normal_(0.0, 0.02, generator=generator)
-            elif leaf == "weight" and mod.split(".")[-1].endswith("_proj"):
-                nn.init.xavier_uniform_(p, generator=generator)
-            elif leaf == "weight":  # fc1 / fc2: lecun_normal
-                std = math.sqrt(1.0 / p.shape[1]) / .87962566103423978
-                nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-            elif leaf == "scale":
-                p.fill_(1.0)
-            else:
-                p.zero_()
+            init_lm_param(name, p, generator)
         return self
 
     def forward(self, input_ids, padding_mask=None, deterministic: bool = True,
@@ -276,28 +262,75 @@ class TransformerLM(nn.Module):
         """`deterministic=False` applies dropout, drawing from
         `generator`."""
         c = self.cfg
-        T = input_ids.shape[1]
-        if T > c.max_len:
-            raise ValueError(
-                f"sequence length {T} exceeds max_len {c.max_len} — the "
-                "positional table has no rows past max_len")
-        if deterministic or c.dropout == 0.0:
-            def drop(h):
-                return h
-        else:
-            if generator is None:
-                raise ValueError("dropout needs a torch.Generator")
-
-            def drop(h):
-                return dropout(h, c.dropout, generator)
-        ids = input_ids.to(self.device).long()
-        x = self.tok_emb(ids) + self.pos_emb(
-            torch.arange(T, device=self.device))[None]
-        x = drop(x)
+        drop = dropout_fn(c, deterministic, generator)
+        x = embed(self, input_ids, drop)
         for block in self.blocks:
             x = _remat_block(block, c.remat_policy, generator)(
                 x, padding_mask, drop)
         return self.lm_head(self.ln_f(x)).float()
+
+
+@torch.no_grad()
+def init_lm_param(name: str, p: torch.Tensor,
+                  generator: torch.Generator) -> None:
+    """One parameter of the LMs by the flax initializer its name calls
+    for: normal(0.02) embeddings and head; xavier-uniform attention
+    projections and MoE routers and expert kernels (over the last two
+    dims, leading dims stacked); lecun-normal (truncated) MLP; zero
+    biases, unit norm scales."""
+    mod, leaf = name.rsplit(".", 1)
+    last = mod.split(".")[-1]
+    if leaf == "embedding" or last == "lm_head" and leaf == "weight":
+        p.normal_(0.0, 0.02, generator=generator)
+    elif leaf == "weight" and last.endswith("_proj") \
+            or leaf in ("router", "wi", "wo"):
+        limit = math.sqrt(6.0 / (p.shape[-2] + p.shape[-1]))
+        p.uniform_(-limit, limit, generator=generator)
+    elif leaf == "weight":  # fc1 / fc2: lecun_normal over [out, in]
+        std = math.sqrt(1.0 / p.shape[-1]) / .87962566103423978
+        nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+    elif leaf == "scale":
+        p.fill_(1.0)
+    else:
+        p.zero_()
+
+
+def dropout_fn(c: TransformerLMConfig, deterministic: bool,
+               generator: torch.Generator | None):
+    """The blocks' dropout: the identity when deterministic (or rate
+    0), else flax `nn.Dropout` drawing from `generator`."""
+    if deterministic or c.dropout == 0.0:
+        return lambda h: h
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator")
+    return lambda h: dropout(h, c.dropout, generator)
+
+
+def embed(model: nn.Module, input_ids, drop) -> torch.Tensor:
+    """Token plus positional embeddings of `model` (its `tok_emb`,
+    `pos_emb`, `cfg` and `device`), dropout applied. Under a seq axis
+    the ids are this rank's slice of each row, and the positions are
+    global (`runtime/mesh.py` `seq_shard`), so the attention must be
+    sequence-parallel ("ring" or "ulysses")."""
+    from hyperion_tpu_torch.runtime.mesh import seq_shard
+
+    c = model.cfg
+    T = input_ids.shape[1]
+    i, n = seq_shard()
+    if n > 1 and c.attention_impl.partition(":")[0] not in ("ring",
+                                                            "ulysses"):
+        raise ValueError(
+            f"a seq axis of {n} shards each row's positions: attention_impl "
+            f"{c.attention_impl!r} would attend within one shard; use "
+            "'ring' or 'ulysses'")
+    if T * n > c.max_len:
+        raise ValueError(
+            f"sequence length {T * n} exceeds max_len {c.max_len} — the "
+            "positional table has no rows past max_len")
+    ids = input_ids.to(model.device).long()
+    pos = torch.arange(i * T, (i + 1) * T, device=model.device)
+    return drop(model.tok_emb(ids) + model.pos_emb(pos)[None])
 
 
 def _remat_block(block: Block, policy: str,

@@ -359,6 +359,9 @@ def compiled_flops(model, loss_fn, batch: dict) -> float | None:
         cfg = dataclasses.replace(model.cfg, **{
             k: "xla" for k in ("attention_impl", "norm_impl")
             if hasattr(model.cfg, k)})
+        # the MoE and pipelined LMs wrap the base config in their own
+        if hasattr(model, "with_base"):
+            cfg = model.with_base(cfg)
         twin = type(model)(cfg, device="meta")
         live = dict(model.named_parameters())
         for name, p in twin.named_parameters():

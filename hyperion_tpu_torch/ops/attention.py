@@ -10,8 +10,11 @@ plain ops, in the input dtype: q scaled in that dtype, the q·k product
 in it, masked logits set to `NEG_INF`, softmax in fp32 and cast back,
 then the p·v product. `impl="pallas"` is the flash kernel
 (`ops/flash_attention.py`), and `impl="auto"` resolves per geometry
-exactly as the reference does; the sequence-parallel impls raise until
-the seq axis is ported, the next slice (ROADMAP A8).
+exactly as the reference does. `impl="ring"` and `"ulysses[:local]"`
+are sequence parallelism over the active mesh's seq axis
+(`ops/ring_attention.py`, `ops/ulysses.py`, whose local attention is
+this function at `local`: "ulysses:pallas" runs the flash kernels);
+with no active mesh they raise, as the reference does.
 """
 
 from __future__ import annotations
@@ -80,11 +83,33 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
         return flash_attention(q, k, v, causal=causal,
                                padding_mask=padding_mask)
-    strategy = impl.partition(":")[0]
+    # "ulysses:pallas": the sequence-parallel strategy and the local
+    # attention it runs per rank (the ring has its own inner loop)
+    strategy, _, local_impl = impl.partition(":")
     if strategy in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"impl={impl!r} needs the sequence-parallel mesh runtime, not "
-            "ported yet (ROADMAP A8)")
+        from hyperion_tpu_torch.runtime.mesh import (
+            AxisName,
+            active_mesh,
+            axis_sizes,
+        )
+
+        mesh = active_mesh()
+        if mesh is None:
+            raise ValueError(
+                f"impl={impl!r} needs an active mesh — trainers register "
+                "theirs via runtime.mesh.set_active_mesh")
+        group = (mesh.get_group(AxisName.SEQ)
+                 if axis_sizes(mesh)[AxisName.SEQ] > 1 else None)
+        if strategy == "ring":
+            from hyperion_tpu_torch.ops.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, group, causal=causal,
+                                  padding_mask=padding_mask)
+        from hyperion_tpu_torch.ops.ulysses import ulysses_attention
+
+        return ulysses_attention(q, k, v, group, causal=causal,
+                                 padding_mask=padding_mask,
+                                 impl=local_impl or "xla")
     if impl != "xla":
         raise ValueError(f"unknown attention impl {impl!r}")
 

@@ -38,7 +38,13 @@ tests need no process group. The appliers then lay a live model out:
     or with no divisible dim: LayerNorm scales, biases, the vocab-50257
     lm_head bias) stay out of FSDP (`ignored_params`) and are averaged
     by `GradSync` instead.
-  * `GradSync`   — the DDP gradient all-reduce over the batch axes.
+  * `apply_stacked` — the pipelined LM's stage leaves over `pipe` and
+    the MoE experts over `expert` as DTensors split on their stacking
+    dim (`stages/` and `experts/` claim dim 0 as in the reference; the
+    TP rules anchor past the stacking dims).
+  * `GradSync`   — the gradient all-reduces the step leaves to the
+    trainer: DDP's over the batch axes, and the sums over the seq,
+    pipe and expert ranks that share a loss.
 """
 
 from __future__ import annotations
@@ -88,14 +94,15 @@ def _pad_spec(spec: tuple, rank: int) -> tuple:
 
 
 def _fsdp_augment(entries: tuple, shape: tuple, fsdp_size: int,
-                  min_size: int) -> tuple:
+                  min_size: int, skip: tuple = ()) -> tuple:
     """Shard the largest still-unsharded dim divisible by the fsdp axis
-    (ties: the later dim); leaves under `min_size` stay replicated (the
-    reference's size-based auto-wrap policy)."""
+    (ties: the later dim), never a dim in `skip`; leaves under
+    `min_size` stay replicated (the reference's size-based auto-wrap
+    policy)."""
     if fsdp_size == 1 or int(np.prod(shape)) < min_size:
         return entries
     candidates = [(dim, d) for d, (dim, e) in enumerate(zip(shape, entries))
-                  if e is None and dim % fsdp_size == 0]
+                  if e is None and dim % fsdp_size == 0 and d not in skip]
     if not candidates:
         return entries
     _, best = max(candidates)
@@ -113,28 +120,51 @@ def partition_specs(shapes: dict[str, tuple], mesh,
                     fsdp: bool = True,
                     fsdp_min_size: int = 2**14) -> dict[str, tuple]:
     """{flax path: spec tuple} (trailing Nones dropped, `()` for
-    replicated) for {flax path: flax shape}: every leaf replicated, the
-    TP rules claiming dims on `model` when that axis is > 1 (an
-    indivisible claim raises), then the FSDP sweep when `fsdp` and the
-    fsdp axis is > 1. `mesh`: a DeviceMesh, an AbstractMesh or a dict
-    of axis sizes."""
+    replicated) for {flax path: flax shape}: every leaf replicated;
+    `stages/` leaves ([S, lps, ...]) claim dim 0 on `pipe` when that
+    axis is > 1 and `experts/` leaves ([E, ...]) dim 0 on `expert`,
+    the TP rules then anchor on the dims past those (an indivisible
+    claim raises); then the FSDP sweep when `fsdp` and the fsdp axis is
+    > 1, never on a stage leaf's layer dim. `mesh`: a DeviceMesh, an
+    AbstractMesh or a dict of axis sizes."""
     sizes = _sizes(mesh)
     tp_active = sizes.get(AxisName.MODEL, 1) > 1
+    pipe_size = sizes.get(AxisName.PIPE, 1)
+    expert_size = sizes.get(AxisName.EXPERT, 1)
     fsdp_size = sizes.get(AxisName.FSDP, 1) if fsdp else 1
     specs = {}
     for path, shape in shapes.items():
         shape = tuple(shape)
-        entries = (None,) * len(shape)
+        lead: tuple = ()
+        if pipe_size > 1 and re.match(r"(?:.*/)?stages/", path) and shape:
+            if shape[0] != pipe_size:
+                raise ValueError(
+                    f"{path}: leading dim {shape[0]} != {pipe_size}-stage "
+                    "pipe mesh axis (stages/ leaves must stack one slice "
+                    "per pipeline stage)")
+            lead = (AxisName.PIPE,) + ((None,) if len(shape) > 1 else ())
+        elif expert_size > 1 and re.match(r"(?:.*/)?experts/", path) \
+                and shape:
+            if shape[0] % expert_size:
+                raise ValueError(
+                    f"{path}: {shape[0]} experts not divisible by the "
+                    f"{expert_size}-way expert mesh axis")
+            lead = (AxisName.EXPERT,)
+        body = shape[len(lead):]
+        entries = (None,) * len(body)
         if tp_active and tp_rules:
             rule = match_rule(path, tp_rules)
             if rule is not None:
-                entries = _pad_spec(rule, len(shape))
+                entries = _pad_spec(rule, len(body))
                 bad = [(d, a) for d, a in enumerate(entries)
-                       if a is not None and shape[d] % sizes[a]]
+                       if a is not None and body[d] % sizes[a]]
                 if bad:
                     raise ValueError(f"{path}: shape {shape} not divisible "
                                      f"by mesh axes {bad}")
-        entries = _fsdp_augment(entries, shape, fsdp_size, fsdp_min_size)
+        entries = lead + entries
+        skip = (1,) if lead[:1] == (AxisName.PIPE,) else ()
+        entries = _fsdp_augment(entries, shape, fsdp_size, fsdp_min_size,
+                                skip)
         while entries and entries[-1] is None:
             entries = entries[:-1]
         specs[path] = entries
@@ -149,8 +179,16 @@ class JaxView:
 
 
 def jax_view(name: str, shape: tuple, head_dim: int) -> JaxView:
-    """A torch parameter of the port's TransformerLM or Llama as the
-    JAX package holds it (see the module docstring)."""
+    """A torch parameter of the port's TransformerLM, MoELM,
+    PipelinedLM or Llama as the JAX package holds it (see the module
+    docstring). A `stages.` leaf of the pipelined LM is one block's
+    parameter stacked [S, lps, ...]: the block's view past those two
+    dims."""
+    if name.startswith("stages."):
+        body = jax_view(name[len("stages."):], tuple(shape)[2:], head_dim)
+        return JaxView("stages/" + body.path, tuple(shape)[:2] + body.shape,
+                       (0, 1, *(None if d is None else d + 2
+                                for d in body.dims)))
     parts = name.split(".")
     if parts[0] == "layers":                      # Llama's layers.i
         parts = [f"layer_{parts[1]}", *parts[2:]]
@@ -183,11 +221,20 @@ def jax_view(name: str, shape: tuple, head_dim: int) -> JaxView:
 
 @dataclasses.dataclass(frozen=True)
 class Layout:
-    """The torch dims of one parameter split over `model` and `fsdp`
-    (None: not split over that axis)."""
+    """The torch dims of one parameter split over `model`, `fsdp`,
+    `pipe` (a stage leaf's dim 0) and `expert` (an expert leaf's dim 0);
+    None: not split over that axis."""
 
     model: int | None = None
     fsdp: int | None = None
+    pipe: int | None = None
+    expert: int | None = None
+
+    @property
+    def stacked(self) -> bool:
+        """A stage or expert leaf split over its stacking dim: laid out
+        by `apply_stacked`, not by the TP styles or FSDP2."""
+        return self.pipe is not None or self.expert is not None
 
 
 def torch_layouts(named_shapes: dict[str, tuple], head_dim: int, mesh,
@@ -211,7 +258,8 @@ def torch_layouts(named_shapes: dict[str, tuple], head_dim: int, mesh,
                                  f"{v.path} splits a head_dim the torch "
                                  "layout merges")
             dims[axis] = v.dims[d]
-        out[name] = Layout(dims.get(AxisName.MODEL), dims.get(AxisName.FSDP))
+        out[name] = Layout(dims.get(AxisName.MODEL), dims.get(AxisName.FSDP),
+                           dims.get(AxisName.PIPE), dims.get(AxisName.EXPERT))
     return out
 
 
@@ -289,19 +337,33 @@ def _tp_style(kind: str, dims: dict[str, int | None]):
 def apply_tp(model, mesh, layouts: dict[str, Layout]) -> None:
     """Tensor parallelism over the mesh's `model` axis (see the module
     docstring). Every module holding a model-split parameter must be a
-    projection or an embedding the styles know."""
+    projection or an embedding the styles know; the one root parameter
+    split over `model` is Llama's `embed_tokens`, a DTensor over its d
+    columns that `models.llama.embed_lookup` reads. Stage and expert
+    leaves are `apply_stacked`'s."""
+    from torch import nn
+    from torch.distributed.tensor import Shard, distribute_tensor
     from torch.distributed.tensor.parallel import parallelize_module
 
     by_module: dict[str, dict[str, int | None]] = {}
     for name, lay in layouts.items():
+        if lay.stacked:
+            continue
         mod, _, leaf = name.rpartition(".")
         by_module.setdefault(mod, {})[leaf] = lay.model
+    tp = mesh[AxisName.MODEL]
     plan = {}
     for mod, dims in by_module.items():
         if all(d is None for d in dims.values()):
             continue
         kind = mod.rpartition(".")[2]
-        if kind in COLUMN:
+        if mod == "" and {k for k, d in dims.items() if d is not None} \
+                == {"embed_tokens"}:
+            p = model.embed_tokens
+            model.embed_tokens = nn.Parameter(
+                distribute_tensor(p.data, tp, [Shard(dims["embed_tokens"])]),
+                requires_grad=p.requires_grad)
+        elif kind in COLUMN:
             plan[mod] = _tp_style("column", dims)
         elif kind in ROW:
             plan[mod] = _tp_style("row", dims)
@@ -311,7 +373,48 @@ def apply_tp(model, mesh, layouts: dict[str, Layout]) -> None:
             raise NotImplementedError(
                 f"tensor parallelism of {mod or 'the root'!r} "
                 f"({sorted(dims)}) is not ported")
-    parallelize_module(model, mesh[AxisName.MODEL], plan)
+    parallelize_module(model, tp, plan)
+
+
+def apply_stacked(model, mesh, layouts: dict[str, Layout]) -> dict:
+    """Lay out the stage leaves ([S, lps, ...], `stages.*`) and the
+    expert leaves ([E, ...], `*.experts.*`) that their layouts split on
+    `pipe` or `expert`: each becomes a DTensor over the submesh of the
+    axes it is split on — its stacking dim over that axis, and a stage
+    leaf also on the dims its layout gives `fsdp` and `model`, which the
+    pipelined LM gathers inside the tick (`models/pipeline_lm.py`); an
+    expert leaf stays whole over every other axis. Each rank keeps its
+    own slice (no collective: every rank holds the same initial
+    values). Returns {parameter: the axes it is split on}, for
+    `GradSync`."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, Shard
+
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    out = {}
+    for name, lay in layouts.items():
+        if not lay.stacked:
+            continue
+        dims = ({AxisName.PIPE: lay.pipe, AxisName.FSDP: lay.fsdp,
+                 AxisName.MODEL: lay.model} if lay.pipe is not None
+                else {AxisName.EXPERT: lay.expert})
+        dims = {a: d for a, d in dims.items() if d is not None}
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name)
+        p = getattr(mod, leaf)
+        local = p.data
+        for a, d in dims.items():
+            local = local.chunk(sizes[a], dim=d)[coord[a]]
+        # over the submesh of its split axes (in the mesh's order): the
+        # DTensor stays whole over every other axis
+        names = tuple(a for a in mesh.mesh_dim_names if a in dims)
+        new = nn.Parameter(DTensor.from_local(
+            local.contiguous(), mesh[names], [Shard(dims[a]) for a in names],
+            run_check=False), requires_grad=p.requires_grad)
+        setattr(mod, leaf, new)
+        out[new] = tuple(dims)
+    return out
 
 
 def data_parallel_mesh(mesh):
@@ -325,11 +428,11 @@ def data_parallel_mesh(mesh):
 def apply_fsdp(model, mesh, layouts: dict[str, Layout], blocks) -> list:
     """FSDP2 `fully_shard` on each of `blocks`, then on the root, over
     `data_parallel_mesh(mesh)`. Returns the parameters left out of FSDP
-    (replicated by the layouts while the fsdp axis is > 1), in the
-    model's parameter order (the same on every rank), whose gradients
-    `GradSync` averages. On a size-1 fsdp axis every
-    parameter is sharded (trivially), so FSDP2's collectives run at
-    world 1 too."""
+    (replicated by the layouts while the fsdp axis is > 1, and the
+    stacked leaves `apply_stacked` laid out), in the model's parameter
+    order (the same on every rank), whose gradients `GradSync` reduces.
+    On a size-1 fsdp axis every other parameter is sharded (trivially),
+    so FSDP2's collectives run at world 1 too."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -340,7 +443,7 @@ def apply_fsdp(model, mesh, layouts: dict[str, Layout], blocks) -> list:
         named = dict(model.named_parameters())
         ids = {id(p): n for n, p in named.items()}
         ignored = {p for n, p in named.items()
-                   if split and layouts[n].fsdp is None}
+                   if layouts[n].stacked or split and layouts[n].fsdp is None}
 
         def place(p):
             d = layouts[ids[id(p)]].fsdp
@@ -365,34 +468,41 @@ def local(t):
 
 
 class GradSync:
-    """The DDP gradient average over the batch axes' groups (data, then
-    fsdp, each > 1), of `params`' gradients: summed in one flat buffer
-    per dtype and divided by the data-parallel size. `params` must come
-    in the same order on every rank. A no-op when no batch axis is
-    > 1."""
+    """The gradient reductions the step's backward leaves to the
+    trainer: `entries` holds (parameter, groups, divisor) — each
+    parameter's gradient is summed over `groups` (the replica axes it
+    is not split on, `train/trainer.py` `_parallelize`) and divided by
+    `divisor` (the replica count its loss share was scaled by), in one
+    flat buffer per (groups, divisor, dtype). The DDP average over the
+    batch axes is the case of every parameter over the data and fsdp
+    groups, divided by their size. Entries must come in the same order
+    on every rank. A parameter that requires a gradient and got none
+    (a pipeline stage's unused embedding) gets zeros first, so every
+    rank's buffers agree."""
 
-    def __init__(self, params, groups: list, world: int):
-        self.params = list(params)
-        self.groups = groups
-        self.world = world
+    def __init__(self, entries: list[tuple]):
+        self.entries = [(p, tuple(g), float(div)) for p, g, div in entries]
 
     def __call__(self) -> None:
         import torch
         import torch.distributed as tdist
         from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-        if not self.groups:
-            return
-        by_dtype: dict = {}
-        for p in self.params:
-            if p.grad is not None:
-                g = local(p.grad)
-                by_dtype.setdefault(g.dtype, []).append(g)
-        for grads in by_dtype.values():
+        buckets: dict = {}
+        for p, groups, div in self.entries:
+            if not groups and div == 1.0:
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            g = local(p.grad)
+            key = (tuple(id(x) for x in groups), div, g.dtype)
+            buckets.setdefault(key, (groups, div, []))[2].append(g)
+        for groups, div, grads in buckets.values():
             flat = _flatten_dense_tensors(grads)
-            for group in self.groups:
+            for group in groups:
                 tdist.all_reduce(flat, group=group)
-            flat.div_(self.world)
+            if div != 1.0:
+                flat.div_(div)
             with torch.no_grad():
                 for g, s in zip(grads, _unflatten_dense_tensors(flat, grads)):
                     g.copy_(s)

@@ -6,16 +6,24 @@ Axes, as in the JAX package:
   fsdp   parameter, gradient and optimizer-state sharding (FSDP
          FULL_SHARD); also shards the batch
   model  tensor parallelism (Megatron column/row splits)
-  seq, pipe, expert   ring/Ulysses attention, GPipe and MoE: the next
-         slice of the port (ROADMAP A8); asking for any of them > 1
-         raises.
+  seq    sequence parallelism: each rank holds a slice of every row's
+         positions; ring or Ulysses attention over the seq group
+  pipe   pipeline parallelism: each rank is one GPipe stage
+  expert expert parallelism: each rank holds n_experts / expert of the
+         MoE experts, and tokens reach them by all-to-all
 
 `make_mesh` lays the process group's ranks out over the six named axes
 with `init_device_mesh` (rank = row-major coordinate, as `jax.make_mesh`
 orders devices); `make_abstract_mesh` is a shape-only mesh for planning
 (`--dry-init`) that needs no process group. `batch_rows` is the
 counterpart of `batch_sharding`: the rows of a global batch that this
-rank holds, split over (data, fsdp) in that order.
+rank holds, split over (data, fsdp) in that order (the language jobs
+split them over `expert` too, `LM_ROWS`: the tokens an expert rank
+sends to the other experts are its own); `seq_cols` the positions of
+each row a seq rank holds. `axis_groups` / `axes_size` / `axes_index`
+read a set of axes (the step's reductions, `train/step.py` `BatchSync`),
+and `seq_shard` is the active mesh's seq coordinate, from which the
+models take global positions.
 """
 
 from __future__ import annotations
@@ -36,6 +44,12 @@ class AxisName:
     # the batch is split over every data-like axis: fsdp consumes batch
     # too (FSDP is data-parallel in its activation flow)
     BATCH = (DATA, FSDP)
+    # the axes a language job splits its batch rows over: an expert rank
+    # routes its own tokens to every expert
+    LM_ROWS = (DATA, FSDP, EXPERT)
+    # the axes a language job's loss and gradients are reduced over:
+    # every axis but `model`, whose ranks compute one loss together
+    LM_REPLICAS = (DATA, FSDP, SEQ, PIPE, EXPERT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,17 +90,6 @@ class MeshSpec:
                 self.expert)
 
 
-def check_ported(spec: MeshSpec) -> None:
-    """Raise for an axis this slice of the port does not lay out."""
-    later = {a: getattr(spec, a) for a in (AxisName.SEQ, AxisName.PIPE,
-                                           AxisName.EXPERT)
-             if getattr(spec, a) not in (1,)}
-    if later:
-        raise NotImplementedError(
-            f"mesh axes {later}: sequence, pipeline and expert "
-            "parallelism are the next slice of the port (ROADMAP A8)")
-
-
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:
     """A mesh's axis names and sizes, with no ranks behind them: what
@@ -110,7 +113,6 @@ def make_abstract_mesh(spec: MeshSpec) -> AbstractMesh:
     if -1 in spec.shape:
         raise ValueError(
             f"abstract mesh needs explicit axis sizes (no -1): {spec}")
-    check_ported(spec)
     return AbstractMesh(spec)
 
 
@@ -132,7 +134,6 @@ def make_mesh(spec: MeshSpec | None = None, device_type: str | None = None):
         raise RuntimeError("make_mesh needs a process group "
                            "(runtime/dist.py setup())")
     spec = (spec or MeshSpec()).resolve(tdist.get_world_size())
-    check_ported(spec)
     if device_type is None:
         device_type = ("cuda" if tdist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(device_type, spec.shape,
@@ -169,39 +170,64 @@ class activate_mesh:
         set_active_mesh(self.prev)
 
 
-def data_parallel_size(mesh) -> int:
+def axes_size(mesh, axes=AxisName.BATCH) -> int:
     s = axis_sizes(mesh)
-    return s[AxisName.DATA] * s[AxisName.FSDP]
+    return math.prod(s[a] for a in axes)
 
 
-def global_batch_size(per_device: int, mesh) -> int:
-    return per_device * data_parallel_size(mesh)
-
-
-def data_parallel_index(mesh) -> int:
-    """This rank's shard of the batch: its (data, fsdp) coordinate,
-    data-major, as `P(("data", "fsdp"))` orders the shards."""
+def axes_index(mesh, axes=AxisName.BATCH) -> int:
+    """This rank's row-major coordinate over `axes` (in that order)."""
     s = axis_sizes(mesh)
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    return coord[AxisName.DATA] * s[AxisName.FSDP] + coord[AxisName.FSDP]
+    i = 0
+    for a in axes:
+        i = i * s[a] + coord[a]
+    return i
 
 
-def batch_rows(mesh, global_batch: int) -> slice:
-    """The rows of a [global_batch, ...] batch this rank holds; ranks
-    that differ only on `model` (or another non-batch axis) hold the
-    same rows."""
-    n = data_parallel_size(mesh)
+def axis_index(mesh, axis: str) -> int:
+    return axes_index(mesh, (axis,))
+
+
+def axis_groups(mesh, axes=AxisName.BATCH) -> list:
+    """The process groups of those of `axes` larger than one, in order:
+    a sum over them all is a sum over the ranks that differ on them."""
+    s = axis_sizes(mesh)
+    return [mesh.get_group(a) for a in axes if s[a] > 1]
+
+
+def batch_rows(mesh, global_batch: int, axes=AxisName.BATCH) -> slice:
+    """The rows of a [global_batch, ...] batch this rank holds, split
+    over `axes`; ranks that differ only on another axis hold the same
+    rows."""
+    n = axes_size(mesh, axes)
     if global_batch % n:
         raise ValueError(f"global_batch {global_batch} not divisible by the "
-                         f"mesh's {n} batch shards (data*fsdp axes of "
+                         f"mesh's {n} batch shards ({'*'.join(axes)} axes of "
                          f"{axis_sizes(mesh)})")
     local = global_batch // n
-    i = data_parallel_index(mesh)
+    i = axes_index(mesh, axes)
     return slice(i * local, (i + 1) * local)
 
 
-def batch_groups(mesh) -> list:
-    """The process groups of the batch axes larger than one, data first:
-    a sum over them all is a sum over the data-parallel ranks."""
-    s = axis_sizes(mesh)
-    return [mesh.get_group(a) for a in AxisName.BATCH if s[a] > 1]
+def seq_cols(mesh, seq_len: int) -> slice:
+    """The positions [i*T/n, (i+1)*T/n) of each row that this rank's seq
+    coordinate i of n holds."""
+    n = axis_sizes(mesh)[AxisName.SEQ]
+    if seq_len % n:
+        raise ValueError(f"seq_len {seq_len} not divisible by seq={n}")
+    local = seq_len // n
+    i = axis_index(mesh, AxisName.SEQ)
+    return slice(i * local, (i + 1) * local)
+
+
+def seq_shard() -> tuple[int, int]:
+    """(index, size) of this rank on the active mesh's seq axis: (0, 1)
+    without an active mesh or with seq 1. A model given positions
+    [0, T) of a seq-sharded batch holds global positions
+    [index*T, (index+1)*T)."""
+    mesh = active_mesh()
+    if mesh is None or isinstance(mesh, AbstractMesh):
+        return 0, 1
+    n = axis_sizes(mesh)[AxisName.SEQ]
+    return (axis_index(mesh, AxisName.SEQ), n) if n > 1 else (0, 1)

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from hyperion_tpu_torch.ops.fused_ce import (
+    fused_softmax_xent,
     fused_softmax_xent_plain,
     fused_softmax_xent_shifted,
 )
@@ -31,10 +32,24 @@ from hyperion_tpu_torch.ops.fused_ce import (
 
 def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor | None = None,
-                    impl: str = "xla", sync=None) -> torch.Tensor:
+                    impl: str = "xla", sync=None,
+                    targets: tuple | None = None) -> torch.Tensor:
     """Causal-LM loss. logits [B, T, V]; input_ids and attention_mask
     [B, T] (mask 1 = real token). With `sync`, this rank's share of the
-    global mean (`BatchSync.global_mean`)."""
+    global mean (`BatchSync.global_mean`). `targets`: (ids, mask), each
+    [B, T], the next token of every position already shifted (a
+    seq-sharded batch's `target_ids` and `target_mask`)."""
+    if targets is not None:
+        tgt, w = targets[0], targets[1].float()
+        if impl == "pallas":
+            per_tok = fused_softmax_xent(logits.float(), tgt)
+        elif impl == "xla":
+            per_tok = fused_softmax_xent_plain(logits.float(), tgt)
+        else:
+            raise ValueError(f"unknown loss impl {impl!r}")
+        if sync is not None and sync.active:
+            return sync.global_mean((per_tok * w).sum(), w.sum())
+        return (per_tok * w).sum() / w.sum().clamp_min(1.0)
     targets = input_ids[:, 1:]
     if impl == "pallas":  # .float(): no copy when the logits are fp32
         per_tok = fused_softmax_xent_shifted(logits.float(), targets)
@@ -52,6 +67,17 @@ def next_token_loss(logits: torch.Tensor, input_ids: torch.Tensor,
         return per_tok.mean()
     w = attention_mask[:, 1:].float()
     return (per_tok * w).sum() / w.sum().clamp_min(1.0)
+
+
+def lm_loss(logits: torch.Tensor, batch: dict, impl: str = "xla",
+            sync=None) -> torch.Tensor:
+    """`next_token_loss` of a trainer's batch dict, taking its shifted
+    targets when it carries them (a seq-sharded batch)."""
+    targets = ((batch["target_ids"], batch["target_mask"])
+               if "target_ids" in batch else None)
+    return next_token_loss(logits, batch["input_ids"],
+                           batch["attention_mask"], impl=impl, sync=sync,
+                           targets=targets)
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -37,8 +37,10 @@ separate groups so each runs torch's own implementation for its kind.
 `plan_train_state` is the reference's `--dry-init` plan
 (`hyperion_tpu/train/state.py:176`): the model built on the meta
 device (shapes only), each parameter's placement from the partition
-rules (`parallel/partition.py` `torch_layouts`), and the bytes per
-device of parameters, gradients and AdamW state at the policy's dtypes.
+rules (`parallel/partition.py` `torch_layouts`: the pipelined LM's stage
+leaves over `pipe`, the MoE experts over `expert`, besides `model` and
+`fsdp`), and the bytes per device of parameters, gradients and AdamW
+state at the policy's dtypes.
 """
 
 from __future__ import annotations
@@ -238,8 +240,10 @@ def plan_train_state(model: torch.nn.Module, mesh, fsdp: bool = True,
     n_params = 0
     for name, p in model.named_parameters():
         lay = layouts[name]
-        div = ((sizes[AxisName.MODEL] if lay.model is not None else 1)
-               * (sizes[AxisName.FSDP] if lay.fsdp is not None else 1))
+        div = math.prod(sizes[a] for a, d in (
+            (AxisName.MODEL, lay.model), (AxisName.FSDP, lay.fsdp),
+            (AxisName.PIPE, lay.pipe), (AxisName.EXPERT, lay.expert))
+            if d is not None)
         nbytes = p.numel() * p.element_size()
         n_params += p.numel()
         key = str(p.dtype).removeprefix("torch.")

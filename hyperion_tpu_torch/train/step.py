@@ -37,11 +37,13 @@ from hyperion_tpu_torch.train.state import TrainState, global_norm
 
 
 class BatchSync:
-    """The data-parallel reductions over `groups` (the batch axes' groups
-    larger than one, `runtime/mesh.py` `batch_groups`), `world` ranks
-    in all; `index` is this rank's batch shard. Inactive (every method
-    the identity) when `groups` is empty, so a world-1 run computes
-    exactly what a single process does."""
+    """The data-parallel reductions over `groups` (the groups of the axes
+    whose ranks each hold a share of the loss, larger than one,
+    `runtime/mesh.py` `axis_groups`: the batch axes, and for a language
+    job the seq, pipe and expert axes too), `world` ranks in all;
+    `index` is this rank's share. Inactive (every method the identity)
+    when `groups` is empty, so a world-1 run computes exactly what a
+    single process does."""
 
     def __init__(self, groups: list | None = None, world: int = 1,
                  index: int = 0):

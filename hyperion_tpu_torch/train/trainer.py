@@ -67,8 +67,15 @@ norm (so every rank decides alike), checkpoints are sharded
 (`checkpoint/io.py`), and the CSV, telemetry, heartbeat, summary and
 exports are the primary's.
 
-Not ported yet: the seq, pipe and expert axes, pipeline and MoE (the
-next slice, A8).
+The language job also runs the reference's beyond-parity axes: a seq
+axis shards every row's positions (each rank its slice, global
+positions, the next-token targets carried by the batch) under ring or
+Ulysses attention; a pipe axis swaps in the PipelinedLM (depth rounded
+up to a multiple of the stages, GPipe over `pipe_microbatches`); and
+`moe_experts` the MoE LM, its experts split over the expert axis and
+its aux loss added at `aux_weight`. Their loss and gradients are
+reduced over every axis but `model` (`runtime/mesh.py` `LM_REPLICAS`,
+`_parallelize`). `train_llama` takes the seq and model axes too.
 """
 
 from __future__ import annotations
@@ -96,6 +103,14 @@ from hyperion_tpu_torch.data.vision import load_cifar10
 from hyperion_tpu_torch.metrics.csv_logger import SCHEMAS, CsvLogger
 from hyperion_tpu_torch.models import llama as llama_mod
 from hyperion_tpu_torch.models import lora as lora_mod
+from hyperion_tpu_torch.models.moe_lm import MoELM, MoELMConfig
+from hyperion_tpu_torch.models.pipeline_lm import (
+    PipelinedLM,
+    PipelineLMConfig,
+)
+from hyperion_tpu_torch.models.pipeline_lm import (
+    state_to_jax as pipeline_state_to_jax,
+)
 from hyperion_tpu_torch.models.resnet import resnet18
 from hyperion_tpu_torch.models.resnet import state_to_jax as resnet_state_to_jax
 from hyperion_tpu_torch.models.transformer_lm import (
@@ -120,9 +135,11 @@ from hyperion_tpu_torch.obs.registry import (
     observe_step,
     observe_throughput,
 )
+from hyperion_tpu_torch.ops.moe import MoEConfig
 from hyperion_tpu_torch.parallel.partition import (
     GradSync,
     apply_fsdp,
+    apply_stacked,
     apply_tp,
     model_layouts,
 )
@@ -130,11 +147,10 @@ from hyperion_tpu_torch.precision.policy import get_policy
 from hyperion_tpu_torch.runtime import dist
 from hyperion_tpu_torch.runtime.mesh import (
     AxisName,
+    axes_index,
+    axes_size,
+    axis_groups,
     axis_sizes,
-    batch_groups,
-    check_ported,
-    data_parallel_index,
-    data_parallel_size,
     make_abstract_mesh,
     make_mesh,
     set_active_mesh,
@@ -142,6 +158,7 @@ from hyperion_tpu_torch.runtime.mesh import (
 from hyperion_tpu_torch.testing import chaos as chaos_mod
 from hyperion_tpu_torch.train.losses import (
     classification_loss,
+    lm_loss,
     next_token_loss,
 )
 from hyperion_tpu_torch.train.state import (
@@ -250,16 +267,20 @@ def _lm_validation(cfg: Config, splits, device, loss_fn, transform=None,
     val_batches = ShardedBatches(
         transform(split) if transform else split.arrays(),
         cfg.train.batch_size, device, shuffle=False, seed=cfg.train.seed,
-        mesh=mesh)
+        **_lm_sharding(mesh))
     eval_step = make_eval_step(
         lambda model, b: {"loss": loss_fn(model, b, None)[0]}, sync=sync)
     return eval_step, val_batches, _lm_eval_cols, ("val_loss", "val_ppl")
 
 
-def _check_supported(cfg: Config) -> None:
-    if cfg.train.moe_experts > 0:
-        raise NotImplementedError(
-            "MoE (moe_experts) is not ported yet (ROADMAP A8)")
+def _lm_sharding(mesh) -> dict:
+    """`ShardedBatches` kwargs of a language job's batches on `mesh`:
+    rows over `LM_ROWS`, and each row's positions over seq when that
+    axis is > 1."""
+    if mesh is None:
+        return {}
+    return {"mesh": mesh, "rows": AxisName.LM_ROWS,
+            "seq_shard": axis_sizes(mesh)[AxisName.SEQ] > 1}
 
 
 def _build_mesh(cfg: Config, device: torch.device | None):
@@ -276,7 +297,9 @@ def _build_mesh(cfg: Config, device: torch.device | None):
     elif dist.is_distributed():
         mesh = make_mesh(spec, device.type)
     else:
-        check_ported(spec.resolve(1))
+        # a single process: every axis 1, or this raises (an axis > 1
+        # never runs unsharded)
+        spec.resolve(1)
         mesh = None
     set_active_mesh(mesh)
     return mesh
@@ -284,14 +307,13 @@ def _build_mesh(cfg: Config, device: torch.device | None):
 
 def _tree_tag(mesh, cfg: Config) -> str:
     """Checkpoint-name tag for knobs that change the parameter tree
-    (`:697`): a pipe axis stacks stages, MoE adds sparse blocks. Neither
-    is ported yet, so every tree the port trains has the empty tag."""
-    if mesh is None:
-        return ""
-    tag = (f"_pipe{axis_sizes(mesh)[AxisName.PIPE]}"
-           if axis_sizes(mesh)[AxisName.PIPE] > 1 else "")
+    (`:697`): a pipe mesh stacks stages, MoE adds sparse blocks (and
+    moe_every changes which), so each tree gets its own namespace. Reads
+    the resolved mesh's pipe size."""
+    pipe = axis_sizes(mesh)[AxisName.PIPE] if mesh is not None else 1
+    tag = f"_pipe{pipe}" if pipe > 1 else ""
     if cfg.train.moe_experts:
-        tag += f"_moe{cfg.train.moe_experts}"
+        tag += f"_moe{cfg.train.moe_experts}x{cfg.train.moe_every}"
     return tag
 
 
@@ -299,25 +321,47 @@ def _world(mesh) -> int:
     return 1 if mesh is None else math.prod(axis_sizes(mesh).values())
 
 
-def _parallelize(model: torch.nn.Module, mesh, fsdp: bool, blocks
+def _parallelize(model: torch.nn.Module, mesh, fsdp: bool, blocks,
+                 replicas: tuple = AxisName.BATCH
                  ) -> tuple[BatchSync, GradSync | None]:
     """Lay `model` out on `mesh` (None: leave it whole): tensor
-    parallelism over `model` when that axis is > 1, then FSDP2 over the
-    fsdp axis (`fsdp`) or DDP. Returns the step's `BatchSync` and its
-    gradient all-reduce (DDP's, or the FSDP-ignored parameters')."""
+    parallelism over `model` when that axis is > 1, the stage and expert
+    leaves split over pipe and expert (`apply_stacked`), then FSDP2 over
+    the fsdp axis (`fsdp`) or DDP. Returns the step's `BatchSync` over
+    the `replicas` axes (the ranks whose loss shares make up the loss:
+    the batch axes, and for a language job every axis but `model`) and
+    the gradient reductions the backward leaves: every parameter's
+    gradient summed over the replica axes it is not split on — FSDP2
+    already averages its parameters' over (data, fsdp) — and divided by
+    the number of replicas."""
     if mesh is None:
         return BatchSync(), None
+    sizes = axis_sizes(mesh)
     layouts = model_layouts(model, mesh, fsdp=fsdp)
-    if axis_sizes(mesh)[AxisName.MODEL] > 1:
+    if sizes[AxisName.MODEL] > 1:
         apply_tp(model, mesh, layouts)
-    groups = batch_groups(mesh)
-    world = data_parallel_size(mesh)
-    sync = BatchSync(groups, world, data_parallel_index(mesh))
-    averaged = (apply_fsdp(model, mesh, layouts, blocks) if fsdp
-                else list(model.parameters()))
-    trained = [p for p in averaged if p.requires_grad]
-    return sync, (GradSync(trained, groups, world)
-                  if groups and trained else None)
+    split_on = {id(p): axes for p, axes in
+                apply_stacked(model, mesh, layouts).items()}
+    world = axes_size(mesh, replicas)
+    sync = BatchSync(axis_groups(mesh, replicas), world,
+                     axes_index(mesh, replicas))
+    left = (apply_fsdp(model, mesh, layouts, blocks) if fsdp
+            else list(model.parameters()))
+    left_ids = {id(p) for p in left}
+    entries = []
+    if fsdp:  # FSDP2's own reduce-scatter averaged over (data, fsdp)
+        rest = [a for a in replicas if a not in AxisName.BATCH]
+        dp = axes_size(mesh, AxisName.BATCH)
+        entries += [(p, axis_groups(mesh, rest), world / dp)
+                    for p in model.parameters()
+                    if p.requires_grad and id(p) not in left_ids]
+    for p in left:
+        if p.requires_grad:
+            axes = split_on.get(id(p), ())
+            entries.append((p, axis_groups(
+                mesh, [a for a in replicas if a not in axes]), world))
+    needed = [e for e in entries if e[1] or e[2] != 1]
+    return sync, (GradSync(needed) if needed else None)
 
 
 def _dry_init(job: str, model: torch.nn.Module, mesh, fsdp: bool
@@ -387,6 +431,7 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                 tracer: obs_trace.Tracer | None = None,
                 extra_cols: dict | None = None,
                 metric_cols: Callable[[dict], dict] | None = None,
+                step_cols: Callable[[list], dict] | None = None,
                 work: dict | None = None,
                 flops_fn: Callable[[dict], float | None]) -> LoopResult:
     """The reference's epoch loop; the state trains in place, on every
@@ -394,7 +439,9 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
     then skip the exports the reference skips. `extra_cols`: constant
     columns of every CSV row (the Llama trainer's `mode`);
     `metric_cols(sums)`: columns from the epoch's sums of the count
-    metrics (`COUNT_METRICS`: the cifar job's accuracy); `work`: what
+    metrics (`COUNT_METRICS`: the cifar job's accuracy); `step_cols(
+    step_metrics)`: columns from the epoch's per-step metrics (the MoE
+    LM's `lm_loss` and `aux_loss`); `work`: what
     one step processes, for the throughput gauges (default `tokens`:
     batch x seq; the cifar job counts `samples`, images); `flops_fn(
     batch)`: one step's FLOPs on this rank's rows, for the MFU gauge,
@@ -593,6 +640,8 @@ def _epoch_loop(*, job: str, cfg: Config, batches: ShardedBatches,
                         job, action, monitor, state, ckpt_dir, tracer):
                     return abort_exit(epoch + 1, len(device_metrics))
             extra: dict = metric_cols(counts) if metric_cols else {}
+            if step_cols and device_metrics:
+                extra.update(step_cols(device_metrics))
             if eval_step is not None and eval_batches is not None:
                 hb.pulse(step=end_gstep, phase="eval", epoch=epoch + 1)
                 with tracer.span("eval") as ev_span:
@@ -714,6 +763,48 @@ def _lm_flops(model: torch.nn.Module):
     return lambda batch: compiled_flops(model, loss, batch)
 
 
+def _language_model(cfg: Config, job: str, lm_cfg, sizes: dict,
+                    is_fsdp: bool) -> Callable[[Any], torch.nn.Module]:
+    """The language job's model, chosen as the reference's `:804-906`
+    does: the PipelinedLM on a pipe axis > 1 (depth rounded up to a
+    multiple of the stages, `pipe_microbatches` microbatches, one a
+    stage by default), the MoE LM when `moe_experts` > 0, else the
+    TransformerLM; returns a function that makes it on a device ("meta"
+    for the plan)."""
+    t = cfg.train
+    pipe = sizes.get(AxisName.PIPE, 1)
+    if pipe > 1 and t.moe_experts > 0:
+        raise ValueError(
+            "pipeline + MoE in one language run is deliberately "
+            "unsupported: stage-stacked [S, lps, ...] and expert-stacked "
+            "[E, ...] leaves need a fused dispatch-inside-the-tick design "
+            "(see train/trainer.py) — drop the pipe axis or moe_experts")
+    if pipe > 1:
+        if lm_cfg.n_layers % pipe:
+            # the smallest depth that fills every stage
+            lm_cfg = dataclasses.replace(
+                lm_cfg, n_layers=-(-lm_cfg.n_layers // pipe) * pipe)
+        _say(f"[{job}] pipeline mesh (pipe={pipe}): n_layers="
+             f"{lm_cfg.n_layers}, dropout={lm_cfg.dropout}")
+        if is_fsdp:
+            _say(f"[{job}] pipe+fsdp: per-layer gather inside the pipeline "
+                 "tick — stage params stay fsdp-sharded; peak gathered "
+                 "memory is one layer")
+        pcfg = PipelineLMConfig(
+            base=lm_cfg, n_stages=pipe,
+            n_microbatches=cfg.distributed.pipe_microbatches or pipe)
+        return lambda dev: PipelinedLM(pcfg, device=dev)
+    if t.moe_experts > 0:
+        mcfg = MoELMConfig(
+            base=lm_cfg,
+            moe=MoEConfig(n_experts=t.moe_experts, top_k=t.moe_top_k,
+                          d_model=lm_cfg.d_model, ff_dim=lm_cfg.ff_dim,
+                          activation=lm_cfg.activation),
+            moe_every=t.moe_every)
+        return lambda dev: MoELM(mcfg, device=dev)
+    return lambda dev: TransformerLM(lm_cfg, device=dev)
+
+
 def train_language_model(cfg: Config, job: str = "language_ddp",
                          device=None) -> TrainResult:
     """Train the SimpleTransformerLM on WikiText-2 (its arrow, npz or
@@ -726,7 +817,6 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
     `{base_dir}/checkpoints/{job}_final.npz` (the primary's)."""
     if job not in ("language_ddp", "language_fsdp"):
         raise ValueError(f"unknown language job {job!r}")
-    _check_supported(cfg)
     t = cfg.train
     dev = None if t.dry_init else dist.setup(device)
     mesh = _build_mesh(cfg, dev)
@@ -748,9 +838,10 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
         max_len=t.seq_len, dropout=0.1, remat=cfg.optimization.remat,
         dtype=str(policy.compute_dtype).removeprefix("torch."),
         **_model_impls(tier_impl), **vocab_kw)
+    build = _language_model(cfg, job, lm_cfg, sizes, is_fsdp)
     if t.dry_init:
-        return _dry_init(job, TransformerLM(lm_cfg, device="meta").to(
-            policy.param_dtype), mesh, is_fsdp)
+        return _dry_init(job, build("meta").to(policy.param_dtype), mesh,
+                         is_fsdp)
 
     tsplit = t.train_split
     want = (tsplit, "validation") if t.validate else (tsplit,)
@@ -759,38 +850,64 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
     _say(f"[{job}] train split {tsplit!r}: {len(splits[tsplit])} rows, "
          f"source={splits[tsplit].source}")
     batches = ShardedBatches(splits[tsplit].arrays(), t.batch_size, dev,
-                             shuffle=True, seed=t.seed, mesh=mesh)
+                             shuffle=True, seed=t.seed, **_lm_sharding(mesh))
     steps_per_epoch = _steps_per_epoch(cfg, batches)
     if steps_per_epoch <= 0:
         raise ValueError(
             f"zero steps per epoch: batch_size {t.batch_size} vs dataset "
             f"of {batches.n} examples (drop_last semantics)")
 
-    model = TransformerLM(lm_cfg, device=dev)
+    model = build(dev)
     model.init_params(torch.Generator(device=dev).manual_seed(t.seed))
     model.to(policy.param_dtype)
-    sync, grad_sync = _parallelize(model, mesh, is_fsdp, model.blocks)
+    sync, grad_sync = _parallelize(model, mesh, is_fsdp, model.blocks,
+                                   AxisName.LM_REPLICAS)
     optimizer = make_optimizer(
         model.parameters(), t.learning_rate, t.weight_decay,
         cfg.optimization.grad_clip_norm, schedule=t.lr_schedule,
         warmup_steps=t.warmup_steps,
         total_steps=steps_per_epoch * t.epochs)
     state = TrainState(step=0, model=model, optimizer=optimizer)
+    has_aux = isinstance(model, MoELM)  # the MoE router's balance loss
 
     def loss_fn(model, batch, generator):
-        logits = model(batch["input_ids"],
-                       padding_mask=batch["attention_mask"],
-                       deterministic=generator is None, generator=generator)
-        loss = next_token_loss(logits, batch["input_ids"],
-                               batch["attention_mask"],
-                               impl=tier_impl["loss_impl"], sync=sync)
-        return loss, {"loss": loss}
+        kw = dict(padding_mask=batch["attention_mask"],
+                  deterministic=generator is None, generator=generator)
+        if has_aux:
+            logits, aux = model.apply_with_aux(batch["input_ids"], **kw)
+        else:
+            logits, aux = model(batch["input_ids"], **kw), 0.0
+        lm = lm_loss(logits, batch, tier_impl["loss_impl"], sync)
+        loss = lm + aux
+        # MoE metrics carry the pure LM term too, so the CSV can stay
+        # like-for-like with dense runs
+        return loss, ({"loss": loss, "lm_loss": lm} if has_aux
+                      else {"loss": loss})
+
+    def eval_loss_fn(model, batch, generator):
+        # the pure LM loss: the balance term belongs to the training
+        # objective, not to val_loss / val_ppl
+        lm = lm_loss(model(batch["input_ids"],
+                           padding_mask=batch["attention_mask"]),
+                     batch, tier_impl["loss_impl"], sync)
+        return lm, {"loss": lm}
 
     train_step = make_train_step(
         loss_fn, grad_accum=cfg.optimization.grad_accum_steps, dropout=True,
         sync=sync, grad_sync=grad_sync)
     eval_step, val_batches, eval_cols, extra_schema = _lm_validation(
-        cfg, splits, dev, loss_fn, mesh=mesh, sync=sync)
+        cfg, splits, dev, eval_loss_fn if has_aux else loss_fn, mesh=mesh,
+        sync=sync)
+    step_cols = None
+    if has_aux:
+        # `loss` keeps the optimized objective (lm + aux); these make the
+        # split auditable per epoch
+        def step_cols(device_metrics: list) -> dict:
+            lm = _mean_of(device_metrics, "lm_loss")
+            return {"lm_loss": lm,
+                    "aux_loss": _mean_of(device_metrics, "loss") - lm}
+
+        extra_schema = ("lm_loss", "aux_loss") + tuple(extra_schema)
 
     logger, tracer, ckpt_dir, resume_epoch, resume_step = _prepare_run(
         job, cfg, state, batches, n_dev, dev,
@@ -801,16 +918,19 @@ def train_language_model(cfg: Config, job: str = "language_ddp",
         mfu_devices=model_ax, ckpt_dir=ckpt_dir, resume_epoch=resume_epoch,
         resume_step=resume_step, eval_step=eval_step,
         eval_batches=val_batches, eval_cols=eval_cols, tracer=tracer,
-        flops_fn=_lm_flops(model))
+        step_cols=step_cols, flops_fn=_lm_flops(model))
     _finish(tracer, loop)
     if not loop.preempted:
         # skipped on preemption and abort: a half-trained or diverged
         # tree must not overwrite a previous final export
         named = ckpt.gathered_state(model)  # every rank: a collective
         if dist.is_primary():
+            tree = (pipeline_state_to_jax(named, model.pipe_cfg)
+                    if isinstance(model, PipelinedLM)
+                    else state_to_jax(named, model.cfg))
             export_gathered(
                 f"{t.base_dir}/checkpoints/{job}{_tree_tag(mesh, cfg)}"
-                "_final.npz", state_to_jax(named, model.cfg))
+                "_final.npz", tree)
     return TrainResult(job, logger.run, str(logger.path), ckpt_dir,
                        loop.history, loop.preempted,
                        step_losses=loop.step_losses, step_ms=loop.step_ms,
@@ -870,7 +990,6 @@ def train_cifar_model(cfg: Config, job: str = "cifar_ddp",
     checkpoints hold the BatchNorm running statistics; the export
     `{base_dir}/checkpoints/{job}_final.npz` holds the params only, in
     the flax layout, as the reference's does."""
-    _check_supported(cfg)
     t = cfg.train
     dev = None if t.dry_init else dist.setup(device)
     mesh = _build_mesh(cfg, dev)
@@ -972,7 +1091,6 @@ def train_llama(cfg: Config, job: str = "llama", device=None,
     (+ `_merged.npz` with `export_merged`), the primary's;
     `save_state=False` skips the checkpoints and the exports (a 7B full
     fine-tune's state is 40 GB)."""
-    _check_supported(cfg)
     if cfg.train.model not in _LLAMA_SIZES:
         raise ValueError(f"unknown Llama size {cfg.train.model!r}; have "
                          f"{sorted(_LLAMA_SIZES)}")
@@ -1029,7 +1147,7 @@ def train_llama(cfg: Config, job: str = "llama", device=None,
                 "attention_mask": split.attention_mask}
 
     batches = ShardedBatches(clamped(splits[tsplit]), t.batch_size, dev,
-                             shuffle=True, seed=t.seed, mesh=mesh)
+                             shuffle=True, seed=t.seed, **_lm_sharding(mesh))
     steps_per_epoch = _steps_per_epoch(cfg, batches)
     if steps_per_epoch <= 0:
         raise ValueError(
@@ -1059,7 +1177,8 @@ def train_llama(cfg: Config, job: str = "llama", device=None,
         frac = lora_mod.count_params(model.lora_params()) / base_count
         _say(f"[{job}] mode={mode} trainable params: {100 * frac:.3f}% "
              "of base")
-    sync, grad_sync = _parallelize(model, mesh, not t.lora, model.layers)
+    sync, grad_sync = _parallelize(model, mesh, not t.lora, model.layers,
+                                   AxisName.LM_REPLICAS)
     optimizer = make_optimizer(
         model.parameters(), t.learning_rate, t.weight_decay,
         cfg.optimization.grad_clip_norm, schedule=t.lr_schedule,
@@ -1069,9 +1188,7 @@ def train_llama(cfg: Config, job: str = "llama", device=None,
     def loss_fn(model, batch, generator):
         logits = model(batch["input_ids"],
                        padding_mask=batch["attention_mask"])
-        loss = next_token_loss(logits, batch["input_ids"],
-                               batch["attention_mask"],
-                               impl=tier_impl["loss_impl"], sync=sync)
+        loss = lm_loss(logits, batch, tier_impl["loss_impl"], sync)
         return loss, {"loss": loss}
 
     train_step = make_train_step(

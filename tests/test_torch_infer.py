@@ -128,12 +128,33 @@ def test_cli_llama_and_speculative(files, capsys):
                         "3"], capsys, tgen.main) == want
 
 
-def test_moe_exports_and_int8_name_their_items(files, tmp_path):
-    d, _ = files
-    params = load_gathered(d / "lm.npz")
-    params["moe_block_1"] = params.pop("block_1")
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        tgen.model_from_npz(params, device="cpu")
+def test_moe_exports_and_int8_name_their_items(files, tmp_path, capsys):
+    """An MoE LM export decodes through `generate_recompute`, its routing
+    top_k given by `--moe-top-k` (not in the weights): the CLI's text
+    equals the JAX CLI's. A pipeline export raises as the reference's
+    does; `--quant int8` still names its ROADMAP item."""
+    from hyperion_tpu.models import moe_lm as jm
+    from hyperion_tpu.ops.moe import MoEConfig
+    from hyperion_tpu_torch.models.moe_lm import MoELM
+
+    d, tok = files
+    base = jt.simple_lm_config(vocab_size=tok.vocab_size, **LM)
+    jmodel = jm.MoELM(jm.MoELMConfig(base=base, moe=MoEConfig(
+        n_experts=4, top_k=2, d_model=32, ff_dim=64,
+        activation=base.activation)))
+    export_gathered(tmp_path / "moe.npz", jax.device_get(
+        jax.jit(jmodel.init_params)(jax.random.key(3))))
+    model, cached = tgen.model_from_npz(load_gathered(tmp_path / "moe.npz"),
+                                        device="cpu", moe_top_k=2)
+    assert isinstance(model, MoELM) and not cached
+    assert (model.moe_cfg.moe_every, model.moe_cfg.moe.n_experts) == (2, 4)
+    argv = ["--prompt", PROMPT, "--ckpt", str(tmp_path / "moe.npz"),
+            "--tokenizer-dir", str(d / "tok"), "--max-new-tokens", "8",
+            "--moe-top-k", "2"]
+    want = _cli(argv, capsys, jgen.main)
+    assert _cli(argv + ["--device", "cpu"], capsys, tgen.main) == want
+    with pytest.raises(ValueError, match="pipeline checkpoints"):
+        tgen.model_from_npz({"stages": {}, "tok_emb": {}}, device="cpu")
     with pytest.raises(SystemExit, match="ROADMAP A9b"):
         tgen.main(["--prompt", PROMPT, "--ckpt", str(d / "lm.npz"),
                    "--tokenizer-dir", str(d / "tok"), "--quant", "int8",

@@ -187,13 +187,15 @@ class TestWeights:
         assert torch.equal(a, b)
 
     def test_other_layouts_raise(self):
-        """MoE and pipeline exports name the slice that ports their
-        models; a layout of no model says so (a TransformerLM export
-        loads: tests/test_torch_infer.py)."""
-        with pytest.raises(ValueError, match="ROADMAP A8"):
-            model_from_npz({"stages": {}}, device="cpu")
-        with pytest.raises(ValueError, match="ROADMAP A8"):
-            model_from_npz({"tok_emb": {}, "moe_block_1": {}}, device="cpu")
+        """A pipeline export raises the reference CLI's message; a layout
+        of no model says so (TransformerLM and MoE exports load:
+        tests/test_torch_infer.py)."""
+        from hyperion_tpu.infer.generate import model_from_npz as jax_load
+
+        for load in (model_from_npz, jax_load):
+            with pytest.raises(ValueError, match="pipeline checkpoints are "
+                               "not supported by the generation CLI"):
+                load({"stages": {}})
         with pytest.raises(ValueError, match="unrecognized"):
             model_from_npz({"w": {}}, device="cpu")
 

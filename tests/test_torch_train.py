@@ -161,11 +161,17 @@ class TestAttention:
         assert select_attention_impl(seq, hd, mode) == ref(seq, hd, mode)
         assert select_attention_impl(seq, hd, mode) == impl
 
-    @pytest.mark.parametrize("impl, item", [("ring", "A8"),
-                                            ("ulysses:pallas", "A8")])
+    @pytest.mark.parametrize("impl, item", [
+        ("ring", "needs an active mesh"),
+        ("ulysses:pallas", "needs an active mesh")])
     def test_unported_impls_raise(self, impl, item):
+        """The sequence-parallel impls run over the active mesh's seq
+        axis (tests/test_torch_seq_parallel.py); with none they raise the
+        reference's error, never a quiet fallback to the dense one."""
+        from hyperion_tpu_torch.runtime.mesh import activate_mesh
+
         q = torch.zeros(1, 4, 2, 8)
-        with pytest.raises(NotImplementedError, match=item):
+        with activate_mesh(None), pytest.raises(ValueError, match=item):
             dot_product_attention(q, q, q, causal=True, impl=impl)
 
     def test_pallas_impl_matches_the_jax_flash_kernel(self):
@@ -490,13 +496,38 @@ class TestTrainer:
         shutil.rmtree(tmp_path / "checkpoints")
 
     @pytest.mark.parametrize("field, value, item", [
-        ("moe_experts", 4, "A8")])
-    def test_unported_features_raise(self, tmp_path, field, value, item):
+        ("moe_experts", 4, "_moe4x2")])
+    def test_unported_features_raise(self, tmp_path, field, value, item,
+                                     monkeypatch):
+        """`moe_experts` trains the MoE LM (no longer a refusal): two
+        steps on the CPU at narrow widths, the CSV's `lm_loss` and
+        `aux_loss` columns as the reference writes them, the export's
+        sparse block in the flax tree, the checkpoints under the tree
+        tag (`_moe{E}x{every}`)."""
+        from hyperion_tpu_torch.train import trainer
+
+        monkeypatch.setattr(trainer, "simple_lm_config", lambda **kw: (
+            tt.simple_lm_config(**{**kw, "d_model": 32, "ff_dim": 64})))
         cfg = Config()
+        cfg.train.epochs, cfg.train.steps_per_epoch = 1, 2
+        cfg.train.batch_size, cfg.train.seq_len = 4, 16
         cfg.train.base_dir = str(tmp_path)
+        cfg.train.data_dir = str(tmp_path / "none")
+        cfg.optimization.compile_tier = "jit+pallas"
         setattr(cfg.train, field, value)
-        with pytest.raises(NotImplementedError, match=item):
-            train_language_model(cfg, device="cpu")
+        res = train_language_model(cfg, device="cpu")
+        assert len(res.step_losses) == 2 and np.isfinite(res.final_loss)
+        with open(res.csv_path) as f:
+            rows = list(csv.DictReader(f))
+        assert list(rows[0])[-4:] == ["lm_loss", "aux_loss", "val_loss",
+                                      "val_ppl"]
+        aux = float(rows[0]["aux_loss"]) / 0.01  # over aux_weight
+        assert 0.9 < aux < 4.0
+        tree = load_gathered(tmp_path / "checkpoints"
+                             / f"language_ddp{item}_final.npz")
+        assert tree["moe_block_1"]["experts"]["wi"].shape == (4, 32, 64)
+        assert "block_0" in tree and "moe_block_1" in tree
+        assert (tmp_path / "checkpoints" / f"language_ddp_1dev{item}").is_dir()
 
     def test_export_round_trips_through_the_jax_reader(self, tmp_path):
         _, params, model = _pair()

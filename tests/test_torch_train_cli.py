@@ -142,9 +142,24 @@ def test_dry_init_prints_the_plan_without_a_device(argv, job, capsys):
     assert 0 < plan["per_device_gb"] < plan["total_gb"]
 
 
-def test_seq_pipe_expert_axes_name_the_next_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        main(["train", "--dry-init", "--mesh", "1,1,1,2"])
+@pytest.mark.parametrize("argv, split", [
+    (["--mesh", "1,1,1,2"], {"seq": 2}),
+    (["--mesh", "1,1,1,1,2,1"], {"pipe": 2}),
+    (["--mesh", "1,1,1,1,1,4", "--moe_experts", "4"], {"expert": 4})])
+def test_seq_pipe_expert_axes_name_the_next_slice(argv, split, capsys):
+    """The seq, pipe and expert axes are ported: a dry-init plans them
+    (the stage leaves split over pipe, the experts over expert, so a
+    device holds less than the whole) instead of naming a ROADMAP
+    item."""
+    assert main(["train", "--dry-init", *argv]) == 0
+    line = next(x for x in capsys.readouterr().out.splitlines()
+                if "dry-init memory plan" in x)
+    plan = json.loads(line.split("plan: ", 1)[1])
+    assert {k: plan["mesh"][k] for k in split} == split
+    if "seq" in split:  # nothing is split over seq
+        assert plan["per_device_gb"] == plan["total_gb"]
+    else:
+        assert 0 < plan["per_device_gb"] < plan["total_gb"]
 
 
 @pytest.mark.parametrize("verb, item", [("obs", "A6"), ("simulate", "A9")])

@@ -261,3 +261,255 @@ def cifar_run(r: dict) -> dict:
     named = gathered_state(model)
     out["state"] = tr.state_to_jax(named) if dist.is_primary() else None
     return out
+
+
+# --- the seq, pipe and expert axes, and Llama tensor parallelism -----
+
+
+def _axes_mesh(shape):
+    """A mesh over all six axes (data, fsdp, model, seq, pipe, expert),
+    registered active; None in a single process."""
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import (
+        MeshSpec,
+        make_mesh,
+        set_active_mesh,
+    )
+
+    if not dist.is_distributed():
+        set_active_mesh(None)
+        return None
+    mesh = make_mesh(MeshSpec(*shape), "cpu")
+    set_active_mesh(mesh)
+    return mesh
+
+
+def axes_model(r: dict):
+    """The port's model of a run: `kind` "lm" (TransformerLM), "pipe"
+    (PipelinedLM, `stages` x `micro`), "moe" (MoELM, `moe` MoEConfig
+    kwargs, `moe_every`) or "llama" (a tiny fp32 Llama), its weights
+    from the flax `params`."""
+    import torch
+
+    from hyperion_tpu_torch.models import llama as ll
+    from hyperion_tpu_torch.models import pipeline_lm as pl
+    from hyperion_tpu_torch.models import transformer_lm as tt
+    from hyperion_tpu_torch.models.moe_lm import MoELM, MoELMConfig
+    from hyperion_tpu_torch.ops.moe import MoEConfig
+
+    kind, params = r.get("kind", "lm"), r["params"]
+    if kind == "llama":
+        cfg = ll.llama_tiny_config(**r["cfg"])
+        model = ll.Llama(cfg, device="cpu")
+        model.load_state_dict(ll.params_from_jax(params, cfg), strict=False)
+        for p in model.parameters():
+            p.requires_grad_(True)
+        return model
+    cfg = tt.simple_lm_config(**r["cfg"])
+    if kind == "pipe":
+        model = pl.PipelinedLM(pl.PipelineLMConfig(
+            cfg, r["stages"], r["micro"]), device="cpu")
+        model.load_state_dict(pl.params_from_jax(params, model.pipe_cfg))
+    elif kind == "moe":
+        model = MoELM(MoELMConfig(cfg, MoEConfig(**r["moe"]),
+                                  moe_every=r["moe_every"]), device="cpu")
+        model.load_state_dict(tt.params_from_jax(params, cfg))
+    else:
+        model = tt.TransformerLM(cfg, device="cpu")
+        model.load_state_dict(tt.params_from_jax(params, cfg))
+    return model.to(torch.float32)
+
+
+def axes_batch(mesh, ids, mask) -> dict:
+    """This rank's piece of a global batch as the language trainer
+    shards it (`data/sharding.py`): rows over (data, fsdp, expert), and
+    under a seq axis each row's slice with its next-token targets."""
+    import torch
+
+    from hyperion_tpu_torch.data.sharding import next_tokens
+    from hyperion_tpu_torch.runtime.mesh import (
+        AxisName,
+        axis_sizes,
+        batch_rows,
+        seq_cols,
+    )
+
+    arrays = {"input_ids": ids, "attention_mask": mask}
+    if mesh is None:
+        return {k: torch.from_numpy(v) for k, v in arrays.items()}
+    rows = batch_rows(mesh, len(ids), AxisName.LM_ROWS)
+    cols = slice(None)
+    if axis_sizes(mesh)[AxisName.SEQ] > 1:
+        arrays.update(next_tokens(arrays))
+        cols = seq_cols(mesh, ids.shape[1])
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows, cols]))
+            for k, v in arrays.items()}
+
+
+def axes_run(r: dict) -> dict:
+    """Train `batches` (global ids and masks) with the language trainer's
+    layout on the six-axis `mesh` (`fsdp`: FSDP2 over the batch axes,
+    else DDP) and loss (`train/trainer.py`: the LM loss, plus the MoE
+    aux): per step the loss and grad norm (and for an MoE the aux), and
+    on rank 0 the final parameters in the flax layout."""
+    from hyperion_tpu_torch.checkpoint.io import gathered_state
+    from hyperion_tpu_torch.models import llama as ll
+    from hyperion_tpu_torch.models import pipeline_lm as pl
+    from hyperion_tpu_torch.models import transformer_lm as tt
+    from hyperion_tpu_torch.models.moe_lm import MoELM
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import AxisName
+    from hyperion_tpu_torch.train.losses import lm_loss
+    from hyperion_tpu_torch.train.state import TrainState, make_optimizer
+    from hyperion_tpu_torch.train.step import make_train_step
+    from hyperion_tpu_torch.train.trainer import _parallelize
+
+    mesh = _axes_mesh(r["mesh"])
+    model = axes_model(r)
+    blocks = model.layers if r.get("kind") == "llama" else model.blocks
+    sync, gs = _parallelize(model, mesh, r["fsdp"], blocks,
+                            AxisName.LM_REPLICAS)
+    opt = make_optimizer(model.parameters(), r["lr"], r["wd"], r["clip"])
+    state = TrainState(0, model, opt)
+    moe = isinstance(model, MoELM)
+
+    def loss_fn(m, b, gen):
+        if moe:
+            logits, aux = m.apply_with_aux(b["input_ids"],
+                                           padding_mask=b["attention_mask"])
+        else:
+            logits = m(b["input_ids"], padding_mask=b["attention_mask"])
+            aux = 0.0
+        loss = lm_loss(logits, b, sync=sync) + aux
+        return loss, ({"loss": loss, "aux": aux} if moe else {"loss": loss})
+
+    step = make_train_step(loss_fn, sync=sync, grad_sync=gs)
+    out = {"losses": [], "norms": [], "aux": []}
+    for ids, mask in r["batches"]:
+        m = step(state, axes_batch(mesh, ids, mask), 0)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+        if moe:
+            out["aux"].append(float(m["aux"]))
+    named = gathered_state(model)
+    if dist.is_primary():
+        kind = r.get("kind", "lm")
+        out["params"] = (ll.params_to_jax(model, named) if kind == "llama"
+                         else pl.state_to_jax(named, model.pipe_cfg)
+                         if kind == "pipe" else tt.state_to_jax(named,
+                                                                model.cfg))
+    return out
+
+
+def axes_runs(runs: list[dict]) -> list[dict]:
+    return [axes_run(r) for r in runs]
+
+
+def seq_attention_runs(cases: list[dict]) -> list[dict]:
+    """Each case: `impl` ("ring" | "ulysses"), `causal`, global [B, T,
+    H, D] fp32 `q`, `k`, `v`, `do` and a [B, T] `pad`, on a mesh of the
+    world on seq: this rank's slice of the attention output and of the
+    gradients of sum(out * do) w.r.t. q, k and v."""
+    import torch
+
+    from hyperion_tpu_torch.ops.attention import dot_product_attention
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import seq_cols
+
+    mesh = _axes_mesh((1, 1, 1, dist.process_count(), 1, 1))
+    out = []
+    for c in cases:
+        cols = seq_cols(mesh, c["q"].shape[1])
+        q, k, v = (torch.from_numpy(np.ascontiguousarray(c[n][:, cols]))
+                   .requires_grad_() for n in ("q", "k", "v"))
+        pad = None if c["pad"] is None else torch.from_numpy(
+            np.ascontiguousarray(c["pad"][:, cols]))
+        o = dot_product_attention(q, k, v, causal=c["causal"],
+                                  padding_mask=pad, impl=c["impl"])
+        (o * torch.from_numpy(np.ascontiguousarray(c["do"][:, cols]))
+         ).sum().backward()
+        out.append({"out": o.detach().numpy(), "dq": q.grad.numpy(),
+                    "dk": k.grad.numpy(), "dv": v.grad.numpy()})
+    return out
+
+
+def gpipe_runs(cases: list[dict]) -> list[dict]:
+    """`parallel.pipeline.gpipe_apply` on a mesh of the world on pipe,
+    each case a stage of `layers` tanh layers (x @ w[s, l]) per stage
+    over `micro` microbatches of `x` [B, d], every stage's w [S, L, d, d]
+    given whole: the output and the gradients of this stage's share of
+    sum(out * g) w.r.t. x (stage 0's is the input's) and its w."""
+    import torch
+
+    from hyperion_tpu_torch.parallel.pipeline import gpipe_apply
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import AxisName
+
+    S = dist.process_count()
+    mesh = _axes_mesh((1, 1, 1, 1, S, 1))
+    s = dist.process_index()
+    out = []
+    for c in cases:
+        x = torch.from_numpy(c["x"]).requires_grad_()
+        w = torch.from_numpy(c["w"][s]).requires_grad_()
+        mask = torch.from_numpy(c["mask"])
+
+        def stage_fn(params, x_mb, extras, m):
+            for lw in params[0]:
+                x_mb = torch.tanh(x_mb @ lw) * extras[0][:, None]
+            return x_mb
+
+        y = gpipe_apply(stage_fn, [w], x, mesh.get_group(AxisName.PIPE),
+                        n_microbatches=c["micro"], extras=[mask])
+        # every stage holds the output, so each takes 1/S of the
+        # objective, as the trainer's loss shares over `pipe` do
+        ((y * torch.from_numpy(c["g"])).sum() / S).backward()
+        out.append({"y": y.detach().numpy(), "dx": x.grad.numpy(),
+                    "dw": w.grad.numpy()})
+    return out
+
+
+def moe_ep_runs(cases: list[dict]) -> list[dict]:
+    """`ops.moe.moe_ffn` on a mesh of the world on expert: each case a
+    layer's flax `params` (router kernel, stacked experts), `cfg`
+    (MoEConfig kwargs), global `x` [B, T, d], `mask` [B, T] and `g`;
+    each rank takes its rows of x (the batch split over the expert
+    axis) and its E/n experts. This rank's y rows, the aux loss, and
+    the gradients of its share of sum(y * g) + aux w.r.t. its x rows,
+    the router (the ranks' sum is the router's) and its experts."""
+    import torch
+
+    from hyperion_tpu_torch.ops.moe import MoEConfig, moe_ffn
+    from hyperion_tpu_torch.runtime import dist
+    from hyperion_tpu_torch.runtime.mesh import (
+        AxisName,
+        axis_groups,
+        batch_rows,
+    )
+
+    n = dist.process_count()
+    mesh = _axes_mesh((1, 1, 1, 1, 1, n))
+    r = dist.process_index()
+    out = []
+    for c in cases:
+        cfg = MoEConfig(**c["cfg"])
+        rows = batch_rows(mesh, len(c["x"]), AxisName.LM_ROWS)
+        E = cfg.n_experts // n
+        x = torch.from_numpy(c["x"][rows]).requires_grad_()
+        router = torch.from_numpy(c["params"]["router"]["kernel"]) \
+            .requires_grad_()
+        experts = {k: torch.from_numpy(np.ascontiguousarray(
+            v[r * E:(r + 1) * E])).requires_grad_()
+            for k, v in c["params"]["experts"].items()}
+        y, aux = moe_ffn({"router": {"kernel": router}, "experts": experts},
+                         x, cfg, torch.from_numpy(c["mask"][rows]),
+                         expert_group=mesh.get_group(AxisName.EXPERT),
+                         row_groups=axis_groups(mesh, AxisName.LM_ROWS))
+        # each rank holds the global aux: its share of the objective
+        # sum(y * g) + aux is its rows' sum and aux / n
+        ((y * torch.from_numpy(c["g"][rows])).sum() + aux / n).backward()
+        out.append({"y": y.detach().numpy(), "aux": float(aux.detach()),
+                    "dx": x.grad.numpy(), "drouter": router.grad.numpy(),
+                    "dexperts": {k: v.grad.numpy()
+                                 for k, v in experts.items()}})
+    return out
