@@ -63,6 +63,16 @@ script exits non-zero):
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
               backward in turns (library, kernel, kernel, library).
+              The weight-only int8 kernels (`phase_int8_kernels`):
+              `int8_matmul` at the 7B decode tick's M 4 for every
+              projection width (4096->4096, ->11008, 11008->4096,
+              4096->32000), the 512-row prefill (4096->11008) and ragged
+              M 1, 3, 17, each bit-identical to its plain version and a
+              rerun, its tile, registers and spills, against
+              `torch._int_mm` plus the epilogue (M > 16) and bf16
+              `F.linear`; `quantize_rows` at the decode and prefill
+              activations and a weight (bf16), fp32 and fp16 rows, an
+              all-zero row each, bit-identical.
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -230,6 +240,25 @@ script exits non-zero):
               launches exact; tokens/s, TTFT and e2e p50/p99, the prefix
               hit rate, each class's TTFT p99 and peak memory as smoke
               readings.
+ 13a. int8    the load phase's model quantized on the card
+              (`quantize_llama`: 225 `quantize_rows` launches, three
+              weights bit-identical to the plain quantizer's), then
+              `generate` at temperature 0, 32 new tokens, on two
+              128-token prompts alone and with two more (batch 4): every
+              stream and the prefill logits bit-identical to the same
+              model on the plain versions, launches exact (225 int8
+              products, as many row quantizations and 65 RMSNorms a
+              forward). Readings: int8-vs-bf16 prefill logits' relative
+              L2, decode tokens/s of both at batch 1 and 4 (prefill
+              taken out), weight bytes, the allocator's peak.
+ 13b. phase1  each Phase-1 tool through its `main(argv)` into a
+              temporary directory (`phase_phase1`): hw_explore (4096 and
+              8192, fp32/bf16/fp16/int8; bandwidth at 100M and 500M),
+              baseline (its four models, batch 32, bf16), attention_bench
+              (seq 1024-8192, both impls, modes and geometries),
+              compile_bench (every tier and the train step) and
+              decode_bench (tiny and mid, float and int8): every row
+              finite or "oom", no rate above 105 % of the datasheet peak.
  14. crash    the port's server over a seeded random Llama-2-7B-width
               export (2 layers, fp32) with `--journal --supervise
               --chaos crash@tick=2`: the first life dies hard mid-decode,
@@ -259,13 +288,16 @@ script exits non-zero):
  16a. infer   `python -m hyperion_tpu_torch.infer` at temperature 0, 32
               new tokens, on train's language_ddp export
               (`generate_recompute`) and crash's Llama export
-              (`generate`): each printed text equal, byte for byte, to an
-              in-process decode of the same weights, no hand kernel
-              launched.
+              (`generate`), each plain and with `--quant int8`: each
+              printed text equal, byte for byte, to an in-process decode
+              of the same weights; the float decodes launch no hand
+              kernel, the int8 ones the two int8 kernels once a dense a
+              forward.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, load, train, train_resume, train_long,
               llama_train, train_fsdp, llama_fsdp, train_moe,
-              train_ulysses, train_ring, train_ring_xla, pipeline_lm) at
+              train_ulysses, train_ring, train_ring_xla, pipeline_lm,
+              int8) at
               that run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
@@ -284,6 +316,7 @@ sharded OUT ...`, `worker_main`), which writes its readings to OUT.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import functools
@@ -304,7 +337,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # (hi.hi + hi.lo + lo.hi of operands split as hi + lo) at the dense TF32
 # tensor-core rate, 495 TFLOP/s; one pass alone misses the fp32 bounds
 PEAK_OPS = {torch.bfloat16: 989e12,  # dense bf16 tensor-core rate
-            torch.float32: 495e12 / 3}
+            torch.float32: 495e12 / 3,
+            torch.int8: 1978.9e12}    # dense int8 tensor-core rate
 L2_BYTES = 50 * 2 ** 20             # H100 L2 cache
 SEED = 0
 # (atol, rtol) of a kernel against its plain version. bf16: both sides
@@ -4701,15 +4735,20 @@ def phase_infer(smi: str) -> dict:
     models' vocabularies): on the train phase's language_ddp export
     (a TransformerLM: `generate_recompute`) and on the crash phase's
     2-layer Llama-2-7B-width export (`generate`, bf16 as the loader
-    gives). Each printed text must equal, byte for byte, an in-process
-    decode of the same weights on the card, and show most of its 32
-    tokens."""
+    gives), each also with `--quant int8` (the int8 model quantized on
+    the card from the export's fp32 kernels). Each printed text must
+    equal, byte for byte, an in-process decode of the same weights on
+    the card, and show most of its 32 tokens; the float decodes launch
+    no hand kernel, the int8 ones launch the int8 product and the row
+    quantizer once a dense layer a forward (13 a forward for the 2-layer
+    TransformerLM, 15 for the 2-layer Llama) and nothing else."""
     from hyperion_tpu_torch.checkpoint.io import load_gathered
     from hyperion_tpu_torch.infer.generate import (
         generate,
         generate_recompute,
         model_from_npz,
     )
+    from hyperion_tpu_torch.ops import int8_matmul as im
 
     INFER_DIR.mkdir(parents=True, exist_ok=True)
     tok = infer_tokenizer()
@@ -4720,38 +4759,459 @@ def phase_infer(smi: str) -> dict:
                  "prompt_tokens": len(ids[0])}
     problems = []
     lm_npz = Path("build/chip_smoke_train/checkpoints/language_ddp_final.npz")
-    cases = (("language_ddp", lm_npz, generate_recompute, ()),
+    cases = (("language_ddp", lm_npz, generate_recompute, (), 2 * 6 + 1),
              ("llama", CRASH_DIR / "llama.npz", generate,
-              ("--max-len", "256")))
-    for name, npz, decode, extra in cases:
-        cli = _infer_cli(npz, INFER_DIR / "tok", prompt, *extra)
+              ("--max-len", "256"), 2 * 7 + 1))
+    for (name, npz, decode, extra, denses), quant in (
+            (c, q) for c in cases for q in ("none", "int8")):
+        key = name if quant == "none" else f"{name}_int8"
+        cli = _infer_cli(npz, INFER_DIR / "tok", prompt, *extra,
+                         "--quant", quant)
         t0 = time.perf_counter()
         model, cached = model_from_npz(load_gathered(npz), 256,
-                                       device="cuda")
+                                       device="cuda", quant=quant)
         _zero_all_launches()
+        im.int8_matmul.launches = im.quantize_rows.launches = 0
         out = decode(model, ids, 32, eos_id=tok.eos_id, pad_id=tok.eos_id)
-        launches = _all_launch_counts()
+        launches = {**_all_launch_counts(),
+                    "int8_matmul": im.int8_matmul.launches,
+                    "quantize_rows": im.quantize_rows.launches}
         new = [int(t) for t in out[0].tolist() if t != tok.eos_id]
         want = (prompt + tok.decode(new)).encode()
         visible = sum(t in tok.id_to_token for t in new)
-        rec[name] = {"cli_rc": cli["rc"], "cli_s": cli["seconds"],
-                     "cached": cached, "ids": new, "visible": visible,
-                     "text": want.decode(), "in_process_s":
-                     time.perf_counter() - t0,
-                     "equal": cli["out"] == want, "launches": launches}
+        rec[key] = {"cli_rc": cli["rc"], "cli_s": cli["seconds"],
+                    "cached": cached, "ids": new, "visible": visible,
+                    "text": want.decode(), "in_process_s":
+                    time.perf_counter() - t0,
+                    "equal": cli["out"] == want, "launches": launches}
         if cli["rc"] != 0 or cli["out"] != want:
-            problems.append(f"{name}: rc {cli['rc']}, cli {cli['out']!r} "
+            problems.append(f"{key}: rc {cli['rc']}, cli {cli['out']!r} "
                             f"!= in-process {want!r}; {cli['stderr']}")
         if visible < 16:
-            problems.append(f"{name}: {visible} of 32 tokens decode")
-        if cached != (name == "llama") or any(launches.values()):
-            problems.append(f"{name}: cached {cached}, launches {launches}")
+            problems.append(f"{key}: {visible} of 32 tokens decode")
+        int8_want = 32 * denses if quant == "int8" else 0
+        if cached != (name == "llama") or launches != {
+                **{k: 0 for k in launches},
+                "int8_matmul": int8_want, "quantize_rows": int8_want}:
+            problems.append(f"{key}: cached {cached}, launches {launches}")
         del model
         gc.collect()
         torch.cuda.empty_cache()
     emit(rec)
     if problems:
         raise AssertionError("infer: " + "; ".join(problems))
+    return rec
+
+
+# ------------------------------------------------- weight-only int8
+
+# the 7B int8 product's cases: decode M = 4 at every projection width
+# (q/k/v/o, gate/up, down, lm_head), the prefill of 4 prompts of 128
+# tokens (M = 512) at gate/up, and ragged M
+INT8_CASES = (("decode_qkvo_4x4096x4096", 4, 4096, 4096, True),
+              ("decode_gate_up_4x4096x11008", 4, 4096, 11008, True),
+              ("decode_down_4x11008x4096", 4, 11008, 4096, True),
+              ("decode_lm_head_4x4096x32000", 4, 4096, 32000, True),
+              ("prefill_gate_up_512x4096x11008", 512, 4096, 11008, True),
+              ("ragged_1x4096x4096", 1, 4096, 4096, False),
+              ("ragged_3x4096x4096", 3, 4096, 4096, False),
+              ("ragged_17x4096x4096", 17, 4096, 4096, False))
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """The int8 layers (`precision.quant`) on the kernels' plain versions,
+    on the card: what the kernel path is held to, bit for bit."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+    from hyperion_tpu_torch.precision import quant as tq
+
+    saved = tq.quantize_rows, tq._int8_matmul
+    tq.quantize_rows, tq._int8_matmul = (im.quantize_rows_plain,
+                                         im.int8_matmul_plain)
+    try:
+        yield
+    finally:
+        tq.quantize_rows, tq._int8_matmul = saved
+
+
+def check_quantize_rows(name, x, timing: bool) -> dict:
+    """The per-row quantizer against its plain version (q and scale bit
+    for bit, a rerun the same)."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    q, s = im.quantize_rows(x)
+    q2, s2 = im.quantize_rows(x)
+    pq, ps = im.quantize_rows_plain(x)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(a, b) for a, b in ((q, pq), (s, ps), (q, q2),
+                                             (s, s2)))
+    rec = {"phase": "kernels", "kernel": "quantize_rows", "case": name,
+           "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+           "max_abs_err": float((q.int() - pq.int()).abs().max()),
+           "tol": "bit-identical", "ok": ok,
+           **im.kernel_attrs("quantize_rows", x.dtype)}
+    if timing:
+        rows = x.numel() // x.shape[-1]
+        nbytes = x.numel() * (x.element_size() + 1) + 4 * rows
+        rec["kernel_ms"] = time_ms(im.quantize_rows, (x,), nbytes)
+        rec["plain_ms"] = time_ms(im.quantize_rows_plain, (x,), nbytes)
+        # ~3 fp32 operations an element (abs-max, divide, round) on the
+        # CUDA cores, 66.9 TFLOP/s
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3.0 * x.numel() / 66.9e12
+        rec["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["library_ms"] = None  # no one PyTorch call quantizes
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"quantize_rows {name}: the kernel's q or scale "
+                             "differ from the plain version's")
+    return rec
+
+
+def check_int8_matmul(name, M, K, N, seed, timing: bool) -> dict:
+    """The int8 product against its plain version at a 7B shape: operands
+    quantized from seeded bf16 activations and weights, bf16 out, bit
+    for bit and a rerun the same; its kernel's tile, registers and
+    spills; kernel, plain, bound, library (`torch._int_mm` and the same
+    epilogue, where it takes M > 16) and bf16 `F.linear` times."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(N, K, generator=g, device="cuda")).to(
+        torch.bfloat16)
+    xq, sx = im.quantize_rows(x)
+    wq, sw = im.quantize_rows(w)
+    out = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
+    again = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
+    ref = im.int8_matmul_plain(xq, wq, sx, sw, torch.bfloat16)
+    torch.cuda.synchronize()
+    path = im.int8_matmul_path(M)
+    ok = torch.equal(out, ref) and torch.equal(out, again) and \
+        path == ("decode" if M <= 16 else "prefill")
+    rec = {"phase": "kernels", "kernel": "int8_matmul", "case": name,
+           "dtype": "int8->bfloat16", "shape": [M, K, N], "path": path,
+           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+           "tol": "bit-identical", "ok": ok,
+           **im.kernel_attrs(path, torch.bfloat16)}
+    if timing:
+        nbytes = K * N + M * K + 2 * M * N + 4 * (M + N)
+        args = (xq, wq, sx, sw)
+        rec["kernel_ms"] = time_ms(
+            lambda *a: im.int8_matmul(*a, torch.bfloat16), args, nbytes)
+        rec["plain_ms"] = time_ms(
+            lambda *a: im.int8_matmul_plain(*a, torch.bfloat16), args,
+            nbytes)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K,
+                                                 torch.int8)
+        rec["library_ms"] = time_ms(
+            lambda a, b, c, d: (torch._int_mm(a, b.t()).float() * c[:, None]
+                                * d[None, :]).to(torch.bfloat16),
+            args, nbytes) if M > 16 else None
+        rec["bf16_linear_ms"] = time_ms(torch.nn.functional.linear, (x, w),
+                                        2 * (M * K + N * K + M * N))
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"int8_matmul {name}: kernel differs from the "
+                             f"plain version ({rec['max_abs_err']}), a "
+                             f"rerun differs, or the {path} tile ran")
+    return rec
+
+
+def phase_int8_kernels() -> dict:
+    """Both int8 kernels at the 7B shapes; returns their timed records
+    for the `kernels` line."""
+    recs = {"int8_matmul": [], "quantize_rows": []}
+    for i, (name, M, K, N, timing) in enumerate(INT8_CASES):
+        rec = check_int8_matmul(name, M, K, N, SEED + 50 + i, timing)
+        if timing:
+            recs["int8_matmul"].append(rec)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    for name, shape, dtype, timing in (
+            ("decode_4x4096", (4, 4096), torch.bfloat16, True),
+            ("decode_down_4x11008", (4, 11008), torch.bfloat16, True),
+            ("prefill_512x4096", (512, 4096), torch.bfloat16, True),
+            ("weight_11008x4096", (11008, 4096), torch.bfloat16, True),
+            ("fp32_3x1001", (3, 1001), torch.float32, False),
+            ("fp16_17x4096", (17, 4096), torch.float16, False)):
+        x = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+        x[0] = 0  # an all-zero row
+        rec = check_quantize_rows(name, x, timing)
+        if timing:
+            recs["quantize_rows"].append(rec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _decode_s(model, ids, n: int) -> float:
+    from hyperion_tpu_torch.infer.generate import generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(model, ids, n, device="cuda")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def decode_tokens_per_s(model, ids) -> float:
+    """Decode tokens/s at this batch, prefill taken out: generate's wall
+    time for 32 new tokens less its time for 1 (the prefill), over 31
+    steps, the best of two."""
+    _decode_s(model, ids, 2)  # warm
+    best = min(_decode_s(model, ids, 32) - _decode_s(model, ids, 1)
+               for _ in range(2))
+    return len(ids) * 31 / best
+
+
+def phase_int8(model, smi: str) -> dict:
+    """Weight-only int8 at Llama-2-7B's full widths and depth: the serve
+    phase's bf16 model (fused RMSNorm) quantized on the card
+    (`quantize_llama`: one `quantize_rows` launch a weight, 225), three
+    kernels' weights bit-identical to the plain quantizer's, then
+    `generate` at temperature 0 on two 128-token prompts alone (batch 1)
+    and with two more (batch 4), 32 new tokens each: every stream and
+    the prefill logits bit-identical to the same model on the plain
+    versions, launches exact (32 forwards of 225 int8 products, as many
+    row quantizations, 65 RMSNorms). Readings: the int8-vs-bf16 prefill
+    logits' relative L2, decode tokens/s of both at batch 1 and 4, the
+    weight bytes and the allocator's peak."""
+    from hyperion_tpu_torch.infer.generate import generate
+    from hyperion_tpu_torch.models.llama import init_cache
+    from hyperion_tpu_torch.ops import int8_matmul as im
+    from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
+    from hyperion_tpu_torch.precision.quant import quantize_llama
+
+    cfg = model.cfg
+    per_fwd = 7 * cfg.n_layers + 1
+    problems = []
+    gc.collect()
+    torch.cuda.synchronize()
+    im.quantize_rows.launches = im.int8_matmul.launches = 0
+    t0 = time.perf_counter()
+    qmodel, qstate = quantize_llama(model, cfg)
+    torch.cuda.synchronize()
+    rec = {"phase": "int8", "nvidia_smi": smi, "layers": cfg.n_layers,
+           "quantize_s": time.perf_counter() - t0,
+           "quantize_launches": im.quantize_rows.launches}
+    if rec["quantize_launches"] != per_fwd:
+        problems.append(f"{rec['quantize_launches']} weight quantizations, "
+                        f"want {per_fwd}")
+    fstate = model.state_dict()
+    for name in ("layers.0.attn.q_proj", "layers.0.mlp.down_proj",
+                 "lm_head"):
+        q, sc = im.quantize_rows_plain(fstate[name + ".weight"])
+        if not (torch.equal(q, qstate[name + ".weight_q"])
+                and torch.equal(sc, qstate[name + ".weight_scale"])):
+            problems.append(f"{name}: card quantization differs from plain")
+    # one layer's error alone: q_proj of layer 0 on seeded bf16 rows,
+    # int8 against bf16
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    x = torch.randn(4, cfg.d_model, generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        a = qmodel.layers[0].attn.q_proj(x).float()
+        b = model.layers[0].attn.q_proj(x).float()
+    rec["layer0_q_proj_rel_l2"] = float(torch.linalg.vector_norm(a - b)
+                                        / torch.linalg.vector_norm(b))
+    rec["weight_bytes"] = {
+        "int8": sum(t.numel() * t.element_size() for t in qstate.values()),
+        "bf16": sum(t.numel() * t.element_size() for t in fstate.values())}
+    del fstate, qstate
+
+    prompts = np.random.default_rng(SEED + 30).integers(
+        1, cfg.vocab_size, (4, 128))
+    runs = {"b1_a": prompts[:1], "b1_b": prompts[1:2], "b4": prompts}
+
+    def prefill_logits(m, ids):
+        with torch.no_grad():
+            out, _ = m(torch.as_tensor(ids, device="cuda"),
+                       cache=init_cache(m.cfg, len(ids), 128, device="cuda"),
+                       cache_index=0)
+        return out
+
+    streams, launches = {}, {}
+    for run, ids in runs.items():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        im.quantize_rows.launches = im.int8_matmul.launches = 0
+        fused_rmsnorm.launches = 0
+        out = generate(qmodel, ids, 32, device="cuda").cpu()
+        torch.cuda.synchronize()
+        launches[run] = {"int8_matmul": im.int8_matmul.launches,
+                         "quantize_rows": im.quantize_rows.launches,
+                         "fused_rmsnorm": fused_rmsnorm.launches}
+        want = {"int8_matmul": 32 * per_fwd, "quantize_rows": 32 * per_fwd,
+                "fused_rmsnorm": 32 * (2 * cfg.n_layers + 1)}
+        if launches[run] != want:
+            problems.append(f"{run}: launches {launches[run]} != {want}")
+        if run == "b4":
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with plain_int8():
+            plain = generate(qmodel, ids, 32, device="cuda").cpu()
+        streams[run] = out.tolist()
+        if not torch.equal(out, plain):
+            problems.append(f"{run}: kernel stream {out.tolist()} != plain "
+                            f"{plain.tolist()}")
+    if streams["b4"][:2] != streams["b1_a"] + streams["b1_b"]:
+        rec["batch_rows_differ"] = True  # a reading: batch changes M
+    logits = prefill_logits(qmodel, prompts)
+    with plain_int8():
+        plain_logits = prefill_logits(qmodel, prompts)
+    rec["prefill_logits_bit_identical"] = torch.equal(logits, plain_logits)
+    if not rec["prefill_logits_bit_identical"]:
+        problems.append("prefill logits: kernel path != plain path")
+    ref = prefill_logits(model, prompts)
+    rec["int8_vs_bf16_logit_rel_l2"] = float(
+        torch.linalg.vector_norm(logits - ref)
+        / torch.linalg.vector_norm(ref))
+    rec["greedy_agreement_with_bf16_b4"] = float(
+        (generate(model, prompts, 32, device="cuda").cpu()
+         == torch.tensor(streams["b4"])).float().mean())
+    del logits, plain_logits, ref
+    rec["decode_tokens_per_s"] = {
+        f"{kind}_b{len(ids)}": decode_tokens_per_s(m, ids)
+        for kind, m in (("int8", qmodel), ("bf16", model))
+        for ids in (prompts[:1], prompts)}
+    rec.update(streams=streams, launches=launches["b4"],
+               launches_by_run=launches, finite=all(
+                   0 <= t < cfg.vocab_size for row in streams["b4"]
+                   for t in row))
+    emit(rec)
+    del qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("int8: " + "; ".join(problems))
+    return rec
+
+
+# ------------------------------------------------------ Phase-1 tools
+
+
+def _csv_dicts(path: Path) -> list[dict]:
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _finite(row: dict, *keys: str) -> bool:
+    try:
+        return all(math.isfinite(float(row[k])) for k in keys)
+    except (KeyError, ValueError):
+        return False
+
+
+def phase_phase1(smi: str) -> dict:
+    """The reference's Phase-1 tools, each `python -m
+    hyperion_tpu_torch.bench.<name>` through its `main(argv)` into a
+    temporary directory: hw_explore at 4096 and 8192 for all four dtypes
+    and bandwidth at 100M and 500M elements; baseline with its four
+    models at batch 32 bf16; attention_bench at seq 1024-8192, both
+    impls, both modes, both geometries; compile_bench with all tiers and
+    the train step; decode_bench on tiny and mid, float and int8. Every
+    expected row finite (or the reference's "oom"), and no rate above
+    105 % of `utils/chips.py`'s peak (bandwidth: of 3.35 TB/s)."""
+    import shutil
+    import tempfile
+
+    from hyperion_tpu_torch.bench import (
+        attention_bench,
+        baseline,
+        compile_bench,
+        decode_bench,
+        hw_explore,
+    )
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_phase1_"))
+    rec: dict = {"phase": "phase1", "nvidia_smi": smi, "seconds": {}}
+    problems = []
+
+    def timed(name, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = fn()
+        rec["seconds"][name] = time.perf_counter() - t0
+        return out
+
+    try:
+        hw = root / "hw"
+        timed("hw_explore", lambda: hw_explore.main([
+            "--sizes", "4096", "8192", "--bandwidth-elems", "100000000",
+            "500000000", "--out", str(hw)]))
+        mm = _csv_dicts(hw / "precision_results.csv")
+        bw = _csv_dicts(hw / "bandwidth_results.csv")
+        rec["matmul_tflops"] = {f"{r['dtype']}_{r['size']}": float(r["tflops"])
+                                for r in mm}
+        rec["bandwidth_gb_per_s"] = {r["elements"]: float(r["gb_per_s"])
+                                     for r in bw}
+        if len(mm) != 8 or len(bw) != 2:
+            problems.append(f"hw_explore rows {len(mm)}, {len(bw)}")
+        for r in mm:
+            peak = float(r["peak_tflops"] or "nan")
+            if not _finite(r, "tflops") or not float(r["tflops"]) > 0 \
+                    or not float(r["tflops"]) <= 1.05 * peak:
+                problems.append(f"matmul {r}")
+        for r in bw:
+            if not _finite(r, "gb_per_s") or (
+                    not r["note"] and float(r["gb_per_s"]) > 1.05 * 3350):
+                problems.append(f"bandwidth {r}")
+
+        base = root / "baseline"
+        timed("baseline", lambda: baseline.main([
+            "--batch-size", "32", "--dtype", "bfloat16", "--iters", "8",
+            "--out", str(base)]))
+        bl = _csv_dicts(base / "model_benchmarks.csv")
+        rec["baseline"] = {r["model"]: {k: float(r[k]) for k in (
+            "forward_ms", "backward_ms", "optimizer_ms", "total_ms",
+            "samples_per_s", "peak_memory_mb")} for r in bl}
+        if [r["model"] for r in bl] != list(baseline.MODEL_SPECS) or not all(
+                _finite(r, "total_ms", "forward_ms") for r in bl):
+            problems.append(f"baseline rows {bl}")
+
+        att = root / "attention"
+        rc = timed("attention_bench", lambda: attention_bench.main([
+            "--seqs", "1024", "2048", "4096", "8192", "--out", str(att)]))
+        ar = _csv_dicts(att / "attention_scaling.csv")
+        rec["attention_ms"] = {
+            f"{r['geometry']}_{r['mode']}_{r['impl']}_{r['seq']}":
+            (float(r["per_iter_ms"]) if r["status"] == "ok" else r["status"])
+            for r in ar}
+        if rc != 0 or len(ar) != 32:
+            problems.append(f"attention_bench rc {rc}, {len(ar)} rows")
+        for r in ar:
+            if r["status"] == "ok" and not (
+                    _finite(r, "per_iter_ms", "achieved_tflops")
+                    and float(r["achieved_tflops"]) <= 1.05 * 989.4):
+                problems.append(f"attention {r}")
+            elif r["status"] not in ("ok", "oom"):
+                problems.append(f"attention {r}")
+
+        comp = root / "compile"
+        timed("compile_bench", lambda: compile_bench.main([
+            "--repeat", "8", "--train-step", "--out", str(comp)]))
+        cr = _csv_dicts(comp / "compilation_benchmark.csv")
+        rec["compile_ms"] = {f"{r['model']}_{r['variant']}":
+                             float(r["median_ms"]) for r in cr}
+        if len(cr) != 11 or not all(_finite(r, "median_ms") for r in cr):
+            problems.append(f"compile_bench rows {cr}")
+
+        dec = root / "decode"
+        timed("decode_bench", lambda: decode_bench.main([
+            "--models", "tiny", "mid", "--out", str(dec)]))
+        dr = _csv_dicts(dec / "decode_benchmarks.csv")
+        rec["decode"] = {f"{r['model']}_{r['quant']}": {k: float(r[k]) for k in (
+            "prefill_ms", "decode_ms_per_token", "decode_tokens_per_s",
+            "lifetime_peak_mb")} for r in dr}
+        if len(dr) != 4 or not all(_finite(r, "decode_ms_per_token",
+                                           "prefill_ms") for r in dr):
+            problems.append(f"decode_bench rows {dr}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(rec)
+    if problems:
+        raise AssertionError("phase1: " + "; ".join(map(str, problems)))
     return rec
 
 
@@ -4772,7 +5232,8 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  train_rec: dict, long_rec: dict, llama_rec: dict,
                  resume_rec: dict, kernel_recs: dict,
                  flash_recs: dict, fsdp_rec: dict,
-                 llama_fsdp_rec: dict, axes_recs: dict) -> dict:
+                 llama_fsdp_rec: dict, axes_recs: dict,
+                 int8_kernel_recs: dict, int8_rec: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -4792,7 +5253,11 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     those runs' launches; and the seq, pipe and expert runs' (train_moe
     and pipeline_lm at the train step's shapes, train_ulysses at
     train_long's with its flash kernels, train_ring and its xla
-    baseline at train_long's in fp32). `run` names the run."""
+    baseline at train_long's in fp32); and the int8 run's (Llama-2-7B
+    weight-only int8 at batch 4: the int8 product at each decode width
+    and the 512-row prefill, the row quantizer at the decode and prefill
+    activations and a weight, RMSNorm at the decode tick). `run` names
+    the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -4825,7 +5290,13 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
              "flash_attention_dq": ("flash_attention.cu",
                                     "flash_attention.py:351"),
              "flash_attention_dkv": ("flash_attention.cu",
-                                     "flash_attention.py:405")}
+                                     "flash_attention.py:405"),
+             # no Pallas kernel: XLA's int8 dot_general with its fused
+             # dequant epilogue, and its per-row quantize
+             "int8_matmul": ("int8_matmul.cu",
+                             "hyperion_tpu/precision/quant.py:69"),
+             "quantize_rows": ("int8_matmul.cu",
+                               "hyperion_tpu/precision/quant.py:47")}
     runs = (("serve", serve_rec, [("paged_attention", pa),
                                   ("fused_rmsnorm", rn)]),
             ("serve_features", features_rec,
@@ -4852,13 +5323,19 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
             ("train_ring_xla", {"launches": axes_recs["train_ring"][
                 "xla_launches"]}, ring_recs),
             ("pipeline_lm", axes_recs["pipeline_lm"],
-             list(kernel_recs["train"].items())))
+             list(kernel_recs["train"].items())),
+            ("int8", int8_rec,
+             [*(("int8_matmul", r) for r in int8_kernel_recs["int8_matmul"]),
+              *(("quantize_rows", r)
+                for r in int8_kernel_recs["quantize_rows"]),
+              ("fused_rmsnorm", rn)]))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
             src, rep = where[name]
             out.append({"name": name, "route": "cuda", "source": csrc + src,
-                        "replaces": pallas + rep, "run": run,
+                        "replaces": (rep if rep.startswith("hyperion_tpu/")
+                                     else pallas + rep), "run": run,
                         "launches": run_rec["launches"][name],
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
@@ -4868,7 +5345,8 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                         "checked": rec["ok"], "case": rec["case"],
                         "shape": rec["shape"], "dtype": rec["dtype"],
                         **{key: rec[key] for key in
-                           (*ATTR_KEYS, "path", "grad_shape") if key in rec}})
+                           (*ATTR_KEYS, "path", "grad_shape",
+                            "bf16_linear_ms") if key in rec}})
     return {"kernels": out}
 
 
@@ -4887,6 +5365,7 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     kernel_recs = phase_kernels()
+    int8_kernel_recs = phase_int8_kernels()
     flash_recs = phase_flash()
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
@@ -4918,9 +5397,11 @@ def main() -> int:
     gc.collect()  # the features engine's pools go before the load engine's
     torch.cuda.empty_cache()
     load_rec = phase_load(model, dev["nvidia_smi"])
+    int8_rec = phase_int8(model, dev["nvidia_smi"])
     del model
     gc.collect()  # the 7B weights go before the crash phase's children
     torch.cuda.empty_cache()
+    phase_phase1(dev["nvidia_smi"])
     _, crash_model = phase_crash()
     phase_route(crash_model, dev["nvidia_smi"])
     phase_introspect(crash_model)
@@ -4930,7 +5411,8 @@ def main() -> int:
     phase_infer(dev["nvidia_smi"])
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
-                      flash_recs, fsdp_rec, llama_fsdp_rec, axes_recs))
+                      flash_recs, fsdp_rec, llama_fsdp_rec, axes_recs,
+                      int8_kernel_recs, int8_rec))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

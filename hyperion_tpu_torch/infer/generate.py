@@ -15,7 +15,9 @@ hyperion_tpu_torch.infer --ckpt X.npz --prompt ...`): `model_from_npz`
 rebuilds the model from a gathered export, Llama exports decode through
 `generate` and TransformerLM and MoE LM exports through
 `generate_recompute` (pipeline exports raise, as the reference's do),
-`--draft-ckpt` through `infer/speculative.py`. The reference wraps the
+`--draft-ckpt` through `infer/speculative.py`, and `--quant int8`
+builds the weight-only int8 model (`precision/quant.py`) from the
+export's float weights, the draft's too. The reference wraps the
 whole decode in one `jit`; the port runs it eagerly, on the card unless
 `--device cpu`.
 
@@ -44,6 +46,8 @@ import torch
 from hyperion_tpu_torch import resolve_device
 
 _U64 = (1 << 64) - 1
+INT8_MOE = ("--quant int8 supports Llama and TransformerLM exports (MoE "
+            "expert banks are einsum weights, not dense kernels)")
 
 
 def _mask_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
@@ -249,10 +253,11 @@ def generate_recompute(
     return torch.stack(out, dim=1)
 
 
-def _lm_from_npz(params: dict, device):
+def _lm_from_npz(params: dict, device, quant: str = "none"):
     """A TransformerLM whose shape matches a gathered export, its
     weights loaded (`_infer_lm_from_npz` of the reference: the default
-    fp32 config with the "xla" attention and norm, dropout off)."""
+    fp32 config with the "xla" attention and norm, dropout off), or
+    quantized from them under `quant="int8"`."""
     from hyperion_tpu_torch.models.transformer_lm import (
         TransformerLM,
         params_from_jax,
@@ -266,6 +271,11 @@ def _lm_from_npz(params: dict, device):
         ff_dim=params["block_0"]["fc1"]["kernel"].shape[1],
         n_heads=params["block_0"]["attn"]["q_proj"]["kernel"].shape[1],
         max_len=params["pos_emb"]["embedding"].shape[0], dropout=0.0)
+    if quant == "int8":
+        from hyperion_tpu_torch.precision.quant import quantize_lm
+
+        return quantize_lm(params_from_jax(params, cfg), cfg,
+                           device=resolve_device(device))[0]
     model = TransformerLM(cfg, device=device)
     model.load_state_dict(params_from_jax(params, cfg), strict=True)
     return model
@@ -315,7 +325,7 @@ def _moe_from_npz(params: dict, moe_top_k: int, device):
 
 def model_from_npz(params: dict, max_len: int = 4096, *,
                    dtype: str = "bfloat16", device=None,
-                   moe_top_k: int = 2):
+                   moe_top_k: int = 2, quant: str = "none"):
     """(model, cached) for a gathered export, its weights loaded: a
     Llama (cached: True, the KV-cache decode of `generate`), a
     TransformerLM or an MoE LM (False: `generate_recompute`; the MoE's
@@ -323,7 +333,12 @@ def model_from_npz(params: dict, max_len: int = 4096, *,
     not recoverable from its weights (RoPE has no table), so it is an
     argument, and `dtype` is its compute dtype (the reference's loader
     gives bfloat16); a TransformerLM takes both from its export.
-    Pipeline exports raise, as the reference's CLI rejects them."""
+    `quant="int8"` quantizes a Llama's or a TransformerLM's float
+    weights as the reference's CLI does (`quantize_llama`,
+    `quantize_lm`: the export's fp32 kernels, per output feature, on
+    `device`); an MoE export raises there, its expert banks being no
+    dense kernels. Pipeline exports raise, as the reference's CLI
+    rejects them."""
     from hyperion_tpu_torch.models.llama import (
         Llama,
         LlamaConfig,
@@ -337,9 +352,11 @@ def model_from_npz(params: dict, max_len: int = 4096, *,
             "checkpoint")
     if "embed_tokens" not in params:
         if any(k.startswith("moe_block_") for k in params):
+            if quant == "int8":
+                raise ValueError(INT8_MOE)
             return _moe_from_npz(params, moe_top_k, device), False
         if "tok_emb" in params:
-            return _lm_from_npz(params, device), False
+            return _lm_from_npz(params, device, quant), False
         raise ValueError(f"unrecognized checkpoint layout (top-level keys: "
                          f"{sorted(params)[:6]}...)")
     vocab, d_model = params["embed_tokens"]["embedding"].shape
@@ -353,6 +370,11 @@ def model_from_npz(params: dict, max_len: int = 4096, *,
         n_heads=n_heads, n_kv_heads=n_kv_heads, ff_dim=ff_dim,
         max_len=max_len, remat=False, dtype=dtype,
     )
+    if quant == "int8":
+        from hyperion_tpu_torch.precision.quant import quantize_llama
+
+        return quantize_llama(params_from_jax(params, cfg), cfg,
+                              device=resolve_device(device))[0], True
     model = Llama(cfg, device=device)
     model.load_state_dict(params_from_jax(params, cfg), strict=True)
     return model, True
@@ -390,7 +412,8 @@ def main(argv=None) -> int:
                    help="context length for Llama exports (RoPE has no "
                         "weight table to infer it from)")
     p.add_argument("--quant", choices=["none", "int8"], default="none",
-                   help="int8 = weight-only quantized decode (ROADMAP A9b)")
+                   help="int8 = weight-only quantized decode "
+                        "(precision/quant.py)")
     p.add_argument("--draft-ckpt", default=None,
                    help="speculative decoding: a smaller Llama export "
                         "whose proposals the main model verifies (greedy "
@@ -404,9 +427,6 @@ def main(argv=None) -> int:
                    help="torch device (the plain PyTorch path runs with "
                         "--device cpu)")
     args = p.parse_args(argv)
-    if args.quant == "int8":
-        raise SystemExit("--quant int8 is not ported yet: the int8 decode "
-                         "needs its own GEMM kernel (ROADMAP A9b)")
     dev = resolve_device(args.device)
 
     # decode telemetry (opt-in: HYPERION_TELEMETRY=1 or =<path>): the
@@ -421,9 +441,13 @@ def main(argv=None) -> int:
     with tracer.span("load") as ld:
         tok = ByteBPE.load(args.tokenizer_dir)
         params = load_gathered(args.ckpt)
+        if args.quant == "int8" and any(k.startswith("moe_block_")
+                                        for k in params):
+            raise SystemExit(INT8_MOE)
         model, cached = model_from_npz(params, args.max_len, device=dev,
-                                       moe_top_k=args.moe_top_k)
-        ld.set(ckpt=args.ckpt, cached=cached)
+                                       moe_top_k=args.moe_top_k,
+                                       quant=args.quant)
+        ld.set(ckpt=args.ckpt, cached=cached, quant=args.quant)
     draft_model = None
     if args.draft_ckpt:
         if not cached:
@@ -432,7 +456,8 @@ def main(argv=None) -> int:
             raise SystemExit(
                 "speculative decoding is greedy-only; drop --temperature")
         draft_model, draft_cached = model_from_npz(
-            load_gathered(args.draft_ckpt), args.max_len, device=dev)
+            load_gathered(args.draft_ckpt), args.max_len, device=dev,
+            quant=args.quant)
         if not draft_cached:
             raise SystemExit("--draft-ckpt must be a Llama export")
         if args.draft_k < 1:

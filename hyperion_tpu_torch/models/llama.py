@@ -20,7 +20,14 @@ repeated for GQA, each block rematerialized per `remat`
 (`precision.remat`), and gradients carried. With `lora_rank > 0` the
 projections named in `lora_targets` are `models.lora.LoraDense`: the
 base weights stay frozen and only the adapters train (LoRA and int8
-are mutually exclusive; int8 waits for ROADMAP A9b).
+are mutually exclusive).
+
+`quant="int8"` is weight-only int8 inference (`precision/quant.py`):
+every projection the reference's `make_dense` routes — q/k/v/o,
+gate/up/down and `lm_head` — is a `QuantDense` (an int8 weight and a
+per-output fp32 scale, activations quantized per row at each call, the
+int8 product of `ops/int8_matmul.py`); the embedding and the norms stay
+float. `quantize_llama` converts a float model's weights.
 
 Two cache call forms, as in the reference, both without gradients:
 
@@ -60,6 +67,7 @@ from hyperion_tpu_torch.ops.attention import (
 )
 from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
 from hyperion_tpu_torch.ops.paged_attention import paged_attention
+from hyperion_tpu_torch.precision.quant import check_quant, make_dense
 from hyperion_tpu_torch.precision.remat import apply_remat, normalize_remat
 
 
@@ -76,7 +84,7 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     attention_impl: str = "xla"   # the cache-free forward's attention
     norm_impl: str = "xla"        # xla | pallas (fused_rmsnorm kernel)
-    quant: str = "none"           # int8 is not ported yet (ROADMAP A9b)
+    quant: str = "none"           # none | int8 (weight-only, precision/quant.py)
     # rank > 0 routes the targeted projections through LoraDense's
     # activation side-path
     lora_rank: int = 0
@@ -92,9 +100,7 @@ class LlamaConfig:
             raise ValueError("LoRA training and int8 inference quant are "
                              "mutually exclusive (train float, then merge "
                              "+ quantize)")
-        if self.quant != "none":
-            raise NotImplementedError(
-                "int8 weight quant is not ported yet (ROADMAP A9b)")
+        check_quant(self.quant)
         if self.norm_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown norm_impl {self.norm_impl!r}")
         normalize_remat(self.remat)
@@ -151,11 +157,12 @@ class _Dense(nn.Module):
 
 def _dense(c: LlamaConfig, name: str, d_in: int, d_out: int, device):
     """A projection named `name`: `LoraDense` where the config trains
-    an adapter on it (`_dense_ctor` of the reference), else `_Dense`."""
+    an adapter on it (`_dense_ctor` of the reference), else `_Dense`,
+    or `QuantDense` under `quant="int8"` (`precision.quant.make_dense`)."""
     if c.lora_rank > 0 and name in c.lora_targets:
         return LoraDense(d_in, d_out, c.lora_rank, c.lora_scale,
                          c.compute_dtype, device)
-    return _Dense(d_in, d_out, c.compute_dtype, device)
+    return make_dense(c, _Dense, d_in, d_out, device)
 
 
 def rms_norm_xla(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -408,7 +415,8 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(
             [LlamaBlock(cfg, dev) for _ in range(cfg.n_layers)])
         self.final_norm = _norm(cfg, dev)
-        self.lm_head = _Dense(cfg.d_model, cfg.vocab_size, dt, dev)
+        self.lm_head = make_dense(cfg, _Dense, cfg.d_model, cfg.vocab_size,
+                                  dev)
         self.register_buffer(
             "rope", rope_frequencies(cfg.head_dim, cfg.max_len,
                                      cfg.rope_theta, dev),
@@ -548,65 +556,96 @@ def jax_kernel_shapes(cfg: LlamaConfig) -> dict[str, tuple]:
     return shapes
 
 
+def _weight_from_kernel(a: np.ndarray, contract: int) -> np.ndarray:
+    """A flax kernel [*in, *out] ([H, Dh, d] for o_proj, whose first
+    `contract` = 2 axes contract) as a [out, in] weight."""
+    k = int(np.prod(a.shape[:contract]))
+    return np.ascontiguousarray(a.reshape(k, -1).T)
+
+
+def _contract(path: tuple) -> int:
+    return 2 if path[-2] == "o_proj" else 1
+
+
 def params_from_jax(tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     """Map the JAX Llama's nested param tree (numpy arrays — from
     `jax.device_get` or the port's `checkpoint.io.load_gathered`) onto
     this module's `state_dict` names. Flax kernels are [in, out] and
     become [out, in]; q/k/v_proj kernels are [d, H, Dh] and o_proj is
     [H, Dh, d], flattened to the 2-D projections here. Tensors stay
-    fp32 on the CPU: `load_state_dict` casts and moves them."""
+    fp32 on the CPU: `load_state_dict` casts and moves them. An int8
+    tree (`quant="int8"`: `kernel_q` and `kernel_scale` in place of
+    `kernel`) maps to `weight_q` (int8 [out, in]) and `weight_scale`
+    (fp32 [out])."""
 
     def t(a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
 
+    def dense(node: dict, name: str, contract: int) -> dict:
+        if "kernel_q" in node:
+            return {f"{name}.weight_q": torch.from_numpy(_weight_from_kernel(
+                        np.asarray(node["kernel_q"], np.int8), contract)),
+                    f"{name}.weight_scale": t(node["kernel_scale"]).reshape(
+                        -1)}
+        return {f"{name}.weight": torch.from_numpy(_weight_from_kernel(
+            np.asarray(node["kernel"], np.float32), contract))}
+
     sd = {
         "embed_tokens": t(tree["embed_tokens"]["embedding"]),
         "final_norm.weight": t(tree["final_norm"]["weight"]),
-        "lm_head.weight": t(tree["lm_head"]["kernel"]).T.contiguous(),
+        **dense(tree["lm_head"], "lm_head", 1),
     }
     for i in range(cfg.n_layers):
         layer = tree[f"layer_{i}"]
         for path, name in _LAYER_MAP.items():
             node = layer
-            for key in path:
+            for key in path[:-1]:
                 node = node[key]
-            w = t(node)
             if path[-1] == "kernel":
-                if path[1] == "o_proj":          # [H, Dh, d] → [d, H*Dh]
-                    w = w.reshape(-1, w.shape[-1]).T
-                else:                            # [d, ..., out] → [out, d]
-                    w = w.reshape(w.shape[0], -1).T
-            sd[f"layers.{i}.{name}"] = w.contiguous()
+                sd.update(dense(node, f"layers.{i}.{name[:-len('.weight')]}",
+                                _contract(path)))
+            else:
+                sd[f"layers.{i}.{name}"] = t(node[path[-1]])
     return sd
 
 
 def params_to_jax(model: Llama, named: dict | None = None) -> dict:
     """The inverse of `params_from_jax` over the base weights (adapters
-    left out): the JAX Llama's nested tree of fp32 numpy arrays, the
+    left out): the JAX Llama's nested tree of fp32 numpy arrays (int8
+    `kernel_q` beside fp32 `kernel_scale` for a quantized model), the
     tree `hyperion_tpu/checkpoint/io.py`'s `export_gathered` writes.
     `named`: the weights by parameter name, when not the model's own
     (a sharded model's, gathered)."""
     cfg = model.cfg
-    sd = dict(model.named_parameters()) if named is None else named
+    sd = model.state_dict() if named is None else named
 
     def a(p) -> np.ndarray:
         return p.detach().float().cpu().numpy()
 
+    def dense(name: str, shape: tuple, contract: int) -> dict:
+        if f"{name}.weight_q" in sd:
+            q = sd[f"{name}.weight_q"].detach().cpu().numpy()
+            scale = a(sd[f"{name}.weight_scale"])
+            return {"kernel_q": np.ascontiguousarray(q.T.reshape(shape)),
+                    "kernel_scale": scale.reshape((1,) * contract
+                                                  + shape[contract:])}
+        return {"kernel": np.ascontiguousarray(
+            a(sd[f"{name}.weight"]).T.reshape(shape))}
+
     tree = {"embed_tokens": {"embedding": a(sd["embed_tokens"])},
             "final_norm": {"weight": a(sd["final_norm.weight"])},
-            "lm_head": {"kernel": np.ascontiguousarray(
-                a(sd["lm_head.weight"]).T)}}
+            "lm_head": dense("lm_head", (cfg.d_model, cfg.vocab_size), 1)}
     for i in range(cfg.n_layers):
         layer: dict = {}
         for path, name in _LAYER_MAP.items():
-            w = a(sd[f"layers.{i}.{name}"])
-            if path[-1] == "kernel":
-                w = np.ascontiguousarray(w.T.reshape(_kernel_shape(path,
-                                                                   cfg)))
             node = layer
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = w
+            if path[-1] == "kernel":
+                node.update(dense(f"layers.{i}.{name[:-len('.weight')]}",
+                                  _kernel_shape(path, cfg), _contract(path)))
+            else:
+                node[path[-1]] = a(sd[f"layers.{i}.{name}"])
         tree[f"layer_{i}"] = layer
     return tree
 

@@ -27,8 +27,11 @@ Dropout draws from the `torch.Generator` the caller passes; it cannot
 reproduce JAX's dropout bits. `remat` wraps each block with
 `precision.remat.apply_remat`; a rematerialized block's
 recompute restarts the dropout generator where the block's first run
-found it, so it redraws the same masks. `quant="int8"` is not ported
-(ROADMAP A9b) and raises.
+found it, so it redraws the same masks. `quant="int8"` makes every
+dense a `precision.quant.QuantDense` (int8 weight, per-output fp32
+scale, the float bias added after the dequant, as the reference's
+`QuantDenseGeneral`); embeddings and norms stay float. Inference only:
+`quantize_lm` converts a float model's weights.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from hyperion_tpu_torch import resolve_device
 from hyperion_tpu_torch.data.text import GPT2_VOCAB_SIZE
 from hyperion_tpu_torch.ops.attention import dot_product_attention
 from hyperion_tpu_torch.ops.fused_norm import fused_layernorm
+from hyperion_tpu_torch.precision.quant import check_quant, make_dense
 from hyperion_tpu_torch.precision.remat import apply_remat, normalize_remat
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default, used by both impls
@@ -65,13 +69,11 @@ class TransformerLMConfig:
     causal: bool = True            # False → bidirectional encoder blocks
     remat: bool | str = False      # precision.remat policy, per block
     dtype: str = "float32"         # compute dtype; params stay fp32
-    quant: str = "none"            # not ported (ROADMAP A9b)
+    quant: str = "none"            # none | int8 (weight-only inference)
 
     def __post_init__(self):
         normalize_remat(self.remat)
-        if self.quant != "none":
-            raise NotImplementedError(
-                "int8 weight quant is not ported yet (ROADMAP A9b)")
+        check_quant(self.quant)
         if self.activation not in ("relu", "gelu"):
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.norm_impl not in ("xla", "pallas"):
@@ -117,6 +119,12 @@ class Dense(nn.Module):
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
                         self.bias.to(self.dtype))
+
+
+def dense(cfg, d_in: int, d_out: int, device) -> nn.Module:
+    """This family's biased dense: `Dense`, or `QuantDense` with its
+    float bias under `quant="int8"` (`precision.quant.make_dense`)."""
+    return make_dense(cfg, Dense, d_in, d_out, device, use_bias=True)
 
 
 class Embed(nn.Module):
@@ -187,11 +195,11 @@ class MHA(nn.Module):
     def __init__(self, cfg: TransformerLMConfig, device):
         super().__init__()
         self.cfg = cfg
-        d, hd, dt = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.compute_dtype
-        self.q_proj = Dense(d, hd, dt, device)
-        self.k_proj = Dense(d, hd, dt, device)
-        self.v_proj = Dense(d, hd, dt, device)
-        self.o_proj = Dense(hd, d, dt, device)
+        d, hd = cfg.d_model, cfg.n_heads * cfg.head_dim
+        self.q_proj = dense(cfg, d, hd, device)
+        self.k_proj = dense(cfg, d, hd, device)
+        self.v_proj = dense(cfg, d, hd, device)
+        self.o_proj = dense(cfg, hd, d, device)
 
     def forward(self, x, padding_mask):
         # heads by the projections' output: under tensor parallelism a
@@ -209,14 +217,13 @@ class MHA(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: TransformerLMConfig, device):
         super().__init__()
-        dt = cfg.compute_dtype
         self.act = (F.relu if cfg.activation == "relu"
                     else lambda h: F.gelu(h, approximate="tanh"))
         self.ln1 = _norm(cfg, device)
         self.attn = MHA(cfg, device)
         self.ln2 = _norm(cfg, device)
-        self.fc1 = Dense(cfg.d_model, cfg.ff_dim, dt, device)
-        self.fc2 = Dense(cfg.ff_dim, cfg.d_model, dt, device)
+        self.fc1 = dense(cfg, cfg.d_model, cfg.ff_dim, device)
+        self.fc2 = dense(cfg, cfg.ff_dim, cfg.d_model, device)
 
     def forward(self, x, padding_mask, drop):
         h = drop(self.attn(self.ln1(x), padding_mask))
@@ -243,7 +250,7 @@ class TransformerLM(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"block_{i}", Block(cfg, dev))
         self.ln_f = _norm(cfg, dev)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dt, dev)
+        self.lm_head = dense(cfg, cfg.d_model, cfg.vocab_size, dev)
 
     @property
     def blocks(self) -> list[Block]:
@@ -370,27 +377,33 @@ def params_from_jax(tree: dict, cfg: TransformerLMConfig
     `jax.device_get` or `checkpoint.io.load_gathered`) onto this
     module's `state_dict`. Kernels [in, ...out] become weights [out,
     in]: q/k/v_proj kernels are [d, H, Dh] with [H, Dh] biases, o_proj
-    is [H, Dh, d], lm_head [d, V]. Tensors come out fp32 on the CPU;
+    is [H, Dh, d], lm_head [d, V]. An int8 tree's `kernel_q` (int8) and
+    `kernel_scale` become `weight_q` [out, in] and `weight_scale` [out].
+    Tensors come out fp32 (int8 for `weight_q`) on the CPU;
     `load_state_dict` moves them."""
     sd = {}
     for path, a in _flatten(tree).items():
         *mods, leaf = path
-        a = np.array(a, dtype=np.float32)  # a writable copy
-        if leaf == "kernel":
+        if leaf == "kernel_scale":
+            a, leaf = np.asarray(a, np.float32).reshape(-1), "weight_scale"
+        elif leaf in ("kernel", "kernel_q"):
+            a = np.asarray(a, np.int8 if leaf == "kernel_q" else np.float32)
             a = a.reshape(-1, a.shape[-1]) if mods[-1] == "o_proj" \
                 else a.reshape(a.shape[0], -1)
-            a, leaf = a.T, "weight"
-        elif leaf == "bias" and mods[-1] in _SPLIT_HEADS:
-            a = a.reshape(-1)
+            a, leaf = a.T, {"kernel": "weight", "kernel_q": "weight_q"}[leaf]
+        else:
+            a = np.asarray(a, np.float32)
+            if leaf == "bias" and mods[-1] in _SPLIT_HEADS:
+                a = a.reshape(-1)
         sd[".".join([*mods, leaf])] = torch.from_numpy(
-            np.ascontiguousarray(a))
+            np.array(a, order="C"))  # a writable copy
     return sd
 
 
 def params_to_jax(model: TransformerLM) -> dict:
     """The inverse of `params_from_jax`: the flax-layout nested tree of
-    fp32 numpy arrays, the tree `hyperion_tpu/checkpoint/io.py`'s
-    `export_gathered` writes."""
+    fp32 numpy arrays (int8 `kernel_q` for a quantized model), the tree
+    `hyperion_tpu/checkpoint/io.py`'s `export_gathered` writes."""
     return state_to_jax(model.state_dict(), model.cfg)
 
 
@@ -402,14 +415,20 @@ def state_to_jax(named: dict[str, torch.Tensor],
     tree: dict = {}
     for name, p in named.items():
         *mods, leaf = name.split(".")
-        a = p.detach().float().cpu().numpy()
-        if leaf == "weight":
+        a = p.detach().cpu()
+        a = (a if leaf == "weight_q" else a.float()).numpy()
+        if leaf in ("weight", "weight_q"):
             a = a.T
             if mods[-1] in _SPLIT_HEADS:
                 a = a.reshape(a.shape[0], H, Dh)
             elif mods[-1] == "o_proj":
                 a = a.reshape(H, Dh, a.shape[-1])
-            leaf = "kernel"
+            leaf = "kernel" if leaf == "weight" else "kernel_q"
+        elif leaf == "weight_scale":
+            shape = ((1, H, Dh) if mods[-1] in _SPLIT_HEADS
+                     else (1, 1, a.shape[0]) if mods[-1] == "o_proj"
+                     else (1, a.shape[0]))
+            a, leaf = a.reshape(shape), "kernel_scale"
         elif leaf == "bias" and mods[-1] in _SPLIT_HEADS:
             a = a.reshape(H, Dh)
         node = tree

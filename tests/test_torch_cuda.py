@@ -946,3 +946,138 @@ def test_prefetched_epoch_equals_sync_on_the_card(cuda):
     for a, b in zip(*runs):
         for k in a:
             assert torch.equal(a[k], b[k])
+
+
+# ------------------------------------------------------------ int8 kernels
+
+
+def _int8_operands(M, N, K, seed, cuda):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (N, K), generator=g, device=cuda,
+                       dtype=torch.int8)
+    sx = torch.rand(M, generator=g, device=cuda) * 0.02 + 1e-4
+    sw = torch.rand(N, generator=g, device=cuda) * 0.02 + 1e-4
+    bias = torch.randn(N, generator=g, device=cuda)
+    return xq, wq, sx, sw, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows, K", [(1, 4096), (3, 100), (17, 11008),
+                                     (512, 4096), (5, 1)])
+def test_quantize_rows_kernel_bit_identical(cuda, dtype, rows, K):
+    """The per-row quantizer against its plain version: q and scale
+    bit for bit (a max, two IEEE divisions and rint on both sides), an
+    all-zero row among them, and a rerun the same."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device=cuda).manual_seed(rows * K)
+    x = (torch.randn(rows, K, generator=g, device=cuda) * 3).to(dtype)
+    x[rows // 2] = 0
+    before = im.quantize_rows.launches
+    q, s = im.quantize_rows(x)
+    q2, s2 = im.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert im.quantize_rows.launches == before + 2
+    pq, ps = im.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    assert torch.equal(q, q2) and torch.equal(s, s2)
+    assert (q[rows // 2] == 0).all()
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M, N, K", [(1, 4096, 4096), (3, 1000, 4096),
+                                     (4, 11008, 4096), (16, 7, 64),
+                                     (17, 4096, 11008), (64, 257, 96),
+                                     (130, 1000, 4096), (5, 300, 100),
+                                     (33, 129, 48)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_matmul_kernel_bit_identical(cuda, out_dtype, M, N, K,
+                                          with_bias):
+    """The product against its plain version (an exact int32 sum, then
+    the same fp32 epilogue), ragged M, N and K (K 100 streams by bytes),
+    both tiles, with and without a bias; a rerun the same bits."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    xq, wq, sx, sw, bias = _int8_operands(M, N, K, M * N + K, cuda)
+    b = bias if with_bias else None
+    before = im.int8_matmul.launches
+    out = im.int8_matmul(xq, wq, sx, sw, out_dtype, b)
+    again = im.int8_matmul(xq, wq, sx, sw, out_dtype, b)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 2
+    ref = im.int8_matmul_plain(xq, wq, sx, sw, out_dtype, b)
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, again)
+    assert im.int8_matmul_path(M) == ("decode" if M <= 16 else "prefill")
+
+
+def test_int8_matmul_misaligned_operand_streams_by_bytes(cuda):
+    """An operand one byte off the 16-byte grid takes the byte loads and
+    gives the same bits."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    xq, wq, sx, sw, _ = _int8_operands(9, 500, 256, 11, cuda)
+    flat = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)
+    view = flat[1:].view_as(xq)
+    view.copy_(xq)
+    out = im.int8_matmul(view, wq, sx, sw, torch.bfloat16)
+    assert torch.equal(out, im.int8_matmul_plain(xq, wq, sx, sw,
+                                                 torch.bfloat16))
+
+
+def test_int8_kernels_do_not_spill(cuda):
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    for which, dtypes in (("quantize_rows", (torch.float32, torch.bfloat16,
+                                             torch.float16)),
+                          ("decode", (torch.float32, torch.bfloat16)),
+                          ("prefill", (torch.float32, torch.bfloat16))):
+        for dtype in dtypes:
+            for vec in (True, False):
+                attrs = im.kernel_attrs(which, dtype, vec)
+                assert attrs["spill_bytes"] == 0, (which, dtype, vec, attrs)
+
+
+def test_int8_llama_forward_launches_and_matches_plain(cuda, monkeypatch):
+    """A 32-layer int8 Llama at tiny widths, quantized on the card: the
+    weights bit-identical to the plain quantizer's on the CPU, one
+    forward launches the product 32 * 7 + 1 = 225 times and the
+    quantizer as often, and the logits equal bit for bit the same
+    model's on the card with the plain versions in place of the
+    kernels."""
+    from hyperion_tpu_torch.models import llama as tl
+    from hyperion_tpu_torch.ops import int8_matmul as im
+    from hyperion_tpu_torch.precision import quant as tq
+    from hyperion_tpu_torch.precision.quant import quantize_llama
+
+    cfg = tl.llama_tiny_config(n_layers=32, max_len=64)
+    float_model = tl.Llama(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    state = float_model.state_dict()
+    im.quantize_rows.launches = 0
+    qcard, qstate = quantize_llama(state, cfg, device=cuda)
+    assert im.quantize_rows.launches == 225
+    qcpu, cpu_state = quantize_llama(state, cfg, device="cpu")
+    for k, v in cpu_state.items():
+        assert torch.equal(qstate[k].cpu(), v), k
+    ids = torch.randint(1, 250, (2, 9), generator=torch.Generator()
+                        .manual_seed(1))
+    im.quantize_rows.launches = im.int8_matmul.launches = 0
+    logits, _ = qcard(ids.to(cuda), cache=tl.init_cache(qcard.cfg, 2, 16,
+                                                        device=cuda),
+                      cache_index=0)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == 225
+    assert im.quantize_rows.launches == 225
+    monkeypatch.setattr(tq, "quantize_rows", im.quantize_rows_plain)
+    monkeypatch.setattr(tq, "_int8_matmul", im.int8_matmul_plain)
+    ref, _ = qcard(ids.to(cuda), cache=tl.init_cache(qcard.cfg, 2, 16,
+                                                     device=cuda),
+                   cache_index=0)
+    assert im.int8_matmul.launches == 225
+    assert torch.isfinite(logits).all()
+    assert torch.equal(logits, ref)

@@ -128,11 +128,29 @@ def test_cli_llama_and_speculative(files, capsys):
                         "3"], capsys, tgen.main) == want
 
 
+def test_cli_llama_int8_equals_the_jax_cli(files, capsys):
+    """`--quant int8` on a Llama export: the export's fp32 kernels
+    quantized per output feature, decoded in bf16 through the int8
+    product; the text equals the JAX CLI's, and with `--draft-ckpt` (the
+    draft quantized too) the speculative decode prints the same."""
+    d, _ = files
+    base = ["--prompt", PROMPT + " fox jumps", "--tokenizer-dir",
+            str(d / "tok"), "--max-new-tokens", "6", "--max-len", "64",
+            "--ckpt", str(d / "target.npz"), "--quant", "int8"]
+    want = _cli(base, capsys, jgen.main)
+    assert _cli(base + ["--device", "cpu"], capsys, tgen.main) == want
+    assert _cli(base + ["--device", "cpu", "--draft-ckpt",
+                        str(d / "draft.npz"), "--draft-k", "3"],
+                capsys, tgen.main) == want
+
+
 def test_moe_exports_and_int8_name_their_items(files, tmp_path, capsys):
     """An MoE LM export decodes through `generate_recompute`, its routing
     top_k given by `--moe-top-k` (not in the weights): the CLI's text
     equals the JAX CLI's. A pipeline export raises as the reference's
-    does; `--quant int8` still names its ROADMAP item."""
+    does. `--quant int8` decodes a TransformerLM export through the
+    int8 model, its text equal to the JAX CLI's `--quant int8`, and
+    refuses an MoE export with the reference's message."""
     from hyperion_tpu.models import moe_lm as jm
     from hyperion_tpu.ops.moe import MoEConfig
     from hyperion_tpu_torch.models.moe_lm import MoELM
@@ -155,10 +173,15 @@ def test_moe_exports_and_int8_name_their_items(files, tmp_path, capsys):
     assert _cli(argv + ["--device", "cpu"], capsys, tgen.main) == want
     with pytest.raises(ValueError, match="pipeline checkpoints"):
         tgen.model_from_npz({"stages": {}, "tok_emb": {}}, device="cpu")
-    with pytest.raises(SystemExit, match="ROADMAP A9b"):
-        tgen.main(["--prompt", PROMPT, "--ckpt", str(d / "lm.npz"),
-                   "--tokenizer-dir", str(d / "tok"), "--quant", "int8",
-                   "--device", "cpu"])
+    int8 = ["--prompt", PROMPT, "--ckpt", str(d / "lm.npz"),
+            "--tokenizer-dir", str(d / "tok"), "--max-new-tokens", "8",
+            "--quant", "int8"]
+    want = _cli(int8, capsys, jgen.main)
+    assert _cli(int8 + ["--device", "cpu"], capsys, tgen.main) == want
+    moe_int8 = argv + ["--quant", "int8", "--device", "cpu"]
+    moe_int8[moe_int8.index("--ckpt") + 1] = str(tmp_path / "moe.npz")
+    with pytest.raises(SystemExit, match="MoE expert banks"):
+        tgen.main(moe_int8)
 
 
 def test_module_entry_point_runs_on_the_cpu_when_asked(files):

@@ -106,3 +106,19 @@ def test_native_build_never_writes_under_the_reference(tmp_path,
     assert not list((REPO / "hyperion_tpu").rglob(so.name))
     lib = build.load("coord")
     assert lib.hypcoord_serve  # the C ABI resolves
+
+
+@pytest.mark.parametrize("module", [
+    "precision/quant.py", "ops/int8_matmul.py", "utils/timing.py",
+    "bench/util.py", "bench/hw_explore.py", "bench/baseline.py",
+    "bench/attention_bench.py", "bench/compile_bench.py",
+    "bench/decode_bench.py", "metrics/plots.py", "models/vit.py",
+    "models/encoder.py"])
+def test_int8_and_phase1_modules_are_covered(module):
+    """Weight-only int8 and the Phase-1 tools are port files the checks
+    above read, and the int8 kernels' source names no module of the
+    reference by import path."""
+    path = REPO / "hyperion_tpu_torch" / module
+    assert path in PORT_FILES
+    src = REPO / "hyperion_tpu_torch" / "ops" / "csrc" / "int8_matmul.cu"
+    assert _IMPORT_REF.search(src.read_text()) is None

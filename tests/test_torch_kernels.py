@@ -647,6 +647,7 @@ class TestBuild:
     def test_digest_keys_on_sources(self):
         srcs = sorted(build.CSRC.glob("*.cu"))
         assert {s.stem for s in srcs} == {"flash_attention", "fused_ce",
-                                          "fused_norm", "paged_attention"}
+                                          "fused_norm", "int8_matmul",
+                                          "paged_attention"}
         assert build._digest(srcs) == build._digest(srcs)
         assert build._digest(srcs[:1]) != build._digest(srcs)

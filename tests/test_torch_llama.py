@@ -212,8 +212,36 @@ class TestWeights:
 
     @pytest.mark.parametrize("field, value", [("quant", "int8")])
     def test_unported_config_raises(self, field, value):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tl.llama_tiny_config(**{field: value})
+        """The last option the port lacked, int8 weights, now builds: a
+        config with it quantizes the JAX init's weights exactly as the
+        JAX package does, and its cached logits match the JAX int8
+        model's (fp32, within TOL); an unknown mode still raises."""
+        from hyperion_tpu.precision import quant as jq
+        from hyperion_tpu_torch.precision import quant as tq
+
+        jcfg = jl.llama_tiny_config(max_len=64, n_kv_heads=2)
+        params = jax.device_get(jl.Llama(jcfg).init_params(
+            jax.random.key(1), seq=8))
+        fcfg = tl.llama_tiny_config(max_len=64, n_kv_heads=2)
+        cfg = dataclasses.replace(fcfg, **{field: value})
+        qmodel = tl.Llama(cfg, device="cpu")
+        qmodel.load_state_dict(tq.quantize_params_like(
+            tl.params_from_jax(params, fcfg), qmodel))
+        jmodel, jparams = jq.quantize_llama(params, jcfg)
+        want = tl.params_from_jax(jax.device_get(jparams), cfg)
+        for k, v in qmodel.state_dict().items():
+            assert torch.equal(v.to(want[k].dtype), want[k]), k
+        ids = np.random.default_rng(7).integers(1, 250, (2, 6))
+        ref, _ = jmodel.apply({"params": jparams},
+                              jnp.asarray(ids.astype(np.int32)),
+                              cache=jl.init_cache(jmodel.cfg, 2, 8),
+                              cache_index=0)
+        got, _ = qmodel(torch.as_tensor(ids),
+                        cache=tl.init_cache(cfg, 2, 8, device="cpu"),
+                        cache_index=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+        with pytest.raises(ValueError, match="unknown quant mode"):
+            tl.llama_tiny_config(**{field: "int4"})
 
     @pytest.mark.parametrize("field, value", [("lora_rank", 8),
                                               ("remat", True)])

@@ -241,8 +241,22 @@ class TestTransformerLM:
             model(torch.zeros(1, 17, dtype=torch.long))
         with pytest.raises(ValueError, match="unknown remat policy"):
             tt.simple_lm_config(remat="offload")
-        with pytest.raises(NotImplementedError, match="A9"):
-            tt.simple_lm_config(quant="int8")
+        # int8 weights, the option the port once lacked, build and match
+        # the JAX int8 model on the same quantized weights
+        from hyperion_tpu.precision import quant as jq
+        from hyperion_tpu_torch.precision import quant as tq
+
+        jmodel, params, fmodel = _pair(norm_impl="xla")
+        jq_model, jq_params = jq.quantize_lm(params, jmodel.cfg)
+        qmodel, _ = tq.quantize_lm(fmodel, fmodel.cfg)
+        ids, mask = _batch(seed=9)
+        ref = jq_model.apply({"params": jq_params}, jnp.asarray(ids),
+                             padding_mask=jnp.asarray(mask))
+        got = qmodel(_t(ids), padding_mask=_t(mask))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                                   atol=2e-5, rtol=2e-5)
+        with pytest.raises(ValueError, match="unknown quant mode"):
+            tt.simple_lm_config(quant="int4")
 
     @pytest.mark.parametrize("remat", ["full", "dots"])
     def test_remat_logits_and_grads_match_jax(self, remat):
