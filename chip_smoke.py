@@ -63,12 +63,16 @@ script exits non-zero):
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
               backward in turns (library, kernel, kernel, library).
-              The weight-only int8 kernels (`phase_int8_kernels`):
-              `int8_matmul` at the 7B decode tick's M 4 for every
-              projection width (4096->4096, ->11008, 11008->4096,
-              4096->32000), the 512-row prefill (4096->11008) and ragged
-              M 1, 3, 17, each bit-identical to its plain version and a
-              rerun, its tile, registers and spills, against
+              The weight-only int8 kernels (`phase_int8_kernels`): the
+              fused decode dense (`quantized_dense_decode`: bf16 rows
+              quantized inside a thread-block cluster) at the 7B decode
+              tick's M 4 for every projection width (4096->4096,
+              ->11008, 11008->4096, 4096->32000) and ragged M 1, 3; the
+              wgmma product at the 512-row prefill (4096->11008) and
+              M 17; the cluster product on quantized rows and the byte
+              loads once each: every path bit-identical to its plain
+              version and a rerun, the Python and C path rules agreeing,
+              its registers, spills, shared memory and cluster, against
               `torch._int_mm` plus the epilogue (M > 16) and bf16
               `F.linear`; `quantize_rows` at the decode and prefill
               activations and a weight (bf16), fp32 and fp16 rows, an
@@ -247,10 +251,16 @@ script exits non-zero):
               128-token prompts alone and with two more (batch 4): every
               stream and the prefill logits bit-identical to the same
               model on the plain versions, launches exact (225 int8
-              products, as many row quantizations and 65 RMSNorms a
-              forward). Readings: int8-vs-bf16 prefill logits' relative
-              L2, decode tokens/s of both at batch 1 and 4 (prefill
-              taken out), weight bytes, the allocator's peak.
+              products and 65 RMSNorms a forward, 225 row quantizations
+              in the prefill alone: a decode step's denses quantize
+              their rows inside the product). Readings: int8-vs-bf16
+              prefill logits' relative L2, decode tokens/s of both at
+              batch 1 and 4 (prefill taken out), weight bytes, the
+              allocator's peak, and the 225 denses of a batch-4 decode
+              forward on the model's weights, each captured in one CUDA
+              graph, this checkout's kernels against the previous ones
+              (`scripts/int8_matmul_baseline.cu`, built beside the
+              port's kernels) and bf16 `F.linear`, in turns.
  13b. phase1  each Phase-1 tool through its `main(argv)` into a
               temporary directory (`phase_phase1`): hw_explore (4096 and
               8192, fp32/bf16/fp16/int8; bandwidth at 100M and 500M),
@@ -291,8 +301,9 @@ script exits non-zero):
               (`generate`), each plain and with `--quant int8`: each
               printed text equal, byte for byte, to an in-process decode
               of the same weights; the float decodes launch no hand
-              kernel, the int8 ones the two int8 kernels once a dense a
-              forward.
+              kernel, the int8 ones the int8 product once a dense a
+              forward and the row quantizer once a dense a forward of
+              more than 16 rows.
  17. the `kernels` line: one record per kernel and run (`run`: serve,
               serve_features, load, train, train_resume, train_long,
               llama_train, train_fsdp, llama_fsdp, train_moe,
@@ -422,10 +433,31 @@ def phase_device() -> dict:
     return info
 
 
+def int8_profile():
+    """`scripts/profile_torch_int8.py` as a module: the previous int8
+    kernels' build (`Baseline`) and the forward's dense sum in turns."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / "profile_torch_int8.py"
+    mod = sys.modules.get("profile_torch_int8")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location("profile_torch_int8",
+                                                      path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["profile_torch_int8"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+BASELINE = {}  # the previous int8 kernels, started building in phase_build
+
+
 def phase_build() -> None:
     from hyperion_tpu_torch.ops import build
 
     t0 = time.perf_counter()
+    # the int8 yardstick's nvcc runs beside the port's
+    BASELINE["int8"] = int8_profile().Baseline()
     libs = build.build_all()
     for stem in libs:
         build.load(stem)
@@ -4789,10 +4821,15 @@ def phase_infer(smi: str) -> dict:
                             f"!= in-process {want!r}; {cli['stderr']}")
         if visible < 16:
             problems.append(f"{key}: {visible} of 32 tokens decode")
-        int8_want = 32 * denses if quant == "int8" else 0
+        # generate: a prefill of the prompt's rows, then one row a step;
+        # generate_recompute: every step a forward of the whole buffer
+        rows = ([len(ids[0])] + [1] * 31 if cached
+                else [len(ids[0]) + 32] * 32)
+        want = {"int8_matmul": 32 * denses,
+                "quantize_rows": denses * sum(r > 16 for r in rows)} \
+            if quant == "int8" else {"int8_matmul": 0, "quantize_rows": 0}
         if cached != (name == "llama") or launches != {
-                **{k: 0 for k in launches},
-                "int8_matmul": int8_want, "quantize_rows": int8_want}:
+                **{k: 0 for k in launches}, **want}:
             problems.append(f"{key}: cached {cached}, launches {launches}")
         del model
         gc.collect()
@@ -4805,17 +4842,23 @@ def phase_infer(smi: str) -> dict:
 
 # ------------------------------------------------- weight-only int8
 
-# the 7B int8 product's cases: decode M = 4 at every projection width
-# (q/k/v/o, gate/up, down, lm_head), the prefill of 4 prompts of 128
-# tokens (M = 512) at gate/up, and ragged M
-INT8_CASES = (("decode_qkvo_4x4096x4096", 4, 4096, 4096, True),
-              ("decode_gate_up_4x4096x11008", 4, 4096, 11008, True),
-              ("decode_down_4x11008x4096", 4, 11008, 4096, True),
-              ("decode_lm_head_4x4096x32000", 4, 4096, 32000, True),
-              ("prefill_gate_up_512x4096x11008", 512, 4096, 11008, True),
-              ("ragged_1x4096x4096", 1, 4096, 4096, False),
-              ("ragged_3x4096x4096", 3, 4096, 4096, False),
-              ("ragged_17x4096x4096", 17, 4096, 4096, False))
+# the 7B int8 product's cases: (name, M, K, N, path, timed). Decode M = 4
+# at every projection width (q/k/v/o, gate/up, down, lm_head) through the
+# fused kernel from bf16 rows, the prefill of 4 prompts of 128 tokens
+# (M = 512) at gate/up on wgmma, ragged M, the cluster product on
+# quantized rows, and K off the 16-byte grid (byte loads)
+INT8_CASES = (
+    ("decode_qkvo_4x4096x4096", 4, 4096, 4096, "decode_fused", True),
+    ("decode_gate_up_4x4096x11008", 4, 4096, 11008, "decode_fused", True),
+    ("decode_down_4x11008x4096", 4, 11008, 4096, "decode_fused", True),
+    ("decode_lm_head_4x4096x32000", 4, 4096, 32000, "decode_fused", True),
+    ("prefill_gate_up_512x4096x11008", 512, 4096, 11008, "prefill_wgmma",
+     True),
+    ("ragged_1x4096x4096", 1, 4096, 4096, "decode_fused", False),
+    ("ragged_3x4096x4096", 3, 4096, 4096, "decode_fused", False),
+    ("ragged_17x4096x4096", 17, 4096, 4096, "prefill_wgmma", False),
+    ("quantized_4x11008x4096", 4, 11008, 4096, "decode", False),
+    ("bytes_9x4100x500", 9, 4100, 500, "bytes", False))
 
 
 @contextlib.contextmanager
@@ -4825,13 +4868,14 @@ def plain_int8():
     from hyperion_tpu_torch.ops import int8_matmul as im
     from hyperion_tpu_torch.precision import quant as tq
 
-    saved = tq.quantize_rows, tq._int8_matmul
-    tq.quantize_rows, tq._int8_matmul = (im.quantize_rows_plain,
-                                         im.int8_matmul_plain)
+    saved = tq.quantize_rows, tq._int8_matmul, tq._dense_decode
+    tq.quantize_rows, tq._int8_matmul, tq._dense_decode = (
+        im.quantize_rows_plain, im.int8_matmul_plain,
+        im.quantized_dense_decode_plain)
     try:
         yield
     finally:
-        tq.quantize_rows, tq._int8_matmul = saved
+        tq.quantize_rows, tq._int8_matmul, tq._dense_decode = saved
 
 
 def check_quantize_rows(name, x, timing: bool) -> dict:
@@ -4843,13 +4887,17 @@ def check_quantize_rows(name, x, timing: bool) -> dict:
     q2, s2 = im.quantize_rows(x)
     pq, ps = im.quantize_rows_plain(x)
     torch.cuda.synchronize()
+    path = im.quantize_rows_path(x)
     ok = all(torch.equal(a, b) for a, b in ((q, pq), (s, ps), (q, q2),
-                                             (s, s2)))
+                                             (s, s2))) and \
+        im.c_paths(x, torch.empty(1, x.shape[-1], dtype=torch.int8,
+                                  device="cuda"))[1] == path
     rec = {"phase": "kernels", "kernel": "quantize_rows", "case": name,
            "dtype": str(x.dtype).split(".")[-1], "shape": list(x.shape),
+           "path": path,
            "max_abs_err": float((q.int() - pq.int()).abs().max()),
            "tol": "bit-identical", "ok": ok,
-           **im.kernel_attrs("quantize_rows", x.dtype)}
+           **im.kernel_attrs("quantize_" + path, x.dtype)}
     if timing:
         rows = x.numel() // x.shape[-1]
         nbytes = x.numel() * (x.element_size() + 1) + 4 * rows
@@ -4868,40 +4916,53 @@ def check_quantize_rows(name, x, timing: bool) -> dict:
     return rec
 
 
-def check_int8_matmul(name, M, K, N, seed, timing: bool) -> dict:
-    """The int8 product against its plain version at a 7B shape: operands
-    quantized from seeded bf16 activations and weights, bf16 out, bit
-    for bit and a rerun the same; its kernel's tile, registers and
-    spills; kernel, plain, bound, library (`torch._int_mm` and the same
-    epilogue, where it takes M > 16) and bf16 `F.linear` times."""
+def check_int8_matmul(name, M, K, N, want, seed, timing: bool) -> dict:
+    """An int8 product against its plain version at a 7B shape, on the
+    path `want`: "decode_fused" from seeded bf16 rows through
+    `quantized_dense_decode` (the rows quantized inside the product),
+    the others on rows quantized first through `int8_matmul`; weights
+    quantized from seeded bf16, bf16 out, bit for bit and a rerun the
+    same, the Python and C path rules agreeing; its kernel's registers,
+    spills, shared memory and cluster; kernel, plain, bound, library
+    (`torch._int_mm` and the same epilogue, where it takes M > 16) and
+    bf16 `F.linear` times."""
     from hyperion_tpu_torch.ops import int8_matmul as im
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
     w = (0.02 * torch.randn(N, K, generator=g, device="cuda")).to(
         torch.bfloat16)
-    xq, sx = im.quantize_rows(x)
     wq, sw = im.quantize_rows(w)
-    out = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
-    again = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
-    ref = im.int8_matmul_plain(xq, wq, sx, sw, torch.bfloat16)
+    if want == "decode_fused":
+        args = (x, wq, sw)
+        fn = lambda *a: im.quantized_dense_decode(*a, torch.bfloat16)
+        plain = lambda *a: im.quantized_dense_decode_plain(*a, torch.bfloat16)
+        nbytes = K * N + 2 * M * K + 2 * M * N + 4 * N
+    else:
+        xq, sx = im.quantize_rows(x)
+        if want == "bytes":  # an operand one byte off the 16-byte grid
+            view = torch.empty(xq.numel() + 1, dtype=torch.int8,
+                               device="cuda")[1:].view_as(xq)
+            xq = view.copy_(xq)
+        args = (xq, wq, sx, sw)
+        fn = lambda *a: im.int8_matmul(*a, torch.bfloat16)
+        plain = lambda *a: im.int8_matmul_plain(*a, torch.bfloat16)
+        nbytes = K * N + M * K + 2 * M * N + 4 * (M + N)
+    out, again, ref = fn(*args), fn(*args), plain(*args)
     torch.cuda.synchronize()
-    path = im.int8_matmul_path(M)
+    path = im.int8_matmul_path(args[0], wq)
     ok = torch.equal(out, ref) and torch.equal(out, again) and \
-        path == ("decode" if M <= 16 else "prefill")
+        path == want == im.c_paths(args[0], wq)[0]
     rec = {"phase": "kernels", "kernel": "int8_matmul", "case": name,
-           "dtype": "int8->bfloat16", "shape": [M, K, N], "path": path,
+           "dtype": f"{args[0].dtype}->bfloat16".replace("torch.", ""),
+           "shape": [M, K, N], "path": path,
            "max_abs_err": float((out.float() - ref.float()).abs().max()),
            "tol": "bit-identical", "ok": ok,
-           **im.kernel_attrs(path, torch.bfloat16)}
+           **im.kernel_attrs(want, args[0].dtype if want == "decode_fused"
+                             else torch.bfloat16, K, N)}
     if timing:
-        nbytes = K * N + M * K + 2 * M * N + 4 * (M + N)
-        args = (xq, wq, sx, sw)
-        rec["kernel_ms"] = time_ms(
-            lambda *a: im.int8_matmul(*a, torch.bfloat16), args, nbytes)
-        rec["plain_ms"] = time_ms(
-            lambda *a: im.int8_matmul_plain(*a, torch.bfloat16), args,
-            nbytes)
+        rec["kernel_ms"] = time_ms(fn, args, nbytes)
+        rec["plain_ms"] = time_ms(plain, args, nbytes)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2.0 * M * N * K,
                                                  torch.int8)
         rec["library_ms"] = time_ms(
@@ -4914,7 +4975,8 @@ def check_int8_matmul(name, M, K, N, seed, timing: bool) -> dict:
     if not ok:
         raise AssertionError(f"int8_matmul {name}: kernel differs from the "
                              f"plain version ({rec['max_abs_err']}), a "
-                             f"rerun differs, or the {path} tile ran")
+                             f"rerun differs, or the {path} kernel ran "
+                             f"instead of {want}")
     return rec
 
 
@@ -4922,8 +4984,8 @@ def phase_int8_kernels() -> dict:
     """Both int8 kernels at the 7B shapes; returns their timed records
     for the `kernels` line."""
     recs = {"int8_matmul": [], "quantize_rows": []}
-    for i, (name, M, K, N, timing) in enumerate(INT8_CASES):
-        rec = check_int8_matmul(name, M, K, N, SEED + 50 + i, timing)
+    for i, (name, M, K, N, path, timing) in enumerate(INT8_CASES):
+        rec = check_int8_matmul(name, M, K, N, path, SEED + 50 + i, timing)
         if timing:
             recs["int8_matmul"].append(rec)
     g = torch.Generator(device="cuda").manual_seed(SEED + 60)
@@ -4933,7 +4995,8 @@ def phase_int8_kernels() -> dict:
             ("prefill_512x4096", (512, 4096), torch.bfloat16, True),
             ("weight_11008x4096", (11008, 4096), torch.bfloat16, True),
             ("fp32_3x1001", (3, 1001), torch.float32, False),
-            ("fp16_17x4096", (17, 4096), torch.float16, False)):
+            ("fp16_17x4096", (17, 4096), torch.float16, False),
+            ("bf16_2x4100", (2, 4100), torch.bfloat16, False)):
         x = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
         x[0] = 0  # an all-zero row
         rec = check_quantize_rows(name, x, timing)
@@ -4964,6 +5027,23 @@ def decode_tokens_per_s(model, ids) -> float:
     return len(ids) * 31 / best
 
 
+def int8_dense_sum(model, qmodel, turns: int = 2) -> dict:
+    """The 225 denses of one batch-4 decode forward on the models'
+    weights, each way captured in one CUDA graph: this checkout's
+    `quantized_dense`, the previous kernels' (quantize, then the
+    product), and bf16 `F.linear` on the float weights; ms a forward,
+    in turns (previous first and last), the int8 outputs checked
+    bit-identical between the two first."""
+    from hyperion_tpu_torch.precision.quant import QuantDense
+
+    floats = dict(model.named_modules())
+    denses = [(m.weight_q, m.weight_scale, floats[name].weight, m.bias)
+              for name, m in qmodel.named_modules()
+              if isinstance(m, QuantDense)]
+    base = BASELINE.get("int8") or int8_profile().Baseline()
+    return int8_profile().forward_turns(denses, base.load(), turns)
+
+
 def phase_int8(model, smi: str) -> dict:
     """Weight-only int8 at Llama-2-7B's full widths and depth: the serve
     phase's bf16 model (fused RMSNorm) quantized on the card
@@ -4972,10 +5052,13 @@ def phase_int8(model, smi: str) -> dict:
     `generate` at temperature 0 on two 128-token prompts alone (batch 1)
     and with two more (batch 4), 32 new tokens each: every stream and
     the prefill logits bit-identical to the same model on the plain
-    versions, launches exact (32 forwards of 225 int8 products, as many
-    row quantizations, 65 RMSNorms). Readings: the int8-vs-bf16 prefill
-    logits' relative L2, decode tokens/s of both at batch 1 and 4, the
-    weight bytes and the allocator's peak."""
+    versions, launches exact (32 forwards of 225 int8 products and 65
+    RMSNorms, 225 row quantizations: the prefill's; a decode step's
+    denses quantize inside the product). Readings: the int8-vs-bf16
+    prefill logits' relative L2, decode tokens/s of both at batch 1 and
+    4, the weight bytes, the allocator's peak, and a batch-4 decode
+    forward's 225 denses against the previous kernels and bf16 in turns
+    (`int8_dense_sum`)."""
     from hyperion_tpu_torch.infer.generate import generate
     from hyperion_tpu_torch.models.llama import init_cache
     from hyperion_tpu_torch.ops import int8_matmul as im
@@ -5042,7 +5125,9 @@ def phase_int8(model, smi: str) -> dict:
         launches[run] = {"int8_matmul": im.int8_matmul.launches,
                          "quantize_rows": im.quantize_rows.launches,
                          "fused_rmsnorm": fused_rmsnorm.launches}
-        want = {"int8_matmul": 32 * per_fwd, "quantize_rows": 32 * per_fwd,
+        # 32 forwards of 225 products; rows quantized apart from the
+        # product in the 128-row prefill alone
+        want = {"int8_matmul": 32 * per_fwd, "quantize_rows": per_fwd,
                 "fused_rmsnorm": 32 * (2 * cfg.n_layers + 1)}
         if launches[run] != want:
             problems.append(f"{run}: launches {launches[run]} != {want}")
@@ -5074,6 +5159,7 @@ def phase_int8(model, smi: str) -> dict:
         f"{kind}_b{len(ids)}": decode_tokens_per_s(m, ids)
         for kind, m in (("int8", qmodel), ("bf16", model))
         for ids in (prompts[:1], prompts)}
+    rec["forward_denses_ms"] = int8_dense_sum(model, qmodel)
     rec.update(streams=streams, launches=launches["b4"],
                launches_by_run=launches, finite=all(
                    0 <= t < cfg.vocab_size for row in streams["b4"]

@@ -1,12 +1,15 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: shared-memory
-// addresses, mbarriers, TMA tile loads and 1-D bulk copies, wgmma
-// descriptors and products, register rebalancing between warpgroups, and
-// the host-side encoding of TMA tensor maps. Header-only; each .cu that includes it gets its own
-// copy. Every tile it describes is bf16 in the 128-byte swizzle that TMA
-// writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of R rows of 64 columns
-// lies row after row, 128 bytes a row, the eight 16-byte chunks of row r
-// permuted by chunk ^ (r % 8); the pattern repeats every 8 rows (1024
-// bytes), so every tile starts on a 1024-byte boundary.
+// addresses, mbarriers, thread-block clusters and their distributed shared
+// memory, TMA tile loads and 1-D bulk copies, wgmma descriptors and
+// products, register rebalancing between warpgroups, and the host-side
+// encoding of TMA tensor maps. Header-only; each .cu that includes it gets
+// its own copy. Every tile it describes lies in the 128-byte swizzle that
+// TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of R rows of 128 bytes
+// (64 bf16 columns, or 128 int8 ones) lies row after row, the eight 16-byte
+// chunks of row r permuted by chunk ^ (r % 8); the pattern repeats every 8
+// rows (1024 bytes), so every tile starts on a 1024-byte boundary. A k-step
+// of wgmma is 32 bytes of K in either type (k16 in bf16, k32 in int8), so
+// the descriptors below advance alike.
 
 #pragma once
 
@@ -76,7 +79,66 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---------------------------------------------------------- clusters
+
+// this block's rank in its cluster, and the cluster's size in blocks
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster-wide barrier, split: every thread of every block of the
+// cluster arrives, then waits until all have. `arrive` releases this
+// thread's shared-memory writes to the other blocks' reads after their
+// `wait`; `arrive_relaxed` publishes nothing.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address, in the cluster's shared window, of the same offset as the
+// shared::cta address `smem_addr` in block `rank`'s shared memory
+__device__ __forceinline__ uint32_t cluster_map(uint32_t smem_addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(smem_addr), "r"(rank));
+  return r;
+}
+
+// a 32-bit store into another block's shared memory (a cluster_map
+// address); a later cluster_arrive releases it to that block
+__device__ __forceinline__ void st_cluster_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // ---------------------------------------------------------------- TMA
+
+// one box of a 2-D tensor map at coordinates (c0, c1), innermost first,
+// into shared memory; completion is counted on `bar`. Whatever of the box
+// lies past the tensor's ends arrives as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_"
+      "tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 
 // one box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
 // first, into shared memory; completion is counted on `bar`. Rows past the
@@ -140,10 +202,11 @@ __device__ __forceinline__ void regs_alloc() {
 
 // ------------------------------------------------------------- wgmma
 
-// The descriptor of a bf16 operand in shared memory under the 128-byte
-// swizzle. K-major (the 16 k-values of a row contiguous): `sbo` is the
-// stride of 8-row groups (1024 for a 64-column box) and `lbo` is unused;
-// advancing k by 16 adds 32 bytes to the start address. MN-major (rows are
+// The descriptor of an operand in shared memory under the 128-byte
+// swizzle. K-major (a row's k-values contiguous): `sbo` is the stride of
+// 8-row groups (1024 for a 128-byte box) and `lbo` is unused; advancing one
+// k-step (16 bf16 or 32 int8 values, 32 bytes) adds 32 bytes to the start
+// address. MN-major, bf16 only (rows are
 // k, the 64 m- or n-values of a box contiguous): `lbo` is the stride from
 // one 64-wide box to the next, `sbo` that of 8-row groups of k; advancing
 // k by 16 adds 16 rows, 2048 bytes.
@@ -176,6 +239,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -309,6 +378,34 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 32] . B[32 x 128] in int8 with an exact int32 sum,
+// both read from shared memory K-major (the only layout wgmma takes for
+// 8-bit operands); the 32 k-values of a row are the same 32 bytes that one
+// bf16 k16 step covers, so the bf16 descriptors serve unchanged
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t da,
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // ---------------------------------------------------------------- host
 
 // cuTensorMapEncodeTiled from the CUDA driver API, reached through the runtime, so
@@ -359,6 +456,28 @@ inline cudaError_t bthd_map(CUtensorMap* map, const void* base, int B, int T,
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The map of a contiguous int8 [rows, K] tensor (K % 16 == 0, the base on
+// the 16-byte grid) as 2-D (K, rows), with a box of 128 bytes of K over
+// `box_rows` rows, 128-byte swizzled; rows and bytes past the ends load as
+// zeros.
+inline cudaError_t rows_map_u8(CUtensorMap* map, const void* base, int rows,
+                               int K, int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                             const_cast<void*>(base), dims, strides, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B,

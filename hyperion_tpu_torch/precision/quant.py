@@ -5,8 +5,10 @@ Weight-only int8 inference: every dense kernel of a model becomes an
 int8 weight with a float32 scale per output feature; activations are
 quantized per row at run time, multiplied in int8 with an exact int32
 sum, and dequantized in the product's epilogue. On the card that is the
-two kernels of `ops/int8_matmul.py` (`csrc/int8_matmul.cu`); on the
-CPU their plain versions, bit for bit the same.
+kernels of `ops/int8_matmul.py` (`csrc/int8_matmul.cu`): at a decode
+step (at most 16 rows) one launch that quantizes its own rows, else the
+row quantizer and then the product; on the CPU their plain versions,
+bit for bit the same.
 
   * `quantize_int8(x, axis)`: symmetric per-axis quantization, the
     reference's arithmetic — fp32 amax, scale = max(amax, 1e-8) / 127,
@@ -38,7 +40,10 @@ import dataclasses
 import torch
 from torch import nn
 
+from hyperion_tpu_torch.ops.int8_matmul import fused_decode_takes
 from hyperion_tpu_torch.ops.int8_matmul import int8_matmul as _int8_matmul
+from hyperion_tpu_torch.ops.int8_matmul import \
+    quantized_dense_decode as _dense_decode
 from hyperion_tpu_torch.ops.int8_matmul import quantize_rows, scale_of
 
 QUANT_MODES = ("none", "int8")
@@ -83,11 +88,16 @@ def quantized_dense(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     out_dtype: torch.dtype | None = None,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """Drop-in `x @ w.T (+ bias)` with a pre-quantized weight wq [N, K]:
-    per-row activation quantization, the int8 product, float out."""
+    per-row activation quantization, the int8 product, float out. On
+    the card, rows the fused decode kernel takes (at most 16) go through
+    it in one launch."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    xq, sx = quantize_rows(x2)
-    out = _int8_matmul(xq, wq, sx, sw, out_dtype or x.dtype, bias)
+    if x2.device.type == "cuda" and fused_decode_takes(x2, wq):
+        out = _dense_decode(x2, wq, sw, out_dtype or x.dtype, bias)
+    else:
+        xq, sx = quantize_rows(x2)
+        out = _int8_matmul(xq, wq, sx, sw, out_dtype or x.dtype, bias)
     return out.reshape(*lead, wq.shape[0])
 
 

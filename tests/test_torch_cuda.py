@@ -26,10 +26,15 @@ a base one element off the grid), flash head dims 32 to
 sequence, unequal query and key lengths,
 the Hopper kernels' edges at D 64 and 128 (a sequence shorter than one
 tile, causal with unequal lengths, a padding tail per row, a row all
-padding) and the backward's determinism; and the trainer's host-side
-paths on the card: an async train-state save against the in-place
-optimizer steps launched right behind it, and a prefetched epoch
-against `depth=0`.
+padding) and the backward's determinism; the weight-only int8 kernels
+on every path (the fused decode dense from fp32, bf16 and fp16 rows at
+every 7B width and M 1 to 16, the cluster product on quantized rows,
+wgmma at M 17 to 1000 with ragged N and K, byte loads off the grid, the
+quantizer's two kernels, quotients on and beside every half-integer,
+a CUDA graph replay, no spill, a Llama's launches); and the trainer's
+host-side paths on the card: an async train-state save against the
+in-place optimizer steps launched right behind it, and a prefetched
+epoch against `depth=0`.
 """
 
 from __future__ import annotations
@@ -950,6 +955,9 @@ def test_prefetched_epoch_equals_sync_on_the_card(cuda):
 
 # ------------------------------------------------------------ int8 kernels
 
+# the 7B's decode widths (q/k/v/o, gate/up, down, lm_head): (K, N)
+WIDTHS_7B = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
 
 def _int8_operands(M, N, K, seed, cuda):
     g = torch.Generator(device=cuda).manual_seed(seed)
@@ -963,19 +971,41 @@ def _int8_operands(M, N, K, seed, cuda):
     return xq, wq, sx, sw, bias
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
-                                   torch.float16])
-@pytest.mark.parametrize("rows, K", [(1, 4096), (3, 100), (17, 11008),
-                                     (512, 4096), (5, 1)])
-def test_quantize_rows_kernel_bit_identical(cuda, dtype, rows, K):
-    """The per-row quantizer against its plain version: q and scale
-    bit for bit (a max, two IEEE divisions and rint on both sides), an
-    all-zero row among them, and a rerun the same."""
+def _float_rows(M, K, dtype, seed, cuda):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(M, K, generator=g, device=cuda) * 3).to(dtype)
+    x[M // 2] = 0  # an all-zero row
+    return x
+
+
+def _assert_paths(x, wq, want):
+    """The Python rule, the C rule and the expected path agree."""
     from hyperion_tpu_torch.ops import int8_matmul as im
 
-    g = torch.Generator(device=cuda).manual_seed(rows * K)
-    x = (torch.randn(rows, K, generator=g, device=cuda) * 3).to(dtype)
-    x[rows // 2] = 0
+    assert im.int8_matmul_path(x, wq) == want
+    assert im.c_paths(x, wq)[0] == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows, K, path", [
+    (1, 4096, None), (3, 100, None), (17, 11008, "block"),
+    (512, 4096, None), (5, 1, "scalar"), (2, 70000, "scalar"),
+    (4, 4104, None)])
+def test_quantize_rows_kernel_bit_identical(cuda, dtype, rows, K, path):
+    """The per-row quantizer against its plain version on each of its
+    kernels (a warp a row, a block a row held in registers, scalar
+    loads): q and scale bit for bit (a max, two IEEE divisions and rint
+    on both sides), an all-zero row among them, a rerun the same, and
+    the Python rule for the kernel equal to the C one."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    x = _float_rows(rows, K, dtype, rows * K, cuda)
+    got = im.quantize_rows_path(x)
+    assert got == im.c_paths(x, torch.empty(1, K, dtype=torch.int8,
+                                            device=cuda))[1]
+    if path is not None:
+        assert got == path
     before = im.quantize_rows.launches
     q, s = im.quantize_rows(x)
     q2, s2 = im.quantize_rows(x)
@@ -987,22 +1017,135 @@ def test_quantize_rows_kernel_bit_identical(cuda, dtype, rows, K):
     assert (q[rows // 2] == 0).all()
 
 
+def _tie_rows(cuda, K):
+    """Rows whose quotients x / scale land on and beside half-integers:
+    amax 127 (scale 1) and 381 (scale 3, so x = 3 (k + 0.5) divides to
+    k + 0.5 exactly), each with x at k + 0.5 and at its two float
+    neighbours, for every k in [-127, 126]."""
+    halves = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    rows = []
+    for scale in (1.0, 3.0):
+        h = (halves * scale).repeat(3)
+        n = len(halves)
+        h[n:2 * n] = torch.nextafter(h[n:2 * n], torch.tensor(-1e9))
+        h[2 * n:] = torch.nextafter(h[2 * n:], torch.tensor(1e9))
+        row = torch.zeros(K)
+        row[:len(h)] = h[:K]
+        row[-1] = 127.0 * scale  # the amax
+        rows.append(row)
+    return torch.stack(rows).to(cuda)
+
+
+@pytest.mark.parametrize("K, path", [(1024, "block"), (1001, "scalar")])
+def test_quantizers_round_near_ties_as_the_division(cuda, K, path):
+    """The kernels divide by multiplying with the scale's reciprocal and
+    settle quotients within 1/4096 of a half-integer exactly: at, just
+    below and just above every half-integer both the row quantizer's
+    kernels and the fused decode give the plain version's bits."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    x = _tie_rows(cuda, K)
+    assert im.quantize_rows_path(x) == path
+    q, s = im.quantize_rows(x)
+    pq, ps = im.quantize_rows_plain(x)
+    assert torch.equal(s, ps) and torch.equal(q, pq)
+    if K % 16 == 0:
+        _, wq, _, sw, _ = _int8_operands(1, 64, K, 5, cuda)
+        assert torch.equal(
+            im.quantized_dense_decode(x, wq, sw, torch.float32),
+            im.quantized_dense_decode_plain(x, wq, sw, torch.float32))
+
+
+def test_quantize_rows_misaligned_rows_take_scalar_loads(cuda):
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    flat = _float_rows(1, 3 * 4096 + 1, torch.bfloat16, 3, cuda)[0]
+    x = flat[1:].view(3, 4096)
+    assert im.quantize_rows_path(x) == "scalar"
+    q, s = im.quantize_rows(x)
+    pq, ps = im.quantize_rows_plain(x)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("K, N", WIDTHS_7B)
+@pytest.mark.parametrize("M", [1, 3, 4, 8, 16])
+def test_decode_paths_bit_identical_at_7b_widths(cuda, M, K, N, fused):
+    """Both decode paths at every 7B width: `quantized_dense_decode` from
+    bf16 rows (the rows quantized inside the cluster) and `int8_matmul`
+    on quantized rows, each bit for bit its plain version, a rerun the
+    same, one `int8_matmul` launch a call and no `quantize_rows` one."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    _, wq, _, sw, _ = _int8_operands(1, N, K, M * N + K, cuda)
+    x = _float_rows(M, K, torch.bfloat16, M + K, cuda)
+    before = (im.int8_matmul.launches, im.quantize_rows.launches)
+    if fused:
+        _assert_paths(x, wq, "decode_fused")
+        out = im.quantized_dense_decode(x, wq, sw, torch.bfloat16)
+        again = im.quantized_dense_decode(x, wq, sw, torch.bfloat16)
+        ref = im.quantized_dense_decode_plain(x, wq, sw, torch.bfloat16)
+        assert im.quantize_rows.launches == before[1]
+    else:
+        xq, sx = im.quantize_rows_plain(x)
+        _assert_paths(xq, wq, "decode")
+        out = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
+        again = im.int8_matmul(xq, wq, sx, sw, torch.bfloat16)
+        ref = im.int8_matmul_plain(xq, wq, sx, sw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before[0] + 2
+    assert out.shape == (M, N)
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16,
+                                      torch.float16])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M, N, K", [(1, 4096, 4096), (3, 1000, 4096),
-                                     (4, 11008, 4096), (16, 7, 64),
-                                     (17, 4096, 11008), (64, 257, 96),
-                                     (130, 1000, 4096), (5, 300, 100),
-                                     (33, 129, 48)])
+@pytest.mark.parametrize("M, N, K", [(1, 7, 16), (5, 300, 48),
+                                     (16, 129, 1008), (9, 64, 11008),
+                                     (2, 100, 32768)])
 @pytest.mark.parametrize("with_bias", [False, True])
-def test_int8_matmul_kernel_bit_identical(cuda, out_dtype, M, N, K,
+def test_fused_decode_dtypes_edges_and_bias(cuda, in_dtype, out_dtype, M,
+                                            N, K, with_bias):
+    """The fused decode kernel at every input and output dtype, with and
+    without a bias, at ragged N, K from one box (16) to the fused cap
+    (32768, 8 blocks of 32 boxes), rows past 8 (the mma's upper half)."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    _, wq, _, sw, bias = _int8_operands(1, N, K, 7 * M + N + K, cuda)
+    b = bias if with_bias else None
+    x = _float_rows(M, K, in_dtype, M * K, cuda)
+    _assert_paths(x, wq, "decode_fused")
+    out = im.quantized_dense_decode(x, wq, sw, out_dtype, b)
+    again = im.quantized_dense_decode(x, wq, sw, out_dtype, b)
+    ref = im.quantized_dense_decode_plain(x, wq, sw, out_dtype, b)
+    torch.cuda.synchronize()
+    assert out.dtype == out_dtype
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M, N, K, path", [
+    (1, 4096, 4096, "decode"), (3, 1000, 4096, "decode"),
+    (16, 7, 64, "decode"), (17, 4096, 11008, "prefill_wgmma"),
+    (64, 257, 96, "prefill_wgmma"), (130, 1000, 4096, "prefill_wgmma"),
+    (512, 11008, 4096, "prefill_wgmma"), (1000, 1001, 4096, "prefill_wgmma"),
+    (33, 129, 48, "prefill_wgmma"), (5, 300, 100, "bytes"),
+    (40, 130, 1001, "bytes"), (4, 64, 40000, "prefill_wgmma")])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_int8_matmul_kernel_bit_identical(cuda, out_dtype, M, N, K, path,
                                           with_bias):
     """The product against its plain version (an exact int32 sum, then
-    the same fp32 epilogue), ragged M, N and K (K 100 streams by bytes),
-    both tiles, with and without a bias; a rerun the same bits."""
+    the same fp32 epilogue) on every path: the cluster's split K at M
+    <= 16, wgmma at M 17 to 1000 with ragged N and K (48 and 96: one box
+    wider than K) and at M 4 past the cluster's K (40000), byte loads for
+    K not a multiple of 16; with and without a bias; a rerun the same
+    bits."""
     from hyperion_tpu_torch.ops import int8_matmul as im
 
     xq, wq, sx, sw, bias = _int8_operands(M, N, K, M * N + K, cuda)
     b = bias if with_bias else None
+    _assert_paths(xq, wq, path)
     before = im.int8_matmul.launches
     out = im.int8_matmul(xq, wq, sx, sw, out_dtype, b)
     again = im.int8_matmul(xq, wq, sx, sw, out_dtype, b)
@@ -1012,41 +1155,82 @@ def test_int8_matmul_kernel_bit_identical(cuda, out_dtype, M, N, K,
     assert out.dtype == out_dtype and out.shape == (M, N)
     assert torch.equal(out, ref)
     assert torch.equal(out, again)
-    assert im.int8_matmul_path(M) == ("decode" if M <= 16 else "prefill")
 
 
-def test_int8_matmul_misaligned_operand_streams_by_bytes(cuda):
+@pytest.mark.parametrize("M", [9, 100])
+def test_int8_matmul_misaligned_operand_streams_by_bytes(cuda, M):
     """An operand one byte off the 16-byte grid takes the byte loads and
-    gives the same bits."""
+    gives the same bits; a float x off the grid is quantized (scalar
+    loads) and then multiplied on the grid."""
     from hyperion_tpu_torch.ops import int8_matmul as im
+    from hyperion_tpu_torch.precision.quant import quantized_dense
 
-    xq, wq, sx, sw, _ = _int8_operands(9, 500, 256, 11, cuda)
+    xq, wq, sx, sw, _ = _int8_operands(M, 500, 256, 11, cuda)
     flat = torch.empty(xq.numel() + 1, dtype=torch.int8, device=cuda)
     view = flat[1:].view_as(xq)
     view.copy_(xq)
+    _assert_paths(view, wq, "bytes")
     out = im.int8_matmul(view, wq, sx, sw, torch.bfloat16)
     assert torch.equal(out, im.int8_matmul_plain(xq, wq, sx, sw,
                                                  torch.bfloat16))
+    xf = _float_rows(1, M * 256 + 1, torch.bfloat16, 5, cuda)[0, 1:]
+    xf = xf.view(M, 256)
+    want = "decode" if M <= 16 else "prefill_wgmma"
+    _assert_paths(xf, wq, want)
+    before = im.quantize_rows.launches
+    out = quantized_dense(xf, wq, sw, torch.bfloat16)
+    assert im.quantize_rows.launches == before + 1
+    assert torch.equal(out, im.quantized_dense_decode_plain(
+        xf, wq, sw, torch.bfloat16))
+
+
+def test_fused_decode_replays_in_a_cuda_graph(cuda):
+    """The cluster launch is captured in a CUDA graph (the decode
+    benchmark captures decode chains): a replay on new rows equals the
+    plain version."""
+    from hyperion_tpu_torch.ops import int8_matmul as im
+
+    _, wq, _, sw, _ = _int8_operands(1, 11008, 4096, 21, cuda)
+    x = _float_rows(4, 4096, torch.bfloat16, 22, cuda)
+    im.quantized_dense_decode(x, wq, sw)  # build outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = im.quantized_dense_decode(x, wq, sw)
+    x.copy_(_float_rows(4, 4096, torch.bfloat16, 23, cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, im.quantized_dense_decode_plain(x, wq, sw))
 
 
 def test_int8_kernels_do_not_spill(cuda):
+    """Every int8 kernel at every dtype it is built for: 0 spill bytes;
+    the fused decode runs as a thread-block cluster at every 7B width
+    (8 blocks where the tiles outnumber the clusters that fit)."""
     from hyperion_tpu_torch.ops import int8_matmul as im
 
-    for which, dtypes in (("quantize_rows", (torch.float32, torch.bfloat16,
-                                             torch.float16)),
-                          ("decode", (torch.float32, torch.bfloat16)),
-                          ("prefill", (torch.float32, torch.bfloat16))):
+    for which in im.KERNELS:
+        dtypes = ((torch.float32, torch.bfloat16, torch.float16)
+                  if which.startswith("quantize") or which == "decode_fused"
+                  else (torch.float32, torch.bfloat16))
         for dtype in dtypes:
-            for vec in (True, False):
-                attrs = im.kernel_attrs(which, dtype, vec)
-                assert attrs["spill_bytes"] == 0, (which, dtype, vec, attrs)
+            for K in (4096, 11008):
+                attrs = im.kernel_attrs(which, dtype, K)
+                assert attrs["spill_bytes"] == 0, (which, dtype, attrs)
+    for K, N in WIDTHS_7B:
+        attrs = im.kernel_attrs("decode_fused", torch.bfloat16, K, N)
+        assert attrs["cluster"] >= 2 and attrs["clusters_resident"] >= 1
+    assert im.kernel_attrs("decode_fused", torch.bfloat16, 4096, 32000)[
+        "cluster"] == 8
 
 
 def test_int8_llama_forward_launches_and_matches_plain(cuda, monkeypatch):
     """A 32-layer int8 Llama at tiny widths, quantized on the card: the
-    weights bit-identical to the plain quantizer's on the CPU, one
-    forward launches the product 32 * 7 + 1 = 225 times and the
-    quantizer as often, and the logits equal bit for bit the same
+    weights bit-identical to the plain quantizer's on the CPU; a prefill
+    forward (18 rows) launches the product 32 * 7 + 1 = 225 times and
+    the quantizer as often, a decode forward (2 rows) 225 fused products
+    and no quantizer; both forwards' logits equal bit for bit the same
     model's on the card with the plain versions in place of the
     kernels."""
     from hyperion_tpu_torch.models import llama as tl
@@ -1065,19 +1249,26 @@ def test_int8_llama_forward_launches_and_matches_plain(cuda, monkeypatch):
     for k, v in cpu_state.items():
         assert torch.equal(qstate[k].cpu(), v), k
     ids = torch.randint(1, 250, (2, 9), generator=torch.Generator()
-                        .manual_seed(1))
+                        .manual_seed(1)).to(cuda)
+
+    def run():
+        cache = tl.init_cache(qcard.cfg, 2, 16, device=cuda)
+        pre, cache = qcard(ids, cache=cache, cache_index=0)
+        counts = [(im.int8_matmul.launches, im.quantize_rows.launches)]
+        nxt = pre[:, -1].argmax(-1)[:, None]
+        dec, _ = qcard(nxt, cache=cache, cache_index=9)
+        counts.append((im.int8_matmul.launches, im.quantize_rows.launches))
+        return pre, dec, counts
+
     im.quantize_rows.launches = im.int8_matmul.launches = 0
-    logits, _ = qcard(ids.to(cuda), cache=tl.init_cache(qcard.cfg, 2, 16,
-                                                        device=cuda),
-                      cache_index=0)
+    pre, dec, counts = run()
     torch.cuda.synchronize()
-    assert im.int8_matmul.launches == 225
-    assert im.quantize_rows.launches == 225
+    assert counts == [(225, 225), (450, 225)]
     monkeypatch.setattr(tq, "quantize_rows", im.quantize_rows_plain)
     monkeypatch.setattr(tq, "_int8_matmul", im.int8_matmul_plain)
-    ref, _ = qcard(ids.to(cuda), cache=tl.init_cache(qcard.cfg, 2, 16,
-                                                     device=cuda),
-                   cache_index=0)
-    assert im.int8_matmul.launches == 225
-    assert torch.isfinite(logits).all()
-    assert torch.equal(logits, ref)
+    monkeypatch.setattr(tq, "_dense_decode", im.quantized_dense_decode_plain)
+    ref_pre, ref_dec, counts = run()
+    assert counts == [(450, 225), (450, 225)]
+    assert torch.isfinite(pre).all() and torch.isfinite(dec).all()
+    assert torch.equal(pre, ref_pre)
+    assert torch.equal(dec, ref_dec)

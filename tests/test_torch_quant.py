@@ -13,7 +13,12 @@ int8 TransformerLM's logits within 2e-5 abs/rel of JAX's at fp32 (the
 layers around the int8 products sum in other orders, ~1e-7 apart, which
 can flip an activation's rounding to int8 now and then: 2e-5 holds
 those); the temperature-0 streams equal JAX's `generate` and
-`generate_recompute` exactly.
+`generate_recompute` exactly. The decode step's fused dense
+(`quantized_dense_decode`, its plain version on the CPU) bit for bit
+against JAX `quantized_dense` over decode rows, widths, dtypes and a
+bias; the kernels' path rules; and, in numpy, the kernels' division-free
+rounding (the scale as a double product, quotients from a reciprocal,
+near-ties settled exactly) against the IEEE division.
 """
 
 from __future__ import annotations
@@ -115,6 +120,180 @@ def test_quantized_dense_bit_exact(dtype):
     out = tq.quantized_dense(tx, twq, tsw[:, 0])
     assert out.dtype == tx.dtype
     np.testing.assert_array_equal(_t(out), _np(ref))
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("K", [4096, 1001, 11008])
+@pytest.mark.parametrize("M", [1, 3, 4, 8, 16])
+def test_quantized_dense_decode_plain_bit_exact(M, K, dtype, with_bias):
+    """The fused decode dense's plain version (what the kernel is held to
+    on the card) against JAX `quantized_dense` plus the bias rounded to
+    the output dtype, as `QuantDenseGeneral` adds it: decode rows (M <=
+    16), the 7B's widths and an odd one, a narrow N, an all-zero row;
+    float16 rows write float32 (the kernels write float32 or bfloat16)."""
+    rng = np.random.default_rng(M * 7 + K)
+    N = 24
+    x = (rng.standard_normal((M, K)) * 2).astype(np.float32)
+    x[M // 2] = 0
+    wq = rng.integers(-127, 128, (K, N)).astype(np.int8)  # JAX's [K, N]
+    sw = (rng.random((1, N)) * 0.02 + 1e-4).astype(np.float32)
+    bias = rng.standard_normal(N).astype(np.float32)
+    out_dtype = "float32" if dtype == "float16" else dtype
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    ref = jq.quantized_dense(jx, jnp.asarray(wq), jnp.asarray(sw),
+                             getattr(jnp, out_dtype))
+    if with_bias:
+        ref = ref + jnp.asarray(bias).astype(ref.dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    out = im.quantized_dense_decode(
+        tx, torch.from_numpy(wq.T.copy()), torch.from_numpy(sw[0]),
+        getattr(torch, out_dtype),
+        torch.from_numpy(bias) if with_bias else None)
+    assert out.dtype == getattr(torch, out_dtype) and out.shape == (M, N)
+    np.testing.assert_array_equal(_t(out), _np(ref))
+
+
+def test_quantized_dense_on_the_cpu_takes_the_plain_path():
+    """On the CPU `quantized_dense` runs the plain versions (no launch
+    counted) at decode rows too, and equals the fused function's plain
+    version, bit for bit."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 256)).astype(np.float32))
+    wq = torch.from_numpy(rng.integers(-127, 128, (40, 256)).astype(np.int8))
+    sw = torch.from_numpy((rng.random(40) * 0.01).astype(np.float32))
+    before = (im.quantize_rows.launches, im.int8_matmul.launches)
+    out = tq.quantized_dense(x.to(torch.bfloat16), wq, sw)
+    assert (im.quantize_rows.launches, im.int8_matmul.launches) == before
+    assert out.shape == (2, 3, 40) and out.dtype == torch.bfloat16
+    want = im.quantized_dense_decode_plain(
+        x.reshape(6, 256).to(torch.bfloat16), wq, sw, torch.bfloat16)
+    assert torch.equal(out.reshape(6, 40), want)
+
+
+def _rows(M, K, dtype, offset=0):
+    """x [M, K] in `dtype` starting `offset` elements past a 16-byte
+    boundary (a view into a larger buffer)."""
+    flat = torch.zeros(M * K + offset, dtype=dtype)
+    return flat[offset:].view(M, K)
+
+
+@pytest.mark.parametrize("dtype, M, K, offset, want", [
+    (torch.bfloat16, 4, 4096, 0, "decode_fused"),
+    (torch.float32, 16, 11008, 0, "decode_fused"),
+    (torch.float16, 1, 32768, 0, "decode_fused"),
+    (torch.bfloat16, 4, 1001, 0, "bytes"),
+    (torch.bfloat16, 4, 32784, 0, "prefill_wgmma"),
+    (torch.bfloat16, 17, 4096, 0, "prefill_wgmma"),
+    (torch.bfloat16, 4, 4096, 1, "decode"),
+    (torch.int8, 4, 4096, 0, "decode"),
+    (torch.int8, 17, 4096, 0, "prefill_wgmma"),
+    (torch.int8, 4, 4096, 1, "bytes"),
+    (torch.int8, 300, 1008, 0, "prefill_wgmma"),
+    (torch.int8, 4, 40000, 0, "prefill_wgmma"),
+])
+def test_int8_matmul_path_rule(dtype, M, K, offset, want):
+    """Which kernel a product takes, from shapes and alignment alone:
+    float rows of a decode step (M <= 16, K a multiple of 16 up to 32768,
+    on the 16-byte grid) the fused kernel, rows it refuses their product's
+    path after `quantize_rows` (fresh rows, so on the grid); int8 rows the
+    cluster kernel at M <= 16, wgmma otherwise, byte loads off the grid or
+    for K not a multiple of 16. The card's tests hold the C rule to it."""
+    x = _rows(M, K, dtype, offset)
+    wq = torch.zeros(64, K, dtype=torch.int8)
+    assert im.int8_matmul_path(x, wq) == want
+    assert im.fused_decode_takes(x, wq) == (want == "decode_fused")
+
+
+@pytest.mark.parametrize("dtype, K, offset, want", [
+    (torch.bfloat16, 4096, 0, "block"), (torch.bfloat16, 4104, 0, "block"),
+    (torch.float32, 4096, 0, "block"), (torch.bfloat16, 100, 0, "scalar"),
+    (torch.float32, 100, 0, "block"), (torch.bfloat16, 32768, 0, "block"),
+    (torch.bfloat16, 32776, 0, "scalar"), (torch.bfloat16, 4096, 3, "scalar"),
+])
+def test_quantize_rows_path_rule(dtype, K, offset, want):
+    """The quantizer's kernel: a block a row held in registers for rows
+    of whole 16-byte chunks on the grid, up to 4096 chunks; scalar loads
+    otherwise."""
+    assert im.quantize_rows_path(_rows(3, K, dtype, offset)) == want
+
+
+@pytest.mark.parametrize("bad, err", [
+    (dict(x=torch.zeros(2, 8, dtype=torch.int8)), TypeError),
+    (dict(sw=torch.ones(5)), ValueError),
+    (dict(out_dtype=torch.float16), TypeError),
+    (dict(wq=torch.zeros(3, 9, dtype=torch.int8)), ValueError),
+])
+def test_quantized_dense_decode_states_its_rule(bad, err):
+    args = dict(x=torch.zeros(2, 8), wq=torch.zeros(3, 8, dtype=torch.int8),
+                sw=torch.ones(3), out_dtype=torch.float32)
+    args.update(bad)
+    with pytest.raises(err):
+        im.quantized_dense_decode(**args)
+
+
+def _kernel_scale(amax: np.ndarray) -> np.ndarray:
+    """`scale_of` of `csrc/int8_matmul.cu`: the double product by
+    RN(1/127), rounded to float."""
+    a = np.maximum(amax, np.float32(1e-8)).astype(np.float64)
+    return (a * (1.0 / 127.0)).astype(np.float32)
+
+
+def _kernel_rint(v, s, r):
+    """`rint_quotient` of `csrc/int8_matmul.cu` in numpy float32: the
+    product by an approximate reciprocal, and near a half-integer the
+    exact residual against half the gap to h's neighbour (the residual is
+    exact there, so float64 then one rounding is the FMA)."""
+    f32 = np.float32
+    q = (v * r).astype(f32)
+    fl = np.floor(q)
+    h = (fl + f32(0.5)).astype(f32)
+    t = (v.astype(np.float64) - h.astype(np.float64) * s).astype(f32)
+    ah = np.abs(h)
+    ulp = (ah.view(np.uint32) & np.uint32(0x7F800000)).view(f32) \
+        * f32(2.0 ** -23)
+    away = (t > 0) == (h > 0)
+    gap = np.where(away | (ah != f32(0.5)), ulp * f32(0.5),
+                   ulp * f32(0.25)).astype(f32)
+    at_tie = np.where(np.abs(t) > (gap * s).astype(f32),
+                      np.where(t > 0, fl + f32(1), fl), np.rint(h))
+    return np.where(np.abs(q - h) < f32(1 / 4096), at_tie, np.rint(q))
+
+
+@pytest.mark.parametrize("ulps", [-2, -1, 0, 1, 2])
+def test_kernel_rounding_without_division_equals_the_division(ulps):
+    """The kernels quantize with no division: the scale as a double
+    product, q from a reciprocal (here off by `ulps`, the most the card's
+    approximate one may be), near-ties settled by an exact residual. In
+    numpy, on random rows at many magnitudes, rows whose quotients land
+    on and beside every half-integer, tiny and huge amax and denormal
+    values: scales and bytes equal the IEEE division's."""
+    f32 = np.float32
+    rng = np.random.default_rng(ulps + 10)
+    rows = [rng.standard_normal(4096).astype(f32) * f32(10.0 ** e)
+            for e in range(-12, 30, 3)]
+    halves = np.arange(-127, 127, dtype=f32) + f32(0.5)
+    for scale in (1.0, 3.0, 0.7, 1e-6, 12345.678):
+        s = _kernel_scale(np.array([127 * scale], f32))[0]
+        h = (halves * s).astype(f32)
+        near = np.concatenate([h, np.nextafter(h, f32(-np.inf)),
+                               np.nextafter(h, f32(np.inf)),
+                               np.nextafter(np.nextafter(h, f32(np.inf)),
+                                            f32(np.inf))])
+        rows.append(np.concatenate([near, [f32(127 * scale)]]).astype(f32))
+    rows.append(np.array([1e-9, -3e-9, 0.0, 5e-39, -7e-40], f32))
+    rows.append((rng.standard_normal(512) * 1e-41).astype(f32))
+    for x in rows:
+        amax = np.abs(x).max()
+        s = _kernel_scale(np.array([amax], f32))[0]
+        want_s = np.maximum(amax, f32(1e-8)) / f32(127.0)
+        assert s == want_s
+        r = f32(1.0) / s
+        for _ in range(abs(ulps)):
+            r = np.nextafter(r, f32(np.inf if ulps > 0 else -np.inf))
+        got = np.clip(_kernel_rint(x, s, r), -127, 127)
+        want = np.clip(np.rint(x / s), -127, 127)
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
