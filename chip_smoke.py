@@ -76,7 +76,10 @@ script exits non-zero):
               `torch._int_mm` plus the epilogue (M > 16) and bf16
               `F.linear`; `quantize_rows` at the decode and prefill
               activations and a weight (bf16), fp32 and fp16 rows, an
-              all-zero row each, bit-identical.
+              all-zero row each, bit-identical. The byte-load product
+              ([9, 4100->500]) and the scalar quantizer (fp32 [3, 1001],
+              bf16 [2, 4100]) are timed too, beside their bounds; they
+              are off the int8 run's path, so not in the `kernels` line.
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -110,7 +113,13 @@ script exits non-zero):
               end bit-identical to A, B's CSV loss column too; B's CE and
               LayerNorm launches, over both calls, exactly A's; the
               supervising process maps no CUDA library. Then step p50
-              and input wait at prefetch 2 and 0, in turns.
+              and input wait at prefetch 2 and 0, in turns. After the
+              legs the port's `obs doctor` (`diagnose` and the `obs
+              doctor` CLI) gives A and both B runs "healthy", C's killed
+              life and D's NaN life the verdicts the supervisor logged
+              ("diverged" for D, its checkpoint quarantined), and each
+              leg's last life "healthy"; `obs diff` of two prefetch runs
+              prints its table.
   7. llama_train_model  a tiny fp32 LoRA Llama (GQA, remat "full",
               attention and norm at "pallas", a padding mask) on the CPU
               against the card: the loss and every adapter gradient, and
@@ -276,7 +285,10 @@ script exits non-zero):
               stdout stream once and in order, equal to an uninterrupted
               in-process engine over the same export, the journal
               drained, one restart, the heartbeat's attempt 1, a flight
-              record, a compile ledger in each life and no recompile.
+              record, a compile ledger in each life and no recompile;
+              the supervisor logs the port doctor's verdict on the dead
+              life, and `obs summarize` and `obs doctor` read the serve
+              dir (the last life "healthy", attempt 1).
  15. route    `python -m hyperion_tpu_torch.cli.main route` over two port
               replicas (own processes and CUDA contexts) serving the crash
               phase's export, with a tokenizer trained here (512 merges):
@@ -290,6 +302,11 @@ script exits non-zero):
               replica; a replica's `profile` trace holds the paged
               kernel; the router holds no CUDA context. The failover gap,
               re-dispatches, adoptions and recovered orphans as readings.
+              The route supervisor logs the port doctor's verdict on the
+              dead router life; `obs doctor` reads each leg's base dir
+              ("healthy", a row a replica) and `obs trace --fleet` leg
+              1's, its attribution components summing to the measured
+              total.
  16. introspect  an engine behind a `MetricsExporter`: the exposition
               carries compile counts, tick profiler and memory ledger;
               `class_brownout` on and off is acknowledged and its gauge
@@ -335,6 +352,7 @@ import gc
 import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -2001,6 +2019,63 @@ def phase_llama_train(smi: str) -> dict:
 
 
 RESUME_DIR = Path("build/chip_smoke_resume")
+# "[supervisor] child exit 4; doctor verdict: diverged (...)", and the
+# serve and route supervisors' lines of the same form
+VERDICT_LINE = re.compile(r"\[(?:supervisor|serve-supervisor|route-supervisor)"
+                          r"\] (?:child|router) exit (-?\d+); doctor "
+                          r"verdict: (\w+)")
+
+
+def logged_verdicts(log: str) -> list[tuple[int, str]]:
+    """(exit code, verdict) of every restart a supervisor logged."""
+    return [(int(rc), v) for rc, v in VERDICT_LINE.findall(log)]
+
+
+def obs_cli(*argv: str) -> dict:
+    """`python -m hyperion_tpu_torch.cli.main obs ...` from the
+    checkout's root (a host tool: it imports no torch)."""
+    p = subprocess.run(
+        [sys.executable, "-m", "hyperion_tpu_torch.cli.main", "obs", *argv],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=120)
+    return {"rc": p.returncode, "out": p.stdout, "err": p.stderr}
+
+
+def doctor_check(target: Path, want: str | tuple, problems: list,
+                 what: str, run: str | None = None,
+                 now: float | None = None) -> dict:
+    """The port's `diagnose` and its `obs doctor --json` CLI on one run
+    dir (or one run of it): the same verdict, one of `want`, and the CLI
+    the verdict's exit code (`EXIT_BY_VERDICT`)."""
+    from hyperion_tpu_torch.obs.doctor import EXIT_BY_VERDICT, diagnose
+
+    want = (want,) if isinstance(want, str) else want
+    d = diagnose(target, run=run, now=now)
+    cli = obs_cli("doctor", str(target), "--json",
+                  *(["--run", run] if run else []),
+                  *(["--now", repr(now)] if now is not None else []))
+    try:
+        cli_verdict = json.loads(cli["out"]).get("verdict")
+    except json.JSONDecodeError:
+        cli_verdict = None
+    got = {"run": d.get("run"), "verdict": d["verdict"],
+           "cli_verdict": cli_verdict, "cli_rc": cli["rc"],
+           "attempt": d.get("attempt"), "last_step": d.get("last_step"),
+           "fleet": [(r["replica"], r["state"]) for r in d.get("fleet") or []],
+           "reason": d["reason"][:240]}
+    if not (d["verdict"] in want and cli_verdict == d["verdict"]
+            and cli["rc"] == EXIT_BY_VERDICT[d["verdict"]]):
+        problems.append(f"{what}: doctor {got}, wanted {want}")
+    return got
+
+
+def stream_runs(tele: Path) -> list[tuple[str, float]]:
+    """(run id, its last t_wall) of each run in a stream, in order."""
+    last: dict[str, float] = {}
+    for r in _records(tele):
+        if r.get("run") and isinstance(r.get("t_wall"), (int, float)):
+            last[r["run"]] = r["t_wall"]
+    return list(last.items())
 
 
 def resume_config(base: Path, *, epochs: int = 2, steps: int = 0,
@@ -2045,37 +2120,48 @@ def _resume_argv(base: Path, chaos: str, device: str, steps: int,
     return argv
 
 
-def _supervised(argv: list[str], timeout_s: float) -> dict:
-    """Run a supervised `train` command from the checkout's root; sample
-    the supervising process's memory maps while it runs (it must map no
-    CUDA library)."""
-    root = Path(__file__).resolve().parent
-    t0 = time.perf_counter()
-    proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            start_new_session=True)
-    samples, cuda = 0, False
-    out: list[str] = []
+def _supervised(argvs: list[list[str]], timeout_s: float) -> list[dict]:
+    """Run supervised `train` commands from the checkout's root, all at
+    once (each in its own base dir; the card holds them together);
+    sample each supervising process's memory maps while it runs (it must
+    map no CUDA library)."""
     import threading
 
-    reader = threading.Thread(target=lambda: out.extend(proc.stdout),
-                              daemon=True)
-    reader.start()
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    runs = []
+    for argv in argvs:
+        proc = subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        out: list[str] = []
+        reader = threading.Thread(target=lambda p=proc, o=out: o.extend(
+            p.stdout), daemon=True)
+        reader.start()
+        runs.append({"argv": argv, "proc": proc, "out": out,
+                     "reader": reader, "samples": 0, "cuda": False,
+                     "seconds": None})
     try:
-        while proc.poll() is None:
+        while any(r["proc"].poll() is None for r in runs):
             if time.perf_counter() - t0 > timeout_s:
-                raise TimeoutError(f"{argv} ran past {timeout_s} s")
-            samples += 1
-            cuda |= _maps_cuda(proc.pid)
+                raise TimeoutError(f"{argvs} ran past {timeout_s} s")
+            for r in runs:
+                if r["proc"].poll() is None:
+                    r["samples"] += 1
+                    r["cuda"] |= _maps_cuda(r["proc"].pid)
+                elif r["seconds"] is None:
+                    r["seconds"] = time.perf_counter() - t0
             time.sleep(0.5)
     finally:
-        if proc.poll() is None:
-            _reap_group(proc.pid, grace_s=5.0)
-        proc.wait()
-        reader.join(timeout=10)
-    return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
-            "log": "".join(out), "maps_samples": samples,
-            "supervisor_maps_cuda": cuda}
+        for r in runs:
+            if r["proc"].poll() is None:
+                _reap_group(r["proc"].pid, grace_s=5.0)
+            r["proc"].wait()
+            r["reader"].join(timeout=10)
+    return [{"rc": r["proc"].returncode,
+             "seconds": r["seconds"] or time.perf_counter() - t0,
+             "log": "".join(r["out"]), "maps_samples": r["samples"],
+             "supervisor_maps_cuda": r["cuda"]} for r in runs]
 
 
 def _export_equal(a: Path, b: Path) -> bool:
@@ -2117,9 +2203,11 @@ def phase_train_resume(smi: str, device: str = "cuda", steps: int = 0,
     export bit-identical to A's, the supervisor maps no CUDA library. D:
     `nan_loss@step=S+10` under `--health-policy abort`: the child exits
     4, the supervisor quarantines the newest checkpoint and restarts;
-    the chaos record keeps the fault from firing again. Then the step
-    p50 and input wait at prefetch 2 and 0, in turns (p2, p0, p0, p2).
-    S is the steps of an epoch (90 on the card; `steps` caps it for a
+    the chaos record keeps the fault from firing again. C and D run at
+    once, each in its own base dir. Then the step p50 and input wait at
+    prefetch 2 and 0, in turns (p2, p0, p0, p2); then the port's `obs
+    doctor` on every life of every leg and `obs diff` of two prefetch
+    runs. S is the steps of an epoch (90 on the card; `steps` caps it for a
     CPU rehearsal, with `batch`)."""
     from hyperion_tpu_torch.ops.fused_ce import (
         fused_softmax_xent_bwd,
@@ -2173,12 +2261,12 @@ def phase_train_resume(smi: str, device: str = "cuda", steps: int = 0,
     b_ckpt = ckpt_readings(root / "b", "language_ddp_1dev")
     b_export = root / "b" / "checkpoints" / "language_ddp_final.npz"
 
-    # C: supervised crash; D: divergence under abort
-    c = _supervised(_resume_argv(root / "c", f"kill@step={S + 2 * S // 3}",
-                                 device, steps, batch), 600)
-    d = _supervised(_resume_argv(root / "d", f"nan_loss@step={S + S // 9}",
-                                 device, steps, batch, "--health-policy",
-                                 "abort"), 600)
+    # C: supervised crash; D: divergence under abort (together)
+    c, d = _supervised([
+        _resume_argv(root / "c", f"kill@step={S + 2 * S // 3}", device,
+                     steps, batch),
+        _resume_argv(root / "d", f"nan_loss@step={S + S // 9}", device,
+                     steps, batch, "--health-policy", "abort")], 600)
     c_export = root / "c" / "checkpoints" / "language_ddp_final.npz"
     d_export = root / "d" / "checkpoints" / "language_ddp_final.npz"
     d_ckpts = root / "d" / "checkpoints" / "language_ddp_1dev"
@@ -2200,6 +2288,39 @@ def phase_train_resume(smi: str, device: str = "cuda", steps: int = 0,
 
     def lines(log: str, *keys: str) -> list[str]:
         return [x for x in log.splitlines() if any(k in x for k in keys)]
+
+    # the port's doctor on every life of every leg: A and B's runs and
+    # C and D's last lives healthy; C's killed life and D's NaN life
+    # the verdicts their supervisor logged (the doctor at that life's
+    # last record, as the supervisor consulted it)
+    doc_problems: list[str] = []
+    doc = {"a": doctor_check(root / "a", "healthy", doc_problems, "A"),
+           "b": [doctor_check(root / "b", "healthy", doc_problems,
+                              f"B run {i}", run=r.run_id)
+                 for i, r in enumerate((b1, b2))]}
+    for leg, res, dead_want in (("c", c, ("running", "crashed")),
+                                ("d", d, ("diverged",))):
+        logged = logged_verdicts(res["log"])
+        runs = stream_runs(root / leg / "telemetry.jsonl")
+        doc[leg] = {"logged": logged, "lives": [
+            doctor_check(root / leg, dead_want, doc_problems,
+                         f"{leg.upper()} life {i}", run=run, now=t + 1.0)
+            for i, (run, t) in enumerate(runs[:-1])]}
+        doc[leg]["lives"].append(doctor_check(
+            root / leg, "healthy", doc_problems, f"{leg.upper()} last life"))
+        if len(logged) != len(runs) - 1 or not all(
+                v in dead_want for _, v in logged):
+            doc_problems.append(f"{leg.upper()}: the supervisor logged "
+                                f"{logged} for {len(runs)} lives, wanted "
+                                f"{dead_want}")
+    if doc["d"]["logged"][:1] != [(4, "diverged")]:
+        doc_problems.append(f"D: logged {doc['d']['logged']}")
+    diff = obs_cli("diff", str(root / "prefetch_0"), str(root / "prefetch_1"))
+    doc["diff"] = {"rc": diff["rc"], "table": [
+        x for x in diff["out"].splitlines() if x.startswith("| ")]}
+    if diff["rc"] not in (0, 1) or not doc["diff"]["table"]:
+        doc_problems.append(f"obs diff of two prefetch runs: exit "
+                            f"{diff['rc']}: {diff['err'][-500:]}")
 
     rec = {
         "phase": "train_resume", "nvidia_smi": smi,
@@ -2236,9 +2357,10 @@ def phase_train_resume(smi: str, device: str = "cuda", steps: int = 0,
               "log": lines(d["log"], "[supervisor]", "[chaos]", "health",
                            "resumed", "quarantined", "epoch ")},
         "prefetch_turns": turns,
+        "doctor": doc,
     }
     emit(rec)
-    problems = []
+    problems = list(doc_problems)
     if rec["pyarrow_imported"] or [v["rows"] for v in splits.values()] \
             != [2891, 2461] or not all(v["source"].startswith("arrow:")
                                        for v in splits.values()):
@@ -3043,8 +3165,25 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
         "recompiles": sum(1 for r in records
                           if r.get("name") == "recompile_after_warmup"),
     }
+    # the supervisor's verdict on the dead life; the port's obs tools on
+    # the serve dir
+    problems: list[str] = []
+    summary = obs_cli("summarize", str(tele))
+    rec["obs"] = {
+        "logged": logged_verdicts(proc.stderr),
+        "summarize_rc": summary["rc"],
+        "summarize_steps": next((x for x in summary["out"].splitlines()
+                                 if x.startswith("| steps |")), None),
+        "doctor": doctor_check(tele.parent, "healthy", problems,
+                               "crash: the drained last life")}
+    if rec["obs"]["logged"] not in ([(70, "running")], [(70, "crashed")]):
+        problems.append(f"crash: supervisor logged {rec['obs']['logged']}")
+    if summary["rc"] or "Telemetry summary" not in summary["out"]:
+        problems.append(f"crash: obs summarize exit {summary['rc']}: "
+                        f"{summary['err'][-500:]}")
+    if rec["obs"]["doctor"]["attempt"] != 1:
+        problems.append(f"crash: doctor {rec['obs']['doctor']}")
     emit(rec)
-    problems = []
     if proc.returncode != 0:
         problems.append(f"server exit {proc.returncode}: "
                         f"{proc.stderr[-2000:]}")
@@ -3393,6 +3532,30 @@ def phase_route(model, smi: str, device: str = "cuda") -> dict:
     if cc["router_in_compute_apps"] or cc["router_maps_cuda"] \
             or not all(cc["replicas_map_cuda"]):
         problems.append(f"leg 1: CUDA contexts {cc}")
+    # the port's obs tools on leg 1's router base dir: the doctor's fleet
+    # rows, and the fleet trace's attribution summing to each measured
+    # total (the router's relays joined to the replicas' phases)
+    rec["leg1_doctor"] = doctor_check(base1, "healthy", problems,
+                                      "leg 1 base dir")
+    if [r for r, _ in rec["leg1_doctor"]["fleet"]] != ["0", "1"]:
+        problems.append(f"leg 1: doctor fleet {rec['leg1_doctor']}")
+    fleet = obs_cli("trace", str(base1), "--fleet", "--json", "--export",
+                    str(ROUTE_DIR / "fleet_trace.json"))
+    try:
+        rows = json.loads(fleet["out"])["attribution"]["rows"]
+    except (json.JSONDecodeError, KeyError):
+        rows = []
+    rec["leg1_fleet_trace"] = {
+        "rc": fleet["rc"], "rows": [
+            {k: r[k] for k in ("metric", "q", "value_ms", "other_ms",
+                               "dominant")} for r in rows],
+        "sum_err_ms": max((abs(sum(r["components_ms"].values())
+                               + r["other_ms"] - r["value_ms"])
+                           for r in rows), default=None)}
+    if fleet["rc"] or not rows \
+            or rec["leg1_fleet_trace"]["sum_err_ms"] > 0.005:
+        problems.append(f"leg 1: obs trace --fleet {rec['leg1_fleet_trace']}"
+                        f": {fleet['err'][-500:]}")
 
     # ---- leg 2: the router dies under --supervise, clients resume
     base2 = ROUTE_DIR / "leg2"
@@ -3479,6 +3642,13 @@ def phase_route(model, smi: str, device: str = "cuda") -> dict:
         if any(x.get("name") == "recompile_after_warmup" for x in _records(
                 base2 / f"replica_{i}" / "telemetry.jsonl")):
             problems.append(f"leg 2: replica {i} recompiled")
+    rec["leg2_logged"] = logged_verdicts((ROUTE_DIR / "leg2.err").read_text())
+    if len(rec["leg2_logged"]) != 1 or rec["leg2_logged"][0][1] not in (
+            "running", "crashed"):
+        problems.append(f"leg 2: route supervisor logged "
+                        f"{rec['leg2_logged']}")
+    rec["leg2_doctor"] = doctor_check(base2, "healthy", problems,
+                                      "leg 2 base dir")
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
     if problems:
@@ -4746,19 +4916,30 @@ def infer_tokenizer(vocab_size: int = 31_000):
     return ByteBPE(vocab, merges)
 
 
-def _infer_cli(ckpt: Path, tok_dir: Path, prompt: str, *extra: str) -> dict:
-    """The CLI's stdout as bytes (the text may hold any character), its
-    one trailing newline dropped."""
+def _infer_cli(ckpt: Path, tok_dir: Path, prompt: str, *extra: str):
+    """Start the CLI; the returned function waits for it and gives its
+    stdout as bytes (the text may hold any character), its one trailing
+    newline dropped."""
     t0 = time.perf_counter()
-    run = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "hyperion_tpu_torch.infer", "--ckpt",
          str(ckpt), "--tokenizer-dir", str(tok_dir), "--prompt", prompt,
          "--max-new-tokens", "32", "--temperature", "0", *extra],
-        capture_output=True, timeout=300,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         cwd=Path(__file__).resolve().parent)
-    return {"rc": run.returncode, "seconds": time.perf_counter() - t0,
-            "out": run.stdout.removesuffix(b"\n"),
-            "stderr": run.stderr[-800:].decode(errors="replace")}
+
+    def finish() -> dict:
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        return {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                "out": out.removesuffix(b"\n"),
+                "stderr": err[-800:].decode(errors="replace")}
+
+    finish.proc = proc
+    return finish
 
 
 def phase_infer(smi: str) -> dict:
@@ -4773,7 +4954,8 @@ def phase_infer(smi: str) -> dict:
     the card, and show most of its 32 tokens; the float decodes launch
     no hand kernel, the int8 ones launch the int8 product and the row
     quantizer once a dense layer a forward (13 a forward for the 2-layer
-    TransformerLM, 15 for the 2-layer Llama) and nothing else."""
+    TransformerLM, 15 for the 2-layer Llama) and nothing else. The four
+    CLI processes run at once, beside the in-process decodes."""
     from hyperion_tpu_torch.checkpoint.io import load_gathered
     from hyperion_tpu_torch.infer.generate import (
         generate,
@@ -4794,46 +4976,54 @@ def phase_infer(smi: str) -> dict:
     cases = (("language_ddp", lm_npz, generate_recompute, (), 2 * 6 + 1),
              ("llama", CRASH_DIR / "llama.npz", generate,
               ("--max-len", "256"), 2 * 7 + 1))
-    for (name, npz, decode, extra, denses), quant in (
-            (c, q) for c in cases for q in ("none", "int8")):
-        key = name if quant == "none" else f"{name}_int8"
-        cli = _infer_cli(npz, INFER_DIR / "tok", prompt, *extra,
-                         "--quant", quant)
-        t0 = time.perf_counter()
-        model, cached = model_from_npz(load_gathered(npz), 256,
-                                       device="cuda", quant=quant)
-        _zero_all_launches()
-        im.int8_matmul.launches = im.quantize_rows.launches = 0
-        out = decode(model, ids, 32, eos_id=tok.eos_id, pad_id=tok.eos_id)
-        launches = {**_all_launch_counts(),
-                    "int8_matmul": im.int8_matmul.launches,
-                    "quantize_rows": im.quantize_rows.launches}
-        new = [int(t) for t in out[0].tolist() if t != tok.eos_id]
-        want = (prompt + tok.decode(new)).encode()
-        visible = sum(t in tok.id_to_token for t in new)
-        rec[key] = {"cli_rc": cli["rc"], "cli_s": cli["seconds"],
-                    "cached": cached, "ids": new, "visible": visible,
-                    "text": want.decode(), "in_process_s":
-                    time.perf_counter() - t0,
-                    "equal": cli["out"] == want, "launches": launches}
-        if cli["rc"] != 0 or cli["out"] != want:
-            problems.append(f"{key}: rc {cli['rc']}, cli {cli['out']!r} "
-                            f"!= in-process {want!r}; {cli['stderr']}")
-        if visible < 16:
-            problems.append(f"{key}: {visible} of 32 tokens decode")
-        # generate: a prefill of the prompt's rows, then one row a step;
-        # generate_recompute: every step a forward of the whole buffer
-        rows = ([len(ids[0])] + [1] * 31 if cached
-                else [len(ids[0]) + 32] * 32)
-        want = {"int8_matmul": 32 * denses,
-                "quantize_rows": denses * sum(r > 16 for r in rows)} \
-            if quant == "int8" else {"int8_matmul": 0, "quantize_rows": 0}
-        if cached != (name == "llama") or launches != {
-                **{k: 0 for k in launches}, **want}:
-            problems.append(f"{key}: cached {cached}, launches {launches}")
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
+    runs = [(c, q) for c in cases for q in ("none", "int8")]
+    clis = [_infer_cli(npz, INFER_DIR / "tok", prompt, *extra, "--quant", q)
+            for (_, npz, _, extra, _), q in runs]
+    try:
+        for ((name, npz, decode, extra, denses), quant), finish in zip(runs,
+                                                                      clis):
+            key = name if quant == "none" else f"{name}_int8"
+            t0 = time.perf_counter()
+            model, cached = model_from_npz(load_gathered(npz), 256,
+                                           device="cuda", quant=quant)
+            _zero_all_launches()
+            im.int8_matmul.launches = im.quantize_rows.launches = 0
+            out = decode(model, ids, 32, eos_id=tok.eos_id, pad_id=tok.eos_id)
+            launches = {**_all_launch_counts(),
+                        "int8_matmul": im.int8_matmul.launches,
+                        "quantize_rows": im.quantize_rows.launches}
+            new = [int(t) for t in out[0].tolist() if t != tok.eos_id]
+            want = (prompt + tok.decode(new)).encode()
+            visible = sum(t in tok.id_to_token for t in new)
+            in_process_s = time.perf_counter() - t0
+            cli = finish()
+            rec[key] = {"cli_rc": cli["rc"], "cli_s": cli["seconds"],
+                        "cached": cached, "ids": new, "visible": visible,
+                        "text": want.decode(), "in_process_s": in_process_s,
+                        "equal": cli["out"] == want, "launches": launches}
+            if cli["rc"] != 0 or cli["out"] != want:
+                problems.append(f"{key}: rc {cli['rc']}, cli {cli['out']!r} "
+                                f"!= in-process {want!r}; {cli['stderr']}")
+            if visible < 16:
+                problems.append(f"{key}: {visible} of 32 tokens decode")
+            # generate: a prefill of the prompt's rows, then one row a step;
+            # generate_recompute: every step a forward of the whole buffer
+            rows = ([len(ids[0])] + [1] * 31 if cached
+                    else [len(ids[0]) + 32] * 32)
+            want = {"int8_matmul": 32 * denses,
+                    "quantize_rows": denses * sum(r > 16 for r in rows)} \
+                if quant == "int8" else {"int8_matmul": 0, "quantize_rows": 0}
+            if cached != (name == "llama") or launches != {
+                    **{k: 0 for k in launches}, **want}:
+                problems.append(f"{key}: cached {cached}, launches {launches}")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:  # a raise above leaves no CLI process running
+        for finish in clis:
+            if finish.proc.poll() is None:
+                finish.proc.kill()
+                finish.proc.wait()
     emit(rec)
     if problems:
         raise AssertionError("infer: " + "; ".join(problems))
@@ -4858,7 +5048,11 @@ INT8_CASES = (
     ("ragged_3x4096x4096", 3, 4096, 4096, "decode_fused", False),
     ("ragged_17x4096x4096", 17, 4096, 4096, "prefill_wgmma", False),
     ("quantized_4x11008x4096", 4, 11008, 4096, "decode", False),
-    ("bytes_9x4100x500", 9, 4100, 500, "bytes", False))
+    ("bytes_9x4100x500", 9, 4100, 500, "bytes", True))
+# timed cases off the int8 run's path (operands TMA cannot take, rows
+# the one-pass quantizer cannot): their records print, and stay out of
+# the `kernels` line, which holds the run's own shapes
+INT8_OFF_PATH = ("bytes_9x4100x500", "fp32_3x1001", "bf16_2x4100")
 
 
 @contextlib.contextmanager
@@ -4981,12 +5175,13 @@ def check_int8_matmul(name, M, K, N, want, seed, timing: bool) -> dict:
 
 
 def phase_int8_kernels() -> dict:
-    """Both int8 kernels at the 7B shapes; returns their timed records
-    for the `kernels` line."""
+    """Both int8 kernels at the 7B shapes, and the byte-load product and
+    scalar quantizer off the grid; returns the timed records of the
+    run's shapes for the `kernels` line."""
     recs = {"int8_matmul": [], "quantize_rows": []}
     for i, (name, M, K, N, path, timing) in enumerate(INT8_CASES):
         rec = check_int8_matmul(name, M, K, N, path, SEED + 50 + i, timing)
-        if timing:
+        if timing and name not in INT8_OFF_PATH:
             recs["int8_matmul"].append(rec)
     g = torch.Generator(device="cuda").manual_seed(SEED + 60)
     for name, shape, dtype, timing in (
@@ -4994,13 +5189,13 @@ def phase_int8_kernels() -> dict:
             ("decode_down_4x11008", (4, 11008), torch.bfloat16, True),
             ("prefill_512x4096", (512, 4096), torch.bfloat16, True),
             ("weight_11008x4096", (11008, 4096), torch.bfloat16, True),
-            ("fp32_3x1001", (3, 1001), torch.float32, False),
+            ("fp32_3x1001", (3, 1001), torch.float32, True),
             ("fp16_17x4096", (17, 4096), torch.float16, False),
-            ("bf16_2x4100", (2, 4100), torch.bfloat16, False)):
+            ("bf16_2x4100", (2, 4100), torch.bfloat16, True)):
         x = (3 * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
         x[0] = 0  # an all-zero row
         rec = check_quantize_rows(name, x, timing)
-        if timing:
+        if timing and name not in INT8_OFF_PATH:
             recs["quantize_rows"].append(rec)
     gc.collect()
     torch.cuda.empty_cache()

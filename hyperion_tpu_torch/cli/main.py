@@ -1,15 +1,19 @@
 """CLI launcher of the port — `hyperion_tpu/cli/main.py`: the trainer
 launcher (the default surface, `train` its explicit alias) and the
-`serve` and `route` verbs.
+`serve`, `route`, `obs` and `simulate` verbs.
 
     python -m hyperion_tpu_torch.cli.main train --model language_ddp \\
         [--train-split test --data_dir data] [--supervise] ...
     python -m hyperion_tpu_torch.cli.main serve --ckpt model.npz ...
     python -m hyperion_tpu_torch.cli.main route --replicas 2 --ckpt ...
+    python -m hyperion_tpu_torch.cli.main obs doctor <run dir>
+    python -m hyperion_tpu_torch.cli.main simulate failover
 
-`serve/server.py` and `serve/router.py` own their verbs' flags. The
-trainer launcher takes the reference's flags, plus `--device` (cuda by
-default, `--device cpu` for the plain PyTorch path), and runs the
+`serve/server.py`, `serve/router.py`, `obs/report.py` (summarize,
+doctor, diff, trace, top, profile) and `serve/simulate.py` own their
+verbs' flags. The trainer launcher takes the reference's flags, plus
+`--device` (cuda by default, `--device cpu` for the plain PyTorch
+path), and runs the
 reference's jobs: language_ddp, cifar (ResNet-18 on CIFAR-10),
 language_fsdp, llama, `all` (the four in that order) and `scaling` (the
 sweep of `bench/scaling.py`: on the visible cards, or on gloo CPU
@@ -19,9 +23,9 @@ every run that trains (a sweep writes its own; a `--dry-init` plan
 trains nothing). It returns the reference's
 exit codes: 0 done, 4 the health policy aborted a diverged run, 75
 preempted with a resumable checkpoint (under `all` an abort outranks a
-preemption; 2 a usage error; 3 a supervisor that gave up). Verbs not
-ported yet exit 2 and name their ROADMAP item. The module imports no
-torch: `--supervise` runs the trainer as a child process.
+preemption; 2 a usage error; 3 a supervisor that gave up). The module
+imports no torch: `--supervise` runs the trainer as a child process,
+and the `obs` and `simulate` verbs are host tools.
 
 Several ranks, as the reference launched them:
 
@@ -45,7 +49,6 @@ import sys
 
 MODELS = ("language_ddp", "cifar", "language_fsdp", "llama", "all", "scaling")
 ALL_JOBS = ("language_ddp", "cifar", "language_fsdp", "llama")
-DEFERRED_VERBS = {"obs": "A6", "simulate": "A9b"}
 
 _JOB_DEFAULTS = {
     # the reference's per-job hyperparameters
@@ -325,10 +328,18 @@ def main(argv=None) -> int:
         from hyperion_tpu_torch.serve.router import main as route_main
 
         return route_main(argv[1:])
-    if verb in DEFERRED_VERBS:
-        print(f"hyperion_tpu_torch.cli.main: `{verb}` is not ported yet "
-              f"(ROADMAP {DEFERRED_VERBS[verb]})", file=sys.stderr)
-        return 2
+    if verb == "obs":
+        # telemetry tools (summarize, doctor, diff, trace, top, profile):
+        # files and sockets only, no device touched
+        from hyperion_tpu_torch.obs.report import main as obs_main
+
+        return obs_main(argv[1:])
+    if verb == "simulate":
+        # the fleet flight simulator: the routing and queueing policy
+        # code on a virtual clock, no device and no subprocess
+        from hyperion_tpu_torch.serve.simulate import main as sim_main
+
+        return sim_main(argv[1:])
     return train_main(argv[1:] if verb == "train" else argv)
 
 

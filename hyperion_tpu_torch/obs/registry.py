@@ -16,7 +16,7 @@ all reads copy the ring first (`list(deque)` is atomic under the GIL),
 so another thread can snapshot while the owning loop keeps writing.
 
 The built-ins at the bottom are the trainers' gauges, under the names
-the reference's `obs` tools read: step time, throughput, input wait
+both packages' `obs` tools read: step time, throughput, input wait
 (`input_wait_frac`), device memory (`hbm_live_mb`, `hbm_peak_mb`) and
 MFU (`mfu`). The reference takes a step's FLOPs from XLA's cost
 analysis; the port has no compiler to ask, so `compiled_flops` counts

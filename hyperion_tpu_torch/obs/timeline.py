@@ -1,11 +1,8 @@
-"""Per-request waterfalls, Chrome trace export and tail-latency
-attribution for serve runs — the analysis half of
-`hyperion_tpu/obs/timeline.py` in the port.
-
-Its `obs trace` CLI (`build_parser`/`main`, which read the records
-through `obs/report.py` and `obs/fleet_trace.py`) waits for ROADMAP A6;
-the reference's CLI reads the port's telemetry unchanged meanwhile.
-`serve/loadgen.py` takes `PHASES` and `cohort_dominant` from here.
+"""`obs trace <run dir>` — per-request waterfalls, Chrome trace export
+and tail-latency attribution for serve runs; a copy of
+`hyperion_tpu/obs/timeline.py` in the port. `obs trace --fleet` hands
+the router's base dir to `obs/fleet_trace.py`; `serve/loadgen.py` takes
+`PHASES` and `cohort_dominant` from here.
 
 A p99 TTFT number says a tail exists; it cannot say WHY. The serve
 engine stamps every request's lifecycle onto the telemetry stream
@@ -44,9 +41,13 @@ Everything here is host-only JSONL parsing — no devices.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import math
 import re
+import sys
+from pathlib import Path
 
 from hyperion_tpu_torch.obs.registry import percentile
 
@@ -503,3 +504,81 @@ def render_markdown(run: str | None, att: dict, worst: list[dict],
                     + (f": {ph}" if ph else ""))
             lines.append(head + tail)
     return "\n".join(lines) + "\n"
+
+
+# ----------------------------------------------------------------- CLI
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="hyperion obs trace",
+        description="reconstruct per-request waterfalls from a serve "
+                    "run's telemetry, export a Chrome trace-event JSON, "
+                    "and attribute the latency tail to its phase",
+    )
+    p.add_argument("target", help="run directory (containing "
+                                  "telemetry.jsonl) or a telemetry.jsonl")
+    p.add_argument("--fleet", action="store_true",
+                   help="treat target as a ROUTER base dir (router "
+                        "stream + replica_*/ telemetry dirs) and "
+                        "assemble one cross-process fleet trace "
+                        "(obs/fleet_trace.py) instead of a single-"
+                        "process waterfall")
+    p.add_argument("--run", default=None,
+                   help="run id (default: last run with request events)")
+    p.add_argument("--export", default=None, metavar="PATH",
+                   help="Chrome trace output path (default: trace.json "
+                        "next to the stream; 'none' to skip)")
+    p.add_argument("--top", type=int, default=5,
+                   help="worst-k exemplar requests to print")
+    p.add_argument("--json", action="store_true",
+                   help="emit the attribution dict as JSON")
+    return p
+
+
+def main(argv=None) -> int:
+    from hyperion_tpu_torch.obs.report import read_records
+
+    args = build_parser().parse_args(argv)
+    if args.fleet:
+        from hyperion_tpu_torch.obs import fleet_trace
+
+        return fleet_trace.run_cli(args)
+    target = Path(args.target)
+    tele = target / "telemetry.jsonl" if target.is_dir() else target
+    if not tele.exists():
+        print(f"no telemetry stream at {tele}", file=sys.stderr)
+        return 2
+    records = read_records(tele)
+    reqs = requests_from_records(records, run=args.run)
+    if not reqs:
+        print(f"no request lifecycle events in {tele} — is this a serve "
+              "run with telemetry enabled?", file=sys.stderr)
+        return 2
+    run = args.run if args.run is not None else default_run(records)
+
+    export_path = None
+    trace = None
+    if args.export != "none":
+        export_path = Path(args.export) if args.export \
+            else tele.parent / "trace.json"
+        trace = chrome_trace(reqs, records, run=run)
+        export_path.parent.mkdir(parents=True, exist_ok=True)
+        export_path.write_text(json.dumps(trace, separators=(",", ":")))
+    att = attribution(reqs)
+    worst = worst_requests(reqs, k=args.top)
+    if args.json:
+        print(json.dumps({
+            "run": run, "attribution": att, "worst": worst,
+            "export": str(export_path) if export_path else None,
+        }, indent=2, default=str))
+    else:
+        print(render_markdown(
+            run, att, worst,
+            str(export_path) if export_path else None,
+            len(trace["traceEvents"]) if trace else 0), end="")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

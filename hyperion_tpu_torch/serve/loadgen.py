@@ -12,7 +12,7 @@ no wall-clock race decides which tick a request joins.
 The port's copy of `hyperion_tpu/serve/loadgen.py`: the same specs give
 the same workload (`build_workload`'s rng draw order is the
 reference's), and the report carries the reference's keys
-(`SERVING_REPORT_KEYS`), so the reference's `obs diff` reads both.
+(`SERVING_REPORT_KEYS`), so either package's `obs diff` reads both.
 `chip_smoke.py`'s `load` phase drives Llama-2-7B through `run_load`.
 """
 

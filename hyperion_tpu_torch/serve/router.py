@@ -1765,9 +1765,8 @@ def supervise_route(argv: list[str], args) -> int:
     --hang-timeout is SIGKILLed. The restarted life re-adopts still-
     live replicas from their heartbeats (no respawn), recovers the
     dispatch WAL, and answers the resume verbs of reconnecting
-    clients. The reference consults `obs doctor` between lives; the
-    port's doctor waits for ROADMAP A6, so the log says the verdict is
-    unavailable."""
+    clients — the port's `obs doctor` is consulted between lives for the
+    verdict it logs."""
     from hyperion_tpu_torch.supervisor import (
         Decision,
         heartbeat_watchdog,
@@ -1788,9 +1787,17 @@ def supervise_route(argv: list[str], args) -> int:
         runner = heartbeat_watchdog(hb_path, args.hang_timeout, log=log)
 
     def decide(rc: int) -> Decision:
+        verdict = None
+        try:
+            from hyperion_tpu_torch.obs.doctor import diagnose
+
+            verdict = diagnose(str(base / "telemetry.jsonl")) \
+                .get("verdict")
+        except Exception as e:  # noqa: BLE001 — triage is advisory
+            log(f"[route-supervisor] doctor consult failed: {e}")
         log(f"[route-supervisor] router exit {rc}; doctor verdict: "
-            "unavailable; restarting — the new life re-adopts live "
-            "replicas and recovers the dispatch WAL")
+            f"{verdict or 'unavailable'}; restarting — the new life "
+            "re-adopts live replicas and recovers the dispatch WAL")
         return Decision.restart(immediate=True)
 
     child_argv = strip_flags(argv, {"--supervise"}, set())
@@ -1871,8 +1878,8 @@ def main(argv=None) -> int:
           f"{summary['per_replica_dispatched']}", file=sys.stderr)
     tracer.close()
     if tracer.enabled:
-        print(f"[route] fleet evidence under {base} (the reference's "
-              "`obs doctor` and `obs trace --fleet` read it)",
+        print(f"[route] fleet evidence: `python -m "
+              f"hyperion_tpu_torch.cli.main obs doctor {base}`",
               file=sys.stderr)
     return 0
 

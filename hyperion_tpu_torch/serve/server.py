@@ -575,8 +575,9 @@ def supervise_serve(argv: list[str], args) -> int:
     restart core of `supervisor.py` with the serve policy: any crash
     restarts with backoff (the child replays its request journal on the
     way up), and a heartbeat gone stale past --hang-timeout gets the
-    child SIGKILLed (a wedged engine never exits by itself). The parent
-    never touches the card."""
+    child SIGKILLed (a wedged engine never exits by itself). Between
+    lives it logs the port's `obs doctor` verdict on the child's stream.
+    The parent never touches the card."""
     from pathlib import Path
 
     from hyperion_tpu_torch.supervisor import (
@@ -597,7 +598,18 @@ def supervise_serve(argv: list[str], args) -> int:
         runner = heartbeat_watchdog(hb_path, args.hang_timeout, log=log)
 
     def decide(rc: int) -> Decision:
-        log(f"[serve-supervisor] child exit {rc}; restarting with journal "
+        verdict = None
+        if tele is not None:
+            try:
+                from hyperion_tpu_torch.obs.doctor import diagnose
+
+                # the stream file itself, not its directory: the env
+                # var may name anything, not just telemetry.jsonl
+                verdict = diagnose(tele).get("verdict")
+            except Exception as e:  # noqa: BLE001 — triage is advisory
+                log(f"[serve-supervisor] doctor consult failed: {e}")
+        log(f"[serve-supervisor] child exit {rc}; doctor verdict: "
+            f"{verdict or 'unavailable'}; restarting with journal "
             "replay")
         return Decision.restart()
 

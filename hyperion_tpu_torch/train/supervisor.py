@@ -2,31 +2,31 @@
 over the port's restart core (`hyperion_tpu_torch/supervisor.py`).
 
 `python -m hyperion_tpu_torch.cli.main train --supervise --max-restarts
-N` reruns the trainer as a subprocess and decides from its exit code:
+N` reruns the trainer as a subprocess and, on a nonzero exit, asks the
+port's `obs doctor` (`obs/doctor.py`) what happened before deciding how
+to come back:
 
-    preempted (exit 75)       -> restart immediately: the mid-epoch
-                                 checkpoint is waiting. Free (not counted
-                                 against --max-restarts) when the run
-                                 progressed: its newest checkpoint step
-                                 moved since the last exit
-    diverged (exit 4)         -> quarantine the newest checkpoint
-                                 (`step_X.corrupt`) first, so the restart
-                                 resumes from the PRIOR verified step (or
-                                 from scratch) instead of re-diverging
-    crashed (any other)       -> restart with exponential backoff (the
+    crashed / hung / stalled  -> restart with exponential backoff (the
                                  walk-back resumes from the newest
                                  committed step)
+    preempted (exit 75)       -> restart immediately: the mid-epoch
+                                 checkpoint is waiting. Free (not counted
+                                 against --max-restarts) when the doctor's
+                                 `last_step` moved since the last exit
+    diverged (exit 4, or the  -> quarantine the diverged job's newest
+    doctor says so)              checkpoint (`step_X.corrupt`) first, so
+                                 the restart resumes from the PRIOR
+                                 verified step instead of re-diverging
     usage error (exit 2)      -> passed through: rejections don't heal
     0                         -> done; 3 = gave up (budget spent)
 
-The reference also asks `obs doctor` for a verdict between lives; the
-port has no doctor yet (ROADMAP A6), so like the port's serve
-supervisor it logs "doctor verdict: unavailable" and decides from the
-exit code. Each child runs with `HYPERION_ATTEMPT=<k>`, which the
-trainer stamps into its `train_start` event and every heartbeat.
+Each child runs with `HYPERION_ATTEMPT=<k>`, which the trainer stamps
+into its `train_start` event and every heartbeat, so the doctor reports
+the restart lineage. A consult that fails is logged and the decision
+falls back to the exit code: triage is advisory.
 
-The supervising process imports no torch: it only spawns, waits,
-renames directories and reads directory names.
+The supervising process imports no torch: it spawns, waits, reads the
+telemetry stream and heartbeat, and renames directories.
 """
 
 from __future__ import annotations
@@ -50,38 +50,75 @@ from hyperion_tpu_torch.supervisor import (  # noqa: F401 — re-exported API
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 
-def _step_dirs(base_dir: str | Path) -> list[tuple[float, int, Path]]:
-    """(mtime, step, path) of every live step dir of every job under
-    `<base_dir>/checkpoints/` (quarantined `.corrupt` dirs and `health/`
-    evidence don't match)."""
+def _consult_doctor(base_dir: str | Path,
+                    prefer_diverged: bool = False) -> dict | None:
+    """Diagnose the run dir's telemetry; None when there is nothing to
+    read (e.g. --no-telemetry) — the caller falls back to exit-code-only
+    triage. `prefer_diverged`: a `--model all` child that health-aborts
+    on an early job still runs its remaining jobs, so the stream's last
+    run (the doctor's default pick) can be a healthy later job — walk
+    the runs newest-first for the one that actually diverged, so the
+    quarantine hits the right job's checkpoint."""
+    try:
+        from hyperion_tpu_torch.obs.doctor import diagnose, read_stream
+
+        tele = Path(base_dir) / "telemetry.jsonl"
+        if not tele.exists():
+            return None
+        d = diagnose(base_dir)
+        if d.get("verdict") == "empty":
+            return None
+        if prefer_diverged and d.get("verdict") != "diverged":
+            records, _, _ = read_stream(tele)
+            run_ids: dict[str, None] = {}
+            for r in records:
+                if r.get("run"):
+                    run_ids.setdefault(r["run"], None)
+            for run in reversed(list(run_ids)[:-1]):
+                alt = diagnose(base_dir, run=run)
+                if alt.get("verdict") == "diverged":
+                    return alt
+        return d
+    except Exception as e:  # noqa: BLE001 — triage is advisory
+        print(f"[supervisor] doctor consult failed: {e}", flush=True)
+        return None
+
+
+def _quarantine_newest(base_dir: str | Path, reason: str,
+                       run: str | None = None) -> Path | None:
+    """Quarantine the newest step dir of the DIVERGED job so the
+    restart's walk-back resumes from its prior verified step. `run` is
+    the doctor's run id (`{job}_{n}gpus_{ts}`): a `--model all` lineage
+    has several job dirs under `<base_dir>/checkpoints/`, and step
+    numbers are not comparable across jobs. When the job can't be
+    inferred, fall back to the most recently WRITTEN step dir (the
+    diverged job is the one that was just training). A step dir holds
+    every rank's `shard-<rank>-of-<world>.pt` under one manifest, so
+    the rename takes the whole step."""
+    from hyperion_tpu_torch.checkpoint import integrity
+
+    job = None
+    if run and (m := re.match(r"^(.+)_\d+gpus_\d", str(run))):
+        job = m.group(1)
     root = Path(base_dir) / "checkpoints"
-    out = []
+    candidates: list[tuple[int, Path]] = []  # (step, path) within a job
+    fallback: list[tuple[float, int, Path]] = []
     if root.is_dir():
         for job_dir in root.iterdir():
             if not job_dir.is_dir():
                 continue
             for p in job_dir.iterdir():
                 if (m := _STEP_RE.match(p.name)) and p.is_dir():
-                    out.append((p.stat().st_mtime, int(m.group(1)), p))
-    return out
-
-
-def newest_step(base_dir: str | Path) -> int | None:
-    """The highest checkpoint step on disk — the supervisor's measure of
-    a child's progress."""
-    return max((step for _, step, _ in _step_dirs(base_dir)), default=None)
-
-
-def _quarantine_newest(base_dir: str | Path, reason: str) -> Path | None:
-    """Quarantine the most recently WRITTEN step dir — the diverged job's,
-    the one that was just training — so the restart's walk-back resumes
-    from its prior verified step."""
-    from hyperion_tpu_torch.checkpoint import integrity
-
-    dirs = _step_dirs(base_dir)
-    if not dirs:
+                    if job and job_dir.name.startswith(job):
+                        candidates.append((int(m.group(1)), p))
+                    fallback.append(
+                        (p.stat().st_mtime, int(m.group(1)), p))
+    if candidates:
+        _, newest = max(candidates)
+    elif fallback:
+        _, _, newest = max(fallback)
+    else:
         return None
-    _, _, newest = max(dirs)
     return integrity.quarantine(newest, reason)
 
 
@@ -91,25 +128,40 @@ def supervise(child_argv: list[str], *, base_dir: str | Path,
               sleep=time.sleep) -> int:
     """Run `child_argv` under restart supervision. `run_child`/`sleep`
     are injectable for tests."""
-    prev_step: list[int | None] = [newest_step(base_dir)]
+    prev_step: list[int | None] = [None]  # closure cell for progress
 
     def decide(rc: int) -> Decision:
-        print(f"[supervisor] child exit {rc}; doctor verdict: unavailable",
-              flush=True)
-        cur = newest_step(base_dir)
-        progressed = cur is not None and (prev_step[0] is None
-                                          or cur > prev_step[0])
-        prev_step[0] = cur if cur is not None else prev_step[0]
-        if rc == EXIT_HEALTH_ABORT:
+        diag = _consult_doctor(base_dir,
+                               prefer_diverged=rc == EXIT_HEALTH_ABORT)
+        verdict = diag.get("verdict") if diag else None
+        diverged = rc == EXIT_HEALTH_ABORT or verdict == "diverged"
+        print(f"[supervisor] child exit {rc}; doctor verdict: "
+              f"{verdict or 'unavailable'}"
+              + (f" ({diag.get('reason')})" if diag else ""), flush=True)
+        # Clean preemptions that made forward progress are free: N
+        # capacity events over a long run are normal life, not N
+        # failures. Progress is judged from the doctor's last_step, so a
+        # child that exits 75 without advancing (a preemption loop, or
+        # no telemetry to prove progress) still burns budget.
+        cur_step = diag.get("last_step") if diag else None
+        progressed = (cur_step is not None
+                      and (prev_step[0] is None or cur_step > prev_step[0]))
+        prev_step[0] = cur_step if cur_step is not None else prev_step[0]
+
+        if diverged:
             # quarantine even when about to give up: whoever reruns by
             # hand must not resume next to the poisoned state
             q = _quarantine_newest(
-                base_dir, f"supervisor: diverged (child exit {rc}); "
-                "restarting from the prior verified step")
+                base_dir,
+                f"supervisor: diverged (child exit {rc}, verdict "
+                f"{verdict or 'n/a'}); restarting from the prior "
+                "verified step",
+                run=diag.get("run") if diag else None,
+            )
             print(f"[supervisor] diverged: quarantined "
                   f"{q.name if q else 'nothing (no checkpoints yet)'}",
                   flush=True)
-            prev_step[0] = newest_step(base_dir)
+        # immediate: the capacity event is over; the checkpoint waits
         return Decision.restart(free=rc == EXIT_PREEMPTED and progressed,
                                 immediate=rc == EXIT_PREEMPTED)
 

@@ -24,14 +24,14 @@ import numpy as np
 import pytest
 
 from hyperion_tpu.models import llama as jl
-from hyperion_tpu.obs import doctor
+from hyperion_tpu.obs import doctor as jdoctor
 from hyperion_tpu.obs import export as jexport
 from hyperion_tpu.obs import ledger as jledger
 from hyperion_tpu.obs import tickprof as jtickprof
 from hyperion_tpu.obs import top as top_mod
 from hyperion_tpu.serve.engine import Engine as JaxEngine
 from hyperion_tpu.serve.engine import EngineConfig as JaxEngineConfig
-from hyperion_tpu_torch.obs import export, ledger, tickprof
+from hyperion_tpu_torch.obs import doctor, export, ledger, tickprof, top
 from hyperion_tpu_torch.obs.registry import MetricsRegistry
 from hyperion_tpu_torch.obs.trace import Tracer
 from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
@@ -269,8 +269,9 @@ class TestEngineIntrospection:
                                                         tmp_path):
         """The verbs through the socket: class_brownout on and off is
         acknowledged and its gauge and `act` follow, an unknown verb
-        answers an error, `profile` writes a trace; the reference's
-        `obs top` samples the live port engine."""
+        answers an error, `profile` writes a trace; the port's `obs top`
+        samples the live port engine, its row from the payload equal to
+        the reference's."""
         tracer = Tracer(tmp_path / "telemetry.jsonl", run="intro")
         eng = _traced_engine(pair, tracer)
         eng.warmup([8, 16])
@@ -301,10 +302,15 @@ class TestEngineIntrospection:
             res = export.request_control(
                 sock, {"cmd": "profile", "out": str(out), "seconds": 0.2})
             assert res["status"] == "started"
-            row = top_mod.sample("process", tmp_path, timeout_s=2.0)
+            row = top.sample("process", tmp_path, timeout_s=2.0)
+            assert top.ROW_KEYS == top_mod.ROW_KEYS
             assert set(top_mod.ROW_KEYS) <= set(row)
             assert row["source"] == "socket" and row["state"] == "live"
             assert row["dominant_segment"] is not None
+            doc = export.read_exposition(sock, 2.0)
+            blank = {k: None for k in top.ROW_KEYS}
+            assert top._row_from_exposition(dict(blank), doc) \
+                == top_mod._row_from_exposition(dict(blank), doc)
             _drain(eng)
         deadline = time.monotonic() + 30
         while not (out / "trace.json").exists() \
@@ -429,7 +435,8 @@ class TestNoRecompile:
             self, pair, tmp_path):
         """A prompt past the warmed ladder runs a new prefill shape: the
         ledger counts one recompile, the stream and the flight record
-        say so, and the reference's doctor names the executable."""
+        say so, and the port's doctor names the executable as the
+        reference's does."""
         tracer = Tracer(tmp_path / "telemetry.jsonl", run="churn")
         eng = _traced_engine(pair, tracer,
                              flight_path=tmp_path / "flight.json")
@@ -449,6 +456,8 @@ class TestNoRecompile:
         flight = tickprof.read_flight(tmp_path / "flight.json")
         assert any(e["name"] == "recompile_after_warmup"
                    for e in flight["events"])
-        d = doctor.diagnose(tmp_path / "telemetry.jsonl")
+        now = time.time()
+        d = doctor.diagnose(tmp_path / "telemetry.jsonl", now=now)
+        assert d == jdoctor.diagnose(tmp_path / "telemetry.jsonl", now=now)
         assert "recompile after warmup" in d["reason"]
         assert "prefill_executables" in d["reason"]

@@ -8,9 +8,10 @@ heartbeats, dispatches, ejections and alert sweeps and compare every
 decision; they are cases of one parametrised test. The drill runs
 `python -m hyperion_tpu_torch.cli.main route` over two port replicas
 (`--device cpu`, fp32), one crashed mid-stream by chaos: every stream
-completes exactly once and equals JAX `generate`, and the reference's
-jax-free `obs doctor` and `obs trace --fleet` read the router directory
-unchanged, the fleet attribution's components summing exactly.
+completes exactly once and equals JAX `generate`, and the port's `obs
+doctor`, `obs trace --fleet` and `obs top` read the router directory as
+the reference's do, the fleet attribution's components summing
+exactly.
 """
 
 from __future__ import annotations
@@ -408,8 +409,8 @@ def test_fleet_drill_exactly_once_equal_to_jax(tmp_path):
     crashed at its second tick: every request done exactly once,
     indices 0..n-1, greedy and text streams equal to JAX `generate`, the
     sampled one equal to an uninterrupted port engine; the router
-    re-dispatched; the reference's doctor and fleet trace read the
-    directory."""
+    re-dispatched; the port's doctor, fleet trace and top read the
+    directory as the reference's do."""
     from test_torch_serve_socket import (
         _jax_generate,
         export_npz,
@@ -418,9 +419,11 @@ def test_fleet_drill_exactly_once_equal_to_jax(tmp_path):
     )
 
     from hyperion_tpu.data.bpe import ByteBPE
-    from hyperion_tpu.obs import fleet_trace
+    from hyperion_tpu.obs import doctor as jdoctor
+    from hyperion_tpu.obs import fleet_trace as jfleet_trace
     from hyperion_tpu.obs import timeline as jtimeline
-    from hyperion_tpu.obs.doctor import diagnose
+    from hyperion_tpu.obs import top as jtop
+    from hyperion_tpu_torch.obs import doctor, fleet_trace, timeline, top
 
     ckpt = export_npz(tmp_path / "tiny.npz")
     tok_dir = save_tokenizer(tmp_path / "tok")
@@ -474,18 +477,35 @@ def test_fleet_drill_exactly_once_equal_to_jax(tmp_path):
     (end,) = [x for x in records if x.get("name") == "router_end"]
     assert end["redispatched"] >= 1 and end["completed"] == len(reqs)
     assert end["failover_gap_p99_ms"] is not None
-    # the reference's jax-free tools read the port's fleet directory
-    d = diagnose(base)
+    # the port's tools read the port's fleet directory as the
+    # reference's do, at one frozen clock
+    now = json.loads((base / "heartbeat.json").read_text())["t_wall"] + 5
+    d = doctor.diagnose(base, now=now)
+    assert d == jdoctor.diagnose(base, now=now)
     assert {row["replica"] for row in d["fleet"]} == {"0", "1"}
+    assert d["verdict"] == "healthy"
     asm = fleet_trace.assemble(base)
     assert {q["id"] for q in asm["requests"]} >= {x["id"] for x in reqs}
     att = fleet_trace.attribution(asm)
+    assert json.dumps(att, sort_keys=True) == json.dumps(
+        jfleet_trace.attribution(jfleet_trace.assemble(base)),
+        sort_keys=True)
     assert att["rows"]
     for row in att["rows"]:
         total = sum(row["components_ms"].values()) + row["other_ms"]
         assert total == pytest.approx(row["value_ms"], abs=0.005), row
-    out = tmp_path / "fleet_trace.json"
-    assert jtimeline.main([str(base), "--fleet", "--json",
-                           "--export", str(out)]) == 0
-    pids = {e.get("pid") for e in json.loads(out.read_text())["traceEvents"]}
+    exports = []
+    for name, main in (("port", timeline.main), ("jax", jtimeline.main)):
+        out = tmp_path / f"fleet_trace_{name}.json"
+        assert main([str(base), "--fleet", "--json",
+                     "--export", str(out)]) == 0
+        exports.append(out.read_text())
+    assert exports[0] == exports[1]
+    pids = {e.get("pid") for e in json.loads(exports[0])["traceEvents"]}
     assert len(pids) >= 3
+    rows = [top.sample(n, p, now=now, timeout_s=0.05)
+            for n, p in top.discover(base)]
+    assert rows == [jtop.sample(n, p, now=now, timeout_s=0.05)
+                    for n, p in jtop.discover(base)]
+    assert [r["name"] for r in rows] == ["router", "replica 0",
+                                         "replica 1"]

@@ -1,8 +1,8 @@
 """The port's crash plane against the JAX package: the request journal
 (`serve/journal.py`), the chaos grammar (`testing/chaos.py`), the
 restart supervisor (`supervisor.py`), crash replay through the port
-engine, the supervised server killed mid-decode, and the reference's
-`obs doctor` reading the port's telemetry.
+engine, the supervised server killed mid-decode, and the port's `obs
+doctor` reading the port's telemetry as the reference's does.
 
 Re-expresses the reference's `TestJournal`, `TestServeChaosGrammar`,
 `TestServeSupervisor` (tests/test_serve_crash.py), `TestCrashReplay` and
@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -26,11 +27,12 @@ import numpy as np
 import pytest
 from flax import traverse_util
 
-from hyperion_tpu.obs import doctor
+from hyperion_tpu.obs import doctor as jdoctor
 from hyperion_tpu.serve.journal import RequestJournal as JaxJournal
 from hyperion_tpu.serve.queue import Request as JaxRequest
 from hyperion_tpu.testing import chaos as jchaos
 from hyperion_tpu_torch import supervisor
+from hyperion_tpu_torch.obs import doctor
 from hyperion_tpu_torch.obs.heartbeat import Heartbeat
 from hyperion_tpu_torch.obs.trace import Tracer
 from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
@@ -480,8 +482,11 @@ class TestCrashReplay:
         (ev,) = got
         assert ev.kind == "rejected" and ev.reason == REJECT_POISONED
         assert eng.metrics.summary()["poisoned"] == 1
-        # the reference's doctor names the pill from the port's stream
-        d = doctor.diagnose(tmp_path / "telemetry.jsonl")
+        # the port's doctor names the pill from the port's stream, as
+        # the reference's does
+        now = time.time()
+        d = doctor.diagnose(tmp_path / "telemetry.jsonl", now=now)
+        assert d == jdoctor.diagnose(tmp_path / "telemetry.jsonl", now=now)
         assert d["poisoned_requests"] == ["evil"]
         assert any("poison pill" in o and "evil" in o for o in d["overload"])
         resume, _, poisoned, _ = RequestJournal(jp).recover()
@@ -491,9 +496,9 @@ class TestCrashReplay:
 class TestFlightPostMortem:
     def test_doctor_cites_the_port_flight_record(self, tmp_path, pair):
         """A port engine with telemetry, heartbeat and flight recorder
-        dies mid-flight (no serve_end): the reference's doctor reads the
+        dies mid-flight (no serve_end): the port's doctor reads the
         port's stream, heartbeat and flight.json and cites the record's
-        final tick in its verdict."""
+        final tick in its verdict, as the reference's does."""
         run = "serve_port_fl"
         tracer = Tracer(tmp_path / "telemetry.jsonl", run=run)
         hb = Heartbeat(tmp_path / "heartbeat.json", run=run, every=1)
@@ -506,7 +511,9 @@ class TestFlightPostMortem:
         for _ in range(4):
             eng.step()
         tracer.flush()
-        d = doctor.diagnose(tmp_path, now=time.time() + 10_000)
+        now = time.time() + 10_000
+        d = doctor.diagnose(tmp_path, now=now)
+        assert d == jdoctor.diagnose(tmp_path, now=now)
         assert d["verdict"] in ("hung", "crashed"), d["reason"]
         from hyperion_tpu_torch.obs.tickprof import (
             flight_final_tick,
@@ -563,6 +570,12 @@ class TestSupervisedKill:
             timeout=300, cwd=tmp_path)
         assert r.returncode == 0, r.stderr[-3000:]
         assert r.stderr.count("[serve-supervisor] child exit 70") == 1
+        # the supervisor consulted the port's doctor between lives: a
+        # life gone without serve_end, its heartbeat still fresh
+        (verdict,) = re.findall(
+            r"\[serve-supervisor\] child exit 70; doctor verdict: (\w+);",
+            r.stderr)
+        assert verdict in ("running", "crashed"), r.stderr[-3000:]
         assert r.stdout.count("[chaos] firing crash@tick=2") == 1
         idx: dict[str, list[int]] = {}
         toks: dict[str, list[int]] = {}
@@ -593,6 +606,9 @@ class TestSupervisedKill:
         assert hb["attempt"] == 1
         assert flight_final_tick(read_flight(tele.parent / "flight.json")) \
             is not None
-        # the reference's doctor reads the last life as a drained restart
-        d = doctor.diagnose(tele)
+        # the port's doctor reads the last life as a drained restart, as
+        # the reference's does
+        now = time.time()
+        d = doctor.diagnose(tele, now=now)
+        assert d == jdoctor.diagnose(tele, now=now)
         assert d["verdict"] == "healthy" and d["attempt"] == 1

@@ -5,8 +5,8 @@ hyperion_tpu_torch.cli.main train --device cpu ...` exiting 0, 75 and 4
 where the reference's launcher does; `--supervise` over a chaos kill
 restarting once and ending bit-identical to an uninterrupted run, its
 supervising process never loading torch; the cifar, `all` and
-`scaling` jobs; and the verbs not ported yet exiting 2 with their
-ROADMAP item.
+`scaling` jobs; and the `obs` and `simulate` verbs exiting as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -163,9 +163,33 @@ def test_seq_pipe_expert_axes_name_the_next_slice(argv, split, capsys):
 
 
 @pytest.mark.parametrize("verb, item", [("obs", "A6"), ("simulate", "A9")])
-def test_deferred_verbs_exit_2_naming_their_item(verb, item, capsys):
-    assert main([verb, "doctor"]) == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+def test_deferred_verbs_exit_2_naming_their_item(verb, item, capsys,
+                                                 tmp_path):
+    """The two verbs that exited 2 until they were ported (the name is
+    the test's history; `item` the ROADMAP item that ported them) now
+    run through `main` and exit as the reference's do: `obs doctor` on
+    the NaN fixture exits 1 (diverged), `simulate failover` at the
+    reference tests' small size exits 1 (its fleet-size asserts fail
+    on 4 replicas) with the same report."""
+    from hyperion_tpu.cli.main import main as jax_main
+
+    if verb == "obs":
+        argv = ["obs", "doctor", str(REPO / "tests" / "data" / "telemetry"
+                                     / "nan"), "--now", "1754000100"]
+    else:
+        argv = ["simulate", "failover", "--replicas", "4", "--requests",
+                "150", "--duration-s", "90", "--json"]
+    got = []
+    for name, run in (("port", main), ("jax", jax_main)):
+        extra = ["--out", str(tmp_path / name)] if verb == "simulate" else []
+        rc = run(argv + extra)
+        out = capsys.readouterr().out
+        if verb == "simulate":
+            res = json.loads(out)
+            out = (res["report"], res["asserts"], res["ok"])
+        got.append((rc, out))
+    assert got[0] == got[1]
+    assert got[0][0] == 1
 
 
 def _cli(base: Path, *extra: str, timeout: float = 180):
@@ -259,9 +283,11 @@ def test_supervised_kill_restarts_once_and_ends_bit_identical(plain_run,
 
 def test_supervisor_quarantines_on_abort_and_frees_progressing_preemptions(
         tmp_path):
-    """Decisions from the exit code alone: 4 quarantines the newest step
-    dir first; 75 with a newer checkpoint is a free, immediate restart;
-    a crash burns the budget."""
+    """Decisions from the exit code and the port's doctor: 4 quarantines
+    the newest step dir first; 75 whose stream shows progress (the
+    doctor's last_step moved) is a free, immediate restart; a crash
+    burns the budget."""
+    from hyperion_tpu_torch.obs.trace import Tracer
     from hyperion_tpu_torch.train.supervisor import supervise
 
     root = tmp_path / "checkpoints" / "language_ddp_1dev"
@@ -271,9 +297,15 @@ def test_supervisor_quarantines_on_abort_and_frees_progressing_preemptions(
     def child(argv, env):
         rc = next(codes)
         step = {75: 3, 4: 6, 1: 6, 0: 6}[rc]
+        attempt = int(env["HYPERION_ATTEMPT"])
+        tracer = Tracer(tmp_path / "telemetry.jsonl",
+                        run=f"language_ddp_1gpus_2026010{attempt}_000000")
+        tracer.event("train_start", job="language_ddp", attempt=attempt)
+        with tracer.span("train_step", step=step):
+            pass
+        tracer.close()
         (root / f"step_{step:08d}").mkdir(parents=True, exist_ok=True)
-        seen.append((int(env["HYPERION_ATTEMPT"]),
-                     sorted(p.name for p in root.iterdir())))
+        seen.append((attempt, sorted(p.name for p in root.iterdir())))
         return rc
 
     sleeps: list[float] = []

@@ -4,8 +4,9 @@ for `train_language_model` and `train_llama` (llama_tiny, LoRA and
 full) — final parameters, every step's loss and the CSV's loss column —
 with every batch trained once; health snapshots land under `health/`
 and are never the resume point; "abort" skips the exports; and the
-telemetry events, and the reference's `obs doctor` verdicts, match the
-JAX trainer's on the same chaos plans.
+telemetry events, and the port's `obs doctor` verdicts, match the JAX
+trainer's on the same chaos plans (the port's doctor giving the port's
+runs the reference doctor's diagnosis).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import csv
 import json
 import shutil
+import time
 from pathlib import Path
 
 import numpy as np
@@ -276,13 +278,24 @@ def test_telemetry_events_match_the_jax_trainer(plan_runs):
 
 
 def test_obs_doctor_gives_the_port_runs_the_jax_verdicts(plan_runs):
-    from hyperion_tpu.obs.doctor import diagnose
+    """The reference's doctor on the JAX runs is the yardstick; the
+    port's doctor on the port's runs gives its verdicts, and on the
+    port's directories the two doctors agree in every field."""
+    from hyperion_tpu.obs.doctor import diagnose as jdiagnose
+    from hyperion_tpu_torch.obs.doctor import diagnose
 
+    now = time.time()
     verdicts = {}
     for name, (root, first, second) in plan_runs.items():
+        doctor = diagnose if name == "port" else jdiagnose
         verdicts[name] = (
-            diagnose(root / "preempt", run=first)["verdict"],
-            diagnose(root / "preempt", run=second)["verdict"],
-            diagnose(root / "abort")["verdict"])
+            doctor(root / "preempt", run=first, now=now)["verdict"],
+            doctor(root / "preempt", run=second, now=now)["verdict"],
+            doctor(root / "abort", now=now)["verdict"])
     assert verdicts["port"] == verdicts["jax"]
-    assert verdicts["port"][2] == "diverged"
+    assert verdicts["port"] == ("healthy", "healthy", "diverged")
+    root, first, second = plan_runs["port"]
+    for target, run in ((root / "preempt", first),
+                        (root / "preempt", second), (root / "abort", None)):
+        assert diagnose(target, run=run, now=now) \
+            == jdiagnose(target, run=run, now=now)
