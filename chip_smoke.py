@@ -63,6 +63,12 @@ script exits non-zero):
               [1, 4095, 32000] fp32 view. Kernel, plain, bound and library
               times, and the whole flash backward against SDPA's masked
               backward in turns (library, kernel, kernel, library).
+              Head dim 256 (`phase_flash_d256`): bf16 [1, 4096, 8, 256]
+              with the Llama step's masks, a ragged [2, 1000, 8, 256],
+              [2, 200, 8, 256] with a row all padding, fp32 [2, 1024, 8,
+              256] causal and full and with q scaled by 4, D 160 and 192
+              zero-padded to 256 (each kernel launched), and one layer of
+              lm_d256's step ([2, 4096, 4, 256], ragged padding).
               The weight-only int8 kernels (`phase_int8_kernels`): the
               fused decode dense (`quantized_dense_decode`: bf16 rows
               quantized inside a thread-block cluster) at the 7B decode
@@ -80,6 +86,14 @@ script exits non-zero):
               ([9, 4100->500]) and the scalar quantizer (fp32 [3, 1001],
               bf16 [2, 4100]) are timed too, beside their bounds; they
               are off the int8 run's path, so not in the `kernels` line.
+  3b. lm_d256  one forward and backward of a TransformerLM at head_dim
+              256 (d 1024, 4 heads, 2 layers, GPT-2 vocab, bf16, batch
+              2, seq 4096, ragged padding) with attention_impl "pallas",
+              against the same weights at "xla": loss and gradients
+              within the bounds `phase_lm_d256` derives, 2 flash
+              forward, 2 dq and 2 dk/dv launches; then `flash_attention`
+              in fp32 at [2, 1024, 8, 256] through autograd: each fp32
+              D 256 kernel launched once, gradients within 2e-4.
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -278,7 +292,9 @@ script exits non-zero):
               compile_bench (every tier and the train step) and
               decode_bench (tiny and mid, float and int8): every row
               finite or "oom", no rate above 105 % of the datasheet peak.
- 14. crash    the port's server over a seeded random Llama-2-7B-width
+ 14. crash    (`crash_start`, then gather and route while its server
+              runs, then `crash_finish`) the port's server over a seeded
+              random Llama-2-7B-width
               export (2 layers, fp32) with `--journal --supervise
               --chaos crash@tick=2`: the first life dies hard mid-decode,
               the second replays the journal; every token on the one
@@ -289,6 +305,10 @@ script exits non-zero):
               the supervisor logs the port doctor's verdict on the dead
               life, and `obs summarize` and `obs doctor` read the serve
               dir (the last life "healthy", attempt 1).
+ 14b. gather  crash's export at temperature 0 through both paged reads
+              (`serve --paged-attn`): "gather" launches no paged kernel,
+              its ledger counts its per-tick copy, its streams equal the
+              kernel's (or part at a near tie).
  15. route    `python -m hyperion_tpu_torch.cli.main route` over two port
               replicas (own processes and CUDA contexts) serving the crash
               phase's export, with a tokenizer trained here (512 merges):
@@ -325,7 +345,7 @@ script exits non-zero):
               serve_features, load, train, train_resume, train_long,
               llama_train, train_fsdp, llama_fsdp, train_moe,
               train_ulysses, train_ring, train_ring_xla, pipeline_lm,
-              int8) at
+              int8, lm_d256, flash_d256_fp32) at
               that run's shapes, with its launches on the run, its error
               against the plain version and its times.
 
@@ -1170,10 +1190,21 @@ def phase_kernels() -> dict:
 ATTR_KEYS = ("registers", "spill_bytes", "smem_bytes", "threads")
 
 
-def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
+def fp32_flash_growth(D: int) -> float:
+    """How much wider the fp32 flash bounds are at head_dim D than at the
+    reference's D <= 128: an fp32 dot product of D terms is off by at
+    most ~D·u·Σ|q_d k_d| (u = 2^-24; the split-TF32 terms alike), Σ|q_d
+    k_d| grows as D and the logits are scaled by 1/√D, so the logits'
+    bound, and o's, lse's and the gradients' to first order in it,
+    grow as D^1.5: 2^1.5 = 2.83 from 128 to 256."""
+    return max(1.0, (D / 128) ** 1.5)
+
+
+def flash_close(out, ref, dtype, what, D: int = 128) -> tuple[bool, float]:
     """(ok, max abs error) of a flash kernel output against its plain
-    version. fp32: 2e-5 for o and lse, 2e-4 for gradients (the
-    reference's own kernel bounds). bf16 o: the kernel rounds p to bf16
+    version at head_dim D. fp32: 2e-5 for o and lse, 2e-4 for gradients
+    (the reference's own kernel bounds), times `fp32_flash_growth(D)`
+    past D 128. bf16 o: the kernel rounds p to bf16
     per key tile against the running max, the plain version once against
     the row's max — one ulp of p (2^-8) over |v| <= 4, plus one of the
     output: 2^-6 + 2^-7 of the value. lse is fp32 on both sides. bf16
@@ -1183,6 +1214,8 @@ def flash_close(out, ref, dtype, what) -> tuple[bool, float]:
     err = (out - ref).abs()
     if dtype == torch.float32 or what == "lse":
         tol = 2e-5 if what in ("o", "lse") else 2e-4
+        if dtype == torch.float32:
+            tol *= fp32_flash_growth(D)
         ok = bool((err <= tol + tol * ref.abs()).all())
     elif what == "o":
         ok = bool((err <= 2.0 ** -6 + 2.0 ** -7 * ref.abs()).all())
@@ -1256,14 +1289,15 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
                                                  causal=causal,
                                                  padding_mask=pad)
     torch.cuda.synchronize()
-    checks = {"flash_attention_fwd": [flash_close(o, ro, dtype, "o"),
-                                      flash_close(lse, rlse, dtype, "lse")],
-              "flash_attention_dq": [flash_close(dq, rdq, dtype, "dq"),
-                                     flash_close(bwd[0][0], rdq, dtype, "dq")],
-              "flash_attention_dkv": [flash_close(dk, rdk, dtype, "dk"),
-                                      flash_close(dv, rdv, dtype, "dv"),
-                                      flash_close(bwd[0][1], rdk, dtype, "dk"),
-                                      flash_close(bwd[0][2], rdv, dtype, "dv")]}
+    close = functools.partial(flash_close, dtype=dtype, D=q.shape[-1])
+    checks = {"flash_attention_fwd": [close(o, ro, what="o"),
+                                      close(lse, rlse, what="lse")],
+              "flash_attention_dq": [close(dq, rdq, what="dq"),
+                                     close(bwd[0][0], rdq, what="dq")],
+              "flash_attention_dkv": [close(dk, rdk, what="dk"),
+                                      close(dv, rdv, what="dv"),
+                                      close(bwd[0][1], rdk, what="dk"),
+                                      close(bwd[0][2], rdv, what="dv")]}
     deterministic = all(torch.equal(a, b) for a, b in zip(*bwd))
     del ro, rlse, rdq, rdk, rdv, bwd
     B, T, H, D = q.shape
@@ -1445,7 +1479,59 @@ def phase_flash() -> dict:
             timing=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"llama_train": recs, "train_long": long_recs}
+    return {"llama_train": recs, "train_long": long_recs,
+            **phase_flash_d256()}
+
+
+def phase_flash_d256() -> dict:
+    """The D 256 kernels (bf16 on the Hopper kernels, fp32 on the
+    split-TF32 ones) at the tolerances of the D 128 cases: the
+    Llama-step masks at [1, 4096, 8, 256] (causal, the last 1024 keys
+    padding; H x D is half of Llama's 32 x 128), a ragged T = 1000 with
+    100 keys padding, [2, 200, 8, 256] not causal with one batch row all
+    padding, fp32 [2, 1024, 8, 256] causal and full and with q scaled by
+    4, D 160 and 192 zero-padded to 256 (each kernel launched), and one
+    layer of `phase_lm_d256`'s step ([2, 4096, 4, 256], causal, ragged
+    key padding). Returns the step layer's records ("lm_d256") and the
+    fp32 causal case's ("flash_d256_fp32") for the `kernels` line."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    check_flash("d256_bf16_4096", *flash_case(
+        1, 4096, 8, 256, bf16, 0.25, SEED + 40), causal=True, timing=True)
+    check_flash("d256_ragged_1000", *flash_case(
+        2, 1000, 8, 256, bf16, 0.1, SEED + 41), causal=True, timing=True)
+    check_flash("d256_all_pad_row_200", *flash_case(
+        2, 200, 8, 256, bf16, (1.0, 0.1), SEED + 42), causal=False,
+        timing=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32_recs = {}
+    for causal in (True, False):
+        fp32_recs[causal] = check_flash(
+            "d256_fp32_causal" if causal else "d256_fp32_full", *flash_case(
+                2, 1024, 8, 256, fp32, 0.0, SEED + 43), causal=causal,
+            timing=True)
+    check_flash("d256_fp32_scaled_q", *flash_case(
+        2, 1024, 8, 256, fp32, 0.25, SEED + 44, q_scale=4.0), causal=True,
+        timing=False)
+    for D in (160, 192):
+        before = _flash_launches()
+        check_flash(f"d{D}_bf16", *flash_case(
+            2, 1000, 8, D, bf16, 0.1, SEED + 45), causal=True, timing=True)
+        rose = {k: n - before[k] for k, n in _flash_launches().items()}
+        emit({"phase": "kernels", "kernel": "flash_attention", "case":
+              f"d{D}_bf16_launches", "launches": rose})
+        if not all(rose.values()):
+            raise AssertionError(f"flash at D {D}: a kernel did not launch "
+                                 f"({rose})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = check_flash("lm_d256_layer", *flash_case(
+        *LM_D256_SHAPE, bf16, 0.0, SEED + 46)[:4],
+        ragged_pad(LM_D256_SHAPE[0], LM_D256_SHAPE[1], SEED + 46),
+        causal=True, timing=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"lm_d256": step, "flash_d256_fp32": fp32_recs[True]}
 
 
 def _flash_launches() -> dict:
@@ -1666,6 +1752,8 @@ def phase_train(smi: str) -> dict:
 
 
 LONG_STEPS, LONG_BATCH, LONG_SEQ = 30, 8, 4096
+# the D 256 step (phase_lm_d256): batch, seq, heads, head_dim
+LM_D256_SHAPE = (2, 4096, 4, 256)
 
 
 def long_train_config(base: Path, steps: int = LONG_STEPS):
@@ -1760,6 +1848,156 @@ def phase_train_long(smi: str) -> dict:
     if problems:
         raise AssertionError("train_long: " + "; ".join(problems))
     return rec
+
+
+def phase_lm_d256(smi: str) -> dict:
+    """One forward and backward of the port's TransformerLM at head_dim
+    256 through its existing config fields (d_model 1024, 4 heads, 2
+    layers, GPT-2 vocab, bf16, `attention_impl="pallas"`) at batch 2 and
+    seq 4096 with the synthetic split's ragged key padding, held against
+    the same weights at `attention_impl="xla"` (bf16) and, as the
+    measure of both, at "xla" in fp32. The flash launches of the pallas
+    step are counted: 2 forward, 2 dq, 2 dk/dv.
+
+    The two bf16 steps differ only in where bf16 rounds inside
+    attention: the "xla" path rounds the logits, p . v, dp = dO . v^T and
+    the products after it to bf16; the kernels keep s and dp in fp32 and
+    round p and ds once. So the loss (a mean over 8k tokens) agrees to
+    2^-6 of itself. The gradients do not agree to a fixed share: ds =
+    p (dp - delta) cancels, and the "xla" path rounds dp to bf16 before
+    that subtraction, which scales its error by |dp| / |dp - delta| (the
+    2^-4 of each leaf's norm first set here was exceeded at 6.5 %). What
+    is held instead is that the kernels' step is at least as close to
+    the fp32 step as the plain bf16 step is: over all the gradient
+    (every leaf but k_proj's bias, as one vector), |g_pallas - g_fp32|
+    <= |g_xla - g_fp32|. k_proj's bias is left out: it adds one constant
+    to every logit of a row, which the softmax cancels, so its gradient
+    is zero in exact arithmetic and each side's is rounding noise (its
+    norms are recorded).
+
+    Then the public entry in fp32 (`flash_attention` at [2, 1024, 8,
+    256], causal, forward and backward): the fp32 D 256 kernels launch
+    once each and the gradients hold the fp32 bounds (2e-4) of the plain
+    autograd. Returns {"lm_d256": ..., "flash_d256_fp32": ...} with each
+    run's launches."""
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.ops import flash_attention as fa
+    from hyperion_tpu_torch.train.losses import next_token_loss
+
+    B, T, H, D = LM_D256_SHAPE
+    kw = dict(vocab_size=50257, d_model=H * D, n_heads=H, n_layers=2,
+              ff_dim=4 * H * D, max_len=T, dropout=0.0, dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    models = {"pallas": TransformerLM(simple_lm_config(
+        **kw, attention_impl="pallas"), device="cuda").init_params(g)}
+    models["xla"] = TransformerLM(simple_lm_config(
+        **kw, attention_impl="xla"), device="cuda")
+    models["xla"].load_state_dict(models["pallas"].state_dict())
+    models["fp32"] = TransformerLM(simple_lm_config(
+        **{**kw, "dtype": "float32"}, attention_impl="xla"), device="cuda")
+    models["fp32"].load_state_dict(models["pallas"].state_dict())
+    ids = torch.randint(0, 50257, (B, T), generator=g, device="cuda")
+    mask = ragged_pad(B, T, SEED + 47)
+
+    def step(model):
+        model.zero_grad(set_to_none=True)
+        loss = next_token_loss(model(ids, padding_mask=mask), ids, mask)
+        loss.backward()
+        return loss
+
+    out = {}
+    for impl, model in models.items():
+        step(model)  # warm
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            _reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step(model)
+        end.record()
+        torch.cuda.synchronize()
+        out[impl] = {"loss": loss.item(), "step_ms": start.elapsed_time(end),
+                     "grads": {n: p.grad.float() for n, p in
+                               model.named_parameters()}}
+        if impl == "pallas":
+            launches = _flash_launches()
+    leaves = [n for n in out["xla"]["grads"] if not n.endswith("k_proj.bias")]
+    rel = {n: float((out["pallas"]["grads"][n] - out["xla"]["grads"][n])
+                    .norm() / out["xla"]["grads"][n].norm().clamp_min(1e-30))
+           for n in leaves}
+
+    def off_fp32(impl):  # |g_impl - g_fp32| / |g_fp32| over every leaf
+        d2 = sum(float((out[impl]["grads"][n] - out["fp32"]["grads"][n])
+                       .norm()) ** 2 for n in leaves)
+        r2 = sum(float(out["fp32"]["grads"][n].norm()) ** 2 for n in leaves)
+        return math.sqrt(d2 / r2)
+    k_bias = {impl: [float(o["grads"][n].norm()) for n in o["grads"]
+                     if n.endswith("k_proj.bias")] for impl, o in out.items()}
+    finite = all(bool(t.isfinite().all())
+                 for o in out.values() for t in o["grads"].values())
+    rec = {"phase": "lm_d256", "nvidia_smi": smi, "shape": [B, T],
+           "heads": H, "head_dim": D, "layers": 2, "dtype": "bfloat16",
+           "loss": {k: o["loss"] for k, o in out.items()},
+           "step_ms": {k: o["step_ms"] for k, o in out.items()},
+           "grad_rel_norm_max": max(rel.values()),
+           "grad_rel_worst": max(rel, key=rel.get),
+           "grad_rel_norm": {n: round(v, 6) for n, v in rel.items()},
+           "grad_off_fp32": {k: off_fp32(k) for k in ("pallas", "xla")},
+           "k_proj_bias_grad_norm": k_bias, "finite": finite,
+           "launches": launches,
+           "launches_expected": {"flash_attention_fwd": 2,
+                                 "flash_attention_dq": 2,
+                                 "flash_attention_dkv": 2}}
+    del models, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if not finite or not all(math.isfinite(v) for v in rec["loss"].values()):
+        problems.append("non-finite loss or gradient")
+    if abs(rec["loss"]["pallas"] - rec["loss"]["xla"]) \
+            > 2.0 ** -6 * abs(rec["loss"]["xla"]):
+        problems.append(f"loss {rec['loss']}")
+    if rec["grad_off_fp32"]["pallas"] > rec["grad_off_fp32"]["xla"]:
+        problems.append(f"gradient further from fp32's than the plain "
+                        f"bf16 step's: {rec['grad_off_fp32']}")
+    if launches != rec["launches_expected"]:
+        problems.append(f"launches {launches}")
+    emit(rec)
+
+    # the public entry in fp32
+    q, k, v, do, pad = flash_case(2, 1024, 8, 256, torch.float32, 0.25,
+                                  SEED + 48)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    _reset_launch_counts()
+    fa.flash_attention(*leaves, causal=True, padding_mask=pad).backward(do)
+    torch.cuda.synchronize()
+    fp32_launches = _flash_launches()
+    # the plain forward under autograd: its backward is autograd's over
+    # the whole-matrix formula
+    fa.flash_attention_fwd_plain(*plain, causal=True,
+                                 padding_mask=pad)[0].backward(do)
+    errs = [float((a.grad - b.grad).abs().max()) for a, b in
+            zip(leaves, plain)]
+    grads_ok = all(bool(((a.grad - b.grad).abs()
+                         <= 2e-4 + 2e-4 * b.grad.abs()).all())
+                   for a, b in zip(leaves, plain))
+    fp32_rec = {"phase": "flash_d256_fp32", "shape": [2, 1024, 8, 256],
+                "launches": fp32_launches,
+                "launches_expected": {k: 1 for k in fp32_launches},
+                "grad_max_abs_err": errs, "grads_ok": grads_ok}
+    emit(fp32_rec)
+    if fp32_launches != fp32_rec["launches_expected"] or not grads_ok:
+        problems.append(f"fp32 public entry: {fp32_rec}")
+    del q, k, v, do, pad, leaves, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("lm_d256: " + "; ".join(problems))
+    return {"lm_d256": rec, "flash_d256_fp32": fp32_rec}
 
 
 def _launch_counts() -> dict:
@@ -3071,9 +3309,20 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     engine over the same export; the journal drains clean; one restart,
     the heartbeat's `attempt` 1, a flight record with its final tick,
     and a compile ledger in each life with no recompile. Returns the
-    record and the reference model (for the introspect phase)."""
+    record and the reference model (for the introspect phase). `main`
+    runs its two halves apart (`crash_start`, `crash_finish`), with the
+    gather and route phases between them while the server runs."""
+    return crash_finish(crash_start())
+
+
+def crash_start() -> dict:
+    """The crash phase up to its running server: the export, the model
+    loaded from it, the supervised server started on the requests (its
+    output into files under CRASH_DIR), and the uninterrupted in-process
+    engine's streams. Returns what `crash_finish` checks."""
     import os
     import shutil
+    import threading
 
     from hyperion_tpu_torch.checkpoint.io import export_gathered, load_gathered
     from hyperion_tpu_torch.infer.generate import model_from_npz
@@ -3082,10 +3331,7 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
         llama2_7b_config,
         params_to_jax,
     )
-    from hyperion_tpu_torch.obs.heartbeat import read_heartbeat
-    from hyperion_tpu_torch.obs.tickprof import flight_final_tick, read_flight
     from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
-    from hyperion_tpu_torch.serve.journal import RequestJournal
     from hyperion_tpu_torch.serve.queue import Request
 
     t0 = time.perf_counter()
@@ -3108,28 +3354,26 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
                PYTHONPATH=str(repo))
     env.pop("HYPERION_ATTEMPT", None)
     t1 = time.perf_counter()
-    proc = subprocess.run(
+    out, err = open(CRASH_DIR / "server.out", "w"), \
+        open(CRASH_DIR / "server.err", "w")
+    proc = subprocess.Popen(
         [sys.executable, "-m", "hyperion_tpu_torch.serve.server",
          "--ckpt", str(ckpt), "--no-tokenizer", "--device", "cuda",
          "--dtype", "float32", "--max-len", "256", "--slots", "4",
          "--warmup-lens", "64", "--journal", str(journal), "--supervise",
          "--max-restarts", "2", "--hang-timeout", "0",
          "--chaos", "crash@tick=2"],
-        input="".join(json.dumps(r) + "\n" for r in reqs), env=env,
-        capture_output=True, text=True, timeout=400, cwd=repo)
-    serve_s = time.perf_counter() - t1
+        stdin=subprocess.PIPE, stdout=out, stderr=err, env=env, text=True,
+        cwd=repo, start_new_session=True)
+    proc.stdin.write("".join(json.dumps(r) + "\n" for r in reqs))
+    proc.stdin.close()
+    ended: dict = {}
 
-    streams: dict[str, list] = {}
-    dones: dict[str, int] = {}
-    for line in proc.stdout.splitlines():
-        try:
-            x = json.loads(line)
-        except json.JSONDecodeError:
-            continue  # chaos chatter on the shared stdout
-        if x.get("event") == "token":
-            streams.setdefault(x["id"], []).append((x["i"], x["token"]))
-        elif x.get("event") == "done":
-            dones[x["id"]] = dones.get(x["id"], 0) + 1
+    def waiter():
+        proc.wait()
+        ended["t"] = time.perf_counter()
+
+    threading.Thread(target=waiter, daemon=True).start()
 
     ref = Engine(model, EngineConfig(slots=4, max_len=256), device="cuda")
     ref.warmup([64])
@@ -3140,6 +3384,50 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
                 for r in reqs]
     drive(ref, ref_reqs)
     del ref
+    return {"model": model, "reqs": reqs, "ref_reqs": ref_reqs,
+            "proc": proc, "files": (out, err), "t1": t1, "ended": ended,
+            "export_s": export_s, "journal": journal, "tele": tele}
+
+
+def crash_finish(st: dict) -> tuple[dict, torch.nn.Module]:
+    """The crash phase from its server's exit (400 s after its start at
+    most; then its process group is killed): the checks of
+    `phase_crash`."""
+    import os
+    import signal
+
+    from hyperion_tpu_torch.obs.heartbeat import read_heartbeat
+    from hyperion_tpu_torch.obs.tickprof import flight_final_tick, read_flight
+    from hyperion_tpu_torch.serve.journal import RequestJournal
+
+    proc, t1 = st["proc"], st["t1"]
+    model, reqs, ref_reqs = st["model"], st["reqs"], st["ref_reqs"]
+    journal, tele, export_s = st["journal"], st["tele"], st["export_s"]
+    try:
+        proc.wait(timeout=max(1.0, 400 - (time.perf_counter() - t1)))
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
+        raise
+    finally:
+        for f in st["files"]:
+            f.close()
+    serve_s = st["ended"].get("t", time.perf_counter()) - t1
+    stdout = (CRASH_DIR / "server.out").read_text()
+    stderr = (CRASH_DIR / "server.err").read_text()
+
+    streams: dict[str, list] = {}
+    dones: dict[str, int] = {}
+    for line in stdout.splitlines():
+        try:
+            x = json.loads(line)
+        except json.JSONDecodeError:
+            continue  # chaos chatter on the shared stdout
+        if x.get("event") == "token":
+            streams.setdefault(x["id"], []).append((x["i"], x["token"]))
+        elif x.get("event") == "done":
+            dones[x["id"]] = dones.get(x["id"], 0) + 1
+
     records = [json.loads(x) for x in tele.read_text().splitlines()
                if x.strip()]
     ledgers = [r for r in records if r.get("name") == "compile_ledger"]
@@ -3148,7 +3436,7 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     rec = {
         "phase": "crash", "layers": 2, "dtype": "float32",
         "export_s": export_s, "serve_s": serve_s, "rc": proc.returncode,
-        "restarts": proc.stderr.count("[serve-supervisor] child exit 70"),
+        "restarts": stderr.count("[serve-supervisor] child exit 70"),
         "requests": len(reqs), "dones": dones,
         "tokens": {k: len(v) for k, v in streams.items()},
         "equal": {r.id: [t for _, t in streams.get(r.id, [])] == r.tokens
@@ -3170,7 +3458,7 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     problems: list[str] = []
     summary = obs_cli("summarize", str(tele))
     rec["obs"] = {
-        "logged": logged_verdicts(proc.stderr),
+        "logged": logged_verdicts(stderr),
         "summarize_rc": summary["rc"],
         "summarize_steps": next((x for x in summary["out"].splitlines()
                                  if x.startswith("| steps |")), None),
@@ -3186,7 +3474,7 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     emit(rec)
     if proc.returncode != 0:
         problems.append(f"server exit {proc.returncode}: "
-                        f"{proc.stderr[-2000:]}")
+                        f"{stderr[-2000:]}")
     if rec["restarts"] != 1:
         problems.append(f"{rec['restarts']} restarts, not 1")
     for r in ref_reqs:
@@ -3212,6 +3500,67 @@ def phase_crash() -> tuple[dict, torch.nn.Module]:
     if problems:
         raise AssertionError("crash: " + "; ".join(problems))
     return rec, model
+
+
+def phase_gather(model, smi: str) -> dict:
+    """The crash phase's 2-layer fp32 export served at temperature 0
+    through both paged reads on the card (`serve --paged-attn`):
+    `"pallas"`, the kernel, and `"gather"`, the plain gather read, each
+    in an engine with its CUDA graphs. The gather run launches no paged
+    kernel and its memory ledger counts its per-tick copy (slots x MB x
+    block bytes), the kernel's none; its streams equal the kernel's, or
+    part from them only at a near tie (a top-2 logit margin within
+    1e-3, where another rounding of the same sums picks the other
+    token). The model is left on the kernel."""
+    from hyperion_tpu_torch.models.llama import set_paged_attn
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.queue import Request
+
+    reqs = crash_requests(np.random.default_rng(SEED + 12))
+    runs = {}
+    try:
+        for impl in ("pallas", "gather"):
+            set_paged_attn(model, impl)
+            eng = Engine(model, EngineConfig(slots=4, max_len=256),
+                         device="cuda")
+            eng.warmup([64])
+            rs = [Request(prompt_ids=np.asarray(r["prompt_ids"], np.int32),
+                          max_new_tokens=r["max_new_tokens"], id=r["id"])
+                  for r in reqs]
+            before = paged_attention.launches
+            drive(eng, rs)
+            runs[impl] = {
+                "tokens": {r.id: r.tokens for r in rs},
+                "launches": paged_attention.launches - before,
+                "gather_bytes": eng.memory_ledger()[
+                    "kv_gather_bytes_per_tick"],
+                "copy_bytes": 4 * eng._mb * eng._block_bytes}
+            del eng
+    finally:
+        set_paged_attn(model, "pallas")
+    results = [near_tie_record(model, model.cfg, r["id"],
+                               np.asarray(r["prompt_ids"]),
+                               runs["gather"]["tokens"][r["id"]],
+                               runs["pallas"]["tokens"][r["id"]])
+               for r in reqs]
+    rec = {"phase": "gather", "nvidia_smi": smi, "layers": 2,
+           "dtype": "float32", "requests": len(reqs), "streams": results,
+           **{f"{impl}_{k}": v for impl, run in runs.items()
+              for k, v in run.items() if k != "tokens"}}
+    emit(rec)
+    problems = []
+    if rec["gather_launches"] or not rec["pallas_launches"]:
+        problems.append(f"paged launches: gather {rec['gather_launches']}, "
+                        f"kernel {rec['pallas_launches']}")
+    if rec["gather_gather_bytes"] != rec["gather_copy_bytes"] \
+            or rec["pallas_gather_bytes"] != 0:
+        problems.append(f"ledger gather bytes {rec}")
+    if beyond_near_tie(results):
+        problems.append(f"streams {beyond_near_tie(results)}")
+    if problems:
+        raise AssertionError("gather: " + "; ".join(problems))
+    return rec
 
 
 ROUTE_DIR = Path("build/chip_smoke_route")
@@ -5514,7 +5863,8 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  resume_rec: dict, kernel_recs: dict,
                  flash_recs: dict, fsdp_rec: dict,
                  llama_fsdp_rec: dict, axes_recs: dict,
-                 int8_kernel_recs: dict, int8_rec: dict) -> dict:
+                 int8_kernel_recs: dict, int8_rec: dict,
+                 d256_recs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -5537,8 +5887,11 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     baseline at train_long's in fp32); and the int8 run's (Llama-2-7B
     weight-only int8 at batch 4: the int8 product at each decode width
     and the 512-row prefill, the row quantizer at the decode and prefill
-    activations and a weight, RMSNorm at the decode tick). `run` names
-    the run."""
+    activations and a weight, RMSNorm at the decode tick); and the D 256
+    flash kernels (lm_d256: the bf16 kernels at the TransformerLM D 256
+    step's layer, [2, 4096, 4, 256], with that step's launches;
+    flash_d256_fp32: the fp32 kernels at [2, 1024, 8, 256] causal, with
+    the public entry's launches). `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -5609,7 +5962,9 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
              [*(("int8_matmul", r) for r in int8_kernel_recs["int8_matmul"]),
               *(("quantize_rows", r)
                 for r in int8_kernel_recs["quantize_rows"]),
-              ("fused_rmsnorm", rn)]))
+              ("fused_rmsnorm", rn)]),
+            *((run, d256_recs[run], list(flash_recs[run].items()))
+              for run in ("lm_d256", "flash_d256_fp32")))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
@@ -5648,6 +6003,7 @@ def main() -> int:
     kernel_recs = phase_kernels()
     int8_kernel_recs = phase_int8_kernels()
     flash_recs = phase_flash()
+    d256_recs = phase_lm_d256(dev["nvidia_smi"])
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
     long_rec = phase_train_long(dev["nvidia_smi"])
@@ -5683,8 +6039,14 @@ def main() -> int:
     gc.collect()  # the 7B weights go before the crash phase's children
     torch.cuda.empty_cache()
     phase_phase1(dev["nvidia_smi"])
-    _, crash_model = phase_crash()
-    phase_route(crash_model, dev["nvidia_smi"])
+    # the crash phase's supervised server runs while the gather and route
+    # phases do (their own processes and dirs; the export is written
+    # before the server starts)
+    crash = crash_start()
+    phase_gather(crash["model"], dev["nvidia_smi"])
+    phase_route(crash["model"], dev["nvidia_smi"])
+    _, crash_model = crash_finish(crash)
+    del crash
     phase_introspect(crash_model)
     del crash_model
     gc.collect()
@@ -5693,7 +6055,7 @@ def main() -> int:
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
                       flash_recs, fsdp_rec, llama_fsdp_rec, axes_recs,
-                      int8_kernel_recs, int8_rec))
+                      int8_kernel_recs, int8_rec, d256_recs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -140,6 +140,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-async-checkpoint", action="store_true",
                    help="make every checkpoint save block until its "
                         "bytes and manifest are committed")
+    p.add_argument("--compile-cache", default="",
+                   help="directory the CUDA kernels' libraries are built "
+                        "into and loaded from (one subdir per hash of "
+                        "the sources and flags), so --supervise restarts "
+                        "load them instead of rebuilding; default: the "
+                        "HYPERION_COMPILE_CACHE variable, else "
+                        "build/hyperion_tpu_torch. Rides through to "
+                        "supervised children verbatim and is applied "
+                        "in-process (never by mutating the environment)")
     p.add_argument("--chaos", default="",
                    help="deterministic fault plan (testing/chaos.py): "
                         "kill@step=N, sigterm@step=N, nan_loss@step=N, "
@@ -216,10 +225,12 @@ def make_config(args, job: str):
     o.remat = args.remat or ("full" if needs_remat else "none")
     o.compile_tier = args.compile_tier
     o.attention_impl = args.attention_impl
+    o.compile_cache = args.compile_cache
     t.moe_experts = args.moe_experts
     t.moe_top_k = args.moe_top_k
     t.moe_every = args.moe_every
     dcfg = cfg.distributed
+    dcfg.max_devices = args.devices  # the reference's; the world is torchrun's
     dcfg.pipe_microbatches = args.pipe_microbatches
     if args.mesh:
         sizes = [int(x) for x in args.mesh.split(",")]
@@ -232,6 +243,22 @@ def make_config(args, job: str):
     elif job == "language_fsdp" or (job == "llama" and not args.lora):
         dcfg.data, dcfg.fsdp = 1, -1  # the whole world on the fsdp axis
     return cfg
+
+
+def setup_compile_cache(cache_dir: str | None):
+    """Point the CUDA kernels' library cache (ops/build.py) at
+    `cache_dir`, else the HYPERION_COMPILE_CACHE variable, else leave it
+    at build/hyperion_tpu_torch: in-process, never by mutating the
+    environment, as the reference applies its compile cache. Returns the
+    resolved dir or None."""
+    from hyperion_tpu_torch.ops import build
+
+    resolved = build.resolve_cache_dir(cache_dir)
+    build.set_cache_dir(resolved)
+    if resolved is not None:
+        print(f"[compile-cache] CUDA kernel libraries under {resolved}",
+              flush=True)
+    return resolved
 
 
 def run_job(args, job: str):
@@ -269,6 +296,7 @@ def train_main(argv: list[str]) -> int:
                                        {"--max-restarts"})]
         return supervise(child, base_dir=args.base_dir,
                          max_restarts=args.max_restarts)
+    setup_compile_cache(args.compile_cache)
     from hyperion_tpu_torch.supervisor import (
         EXIT_HEALTH_ABORT,
         EXIT_PREEMPTED,

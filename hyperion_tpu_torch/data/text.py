@@ -54,6 +54,10 @@ class TextSplit:
     def __len__(self) -> int:
         return self.input_ids.shape[0]
 
+    @property
+    def seq_len(self) -> int:
+        return self.input_ids.shape[1]
+
     def arrays(self) -> dict[str, np.ndarray]:
         return {"input_ids": self.input_ids,
                 "attention_mask": self.attention_mask}
@@ -329,6 +333,14 @@ def synthetic_lm_split(n_examples: int, seq_len: int = DEFAULT_SEQ_LEN,
     mask = np.arange(seq_len)[None, :] < lengths[:, None]
     ids = np.where(mask, ids, eos_id).astype(np.int32)
     return TextSplit(ids, mask.astype(np.int8), source="synthetic")
+
+
+def save_token_file(split: TextSplit, path: str | Path) -> None:
+    """The split as a compressed npz of `input_ids` and `attention_mask`:
+    the reference's token file, which `load_token_file` in either package
+    reads."""
+    np.savez_compressed(path, input_ids=split.input_ids,
+                        attention_mask=split.attention_mask)
 
 
 def load_token_file(path: str | Path) -> TextSplit:

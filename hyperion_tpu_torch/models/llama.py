@@ -66,7 +66,10 @@ from hyperion_tpu_torch.ops.attention import (
     grouped_cache_attention,
 )
 from hyperion_tpu_torch.ops.fused_norm import fused_rmsnorm
-from hyperion_tpu_torch.ops.paged_attention import paged_attention
+from hyperion_tpu_torch.ops.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+)
 from hyperion_tpu_torch.precision.quant import check_quant, make_dense
 from hyperion_tpu_torch.precision.remat import apply_remat, normalize_remat
 
@@ -83,6 +86,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     attention_impl: str = "xla"   # the cache-free forward's attention
+    # the paged cache's read: "pallas" the kernel (ops/paged_attention),
+    # "gather" the plain gather read, on the card too; a CPU tensor always
+    # takes the plain read. The reference defaults to "gather"; the port
+    # to the kernel, which its serve path has run from the start.
+    paged_attn_impl: str = "pallas"
     norm_impl: str = "xla"        # xla | pallas (fused_rmsnorm kernel)
     quant: str = "none"           # none | int8 (weight-only, precision/quant.py)
     # rank > 0 routes the targeted projections through LoraDense's
@@ -103,6 +111,10 @@ class LlamaConfig:
         check_quant(self.quant)
         if self.norm_impl not in ("xla", "pallas"):
             raise ValueError(f"unknown norm_impl {self.norm_impl!r}")
+        if self.paged_attn_impl not in ("gather", "pallas"):
+            raise ValueError(f"unknown paged_attn_impl "
+                             f"{self.paged_attn_impl!r} (want 'gather' or "
+                             "'pallas')")
         normalize_remat(self.remat)
 
     @property
@@ -285,8 +297,10 @@ class LlamaAttention(nn.Module):
             # in place: the pool is the engine's one KV buffer
             ck.index_put_((phys, off), k.to(ck.dtype))
             cv.index_put_((phys, off), v.to(cv.dtype))
-            out = paged_attention(q.to(ck.dtype).contiguous(), ck, cv,
-                                  block_tables, base).to(q.dtype)
+            read = paged_attention if c.paged_attn_impl == "pallas" \
+                else paged_attention_plain
+            out = read(q.to(ck.dtype).contiguous(), ck, cv,
+                       block_tables, base).to(q.dtype)
         else:
             S = ck.shape[1]
             kv_pos = torch.arange(S, device=dev)
@@ -339,6 +353,19 @@ class LlamaBlock(nn.Module):
         x = x + self.attn(h, rope_table, padding_mask, cache, cache_index,
                           block_tables)
         return x + self.mlp(self.post_attn_norm(x))
+
+
+def set_paged_attn(model: nn.Module, impl: str) -> None:
+    """Switch a built Llama's paged read to `impl` ("gather" or
+    "pallas") in place: a config-only change, the weights untouched, as
+    the reference's server rebuilds its Llama on the replaced config.
+    Every module holding the model's config gets the new one."""
+    old = model.cfg
+    new = dataclasses.replace(old, paged_attn_impl=impl)
+    for m in model.modules():
+        for name, val in list(vars(m).items()):
+            if val is old:
+                setattr(m, name, new)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int | None = None,

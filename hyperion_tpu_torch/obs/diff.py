@@ -152,7 +152,7 @@ METRICS: dict[str, str] = {
     # prefill work NOT redone after eviction — its hit rate or restore
     # bandwidth falling, or the prefill tokens the caches saved
     # falling, means evicted prefixes are being recomputed again.
-    # `scripts/check_diff_gates.py` cross-checks these against
+    # `scripts/check_diff_gates_torch.py` cross-checks these against
     # hostcache.TIER_GATED so the promise and the gate can never drift.
     "serve_tier_hit_rate_host": "higher",
     "serve_restore_bytes_per_s": "higher",

@@ -7,6 +7,10 @@ a build costs the slowest file, not the sum. Libraries land in
 `build/hyperion_tpu_torch/<hash>/` at the root of the checkout (listed
 in `.gitignore`), keyed by a hash of every source and the flags, so an
 edited kernel rebuilds and an unchanged one loads in milliseconds.
+`set_cache_dir` moves that root (`train --compile-cache DIR`, else the
+`HYPERION_COMPILE_CACHE` variable: `resolve_cache_dir`), so that
+supervised restarts and other checkouts of the same sources load the
+libraries instead of building them.
 
 Nothing here runs at import. A missing `nvcc` or a failed build
 raises: there is no plain fallback for a CUDA tensor.
@@ -27,11 +31,33 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hyperion_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+# the library cache's variable, as the reference's persistent compile
+# cache (`hyperion_tpu/cli/main.py` COMPILE_CACHE_ENV)
+COMPILE_CACHE_ENV = "HYPERION_COMPILE_CACHE"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+_cache_dir: Path | None = None        # set_cache_dir's root, else BUILD_ROOT
 build_seconds: float | None = None   # wall time of the last build
+
+
+def resolve_cache_dir(cache_dir: str | None) -> Path | None:
+    """The library cache a run asked for: `cache_dir` (the flag), else
+    the HYPERION_COMPILE_CACHE variable, else None (BUILD_ROOT)."""
+    cache_dir = cache_dir or os.environ.get(COMPILE_CACHE_ENV, "")
+    return Path(cache_dir).absolute() if cache_dir else None
+
+
+def set_cache_dir(cache_dir: Path | None) -> None:
+    """Build into and load from `cache_dir/<hash>/` (None: BUILD_ROOT),
+    in this process only: the environment is left as it is."""
+    global _cache_dir
+    _cache_dir = cache_dir
+
+
+def build_root() -> Path:
+    return BUILD_ROOT if _cache_dir is None else _cache_dir
 
 
 def find_nvcc() -> str:
@@ -63,7 +89,7 @@ def build_all() -> dict[str, Path]:
     compiler's output."""
     global build_seconds
     sources = _sources()
-    out_dir = BUILD_ROOT / _digest(sources)
+    out_dir = build_root() / _digest(sources)
     libs = {s.stem: out_dir / f"lib{s.stem}.so" for s in sources}
     todo = [s for s in sources if not libs[s.stem].exists()]
     if not todo:

@@ -33,8 +33,9 @@
 // reach them from shared memory filled by TMA (or from registers), and
 // the softmax arithmetic runs beside the products, not between them.
 //
-// fp32 at D = 32, 64 and 128 (`flash_fwd_kernel_tf32`,
-// `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`): the same products on
+// fp32 at D = 32, 64, 128 and 256 (`flash_fwd_kernel_tf32`,
+// `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`; at 256 the backward is
+// `flash_*_kernel_tf32_split`, see "fp32 at D = 256"): the same products on
 // the tensor cores as split TF32, within the reference's fp32 bounds
 // (o, lse 2e-5; gradients 2e-4) of the plain version:
 //   * Every operand x enters as hi = tf32(x) and lo = tf32(x - hi), each
@@ -74,7 +75,8 @@
 //
 // bf16 at D = 64 and 128 (`flash_fwd_kernel_sm90<D>`,
 // `flash_dq_kernel_sm90<D>`, `flash_dkv_kernel_sm90<D>`; any D up to 64
-// runs zero-padded to 64, up to 128 to 128), built from sm90.cuh for the
+// runs zero-padded to 64, up to 128 to 128, and up to 256 on the D 256
+// kernels of "bf16 at D = 256" below), built from sm90.cuh for the
 // tensor cores' full rate:
 //   * A block of three warpgroups per (head, 128-row tile, batch): two
 //     consumers of 64 rows each and a producer, whose first warp issues
@@ -230,6 +232,16 @@ struct Ring<64> {
   static constexpr int kBwdRows = 128;
 };
 
+// D 256 (see "bf16 at D = 256" below): the forward's 64-key stages and
+// dk/dv's 64-row query stages are 64 KB each, dq's 32-row key stages 32
+// KB; two of each fit beside the resident 64 or 128 KB.
+template <>
+struct Ring<256> {
+  static constexpr int kFwd = 2;
+  static constexpr int kBwd = 2;
+  static constexpr int kBwdRows = 32;  // dq; dk/dv streams 64-row tiles
+};
+
 template <int D>
 struct DkvSmem {
   static constexpr int S = Ring<D>::kBwd, R = Ring<D>::kBwdRows;
@@ -266,6 +278,33 @@ struct FwdSmem {
   uint64_t q_full, full[S], empty[S];
 };
 
+// D 256: the forward's stages hold 64-key tiles (k and v 32 KB each) beside
+// the block's 128 query rows (64 KB); dk/dv's block owns 64 key rows (k
+// and v 32 KB each) and streams 64-row q and dO tiles (32 KB each). Two
+// stages each: 197 KB and 198 KB.
+constexpr int kWideKeys = 64;
+
+struct FwdSmemWide {
+  static constexpr int S = Ring<256>::kFwd;
+  uint8_t q[2 * kHalf<256>];  // the block's 128 query rows: [consumer][box]
+  uint8_t k[S][kTile<256, kWideKeys>];  // a 64-key tile: [box]
+  uint8_t v[S][kTile<256, kWideKeys>];
+  int keep[S][kWideKeys];
+  int all_keep[S];
+  uint64_t q_full, full[S], empty[S];
+};
+
+struct DkvSmemWide {
+  static constexpr int S = Ring<256>::kBwd, R = 64;
+  uint8_t k[kHalf<256>];  // the block's 64 key rows: [box]
+  uint8_t v[kHalf<256>];
+  uint8_t q[S][kTile<256, R>];  // a 64-row query tile: [box]
+  uint8_t dout[S][kTile<256, R>];
+  float lse[S][R];
+  float delta[S][R];
+  uint64_t kv_full, full[S], empty[S];
+};
+
 // the block's shared memory, its start rounded up to 1024 bytes (the
 // swizzle's period); the launch asks for sizeof(S) + 1024
 template <typename S>
@@ -289,17 +328,27 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk,
   return sm90::desc_sw128(tile + kk * 2048, box, 1024);
 }
 
-// d[64 x N] += A[64 x 16] . B[16 x N], A from registers, B MN-major: the
-// products whose N is the head dim (o += p . v, dv, dk, dq)
+// d[64 x N] += A[64 x 16] . B[16 x N], A from registers, B MN-major from
+// `tile` (boxes of `box` bytes side by side), its k-step kk: the products
+// whose N is the head dim (o += p . v, dv, dk, dq). N 256 runs as two
+// n128 products, the second reading the tile's third and fourth boxes
+// into the accumulator's second half (columns 128 + 8j + 2c + e: the
+// m64n256 layout).
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t db) {
-  if constexpr (N == 128) {
-    sm90::wgmma_m64n128k16_rs_mn(d, a, db);
+                                            uint32_t tile, int kk,
+                                            int box = kBox) {
+  if constexpr (N == 256) {
+    sm90::wgmma_m64n128k16_rs_mn(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                                 desc_mn(tile, kk, box));
+    sm90::wgmma_m64n128k16_rs_mn(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                                 desc_mn(tile + 2 * box, kk, box));
+  } else if constexpr (N == 128) {
+    sm90::wgmma_m64n128k16_rs_mn(d, a, desc_mn(tile, kk, box));
   } else {
-    static_assert(N == 64, "N is 64 or 128");
-    sm90::wgmma_m64n64k16_rs_mn(d, a, db);
+    static_assert(N == 64, "N is 64, 128 or 256");
+    sm90::wgmma_m64n64k16_rs_mn(d, a, desc_mn(tile, kk, box));
   }
 }
 
@@ -310,9 +359,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int accumulate) {
   if constexpr (N == 128) {
     sm90::wgmma_m64n128k16_ss(d, da, db, accumulate);
-  } else {
-    static_assert(N == 64, "N is 64 or 128");
+  } else if constexpr (N == 64) {
     sm90::wgmma_m64n64k16_ss(d, da, db, accumulate);
+  } else {
+    static_assert(N == 32, "N is 32, 64 or 128");
+    sm90::wgmma_m64n32k16_ss(d, da, db, accumulate);
   }
 }
 
@@ -346,8 +397,8 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// One step of the forward's online softmax over a 64 x 128 tile of raw
-// scores `sc` (the m64n128 accumulator: this thread's rows qr[0], qr[1],
+// One step of the forward's online softmax over a 64 x NK tile of raw
+// scores `sc` (the m64nNK accumulator: this thread's rows qr[0], qr[1],
 // columns col0 + 8j + (e & 1) of the tile's keys): the running max m
 // (natural units) moves to the tile's, alpha = exp(m_old - m_new) comes
 // back for the caller's rescale of o, sc becomes p = exp(s - m) in fp32,
@@ -356,26 +407,27 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
 // and fold the scale into one fma: s * scale * log2(e) - m * log2(e).
 // Edge tiles take the per-element mask, whose NEG_INF and -inf entries
 // need the plain difference (NEG_INF - NEG_INF = 0 exactly).
+template <int NK>
 __device__ __forceinline__ void online_softmax(
-    float (&sc)[kFwdKeys / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float (&sc)[NK / 2], float (&m)[2], float (&l)[2], float (&alpha)[2],
     bool interior, const int* keep, const int (&qr)[2], int col0, int Tq,
     int Tkv, int causal, float scale) {
   float mx[2] = {-INFINITY, -INFINITY};
   if (interior) {
 #pragma unroll
-    for (int i = 0; i < kFwdKeys / 2; ++i) {
+    for (int i = 0; i < NK / 2; ++i) {
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
     }
     mx[0] *= scale;
     mx[1] *= scale;
   } else {
 #pragma unroll
-    for (int j = 0; j < kFwdKeys / 8; ++j) {
+    for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = col0 + 8 * j + (e & 1);  // key index
         const float x = masked(sc[4 * j + e] * scale, qr[e >> 1], col, Tq,
-                               Tkv, causal, keep[col & (kFwdKeys - 1)]);
+                               Tkv, causal, keep[col & (NK - 1)]);
         sc[4 * j + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -392,13 +444,13 @@ __device__ __forceinline__ void online_softmax(
     const float mb[2] = {m[0] * kLog2e, m[1] * kLog2e};
     const float sl2 = scale * kLog2e;
 #pragma unroll
-    for (int i = 0; i < kFwdKeys / 2; ++i) {
+    for (int i = 0; i < NK / 2; ++i) {
       sc[i] = ex2(fmaf(sc[i], sl2, -mb[(i >> 1) & 1]));
       rs[(i >> 1) & 1] += sc[i];
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kFwdKeys / 2; ++i) {
+    for (int i = 0; i < NK / 2; ++i) {
       sc[i] = ex2((sc[i] - m[(i >> 1) & 1]) * kLog2e);
       rs[(i >> 1) & 1] += sc[i];
     }
@@ -553,8 +605,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(sc);
       const bool interior = kFwdKeys <= Tkv && sm.all_keep[0] != 0 &&
                             (!causal || kFwdKeys - 1 <= qw);
-      online_softmax(sc, m, l, alpha, interior, sm.keep[0], qr, 2 * c, Tq,
-                     Tkv, causal, scale);
+      online_softmax<kFwdKeys>(sc, m, l, alpha, interior, sm.keep[0], qr,
+                               2 * c, Tq, Tkv, causal, scale);
       to_a_frags(pa, sc);  // o is still zero: no rescale
     }
     for (int it = 1; it < n_tiles; ++it) {
@@ -573,7 +625,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_commit();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-        wgmma_rs_mn<D>(acc, pa[kk], desc_mn(v_prev, kk, kFwdBox));
+        wgmma_rs_mn<D>(acc, pa[kk], v_prev, kk, kFwdBox);
       }
       sm90::wgmma_commit();
       sm90::named_arrive(other, 256);
@@ -584,8 +636,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       // per-element mask
       const bool interior = k0 + kFwdKeys <= Tkv && sm.all_keep[s] != 0 &&
                             (!causal || k0 + kFwdKeys - 1 <= qw);
-      online_softmax(sc, m, l, alpha, interior, sm.keep[s], qr, k0 + 2 * c,
-                     Tq, Tkv, causal, scale);
+      online_softmax<kFwdKeys>(sc, m, l, alpha, interior, sm.keep[s], qr,
+                               k0 + 2 * c, Tq, Tkv, causal, scale);
 
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
@@ -602,7 +654,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-        wgmma_rs_mn<D>(acc, pa[kk], desc_mn(v_tile, kk, kFwdBox));
+        wgmma_rs_mn<D>(acc, pa[kk], v_tile, kk, kFwdBox);
       }
       sm90::wgmma_commit();
       sm90::named_arrive(other, 256);
@@ -810,11 +862,11 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < R / 16; ++kk) {
-          wgmma_rs_mn<D>(acc_v, pa[kk], desc_mn(do_tile, kk, kRB));
+          wgmma_rs_mn<D>(acc_v, pa[kk], do_tile, kk, kRB);
         }
 #pragma unroll
         for (int kk = 0; kk < R / 16; ++kk) {
-          wgmma_rs_mn<D>(acc_k, dsa[kk], desc_mn(q_tile, kk, kRB));
+          wgmma_rs_mn<D>(acc_k, dsa[kk], q_tile, kk, kRB);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -1047,7 +1099,7 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < R / 16; ++kk) {
-          wgmma_rs_mn<D>(acc, dsa[kk], desc_mn(k_tile, kk, kRB));
+          wgmma_rs_mn<D>(acc, dsa[kk], k_tile, kk, kRB);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
@@ -1071,6 +1123,424 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------- bf16 at D = 256 (sm_90a)
+//
+// Head dims 129 to 256 run here, zero-padded to 256 with the scale of
+// their true D. The D 128 designs do not fit at 256, in shared memory or
+// in registers, so each kernel gives something up:
+//   * forward (`flash_fwd_kernel_sm90_d256`): 128 query rows a block, two
+//     consumers of 64 rows, as at D 128; but the rows stay in shared
+//     memory (64 KB) and s = q . k^T reads both operands from there
+//     (wgmma m64n64k16, A and B K-major), because q's A fragments would
+//     take 64 registers a thread beside the o accumulator's 128. Keys come
+//     in 64-key tiles (k and v 64 KB a stage, two stages: 197 KB), so s
+//     and p take 32 and 16 registers. o += p . v is two m64n128k16
+//     products per k-step over the halves of D. No ping-pong and no
+//     overlap of one tile's softmax with another's p . v: each consumer
+//     runs s, softmax, rescale, p . v in turn; the other consumer's
+//     products fill the tensor cores meanwhile. Peak live values a
+//     consumer thread: o 128 + s 32 + p 16 = 176 of its 240.
+//   * dq (`flash_dq_kernel_sm90<256>`, the D 128 template): q and dO of
+//     128 rows stay resident (128 KB), so the streamed key tiles shrink to
+//     32 rows (k and v 32 KB a stage, two stages: 194 KB); s and dp are
+//     m64n32 (16 registers each) and dq += ds . k runs on two n128 halves.
+//     Peak: dq 128 + s 16 + dp 16.
+//   * dk/dv (`flash_dkv_kernel_sm90_d256`): the dk and dv accumulators of
+//     64 key rows at D 256 are 256 floats a thread, past the 255-register
+//     limit, so the two consumers split the gradients, not the rows: the
+//     block owns 64 key rows, consumer 0 accumulates dv and consumer 1 dk
+//     (128 registers each). Consumer 0 computes s^T = k . q^T, p^T and
+//     dv += p^T . dO; consumer 1 computes s^T and dp^T = v . dO^T, ds^T
+//     and dk += ds^T . q. s^T is computed twice (five products against
+//     four), which spares a hand-over of p^T through shared memory and a
+//     barrier between the consumers. 64-row q and dO tiles, two stages:
+//     198 KB. Peak: consumer 1 dk 128 + s^T 32 + dp^T 32 = 192.
+//   * TMA boxes stay 64 columns: a row of 256 is four boxes.
+
+// o (and lse) for 128 query rows of one head at D 256: each consumer owns
+// 64 query rows and walks the 64-key tiles up to the block's causal
+// frontier: s = q . k^T (both from shared memory), the online softmax in
+// registers, o *= alpha, then o += p . v (A from registers, v MN-major).
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const int* __restrict__ pad, bf16* __restrict__ o,
+                           float* __restrict__ lse, int Tq, int Tkv, int H,
+                           int causal, float scale) {
+  using namespace wgp;
+  constexpr int D = 256, NK = kWideKeys, S = FwdSmemWide::S;
+  constexpr int kH = kHalf<D>, KK = D / 16, kKB = NK * 128;  // kKB: a box
+  FwdSmemWide& sm = smem_block<FwdSmemWide>();
+  const int h = blockIdx.x, b = blockIdx.z;
+  // causal: the last query blocks see the most key tiles; launch them first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
+  const int n_kv = (Tkv + NK - 1) / NK;
+  const int n_tiles =
+      causal ? min(n_kv, min(q0 + 127, Tq - 1) / NK + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&sm.full[s], 32);
+      sm90::mbar_init(&sm.empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kH);
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.q + w * kH + x * kBox, &tq, &sm.q_full,
+                              64 * x, h, q0 + 64 * w, b);
+          }
+        }
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        sm90::mbar_wait(&sm.empty[s], ((it / S) & 1) ^ 1);
+        const int k0 = it * NK;
+        bool all = true;
+#pragma unroll
+        for (int part = 0; part < NK / 32; ++part) {
+          const int j = lane + 32 * part;
+          const int key = k0 + j;
+          const bool kp = key < Tkv &&
+                          (pad == nullptr ||
+                           pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+          sm.keep[s][j] = kp;
+          all = all && kp;
+        }
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) {
+          sm.all_keep[s] = all;
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, NK>);
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.k[s] + x * kKB, &tk, &sm.full[s], 64 * x, h,
+                              k0, b);
+            sm90::tma_load_4d(sm.v[s] + x * kKB, &tv, &sm.full[s], 64 * x, h,
+                              k0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int qw = q0 + 64 * wg + 16 * warp;  // the warp's first query row
+    const int qr[2] = {qw + g, qw + g + 8};
+
+    float acc[D / 2];
+    zero(acc);
+    // m starts at NEG_INF, not -inf: a first tile wholly masked then
+    // gives alpha = exp(0), never exp(-inf + inf)
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const uint32_t q_tile = sm90::smem_u32(sm.q + wg * kH);
+    sm90::mbar_wait(&sm.q_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % S;
+      const int k0 = it * NK;
+      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
+      const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
+      const uint32_t v_tile = sm90::smem_u32(sm.v[s]);
+      float sc[NK / 2];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        wgmma_ss<NK>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk, kKB), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // only edge tiles (the diagonal, padded or ragged keys) take the
+      // per-element mask
+      const bool interior = k0 + NK <= Tkv && sm.all_keep[s] != 0 &&
+                            (!causal || k0 + NK - 1 <= qw);
+      float alpha[2];
+      online_softmax<NK>(sc, m, l, alpha, interior, sm.keep[s], qr,
+                         k0 + 2 * c, Tq, Tkv, causal, scale);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      uint32_t pa[NK / 16][4];
+      to_a_frags(pa, sc);
+
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk) {
+        wgmma_rs_mn<D>(acc, pa[kk], v_tile, kk, kKB);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      sm90::mbar_arrive(&sm.empty[s]);
+    }
+
+    const int64_t stride = static_cast<int64_t>(H) * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
+      if (qr[i] < Tq) {
+        if (lse != nullptr && c == 0) {
+          lse[(static_cast<int64_t>(b) * H + h) * Tq + qr[i]] = m[i] + logf(l[i]);
+        }
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          put2(o + row + 8 * j + 2 * c, acc[4 * j + 2 * i] / l[i],
+               acc[4 * j + 2 * i + 1] / l[i]);
+        }
+      }
+    }
+  }
+}
+
+namespace wgp {
+
+// One query tile of the D 256 dk/dv kernel for one consumer: kDk false
+// (consumer 0) adds p^T . dO to `acc` (dv), kDk true (consumer 1) adds
+// ds^T . q (dk, unscaled). s^T = k . q^T and dp^T = v . dO^T read both
+// operands K-major from shared memory; rows are this warp's keys kr,
+// columns the tile's R queries from q0.
+template <bool kDk>
+__device__ __forceinline__ void dkv_tile_d256(
+    float (&acc)[128], uint32_t k_tile, uint32_t v_tile, uint32_t q_tile,
+    uint32_t do_tile, const float* lse_s, const float* delta_s, int q0,
+    const int (&kr)[2], const bool (&keep)[2], bool interior, int Tq, int Tkv,
+    int causal, float scale) {
+  constexpr int R = DkvSmemWide::R, KK = 256 / 16, kRB = R * 128;
+  const int c = threadIdx.x & 3;
+  const float sl2 = scale * kLog2e;
+  float st[R / 2];
+  float dpt[kDk ? R / 2 : 1];
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    wgmma_ss<R>(st, desc_k(k_tile, kk), desc_k(q_tile, kk, kRB), kk > 0);
+  }
+  sm90::wgmma_commit();
+  if constexpr (kDk) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      wgmma_ss<R>(dpt, desc_k(v_tile, kk), desc_k(do_tile, kk, kRB), kk > 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+  } else {
+    sm90::wgmma_wait<0>();
+  }
+  sm90::fence_regs(st);
+
+  // p^T = exp(s^T - lse): rows are keys, columns queries
+  if (interior) {
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = lse_s[8 * j + 2 * c + (e & 1)];
+        st[4 * j + e] = ex2(fmaf(st[4 * j + e], sl2, -l * kLog2e));
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * c + (e & 1);
+        const float x = masked(st[4 * j + e] * scale, q0 + col, kr[e >> 1], Tq,
+                               Tkv, causal, keep[e >> 1]);
+        st[4 * j + e] = ex2((x - lse_s[col]) * kLog2e);
+      }
+    }
+  }
+
+  uint32_t fa[R / 16][4];
+  uint32_t operand;
+  if constexpr (kDk) {
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dpt);
+    // ds^T = p^T (dp^T - delta)
+#pragma unroll
+    for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float d = delta_s[8 * j + 2 * c + (e & 1)];
+        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - d);
+      }
+    }
+    to_a_frags(fa, dpt);
+    operand = q_tile;
+  } else {
+    to_a_frags(fa, st);
+    operand = do_tile;
+  }
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk) {
+    wgmma_rs_mn<256>(acc, fa[kk], operand, kk, kRB);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::fence_regs(fa);
+}
+
+}  // namespace wgp
+
+// dk, dv for 64 key rows of one head at D 256: consumer 0 accumulates dv,
+// consumer 1 dk, each over all 64 keys (a warp's 16 rows), walking the
+// 64-row query tiles from the causal diagonal down (`dkv_tile_d256`).
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const int* __restrict__ pad,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int Tq, int Tkv, int H, int causal, float scale) {
+  using namespace wgp;
+  constexpr int D = 256, S = DkvSmemWide::S, R = DkvSmemWide::R;
+  constexpr int kRB = R * 128;  // a streamed tile's box
+  DkvSmemWide& sm = smem_block<DkvSmemWide>();
+  // causal: the first key blocks see the most query tiles, and the tile
+  // index is the grid's slower axis, so every head's longest blocks start
+  // first
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * 64;
+  const int n_q = (Tq + R - 1) / R;
+  const int first = causal ? k0 / R : 0;
+  const int n_tiles = max(n_q - first, 0);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&sm.full[s], 32);
+      sm90::mbar_init(&sm.empty[s], 256);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.kv_full, 2 * kHalf<D>);
+#pragma unroll
+        for (int x = 0; x < D / 64; ++x) {
+          sm90::tma_load_4d(sm.k + x * kBox, &tk, &sm.kv_full, 64 * x, h, k0, b);
+          sm90::tma_load_4d(sm.v + x * kBox, &tv, &sm.kv_full, 64 * x, h, k0, b);
+        }
+      }
+      const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        sm90::mbar_wait(&sm.empty[s], ((it / S) & 1) ^ 1);
+        const int q0 = (first + it) * R;
+#pragma unroll
+        for (int part = 0; part < R / 32; ++part) {
+          const int j = lane + 32 * part;
+          const bool in = q0 + j < Tq;
+          sm.lse[s][j] = in ? lse[row0 + q0 + j] : 0.f;
+          sm.delta[s][j] = in ? delta[row0 + q0 + j] : 0.f;
+        }
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, R>);
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.q[s] + x * kRB, &tq, &sm.full[s], 64 * x, h,
+                              q0, b);
+            sm90::tma_load_4d(sm.dout[s] + x * kRB, &tdo, &sm.full[s],
+                              64 * x, h, q0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.full[s]);
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int kw = k0 + 16 * warp;  // the warp's first key row
+    const int kr[2] = {kw + g, kw + g + 8};
+    bool keep[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      keep[i] = kr[i] < Tkv &&
+                (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + kr[i]] != 0);
+    }
+    const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
+
+    float acc[D / 2];
+    zero(acc);
+    const uint32_t k_tile = sm90::smem_u32(sm.k);
+    const uint32_t v_tile = sm90::smem_u32(sm.v);
+    sm90::mbar_wait(&sm.kv_full, 0);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % S;
+      const int q0 = (first + it) * R;
+      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
+      // a tile wholly above the diagonal for the block's keys is skipped
+      if (!causal || k0 <= q0 + R - 1) {
+        // only edge tiles (the diagonal, padded or ragged keys, a ragged
+        // query tail) take the per-element mask
+        const bool interior = q0 + R - 1 < Tq && warp_keep &&
+                              (!causal || kw + 15 <= q0);
+        const uint32_t q_tile = sm90::smem_u32(sm.q[s]);
+        const uint32_t do_tile = sm90::smem_u32(sm.dout[s]);
+        if (wg == 1) {
+          dkv_tile_d256<true>(acc, k_tile, v_tile, q_tile, do_tile, sm.lse[s],
+                              sm.delta[s], q0, kr, keep, interior, Tq, Tkv,
+                              causal, scale);
+        } else {
+          dkv_tile_d256<false>(acc, k_tile, v_tile, q_tile, do_tile, sm.lse[s],
+                               sm.delta[s], q0, kr, keep, interior, Tq, Tkv,
+                               causal, scale);
+        }
+      }
+      sm90::mbar_arrive(&sm.empty[s]);
+    }
+
+    const int64_t stride = static_cast<int64_t>(H) * D;
+    bf16* out = wg == 1 ? dk : dv;
+    const float f = wg == 1 ? scale : 1.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kr[i] < Tkv) {
+        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * D;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          put2(out + row + 8 * j + 2 * c, f * acc[4 * j + 2 * i],
+               f * acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------------------ fp32: split TF32 on mma.sync
 //
 // Eight warps a block over 128 rows of the block's own side, 16 a warp,
@@ -1083,10 +1553,18 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // the block's own rows
 
-// the streamed side's tile: 32 rows at D = 128, 64 below (what fits
-// beside the resident tiles in 227 KB)
+// the streamed side's tile: 16 rows at D = 256, 32 at D = 128, 64 below
+// (what fits beside the resident tiles in 227 KB)
 template <int D>
-__host__ __device__ constexpr int tile_rows() { return D == 128 ? 32 : 64; }
+__host__ __device__ constexpr int tile_rows() {
+  return D == 256 ? 16 : D == 128 ? 32 : 64;
+}
+
+// the backward kernels' own rows: 128, and 64 at D 256, where two
+// resident [64][256] fp32 tiles already take 128 KB (the forward keeps
+// 128: it holds one)
+template <int D>
+__host__ __device__ constexpr int bwd_rows() { return D == 256 ? 64 : kRows; }
 
 // the row stride of a plane: D + 4 words, 4 mod 32 banks, so both of its
 // fragment reads (rows g, columns c; rows 2c and 2c + 1, columns g) fall
@@ -1094,14 +1572,14 @@ __host__ __device__ constexpr int tile_rows() { return D == 128 ? 32 : 64; }
 template <int D>
 __host__ __device__ constexpr int ld() { return D + 4; }
 
-// Shared memory, in 4-byte words: `kOwn` resident [128][D] tiles (raw
-// fp32, swizzled), four planes (hi and lo of the two streamed tiles),
-// the raw stage of the two streamed tiles, then `extra` words of per-row
-// flags or statistics.
-template <int D, int kOwn>
+// Shared memory, in 4-byte words: `kOwn` resident [kOwnRows][D] tiles
+// (raw fp32, swizzled), four planes (hi and lo of the two streamed
+// tiles), the raw stage of the two streamed tiles, then `extra` words of
+// per-row flags or statistics.
+template <int D, int kOwn, int kOwnRows = kRows>
 struct Layout {
   static constexpr int R = tile_rows<D>();
-  static constexpr int own = kRows * D;
+  static constexpr int own = kOwnRows * D;
   static constexpr int plane = R * ld<D>();
   static constexpr int stage = R * D;
   static constexpr int planes_off = kOwn * own;
@@ -1113,9 +1591,13 @@ struct Layout {
 template <int D>
 constexpr size_t fwd_smem() { return Layout<D, 1>::bytes(tile_rows<D>()); }
 template <int D>
-constexpr size_t dq_smem() { return Layout<D, 2>::bytes(tile_rows<D>()); }
+constexpr size_t dq_smem() {
+  return Layout<D, 2, bwd_rows<D>()>::bytes(tile_rows<D>());
+}
 template <int D>
-constexpr size_t dkv_smem() { return Layout<D, 2>::bytes(2 * tile_rows<D>()); }
+constexpr size_t dkv_smem() {
+  return Layout<D, 2, bwd_rows<D>()>::bytes(2 * tile_rows<D>());
+}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
@@ -1728,6 +2210,336 @@ flash_dkv_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ------------------------------------------------ fp32 at D = 256 (TF32)
+//
+// The forward is `flash_fwd_kernel_tf32<256>`: 128 resident query rows
+// (128 KB) and 16-key streamed tiles (planes 65 KB, stage 32 KB): 230,464
+// bytes of the 232,448 a block may have; o takes 128 registers a thread.
+// The backward cannot keep two [128][256] resident tiles (256 KB), so its
+// blocks own 64 rows (two tiles, 128 KB; the same planes and stage:
+// 230,464 bytes for dq, 230,528 for dk/dv), and the eight warps pair up
+// over the four 16-row groups:
+//   * dq (`flash_dq_kernel_tf32_split`): warps w and w + 4 share rows
+//     16 (w % 4) and take 8 keys each of every 16-key tile, each holding
+//     a dq partial over the full D (128 registers); at the end warp
+//     w + 4 hands its partial to warp w through the then idle planes, and
+//     warp w adds and writes. One writer, a fixed order: two runs agree to
+//     the bit.
+//   * dk/dv (`flash_dkv_kernel_tf32_split`): dk and dv of 16 rows at D 256
+//     are 256 floats a thread, past the 255-register limit, so warp w
+//     accumulates dv and warp w + 4 dk of the same 16 key rows; both
+//     compute p^T = exp(s^T - lse), the dk warp also dp^T and ds^T (s^T
+//     twice: five products against four).
+
+// dq at D 256 for 64 query rows of one head, and delta = sum(dO * O) for
+// them: warps w and w + 4 share the 16 rows of group w % 4, each taking
+// half of every key tile, and sum their dq partials at the end.
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_dq_kernel_tf32_split(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ pad,
+                           const float* __restrict__ dout, const float* __restrict__ o,
+                           const float* __restrict__ lse, float* __restrict__ delta,
+                           float* __restrict__ dq, int Tq, int Tkv, int H, int causal,
+                           float scale) {
+  using namespace tf32;
+  constexpr int OWN = bwd_rows<D>(), kGroups = OWN / 16;
+  using L = Layout<D, 2, OWN>;
+  constexpr int KT = L::R, NO = D / 8, NS = KT / 8 / (kWarps / kGroups);
+  static_assert(kGroups * NO * 4 * 32 <= 4 * L::plane, "dq partials fit the planes");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + L::own;
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(Qs + L::planes_off);
+  uint32_t* Kl = Kh + L::plane;
+  uint32_t* Vh = Kl + L::plane;
+  uint32_t* Vl = Vh + L::plane;
+  float* Kraw = Qs + L::stage_off;
+  float* Vraw = Kraw + L::stage;
+  int* keep_s = reinterpret_cast<int*>(Qs + L::extra_off);
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * OWN;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
+  const float* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const float* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int n_kv = (Tkv + KT - 1) / KT;
+  const int n_tiles =
+      causal ? min(n_kv, min(q0 + OWN - 1, Tq - 1) / KT + 1) : n_kv;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int rw = warp % kGroups, part = warp / kGroups;
+  const int m0 = 16 * rw, koff = 8 * NS * part;  // koff: the warp's first key
+  const int qw = q0 + m0;
+  const int rows[2] = {qw + g, qw + g + 8};
+  const int pw = koff * ld<D>();  // the warp's keys in the planes
+
+  auto fetch = [&](int it) {
+    const int k0 = it * KT;
+    load_rows<KT, D, false>(Kraw, kb, k0, Tkv, stride);
+    load_rows<KT, D, false>(Vraw, vb, k0, Tkv, stride);
+    cp_async_commit();
+    bool kp = true;
+    if (threadIdx.x < KT) {
+      const int key = k0 + threadIdx.x;
+      kp = key < Tkv && (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+    }
+    return kp;
+  };
+  auto convert = [&](bool kp) {
+    split_tile<KT, D>(Kh, Kl, Kraw);
+    split_tile<KT, D>(Vh, Vl, Vraw);
+    if (threadIdx.x < KT) keep_s[threadIdx.x] = kp;
+    return __syncthreads_and(kp) != 0;
+  };
+
+  load_rows<OWN, D, true>(Qs, q + qoff, q0, Tq, stride);
+  load_rows<OWN, D, true>(dOs, dout + qoff, q0, Tq, stride);
+  bool kp = fetch(0);  // q, dO and key tile 0 in one group
+  cp_async_wait_all();
+  __syncthreads();
+
+  // delta = sum(dO * O) over the warp's 16 rows: two lanes a row, half of
+  // D each, dO from shared memory; the first warp of the pair writes it
+  float row_delta[2];
+  {
+    const int r = lane >> 1, half = lane & 1, qrow = qw + r;
+    float sum = 0.f;
+    if (qrow < Tq) {
+      const float* orow = o + qoff + qrow * stride;
+#pragma unroll 4
+      for (int j = half * (D / 2); j < (half + 1) * (D / 2); j += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(dOs + swz<D>(m0 + r, j));
+        const float4 bb = *reinterpret_cast<const float4*>(orow + j);
+        sum = fmaf(a.x, bb.x, sum);
+        sum = fmaf(a.y, bb.y, sum);
+        sum = fmaf(a.z, bb.z, sum);
+        sum = fmaf(a.w, bb.w, sum);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    if (part == 0 && half == 0 && qrow < Tq) delta[stat0 + qrow] = sum;
+    row_delta[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+    row_delta[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+  }
+  float row_lse[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) row_lse[i] = rows[i] < Tq ? lse[stat0 + rows[i]] : 0.f;
+
+  bool all_keep = convert(kp);
+  if (n_tiles > 1) kp = fetch(1);
+
+  float acc[NO][4];
+  zero(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * KT;
+    if (qw < Tq && !(causal && k0 + koff > qw + 15)) {
+      float s[NS][4], dp[NS][4];
+      zero(s);
+      zero(dp);
+      gemm_abt<NS, D>(s, Qs, m0, Kh + pw, Kl + pw);
+      gemm_abt<NS, D>(dp, dOs, m0, Vh + pw, Vl + pw);
+      const bool interior = k0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
+                            (!causal || k0 + KT - 1 <= qw);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, col = koff + 8 * nt + 2 * c + (e & 1);
+          float x = s[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, rows[i], k0 + col, Tq, Tkv, causal, keep_s[col]);
+          }
+          s[nt][e] = expf(x - row_lse[i]) * (dp[nt][e] - row_delta[i]);
+        }
+      }
+      gemm_pb<NS, D>(acc, s, Kh + pw, Kl + pw);
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait_all();
+      __syncthreads();
+      all_keep = convert(kp);
+      if (it + 2 < n_tiles) kp = fetch(it + 2);
+    }
+  }
+
+  // warp w + 4's partial into the planes (every warp is done reading
+  // them), then warp w adds it, in one order, and writes
+  float* red = reinterpret_cast<float*>(Kh) + rw * (NO * 4 * 32) + lane;
+  __syncthreads();
+  if (part == 1) {
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(nt * 4 + e) * 32] = acc[nt][e];
+    }
+  }
+  __syncthreads();
+  if (part == 1) return;
+  float* dqb = dq + qoff;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += red[(nt * 4 + e) * 32];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] < Tq) {
+        put2(dqb + rows[i] * stride + 8 * nt + 2 * c, scale * acc[nt][2 * i],
+             scale * acc[nt][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dk, dv at D 256 for 64 key rows of one head: warp w accumulates dv and
+// warp w + 4 dk of the 16 key rows of group w % 4, walking the query
+// tiles from the causal diagonal down.
+template <int D>
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_dkv_kernel_tf32_split(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ pad,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            const float* __restrict__ delta, float* __restrict__ dk,
+                            float* __restrict__ dv, int Tq, int Tkv, int H, int causal,
+                            float scale) {
+  using namespace tf32;
+  constexpr int OWN = bwd_rows<D>(), kGroups = OWN / 16;
+  using L = Layout<D, 2, OWN>;
+  constexpr int QT = L::R, NO = D / 8, NS = QT / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + L::own;
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(Ks + L::planes_off);
+  uint32_t* Ql = Qh + L::plane;
+  uint32_t* Dh = Ql + L::plane;  // dO
+  uint32_t* Dl = Dh + L::plane;
+  float* Qraw = Ks + L::stage_off;
+  float* Draw = Qraw + L::stage;
+  float* lse_s = Ks + L::extra_off;
+  float* delta_s = lse_s + QT;
+
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int k0 = blockIdx.y * OWN;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
+  const int64_t koff = static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+  const int n_q = (Tq + QT - 1) / QT;
+  const int first = causal ? k0 / QT : 0;
+  const int n_tiles = max(n_q - first, 0);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int m0 = 16 * (warp % kGroups);
+  const bool dk_warp = warp >= kGroups;
+  const int kw = k0 + m0;  // the warp's first key row
+  const int kr[2] = {kw + g, kw + g + 8};
+  bool keep[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    keep[i] = kr[i] < Tkv &&
+              (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + kr[i]] != 0);
+  }
+  const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
+
+  float next_lse = 0.f, next_delta = 0.f;
+  auto fetch = [&](int it) {
+    const int q0 = (first + it) * QT;
+    load_rows<QT, D, false>(Qraw, q + qoff, q0, Tq, stride);
+    load_rows<QT, D, false>(Draw, dout + qoff, q0, Tq, stride);
+    cp_async_commit();
+    if (threadIdx.x < QT) {
+      const bool in = q0 + threadIdx.x < Tq;
+      next_lse = in ? lse[stat0 + q0 + threadIdx.x] : 0.f;
+      next_delta = in ? delta[stat0 + q0 + threadIdx.x] : 0.f;
+    }
+  };
+  auto convert = [&]() {
+    split_tile<QT, D>(Qh, Ql, Qraw);
+    split_tile<QT, D>(Dh, Dl, Draw);
+    if (threadIdx.x < QT) {
+      lse_s[threadIdx.x] = next_lse;
+      delta_s[threadIdx.x] = next_delta;
+    }
+    __syncthreads();
+  };
+
+  load_rows<OWN, D, true>(Ks, k + koff, k0, Tkv, stride);
+  load_rows<OWN, D, true>(Vs, v + koff, k0, Tkv, stride);
+  if (n_tiles > 0) {
+    fetch(0);  // k, v and query tile 0 in one group
+  } else {
+    cp_async_commit();
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (n_tiles > 0) convert();
+  if (n_tiles > 1) fetch(1);
+
+  float acc[NO][4];  // dv, or dk unscaled
+  zero(acc);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = (first + it) * QT;
+    if (kw < Tkv && !(causal && kw > q0 + QT - 1)) {
+      // p^T = exp(s^T - lse): rows are keys, columns queries
+      float p[NS][4];
+      zero(p);
+      gemm_abt<NS, D>(p, Ks, m0, Qh, Ql);
+      const bool interior = q0 + QT <= Tq && warp_keep && (!causal || kw + 15 <= q0);
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * c + (e & 1);
+          float x = p[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, q0 + col, kr[e >> 1], Tq, Tkv, causal, keep[e >> 1]);
+          }
+          p[nt][e] = expf(x - lse_s[col]);
+        }
+      }
+      if (!dk_warp) {
+        gemm_pb<NS, D>(acc, p, Dh, Dl);
+      } else {
+        // ds^T = p^T (dp^T - delta)
+        float dp[NS][4];
+        zero(dp);
+        gemm_abt<NS, D>(dp, Vs, m0, Dh, Dl);
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dp[nt][e] = p[nt][e] * (dp[nt][e] - delta_s[8 * nt + 2 * c + (e & 1)]);
+          }
+        }
+        gemm_pb<NS, D>(acc, dp, Qh, Ql);
+      }
+    }
+    if (it + 1 < n_tiles) {
+      cp_async_wait_all();
+      __syncthreads();  // the planes are read and the next stage has landed
+      convert();
+      if (it + 2 < n_tiles) fetch(it + 2);
+    }
+  }
+
+  float* out = dk_warp ? dk : dv;
+  const float f = dk_warp ? scale : 1.f;
+#pragma unroll
+  for (int nt = 0; nt < NO; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (kr[i] < Tkv) {
+        const int64_t row = koff + kr[i] * stride + 8 * nt + 2 * c;
+        put2(out + row, f * acc[nt][2 * i], f * acc[nt][2 * i + 1]);
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers
 
 template <typename Kernel, typename... Args>
@@ -1751,15 +2563,30 @@ struct Args {
   float scale;
 };
 
-// the split-TF32 kernels (fp32): grids of (head, 128-row tile, batch)
+// the dq and dk/dv kernels of the split-TF32 family at D
+template <int D>
+inline auto tf32_dq() {
+  if constexpr (D == 256) return flash_dq_kernel_tf32_split<D>;
+  else return flash_dq_kernel_tf32<D>;
+}
+template <int D>
+inline auto tf32_dkv() {
+  if constexpr (D == 256) return flash_dkv_kernel_tf32_split<D>;
+  else return flash_dkv_kernel_tf32<D>;
+}
+
+// the split-TF32 kernels (fp32): grids of (head, row tile, batch), the
+// forward's tiles 128 rows, the backward's `tf32::bwd_rows`
 template <int D>
 cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
   const float* q = static_cast<const float*>(a.q);
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const int* pad = static_cast<const int*>(a.pad);
-  const int n_q = (a.Tq + tf32::kRows - 1) / tf32::kRows;
-  const int n_kv = (a.Tkv + tf32::kRows - 1) / tf32::kRows;
+  constexpr int kBwd = tf32::bwd_rows<D>();
+  const int n_q = (a.Tq + (which == 0 ? tf32::kRows : kBwd) - 1) /
+                  (which == 0 ? tf32::kRows : kBwd);
+  const int n_kv = (a.Tkv + kBwd - 1) / kBwd;
   if (which == 0) {
     return launch(flash_fwd_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
                   tf32::fwd_smem<D>(), s, q, k, v, pad,
@@ -1769,29 +2596,32 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
-    return launch(flash_dq_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
+    return launch(tf32_dq<D>(), dim3(a.H, n_q, a.B), tf32::kThreads,
                   tf32::dq_smem<D>(), s, q, k, v, pad, dout,
                   static_cast<const float*>(a.o), lse, static_cast<float*>(a.delta),
                   static_cast<float*>(a.dq), a.Tq, a.Tkv, a.H, a.causal, a.scale);
   }
-  return launch(flash_dkv_kernel_tf32<D>, dim3(a.H, n_kv, a.B), tf32::kThreads,
+  return launch(tf32_dkv<D>(), dim3(a.H, n_kv, a.B), tf32::kThreads,
                 tf32::dkv_smem<D>(), s, q, k, v, pad, dout, lse,
                 static_cast<const float*>(a.delta), static_cast<float*>(a.dk),
                 static_cast<float*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
 
-// the Hopper kernels (bf16, D 64 and 128): the tensor maps are encoded on
-// the host at every launch and passed by value
+// the Hopper kernels (bf16, D 64, 128 and 256): the tensor maps are
+// encoded on the host at every launch and passed by value
 template <int D>
 cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
   // the block's own rows come in 64-row boxes, the streamed side's in
   // boxes of its tile's rows: 128 keys in the forward, R rows (q and dO
-  // for dk/dv, k and v for dq) in the backward
+  // for dk/dv, k and v for dq) in the backward; at D 256 64-key forward
+  // tiles, 64-row dk/dv tiles and 32-row dq ones
   constexpr int R = wgp::Ring<D>::kBwdRows;
-  const int q_rows = which == 2 ? R : 64;
-  const int kv_rows = which == 0 ? wgp::kFwdKeys : which == 1 ? R : 64;
+  constexpr bool kWide = D == 256;
+  const int q_rows = which == 2 && !kWide ? R : 64;
+  const int kv_rows = which == 0 ? (kWide ? wgp::kWideKeys : wgp::kFwdKeys)
+                      : which == 1 ? R : 64;
   if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess ||
       (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess ||
       (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess) {
@@ -1799,10 +2629,19 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   }
   const int* pad = static_cast<const int*>(a.pad);
   if (which == 0) {
-    return launch(flash_fwd_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
-                  wgp::kThreads, sizeof(wgp::FwdSmem<D>) + 1024, s, mq, mk, mv,
-                  pad, static_cast<bf16*>(a.out_o), static_cast<float*>(a.lse),
-                  a.Tq, a.Tkv, a.H, a.causal, a.scale);
+    if constexpr (kWide) {
+      return launch(flash_fwd_kernel_sm90_d256, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                    wgp::kThreads, sizeof(wgp::FwdSmemWide) + 1024, s, mq, mk,
+                    mv, pad, static_cast<bf16*>(a.out_o),
+                    static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
+                    a.scale);
+    } else {
+      return launch(flash_fwd_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                    wgp::kThreads, sizeof(wgp::FwdSmem<D>) + 1024, s, mq, mk,
+                    mv, pad, static_cast<bf16*>(a.out_o),
+                    static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
+                    a.scale);
+    }
   }
   if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess) {
     return e;
@@ -1815,15 +2654,23 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
                   static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
                   a.Tkv, a.H, a.causal, a.scale);
   }
-  return launch(flash_dkv_kernel_sm90<D>, dim3(a.H, (a.Tkv + 127) / 128, a.B),
-                wgp::kThreads, sizeof(wgp::DkvSmem<D>) + 1024, s, mq, mk, mv, mdo,
-                pad, lse, static_cast<const float*>(a.delta),
-                static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq, a.Tkv,
-                a.H, a.causal, a.scale);
+  if constexpr (kWide) {
+    return launch(flash_dkv_kernel_sm90_d256, dim3(a.H, (a.Tkv + 63) / 64, a.B),
+                  wgp::kThreads, sizeof(wgp::DkvSmemWide) + 1024, s, mq, mk, mv,
+                  mdo, pad, lse, static_cast<const float*>(a.delta),
+                  static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq,
+                  a.Tkv, a.H, a.causal, a.scale);
+  } else {
+    return launch(flash_dkv_kernel_sm90<D>, dim3(a.H, (a.Tkv + 127) / 128, a.B),
+                  wgp::kThreads, sizeof(wgp::DkvSmem<D>) + 1024, s, mq, mk, mv,
+                  mdo, pad, lse, static_cast<const float*>(a.delta),
+                  static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq,
+                  a.Tkv, a.H, a.causal, a.scale);
+  }
 }
 
-// bf16 at D 64 and 128 takes the Hopper kernels, fp32 at D 32, 64 and 128
-// the split-TF32 ones
+// bf16 at D 64, 128 and 256 takes the Hopper kernels, fp32 at D 32, 64,
+// 128 and 256 the split-TF32 ones
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
   // the dq kernels compute delta from dout and o
@@ -1834,9 +2681,11 @@ int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
     if (D == 32) e = run_tf32<32>(which, a, s);
     if (D == 64) e = run_tf32<64>(which, a, s);
     if (D == 128) e = run_tf32<128>(which, a, s);
+    if (D == 256) e = run_tf32<256>(which, a, s);
   } else if (dtype == 1) {
     if (D == 64) e = run_sm90<64>(which, a, s);
     if (D == 128) e = run_sm90<128>(which, a, s);
+    if (D == 256) e = run_sm90<256>(which, a, s);
   }
   return static_cast<int>(e);
 }
@@ -1852,14 +2701,24 @@ void kernel_of_sm90(int which, const void** fn, size_t* smem) {
                      : reinterpret_cast<const void*>(flash_dkv_kernel_sm90<D>);
 }
 
+template <>
+void kernel_of_sm90<256>(int which, const void** fn, size_t* smem) {
+  *smem = (which == 0   ? sizeof(wgp::FwdSmemWide)
+           : which == 1 ? sizeof(wgp::DqSmem<256>)
+                        : sizeof(wgp::DkvSmemWide)) + 1024;
+  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90_d256)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90<256>)
+                     : reinterpret_cast<const void*>(flash_dkv_kernel_sm90_d256);
+}
+
 template <int D>
 void kernel_of_tf32(int which, const void** fn, size_t* smem) {
   *smem = which == 0   ? tf32::fwd_smem<D>()
           : which == 1 ? tf32::dq_smem<D>()
                        : tf32::dkv_smem<D>();
   *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_tf32<D>)
-        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_tf32<D>)
-                     : reinterpret_cast<const void*>(flash_dkv_kernel_tf32<D>);
+        : which == 1 ? reinterpret_cast<const void*>(tf32_dq<D>())
+                     : reinterpret_cast<const void*>(tf32_dkv<D>());
 }
 
 }  // namespace
@@ -1867,7 +2726,7 @@ void kernel_of_tf32(int which, const void** fn, size_t* smem) {
 // Every tensor is contiguous: q, o, dq [B, Tq, H, D]; k, v, dk, dv
 // [B, Tkv, H, D], all in dtype (0 = float32, 1 = bfloat16), 16-byte
 // aligned; pad [B, Tkv] int32 or null; lse, delta [B, H, Tq] float32.
-// D is 32, 64 or 128 in float32, 64 or 128 in bfloat16. `lse` may be
+// D is 32, 64, 128 or 256 in float32, 64, 128 or 256 in bfloat16. `lse` may be
 // null (no gradient will be taken).
 
 extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
@@ -1916,10 +2775,12 @@ extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
     if (D == 32) kernel_of_tf32<32>(which, &fn, &smem);
     if (D == 64) kernel_of_tf32<64>(which, &fn, &smem);
     if (D == 128) kernel_of_tf32<128>(which, &fn, &smem);
+    if (D == 256) kernel_of_tf32<256>(which, &fn, &smem);
   } else if (dtype == 1) {
     threads = wgp::kThreads;
     if (D == 64) kernel_of_sm90<64>(which, &fn, &smem);
     if (D == 128) kernel_of_sm90<128>(which, &fn, &smem);
+    if (D == 256) kernel_of_sm90<256>(which, &fn, &smem);
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

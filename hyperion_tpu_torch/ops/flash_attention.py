@@ -24,10 +24,11 @@ when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
 `csrc/flash_attention.cu` or raises. The kernels are built per dtype
-(`HEAD_DIMS`): bf16 at D 64 and 128, fp32 at D 32, 64 and 128; any other
-D up to 128 (the reference's kernel tiles the full D and takes them
-all) runs zero-padded to the next of its dtype's (`kernel_head_dim`)
-with the scale of its true D, and o and the gradients are sliced back:
+(`HEAD_DIMS`): bf16 at D 64, 128 and 256, fp32 at D 32, 64, 128 and 256;
+any other D up to 256 (the reference's kernel tiles the full D and takes
+them all; the port raises past 256) runs zero-padded to the next of its
+dtype's (`kernel_head_dim`) with the scale of its true D, and o and the
+gradients are sliced back:
 zero columns add exact zeros to q·kᵀ, and the padded columns of v only
 fill columns that are cut away. bf16 runs that file's Hopper kernels
 (wgmma, TMA, warp-specialised) for the forward and both backward
@@ -59,8 +60,9 @@ import torch
 from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import NEG_INF
 
-# the kernels' instantiations per dtype; any D up to 128 pads to the next
-HEAD_DIMS = {torch.bfloat16: (64, 128), torch.float32: (32, 64, 128)}
+# the kernels' instantiations per dtype; any D up to 256 pads to the next
+HEAD_DIMS = {torch.bfloat16: (64, 128, 256),
+             torch.float32: (32, 64, 128, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,7 +84,7 @@ def _scale(D: int) -> float:
 
 def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
     """The kernel head_dim that runs a head_dim D in `dtype`: the least
-    of its HEAD_DIMS at or above it. Raises ValueError past 128."""
+    of its HEAD_DIMS at or above it. Raises ValueError past 256."""
     dims = HEAD_DIMS[dtype]
     for Dk in dims:
         if 0 < D <= Dk:

@@ -1416,11 +1416,14 @@ class Engine:
         KV pool's full and in-use footprint, host RSS. Pure host
         arithmetic, so any thread may ask."""
         bb = self._block_bytes
-        # device bytes the paged read copies per decode tick: the plain
-        # version (the CPU path) gathers every slot's whole [MB] chain
-        # into a contiguous view; the kernel reads the pools in place
-        gather = 0 if self.device.type == "cuda" else \
-            int(self.cfg.slots * self._mb * bb)
+        # device bytes the paged read copies per decode tick, by the
+        # model's `paged_attn_impl` (the reference's rule): the gather
+        # read copies every slot's whole [MB] chain into a contiguous
+        # view; the kernel reads the pools in place. A CPU tensor always
+        # takes the gather read.
+        kernel = getattr(self.model.cfg, "paged_attn_impl", "pallas") \
+            == "pallas" and self.device.type == "cuda"
+        gather = 0 if kernel else int(self.cfg.slots * self._mb * bb)
         return {
             "param_bytes": self._param_bytes,
             "kv_pool_bytes": int(self.cfg.num_blocks * bb),

@@ -44,6 +44,16 @@ PREFIX_ROOT_TOKENS = 32
 # Roots a replica advertises per heartbeat.
 TOP_ROOTS = 8
 
+# Tier report keys the serving row promises to `obs diff`: the
+# scripts/check_diff_gates_torch.py guard fails tier-1 when any is
+# missing from the diff gate table (a promised but ungated key is a
+# metric nobody would see regress).
+TIER_GATED = (
+    "serve_tier_hit_rate_host",
+    "serve_restore_bytes_per_s",
+    "serve_prefill_tokens_saved",
+)
+
 INDEX_NAME = "index.json"
 CHAINS_NAME = "chains.bin"
 
@@ -246,3 +256,9 @@ class HostBlockStore:
             if self.put(ent["tokens"], payload.copy()):
                 loaded += 1
         return loaded
+
+
+def ungated_tier_keys(diff_metrics: dict) -> list[str]:
+    """Tier keys promised by `TIER_GATED` but absent from the obs diff
+    gate table: scripts/check_diff_gates_torch.py fails tier-1 on any."""
+    return sorted(k for k in TIER_GATED if k not in diff_metrics)

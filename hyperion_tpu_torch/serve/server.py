@@ -417,6 +417,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="concurrent requests decoded per tick")
     p.add_argument("--block-size", type=int, default=16,
                    help="tokens per KV-cache block")
+    p.add_argument("--paged-attn", choices=("gather", "pallas"),
+                   default="pallas",
+                   help="paged-cache read strategy: 'gather' copies "
+                        "each slot's whole block chain into a "
+                        "contiguous view every tick (the plain read, on "
+                        "the card too); 'pallas' (the default here; the "
+                        "reference's is 'gather') runs the paged "
+                        "attention kernel, which walks the block table "
+                        "and reads the KV pools in place. A CPU run "
+                        "always takes the gather read. Streams stay "
+                        "deterministic; the memory ledger shows the "
+                        "saved copy as kv_gather_bytes_per_tick=0")
     p.add_argument("--num-blocks", type=int, default=0,
                    help="KV pool size in blocks incl. the null block "
                         "(0 = auto: slots x ceil(max_len/block_size) + 1)")
@@ -697,6 +709,10 @@ def main(argv=None, *, device=None) -> int:
             raise SystemExit(f"{args.ckpt}: the server decodes Llama "
                              "exports (a paged KV pool); decode this one "
                              "with python -m hyperion_tpu_torch.infer")
+        if args.paged_attn != model.cfg.paged_attn_impl:
+            from hyperion_tpu_torch.models.llama import set_paged_attn
+
+            set_paged_attn(model, args.paged_attn)
         ld.set(ckpt=args.ckpt, device=str(dev), dtype=args.dtype)
     # the host tier persists next to the journal when there is one,
     # next to the telemetry stream otherwise, or nowhere

@@ -7,17 +7,22 @@ synthetic split (chip_smoke.py's long train phase: d 256, 4 heads, seq
 4096, batch 8), and the Llama-2-7B train step [1, 4096, 32, 128] with
 its last 1024 keys padding (the D 128 Hopper kernels). fp32: [2, 1024,
 8, 128] causal and full, and [1, 4096, 8, 64] (the split-TF32 kernels).
+Head dim 256: bf16 [1, 4096, 8, 256] causal with the Llama step's
+masks and without padding, [2, 4096, 4, 256] with the ragged padding
+(chip_smoke.py's lm_d256 step), [2, 1000, 8, D] at D 160, 192 (zero-
+padded to 256) and 256; fp32 [2, 1024, 8, 256] causal and full.
 
-    python3 scripts/profile_torch_flash.py [--root DIR]
+    python3 scripts/profile_torch_flash.py [--root DIR] [--cases a,b]
 
 Each of the forward and the backward is timed in turns with
 `scaled_dot_product_attention` over the same boolean mask: library,
-kernel, kernel, library. Each case is checked against the plain versions
-first (`chip_smoke.flash_close`: fp32 o and lse within 2e-5, gradients
-within 2e-4; bf16 as that function states), and its bounds are this
-checkout's `chip_smoke.bound` (fp32: three TF32 passes at the dense TF32
-rate). For a causal case without padding SDPA is also timed once with
-`is_causal=True`, which takes no mask.
+kernel, kernel, library. For a causal case without padding SDPA with
+`is_causal=True` (no mask) joins the turns: library, is_causal, kernel,
+kernel, is_causal, library. Each case is checked against the plain
+versions first (`chip_smoke.flash_close`: fp32 o and lse within 2e-5,
+gradients within 2e-4; bf16 as that function states), and its bounds
+are this checkout's `chip_smoke.bound` (fp32: three TF32 passes at the
+dense TF32 rate). `--cases` runs the named cases only.
 
 `--root` runs the kernels of another checkout of this repo (for example
 an older commit unpacked with `git archive`): its `hyperion_tpu_torch`
@@ -47,7 +52,15 @@ CASES = {"bf16_causal_4096_d64": ((1, 4096, 8, 64), BF16, True, None),
          "bf16_llama_step_d128": ((1, 4096, 32, 128), BF16, True, 0.25),
          "fp32_causal": ((2, 1024, 8, 128), FP32, True, None),
          "fp32_full": ((2, 1024, 8, 128), FP32, False, None),
-         "fp32_causal_4096_d64": ((1, 4096, 8, 64), FP32, True, None)}
+         "fp32_causal_4096_d64": ((1, 4096, 8, 64), FP32, True, None),
+         "bf16_llama_masks_d256": ((1, 4096, 8, 256), BF16, True, 0.25),
+         "bf16_causal_4096_d256": ((1, 4096, 8, 256), BF16, True, None),
+         "bf16_lm_step_d256": ((2, 4096, 4, 256), BF16, True, "ragged"),
+         "bf16_ragged_1000_d256": ((2, 1000, 8, 256), BF16, True, 0.1),
+         "bf16_ragged_1000_d192": ((2, 1000, 8, 192), BF16, True, 0.1),
+         "bf16_ragged_1000_d160": ((2, 1000, 8, 160), BF16, True, 0.1),
+         "fp32_causal_d256": ((2, 1024, 8, 256), FP32, True, None),
+         "fp32_full_d256": ((2, 1024, 8, 256), FP32, False, None)}
 
 
 def load_smoke():
@@ -71,10 +84,10 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
     o, lse = fa.flash_attention_fwd(q, k, v, **mask)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, **mask)
     ro, rlse = fa.flash_attention_fwd_plain(q, k, v, **mask)
-    checks = [cs.flash_close(o, ro, dtype, "o"),
-              cs.flash_close(lse, rlse, dtype, "lse")]
+    checks = [cs.flash_close(o, ro, dtype, "o", D),
+              cs.flash_close(lse, rlse, dtype, "lse", D)]
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
-    checks += [cs.flash_close(a, r, dtype, w)
+    checks += [cs.flash_close(a, r, dtype, w, D)
                for a, r, w in zip(grads, refs, ("dq", "dk", "dv"))]
     del ro, rlse, refs, grads
     n = q.numel() * q.element_size()
@@ -88,9 +101,13 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     side = cs.side_stream()
     side.wait_stream(torch.cuda.current_stream())
+    plain_causal = causal and pad is None
     with torch.cuda.stream(side):  # the graph's stream
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         lib_o = sdpa(*(t.transpose(1, 2) for t in leaves), attn_mask=mask4)
+        if plain_causal:
+            lib_c = sdpa(*(t.transpose(1, 2) for t in leaves),
+                         is_causal=True)
     nf, nb = 4 * n + stats, 8 * n + stats
     timers = {
         ("fwd", "library"): lambda: cs.time_ms(
@@ -115,19 +132,26 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
            "ok": all(ok for ok, _ in checks),
            "max_abs_err": {w: e for w, (_, e) in
                            zip(("o", "lse", "dq", "dk", "dv"), checks)}}
+    turns = ("library", "kernel", "kernel", "library")
+    if plain_causal:
+        timers[("fwd", "library_is_causal")] = lambda: cs.time_ms(
+            lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
+                                 c.transpose(1, 2), is_causal=True),
+            (q, k, v), nf)
+        timers[("bwd", "library_is_causal")] = lambda: cs.replay_ms(
+            lambda lo, a, b, c, g: torch.autograd.grad(
+                lo, (a, b, c), g, retain_graph=True),
+            [(lib_c, *leaves, do.transpose(1, 2))])
+        turns = ("library", "library_is_causal", "kernel", "kernel",
+                 "library_is_causal", "library")
     for part in ("fwd", "bwd"):
-        for who in ("library", "kernel", "kernel", "library"):
+        for who in turns:
             rec.setdefault(f"{part}_{who}_ms", []).append(
                 timers[(part, who)]())
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = cs.bound(
         nf, 4.0 * D * H * pairs, dtype)
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = cs.bound(
         nb, 10.0 * D * H * pairs, dtype)
-    if causal and pad is None:
-        rec["fwd_library_is_causal_ms"] = cs.time_ms(
-            lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
-                                 c.transpose(1, 2), is_causal=True),
-            (q, k, v), nf)
     rec["attrs"] = {w: fa.kernel_attrs(w, D, dtype)
                     for w in ("fwd", "dq", "dkv")}
     del leaves, lib_o
@@ -137,7 +161,13 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--cases", default="",
+                    help="comma-separated case names (default: all)")
     args = ap.parse_args()
+    names = args.cases.split(",") if args.cases else list(CASES)
+    unknown = sorted(set(names) - set(CASES))
+    if unknown:
+        ap.error(f"unknown cases {unknown}; known: {sorted(CASES)}")
     root = args.root.resolve()
     if not torch.cuda.is_available():
         print("profile_torch_flash: needs a CUDA device", file=sys.stderr)
@@ -150,8 +180,8 @@ def main() -> int:
         raise RuntimeError(f"imported {fa.__file__}, not from {root}")
     cs.emit({"root": str(root), "device": torch.cuda.get_device_name(0)})
     ok = True
-    for name, case in CASES.items():
-        rec = profile_case(cs, fa, name, *case)
+    for name in names:
+        rec = profile_case(cs, fa, name, *CASES[name])
         cs.emit({**rec, "root": root.name})
         ok = ok and rec["ok"]
     print(json.dumps({"done": True, "ok": ok}), flush=True)

@@ -600,8 +600,21 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "causal_pad_d48": (2, 192, 192, 2, 48, True, 0.25),
                # q scaled by 4 (FLASH_Q_SCALE): large logits, where a
                # TF32 term the fp32 kernels lost would show
-               "scaled_q_d128": (2, 192, 192, 2, 128, True, 0.25)}
-FLASH_Q_SCALE = {"scaled_q_d128": 4.0}
+               "scaled_q_d128": (2, 192, 192, 2, 128, True, 0.25),
+               # the D 256 kernels' edges (64-key forward tiles, 32-key dq
+               # tiles, 64-key dk/dv blocks, 16-row TF32 tiles); D 160
+               # and 192 run zero-padded to them
+               "causal_pad_d256": (2, 192, 192, 2, 256, True, 0.25),
+               "all_pad_row_d256": (2, 200, 200, 2, 256, False, (1.0, 0.1)),
+               "ragged_200_d256": (1, 200, 200, 2, 256, True, 0.25),
+               "short_40_d256": (1, 40, 40, 2, 256, True, 0.0),
+               "cross_causal_d256": (2, 70, 200, 2, 256, True, 0.2),
+               "cross_causal_long_q_d256": (1, 200, 130, 2, 256, True, 0.1),
+               "two_tails_d256": (2, 256, 256, 2, 256, True, (0.25, 0.1)),
+               "scaled_q_d256": (2, 192, 192, 2, 256, True, 0.25),
+               "causal_pad_d160": (2, 192, 192, 2, 160, True, 0.25),
+               "cross_causal_d192": (2, 70, 200, 2, 192, True, 0.2)}
+FLASH_Q_SCALE = {"scaled_q_d128": 4.0, "scaled_q_d256": 4.0}
 
 
 def _flash_inputs(dev, dtype, case, seed=45):
@@ -621,9 +634,12 @@ def _flash_inputs(dev, dtype, case, seed=45):
     return q, k, v, o_g, pad, causal
 
 
-def _flash_close(out, ref, dtype, what):
+def _flash_close(out, ref, dtype, what, D=128):
     """fp32: 2e-5 for o and lse, 2e-4 for gradients (the reference's own
-    kernel bounds). bf16 o: the kernel rounds p to bf16 per key tile
+    kernel bounds), past head_dim 128 times (D / 128)^1.5: an fp32 dot
+    product's error bound grows as D·u·Σ|q_d k_d|, the sum grows as D and
+    the logits are scaled by 1/√D (chip_smoke.fp32_flash_growth). bf16 o:
+    the kernel rounds p to bf16 per key tile
     against the running max, the plain version once against the row's
     max: one ulp of p (2^-8) over |v| <= 4 plus one of the output. bf16
     gradients: the same rounded ds and p, summed in another order, then
@@ -631,6 +647,8 @@ def _flash_close(out, ref, dtype, what):
     out, ref = out.float(), ref.float()
     if dtype == torch.float32 or what == "lse":
         tol = 2e-5 if what in ("o", "lse") else 2e-4
+        if dtype == torch.float32:
+            tol *= max(1.0, (D / 128) ** 1.5)
         torch.testing.assert_close(out, ref, atol=tol, rtol=tol)
     elif what == "o":
         assert ((out - ref).abs() <= 2.0 ** -6 + 2.0 ** -7 * ref.abs()).all()
@@ -648,8 +666,9 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
     ref_o, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                   padding_mask=pad)
-    _flash_close(o, ref_o, dtype, "o")
-    _flash_close(lse, ref_lse, dtype, "lse")
+    D = q.shape[-1]
+    _flash_close(o, ref_o, dtype, "o", D)
+    _flash_close(lse, ref_lse, dtype, "lse", D)
     dq = fa.flash_attention_dq(q, k, v, o, lse, g, causal=causal,
                                padding_mask=pad)
     dk, dv = fa.flash_attention_dkv(q, k, v, o, lse, g, causal=causal,
@@ -658,7 +677,7 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                         padding_mask=pad)
     for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
         assert out.dtype == dtype and out.shape == ref.shape
-        _flash_close(out, ref, dtype, name)
+        _flash_close(out, ref, dtype, name, D)
     assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
             fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
 
@@ -668,7 +687,8 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
 @pytest.mark.parametrize("case", ["causal_pad_d128", "two_tails_d128",
                                   "cross_causal_d128", "ragged_causal_d32",
                                   "causal_pad_d96", "causal_pad_d64",
-                                  "two_tails_d64"])
+                                  "two_tails_d64", "two_tails_d256",
+                                  "cross_causal_d256"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two runs of the whole backward (one delta for both kernels, which
     the dq kernel computes) give the same bits, and match the plain
@@ -682,7 +702,7 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
                                         padding_mask=pad)
     for name, out, ref in zip(("dq", "dk", "dv"), runs[0], refs):
-        _flash_close(out, ref, dtype, name)
+        _flash_close(out, ref, dtype, name, q.shape[-1])
 
 
 def test_flash_hopper_backward_keeps_to_registers(cuda):
@@ -695,7 +715,7 @@ def test_flash_hopper_backward_keeps_to_registers(cuda):
 
 
 def test_flash_hopper_forward_keeps_to_registers(cuda):
-    """The bf16 forward, dq and dk/dv at D 64 and 128 are the
+    """The bf16 forward, dq and dk/dv at D 64, 128 and 256 are the
     warp-specialised kernels (three warpgroups), spill nothing to local
     memory and fit one block's shared memory. The fp32 forward, dq and
     dk/dv are the split-TF32 kernels (8 warps) at every kernel head dim,
@@ -735,12 +755,39 @@ def test_flash_autograd_runs_the_three_kernels(cuda):
 
 
 def test_flash_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 144, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros(1, 8, 2, 264, device=cuda)  # past the 256 kernels
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
         fa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_fwd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_d256_through_the_public_entry(cuda, dtype):
+    """D 256 through `dot_product_attention(impl="pallas")`, forward and
+    backward: the three D 256 kernels launch once each, and the
+    gradients match the plain autograd's."""
+    from hyperion_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, "causal_pad_d256",
+                                            seed=48)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out = dot_product_attention(*leaves, causal=causal, padding_mask=pad,
+                                impl="pallas")
+    out.backward(g)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                          padding_mask=pad)
+    _flash_close(out.detach(), o, dtype, "o", 256)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                        padding_mask=pad)
+    for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+        _flash_close(leaf.grad, ref, dtype, name, 256)
 
 
 # ------------------------------------------ the serve engine's graphs
@@ -847,6 +894,26 @@ def test_engine_streams_equal_eager_generate(cuda):
         ref = generate(eng.model, r.prompt_ids[None], r.max_new_tokens,
                        device=cuda)[0].tolist()
         assert r.tokens == ref, r.id
+
+
+def test_gather_read_on_the_card_equals_the_kernel(cuda):
+    """`paged_attn_impl="gather"` on the card runs the plain gather read
+    (no paged kernel launch) and serves the kernel's streams; the memory
+    ledger counts its copy, and none for the kernel."""
+    from hyperion_tpu_torch.models.llama import set_paged_attn
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+
+    streams, ledger = {}, {}
+    for impl in ("pallas", "gather"):
+        eng = _tiny_engine(cuda)
+        set_paged_attn(eng.model, impl)
+        before = paged_attention.launches
+        reqs = _serve(eng, _graph_prompts())
+        streams[impl] = [r.tokens for r in reqs]
+        ledger[impl] = eng.memory_ledger()["kv_gather_bytes_per_tick"]
+        assert (paged_attention.launches > before) == (impl == "pallas")
+    assert streams["gather"] == streams["pallas"]
+    assert ledger["pallas"] == 0 and ledger["gather"] > 0
 
 
 def test_unwarmed_bucket_captures_one_new_graph(cuda):

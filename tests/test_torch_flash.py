@@ -14,6 +14,10 @@ each value — the JAX kernel rounds p to bf16 per kv tile against the
 running max, the plain version once against the row's max, and each
 then rounds the output; one bf16 ulp of p (2^-8) over values |v| <= 4
 and one of the output.
+
+Slowest (`--durations`, one CPU process): the JAX kernel's interpret
+mode in the bf16 gradients and the padded D 48, 160 and the D 256
+comparisons, ~2.6-3.1 s each.
 """
 
 from __future__ import annotations
@@ -132,11 +136,12 @@ def test_d128_forward_and_lse_match_jax(case, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("D", [32, 64, 80, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 160, 192, 256])
 def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
     """On the card bf16 at every head_dim runs the Hopper forward and
-    backward, at a kernel head_dim of 64 or 128 (D 32 runs zero-padded to
-    64, D 80 and 96 to 128); fp32 at every head dim runs the split-TF32
+    backward, at a kernel head_dim of 64, 128 or 256 (D 32 runs
+    zero-padded to 64, D 80 and 96 to 128, D 160 and 192 to 256); fp32
+    at every head dim runs the split-TF32
     kernels. Either way the whole backward is two launches: dq, which
     computes delta, then dk/dv on that delta. The tensors are claimed to
     be on the card and the launchers recorded, so what reaches them is
@@ -169,17 +174,19 @@ def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "fp32"])
-@pytest.mark.parametrize("D", [1, 16, 32, 48, 63, 64, 65, 96, 128, 129])
+@pytest.mark.parametrize("D", [1, 16, 32, 48, 63, 64, 65, 96, 128, 129,
+                               200, 256, 257])
 def test_kernel_head_dim(D, dtype):
     """The kernel head_dim that runs D: the least of the dtype's
-    instantiations at or above it (bf16 64 and 128, the Hopper kernels;
-    fp32 32, 64 and 128); past 128 it raises."""
-    if D > 128:
-        with pytest.raises(ValueError, match="head_dim 1 to 128"):
+    instantiations at or above it (bf16 64, 128 and 256, the Hopper
+    kernels; fp32 32, 64, 128 and 256); past 256 it raises (the
+    reference's kernel tiles any D)."""
+    if D > 256:
+        with pytest.raises(ValueError, match="head_dim 1 to 256"):
             fa.kernel_head_dim(D, dtype)
         return
-    want = min(Dk for Dk in ((64, 128) if dtype == torch.bfloat16
-                             else (32, 64, 128)) if Dk >= D)
+    want = min(Dk for Dk in ((64, 128, 256) if dtype == torch.bfloat16
+                             else (32, 64, 128, 256)) if Dk >= D)
     assert fa.kernel_head_dim(D, dtype) == want
 
 
@@ -309,10 +316,11 @@ def _padded_path(monkeypatch, q, k, v, g, mask, causal):
     return (o, lse, *(t[..., :D] for t in grads))
 
 
-@pytest.mark.parametrize("D", [16, 32, 48, 80, 96])
+@pytest.mark.parametrize("D", [16, 32, 48, 80, 96, 160, 192])
 def test_padded_head_dim_equals_unpadded(D, monkeypatch):
-    """On the card bf16 runs D 16, 32 and 48 on the D 64 kernels and D 80
-    and 96 on the D 128 ones, on zero-padded q, k, v (and dO, o): zero
+    """On the card bf16 runs D 16, 32 and 48 on the D 64 kernels, D 80
+    and 96 on the D 128 ones and D 160 and 192 on the D 256 ones, on
+    zero-padded q, k, v (and dO, o): zero
     columns add exact zeros to q·kᵀ and the padded columns of v only
     fill the columns cut away. Through the plain versions, in fp32 under
     bf16's padding rule, the padded path gives the unpadded one's o, lse
@@ -320,7 +328,8 @@ def test_padded_head_dim_equals_unpadded(D, monkeypatch):
     q, k, v, g, mask = (torch.from_numpy(a) for a in
                         _inputs(shape=(2, 48, 2, D), seed=8, pad_from=30))
     rule = fa.kernel_head_dim
-    assert rule(D, torch.bfloat16) == (64 if D < 64 else 128)
+    assert rule(D, torch.bfloat16) == (64 if D < 64 else
+                                       128 if D < 128 else 256)
     monkeypatch.setattr(fa, "kernel_head_dim",
                         lambda D, dtype: rule(D, torch.bfloat16))
     got = _padded_path(monkeypatch, q, k, v, g, mask, True)
@@ -370,6 +379,44 @@ def test_padded_d96_matches_jax(monkeypatch):
 def test_padded_d48_matches_jax(monkeypatch):
     """D 48 runs zero-padded to 64, in either dtype."""
     _padded_matches_jax(monkeypatch, 48, seed=12)
+
+
+def test_padded_d160_matches_jax(monkeypatch):
+    """D 160 runs zero-padded to 256, in either dtype."""
+    _padded_matches_jax(monkeypatch, 160, seed=13)
+
+
+def test_d256_matches_jax(monkeypatch):
+    """D 256, a kernel head dim of its own (no padding), through the same
+    path against the JAX kernel, which tiles the full D."""
+    q, k, v, g, mask = _inputs(shape=(2, 64, 2, 256), seed=14)
+    assert fa.kernel_head_dim(256, torch.bfloat16) == \
+        fa.kernel_head_dim(256, torch.float32) == 256
+    jm = jnp.asarray(mask)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 causal=True, padding_mask=jm, **BLOCKS)
+    _, ref_lse = _flash_forward(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), jm, True, 16, 32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash(q, k, v, causal=True, padding_mask=jm,
+                              **BLOCKS) * jnp.asarray(g))
+
+    ref_grads = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [_t(a, grad=True) for a in (q, k, v)]
+    o = fa.flash_attention(*leaves, causal=True,
+                           padding_mask=torch.from_numpy(mask))
+    o.backward(torch.from_numpy(g))
+    _, lse = fa.flash_attention_fwd(*(_t(a) for a in (q, k, v)), causal=True,
+                                    padding_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref),
+                               atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse)[..., 0],
+                               atol=2e-5, rtol=2e-5)
+    for t, r in zip(leaves, ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), atol=2e-4,
+                                   rtol=2e-4)
 
 
 # The fp32 kernels' split-TF32 products, modelled on the CPU: every

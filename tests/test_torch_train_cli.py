@@ -37,7 +37,8 @@ SHARED = ("model", "epochs", "base_dir", "data_dir", "batch_size", "lora",
           "prefetch_depth", "no_async_checkpoint", "chaos", "supervise",
           "max_restarts", "lr", "lr_schedule", "warmup_steps", "grad_accum",
           "remat", "compile_tier", "attention_impl", "train_split",
-          "devices", "scaling_devices", "scaling_jobs", "simulate_cpu")
+          "devices", "scaling_devices", "scaling_jobs", "simulate_cpu",
+          "compile_cache")
 ARGV = ["--model", "llama", "--epochs", "5", "--base_dir", "out",
         "--data_dir", "data", "--batch_size", "4", "--lora",
         "--export-merged", "--llama_size", "tiny", "--steps-per-epoch", "7",
@@ -50,7 +51,7 @@ ARGV = ["--model", "llama", "--epochs", "5", "--base_dir", "out",
         "--grad_accum", "2", "--remat", "dots", "--compile-tier",
         "jit+pallas", "--attention-impl", "pallas", "--train-split", "test",
         "--devices", "2", "--scaling_devices", "1", "2", "--scaling_jobs",
-        "cifar", "--simulate-cpu"]
+        "cifar", "--simulate-cpu", "--compile-cache", "cc"]
 # a llama_tiny full fine-tune cut to seconds (and small checkpoints)
 # on the CPU; the trainers share the loop and its exits
 SMALL = ["--model", "llama", "--llama_size", "tiny", "--device", "cpu",
