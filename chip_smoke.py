@@ -50,11 +50,12 @@ script exits non-zero):
               kernels), at a ragged T = 1000, at [2, 200, 8,
               128] bf16 with one batch row all padding, bf16 at
               [1, 4096, 8, 64] and [1, 4096, 8, 32] causal (the D 64
-              Hopper kernels; D 32 zero-padded to them), at one
+              Hopper kernels; D 32 on them at its own width), at one
               train_long layer ([8, 4096, 4, 64] causal with the
               synthetic split's ragged key padding) and at head dims
-              80 and 96 (zero-padded to 128, each kernel launched), alone
-              and through
+              80 and 96 (kernels of their own, each launched, on the
+              caller's tensors and bit-identical to the D 128 kernel on
+              copies padded to 128), alone and through
               `flash_attention_bwd` (two runs bit-identical, from the
               forward kernel's own o and lse), each with its registers,
               spill and shared-memory bytes (no kernel may spill, and
@@ -67,7 +68,9 @@ script exits non-zero):
               with the Llama step's masks, a ragged [2, 1000, 8, 256],
               [2, 200, 8, 256] with a row all padding, fp32 [2, 1024, 8,
               256] causal and full and with q scaled by 4, D 160 and 192
-              zero-padded to 256 (each kernel launched), and one layer of
+              on the D 256 kernels (each launched, on the caller's
+              tensors, bit-identical to the same kernels on host-padded
+              copies), and one layer of
               lm_d256's step ([2, 4096, 4, 256], ragged padding).
               The weight-only int8 kernels (`phase_int8_kernels`): the
               fused decode dense (`quantized_dense_decode`: bf16 rows
@@ -1416,9 +1419,9 @@ def phase_flash() -> dict:
     ragged T = 1000, [2, 200, 8, 128] bf16 with one batch row all
     padding, bf16 at D 64 ([1, 4096, 8, 64] causal, the language_ddp
     heads at a length where "auto" picks flash), at D 32 ([1, 4096, 8,
-    32] causal, run zero-padded to the D 64 kernels) and [2, 1000, 8, D]
-    bf16 at D 80 and 96 (run zero-padded to the D 128 kernels); the
-    cross-entropy at Llama's [1, 4095, 32000] fp32 logits view; one
+    32] causal, run on the D 64 kernels at its own width) and [2, 1000,
+    8, D] bf16 at D 80 and 96 (their own kernels;
+    `check_flash_true_width`); the cross-entropy at Llama's [1, 4095, 32000] fp32 logits view; one
     train_long layer ([8, 4096, 4, 64] bf16, causal, ragged key padding
     drawn as the synthetic split draws it). Returns the records of the
     Llama step (flash and cross-entropy) and of the train_long layer for
@@ -1459,14 +1462,15 @@ def phase_flash() -> dict:
     check_flash("d32_bf16_4096", *flash_case(
         1, 4096, 8, 32, torch.bfloat16, 0.0, SEED + 28), causal=True,
         timing=True)
-    # head dims of no kernel instantiation run zero-padded to D 128 (the
-    # Hopper kernels in bf16): the forward and whole backward against the
-    # plain versions, each kernel launched, and their times
+    # D 80 and 96 run kernels of their own (a 64-column box and a narrow
+    # one a row), on the caller's tensors: the forward and whole backward
+    # against the plain versions, each kernel launched, their times, the
+    # launches' pointers and the bits of the D 128 kernel on padded copies
     for D in (80, 96):
         before = _flash_launches()
-        check_flash(f"d{D}_bf16", *flash_case(
-            2, 1000, 8, D, torch.bfloat16, 0.1, SEED + 25), causal=True,
-            timing=True)
+        case = flash_case(2, 1000, 8, D, torch.bfloat16, 0.1, SEED + 25)
+        check_flash(f"d{D}_bf16", *case, causal=True, timing=True)
+        check_flash_true_width(f"d{D}_bf16_true_width", *case, causal=True)
         rose = {k: n - before[k] for k, n in _flash_launches().items()}
         emit({"phase": "kernels", "kernel": "flash_attention", "case":
               f"d{D}_bf16_launches", "launches": rose})
@@ -1490,8 +1494,9 @@ def phase_flash_d256() -> dict:
     padding; H x D is half of Llama's 32 x 128), a ragged T = 1000 with
     100 keys padding, [2, 200, 8, 256] not causal with one batch row all
     padding, fp32 [2, 1024, 8, 256] causal and full and with q scaled by
-    4, D 160 and 192 zero-padded to 256 (each kernel launched), and one
-    layer of `phase_lm_d256`'s step ([2, 4096, 4, 256], causal, ragged
+    4, D 160 and 192 on the D 256 kernels at their own widths (each
+    kernel launched; `check_flash_true_width`), and one layer of
+    `phase_lm_d256`'s step ([2, 4096, 4, 256], causal, ragged
     key padding). Returns the step layer's records ("lm_d256") and the
     fp32 causal case's ("flash_d256_fp32") for the `kernels` line."""
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1513,10 +1518,13 @@ def phase_flash_d256() -> dict:
     check_flash("d256_fp32_scaled_q", *flash_case(
         2, 1024, 8, 256, fp32, 0.25, SEED + 44, q_scale=4.0), causal=True,
         timing=False)
+    # D 160 and 192 run the D 256 kernels on the caller's tensors, the
+    # columns past D read as zeros: bit-identical to host-padded copies
     for D in (160, 192):
         before = _flash_launches()
-        check_flash(f"d{D}_bf16", *flash_case(
-            2, 1000, 8, D, bf16, 0.1, SEED + 45), causal=True, timing=True)
+        case = flash_case(2, 1000, 8, D, bf16, 0.1, SEED + 45)
+        check_flash(f"d{D}_bf16", *case, causal=True, timing=True)
+        check_flash_true_width(f"d{D}_bf16_true_width", *case, causal=True)
         rose = {k: n - before[k] for k, n in _flash_launches().items()}
         emit({"phase": "kernels", "kernel": "flash_attention", "case":
               f"d{D}_bf16_launches", "launches": rose})
@@ -1539,6 +1547,84 @@ def _flash_launches() -> dict:
 
     return {f.__name__: f.launches for f in (
         fa.flash_attention_fwd, fa.flash_attention_dq, fa.flash_attention_dkv)}
+
+
+@contextlib.contextmanager
+def flash_entry_args():
+    """Records (entry point, its first three arguments: the q, k and v
+    pointers) of every flash-attention C launch made inside."""
+    from hyperion_tpu_torch.ops import build
+
+    seen, real = [], build.function
+
+    def function(stem, name, argtypes):
+        fn = real(stem, name, argtypes)
+        if stem != "flash_attention":
+            return fn
+
+        def launch(*args):
+            seen.append((name, tuple(args[:3])))
+            return fn(*args)
+        return launch
+
+    build.function = function
+    try:
+        yield seen
+    finally:
+        build.function = real
+
+
+def _flash_launch_all(dims, pad, q, k, v, g, causal):
+    """(o, lse, dq, dk, dv) from the three launchers on inputs of the
+    launch's width, sliced to the true D of `dims`."""
+    from hyperion_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa._run_fwd(dims, pad, q, k, v, causal, True)
+    o = fa._unpad(o, dims[5])
+    ins = [fa.pad_head_dim(t, q.shape[-1]) for t in (q, k, v, g, o)]
+    dq, delta = fa._launch_dq(dims, pad, *ins, lse, causal)
+    dk, dv = fa._launch_dkv(dims, pad, *ins, lse, delta, causal)
+    return o, lse, dq, dk, dv
+
+
+def check_flash_true_width(name, q, k, v, do, pad, causal) -> dict:
+    """bf16 at a head dim D that is a multiple of 8 reaches the kernels in
+    place: the forward and the whole backward through the public wrappers
+    launch on the caller's own q, k and v (their pointers recorded at the
+    C entry points), and the launchers' o, lse, dq, dk and dv are
+    bit-identical to the same kernel's on host-padded copies of the
+    kernel's width (D 160, 192: the D 256 kernels), or, where D has a
+    kernel of its own (80, 96), to the D 128 kernel's on copies padded to
+    128. Raises unless both hold."""
+    from hyperion_tpu_torch.ops import flash_attention as fa
+
+    D = q.shape[-1]
+    with flash_entry_args() as seen:
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        padding_mask=pad)
+        fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                               padding_mask=pad)
+    in_place = len(seen) == 3 and all(
+        args == (q.data_ptr(), k.data_ptr(), v.data_ptr()) for _, args in seen)
+    dims, pad32 = fa._check(q, k, v, pad)
+    ref_k = dims[4] if dims[4] > D else 128
+    got = _flash_launch_all(dims, pad32, q, k, v, do, causal)
+    want = _flash_launch_all((*dims[:4], ref_k, D), pad32, *(
+        fa.pad_head_dim(t, ref_k) for t in (q, k, v, do)), causal)
+    same = {w: bool(torch.equal(a, b)) for w, a, b in
+            zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+    rec = {"phase": "kernels", "kernel": "flash_attention", "case": name,
+           "head_dim": D, "kernel_head_dim": dims[4],
+           "host_padded": fa.host_padded(D, q.dtype),
+           "launches_took_caller_storage": in_place,
+           "launches_seen": [n for n, _ in seen],
+           "bit_identical_to": f"the D {ref_k} kernel on inputs padded to "
+                               f"{ref_k}", "bit_identical": same}
+    emit(rec)
+    if not in_place or not all(same.values()):
+        raise AssertionError(f"flash at D {D}: in place {in_place}, "
+                             f"bit-identical {same}")
+    return rec
 
 
 def ckpt_readings(base: Path, job_dir: str) -> dict:

@@ -73,11 +73,11 @@
 //     tiles (the diagonal, padded or ragged keys, a ragged query tail)
 //     take the per-element mask.
 //
-// bf16 at D = 64 and 128 (`flash_fwd_kernel_sm90<D>`,
+// bf16 at D = 64, 80, 96 and 128 (`flash_fwd_kernel_sm90<D>`,
 // `flash_dq_kernel_sm90<D>`, `flash_dkv_kernel_sm90<D>`; any D up to 64
-// runs zero-padded to 64, up to 128 to 128, and up to 256 on the D 256
-// kernels of "bf16 at D = 256" below), built from sm90.cuh for the
-// tensor cores' full rate:
+// runs on the D 64 kernels, up to 80 on 80, up to 96 on 96, up to 128 on
+// 128, and up to 256 on the D 256 kernels of "bf16 at D = 256" below),
+// built from sm90.cuh for the tensor cores' full rate:
 //   * A block of three warpgroups per (head, 128-row tile, batch): two
 //     consumers of 64 rows each and a producer, whose first warp issues
 //     every TMA load. The block's own 128 rows (q for the forward; q and
@@ -87,12 +87,18 @@
 //     streams 128-key tiles, the backward R-row tiles: 64 rows at D 128,
 //     128 at D 64, where the tiles are half as wide (`Ring` has the rows
 //     and stages of each D).
-//   * TMA reads [B, T, H, D] in place as a 4-D map (D, H, T, B), boxes of
+//   * TMA reads [B, T, H, W] in place as a 4-D map (W, H, T, B), boxes of
 //     64 columns under the 128-byte swizzle, D / 64 boxes side by side
 //     for a row (at D 64 one box: each row is one 128-byte swizzle span);
-//     rows past T arrive as zeros, so a ragged T needs no bound check. The
-//     maps are encoded on the host at each launch and passed as
-//     __grid_constant__ parameters.
+//     at D 80 and 96 a second map's box of the last 16 or 32 columns
+//     under the 32- or 64-byte swizzle follows (`Narrow`), read by
+//     descriptors of that swizzle, and the products whose N is D run as
+//     n64 plus n16 or n32. Rows past T and columns past the tensors' own
+//     width W (any multiple of 8 up to D) arrive as zeros, so a ragged T
+//     needs no bound check and a head dim between instantiations runs on
+//     the next one in place: no padded copy, the same tile bytes as one,
+//     and o, dq, dk and dv stored only below W. The maps are encoded on
+//     the host at each launch and passed as __grid_constant__ parameters.
 //   * forward: s = q . k^T on wgmma m64n128k16 (D / 16 k-steps) with q's A
 //     fragments in registers (read once from the resident tile) and k
 //     K-major in shared memory; the online softmax in registers (running
@@ -196,9 +202,11 @@ constexpr int kBox = 8192;       // one TMA box: 64 rows x 64 bf16 columns
 constexpr int kThreads = 384;    // consumers 0..255, producer 256..383
 constexpr float kLog2e = 1.4426950408889634f;
 
-// R rows x D columns: D / 64 boxes of R rows x 64 columns side by side
+// R rows x D columns: D / 64 boxes of R rows x 64 columns side by side,
+// then, where D is no multiple of 64 (80, 96), a narrow box of R rows x
+// D % 64 columns (rows of 32 or 64 bytes under that swizzle)
 template <int D, int R>
-constexpr int kTile = D / 64 * R * 128;
+constexpr int kTile = R * D * 2;
 // the block's own rows come in halves of 64, one a consumer
 template <int D>
 constexpr int kHalf = kTile<D, 64>;
@@ -241,6 +249,33 @@ struct Ring<256> {
   static constexpr int kBwd = 2;
   static constexpr int kBwdRows = 32;  // dq; dk/dv streams 64-row tiles
 };
+
+// D 80 and 96 (64 + 16 and 64 + 32 columns) run the D 128 design on their
+// own widths: every tile is a 64-column box and a narrow one, so a stage
+// holds 5/8 or 3/4 of D 128's bytes. On an H100 at [2, 1000, 8, D] causal,
+// four stages ran as fast as five or six (D 96's forward fits four), the
+// forward ~2 % faster than with three; the backward's 64-row tiles keep
+// dk/dv's accumulators beside s^T and dp^T within 240 registers (forward
+// 187,480 and 224,344 bytes of shared memory, dq and dk/dv 126-151 KB).
+struct RingNarrow {
+  static constexpr int kFwd = 4;
+  static constexpr int kBwd = 4;
+  static constexpr int kBwdRows = 64;
+};
+template <>
+struct Ring<80> : RingNarrow {};
+template <>
+struct Ring<96> : RingNarrow {};
+
+// The maps of the narrow box (D % 64 columns) of q, k, v and dO, passed
+// beside the 64-column maps where D has one, empty where it has none
+template <int D, bool = (D % 64 != 0)>
+struct Narrow {
+  CUtensorMap m[4];
+};
+template <int D>
+struct Narrow<D, false> {};
+enum { kMapQ, kMapK, kMapV, kMapDo };
 
 template <int D>
 struct DkvSmem {
@@ -315,10 +350,53 @@ __device__ __forceinline__ S& smem_block() {
 }
 
 // K-major operand: a tile of D columns (D / 64 boxes of `box` bytes: 64
-// or 128 rows of 128 bytes); k-step kk covers columns 16kk .. 16kk + 15
+// or 128 rows of 128 bytes, then the narrow box, rows of (D % 64) * 2
+// bytes); k-step kk covers columns 16kk .. 16kk + 15. kk is a constant of
+// an unrolled loop, so the choice of box is made at compile time.
+template <int D>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk,
                                            int box = kBox) {
+  constexpr int kFull = 4 * (D / 64);  // the k-steps of the 64-column boxes
+  if constexpr (D % 64 != 0) {
+    if (kk >= kFull) {
+      constexpr int kRow = (D % 64) * 2;
+      return sm90::desc_sw<kRow>(tile + (D / 64) * box + (kk - kFull) * 32,
+                                 16, 8 * kRow);
+    }
+  }
   return sm90::desc_sw128(tile + (kk >> 2) * box + (kk & 3) * 32, 16, 1024);
+}
+
+// the byte offset of (row, col) in a tile of D columns whose 64-column
+// boxes are `box` bytes, as TMA's swizzle lays it out (sm90.cuh)
+template <int D>
+__device__ __forceinline__ int tile_offset(int row, int col, int box) {
+  const int x = col >> 6, chunk = (col & 63) >> 3;
+  if constexpr (D % 64 == 0) {
+    return x * box + row * 128 + ((chunk ^ (row & 7)) << 4) + (col & 7) * 2;
+  } else {
+    const int row_bytes = x < D / 64 ? 128 : (D % 64) * 2;
+    const int swz = (row * row_bytes >> 7) & (row_bytes / 16 - 1);
+    return x * box + row * row_bytes + ((chunk ^ swz) << 4) + (col & 7) * 2;
+  }
+}
+
+// TMA loads of `rows` rows of one head from row r0 into a tile of D
+// columns whose 64-column boxes are `box` bytes: D / 64 boxes through
+// `map`, then the narrow box through `narrow.m[which]` where D has one
+template <int D, typename N>
+__device__ __forceinline__ void load_tile(uint8_t* tile, int box,
+                                          const CUtensorMap* map,
+                                          const N& narrow, int which,
+                                          uint64_t* bar, int h, int r0, int b) {
+#pragma unroll
+  for (int x = 0; x < D / 64; ++x) {
+    sm90::tma_load_4d(tile + x * box, map, bar, 64 * x, h, r0, b);
+  }
+  if constexpr (D % 64 != 0) {
+    sm90::tma_load_4d(tile + (D / 64) * box, &narrow.m[which], bar,
+                      64 * (D / 64), h, r0, b);
+  }
 }
 
 // MN-major operand: the same tile read with its rows as k; k-step kk
@@ -333,7 +411,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk,
 // whose N is the head dim (o += p . v, dv, dk, dq). N 256 runs as two
 // n128 products, the second reading the tile's third and fourth boxes
 // into the accumulator's second half (columns 128 + 8j + 2c + e: the
-// m64n256 layout).
+// m64n256 layout). N 80 and 96 run as n64 over the first box and n16 or
+// n32 over the narrow box (rows of 32 or 64 bytes, a k-step 16 of them)
+// into the accumulator's last 8 or 16 floats, alike in layout.
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
@@ -346,8 +426,19 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                  desc_mn(tile + 2 * box, kk, box));
   } else if constexpr (N == 128) {
     sm90::wgmma_m64n128k16_rs_mn(d, a, desc_mn(tile, kk, box));
+  } else if constexpr (N == 80 || N == 96) {
+    constexpr int kRow = (N - 64) * 2;
+    const uint64_t dn =
+        sm90::desc_sw<kRow>(tile + box + kk * 16 * kRow, box, 8 * kRow);
+    sm90::wgmma_m64n64k16_rs_mn(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                                desc_mn(tile, kk, box));
+    if constexpr (N == 80) {
+      sm90::wgmma_m64n16k16_rs_mn(*reinterpret_cast<float(*)[8]>(&d[32]), a, dn);
+    } else {
+      sm90::wgmma_m64n32k16_rs_mn(*reinterpret_cast<float(*)[16]>(&d[32]), a, dn);
+    }
   } else {
-    static_assert(N == 64, "N is 64, 128 or 256");
+    static_assert(N == 64, "N is 64, 80, 96, 128 or 256");
     sm90::wgmma_m64n64k16_rs_mn(d, a, desc_mn(tile, kk, box));
   }
 }
@@ -364,6 +455,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
   } else {
     static_assert(N == 32, "N is 32, 64 or 128");
     sm90::wgmma_m64n32k16_ss(d, da, db, accumulate);
+  }
+}
+
+// put(j) for the column groups 8j of a D-wide accumulator that lie below
+// the tensors' width W: all D / 8 of them unpredicated when W is D (one
+// uniform branch, so full-width stores carry no per-column condition)
+template <int D, typename Put>
+__device__ __forceinline__ void store_cols(int W, Put&& put) {
+  if (W == D) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) put(j);
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      if (8 * j < W) put(j);
+    }
   }
 }
 
@@ -467,14 +574,17 @@ __device__ __forceinline__ void online_softmax(
 // memory), the online softmax in registers, then o += p . v (A from
 // registers, v read MN-major). The running max m, the per-thread partial
 // sum l and the D / 2 o accumulators stay in registers across tiles; l is
-// summed over the row's quad once, in the epilogue.
+// summed over the row's quad once, in the epilogue. The tensors are W
+// columns wide (W <= D, a multiple of 8): the maps fill the columns past W
+// with zeros, and o's columns past W are not stored.
 template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ wgp::Narrow<D> nm,
                       const int* __restrict__ pad, bf16* __restrict__ o,
-                      float* __restrict__ lse, int Tq, int Tkv, int H,
+                      float* __restrict__ lse, int Tq, int Tkv, int H, int W,
                       int causal, float scale) {
   using namespace wgp;
   constexpr int S = FwdSmem<D>::S, kH = kHalf<D>, KK = D / 16;
@@ -506,11 +616,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::mbar_arrive_expect_tx(&sm.q_full, 2 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            sm90::tma_load_4d(sm.q + w * kH + x * kBox, &tq, &sm.q_full,
-                              64 * x, h, q0 + 64 * w, b);
-          }
+          load_tile<D>(sm.q + w * kH, kBox, &tq, nm, kMapQ, &sm.q_full, h,
+                       q0 + 64 * w, b);
         }
       }
       for (int it = 0; it < n_tiles; ++it) {
@@ -532,13 +639,10 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) {
           sm.all_keep[s] = all;
           sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, kFwdKeys>);
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            sm90::tma_load_4d(sm.k[s] + x * kFwdBox, &tk, &sm.full[s], 64 * x,
-                              h, k0, b);
-            sm90::tma_load_4d(sm.v[s] + x * kFwdBox, &tv, &sm.full[s], 64 * x,
-                              h, k0, b);
-          }
+          load_tile<D>(sm.k[s], kFwdBox, &tk, nm, kMapK, &sm.full[s], h, k0,
+                       b);
+          load_tile<D>(sm.v[s], kFwdBox, &tv, nm, kMapV, &sm.full[s], h, k0,
+                       b);
         } else {
           sm90::mbar_arrive(&sm.full[s]);
         }
@@ -568,10 +672,8 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 4; ++r) {
         const int row = 16 * warp + g + 8 * (r & 1);
         const int col = 16 * kk + 2 * c + 8 * (r >> 1);
-        const int cb = col & 63;  // column within its 64-column box
         qa[kk][r] = *reinterpret_cast<const uint32_t*>(
-            sm.q + wg * kH + (col >> 6) * kBox + row * 128 +
-            (((cb >> 3) ^ (row & 7)) << 4) + (cb & 7) * 2);
+            sm.q + wg * kH + tile_offset<D>(row, col, kBox));
       }
     }
 
@@ -596,7 +698,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
-        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
+        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k<D>(k_tile, kk, kFwdBox),
                                   kk > 0);
       }
       sm90::wgmma_commit();
@@ -619,7 +721,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
-        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k(k_tile, kk, kFwdBox),
+        sm90::wgmma_m64n128k16_rs(sc, qa[kk], desc_k<D>(k_tile, kk, kFwdBox),
                                   kk > 0);
       }
       sm90::wgmma_commit();
@@ -667,7 +769,7 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     // take it, so that both barriers end balanced
     if (wg == 0) sm90::named_sync(1, 256);
 
-    const int64_t stride = static_cast<int64_t>(H) * D;
+    const int64_t stride = static_cast<int64_t>(H) * W;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
@@ -675,12 +777,11 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (lse != nullptr && c == 0) {
           lse[(static_cast<int64_t>(b) * H + h) * Tq + qr[i]] = m[i] + logf(l[i]);
         }
-        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * W;
+        store_cols<D>(W, [&](int j) {
           put2(o + row + 8 * j + 2 * c, acc[4 * j + 2 * i] / l[i],
                acc[4 * j + 2 * i + 1] / l[i]);
-        }
+        });
       }
     }
   }
@@ -691,17 +792,19 @@ flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 // s^T = k . q^T and dp^T = v . dO^T (wgmma, both operands K-major in shared
 // memory), p^T and ds^T in registers, then dv += p^T . dO and
 // dk += ds^T . q (wgmma, A from registers, B = dO or q read MN-major).
+// The tensors are W columns wide, as in the forward.
 template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ wgp::Narrow<D> nm,
                       const int* __restrict__ pad,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int Tq, int Tkv, int H, int causal,
-                      float scale) {
+                      bf16* __restrict__ dv, int Tq, int Tkv, int H, int W,
+                      int causal, float scale) {
   using namespace wgp;
   constexpr int S = DkvSmem<D>::S, R = DkvSmem<D>::R, kH = kHalf<D>;
   constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
@@ -735,14 +838,10 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::mbar_arrive_expect_tx(&sm.kv_full, 4 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            const int off = w * kH + x * kBox;
-            sm90::tma_load_4d(sm.k + off, &tk, &sm.kv_full, 64 * x, h,
-                              k0 + 64 * w, b);
-            sm90::tma_load_4d(sm.v + off, &tv, &sm.kv_full, 64 * x, h,
-                              k0 + 64 * w, b);
-          }
+          load_tile<D>(sm.k + w * kH, kBox, &tk, nm, kMapK, &sm.kv_full, h,
+                       k0 + 64 * w, b);
+          load_tile<D>(sm.v + w * kH, kBox, &tv, nm, kMapV, &sm.kv_full, h,
+                       k0 + 64 * w, b);
         }
       }
       const int64_t row0 = (static_cast<int64_t>(b) * H + h) * Tq;
@@ -759,13 +858,9 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         }
         if (lane == 0) {
           sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, R>);
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            sm90::tma_load_4d(sm.q[s] + x * kRB, &tq, &sm.full[s], 64 * x, h,
-                              q0, b);
-            sm90::tma_load_4d(sm.dout[s] + x * kRB, &tdo, &sm.full[s],
-                              64 * x, h, q0, b);
-          }
+          load_tile<D>(sm.q[s], kRB, &tq, nm, kMapQ, &sm.full[s], h, q0, b);
+          load_tile<D>(sm.dout[s], kRB, &tdo, nm, kMapDo, &sm.full[s], h, q0,
+                       b);
         } else {
           sm90::mbar_arrive(&sm.full[s]);
         }
@@ -805,12 +900,14 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
-          wgmma_ss<R>(st, desc_k(k_tile, kk), desc_k(q_tile, kk, kRB), kk > 0);
+          wgmma_ss<R>(st, desc_k<D>(k_tile, kk), desc_k<D>(q_tile, kk, kRB),
+                      kk > 0);
         }
         sm90::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
-          wgmma_ss<R>(dpt, desc_k(v_tile, kk), desc_k(do_tile, kk, kRB), kk > 0);
+          wgmma_ss<R>(dpt, desc_k<D>(v_tile, kk), desc_k<D>(do_tile, kk, kRB),
+                      kk > 0);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
@@ -878,18 +975,17 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_arrive(&sm.empty[s]);
     }
 
-    const int64_t stride = static_cast<int64_t>(H) * D;
+    const int64_t stride = static_cast<int64_t>(H) * W;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (kr[i] < Tkv) {
-        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * D;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * W;
+        store_cols<D>(W, [&](int j) {
           const int col = 8 * j + 2 * c;
           put2(dk + row + col, scale * acc_k[4 * j + 2 * i],
                scale * acc_k[4 * j + 2 * i + 1]);
           put2(dv + row + col, acc_v[4 * j + 2 * i], acc_v[4 * j + 2 * i + 1]);
-        }
+        });
       }
     }
   }
@@ -899,17 +995,19 @@ flash_dkv_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 // (written for the dk/dv launch that follows): each consumer owns 64
 // query rows and walks the R-row key tiles up to its causal frontier, computing
 // s = q . k^T and dp = dO . v^T (wgmma from shared memory), ds in
-// registers, then dq += ds . k (A from registers, k read MN-major).
+// registers, then dq += ds . k (A from registers, k read MN-major). The
+// tensors are W columns wide, as in the forward.
 template <int D>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ wgp::Narrow<D> nm,
                      const bf16* __restrict__ o, const int* __restrict__ pad,
                      const float* __restrict__ lse, float* __restrict__ delta,
-                     bf16* __restrict__ dq, int Tq, int Tkv, int H, int causal,
-                     float scale) {
+                     bf16* __restrict__ dq, int Tq, int Tkv, int H, int W,
+                     int causal, float scale) {
   using namespace wgp;
   constexpr int S = DqSmem<D>::S, R = DqSmem<D>::R, kH = kHalf<D>;
   constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
@@ -940,14 +1038,10 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::mbar_arrive_expect_tx(&sm.qd_full, 4 * kH);
 #pragma unroll
         for (int w = 0; w < 2; ++w) {
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            const int off = w * kH + x * kBox;
-            sm90::tma_load_4d(sm.q + off, &tq, &sm.qd_full, 64 * x, h,
-                              q0 + 64 * w, b);
-            sm90::tma_load_4d(sm.dout + off, &tdo, &sm.qd_full, 64 * x, h,
-                              q0 + 64 * w, b);
-          }
+          load_tile<D>(sm.q + w * kH, kBox, &tq, nm, kMapQ, &sm.qd_full, h,
+                       q0 + 64 * w, b);
+          load_tile<D>(sm.dout + w * kH, kBox, &tdo, nm, kMapDo, &sm.qd_full,
+                       h, q0 + 64 * w, b);
         }
       }
       for (int it = 0; it < n_tiles; ++it) {
@@ -969,13 +1063,8 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) {
           sm.all_keep[s] = all;
           sm90::mbar_arrive_expect_tx(&sm.full[s], 2 * kTile<D, R>);
-#pragma unroll
-          for (int x = 0; x < D / 64; ++x) {
-            sm90::tma_load_4d(sm.k[s] + x * kRB, &tk, &sm.full[s], 64 * x, h,
-                              k0, b);
-            sm90::tma_load_4d(sm.v[s] + x * kRB, &tv, &sm.full[s], 64 * x, h,
-                              k0, b);
-          }
+          load_tile<D>(sm.k[s], kRB, &tk, nm, kMapK, &sm.full[s], h, k0, b);
+          load_tile<D>(sm.v[s], kRB, &tv, nm, kMapV, &sm.full[s], h, k0, b);
         } else {
           sm90::mbar_arrive(&sm.full[s]);
         }
@@ -985,27 +1074,35 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     sm90::regs_alloc<240>();
     const int t = tid & 127, wg = tid >> 7, warp = t >> 5, lane = tid & 31;
     const int g = lane >> 2, c = lane & 3;
-    const int64_t stride = static_cast<int64_t>(H) * D;
+    const int64_t stride = static_cast<int64_t>(H) * W;
     const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
     sm90::mbar_wait(&sm.qd_full, 0);
 
     // delta = sum(dO * O) over this consumer's 64 rows: two threads a row,
-    // D / 2 columns (D / 16 chunks of 16 bytes) each; dO from the resident
-    // (swizzled) tile
+    // D / 2 columns (D / 16 chunks of 16 bytes) each; at D 80 and 96 the
+    // first 64 columns and the rest, as the D 128 kernel splits them, so
+    // that both sum in one order. dO from the resident (swizzled) tile,
+    // whose columns past W are zeros; o's chunks at or past W are not read
+    // and add 0 * 0
     {
+      constexpr int kCh = D % 64 != 0 ? 8 : D / 16;  // thread 0's chunks
       const int row = t >> 1, x = t & 1;
+      const int n_ch = x == 0 ? kCh : D / 8 - kCh;
       const int qrow = q0 + 64 * wg + row;
       float sum = 0.f;
       if (qrow < Tq) {
-        const uint8_t* tile = sm.dout + wg * kH + row * 128;
+        const uint8_t* tile = sm.dout + wg * kH;
         const bf16* orow = o + (static_cast<int64_t>(b) * Tq + qrow) * stride +
-                           h * D;
+                           h * W;
 #pragma unroll
-        for (int ch = 0; ch < D / 16; ++ch) {
-          const int gc = x * (D / 16) + ch;  // the chunk's place in the row
+        for (int ch = 0; ch < kCh; ++ch) {
+          if (ch >= n_ch) break;
+          const int gc = x * kCh + ch;  // the chunk's place in the row
           const uint4 dv4 = *reinterpret_cast<const uint4*>(
-              tile + (gc >> 3) * kBox + (((gc & 7) ^ (row & 7)) << 4));
-          const uint4 ov4 = *reinterpret_cast<const uint4*>(orow + 8 * gc);
+              tile + tile_offset<D>(row, 8 * gc, kBox));
+          const uint4 ov4 = 8 * gc < W
+                                ? *reinterpret_cast<const uint4*>(orow + 8 * gc)
+                                : make_uint4(0, 0, 0, 0);
           const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
           const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov4);
 #pragma unroll
@@ -1052,12 +1149,14 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
         sm90::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
-          wgmma_ss<R>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk, kRB), kk > 0);
+          wgmma_ss<R>(sc, desc_k<D>(q_tile, kk), desc_k<D>(k_tile, kk, kRB),
+                      kk > 0);
         }
         sm90::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < KK; ++kk) {
-          wgmma_ss<R>(dp, desc_k(do_tile, kk), desc_k(v_tile, kk, kRB), kk > 0);
+          wgmma_ss<R>(dp, desc_k<D>(do_tile, kk), desc_k<D>(v_tile, kk, kRB),
+                      kk > 0);
         }
         sm90::wgmma_commit();
         sm90::wgmma_wait<1>();
@@ -1112,12 +1211,11 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (qr[i] < Tq) {
-        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * W;
+        store_cols<D>(W, [&](int j) {
           put2(dq + row + 8 * j + 2 * c, scale * acc[4 * j + 2 * i],
                scale * acc[4 * j + 2 * i + 1]);
-        }
+        });
       }
     }
   }
@@ -1125,8 +1223,10 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 
 // ---------------------------------------------- bf16 at D = 256 (sm_90a)
 //
-// Head dims 129 to 256 run here, zero-padded to 256 with the scale of
-// their true D. The D 128 designs do not fit at 256, in shared memory or
+// Head dims 129 to 256 run here with the scale of their true D, at their
+// own width (the maps fill the columns past it with zeros), or on copies
+// zero-padded to 256 where that width is no multiple of 8 (the wrapper's
+// `host_padded`). The D 128 designs do not fit at 256, in shared memory or
 // in registers, so each kernel gives something up:
 //   * forward (`flash_fwd_kernel_sm90_d256`): 128 query rows a block, two
 //     consumers of 64 rows, as at D 128; but the rows stay in shared
@@ -1161,13 +1261,19 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 // 64 query rows and walks the 64-key tiles up to the block's causal
 // frontier: s = q . k^T (both from shared memory), the online softmax in
 // registers, o *= alpha, then o += p . v (A from registers, v MN-major).
+// The tensors are W columns wide, as in the D 128 forward. kFull (W = 256)
+// stores every column with no condition: on an H100 the epilogue's
+// per-column store predicates, even behind a uniform W == D branch, cost
+// this kernel 4 % at [2, 1000, 8, 256] (PERF.md §6); D 160 and 192
+// take the predicated instantiation.
+template <bool kFull>
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            const int* __restrict__ pad, bf16* __restrict__ o,
                            float* __restrict__ lse, int Tq, int Tkv, int H,
-                           int causal, float scale) {
+                           int W, int causal, float scale) {
   using namespace wgp;
   constexpr int D = 256, NK = kWideKeys, S = FwdSmemWide::S;
   constexpr int kH = kHalf<D>, KK = D / 16, kKB = NK * 128;  // kKB: a box
@@ -1262,7 +1368,8 @@ flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KK; ++kk) {
-        wgmma_ss<NK>(sc, desc_k(q_tile, kk), desc_k(k_tile, kk, kKB), kk > 0);
+        wgmma_ss<NK>(sc, desc_k<D>(q_tile, kk), desc_k<D>(k_tile, kk, kKB),
+                     kk > 0);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -1292,7 +1399,7 @@ flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_arrive(&sm.empty[s]);
     }
 
-    const int64_t stride = static_cast<int64_t>(H) * D;
+    const int64_t stride = static_cast<int64_t>(H) * W;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] = fmaxf(quad_sum(l[i]), 1e-30f);
@@ -1300,11 +1407,16 @@ flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
         if (lse != nullptr && c == 0) {
           lse[(static_cast<int64_t>(b) * H + h) * Tq + qr[i]] = m[i] + logf(l[i]);
         }
-        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * D;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * W;
+        const auto put = [&](int j) {
           put2(o + row + 8 * j + 2 * c, acc[4 * j + 2 * i] / l[i],
                acc[4 * j + 2 * i + 1] / l[i]);
+        };
+        if constexpr (kFull) {
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) put(j);
+        } else {
+          store_cols<D>(W, put);
         }
       }
     }
@@ -1332,13 +1444,15 @@ __device__ __forceinline__ void dkv_tile_d256(
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < KK; ++kk) {
-    wgmma_ss<R>(st, desc_k(k_tile, kk), desc_k(q_tile, kk, kRB), kk > 0);
+    wgmma_ss<R>(st, desc_k<256>(k_tile, kk), desc_k<256>(q_tile, kk, kRB),
+                kk > 0);
   }
   sm90::wgmma_commit();
   if constexpr (kDk) {
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      wgmma_ss<R>(dpt, desc_k(v_tile, kk), desc_k(do_tile, kk, kRB), kk > 0);
+      wgmma_ss<R>(dpt, desc_k<256>(v_tile, kk), desc_k<256>(do_tile, kk, kRB),
+                  kk > 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
@@ -1405,7 +1519,8 @@ __device__ __forceinline__ void dkv_tile_d256(
 
 // dk, dv for 64 key rows of one head at D 256: consumer 0 accumulates dv,
 // consumer 1 dk, each over all 64 keys (a warp's 16 rows), walking the
-// 64-row query tiles from the causal diagonal down (`dkv_tile_d256`).
+// 64-row query tiles from the causal diagonal down (`dkv_tile_d256`). The
+// tensors are W columns wide, as in the D 256 forward.
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -1415,7 +1530,8 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
                            bf16* __restrict__ dk, bf16* __restrict__ dv,
-                           int Tq, int Tkv, int H, int causal, float scale) {
+                           int Tq, int Tkv, int H, int W, int causal,
+                           float scale) {
   using namespace wgp;
   constexpr int D = 256, S = DkvSmemWide::S, R = DkvSmemWide::R;
   constexpr int kRB = R * 128;  // a streamed tile's box
@@ -1524,18 +1640,17 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
       sm90::mbar_arrive(&sm.empty[s]);
     }
 
-    const int64_t stride = static_cast<int64_t>(H) * D;
+    const int64_t stride = static_cast<int64_t>(H) * W;
     bf16* out = wg == 1 ? dk : dv;
     const float f = wg == 1 ? scale : 1.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (kr[i] < Tkv) {
-        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * D;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        const int64_t row = (static_cast<int64_t>(b) * Tkv + kr[i]) * stride + h * W;
+        store_cols<D>(W, [&](int j) {
           put2(out + row + 8 * j + 2 * c, f * acc[4 * j + 2 * i],
                f * acc[4 * j + 2 * i + 1]);
-        }
+        });
       }
     }
   }
@@ -2559,7 +2674,9 @@ struct Args {
   const void *q, *k, *v, *pad, *dout, *o, *lse_in;
   void *delta;  // written by the dq kernels (from dout and o), read by dk/dv
   void *out_o, *lse, *dq, *dk, *dv;
-  int B, Tq, Tkv, H, causal;
+  int B, Tq, Tkv, H;
+  int W;  // the tensors' head width: D, or below it for the Hopper kernels
+  int causal;
   float scale;
 };
 
@@ -2607,11 +2724,13 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
                 static_cast<float*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
 
-// the Hopper kernels (bf16, D 64, 128 and 256): the tensor maps are
-// encoded on the host at every launch and passed by value
+// the Hopper kernels (bf16, D 64, 80, 96, 128 and 256): the tensor maps are
+// encoded on the host at every launch, at the tensors' own width W, and
+// passed by value
 template <int D>
 cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   CUtensorMap mq, mk, mv, mdo;
+  wgp::Narrow<D> nm{};
   cudaError_t e;
   // the block's own rows come in 64-row boxes, the streamed side's in
   // boxes of its tile's rows: 128 keys in the forward, R rows (q and dO
@@ -2622,55 +2741,72 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   const int q_rows = which == 2 && !kWide ? R : 64;
   const int kv_rows = which == 0 ? (kWide ? wgp::kWideKeys : wgp::kFwdKeys)
                       : which == 1 ? R : 64;
-  if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess ||
-      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, D, kv_rows)) != cudaSuccess) {
+  const int W = a.W;
+  if ((e = sm90::bthd_map(&mq, a.q, a.B, a.Tq, a.H, W, q_rows)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mk, a.k, a.B, a.Tkv, a.H, W, kv_rows)) != cudaSuccess ||
+      (e = sm90::bthd_map(&mv, a.v, a.B, a.Tkv, a.H, W, kv_rows)) != cudaSuccess) {
     return e;
+  }
+  if constexpr (D % 64 != 0) {  // the narrow box's maps
+    constexpr int kCols = D % 64;
+    if ((e = sm90::bthd_map(&nm.m[wgp::kMapQ], a.q, a.B, a.Tq, a.H, W, q_rows,
+                            kCols)) != cudaSuccess ||
+        (e = sm90::bthd_map(&nm.m[wgp::kMapK], a.k, a.B, a.Tkv, a.H, W,
+                            kv_rows, kCols)) != cudaSuccess ||
+        (e = sm90::bthd_map(&nm.m[wgp::kMapV], a.v, a.B, a.Tkv, a.H, W,
+                            kv_rows, kCols)) != cudaSuccess ||
+        (which != 0 &&
+         (e = sm90::bthd_map(&nm.m[wgp::kMapDo], a.dout, a.B, a.Tq, a.H, W,
+                             q_rows, kCols)) != cudaSuccess)) {
+      return e;
+    }
   }
   const int* pad = static_cast<const int*>(a.pad);
   if (which == 0) {
     if constexpr (kWide) {
-      return launch(flash_fwd_kernel_sm90_d256, dim3(a.H, (a.Tq + 127) / 128, a.B),
-                    wgp::kThreads, sizeof(wgp::FwdSmemWide) + 1024, s, mq, mk,
-                    mv, pad, static_cast<bf16*>(a.out_o),
-                    static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
-                    a.scale);
+      return launch(W == D ? flash_fwd_kernel_sm90_d256<true>
+                           : flash_fwd_kernel_sm90_d256<false>,
+                    dim3(a.H, (a.Tq + 127) / 128, a.B), wgp::kThreads,
+                    sizeof(wgp::FwdSmemWide) + 1024, s, mq, mk, mv, pad,
+                    static_cast<bf16*>(a.out_o), static_cast<float*>(a.lse),
+                    a.Tq, a.Tkv, a.H, W, a.causal, a.scale);
     } else {
       return launch(flash_fwd_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
                     wgp::kThreads, sizeof(wgp::FwdSmem<D>) + 1024, s, mq, mk,
-                    mv, pad, static_cast<bf16*>(a.out_o),
-                    static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, a.causal,
+                    mv, nm, pad, static_cast<bf16*>(a.out_o),
+                    static_cast<float*>(a.lse), a.Tq, a.Tkv, a.H, W, a.causal,
                     a.scale);
     }
   }
-  if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, D, q_rows)) != cudaSuccess) {
+  if ((e = sm90::bthd_map(&mdo, a.dout, a.B, a.Tq, a.H, W, q_rows)) != cudaSuccess) {
     return e;
   }
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
     return launch(flash_dq_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
                   wgp::kThreads, sizeof(wgp::DqSmem<D>) + 1024, s, mq, mk, mv,
-                  mdo, static_cast<const bf16*>(a.o), pad, lse,
+                  mdo, nm, static_cast<const bf16*>(a.o), pad, lse,
                   static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
-                  a.Tkv, a.H, a.causal, a.scale);
+                  a.Tkv, a.H, W, a.causal, a.scale);
   }
   if constexpr (kWide) {
     return launch(flash_dkv_kernel_sm90_d256, dim3(a.H, (a.Tkv + 63) / 64, a.B),
                   wgp::kThreads, sizeof(wgp::DkvSmemWide) + 1024, s, mq, mk, mv,
                   mdo, pad, lse, static_cast<const float*>(a.delta),
                   static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq,
-                  a.Tkv, a.H, a.causal, a.scale);
+                  a.Tkv, a.H, W, a.causal, a.scale);
   } else {
     return launch(flash_dkv_kernel_sm90<D>, dim3(a.H, (a.Tkv + 127) / 128, a.B),
                   wgp::kThreads, sizeof(wgp::DkvSmem<D>) + 1024, s, mq, mk, mv,
-                  mdo, pad, lse, static_cast<const float*>(a.delta),
+                  mdo, nm, pad, lse, static_cast<const float*>(a.delta),
                   static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.Tq,
-                  a.Tkv, a.H, a.causal, a.scale);
+                  a.Tkv, a.H, W, a.causal, a.scale);
   }
 }
 
-// bf16 at D 64, 128 and 256 takes the Hopper kernels, fp32 at D 32, 64,
-// 128 and 256 the split-TF32 ones
+// bf16 at D 64, 80, 96, 128 and 256 takes the Hopper kernels, at any width
+// W <= D that is a multiple of 8; fp32 at D 32, 64, 128 and 256 the
+// split-TF32 ones, whose tensors are D wide (W = D)
 int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   if (a.B <= 0 || a.Tq <= 0 || a.Tkv <= 0 || a.H <= 0) return 0;
   // the dq kernels compute delta from dout and o
@@ -2678,21 +2814,25 @@ int dispatch(int which, int D, int dtype, const Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
+    if (a.W != D) return static_cast<int>(e);
     if (D == 32) e = run_tf32<32>(which, a, s);
     if (D == 64) e = run_tf32<64>(which, a, s);
     if (D == 128) e = run_tf32<128>(which, a, s);
     if (D == 256) e = run_tf32<256>(which, a, s);
   } else if (dtype == 1) {
+    if (a.W <= 0 || a.W > D || a.W % 8 != 0) return static_cast<int>(e);
     if (D == 64) e = run_sm90<64>(which, a, s);
+    if (D == 80) e = run_sm90<80>(which, a, s);
+    if (D == 96) e = run_sm90<96>(which, a, s);
     if (D == 128) e = run_sm90<128>(which, a, s);
     if (D == 256) e = run_sm90<256>(which, a, s);
   }
   return static_cast<int>(e);
 }
 
-// the kernel `which` launches, and its dynamic shared memory
+// the kernel `which` launches at width W, and its dynamic shared memory
 template <int D>
-void kernel_of_sm90(int which, const void** fn, size_t* smem) {
+void kernel_of_sm90(int which, int /*W*/, const void** fn, size_t* smem) {
   *smem = (which == 0   ? sizeof(wgp::FwdSmem<D>)
            : which == 1 ? sizeof(wgp::DqSmem<D>)
                         : sizeof(wgp::DkvSmem<D>)) + 1024;
@@ -2702,11 +2842,14 @@ void kernel_of_sm90(int which, const void** fn, size_t* smem) {
 }
 
 template <>
-void kernel_of_sm90<256>(int which, const void** fn, size_t* smem) {
+void kernel_of_sm90<256>(int which, int W, const void** fn, size_t* smem) {
   *smem = (which == 0   ? sizeof(wgp::FwdSmemWide)
            : which == 1 ? sizeof(wgp::DqSmem<256>)
                         : sizeof(wgp::DkvSmemWide)) + 1024;
-  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_sm90_d256)
+  *fn = which == 0   ? (W == 256 ? reinterpret_cast<const void*>(
+                                        flash_fwd_kernel_sm90_d256<true>)
+                                  : reinterpret_cast<const void*>(
+                                        flash_fwd_kernel_sm90_d256<false>))
         : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90<256>)
                      : reinterpret_cast<const void*>(flash_dkv_kernel_sm90_d256);
 }
@@ -2723,18 +2866,21 @@ void kernel_of_tf32(int which, const void** fn, size_t* smem) {
 
 }  // namespace
 
-// Every tensor is contiguous: q, o, dq [B, Tq, H, D]; k, v, dk, dv
-// [B, Tkv, H, D], all in dtype (0 = float32, 1 = bfloat16), 16-byte
-// aligned; pad [B, Tkv] int32 or null; lse, delta [B, H, Tq] float32.
-// D is 32, 64, 128 or 256 in float32, 64, 128 or 256 in bfloat16. `lse` may be
-// null (no gradient will be taken).
+// Every tensor is contiguous: q, o, dq [B, Tq, H, W]; k, v, dk, dv
+// [B, Tkv, H, W], all in dtype (0 = float32, 1 = bfloat16), 16-byte
+// aligned; pad [B, Tkv] int32 or null; lse, delta [B, H, Tq] float32. D,
+// the kernel's head dim, is 32, 64, 128 or 256 in float32 (W = D), 64, 80,
+// 96, 128 or 256 in bfloat16 (W <= D, a multiple of 8: the kernel reads
+// the columns past W as zeros and writes none of them). `lse` may be null
+// (no gradient will be taken).
 
 extern "C" int hyperion_flash_fwd(const void* q, const void* k, const void* v,
                                   const void* pad, void* o, void* lse, int B,
-                                  int Tq, int Tkv, int H, int D, int causal,
-                                  float scale, int dtype, void* stream) {
+                                  int Tq, int Tkv, int H, int D, int W,
+                                  int causal, float scale, int dtype,
+                                  void* stream) {
   Args a{q, k, v, pad, nullptr, nullptr, nullptr, nullptr, o, lse, nullptr,
-         nullptr, nullptr, B, Tq, Tkv, H, causal, scale};
+         nullptr, nullptr, B, Tq, Tkv, H, W, causal, scale};
   return dispatch(0, D, dtype, a, stream);
 }
 
@@ -2744,10 +2890,10 @@ extern "C" int hyperion_flash_dq(const void* q, const void* k, const void* v,
                                  const void* pad, const void* dout,
                                  const void* o, const void* lse, void* delta,
                                  void* dq, int B, int Tq, int Tkv, int H,
-                                 int D, int causal, float scale, int dtype,
-                                 void* stream) {
+                                 int D, int W, int causal, float scale,
+                                 int dtype, void* stream) {
   Args a{q, k, v, pad, dout, o, lse, delta, nullptr, nullptr, dq, nullptr,
-         nullptr, B, Tq, Tkv, H, causal, scale};
+         nullptr, B, Tq, Tkv, H, W, causal, scale};
   return dispatch(1, D, dtype, a, stream);
 }
 
@@ -2755,18 +2901,19 @@ extern "C" int hyperion_flash_dkv(const void* q, const void* k, const void* v,
                                   const void* pad, const void* dout,
                                   const void* lse, const void* delta, void* dk,
                                   void* dv, int B, int Tq, int Tkv, int H,
-                                  int D, int causal, float scale, int dtype,
-                                  void* stream) {
+                                  int D, int W, int causal, float scale,
+                                  int dtype, void* stream) {
   Args a{q, k, v, pad, dout, nullptr, lse, const_cast<void*>(delta), nullptr,
-         nullptr, nullptr, dk, dv, B, Tq, Tkv, H, causal, scale};
+         nullptr, nullptr, dk, dv, B, Tq, Tkv, H, W, causal, scale};
   return dispatch(2, D, dtype, a, stream);
 }
 
 // What the compiler gave the kernel that `which` (0 forward, 1 dq, 2 dk/dv)
-// launches at this D and dtype: out = {registers a thread, local-memory
-// (spill) bytes a thread, shared memory a block (static + dynamic), threads
-// a block}.
-extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
+// launches at this D, width W and dtype: out = {registers a thread,
+// local-memory (spill) bytes a thread, shared memory a block (static +
+// dynamic), threads a block}.
+extern "C" int hyperion_flash_attrs(int which, int D, int W, int dtype,
+                                    int* out) {
   const void* fn = nullptr;
   size_t smem = 0;
   int threads = 0;
@@ -2778,9 +2925,11 @@ extern "C" int hyperion_flash_attrs(int which, int D, int dtype, int* out) {
     if (D == 256) kernel_of_tf32<256>(which, &fn, &smem);
   } else if (dtype == 1) {
     threads = wgp::kThreads;
-    if (D == 64) kernel_of_sm90<64>(which, &fn, &smem);
-    if (D == 128) kernel_of_sm90<128>(which, &fn, &smem);
-    if (D == 256) kernel_of_sm90<256>(which, &fn, &smem);
+    if (D == 64) kernel_of_sm90<64>(which, W, &fn, &smem);
+    if (D == 80) kernel_of_sm90<80>(which, W, &fn, &smem);
+    if (D == 96) kernel_of_sm90<96>(which, W, &fn, &smem);
+    if (D == 128) kernel_of_sm90<128>(which, W, &fn, &smem);
+    if (D == 256) kernel_of_sm90<256>(which, W, &fn, &smem);
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;

@@ -3,13 +3,16 @@
 // memory, TMA tile loads and 1-D bulk copies, wgmma descriptors and
 // products, register rebalancing between warpgroups, and the host-side
 // encoding of TMA tensor maps. Header-only; each .cu that includes it gets
-// its own copy. Every tile it describes lies in the 128-byte swizzle that
+// its own copy. Most tiles it describes lie in the 128-byte swizzle that
 // TMA writes with CU_TENSOR_MAP_SWIZZLE_128B: a box of R rows of 128 bytes
 // (64 bf16 columns, or 128 int8 ones) lies row after row, the eight 16-byte
 // chunks of row r permuted by chunk ^ (r % 8); the pattern repeats every 8
 // rows (1024 bytes), so every tile starts on a 1024-byte boundary. A k-step
 // of wgmma is 32 bytes of K in either type (k16 in bf16, k32 in int8), so
-// the descriptors below advance alike.
+// the descriptors below advance alike. A narrower box (rows of 32 or 64
+// bytes: 16 or 32 bf16 columns) lies under the 32- or 64-byte swizzle: its
+// 16-byte chunk c of the row at byte offset a moves to c ^ ((a >> 7) &
+// (row bytes / 16 - 1)), the same rule as the 128-byte one's.
 
 #pragma once
 
@@ -218,6 +221,22 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr, uint32_t lbo,
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The descriptor of an operand in shared memory under the swizzle of its
+// rows' span, `kRow` bytes (128, 64 or 32; wgmma's layout types 1, 2 and
+// 3), laid out as in `desc_sw128`: K-major, `sbo` the stride of 8-row
+// groups (8 * kRow for rows side by side) and a k-step 32 bytes on along
+// the row; MN-major, `sbo` that of 8-row groups of k and `lbo` that of the
+// next kRow-byte group of m or n.
+template <int kRow>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t smem_addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(kRow == 128 || kRow == 64 || kRow == 32, "a swizzle span");
+  constexpr uint64_t kLayout = kRow == 128 ? 1 : kRow == 64 ? 2 : 3;
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (kLayout << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -314,6 +333,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 16] += A[64 x 16] . B[16 x 16]: A from registers (each warp's
+// 16 rows as an m16n8k16 A fragment), B read from shared memory MN-major
+// (tnspB = 1)
+__device__ __forceinline__ void wgmma_m64n16k16_rs_mn(float (&d)[8],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] . B[16 x 32]: A from registers, B read from
+// shared memory MN-major (tnspB = 1)
+__device__ __forceinline__ void wgmma_m64n32k16_rs_mn(float (&d)[16],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A from registers (each warp's
@@ -454,26 +505,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The map of a contiguous bf16 [B, T, H, D] tensor as 4-D (D, H, T, B),
-// with a box of 64 columns of one head over `rows` rows, 128-byte
-// swizzled. D * 2 bytes must be a multiple of 16.
+// The map of a contiguous bf16 [B, T, H, W] tensor as 4-D (W, H, T, B),
+// with a box of `cols` columns (64, 32 or 16) of one head over `rows`
+// rows, under the swizzle of the box's row span (128, 64 or 32 bytes). W
+// * 2 bytes must be a multiple of 16. Columns at or past W, and rows past
+// T, arrive as zeros, and a box's transaction still counts all of its
+// bytes: a kernel built for a head dim above W reads a W-wide tensor in
+// place as if zero columns had been appended.
 inline cudaError_t bthd_map(CUtensorMap* map, const void* base, int B, int T,
-                            int H, int D, int rows) {
+                            int H, int W, int rows, int cols = 64) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+  if (W <= 0 || W % 8 != 0 || (cols != 64 && cols != 32 && cols != 16)) {
+    return cudaErrorInvalidValue;
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(H) * D * 2,
-                                 static_cast<cuuint64_t>(T) * H * D * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(W) * 2,
+                                 static_cast<cuuint64_t>(H) * W * 2,
+                                 static_cast<cuuint64_t>(T) * H * W * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                             const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

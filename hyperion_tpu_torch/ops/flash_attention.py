@@ -24,15 +24,19 @@ when asked for), `flash_attention_dq` and `flash_attention_dkv`. On a
 CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
 `csrc/flash_attention.cu` or raises. The kernels are built per dtype
-(`HEAD_DIMS`): bf16 at D 64, 128 and 256, fp32 at D 32, 64, 128 and 256;
-any other D up to 256 (the reference's kernel tiles the full D and takes
-them all; the port raises past 256) runs zero-padded to the next of its
-dtype's (`kernel_head_dim`) with the scale of its true D, and o and the
-gradients are sliced back:
-zero columns add exact zeros to q·kᵀ, and the padded columns of v only
-fill columns that are cut away. bf16 runs that file's Hopper kernels
-(wgmma, TMA, warp-specialised) for the forward and both backward
-kernels; fp32 runs its split-TF32 kernels (each
+(`HEAD_DIMS`): bf16 at D 64, 80, 96, 128 and 256, fp32 at D 32, 64, 128
+and 256; any other D up to 256 (the reference's kernel tiles the full D
+and takes them all; the port raises past 256) runs on the next of its
+dtype's (`kernel_head_dim`) with the scale of its true D, as if zero
+columns were appended: zero columns add exact zeros to q·kᵀ, and the
+padded columns of v only fill columns that are never written. bf16 at a
+D that is a multiple of 8 reaches the kernels in place: their TMA maps
+read the tensors at their own width and fill the columns past it with
+zeros, and o and the gradients are allocated and written at width D.
+fp32, and bf16 at any other D, are copied zero-padded to the kernel's
+width and o and the gradients sliced back (`host_padded`). bf16 runs
+that file's Hopper kernels (wgmma, TMA, warp-specialised) for the
+forward and both backward kernels; fp32 runs its split-TF32 kernels (each
 product as three TF32 tensor-core passes over operands split as
 x = hi + lo, `split_tf32` being the split's plain model), within the
 reference's fp32 bounds of the plain versions.
@@ -60,20 +64,21 @@ import torch
 from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import NEG_INF
 
-# the kernels' instantiations per dtype; any D up to 256 pads to the next
-HEAD_DIMS = {torch.bfloat16: (64, 128, 256),
+# the kernels' instantiations per dtype; any D up to 256 runs on the next
+HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
              torch.float32: (32, 64, 128, 256)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# q, k, v, pad, o, lse; B, Tq, Tkv, H, D, causal; scale; dtype; stream
-_FWD_ARGTYPES = [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P]
-# q, k, v, pad, dout, o, lse, delta, dq; B, Tq, Tkv, H, D, causal; scale; ...
-_DQ_ARGTYPES = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
-# q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, causal; ...
-_DKV_ARGTYPES = [_P] * 9 + [_I] * 6 + [ctypes.c_float, _I, _P]
-# which (0 forward, 1 dq, 2 dk/dv), D, dtype, int out[4]
-_ATTRS_ARGTYPES = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+# q, k, v, pad, o, lse; B, Tq, Tkv, H, D (the kernel's), W (the tensors'),
+# causal; scale; dtype; stream
+_FWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]
+# q, k, v, pad, dout, o, lse, delta, dq; B, Tq, Tkv, H, D, W, causal; ...
+_DQ_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
+# q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, W, causal; ...
+_DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
+# which (0 forward, 1 dq, 2 dk/dv), D, W, dtype, int out[4]
+_ATTRS_ARGTYPES = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
 
 
 def _scale(D: int) -> float:
@@ -91,6 +96,18 @@ def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
             return Dk
     raise ValueError(f"flash_attention kernel takes head_dim 1 to "
                      f"{dims[-1]}, got {D}")
+
+
+def host_padded(D: int, dtype: torch.dtype) -> bool:
+    """Whether a head_dim D in `dtype` reaches the kernels as copies
+    zero-padded to `kernel_head_dim`. Not where D is an instantiation, nor
+    for bf16 at a D that is a multiple of 8: the Hopper kernels' TMA maps
+    take a row stride of D·2 bytes if it is a multiple of 16, and read the
+    columns past D as zeros. fp32 (the split-TF32 kernels read rows raw at
+    the kernel's width) and bf16 at any other D are copied."""
+    if kernel_head_dim(D, dtype) == D:
+        return False
+    return dtype != torch.bfloat16 or D % 8 != 0
 
 
 def pad_head_dim(t: torch.Tensor, Dk: int) -> torch.Tensor:
@@ -211,8 +228,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _what(label: str, dims, t: torch.Tensor) -> str:
+    """A launch's name for its error: the head dims and the dtype."""
+    return (f"flash_attention {label} launch (head_dim {dims[5]}, kernel "
+            f"{dims[4]}, width {t.shape[-1]}, {t.dtype})")
+
+
 def _run_fwd(dims, pad, q, k, v, causal, need_lse):
-    """The forward launch on kernel-width (Dk) inputs, scaled for D."""
+    """The forward launch on inputs of width W (D, or the kernel's Dk
+    where `host_padded`), scaled for D; o comes back at width W."""
     B, Tq, Tkv, H, Dk, D = dims
     fn = build.function("flash_attention", "hyperion_flash_fwd",
                         _FWD_ARGTYPES)
@@ -221,9 +245,9 @@ def _run_fwd(dims, pad, q, k, v, causal, need_lse):
            if need_lse else None)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
-                    o.data_ptr(), _ptr(lse), B, Tq, Tkv, H, Dk, int(causal),
-                    _scale(D), _DTYPES[q.dtype], _stream(q))
-    build.check(status, "flash_attention forward launch")
+                    o.data_ptr(), _ptr(lse), B, Tq, Tkv, H, Dk, q.shape[-1],
+                    int(causal), _scale(D), _DTYPES[q.dtype], _stream(q))
+    build.check(status, _what("forward", dims, q))
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -232,12 +256,19 @@ def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
     return t if t.shape[-1] == D else t[..., :D].contiguous()
 
 
+def _width(dims, dtype) -> int:
+    """The width the launch takes the tensors at: D itself, or the
+    kernel's Dk where `host_padded`."""
+    Dk, D = dims[4:]
+    return Dk if host_padded(D, dtype) else D
+
+
 def _launch_fwd(q, k, v, padding_mask, causal, need_lse):
     dims, pad = _check(q, k, v, padding_mask)
-    Dk, D = dims[4:]
-    q, k, v = (_aligned(pad_head_dim(t, Dk)) for t in (q, k, v))
+    W = _width(dims, q.dtype)
+    q, k, v = (_aligned(pad_head_dim(t, W)) for t in (q, k, v))
     o, lse = _run_fwd(dims, pad, q, k, v, causal, need_lse)
-    return _unpad(o, D), lse
+    return _unpad(o, dims[5]), lse
 
 
 def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -258,9 +289,9 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
     """Checked, aligned backward inputs (q, k, v, g, o, lse), the first
-    five zero-padded to the kernel head_dim."""
+    five zero-padded to the kernel head_dim where `host_padded`."""
     dims, pad = _check(q, k, v, padding_mask)
-    B, Tq, _, H, Dk, _ = dims
+    B, Tq, _, H, _, _ = dims
     for name, t in (("o", o), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must match q ({q.dtype} "
@@ -269,7 +300,8 @@ def _bwd_inputs(q, k, v, o, lse, g, padding_mask):
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, Tq):
         raise ValueError(f"lse must be float32 [{B}, {H}, {Tq}], got "
                          f"{lse.dtype} {tuple(lse.shape)}")
-    return dims, pad, (*(_aligned(pad_head_dim(t, Dk))
+    W = _width(dims, q.dtype)
+    return dims, pad, (*(_aligned(pad_head_dim(t, W))
                          for t in (q, k, v, g, o)), lse.contiguous())
 
 
@@ -284,9 +316,9 @@ def _launch_dq(dims, pad, q, k, v, g, o, lse, causal):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
                     g.data_ptr(), o.data_ptr(),
                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Tq,
-                    Tkv, H, Dk, int(causal), _scale(D), _DTYPES[q.dtype],
-                    _stream(q))
-    build.check(status, "flash_attention dq launch")
+                    Tkv, H, Dk, q.shape[-1], int(causal), _scale(D),
+                    _DTYPES[q.dtype], _stream(q))
+    build.check(status, _what("dq", dims, q))
     flash_attention_dq.launches += 1
     return _unpad(dq, D), delta
 
@@ -301,22 +333,25 @@ def _launch_dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
                     g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), B, Tq, Tkv, H, Dk,
-                    int(causal), _scale(D), _DTYPES[q.dtype], _stream(q))
-    build.check(status, "flash_attention dk/dv launch")
+                    q.shape[-1], int(causal), _scale(D), _DTYPES[q.dtype],
+                    _stream(q))
+    build.check(status, _what("dk/dv", dims, q))
     flash_attention_dkv.launches += 1
     return _unpad(dk, D), _unpad(dv, D)
 
 
 def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     """What the compiler gave the kernel that `which` ("fwd", "dq", "dkv")
-    launches at this head_dim (that is, at its kernel head_dim) and dtype:
-    registers and local-memory (spill) bytes a thread, shared memory and
-    threads a block. Needs the card."""
+    launches at this head_dim (that is, at its kernel head_dim and the
+    width its tensors reach it at) and dtype: registers and local-memory
+    (spill) bytes a thread, shared memory and threads a block. Needs the
+    card."""
     fn = build.function("flash_attention", "hyperion_flash_attrs",
                         _ATTRS_ARGTYPES)
     out = (ctypes.c_int * 4)()
-    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which],
-                   kernel_head_dim(D, dtype), _DTYPES[dtype], out),
+    Dk = kernel_head_dim(D, dtype)
+    build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], Dk,
+                   Dk if host_padded(D, dtype) else D, _DTYPES[dtype], out),
                 "flash_attention kernel attributes")
     return {"registers": out[0], "spill_bytes": out[1],
             "smem_bytes": out[2], "threads": out[3]}

@@ -9,16 +9,21 @@ its last 1024 keys padding (the D 128 Hopper kernels). fp32: [2, 1024,
 8, 128] causal and full, and [1, 4096, 8, 64] (the split-TF32 kernels).
 Head dim 256: bf16 [1, 4096, 8, 256] causal with the Llama step's
 masks and without padding, [2, 4096, 4, 256] with the ragged padding
-(chip_smoke.py's lm_d256 step), [2, 1000, 8, D] at D 160, 192 (zero-
-padded to 256) and 256; fp32 [2, 1024, 8, 256] causal and full.
+(chip_smoke.py's lm_d256 step). The head dims between instantiations at
+one shape, [2, 1000, 8, D] causal with the last 100 keys of each row
+padding: D 32 (the D 64 kernels at width 32), 80 and 96 (kernels of
+their own), 128, 160 and 192 (the D 256 kernels at width D) and 256.
+fp32 [2, 1024, 8, 256] causal and full.
 
     python3 scripts/profile_torch_flash.py [--root DIR] [--cases a,b]
 
 Each of the forward and the backward is timed in turns with
 `scaled_dot_product_attention` over the same boolean mask: library,
-kernel, kernel, library. For a causal case without padding SDPA with
-`is_causal=True` (no mask) joins the turns: library, is_causal, kernel,
-kernel, is_causal, library. Each case is checked against the plain
+kernel, kernel, library. For a causal case SDPA with `is_causal=True`
+(no mask) joins the turns: library, is_causal, kernel, kernel,
+is_causal, library; with key padding that call leaves the padding out,
+so it computes less than the kernel does and is a yardstick only.
+Each case is checked against the plain
 versions first (`chip_smoke.flash_close`: fp32 o and lse within 2e-5,
 gradients within 2e-4; bf16 as that function states), and its bounds
 are this checkout's `chip_smoke.bound` (fp32: three TF32 passes at the
@@ -59,6 +64,10 @@ CASES = {"bf16_causal_4096_d64": ((1, 4096, 8, 64), BF16, True, None),
          "bf16_ragged_1000_d256": ((2, 1000, 8, 256), BF16, True, 0.1),
          "bf16_ragged_1000_d192": ((2, 1000, 8, 192), BF16, True, 0.1),
          "bf16_ragged_1000_d160": ((2, 1000, 8, 160), BF16, True, 0.1),
+         "bf16_ragged_1000_d128": ((2, 1000, 8, 128), BF16, True, 0.1),
+         "bf16_ragged_1000_d96": ((2, 1000, 8, 96), BF16, True, 0.1),
+         "bf16_ragged_1000_d80": ((2, 1000, 8, 80), BF16, True, 0.1),
+         "bf16_ragged_1000_d32": ((2, 1000, 8, 32), BF16, True, 0.1),
          "fp32_causal_d256": ((2, 1024, 8, 256), FP32, True, None),
          "fp32_full_d256": ((2, 1024, 8, 256), FP32, False, None)}
 
@@ -101,11 +110,10 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     side = cs.side_stream()
     side.wait_stream(torch.cuda.current_stream())
-    plain_causal = causal and pad is None
     with torch.cuda.stream(side):  # the graph's stream
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         lib_o = sdpa(*(t.transpose(1, 2) for t in leaves), attn_mask=mask4)
-        if plain_causal:
+        if causal:
             lib_c = sdpa(*(t.transpose(1, 2) for t in leaves),
                          is_causal=True)
     nf, nb = 4 * n + stats, 8 * n + stats
@@ -133,7 +141,7 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
            "max_abs_err": {w: e for w, (_, e) in
                            zip(("o", "lse", "dq", "dk", "dv"), checks)}}
     turns = ("library", "kernel", "kernel", "library")
-    if plain_causal:
+    if causal:
         timers[("fwd", "library_is_causal")] = lambda: cs.time_ms(
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), is_causal=True),

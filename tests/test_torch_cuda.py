@@ -715,12 +715,13 @@ def test_flash_hopper_backward_keeps_to_registers(cuda):
 
 
 def test_flash_hopper_forward_keeps_to_registers(cuda):
-    """The bf16 forward, dq and dk/dv at D 64, 128 and 256 are the
-    warp-specialised kernels (three warpgroups), spill nothing to local
-    memory and fit one block's shared memory. The fp32 forward, dq and
-    dk/dv are the split-TF32 kernels (8 warps) at every kernel head dim,
-    none spilling, each within 227 KB."""
-    for D in fa.HEAD_DIMS[torch.bfloat16]:
+    """The bf16 forward, dq and dk/dv at D 64, 80, 96, 128 and 256 (and at
+    160, whose D 256 forward stores only the columns below its width) are
+    the warp-specialised kernels (three warpgroups), spill nothing to
+    local memory and fit one block's shared memory. The fp32 forward, dq
+    and dk/dv are the split-TF32 kernels (8 warps) at every kernel head
+    dim, none spilling, each within 227 KB."""
+    for D in (*fa.HEAD_DIMS[torch.bfloat16], 160):
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.bfloat16)
             assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, \
@@ -752,6 +753,50 @@ def test_flash_autograd_runs_the_three_kernels(cuda):
     with torch.no_grad():
         fa.flash_attention(*leaves, causal=causal, padding_mask=pad)
     assert fa.flash_attention_fwd.launches == before[0] + 2
+
+
+def _flash_launch_all(dims, pad, q, k, v, g, causal):
+    """(o, lse, dq, dk, dv) from the three launchers on inputs of the
+    launch's width, sliced to the true D of `dims`."""
+    o, lse = fa._run_fwd(dims, pad, q, k, v, causal, True)
+    D = dims[5]
+    o = fa._unpad(o, D)
+    ins = [fa.pad_head_dim(t, q.shape[-1]) for t in (q, k, v, g, o)]
+    dq, delta = fa._launch_dq(dims, pad, *ins, lse, causal)
+    dk, dv = fa._launch_dkv(dims, pad, *ins, lse, delta, causal)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("D", [32, 48, 80, 96, 160, 192])
+def test_flash_true_width_equals_host_padded(cuda, D):
+    """bf16 at a head dim that is a multiple of 8 reaches the kernels in
+    place (their maps read the columns past D as zeros); the same kernel
+    on host-padded copies of width Dk at the scale of D gives the same
+    bits in o, lse, dq, dk and dv. D 80 and 96 have kernels of their own:
+    they give the bits of the D 128 kernel on inputs padded to 128 (zero
+    columns add exact zeros). Either way the plain versions' bounds hold."""
+    q, k, v, g, pad, causal = _flash_inputs(cuda, torch.bfloat16,
+                                            "causal_pad_d256", seed=49)
+    q, k, v, g = (t[..., :D].contiguous() for t in (q, k, v, g))
+    assert not fa.host_padded(D, torch.bfloat16)
+    dims, pad32 = fa._check(q, k, v, pad)
+    Dk = dims[4]
+    got = _flash_launch_all(dims, pad32, q, k, v, g, causal)
+    ref_k = Dk if Dk > D else 128
+    ref_dims = (*dims[:4], ref_k, D)
+    want = _flash_launch_all(ref_dims, pad32,
+                             *(fa.pad_head_dim(t, ref_k) for t in (q, k, v)),
+                             fa.pad_head_dim(g, ref_k), causal)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape and torch.equal(a, b), name
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                          padding_mask=pad)
+    _flash_close(got[0], o, torch.bfloat16, "o", D)
+    _flash_close(got[1], lse, torch.bfloat16, "lse", D)
+    refs = fa.flash_attention_bwd_plain(q, k, v, got[0], got[1], g,
+                                        causal=causal, padding_mask=pad)
+    for name, a, r in zip(("dq", "dk", "dv"), got[2:], refs):
+        _flash_close(a, r, torch.bfloat16, name, D)
 
 
 def test_flash_refuses_what_it_does_not_take(cuda):

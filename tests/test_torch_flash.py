@@ -22,6 +22,8 @@ comparisons, ~2.6-3.1 s each.
 
 from __future__ import annotations
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,20 +141,23 @@ def test_d128_forward_and_lse_match_jax(case, dtype):
 @pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 160, 192, 256])
 def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
     """On the card bf16 at every head_dim runs the Hopper forward and
-    backward, at a kernel head_dim of 64, 128 or 256 (D 32 runs
-    zero-padded to 64, D 80 and 96 to 128, D 160 and 192 to 256); fp32
-    at every head dim runs the split-TF32
-    kernels. Either way the whole backward is two launches: dq, which
+    backward, at a kernel head_dim of 64, 80, 96, 128 or 256 (D 32 on the
+    D 64 kernels, D 160 and 192 on the D 256 ones, each at its own width:
+    the kernels read the columns past D as zeros); fp32 at every head dim
+    runs the split-TF32 kernels, on copies zero-padded to the kernel's
+    head dim. Either way the whole backward is two launches: dq, which
     computes delta, then dk/dv on that delta. The tensors are claimed to
     be on the card and the launchers recorded, so what reaches them is
     checked here; the kernels each dtype and D launch (threads,
     registers) are checked on the card."""
     Dk = fa.kernel_head_dim(D, dtype)
     assert Dk in fa.HEAD_DIMS[dtype]
+    W = Dk if dtype == torch.float32 else D
+    assert fa.host_padded(D, dtype) == (W != D)
     calls = []
 
     def dq(dims, pad, q, k, v, g, o, lse, causal):
-        assert dims[4:] == (Dk, D) and q.shape[-1] == o.shape[-1] == Dk
+        assert dims[4:] == (Dk, D) and q.shape[-1] == o.shape[-1] == W
         delta = torch.zeros(lse.shape)
         calls.append(("dq", delta))
         return q[..., :D], delta
@@ -178,14 +183,14 @@ def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
                                200, 256, 257])
 def test_kernel_head_dim(D, dtype):
     """The kernel head_dim that runs D: the least of the dtype's
-    instantiations at or above it (bf16 64, 128 and 256, the Hopper
-    kernels; fp32 32, 64, 128 and 256); past 256 it raises (the
+    instantiations at or above it (bf16 64, 80, 96, 128 and 256, the
+    Hopper kernels; fp32 32, 64, 128 and 256); past 256 it raises (the
     reference's kernel tiles any D)."""
     if D > 256:
         with pytest.raises(ValueError, match="head_dim 1 to 256"):
             fa.kernel_head_dim(D, dtype)
         return
-    want = min(Dk for Dk in ((64, 128, 256) if dtype == torch.bfloat16
+    want = min(Dk for Dk in ((64, 80, 96, 128, 256) if dtype == torch.bfloat16
                              else (32, 64, 128, 256)) if Dk >= D)
     assert fa.kernel_head_dim(D, dtype) == want
 
@@ -318,20 +323,21 @@ def _padded_path(monkeypatch, q, k, v, g, mask, causal):
 
 @pytest.mark.parametrize("D", [16, 32, 48, 80, 96, 160, 192])
 def test_padded_head_dim_equals_unpadded(D, monkeypatch):
-    """On the card bf16 runs D 16, 32 and 48 on the D 64 kernels, D 80
-    and 96 on the D 128 ones and D 160 and 192 on the D 256 ones, on
-    zero-padded q, k, v (and dO, o): zero
-    columns add exact zeros to q·kᵀ and the padded columns of v only
-    fill the columns cut away. Through the plain versions, in fp32 under
-    bf16's padding rule, the padded path gives the unpadded one's o, lse
-    and gradients (to fp32 summation order)."""
+    """On the card bf16 runs D 16, 32 and 48 on the D 64 kernels and D
+    160 and 192 on the D 256 ones, whose maps read the columns past D as
+    zeros, and fp32 runs D 80 and 96 on the D 128 kernels on zero-padded
+    copies of q, k, v (and dO, o): zero columns add exact zeros to q·kᵀ
+    and the padded columns of v only fill columns never kept. Through the
+    plain versions, in fp32 under those widths (bf16's, or fp32's where
+    bf16 has a kernel of D's own), the padded path gives the unpadded
+    one's o, lse and gradients (to fp32 summation order)."""
     q, k, v, g, mask = (torch.from_numpy(a) for a in
                         _inputs(shape=(2, 48, 2, D), seed=8, pad_from=30))
     rule = fa.kernel_head_dim
-    assert rule(D, torch.bfloat16) == (64 if D < 64 else
-                                       128 if D < 128 else 256)
-    monkeypatch.setattr(fa, "kernel_head_dim",
-                        lambda D, dtype: rule(D, torch.bfloat16))
+    assert rule(D, torch.bfloat16) == (64 if D < 64 else D if D < 128
+                                       else 256)
+    monkeypatch.setattr(fa, "kernel_head_dim", lambda D, dtype: max(
+        rule(D, torch.bfloat16), rule(D, torch.float32)))
     got = _padded_path(monkeypatch, q, k, v, g, mask, True)
     o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=True,
                                           padding_mask=mask)
@@ -384,6 +390,111 @@ def test_padded_d48_matches_jax(monkeypatch):
 def test_padded_d160_matches_jax(monkeypatch):
     """D 160 runs zero-padded to 256, in either dtype."""
     _padded_matches_jax(monkeypatch, 160, seed=13)
+
+
+def test_padded_d80_matches_jax(monkeypatch):
+    """D 80 runs zero-padded to 128 in fp32 (bf16 has a D 80 kernel)."""
+    _padded_matches_jax(monkeypatch, 80, seed=15)
+
+
+def test_padded_d192_matches_jax(monkeypatch):
+    """D 192 runs zero-padded to 256, in either dtype."""
+    _padded_matches_jax(monkeypatch, 192, seed=16)
+
+
+def _record_launches(monkeypatch, status=0):
+    """Claim the tensors are on the card and record every launch of the
+    three C entry points (name, arguments) in place of running it; each
+    returns `status`."""
+    calls = []
+
+    def function(stem, name, argtypes):
+        def launch(*args):
+            assert len(args) == len(argtypes)
+            calls.append((name, args))
+            return status
+        return launch
+
+    monkeypatch.setattr(fa, "_on_card", lambda name, t: True)
+    monkeypatch.setattr(fa.build, "function", function)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    return calls
+
+
+def _launch_all(D, dtype):
+    """q, k, v, o, g [1, 4, 2, D] in `dtype`, and (o, dq, dk, dv) from
+    `flash_attention_fwd` and `flash_attention_bwd` on them."""
+    q, k, v, o, g = (torch.randn(1, 4, 2, D, dtype=torch.float32)
+                     .to(dtype) for _ in range(5))
+    lse = torch.zeros(1, 2, 4)
+    out = fa.flash_attention_fwd(q, k, v, causal=True)[0]
+    return (q, k, v, o, g), (out, *fa.flash_attention_bwd(
+        q, k, v, o, lse, g, causal=True))
+
+
+def _ptrs(*ts):
+    return tuple(t.data_ptr() for t in ts)
+
+
+@pytest.mark.parametrize("D", [32, 48, 80, 96, 160, 192, 200])
+def test_bf16_reaches_the_launch_in_place(D, monkeypatch):
+    """bf16 at a head dim that is a multiple of 8, contiguous and
+    aligned, reaches the three launches as the caller's own storage (the
+    same data_ptr, width D): no padding copy. The launch is told both the
+    kernel's head dim and the tensors' width; o, dq, dk and dv come back
+    as the tensors the kernels wrote, at width D, with no slice copy."""
+    calls = _record_launches(monkeypatch)
+    assert not fa.host_padded(D, torch.bfloat16)
+    (q, k, v, o, g), outs = _launch_all(D, torch.bfloat16)
+    Dk = fa.kernel_head_dim(D, torch.bfloat16)
+    assert [n for n, _ in calls] == ["hyperion_flash_fwd", "hyperion_flash_dq",
+                                     "hyperion_flash_dkv"]
+    fwd, dq, dkv = (args for _, args in calls)
+    # fwd: q k v pad o lse B Tq Tkv H D W ...; dq: q k v pad dout o lse
+    # delta dq B Tq Tkv H D W ...; dk/dv: q k v pad dout lse delta dk dv
+    # B Tq Tkv H D W ...
+    assert fwd[:3] == _ptrs(q, k, v)
+    assert tuple(dq[i] for i in (0, 1, 2, 4, 5)) == _ptrs(q, k, v, g, o)
+    assert tuple(dkv[i] for i in (0, 1, 2, 4)) == _ptrs(q, k, v, g)
+    assert fwd[10:12] == dq[13:15] == dkv[13:15] == (Dk, D)
+    assert _ptrs(*outs) == (fwd[4], dq[8], dkv[7], dkv[8])
+    assert all(t.shape == q.shape and t.is_contiguous() for t in outs)
+
+
+@pytest.mark.parametrize("dtype, D", [
+    (torch.bfloat16, 63), (torch.bfloat16, 65), (torch.bfloat16, 4),
+    (torch.float32, 16), (torch.float32, 48), (torch.float32, 80),
+    (torch.float32, 96), (torch.float32, 160), (torch.float32, 200)],
+    ids=lambda x: str(x).split(".")[-1])
+def test_other_widths_still_pad(dtype, D, monkeypatch):
+    """bf16 at a head dim that is no multiple of 8 (TMA's row stride
+    must be a multiple of 16 bytes), and fp32 at any head dim that is not
+    an instantiation, still reach the launches as copies zero-padded to
+    `kernel_head_dim`, the launch told that width for both; o and the
+    gradients are sliced back to D."""
+    calls = _record_launches(monkeypatch)
+    assert fa.host_padded(D, dtype)
+    ins, outs = _launch_all(D, dtype)
+    Dk = fa.kernel_head_dim(D, dtype)
+    for (_, args), d in zip(calls, (10, 13, 13)):  # (D, W) as above
+        assert args[d:d + 2] == (Dk, Dk)
+        assert args[0] != ins[0].data_ptr()
+    assert all(t.shape == ins[0].shape for t in outs)
+
+
+def test_a_refused_launch_raises_naming_the_head_dim(monkeypatch):
+    """A launch the C side refuses (say, a map it cannot encode) raises,
+    naming the head dims and the dtype, and counts no launch; nothing
+    falls back to another path."""
+    calls = _record_launches(monkeypatch, status=1)
+    before = fa.flash_attention_fwd.launches
+    q = torch.zeros(1, 4, 2, 80, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match=r"head_dim 80, kernel 80, width "
+                       r"80, torch.bfloat16"):
+        fa.flash_attention_fwd(q, q, q)
+    assert len(calls) == 1 and fa.flash_attention_fwd.launches == before
 
 
 def test_d256_matches_jax(monkeypatch):
