@@ -35,7 +35,7 @@
 //
 // fp32 at D = 32, 64, 128 and 256 (`flash_fwd_kernel_tf32`,
 // `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`; at 256 the backward is
-// `flash_*_kernel_tf32_split`, see "fp32 at D = 256"): the same products on
+// `flash_*_kernel_tf32_d256`, see "fp32 at D = 256"): the same products on
 // the tensor cores as split TF32, within the reference's fp32 bounds
 // (o, lse 2e-5; gradients 2e-4) of the plain version:
 //   * Every operand x enters as hi = tf32(x) and lo = tf32(x - hi), each
@@ -46,7 +46,8 @@
 //   * mma.sync, not wgmma: TF32 wgmma reads only K-major shared memory,
 //     and five of the seven products read B along the rows of a [T, D]
 //     tile (p.v, dq, dk, dv); mma.sync loads B fragments by thread from
-//     any layout.
+//     any layout. (The D 256 backward runs its four K-major products on
+//     wgmma: "fp32 at D = 256" below.)
 //   * 8 warps a block over 128 rows of the block's own side (q for the
 //     forward and dq, k and v for dk/dv), 16 rows a warp, resident in
 //     shared memory as raw fp32 (rows unpadded, 16-byte chunks XOR-
@@ -2330,48 +2331,317 @@ flash_dkv_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
 // The forward is `flash_fwd_kernel_tf32<256>`: 128 resident query rows
 // (128 KB) and 16-key streamed tiles (planes 65 KB, stage 32 KB): 230,464
 // bytes of the 232,448 a block may have; o takes 128 registers a thread.
-// The backward cannot keep two [128][256] resident tiles (256 KB), so its
-// blocks own 64 rows (two tiles, 128 KB; the same planes and stage:
-// 230,464 bytes for dq, 230,528 for dk/dv), and the eight warps pair up
-// over the four 16-row groups:
-//   * dq (`flash_dq_kernel_tf32_split`): warps w and w + 4 share rows
-//     16 (w % 4) and take 8 keys each of every 16-key tile, each holding
-//     a dq partial over the full D (128 registers); at the end warp
-//     w + 4 hands its partial to warp w through the then idle planes, and
-//     warp w adds and writes. One writer, a fixed order: two runs agree to
-//     the bit.
-//   * dk/dv (`flash_dkv_kernel_tf32_split`): dk and dv of 16 rows at D 256
-//     are 256 floats a thread, past the 255-register limit, so warp w
-//     accumulates dv and warp w + 4 dk of the same 16 key rows; both
-//     compute p^T = exp(s^T - lse), the dk warp also dp^T and ds^T (s^T
-//     twice: five products against four).
+//
+// The backward (`flash_dq_kernel_tf32_d256`, `flash_dkv_kernel_tf32_d256`)
+// cannot keep two [128][256] resident tiles (256 KB), so its blocks own 64
+// rows (two raw tiles, 128 KB, read as in the D <= 128 kernels) and stream
+// 16-row tiles, split once a tile into hi and lo planes (64 KB). The two
+// warpgroups split each tile's work by product, and the warps w and w + 4
+// that share a 16-row group meet through shared memory:
+//   * dk/dv: warpgroup 0 computes s^T = k . q^T for the block's 64 keys,
+//     warpgroup 1 dp^T = v . dO^T. Warp w turns its rows of s^T into p^T,
+//     hands p^T to warp w + 4 and adds p^T . dO into dv; warp w + 4 forms
+//     ds^T and adds ds^T . q into dk: four products a tile, s^T once. dv
+//     and dk of 16 rows at D 256 are 128 floats a thread each, so one warp
+//     cannot hold both.
+//   * dq: warpgroup 0 computes s = q . k^T and p, warpgroup 1 dp; warps w
+//     and w + 4 trade p and dp, both form ds (the same bits), and each adds
+//     ds . k into its half of dq's columns: 64 accumulators a thread, no
+//     partial sums to add, one writer a value.
+//   * s, s^T, dp and dp^T (M 64, N 16, K = D = 256) run on wgmma TF32
+//     (`wgmma_abt`): A (k, v, q or dO) from registers, split a k-step from
+//     the raw resident tile, two groups of k-steps in flight; B read once
+//     for the warpgroup from the streamed tile's planes, which lie K-major
+//     under the 128-byte swizzle with each box's 16 hi rows followed by
+//     its 16 lo rows (`sw_off`), so a k-step is two products: hi . [hi |
+//     lo] (m64n32k8) and lo . hi (m64n16k8). Their sums, lo.hi + hi.lo and
+//     hi.hi, are added small first at the end, as the CPU model sums them
+//     (`_split_attention` in tests/test_torch_flash.py). N is 16 or 32
+//     because a stage holds 16 rows; alone, the n32 + n16 pair runs at 383
+//     TFLOP/s on an H100 (scripts/wgmma_tf32_rate.cu), in these kernels at
+//     under half that (PERF.md §6).
+//   * dv, dk and dq contract over the tile's 16 rows and stay on mma.sync
+//     m16n8k8 (`gemm_pb_sw`: A the C fragments of p^T, ds^T or ds in
+//     registers, B fragments from the same planes, one accumulator an
+//     8-column n-tile): TF32 wgmma reads B from shared memory only
+//     K-major (the transpose exists for 16-bit types), and transposed
+//     copies of the planes (64 KB more a 16-row tile) do not fit beside
+//     the resident 128 KB, the planes and a stage. Planes in bf16x3 (6
+//     bytes an element, read MN-major: 48 KB a stage) would fit and put
+//     these products on wgmma too, at six bf16 products a pass; not built.
+//   * dk/dv copies each tile raw into a stage (cp.async, 32 KB) and splits
+//     it for the block between two barriers (230,528 bytes); the p^T
+//     hand-over lies over the stage's q rows, free from one split until
+//     the next tile's q copy, which the four dk warps issue once they have
+//     read it. dq keeps no stage: each thread loads its 32 values of the
+//     next key tile into registers at the top of a tile and splits them at
+//     the end (205,888 bytes; the hand-overs 8 KB of their own). A ring of
+//     planes split by warps of their own needs a second set of planes
+//     (64 KB): 1.9 KB are left in dk/dv.
+namespace tf32 {
+
+// The D 256 backward's planes: a streamed 16-row tile's hi and lo values
+// as D / 32 boxes of 32 rows of 32 words (128 bytes), the tile's 16 rows of
+// hi then its 16 rows of lo (4 KB a box), the 16-byte chunks of row r
+// permuted by chunk ^ (r % 8), from a 1024-byte boundary: the layout a
+// 128-byte-swizzle wgmma descriptor reads K-major, as a 16-row operand (hi)
+// or a 32-row one (hi then lo); and one where `frag_b_sw`'s reads (rows
+// 2c, 2c + 1; eight columns) hit 32 banks
+constexpr int kSwRows = 16;
+constexpr int kSwBox = 2 * kSwRows * 32;  // words
+constexpr int kSwLo = kSwRows * 32;       // lo's rows after hi's, in words
+constexpr int kSwPlanes = 256 / 32 * kSwBox;  // a tile's hi and lo, in words
+
+// (row r, column col)'s word in the hi rows; its lo value is kSwLo on
+__device__ __forceinline__ int sw_off(int r, int col) {
+  return (col >> 5) * kSwBox + r * 32 + ((((col & 31) >> 2) ^ (r & 7)) << 2) + (col & 3);
+}
+
+// `frag_b` from swizzled planes
+__device__ __forceinline__ FragB frag_b_sw(const uint32_t* hi, const uint32_t* lo,
+                                           int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int r = k0 + 2 * (lane & 3), col = n0 + (lane >> 2);
+  const int o0 = sw_off(r, col), o1 = sw_off(r + 1, col);
+  return FragB{{hi[o0], hi[o1]}, {lo[o0], lo[o1]}};
+}
+
+// c[16 x 8NT] += P . B[:, n0 .. n0 + 8NT): `gemm_pb` from swizzled planes,
+// over a band of D's columns, an n-tile's k-steps together (they share
+// the swizzle's offsets: rows 8ks + 2c lie in the same row of 8)
+template <int KS, int NT>
+__device__ __forceinline__ void gemm_pb_sw(float (&c)[NT][4], const float (&p)[KS][4],
+                                           const uint32_t* bhi, const uint32_t* blo,
+                                           int n0) {
+#pragma unroll
+  FragA fa[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) fa[ks] = frag_c2a(p[ks]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      mma3(c[nt], fa[ks], frag_b_sw(bhi, blo, 8 * ks, n0 + 8 * nt));
+    }
+  }
+}
+
+// hi and lo of 4 consecutive values (row r, columns col .. col + 3) into
+// swizzled planes
+__device__ __forceinline__ void put_split_sw(uint32_t* hi, uint32_t* lo, int r, int col,
+                                             float4 v) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+  uint32_t h[4], l[4];
+  split(x, h, l);
+  const int o = sw_off(r, col);
+  *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + o) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// a raw [16][D] stage into its swizzled planes, once for the block
+template <int D>
+__device__ __forceinline__ void split_tile_sw(uint32_t* hi, uint32_t* lo,
+                                              const float* raw) {
+  for (int i = threadIdx.x; i < kSwRows * D / 4; i += kThreads) {
+    const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+    put_split_sw(hi, lo, r, col, *reinterpret_cast<const float4*>(raw + r * D + col));
+  }
+}
+
+// this thread's share (kRegs float4) of a streamed tile's 16 rows from row
+// row0 of one head, straight into registers; rows at or past `rows` zeros
+template <int D>
+struct TileRegs {
+  static constexpr int kRegs = kSwRows * D / 4 / kThreads;
+  float4 x[kRegs];
+
+  __device__ __forceinline__ void load(const float* src, int row0, int rows,
+                                       int64_t stride) {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+      x[j] = row0 + r < rows
+                 ? __ldg(reinterpret_cast<const float4*>(src + (row0 + r) * stride + col))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  __device__ __forceinline__ void split_into(uint32_t* hi, uint32_t* lo) const {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      put_split_sw(hi, lo, i / (D / 4), (i % (D / 4)) * 4, x[j]);
+    }
+  }
+};
+
+// c[16 x 16] = A . Bt^T for this warp's 16 rows of the warpgroup's 64, on
+// wgmma TF32 in three passes: A rows row0 .. row0 + 15 of a raw resident
+// tile, split a k-step into registers (`frag_a`), kC k-steps a group, two
+// groups' A fragments in registers (a group is loaded while the one before
+// it runs; a third buffer ran no faster). Bt the 16 rows of a streamed
+// tile from its swizzled planes at shared address `bt`. A k-step is two
+// products: hi . [hi | lo] (m64n32k8 over the box's 32 rows: hi.hi and
+// hi.lo side by side) and lo . hi (m64n16k8), into separate accumulators
+// (the two sharing hi.lo's registers ran slower). Step j of a group goes
+// into accumulator set j % kK (dk/dv takes two: with one, ptxas spilled
+// it). c = (lo.hi + hi.lo) + hi.hi, each summed over the sets. Every
+// thread of the warpgroup calls it alike.
+template <int D, int kC, int kK>
+__device__ __forceinline__ void wgmma_abt(float (&c)[2][4], const float* a, int row0,
+                                          uint32_t bt) {
+  constexpr int kG = D / 8 / kC, kBuf = 2;  // groups of k-steps, buffers
+  static_assert(kC % kK == 0, "a group covers every accumulator set");
+  float lh[kK][8], hb[kK][16];  // lo.hi; hi.hi then hi.lo
+#pragma unroll
+  for (int x = 0; x < kK; ++x) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lh[x][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) hb[x][i] = 0.f;
+    sm90::fence_regs(lh[x]);
+    sm90::fence_regs(hb[x]);
+  }
+  uint32_t ah[kBuf][kC][4], al[kBuf][kC][4];
+  auto load = [&](int grp, uint32_t (&h)[kC][4], uint32_t (&l)[kC][4]) {
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const FragA f = frag_a<D>(a, row0, 8 * (grp * kC + j));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[j][e] = f.hi[e];
+        l[j][e] = f.lo[e];
+      }
+    }
+  };
+#pragma unroll
+  for (int grp = 0; grp < kBuf - 1; ++grp) load(grp, ah[grp], al[grp]);
+#pragma unroll
+  for (int grp = 0; grp < kG; ++grp) {
+    const int b = grp % kBuf;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kC; ++j) {
+      const int kk = grp * kC + j;
+      const uint64_t db =
+          sm90::desc_sw128(bt + (kk >> 2) * (4 * kSwBox) + (kk & 3) * 32, 16, 1024);
+      sm90::wgmma_m64n16k8_tf32_rs(lh[j % kK], al[b][j], db);
+      sm90::wgmma_m64n32k8_tf32_rs(hb[j % kK], ah[b][j], db);
+    }
+    sm90::wgmma_commit();
+    const int nx = grp + kBuf - 1;  // into the registers of group grp - 1
+    if (nx < kG) {
+      sm90::wgmma_wait<1>();  // group grp - 1 is done
+      sm90::fence_regs(ah[nx % kBuf]);
+      sm90::fence_regs(al[nx % kBuf]);
+      load(nx, ah[nx % kBuf], al[nx % kBuf]);
+    }
+  }
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kBuf; ++i) {
+    sm90::fence_regs(ah[i]);
+    sm90::fence_regs(al[i]);
+  }
+#pragma unroll
+  for (int x = 0; x < kK; ++x) {
+    sm90::fence_regs(lh[x]);
+    sm90::fence_regs(hb[x]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float small = 0.f, big = 0.f;
+#pragma unroll
+    for (int x = 0; x < kK; ++x) {
+      small += lh[x][i] + hb[x][8 + i];
+      big += hb[x][i];
+    }
+    c[i >> 2][i & 3] = small + big;
+  }
+}
+
+// a warp's 16 x 8NT C fragments into shared memory and back, lane-major
+// (no bank conflicts): the hand-over between the two warps of a pair
+template <int NT>
+__device__ __forceinline__ void put_frags(float* x, const float (&c)[NT][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[(4 * nt + e) * 32 + lane] = c[nt][e];
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void get_frags(float (&c)[NT][4], const float* x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[nt][e] = x[(4 * nt + e) * 32 + lane];
+  }
+}
+
+// `load_rows` into a raw stage issued by kN threads of the block, t = 0 ..
+// kN - 1 its own index among them
+template <int R, int D, int kN>
+__device__ __forceinline__ void load_rows_by(float* dst, const float* src, int row0,
+                                             int rows, int64_t stride, int t) {
+  constexpr int kPerRow = D / 4;
+  for (int i = t; i < R * kPerRow; i += kN) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    const bool valid = row0 + r < rows;
+    cp_async16(dst + r * D + c, valid ? src + (row0 + r) * stride + c : src, valid);
+  }
+}
+
+// shared memory of the D 256 backward, in words from a 1024-byte boundary
+// (the launch asks for 1024 bytes more): four swizzled planes, the two raw
+// resident [64][256] tiles, then dk/dv's raw stage and per-row lse and
+// delta, or dq's hand-overs and keep flags
+struct Wide {
+  static constexpr int kOwn = 64, kTile = 16, D = 256;
+  static constexpr int planes = 0;
+  static constexpr int own = 2 * kSwPlanes;               // 2 x [64][256]
+  static constexpr int after = own + 2 * kOwn * D;
+  static constexpr int kX = 2 * 4 * 32;                   // a 16 x 16 hand-over
+  static constexpr size_t dkv_bytes = 4u * (after + 2 * kTile * D + 2 * kTile) + 1024;
+  static constexpr size_t dq_bytes = 4u * (after + 4 * 2 * kX + kTile) + 1024;
+};
+
+__device__ __forceinline__ float* wide_smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t off = (1024u - (sm90::smem_u32(smem_raw) & 1023u)) & 1023u;
+  return reinterpret_cast<float*>(smem_raw + off);
+}
+
+}  // namespace tf32
 
 // dq at D 256 for 64 query rows of one head, and delta = sum(dO * O) for
-// them: warps w and w + 4 share the 16 rows of group w % 4, each taking
-// half of every key tile, and sum their dq partials at the end.
-template <int D>
+// them, over 16-key tiles: warpgroup 0 computes s (and warp w, p for its
+// 16 rows), warpgroup 1 dp; warps w and w + 4 trade p and dp, both form
+// ds, and warp w adds ds . k into dq's first 128 columns, w + 4 the last.
 __global__ void __launch_bounds__(tf32::kThreads, 1)
-flash_dq_kernel_tf32_split(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const int* __restrict__ pad,
-                           const float* __restrict__ dout, const float* __restrict__ o,
-                           const float* __restrict__ lse, float* __restrict__ delta,
-                           float* __restrict__ dq, int Tq, int Tkv, int H, int causal,
-                           float scale) {
+flash_dq_kernel_tf32_d256(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ pad,
+                          const float* __restrict__ dout, const float* __restrict__ o,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          float* __restrict__ dq, int Tq, int Tkv, int H, int causal,
+                          float scale) {
   using namespace tf32;
-  constexpr int OWN = bwd_rows<D>(), kGroups = OWN / 16;
-  using L = Layout<D, 2, OWN>;
-  constexpr int KT = L::R, NO = D / 8, NS = KT / 8 / (kWarps / kGroups);
-  static_assert(kGroups * NO * 4 * 32 <= 4 * L::plane, "dq partials fit the planes");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* dOs = Qs + L::own;
-  uint32_t* Kh = reinterpret_cast<uint32_t*>(Qs + L::planes_off);
-  uint32_t* Kl = Kh + L::plane;
-  uint32_t* Vh = Kl + L::plane;
-  uint32_t* Vl = Vh + L::plane;
-  float* Kraw = Qs + L::stage_off;
-  float* Vraw = Kraw + L::stage;
-  int* keep_s = reinterpret_cast<int*>(Qs + L::extra_off);
+  using W = Wide;
+  constexpr int D = W::D, OWN = W::kOwn, KT = W::kTile, kGroups = OWN / 16;
+  constexpr int NS = KT / 8, NH = D / 16, kX = W::kX;
+  static_assert(kWarps == 2 * kGroups, "a pair of warps a 16-row group");
+  float* sm = wide_smem();
+  uint32_t* Kh = reinterpret_cast<uint32_t*>(sm + W::planes);
+  uint32_t* Kl = Kh + kSwLo;
+  uint32_t* Vh = Kh + kSwPlanes;
+  uint32_t* Vl = Vh + kSwLo;
+  float* Qs = sm + W::own;
+  float* dOs = Qs + OWN * D;
+  float* xs_all = sm + W::after;
+  int* keep_s = reinterpret_cast<int*>(xs_all + kGroups * 2 * kX);
 
   const int h = blockIdx.x, b = blockIdx.z;
   const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * OWN;
@@ -2386,38 +2656,43 @@ flash_dq_kernel_tf32_split(const float* __restrict__ q, const float* __restrict_
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int rw = warp % kGroups, part = warp / kGroups;
-  const int m0 = 16 * rw, koff = 8 * NS * part;  // koff: the warp's first key
-  const int qw = q0 + m0;
+  const int grp = warp % kGroups, part = warp / kGroups;
+  const int m0 = 16 * grp, qw = q0 + m0;
   const int rows[2] = {qw + g, qw + g + 8};
-  const int pw = koff * ld<D>();  // the warp's keys in the planes
+  float* xs = xs_all + grp * 2 * kX;  // the pair's p, then dp
 
+  // key tile `it`'s k and v rows into registers; this thread's keep flag
+  // for it (threads < KT; true for the others)
+  TileRegs<D> kt, vt;
   auto fetch = [&](int it) {
-    const int k0 = it * KT;
-    load_rows<KT, D, false>(Kraw, kb, k0, Tkv, stride);
-    load_rows<KT, D, false>(Vraw, vb, k0, Tkv, stride);
-    cp_async_commit();
+    const int kt0 = it * KT;
+    kt.load(kb, kt0, Tkv, stride);
+    vt.load(vb, kt0, Tkv, stride);
     bool kp = true;
     if (threadIdx.x < KT) {
-      const int key = k0 + threadIdx.x;
+      const int key = kt0 + threadIdx.x;
       kp = key < Tkv && (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + key] != 0);
     }
     return kp;
   };
+  // the fetched tile into the planes (visible to wgmma), then a barrier;
+  // whether every key of the tile is kept
   auto convert = [&](bool kp) {
-    split_tile<KT, D>(Kh, Kl, Kraw);
-    split_tile<KT, D>(Vh, Vl, Vraw);
+    kt.split_into(Kh, Kl);
+    vt.split_into(Vh, Vl);
     if (threadIdx.x < KT) keep_s[threadIdx.x] = kp;
+    sm90::fence_async_smem();
     return __syncthreads_and(kp) != 0;
   };
 
   load_rows<OWN, D, true>(Qs, q + qoff, q0, Tq, stride);
   load_rows<OWN, D, true>(dOs, dout + qoff, q0, Tq, stride);
-  bool kp = fetch(0);  // q, dO and key tile 0 in one group
+  cp_async_commit();
+  bool kp = fetch(0);
   cp_async_wait_all();
   __syncthreads();
 
-  // delta = sum(dO * O) over the warp's 16 rows: two lanes a row, half of
+  // delta = sum(dO * O) over the pair's 16 rows: two lanes a row, half of
   // D each, dO from shared memory; the first warp of the pair writes it
   float row_delta[2];
   {
@@ -2445,97 +2720,105 @@ flash_dq_kernel_tf32_split(const float* __restrict__ q, const float* __restrict_
   for (int i = 0; i < 2; ++i) row_lse[i] = rows[i] < Tq ? lse[stat0 + rows[i]] : 0.f;
 
   bool all_keep = convert(kp);
-  if (n_tiles > 1) kp = fetch(1);
 
-  float acc[NO][4];
+  // warpgroup 0: s = q . k^T; warpgroup 1: dp = dO . v^T
+  const float* a_tile = part == 0 ? Qs : dOs;
+  const uint32_t b_tile = sm90::smem_u32(part == 0 ? Kh : Vh);
+  float acc[NH][4];  // dq's columns n0 .. n0 + 127, unscaled
   zero(acc);
+  const int n0 = part * (D / 2);
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * KT;
-    if (qw < Tq && !(causal && k0 + koff > qw + 15)) {
-      float s[NS][4], dp[NS][4];
-      zero(s);
-      zero(dp);
-      gemm_abt<NS, D>(s, Qs, m0, Kh + pw, Kl + pw);
-      gemm_abt<NS, D>(dp, dOs, m0, Vh + pw, Vl + pw);
-      const bool interior = k0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
-                            (!causal || k0 + KT - 1 <= qw);
+    const int kt0 = it * KT;
+    const bool more = it + 1 < n_tiles;
+    if (more) kp = fetch(it + 1);  // under this tile's products
+    float sd[NS][4];
+    wgmma_abt<D, 4, 1>(sd, a_tile, m0, b_tile);
+    // a pair whose rows all lie before the tile (causal) or past Tq has
+    // p = 0 there: it skips the rest
+    if (qw < Tq && !(causal && kt0 > qw + 15)) {
+      if (part == 0) {  // p = exp(s - lse)
+        const bool interior = kt0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
+                              (!causal || kt0 + KT - 1 <= qw);
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * nt + 2 * c + (e & 1);
+            float x = sd[nt][e] * scale;
+            if (!interior) {
+              x = masked(x, rows[e >> 1], kt0 + col, Tq, Tkv, causal, keep_s[col]);
+            }
+            sd[nt][e] = expf(x - row_lse[e >> 1]);
+          }
+        }
+      }
+      put_frags(xs + part * kX, sd);
+      sm90::named_sync(1 + grp, 64);
+      float other[NS][4];
+      get_frags(other, xs + (1 - part) * kX);
+      // ds = p (dp - delta), the same bits in both warps
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, col = koff + 8 * nt + 2 * c + (e & 1);
-          float x = s[nt][e] * scale;
-          if (!interior) {
-            x = masked(x, rows[i], k0 + col, Tq, Tkv, causal, keep_s[col]);
-          }
-          s[nt][e] = expf(x - row_lse[i]) * (dp[nt][e] - row_delta[i]);
+          const float p = part == 0 ? sd[nt][e] : other[nt][e];
+          const float dp = part == 0 ? other[nt][e] : sd[nt][e];
+          sd[nt][e] = p * (dp - row_delta[e >> 1]);
         }
       }
-      gemm_pb<NS, D>(acc, s, Kh + pw, Kl + pw);
+      gemm_pb_sw<NS, NH>(acc, sd, Kh, Kl, n0);
     }
-    if (it + 1 < n_tiles) {
-      cp_async_wait_all();
-      __syncthreads();
+    if (more) {
+      __syncthreads();  // the planes and the hand-overs are read
       all_keep = convert(kp);
-      if (it + 2 < n_tiles) kp = fetch(it + 2);
     }
   }
 
-  // warp w + 4's partial into the planes (every warp is done reading
-  // them), then warp w adds it, in one order, and writes
-  float* red = reinterpret_cast<float*>(Kh) + rw * (NO * 4 * 32) + lane;
-  __syncthreads();
-  if (part == 1) {
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[(nt * 4 + e) * 32] = acc[nt][e];
-    }
-  }
-  __syncthreads();
-  if (part == 1) return;
   float* dqb = dq + qoff;
 #pragma unroll
-  for (int nt = 0; nt < NO; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] += red[(nt * 4 + e) * 32];
+  for (int nt = 0; nt < NH; ++nt) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (rows[i] < Tq) {
-        put2(dqb + rows[i] * stride + 8 * nt + 2 * c, scale * acc[nt][2 * i],
+        put2(dqb + rows[i] * stride + n0 + 8 * nt + 2 * c, scale * acc[nt][2 * i],
              scale * acc[nt][2 * i + 1]);
       }
     }
   }
 }
 
-// dk, dv at D 256 for 64 key rows of one head: warp w accumulates dv and
-// warp w + 4 dk of the 16 key rows of group w % 4, walking the query
-// tiles from the causal diagonal down.
-template <int D>
+// dk, dv at D 256 for 64 key rows of one head, walking the 16-row query
+// tiles from the causal diagonal down: warpgroup 0 computes s^T (and warp
+// w, p^T for its 16 key rows) and accumulates dv; warpgroup 1 computes
+// dp^T, and warp w + 4 takes p^T from warp w, forms ds^T and accumulates
+// dk.
 __global__ void __launch_bounds__(tf32::kThreads, 1)
-flash_dkv_kernel_tf32_split(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const int* __restrict__ pad,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ delta, float* __restrict__ dk,
-                            float* __restrict__ dv, int Tq, int Tkv, int H, int causal,
-                            float scale) {
+flash_dkv_kernel_tf32_d256(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ pad,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, float* __restrict__ dk,
+                           float* __restrict__ dv, int Tq, int Tkv, int H, int causal,
+                           float scale) {
   using namespace tf32;
-  constexpr int OWN = bwd_rows<D>(), kGroups = OWN / 16;
-  using L = Layout<D, 2, OWN>;
-  constexpr int QT = L::R, NO = D / 8, NS = QT / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + L::own;
-  uint32_t* Qh = reinterpret_cast<uint32_t*>(Ks + L::planes_off);
-  uint32_t* Ql = Qh + L::plane;
-  uint32_t* Dh = Ql + L::plane;  // dO
-  uint32_t* Dl = Dh + L::plane;
-  float* Qraw = Ks + L::stage_off;
-  float* Draw = Qraw + L::stage;
-  float* lse_s = Ks + L::extra_off;
+  using W = Wide;
+  constexpr int D = W::D, OWN = W::kOwn, QT = W::kTile, kGroups = OWN / 16;
+  constexpr int NO = D / 8, NS = QT / 8, kX = W::kX;
+  static_assert(kWarps == 2 * kGroups, "a pair of warps a 16-row group");
+  static_assert(kGroups * kX <= QT * D, "p^T fits the q stage");
+  float* sm = wide_smem();
+  uint32_t* Qh = reinterpret_cast<uint32_t*>(sm + W::planes);
+  uint32_t* Ql = Qh + kSwLo;
+  uint32_t* Dh = Qh + kSwPlanes;  // dO
+  uint32_t* Dl = Dh + kSwLo;
+  float* Ks = sm + W::own;
+  float* Vs = Ks + OWN * D;
+  float* Qraw = sm + W::after;
+  float* Draw = Qraw + QT * D;
+  float* lse_s = Draw + QT * D;
   float* delta_s = lse_s + QT;
 
+  // causal: the first key blocks see the most query tiles, and the tile
+  // index is the grid's slower axis, so they start first
   const int h = blockIdx.x, b = blockIdx.z;
   const int k0 = blockIdx.y * OWN;
   const int64_t stride = static_cast<int64_t>(H) * D;
@@ -2548,10 +2831,11 @@ flash_dkv_kernel_tf32_split(const float* __restrict__ q, const float* __restrict
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, c = lane & 3;
-  const int m0 = 16 * (warp % kGroups);
+  const int grp = warp % kGroups, m0 = 16 * grp;
   const bool dk_warp = warp >= kGroups;
-  const int kw = k0 + m0;  // the warp's first key row
+  const int kw = k0 + m0;  // the pair's first key row
   const int kr[2] = {kw + g, kw + g + 8};
+  float* xp = Qraw + grp * kX;  // the pair's p^T, over the q stage
   bool keep[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -2560,84 +2844,105 @@ flash_dkv_kernel_tf32_split(const float* __restrict__ q, const float* __restrict
   }
   const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
 
+  // query tile `it`'s lse and delta into registers (threads < QT)
   float next_lse = 0.f, next_delta = 0.f;
-  auto fetch = [&](int it) {
+  auto fetch_stats = [&](int it) {
     const int q0 = (first + it) * QT;
-    load_rows<QT, D, false>(Qraw, q + qoff, q0, Tq, stride);
-    load_rows<QT, D, false>(Draw, dout + qoff, q0, Tq, stride);
-    cp_async_commit();
     if (threadIdx.x < QT) {
       const bool in = q0 + threadIdx.x < Tq;
       next_lse = in ? lse[stat0 + q0 + threadIdx.x] : 0.f;
       next_delta = in ? delta[stat0 + q0 + threadIdx.x] : 0.f;
     }
   };
+  // the landed stage into the planes (visible to wgmma), then a barrier
   auto convert = [&]() {
-    split_tile<QT, D>(Qh, Ql, Qraw);
-    split_tile<QT, D>(Dh, Dl, Draw);
+    split_tile_sw<D>(Qh, Ql, Qraw);
+    split_tile_sw<D>(Dh, Dl, Draw);
     if (threadIdx.x < QT) {
       lse_s[threadIdx.x] = next_lse;
       delta_s[threadIdx.x] = next_delta;
     }
+    sm90::fence_async_smem();
     __syncthreads();
   };
 
   load_rows<OWN, D, true>(Ks, k + koff, k0, Tkv, stride);
   load_rows<OWN, D, true>(Vs, v + koff, k0, Tkv, stride);
-  if (n_tiles > 0) {
-    fetch(0);  // k, v and query tile 0 in one group
-  } else {
-    cp_async_commit();
+  if (n_tiles > 0) {  // k, v and query tile 0 in one group
+    load_rows<QT, D, false>(Qraw, q + qoff, first * QT, Tq, stride);
+    load_rows<QT, D, false>(Draw, dout + qoff, first * QT, Tq, stride);
+    fetch_stats(0);
   }
+  cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
   if (n_tiles > 0) convert();
-  if (n_tiles > 1) fetch(1);
 
+  // warpgroup 0: s^T = k . q^T; warpgroup 1: dp^T = v . dO^T
+  const float* a_tile = dk_warp ? Vs : Ks;
+  const uint32_t b_tile = sm90::smem_u32(dk_warp ? Dh : Qh);
   float acc[NO][4];  // dv, or dk unscaled
   zero(acc);
   for (int it = 0; it < n_tiles; ++it) {
     const int q0 = (first + it) * QT;
-    if (kw < Tkv && !(causal && kw > q0 + QT - 1)) {
-      // p^T = exp(s^T - lse): rows are keys, columns queries
-      float p[NS][4];
-      zero(p);
-      gemm_abt<NS, D>(p, Ks, m0, Qh, Ql);
-      const bool interior = q0 + QT <= Tq && warp_keep && (!causal || kw + 15 <= q0);
-#pragma unroll
-      for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * nt + 2 * c + (e & 1);
-          float x = p[nt][e] * scale;
-          if (!interior) {
-            x = masked(x, q0 + col, kr[e >> 1], Tq, Tkv, causal, keep[e >> 1]);
-          }
-          p[nt][e] = expf(x - lse_s[col]);
-        }
-      }
-      if (!dk_warp) {
-        gemm_pb<NS, D>(acc, p, Dh, Dl);
-      } else {
-        // ds^T = p^T (dp^T - delta)
-        float dp[NS][4];
-        zero(dp);
-        gemm_abt<NS, D>(dp, Vs, m0, Dh, Dl);
+    const bool more = it + 1 < n_tiles;
+    if (more) {  // the next tile's dO, under this tile's products
+      load_rows<QT, D, false>(Draw, dout + qoff, q0 + QT, Tq, stride);
+      cp_async_commit();
+      fetch_stats(it + 1);
+    }
+    float sd[NS][4];
+    wgmma_abt<D, 2, 2>(sd, a_tile, m0, b_tile);
+    // a pair whose keys all lie after the tile's queries (causal), or past
+    // Tkv, has p^T = 0 there: it skips the rest
+    const bool active = kw < Tkv && !(causal && kw > q0 + QT - 1);
+    if (!dk_warp) {
+      if (active) {
+        // p^T = exp(s^T - lse): rows are keys, columns queries
+        const bool interior = q0 + QT <= Tq && warp_keep && (!causal || kw + 15 <= q0);
 #pragma unroll
         for (int nt = 0; nt < NS; ++nt) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            dp[nt][e] = p[nt][e] * (dp[nt][e] - delta_s[8 * nt + 2 * c + (e & 1)]);
+            const int col = 8 * nt + 2 * c + (e & 1);
+            float x = sd[nt][e] * scale;
+            if (!interior) {
+              x = masked(x, q0 + col, kr[e >> 1], Tq, Tkv, causal, keep[e >> 1]);
+            }
+            sd[nt][e] = expf(x - lse_s[col]);
           }
         }
-        gemm_pb<NS, D>(acc, dp, Qh, Ql);
+        put_frags(xp, sd);
+        sm90::named_arrive(1 + grp, 64);
+        gemm_pb_sw<NS, NO>(acc, sd, Dh, Dl, 0);
       }
+    } else {
+      if (active) {
+        float p[NS][4];
+        sm90::named_sync(1 + grp, 64);
+        get_frags(p, xp);
+        // ds^T = p^T (dp^T - delta)
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sd[nt][e] = p[nt][e] * (sd[nt][e] - delta_s[8 * nt + 2 * c + (e & 1)]);
+          }
+        }
+      }
+      // every dk warp has read its p^T: the q stage takes the next tile
+      sm90::named_sync(1 + kGroups, 32 * kGroups);
+      if (more) {
+        load_rows_by<QT, D, 32 * kGroups>(Qraw, q + qoff, q0 + QT, Tq, stride,
+                                          threadIdx.x - 32 * kGroups);
+        cp_async_commit();
+      }
+      if (active) gemm_pb_sw<NS, NO>(acc, sd, Qh, Ql, 0);
     }
-    if (it + 1 < n_tiles) {
+    if (more) {
       cp_async_wait_all();
       __syncthreads();  // the planes are read and the next stage has landed
       convert();
-      if (it + 2 < n_tiles) fetch(it + 2);
     }
   }
 
@@ -2680,15 +2985,26 @@ struct Args {
   float scale;
 };
 
-// the dq and dk/dv kernels of the split-TF32 family at D
+// the dq and dk/dv kernels of the split-TF32 family at D, and their
+// dynamic shared memory
+template <int D>
+constexpr size_t tf32_dq_smem() {
+  if constexpr (D == 256) return tf32::Wide::dq_bytes;
+  else return tf32::dq_smem<D>();
+}
+template <int D>
+constexpr size_t tf32_dkv_smem() {
+  if constexpr (D == 256) return tf32::Wide::dkv_bytes;
+  else return tf32::dkv_smem<D>();
+}
 template <int D>
 inline auto tf32_dq() {
-  if constexpr (D == 256) return flash_dq_kernel_tf32_split<D>;
+  if constexpr (D == 256) return flash_dq_kernel_tf32_d256;
   else return flash_dq_kernel_tf32<D>;
 }
 template <int D>
 inline auto tf32_dkv() {
-  if constexpr (D == 256) return flash_dkv_kernel_tf32_split<D>;
+  if constexpr (D == 256) return flash_dkv_kernel_tf32_d256;
   else return flash_dkv_kernel_tf32<D>;
 }
 
@@ -2714,12 +3030,12 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
     return launch(tf32_dq<D>(), dim3(a.H, n_q, a.B), tf32::kThreads,
-                  tf32::dq_smem<D>(), s, q, k, v, pad, dout,
+                  tf32_dq_smem<D>(), s, q, k, v, pad, dout,
                   static_cast<const float*>(a.o), lse, static_cast<float*>(a.delta),
                   static_cast<float*>(a.dq), a.Tq, a.Tkv, a.H, a.causal, a.scale);
   }
   return launch(tf32_dkv<D>(), dim3(a.H, n_kv, a.B), tf32::kThreads,
-                tf32::dkv_smem<D>(), s, q, k, v, pad, dout, lse,
+                tf32_dkv_smem<D>(), s, q, k, v, pad, dout, lse,
                 static_cast<const float*>(a.delta), static_cast<float*>(a.dk),
                 static_cast<float*>(a.dv), a.Tq, a.Tkv, a.H, a.causal, a.scale);
 }
@@ -2857,8 +3173,8 @@ void kernel_of_sm90<256>(int which, int W, const void** fn, size_t* smem) {
 template <int D>
 void kernel_of_tf32(int which, const void** fn, size_t* smem) {
   *smem = which == 0   ? tf32::fwd_smem<D>()
-          : which == 1 ? tf32::dq_smem<D>()
-                       : tf32::dkv_smem<D>();
+          : which == 1 ? tf32_dq_smem<D>()
+                       : tf32_dkv_smem<D>();
   *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_tf32<D>)
         : which == 1 ? reinterpret_cast<const void*>(tf32_dq<D>())
                      : reinterpret_cast<const void*>(tf32_dkv<D>());

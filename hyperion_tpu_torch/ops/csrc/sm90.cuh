@@ -444,6 +444,39 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_mn(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 16] += A[64 x 8] . B[8 x 16] in TF32 (an fp32 operand's top 19
+// bits): A from registers (each warp's 16 rows as an m16n8k8 TF32 A
+// fragment: rows g, g + 8, columns c, c + 4), B read from shared memory
+// K-major, the only layout wgmma takes for 32-bit operands (a k-step of 8
+// values is 32 bytes, as bf16's k16)
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_rs(float (&d)[8],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 8] . B[8 x 32] in TF32, as wgmma_m64n16k8_tf32_rs
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[64 x 128] += A[64 x 32] . B[32 x 128] in int8 with an exact int32 sum,
 // both read from shared memory K-major (the only layout wgmma takes for
 // 8-bit operands); the 32 k-values of a row are the same 32 bytes that one

@@ -23,9 +23,13 @@ kernel, kernel, library. For a causal case SDPA with `is_causal=True`
 (no mask) joins the turns: library, is_causal, kernel, kernel,
 is_causal, library; with key padding that call leaves the padding out,
 so it computes less than the kernel does and is a yardstick only.
+Then the dq and dk/dv launchers alone, twice each (`dq_kernel_ms`,
+`dkv_kernel_ms`).
 Each case is checked against the plain
 versions first (`chip_smoke.flash_close`: fp32 o and lse within 2e-5,
-gradients within 2e-4; bf16 as that function states), and its bounds
+gradients within 2e-4; bf16 as that function states), its outputs'
+bits are hashed (`digest`: two checkouts whose kernels agree to the bit
+print the same), and its bounds
 are this checkout's `chip_smoke.bound` (fp32: three TF32 passes at the
 dense TF32 rate). `--cases` runs the named cases only.
 
@@ -40,6 +44,7 @@ script runs old, new, new, old. Prints one JSON line a case, with
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import sys
@@ -98,6 +103,10 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
     refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, **mask)
     checks += [cs.flash_close(a, r, dtype, w, D)
                for a, r, w in zip(grads, refs, ("dq", "dk", "dv"))]
+    # the outputs' bits, to hold two checkouts' kernels to each other
+    digest = {w: hashlib.sha256(t.contiguous().view(torch.uint8).cpu()
+                                .numpy().tobytes()).hexdigest()[:16]
+              for w, t in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads))}
     del ro, rlse, refs, grads
     n = q.numel() * q.element_size()
     stats = B * H * T * 4 + (0 if pad is None else pad.numel())  # lse, mask
@@ -139,7 +148,8 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
            "padded_keys": 0 if pad is None else int((pad == 0).sum()),
            "ok": all(ok for ok, _ in checks),
            "max_abs_err": {w: e for w, (_, e) in
-                           zip(("o", "lse", "dq", "dk", "dv"), checks)}}
+                           zip(("o", "lse", "dq", "dk", "dv"), checks)},
+           "digest": digest}
     turns = ("library", "kernel", "kernel", "library")
     if causal:
         timers[("fwd", "library_is_causal")] = lambda: cs.time_ms(
@@ -156,13 +166,23 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
         for who in turns:
             rec.setdefault(f"{part}_{who}_ms", []).append(
                 timers[(part, who)]())
+    # the backward's two launchers alone, twice each: dq (delta included)
+    # and dk/dv (`dq_kernel_ms`, `dkv_kernel_ms`)
+    dims, pad32, ins = fa._bwd_inputs(q, k, v, o, lse, do, pad)
+    delta = fa._launch_dq(dims, pad32, *ins, causal)[1]
+    nk = 6 * n + 2 * stats
+    for part, fn, args in (
+            ("dq", lambda *a: fa._launch_dq(dims, pad32, *a, causal), ins),
+            ("dkv", lambda *a: fa._launch_dkv(dims, pad32, *a, causal),
+             (*ins, delta))):
+        rec[f"{part}_kernel_ms"] = [cs.time_ms(fn, args, nk) for _ in range(2)]
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = cs.bound(
         nf, 4.0 * D * H * pairs, dtype)
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = cs.bound(
         nb, 10.0 * D * H * pairs, dtype)
     rec["attrs"] = {w: fa.kernel_attrs(w, D, dtype)
                     for w in ("fwd", "dq", "dkv")}
-    del leaves, lib_o
+    del leaves, lib_o, ins, delta
     return rec
 
 

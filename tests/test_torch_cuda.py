@@ -688,7 +688,7 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                   "cross_causal_d128", "ragged_causal_d32",
                                   "causal_pad_d96", "causal_pad_d64",
                                   "two_tails_d64", "two_tails_d256",
-                                  "cross_causal_d256"])
+                                  "cross_causal_d256", "scaled_q_d256"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two runs of the whole backward (one delta for both kernels, which
     the dq kernel computes) give the same bits, and match the plain
@@ -719,8 +719,9 @@ def test_flash_hopper_forward_keeps_to_registers(cuda):
     160, whose D 256 forward stores only the columns below its width) are
     the warp-specialised kernels (three warpgroups), spill nothing to
     local memory and fit one block's shared memory. The fp32 forward, dq
-    and dk/dv are the split-TF32 kernels (8 warps) at every kernel head
-    dim, none spilling, each within 227 KB."""
+    and dk/dv are the split-TF32 kernels at every kernel head dim, none
+    spilling, each within 227 KB: 8 warps, and at D 256 the backward's
+    two warpgroups (wgmma's unit: 2 x 128 threads)."""
     for D in (*fa.HEAD_DIMS[torch.bfloat16], 160):
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.bfloat16)
@@ -730,8 +731,9 @@ def test_flash_hopper_forward_keeps_to_registers(cuda):
     for D in fa.HEAD_DIMS[torch.float32]:
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.float32)
-            assert attrs["threads"] == 256 and attrs["spill_bytes"] == 0, \
-                (which, D, attrs)
+            threads = 2 * 128 if D == 256 and which != "fwd" else 8 * 32
+            assert attrs["threads"] == threads and \
+                attrs["spill_bytes"] == 0, (which, D, attrs)
             assert attrs["smem_bytes"] <= 227 * 1024
 
 

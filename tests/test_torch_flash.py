@@ -617,6 +617,26 @@ def test_split_tf32_products_hold_the_fp32_bounds(masked, causal, q_scale):
                                    rtol=tol)
 
 
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_tf32_products_hold_the_fp32_bounds_at_d256(causal, q_scale):
+    """The same at head_dim 256 ([2, 64, 2, 256], the last row's tail
+    padding), within the bounds times `fp32_flash_growth(256)` = 2.83 (an
+    fp32 dot product's error grows as D·u·Σ|q k|, the logits are scaled
+    by 1/√D). The D 256 backward kernels sum the split terms of s, s^T, dp
+    and dp^T in two accumulators, lo·hi + hi·lo and hi·hi, added small
+    first: `_mm`'s order."""
+    q, k, v, g, mask = _inputs(shape=(2, 64, 2, 256), seed=12)
+    q = q * np.float32(q_scale)
+    got = _split_attention(q, k, v, g, mask, causal, passes=3)
+    want = _jax_attention(q, k, v, g, mask, causal)
+    growth = (256 / 128) ** 1.5
+    for i, (a, b) in enumerate(zip(got, want)):
+        tol = (2e-5 if i < 2 else 2e-4) * growth
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=tol,
+                                   rtol=tol)
+
+
 def test_one_tf32_pass_misses_the_fp32_bound():
     """hi·hi alone (one TF32 pass) misses the o bound with q scaled by 4:
     why the kernels take three."""
