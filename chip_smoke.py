@@ -1270,7 +1270,8 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     """The forward, dq and dk/dv kernels against the plain versions (the
     backward from the kernel's own o and lse), standalone and through
     `flash_attention_bwd` (one delta for both kernels, which the dq
-    kernel computes), whose two runs must be bit-identical;
+    kernel computes); two runs of the forward, and two of the whole
+    backward, must be bit-identical;
     each kernel's registers, spill and shared-memory bytes: no kernel
     spills, and bf16 runs the Hopper kernels (three warpgroups). With
     `timing`, kernel, plain, bound and library times, and the whole
@@ -1279,7 +1280,9 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
     from hyperion_tpu_torch.ops import flash_attention as fa
 
     dtype = q.dtype
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+    fwd = [fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+           for _ in range(2)]
+    o, lse = fwd[0]
     ro, rlse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                             padding_mask=pad)
     dq = fa.flash_attention_dq(q, k, v, o, lse, do, causal=causal,
@@ -1301,8 +1304,9 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
                                       close(dv, rdv, what="dv"),
                                       close(bwd[0][1], rdk, what="dk"),
                                       close(bwd[0][2], rdv, what="dv")]}
-    deterministic = all(torch.equal(a, b) for a, b in zip(*bwd))
-    del ro, rlse, rdq, rdk, rdv, bwd
+    deterministic = {"fwd": all(torch.equal(a, b) for a, b in zip(*fwd)),
+                     "bwd": all(torch.equal(a, b) for a, b in zip(*bwd))}
+    del ro, rlse, rdq, rdk, rdv, bwd, fwd
     B, T, H, D = q.shape
     base = {"phase": "kernels", "case": name,
             "dtype": str(dtype).split(".")[-1], "shape": list(q.shape),
@@ -1318,13 +1322,11 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         # registers
         ok = ok and not attrs["spill_bytes"] and \
             (attrs["threads"] == 384) == (dtype == torch.bfloat16)
-        if which != "fwd":
-            # two runs of the backward agree to the bit
-            ok = ok and deterministic
+        # two runs of the forward, and of the backward, agree to the bit
+        same = deterministic["fwd" if which == "fwd" else "bwd"]
         recs[kn] = {**base, "kernel": kn, **attrs,
-                    "max_abs_err": max(e for _, e in c), "ok": ok}
-    for kn in ("flash_attention_dq", "flash_attention_dkv"):
-        recs[kn]["deterministic"] = deterministic
+                    "max_abs_err": max(e for _, e in c),
+                    "deterministic": same, "ok": ok and same}
     if timing:
         it = q.element_size()
         n = q.numel() * it
@@ -1494,11 +1496,14 @@ def phase_flash_d256() -> dict:
     padding; H x D is half of Llama's 32 x 128), a ragged T = 1000 with
     100 keys padding, [2, 200, 8, 256] not causal with one batch row all
     padding, fp32 [2, 1024, 8, 256] causal and full and with q scaled by
-    4, D 160 and 192 on the D 256 kernels at their own widths (each
+    4, fp32 at a ragged T = 1000 with 100 keys padding and [2, 200, 8,
+    256] not causal with one batch row all padding (untimed), D 160 and
+    192 on the D 256 kernels at their own widths (each
     kernel launched; `check_flash_true_width`), and one layer of
     `phase_lm_d256`'s step ([2, 4096, 4, 256], causal, ragged
-    key padding). Returns the step layer's records ("lm_d256") and the
-    fp32 causal case's ("flash_d256_fp32") for the `kernels` line."""
+    key padding), in bf16 and in fp32 (the step's two dtypes). Returns
+    the step layer's records ("lm_d256", "lm_d256_fp32") and the fp32
+    causal case's ("flash_d256_fp32") for the `kernels` line."""
     bf16, fp32 = torch.bfloat16, torch.float32
     check_flash("d256_bf16_4096", *flash_case(
         1, 4096, 8, 256, bf16, 0.25, SEED + 40), causal=True, timing=True)
@@ -1518,6 +1523,14 @@ def phase_flash_d256() -> dict:
     check_flash("d256_fp32_scaled_q", *flash_case(
         2, 1024, 8, 256, fp32, 0.25, SEED + 44, q_scale=4.0), causal=True,
         timing=False)
+    # the fp32 forward's edges: a ragged T (no multiple of its 64-row
+    # blocks or 16-key tiles) with key padding, and a batch row whose keys
+    # are all padding (not causal: o the mean of v over the keys)
+    check_flash("d256_fp32_ragged_1000", *flash_case(
+        2, 1000, 8, 256, fp32, 0.1, SEED + 49), causal=True, timing=False)
+    check_flash("d256_fp32_all_pad_row_200", *flash_case(
+        2, 200, 8, 256, fp32, (1.0, 0.1), SEED + 50), causal=False,
+        timing=False)
     # D 160 and 192 run the D 256 kernels on the caller's tensors, the
     # columns past D read as zeros: bit-identical to host-padded copies
     for D in (160, 192):
@@ -1533,13 +1546,17 @@ def phase_flash_d256() -> dict:
                                  f"({rose})")
     gc.collect()
     torch.cuda.empty_cache()
-    step = check_flash("lm_d256_layer", *flash_case(
-        *LM_D256_SHAPE, bf16, 0.0, SEED + 46)[:4],
-        ragged_pad(LM_D256_SHAPE[0], LM_D256_SHAPE[1], SEED + 46),
-        causal=True, timing=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"lm_d256": step, "flash_d256_fp32": fp32_recs[True]}
+    step = {}
+    for run, dtype, seed in (("lm_d256", bf16, SEED + 46),
+                             ("lm_d256_fp32", fp32, SEED + 51)):
+        step[run] = check_flash(
+            "lm_d256_layer" + run[len("lm_d256"):], *flash_case(
+                *LM_D256_SHAPE, dtype, 0.0, seed)[:4],
+            ragged_pad(LM_D256_SHAPE[0], LM_D256_SHAPE[1], seed),
+            causal=True, timing=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {**step, "flash_d256_fp32": fp32_recs[True]}
 
 
 def _flash_launches() -> dict:
@@ -6016,8 +6033,9 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     activations and a weight, RMSNorm at the decode tick); and the D 256
     flash kernels (lm_d256: the bf16 kernels at the TransformerLM D 256
     step's layer, [2, 4096, 4, 256], with that step's launches;
-    flash_d256_fp32: the fp32 kernels at [2, 1024, 8, 256] causal, with
-    the public entry's launches). `run` names the run."""
+    lm_d256_fp32: the fp32 kernels at the same layer, with the fp32
+    step's launches; flash_d256_fp32: the fp32 kernels at [2, 1024, 8,
+    256] causal, with the public entry's launches). `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -6090,7 +6108,11 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                 for r in int8_kernel_recs["quantize_rows"]),
               ("fused_rmsnorm", rn)]),
             *((run, d256_recs[run], list(flash_recs[run].items()))
-              for run in ("lm_d256", "flash_d256_fp32")))
+              for run in ("lm_d256", "flash_d256_fp32")),
+            # lm_d256's fp32 step on the kernels, at its layer's shape
+            ("lm_d256_fp32", {"launches": d256_recs["lm_d256"][
+                "launches_fp32_pallas"]},
+             list(flash_recs["lm_d256_fp32"].items())))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
@@ -6107,7 +6129,7 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                         "checked": rec["ok"], "case": rec["case"],
                         "shape": rec["shape"], "dtype": rec["dtype"],
                         **{key: rec[key] for key in
-                           (*ATTR_KEYS, "path", "grad_shape",
+                           (*ATTR_KEYS, "function", "path", "grad_shape",
                             "bf16_linear_ms") if key in rec}})
     return {"kernels": out}
 

@@ -34,7 +34,7 @@
 // the softmax arithmetic runs beside the products, not between them.
 //
 // fp32 at D = 32, 64, 128 and 256 (`flash_fwd_kernel_tf32`,
-// `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`; at 256 the backward is
+// `flash_dq_kernel_tf32`, `flash_dkv_kernel_tf32`; at 256 all three are
 // `flash_*_kernel_tf32_d256`, see "fp32 at D = 256"): the same products on
 // the tensor cores as split TF32, within the reference's fp32 bounds
 // (o, lse 2e-5; gradients 2e-4) of the plain version:
@@ -47,7 +47,8 @@
 //     and five of the seven products read B along the rows of a [T, D]
 //     tile (p.v, dq, dk, dv); mma.sync loads B fragments by thread from
 //     any layout. (The D 256 backward runs its four K-major products on
-//     wgmma: "fp32 at D = 256" below.)
+//     wgmma, and the D 256 forward both of its, p . v over value planes
+//     it writes transposed: "fp32 at D = 256" below.)
 //   * 8 warps a block over 128 rows of the block's own side (q for the
 //     forward and dq, k and v for dk/dv), 16 rows a warp, resident in
 //     shared memory as raw fp32 (rows unpadded, 16-byte chunks XOR-
@@ -140,7 +141,9 @@
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdlib.h>
 
+#include <cxxabi.h>
 #include <type_traits>
 
 #include "sm90.cuh"
@@ -1669,11 +1672,12 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kRows = 16 * kWarps;  // the block's own rows
 
-// the streamed side's tile: 16 rows at D = 256, 32 at D = 128, 64 below
-// (what fits beside the resident tiles in 227 KB)
+// the streamed side's tile: 32 rows at D = 128, 64 below (what fits
+// beside the resident tiles in 227 KB); D 256 has kernels of its own
 template <int D>
 __host__ __device__ constexpr int tile_rows() {
-  return D == 256 ? 16 : D == 128 ? 32 : 64;
+  static_assert(D <= 128, "D 256: the `_d256` kernels");
+  return D == 128 ? 32 : 64;
 }
 
 // the backward kernels' own rows: 128, and 64 at D 256, where two
@@ -2328,9 +2332,10 @@ flash_dkv_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ------------------------------------------------ fp32 at D = 256 (TF32)
 //
-// The forward is `flash_fwd_kernel_tf32<256>`: 128 resident query rows
-// (128 KB) and 16-key streamed tiles (planes 65 KB, stage 32 KB): 230,464
-// bytes of the 232,448 a block may have; o takes 128 registers a thread.
+// The forward is `flash_fwd_kernel_tf32_d256` (its note is at the kernel):
+// 64 own query rows split once into planes read by wgmma, a producer
+// warpgroup splitting each key tile once into a ring of planes, s and
+// p . v on TF32 wgmma.
 //
 // The backward (`flash_dq_kernel_tf32_d256`, `flash_dkv_kernel_tf32_d256`)
 // cannot keep two [128][256] resident tiles (256 KB), so its blocks own 64
@@ -2960,6 +2965,416 @@ flash_dkv_kernel_tf32_d256(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// ------------------------------------------ fp32 forward at D = 256 (TF32)
+//
+// `flash_fwd_kernel_tf32_d256`: o (and lse) for 64 query rows of one
+// head. Two warpgroups: warpgroup 0 (the consumer) computes, warpgroup 1
+// (the producer) only loads and splits the streamed key tiles. Its
+// design answers what held back the 128-row kernel it replaces (the D
+// 256 instantiation of `flash_fwd_kernel_tf32`: one wave of 128 blocks at
+// [2, 1024, 8, 256], q re-split for every key tile, a block-wide barrier
+// and split every 16 keys, every product on mma.sync from scalar loads):
+//   * 64 own rows, one block a (head, batch, row tile) on a 1-D grid whose
+//     slowest index is the row tile, the longest causal tiles first: 256
+//     blocks at that shape, two waves on 132 SMs, so a causal run takes
+//     about the work it does (the sum of the blocks' tiles over the SMs),
+//     not the longest block's time.
+//   * q is split once a block into hi and lo planes (128 KB), read by
+//     wgmma straight from shared memory (A K-major under the 128-byte
+//     swizzle): s = q . k^T is, a k-step of 8 columns, hi . [hi | lo]
+//     (m64n32k8: hi.hi and hi.lo side by side) and lo . hi (m64n16k8) over
+//     a key tile's planes laid as the D 256 backward lays them (`sw_off`:
+//     each box's 16 hi rows, then its 16 lo rows), summed (lo.hi + hi.lo)
+//     + hi.hi as the backward's `wgmma_abt` does. (A second accumulator
+//     set ran no faster; A from registers, loaded from planes laid as the
+//     fragments, ran slower than A from shared memory.)
+//   * p . v contracts over keys, so v's planes are written transposed:
+//     256 rows (d) of the tile's 16 keys, 64 bytes a row under the 64-byte
+//     swizzle, the keys of each 8 in `frag_c2a`'s order (0, 2, 4, 6, 1, 3,
+//     5, 7). o += p . v then runs on wgmma too: A is p's C fragment split
+//     in registers, B each plane K-major, o the two m64n128 halves of one
+//     accumulator, each k-step lo.hi, hi.lo, hi.hi into it (the order of
+//     `mma3`).
+//   * The producer's two groups of 64 threads take the key tiles in
+//     turns: a group loads its tile's k and v rows from global memory
+//     into registers two tiles ahead, splits them once, writes the planes
+//     and arrives on the planes' "full" mbarrier; the consumer arrives on
+//     the "empty" one once its products have read them (v's by the tile's
+//     parity, so that each group waits on every phase of one barrier).
+//     Shared memory, from a 1024-byte boundary: q's planes 131,072 bytes,
+//     two k slots (hi and lo boxes, 32,768 bytes each), one v slot (two
+//     transposed planes, 32,768 bytes), keep flags and barriers: 229,560
+//     bytes, 230,584 with the alignment slack, of the 232,448 a block may
+//     have. So a k tile is written while the tile before it is used, and
+//     v's one slot while the next tile's s runs (a second v slot or a
+//     32-key tile does not fit).
+//   * The consumer issues tile j's s and then tile j - 1's p . v, runs tile
+//     j's softmax while p . v runs, and only its rescale of o waits for it
+//     (the first tile peeled: no wgmma sits under a condition, C7520; s j
+//     + 1 issued before that rescale got the wgmmas serialised, C7514).
+//   * The block's registers: 256 threads at up to 255 each (o is 128 a
+//     consumer thread), so no `setmaxnreg`.
+//   * Measured (PERF.md §6): a two-consumer version (each warpgroup
+//     half of D, q's hi parts in registers, partial s handed over, raw
+//     tiles staged by bulk copies) ran slower; its producer alone took as
+//     long as the whole of this kernel.
+namespace tf32 {
+
+struct FwdWide {
+  static constexpr int kRows = 64, kKeys = 16, D = 256;
+  uint32_t qh[kRows * D], ql[kRows * D];   // D / 32 boxes of [64][32] words
+  uint32_t k[2][kSwPlanes];                // two key tiles' planes
+  uint32_t vh[D * kKeys], vl[D * kKeys];   // one value tile's, transposed
+  int keep[2][kKeys];                      // the k slots' keep flags
+  // empty_v by the parity of the tile whose v was read: each producer
+  // group waits on one of them, phase after phase
+  uint64_t full_k[2], empty_k[2], full_v, empty_v[2];
+};
+static_assert(sizeof(FwdWide) + 1024 <= 232448, "one block's shared memory");
+
+// (row r, column col)'s word in a plane of q: box col / 32 of 64 rows of
+// 128 bytes, the 16-byte chunks of row r permuted by chunk ^ (r % 8)
+__device__ __forceinline__ int q_off(int r, int col) {
+  return (col >> 5) * (FwdWide::kRows * 32) + r * 32 +
+         ((((col & 31) >> 2) ^ (r & 7)) << 2) + (col & 3);
+}
+
+// the word of chunk `ch` (keys 4ch .. 4ch + 3 of the permuted order) of
+// row d of a transposed value plane: rows of 64 bytes, chunk ^ ((d / 2) % 4)
+__device__ __forceinline__ int vt_off(int d, int ch) {
+  return d * FwdWide::kKeys + ((ch ^ ((d >> 1) & 3)) << 2);
+}
+
+}  // namespace tf32
+
+__global__ void __launch_bounds__(tf32::kThreads, 1)
+flash_fwd_kernel_tf32_d256(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const int* __restrict__ pad,
+                           float* __restrict__ o, float* __restrict__ lse, int B,
+                           int Tq, int Tkv, int H, int causal, float scale) {
+  using namespace tf32;
+  using F = FwdWide;
+  constexpr int D = F::D, QR = F::kRows, KT = F::kKeys, NS = KT / 8;
+  static_assert(kThreads == 256, "a consumer and a producer warpgroup");
+  F& sm = *reinterpret_cast<F*>(wide_smem());
+
+  const int n_q = (Tq + QR - 1) / QR;
+  const int h = blockIdx.x % H, b = (blockIdx.x / H) % B;
+  const int tile = blockIdx.x / (H * B);
+  const int q0 = (causal ? n_q - 1 - tile : tile) * QR;
+  const int64_t stride = static_cast<int64_t>(H) * D;
+  const int64_t qoff = static_cast<int64_t>(b) * Tq * stride + h * D;
+  const float* kb = k + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const float* vb = v + static_cast<int64_t>(b) * Tkv * stride + h * D;
+  const int n_kv = (Tkv + KT - 1) / KT;
+  const int n_tiles = causal ? min(n_kv, min(q0 + QR - 1, Tq - 1) / KT + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&sm.full_k[s], 64);  // the tile's producer group
+      sm90::mbar_init(&sm.empty_k[s], 128);
+    }
+    sm90::mbar_init(&sm.full_v, 64);
+    sm90::mbar_init(&sm.empty_v[0], 128);
+    sm90::mbar_init(&sm.empty_v[1], 128);
+    sm90::fence_barrier_init();
+  }
+  // q's rows into their planes, split once for the block by every thread
+  for (int i = tid; i < QR * D / 4; i += kThreads) {
+    const int r = i / (D / 4), col = (i % (D / 4)) * 4;
+    const float4 x4 =
+        q0 + r < Tq
+            ? __ldg(reinterpret_cast<const float4*>(q + qoff + (q0 + r) * stride + col))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    uint32_t hi[4], lo[4];
+    split(x, hi, lo);
+    const int off = q_off(r, col);
+    *reinterpret_cast<uint4*>(sm.qh + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(sm.ql + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  sm90::fence_async_smem();
+  __syncthreads();
+
+  if (tid >= 128) {  // ---------------------------------------- producer
+    // two groups of 64 threads take the key tiles in turns, tile j going
+    // to group j % 2: each group's loads of its next tile are issued after
+    // its stores and land over two tiles of the consumer's work (the proxy
+    // fence before each arrive waits for every load of its own in flight)
+    const int t = tid - 128, gp = t >> 6, u = t & 63;
+    // a key tile's k rows (thread u: the 16-byte chunk u of each of the 16
+    // rows) and its keep flag (u < KT); its v values in columns u + 64x
+    float4 kx[KT];
+    bool kp = true;
+    float vx[4][KT];
+    auto load_k = [&](int j) {
+      const int k0 = j * KT;
+#pragma unroll
+      for (int r = 0; r < KT; ++r) {
+        kx[r] = k0 + r < Tkv
+                    ? __ldg(reinterpret_cast<const float4*>(kb + (k0 + r) * stride + 4 * u))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (u < KT) {
+        const int key = k0 + u;
+        kp = key < Tkv && (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+      }
+    };
+    auto store_k = [&](int s) {
+      uint32_t* hi = sm.k[s];
+#pragma unroll
+      for (int r = 0; r < KT; ++r) put_split_sw(hi, hi + kSwLo, r, 4 * u, kx[r]);
+      if (u < KT) sm.keep[s][u] = kp;
+      sm90::fence_async_smem();
+      sm90::mbar_arrive(&sm.full_k[s]);
+    };
+    auto load_v = [&](int j) {
+      const int k0 = j * KT;
+#pragma unroll
+      for (int key = 0; key < KT; ++key) {
+        const bool in = k0 + key < Tkv;
+        const float* row = vb + (k0 + key) * stride + u;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) vx[x][key] = in ? __ldg(row + 64 * x) : 0.f;
+      }
+    };
+    auto store_v = [&]() {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int d = u + 64 * x;
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) {
+          const int key0 = 8 * (ch >> 1) + (ch & 1);  // keys key0 + 0, 2, 4, 6
+          const float y[4] = {vx[x][key0], vx[x][key0 + 2], vx[x][key0 + 4],
+                              vx[x][key0 + 6]};
+          uint32_t hi[4], lo[4];
+          split(y, hi, lo);
+          const int off = vt_off(d, ch);
+          *reinterpret_cast<uint4*>(sm.vh + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(sm.vl + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+      }
+      sm90::fence_async_smem();
+      sm90::mbar_arrive(&sm.full_v);
+    };
+
+    // group gp: k gp into its slot; then, at each of its tiles j, v j into
+    // the v slot once v j - 1 is read and k j + 2 into k j's slot once k j
+    // is read, then the loads of v j + 2 and k j + 4
+    if (gp < n_tiles) {
+      load_k(gp);
+      store_k(gp);
+      load_v(gp);
+      if (gp + 2 < n_tiles) load_k(gp + 2);
+    }
+#pragma unroll 1
+    for (int j = gp; j < n_tiles; j += 2) {
+      if (j > 0) sm90::mbar_wait(&sm.empty_v[(j - 1) & 1], ((j - 1) >> 1) & 1);
+      store_v();
+      if (j + 2 < n_tiles) {
+        sm90::mbar_wait(&sm.empty_k[j & 1], (j >> 1) & 1);
+        store_k(j & 1);
+      }
+      if (j + 2 < n_tiles) load_v(j + 2);
+      if (j + 4 < n_tiles) load_k(j + 4);
+    }
+  } else {  // ------------------------------------------------ consumer
+    const int warp = tid >> 5, lane = tid & 31, c = lane & 3;
+    const int qw = q0 + 16 * warp;  // the warp's first query row
+    const int rows[2] = {qw + (lane >> 2), qw + (lane >> 2) + 8};
+    // the operands' descriptors at their first k-step; the one `off`
+    // bytes on adds off / 16 to the start address, its low 14 bits (every
+    // operand lies below 256 KB). Each tile takes them through an empty
+    // asm, so that the 104 descriptors of a tile are formed there and not
+    // hoisted out of the loop into registers.
+    const uint64_t dq_hi = sm90::desc_sw128(sm90::smem_u32(sm.qh), 16, 1024);
+    const uint64_t dq_lo = sm90::desc_sw128(sm90::smem_u32(sm.ql), 16, 1024);
+    const uint64_t dk0 = sm90::desc_sw128(sm90::smem_u32(sm.k[0]), 16, 1024);
+    const uint64_t dk1 = sm90::desc_sw128(sm90::smem_u32(sm.k[1]), 16, 1024);
+    const uint64_t dv_hi = sm90::desc_sw<64>(sm90::smem_u32(sm.vh), 16, 512);
+    const uint64_t dv_lo = sm90::desc_sw<64>(sm90::smem_u32(sm.vl), 16, 512);
+
+    float acc[2 * 64];  // o: two m64n128 halves (columns 0-127, 128-255)
+#pragma unroll
+    for (int i = 0; i < 2 * 64; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    float hb[16], lh[8];            // s's hi.hi then hi.lo; its lo.hi
+    float p[NS][4];                 // a tile's s, then p
+    uint32_t pa[NS][4], pl[NS][4];  // p's hi and lo A fragments
+    int keep[4];                    // the keep flags of this thread's columns
+    bool all_keep = true;
+
+    // this thread's keep flags of the tile in slot s, and whether the
+    // warp's (every key of the tile's) are all set
+    auto read_keep = [&](int s) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) keep[i] = sm.keep[s][8 * (i >> 1) + 2 * c + (i & 1)];
+      all_keep = __all_sync(0xffffffffu, keep[0] && keep[1] && keep[2] && keep[3]);
+    };
+    // s = q . k^T over the k slot s, issued as one group
+    auto issue_s = [&](int s) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hb[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) lh[i] = 0.f;
+      uint64_t ah = dq_hi, al = dq_lo, bk = s ? dk1 : dk0;
+      asm volatile("" : "+l"(ah), "+l"(al), "+l"(bk));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qk = ((kk >> 2) * (4 * QR * 32) + (kk & 3) * 32) >> 4;
+        const uint64_t db = bk + (((kk >> 2) * (4 * kSwBox) + (kk & 3) * 32) >> 4);
+        sm90::wgmma_m64n32k8_tf32_ss(hb, ah + qk, db);
+        sm90::wgmma_m64n16k8_tf32_ss(lh, al + qk, db);
+      }
+      sm90::wgmma_commit();
+    };
+    // o += p . v over the v slot, issued as one group: per k-step of 8
+    // keys and per half of D, lo.hi, hi.lo, hi.hi (`mma3`'s order)
+    auto issue_pv = [&]() {
+      uint64_t bh = dv_hi, bl = dv_lo;
+      asm volatile("" : "+l"(bh), "+l"(bl));
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < NS; ++ks) {
+        uint64_t dh[2], dl[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const uint32_t off = (x * (128 * 4 * KT) + ks * 32) >> 4;
+          dh[x] = bh + off;
+          dl[x] = bl + off;
+        }
+        float(&o0)[64] = *reinterpret_cast<float(*)[64]>(&acc[0]);
+        float(&o1)[64] = *reinterpret_cast<float(*)[64]>(&acc[64]);
+        sm90::wgmma_m64n128k8_tf32_rs(o0, pl[ks], dh[0]);
+        sm90::wgmma_m64n128k8_tf32_rs(o1, pl[ks], dh[1]);
+        sm90::wgmma_m64n128k8_tf32_rs(o0, pa[ks], dl[0]);
+        sm90::wgmma_m64n128k8_tf32_rs(o1, pa[ks], dl[1]);
+        sm90::wgmma_m64n128k8_tf32_rs(o0, pa[ks], dh[0]);
+        sm90::wgmma_m64n128k8_tf32_rs(o1, pa[ks], dh[1]);
+      }
+      sm90::wgmma_commit();
+    };
+    // the completed s into p: (lo.hi + hi.lo) + hi.hi
+    auto gather_s = [&]() {
+      sm90::fence_regs(hb);
+      sm90::fence_regs(lh);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[i >> 2][i & 3] = (lh[i] + hb[8 + i]) + hb[i];
+    };
+    // tile j's softmax against the running max: p, alpha, m and l
+    auto softmax = [&](int j) {
+      const int k0 = j * KT;
+      const bool interior = k0 + KT <= Tkv && all_keep && qw + 15 < Tq &&
+                            (!causal || k0 + KT - 1 <= qw);
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * nt + 2 * c + (e & 1);
+          float x = p[nt][e] * scale;
+          if (!interior) {
+            x = masked(x, rows[e >> 1], k0 + col, Tq, Tkv, causal, keep[2 * nt + (e & 1)]);
+          }
+          p[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = quad_max(mx[i]);
+        alpha[i] = expf(m[i] - mx[i]);
+        m[i] = mx[i];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NS; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[nt][e] = expf(p[nt][e] - m[e >> 1]);
+          sum[e >> 1] += p[nt][e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+    };
+    // p into the A fragments of o += p . v
+    auto split_p = [&]() {
+#pragma unroll
+      for (int ks = 0; ks < NS; ++ks) {
+        const FragA f = frag_c2a(p[ks]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[ks][e] = f.hi[e];
+          pl[ks][e] = f.lo[e];
+        }
+      }
+    };
+
+    // tile 0: s alone
+    sm90::mbar_wait(&sm.full_k[0], 0);
+    read_keep(0);
+    issue_s(0);
+    sm90::wgmma_wait<0>();
+    gather_s();
+    sm90::mbar_arrive(&sm.empty_k[0]);
+    softmax(0);
+    split_p();
+    for (int j = 1; j < n_tiles; ++j) {
+      const int s = j & 1;
+      sm90::mbar_wait(&sm.full_k[s], (j >> 1) & 1);
+      read_keep(s);
+      issue_s(s);
+      sm90::mbar_wait(&sm.full_v, (j - 1) & 1);
+      issue_pv();  // tile j - 1's
+      sm90::wgmma_wait<1>();  // s is done
+      gather_s();
+      sm90::mbar_arrive(&sm.empty_k[s]);
+      softmax(j);
+      sm90::wgmma_wait<0>();  // p . v is done
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      sm90::fence_regs(pl);
+      sm90::mbar_arrive(&sm.empty_v[(j - 1) & 1]);
+      // o *= alpha, skipped where no row of the warp's max moved (x 1 is
+      // exact, so the bits are those of the multiply)
+      if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
+#pragma unroll
+        for (int i = 0; i < 2 * 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+      split_p();
+    }
+    sm90::mbar_wait(&sm.full_v, (n_tiles - 1) & 1);
+    issue_pv();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    sm90::fence_regs(pa);
+    sm90::fence_regs(pl);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] = fmaxf(l[i], 1e-30f);
+      if (lse != nullptr && c == 0 && rows[i] < Tq) {
+        lse[(static_cast<int64_t>(b) * H + h) * Tq + rows[i]] = m[i] + logf(l[i]);
+      }
+    }
+    float* ob = o + qoff;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (rows[i] < Tq) {
+          put2(ob + rows[i] * stride + 8 * nt + 2 * c, acc[4 * nt + 2 * i] / l[i],
+               acc[4 * nt + 2 * i + 1] / l[i]);
+        }
+      }
+    }
+  }
+}
+
 // ----------------------------------------------------------- launchers
 
 template <typename Kernel, typename... Args>
@@ -2985,8 +3400,18 @@ struct Args {
   float scale;
 };
 
-// the dq and dk/dv kernels of the split-TF32 family at D, and their
-// dynamic shared memory
+// the forward, dq and dk/dv kernels of the split-TF32 family at D, and
+// their dynamic shared memory
+template <int D>
+constexpr size_t tf32_fwd_smem() {
+  if constexpr (D == 256) return sizeof(tf32::FwdWide) + 1024;
+  else return tf32::fwd_smem<D>();
+}
+template <int D>
+inline auto tf32_fwd() {
+  if constexpr (D == 256) return flash_fwd_kernel_tf32_d256;
+  else return flash_fwd_kernel_tf32<D>;
+}
 template <int D>
 constexpr size_t tf32_dq_smem() {
   if constexpr (D == 256) return tf32::Wide::dq_bytes;
@@ -3009,7 +3434,8 @@ inline auto tf32_dkv() {
 }
 
 // the split-TF32 kernels (fp32): grids of (head, row tile, batch), the
-// forward's tiles 128 rows, the backward's `tf32::bwd_rows`
+// forward's tiles 128 rows, the backward's `tf32::bwd_rows`; at D 256 the
+// forward's 64-row tiles on a 1-D grid, the row tile its slowest index
 template <int D>
 cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
   const float* q = static_cast<const float*>(a.q);
@@ -3021,10 +3447,20 @@ cudaError_t run_tf32(int which, const Args& a, cudaStream_t s) {
                   (which == 0 ? tf32::kRows : kBwd);
   const int n_kv = (a.Tkv + kBwd - 1) / kBwd;
   if (which == 0) {
-    return launch(flash_fwd_kernel_tf32<D>, dim3(a.H, n_q, a.B), tf32::kThreads,
-                  tf32::fwd_smem<D>(), s, q, k, v, pad,
-                  static_cast<float*>(a.out_o), static_cast<float*>(a.lse), a.Tq,
-                  a.Tkv, a.H, a.causal, a.scale);
+    if constexpr (D == 256) {
+      constexpr int R = tf32::FwdWide::kRows;
+      const int64_t blocks = static_cast<int64_t>(a.H) * a.B * ((a.Tq + R - 1) / R);
+      if (blocks >= (int64_t{1} << 31)) return cudaErrorInvalidValue;
+      return launch(tf32_fwd<D>(), dim3(static_cast<unsigned>(blocks)),
+                    tf32::kThreads, tf32_fwd_smem<D>(), s, q, k, v, pad,
+                    static_cast<float*>(a.out_o), static_cast<float*>(a.lse), a.B,
+                    a.Tq, a.Tkv, a.H, a.causal, a.scale);
+    } else {
+      return launch(tf32_fwd<D>(), dim3(a.H, n_q, a.B), tf32::kThreads,
+                    tf32_fwd_smem<D>(), s, q, k, v, pad,
+                    static_cast<float*>(a.out_o), static_cast<float*>(a.lse), a.Tq,
+                    a.Tkv, a.H, a.causal, a.scale);
+    }
   }
   const float* dout = static_cast<const float*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse_in);
@@ -3172,10 +3608,10 @@ void kernel_of_sm90<256>(int which, int W, const void** fn, size_t* smem) {
 
 template <int D>
 void kernel_of_tf32(int which, const void** fn, size_t* smem) {
-  *smem = which == 0   ? tf32::fwd_smem<D>()
+  *smem = which == 0   ? tf32_fwd_smem<D>()
           : which == 1 ? tf32_dq_smem<D>()
                        : tf32_dkv_smem<D>();
-  *fn = which == 0   ? reinterpret_cast<const void*>(flash_fwd_kernel_tf32<D>)
+  *fn = which == 0   ? reinterpret_cast<const void*>(tf32_fwd<D>())
         : which == 1 ? reinterpret_cast<const void*>(tf32_dq<D>())
                      : reinterpret_cast<const void*>(tf32_dkv<D>());
 }
@@ -3227,9 +3663,10 @@ extern "C" int hyperion_flash_dkv(const void* q, const void* k, const void* v,
 // What the compiler gave the kernel that `which` (0 forward, 1 dq, 2 dk/dv)
 // launches at this D, width W and dtype: out = {registers a thread,
 // local-memory (spill) bytes a thread, shared memory a block (static +
-// dynamic), threads a block}.
+// dynamic), threads a block}, and in `name` (`cap` bytes, cut there) the
+// launched function's signature as the runtime names it, demangled.
 extern "C" int hyperion_flash_attrs(int which, int D, int W, int dtype,
-                                    int* out) {
+                                    int* out, char* name, int cap) {
   const void* fn = nullptr;
   size_t smem = 0;
   int threads = 0;
@@ -3249,8 +3686,18 @@ extern "C" int hyperion_flash_attrs(int which, int D, int W, int dtype,
   }
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return static_cast<int>(e);
+  const char* mangled = nullptr;
+  if ((e = cudaFuncGetName(&mangled, fn)) != cudaSuccess) return static_cast<int>(e);
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int status = 0;
+  char* full = abi::__cxa_demangle(mangled, nullptr, nullptr, &status);
+  const char* src = status == 0 ? full : mangled;
+  int n = 0;
+  for (; src[n] != '\0' && n < cap - 1; ++n) name[n] = src[n];
+  name[n] = '\0';
+  free(full);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
   out[2] = static_cast<int>(attr.sharedSizeBytes + smem);

@@ -41,7 +41,7 @@ product as three TF32 tensor-core passes over operands split as
 x = hi + lo, `split_tf32` being the split's plain model), within the
 reference's fp32 bounds of the plain versions.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
-spills, shared memory). `flash_attention` is the
+spills, shared memory, the function's name). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
 v, the mask, o and lse, as the reference's `_fwd` does, and runs the
 two backward kernels; a call that needs no gradient skips the lse
@@ -77,8 +77,10 @@ _FWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]
 _DQ_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
 # q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, W, causal; ...
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
-# which (0 forward, 1 dq, 2 dk/dv), D, W, dtype, int out[4]
-_ATTRS_ARGTYPES = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+# which (0 forward, 1 dq, 2 dk/dv), D, W, dtype, int out[4]; the
+# function's name and its buffer's bytes
+_ATTRS_ARGTYPES = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_char_p, _I]
 
 
 def _scale(D: int) -> float:
@@ -340,21 +342,33 @@ def _launch_dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
     return _unpad(dk, D), _unpad(dv, D)
 
 
+def function_name(signature: str) -> str:
+    """A kernel's name from the signature the runtime gives it, demangled:
+    `void (anonymous namespace)::flash_fwd_kernel_tf32<128>(float const*,
+    ...)` is `flash_fwd_kernel_tf32<128>`."""
+    head = signature.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.removeprefix("void ")
+
+
 def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     """What the compiler gave the kernel that `which` ("fwd", "dq", "dkv")
     launches at this head_dim (that is, at its kernel head_dim and the
     width its tensors reach it at) and dtype: registers and local-memory
-    (spill) bytes a thread, shared memory and threads a block. Needs the
-    card."""
+    (spill) bytes a thread, shared memory and threads a block, and the
+    name of the function the launch runs, as the runtime names the one
+    the C dispatch picked (`function_name`). Needs the card."""
     fn = build.function("flash_attention", "hyperion_flash_attrs",
                         _ATTRS_ARGTYPES)
     out = (ctypes.c_int * 4)()
+    name = ctypes.create_string_buffer(512)
     Dk = kernel_head_dim(D, dtype)
     build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], Dk,
-                   Dk if host_padded(D, dtype) else D, _DTYPES[dtype], out),
+                   Dk if host_padded(D, dtype) else D, _DTYPES[dtype], out,
+                   name, len(name)),
                 "flash_attention kernel attributes")
     return {"registers": out[0], "spill_bytes": out[1],
-            "smem_bytes": out[2], "threads": out[3]}
+            "smem_bytes": out[2], "threads": out[3],
+            "function": function_name(name.value.decode())}
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, padding_mask=None,

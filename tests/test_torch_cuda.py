@@ -705,6 +705,28 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
         _flash_close(out, ref, dtype, name, q.shape[-1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", ["causal_pad_d128", "all_pad_row_d256",
+                                  "cross_causal_long_q_d256",
+                                  "two_tails_d256", "scaled_q_d256"])
+def test_flash_forward_is_deterministic(cuda, case, dtype):
+    """Two runs of the forward give the same bits for o and lse, and match
+    the plain version. At D 256 in fp32 the forward's key tiles pass
+    from a producer warpgroup through a ring of shared-memory slots: a
+    slot read before it is filled, or refilled before it is read, would
+    show as o that differs between runs."""
+    q, k, v, _, pad, causal = _flash_inputs(cuda, dtype, case, seed=48)
+    runs = [fa.flash_attention_fwd(q, k, v, causal=causal, padding_mask=pad)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            padding_mask=pad)
+    _flash_close(runs[0][0], ro, dtype, "o", q.shape[-1])
+    _flash_close(runs[0][1], rlse, dtype, "lse", q.shape[-1])
+
+
 def test_flash_hopper_backward_keeps_to_registers(cuda):
     """The bf16 D 128 backward kernels are the warp-specialised ones (three
     warpgroups) and spill nothing to local memory."""
@@ -720,8 +742,11 @@ def test_flash_hopper_forward_keeps_to_registers(cuda):
     the warp-specialised kernels (three warpgroups), spill nothing to
     local memory and fit one block's shared memory. The fp32 forward, dq
     and dk/dv are the split-TF32 kernels at every kernel head dim, none
-    spilling, each within 227 KB: 8 warps, and at D 256 the backward's
-    two warpgroups (wgmma's unit: 2 x 128 threads)."""
+    spilling, each within 227 KB: 8 warps, and at D 256 two warpgroups
+    (wgmma's unit: 2 x 128 threads; the forward's a consumer and a
+    producer). Each launch runs the function the runtime names: at D 256
+    in fp32 the `_d256` kernels, the forward's with its own 230,584 bytes
+    of shared memory."""
     for D in (*fa.HEAD_DIMS[torch.bfloat16], 160):
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.bfloat16)
@@ -731,10 +756,14 @@ def test_flash_hopper_forward_keeps_to_registers(cuda):
     for D in fa.HEAD_DIMS[torch.float32]:
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.float32)
-            threads = 2 * 128 if D == 256 and which != "fwd" else 8 * 32
+            threads = 2 * 128 if D == 256 else 8 * 32
             assert attrs["threads"] == threads and \
                 attrs["spill_bytes"] == 0, (which, D, attrs)
             assert attrs["smem_bytes"] <= 227 * 1024
+            stem = f"flash_{which}_kernel_tf32"
+            assert attrs["function"] == (f"{stem}_d256" if D == 256
+                                         else f"{stem}<{D}>"), attrs
+    assert fa.kernel_attrs("fwd", 256, torch.float32)["smem_bytes"] == 230_584
 
 
 def test_flash_autograd_runs_the_three_kernels(cuda):

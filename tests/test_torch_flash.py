@@ -195,6 +195,25 @@ def test_kernel_head_dim(D, dtype):
     assert fa.kernel_head_dim(D, dtype) == want
 
 
+@pytest.mark.parametrize("signature,name", [
+    ("(anonymous namespace)::flash_fwd_kernel_tf32_d256(float const*, "
+     "float const*, float const*, int const*, float*, float*, int, int, "
+     "int, int, int, float)", "flash_fwd_kernel_tf32_d256"),
+    ("void (anonymous namespace)::flash_fwd_kernel_tf32<128>(float const*, "
+     "float const*, float const*, int const*, float*, float*, int, int, "
+     "int, int, float)", "flash_fwd_kernel_tf32<128>"),
+    ("void (anonymous namespace)::flash_fwd_kernel_sm90_d256<false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int const*, "
+     "__nv_bfloat16*, float*, int, int, int, int, int, float)",
+     "flash_fwd_kernel_sm90_d256<false>"),
+    ("flash_kernel_c", "flash_kernel_c")],
+    ids=["plain", "template", "bool_template", "not_mangled"])
+def test_function_name_from_the_runtime(signature, name):
+    """`kernel_attrs` names the launched function from the signature the
+    runtime gives it, demangled (or as given where it was not mangled)."""
+    assert fa.function_name(signature) == name
+
+
 def test_bf16_forward_close_to_jax():
     q, k, v, _, mask = _inputs(seed=2)
     jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
@@ -617,19 +636,73 @@ def test_split_tf32_products_hold_the_fp32_bounds(masked, causal, q_scale):
                                    rtol=tol)
 
 
-@pytest.mark.parametrize("q_scale", [1.0, 4.0])
-@pytest.mark.parametrize("causal", [False, True])
-def test_split_tf32_products_hold_the_fp32_bounds_at_d256(causal, q_scale):
+def _split_forward_tiles(q, k, v, mask, causal, tile=16):
+    """(o, lse) in the D 256 forward kernel's order of sums: 16-key tiles
+    under the online softmax; s of a tile with hi·hi, hi·lo and lo·hi
+    summed apart over D and added (lo·hi + hi·lo) + hi·hi; o one chain,
+    each 8-key step adding lo·hi, then hi·lo, then hi·hi of p · v,
+    rescaled by each tile's alpha. [B, T, H, D] in, as the kernel."""
+    qh, kh, vh = (torch.from_numpy(a).permute(0, 2, 1, 3) for a in (q, k, v))
+    Tq, Tkv, D = qh.shape[2], kh.shape[2], qh.shape[-1]
+    scale = fa._scale(D)
+    (q_hi, q_lo), (k_hi, k_lo), (v_hi, v_lo) = (fa.split_tf32(t)
+                                                for t in (qh, kh, vh))
+    keep = torch.ones(q.shape[0], 1, Tq, Tkv, dtype=torch.bool)
+    if causal:
+        keep = keep & torch.ones(Tq, Tkv, dtype=torch.bool).tril()
+    if mask is not None:
+        keep = keep & torch.from_numpy(mask).bool()[:, None, None, :]
+    m = torch.full(qh.shape[:3] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for k0 in range(0, Tkv, tile):
+        kt = slice(k0, k0 + tile)
+        hh = q_hi @ k_hi[:, :, kt].transpose(-1, -2)
+        hl = q_hi @ k_lo[:, :, kt].transpose(-1, -2)
+        lh = q_lo @ k_hi[:, :, kt].transpose(-1, -2)
+        s = (((lh + hl) + hh) * scale).masked_fill(~keep[..., kt], fa.NEG_INF)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        m = mx
+        p = torch.exp(s - m)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        p_hi, p_lo = fa.split_tf32(p)
+        for j in range(k0, min(k0 + tile, Tkv), 8):
+            ps, vs = slice(j - k0, j - k0 + 8), slice(j, j + 8)
+            acc = acc + p_lo[..., ps] @ v_hi[:, :, vs]
+            acc = acc + p_hi[..., ps] @ v_lo[:, :, vs]
+            acc = acc + p_hi[..., ps] @ v_hi[:, :, vs]
+    l = l.clamp_min(1e-30)
+    return (acc / l).permute(0, 2, 1, 3), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("order,causal,q_scale", [
+    pytest.param(order, causal, q_scale,
+                 id=f"{order}-{causal}-{q_scale}" if order == "fwd_tiles"
+                 else f"{causal}-{q_scale}")
+    for order in ("products", "fwd_tiles")
+    for q_scale in (1.0, 4.0) for causal in (False, True)])
+def test_split_tf32_products_hold_the_fp32_bounds_at_d256(order, causal,
+                                                          q_scale):
     """The same at head_dim 256 ([2, 64, 2, 256], the last row's tail
     padding), within the bounds times `fp32_flash_growth(256)` = 2.83 (an
     fp32 dot product's error grows as D·u·Σ|q k|, the logits are scaled
     by 1/√D). The D 256 backward kernels sum the split terms of s, s^T, dp
     and dp^T in two accumulators, lo·hi + hi·lo and hi·hi, added small
-    first: `_mm`'s order."""
+    first: `_mm`'s order ("products"). The D 256 forward kernel sums s
+    alike, a 16-key tile at a time, and o on one chain per 8-key step
+    under the online softmax ("fwd_tiles": o and lse)."""
     q, k, v, g, mask = _inputs(shape=(2, 64, 2, 256), seed=12)
     q = q * np.float32(q_scale)
-    got = _split_attention(q, k, v, g, mask, causal, passes=3)
-    want = _jax_attention(q, k, v, g, mask, causal)
+    if order == "fwd_tiles":
+        got = _split_forward_tiles(q, k, v, mask, causal)
+        o, lse = _flash_forward(*(jnp.asarray(a) for a in (q, k, v)),
+                                jnp.asarray(mask), causal, 16, 32)
+        want = (o, np.asarray(lse)[..., 0])
+    else:
+        got = _split_attention(q, k, v, g, mask, causal, passes=3)
+        want = _jax_attention(q, k, v, g, mask, causal)
     growth = (256 / 128) ** 1.5
     for i, (a, b) in enumerate(zip(got, want)):
         tol = (2e-5 if i < 2 else 2e-4) * growth
