@@ -245,13 +245,14 @@ struct Ring<64> {
 };
 
 // D 256 (see "bf16 at D = 256" below): the forward's 64-key stages and
-// dk/dv's 64-row query stages are 64 KB each, dq's 32-row key stages 32
-// KB; two of each fit beside the resident 64 or 128 KB.
+// dk/dv's 64-row query stages are 64 KB each, two of each beside the
+// resident 64 KB; dq streams 64-key tiles through slots of its own
+// (`DqSmemWide`).
 template <>
 struct Ring<256> {
   static constexpr int kFwd = 2;
   static constexpr int kBwd = 2;
-  static constexpr int kBwdRows = 32;  // dq; dk/dv streams 64-row tiles
+  static constexpr int kBwdRows = 64;
 };
 
 // D 80 and 96 (64 + 16 and 64 + 32 columns) run the D 128 design on their
@@ -318,9 +319,11 @@ struct FwdSmem {
 };
 
 // D 256: the forward's stages hold 64-key tiles (k and v 32 KB each) beside
-// the block's 128 query rows (64 KB); dk/dv's block owns 64 key rows (k
-// and v 32 KB each) and streams 64-row q and dO tiles (32 KB each). Two
-// stages each: 197 KB and 198 KB.
+// the block's 128 query rows (64 KB), two stages: 197 KB. dk/dv's block
+// owns 64 key rows (k and v 32 KB each) and streams 64-row q and dO tiles
+// (32 KB each) through two stages, each with a 16 KB buffer for the p^T
+// that consumer 0 hands to consumer 1. dq keeps the block's 128 query rows
+// of q and dO (128 KB) beside 64-key tiles of k in two slots and v in one.
 constexpr int kWideKeys = 64;
 
 struct FwdSmemWide {
@@ -334,15 +337,34 @@ struct FwdSmemWide {
 };
 
 struct DkvSmemWide {
-  static constexpr int S = Ring<256>::kBwd, R = 64;
+  static constexpr int S = Ring<256>::kBwd, R = Ring<256>::kBwdRows;
   uint8_t k[kHalf<256>];  // the block's 64 key rows: [box]
   uint8_t v[kHalf<256>];
   uint8_t q[S][kTile<256, R>];  // a 64-row query tile: [box]
   uint8_t dout[S][kTile<256, R>];
+  // p^T of the stage's tile, fp32: float4 j of consumer thread t at
+  // [j][t], so a warp's stores and loads cover 512 consecutive bytes
+  float4 pt[S][R / 8][128];
   float lse[S][R];
   float delta[S][R];
   uint64_t kv_full, full[S], empty[S];
 };
+
+struct DqSmemWide {
+  static constexpr int R = Ring<256>::kBwdRows;  // keys a streamed tile
+  uint8_t q[2 * kHalf<256>];  // the block's 128 query rows: [consumer][box]
+  uint8_t dout[2 * kHalf<256>];
+  uint8_t k[2][kTile<256, R>];  // two key slots: [box]
+  uint8_t v[kTile<256, R>];     // one value slot
+  int keep[2][R];               // key kept, with the k slot
+  int all_keep[2];
+  float delta[128];
+  uint64_t qd_full, k_full[2], k_empty[2], v_full, v_empty;
+};
+
+// the launch asks for sizeof + 1024 of the 232,448 bytes a block may have
+static_assert(sizeof(DkvSmemWide) + 1024 <= 232448, "dk/dv fits one block");
+static_assert(sizeof(DqSmemWide) + 1024 <= 232448, "dq fits one block");
 
 // the block's shared memory, its start rounded up to 1024 bytes (the
 // swizzle's period); the launch asks for sizeof(S) + 1024
@@ -568,6 +590,54 @@ __device__ __forceinline__ void online_softmax(
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+}
+
+// delta = sum(dO * O) over one consumer's 64 rows of a dq block, from row
+// row0: into `sm_delta` (those 64 rows) and, below Tq, into `delta` for the
+// dk/dv launch. Two threads a row, D / 2 columns (D / 16 chunks of 16
+// bytes) each; at D 80 and 96 the first 64 columns and the rest, as the D
+// 128 kernel splits them, so that both sum in one order. dO from the
+// resident (swizzled) tile, whose columns past W are zeros; o's chunks at
+// or past W are not read and add 0 * 0.
+template <int D>
+__device__ __forceinline__ void dq_delta(const uint8_t* dout_tile,
+                                         const bf16* o, float* sm_delta,
+                                         float* delta, int64_t stat0, int row0,
+                                         int b, int h, int Tq, int H, int W) {
+  constexpr int kCh = D % 64 != 0 ? 8 : D / 16;  // thread 0's chunks
+  const int t = threadIdx.x & 127;
+  const int row = t >> 1, x = t & 1;
+  const int n_ch = x == 0 ? kCh : D / 8 - kCh;
+  const int qrow = row0 + row;
+  float sum = 0.f;
+  if (qrow < Tq) {
+    const bf16* orow =
+        o + (static_cast<int64_t>(b) * Tq + qrow) * (static_cast<int64_t>(H) * W) +
+        h * W;
+#pragma unroll
+    for (int ch = 0; ch < kCh; ++ch) {
+      if (ch >= n_ch) break;
+      const int gc = x * kCh + ch;  // the chunk's place in the row
+      const uint4 dv4 = *reinterpret_cast<const uint4*>(
+          dout_tile + tile_offset<D>(row, 8 * gc, kBox));
+      const uint4 ov4 = 8 * gc < W ? *reinterpret_cast<const uint4*>(orow + 8 * gc)
+                                   : make_uint4(0, 0, 0, 0);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 a = __bfloat1622float2(d2[e]);
+        const float2 bb = __bfloat1622float2(o2[e]);
+        sum = fmaf(a.x, bb.x, sum);
+        sum = fmaf(a.y, bb.y, sum);
+      }
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (x == 0) {
+    sm_delta[row] = sum;
+    if (qrow < Tq) delta[stat0 + qrow] = sum;
+  }
 }
 
 }  // namespace wgp
@@ -1082,49 +1152,9 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
     const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
     sm90::mbar_wait(&sm.qd_full, 0);
 
-    // delta = sum(dO * O) over this consumer's 64 rows: two threads a row,
-    // D / 2 columns (D / 16 chunks of 16 bytes) each; at D 80 and 96 the
-    // first 64 columns and the rest, as the D 128 kernel splits them, so
-    // that both sum in one order. dO from the resident (swizzled) tile,
-    // whose columns past W are zeros; o's chunks at or past W are not read
-    // and add 0 * 0
-    {
-      constexpr int kCh = D % 64 != 0 ? 8 : D / 16;  // thread 0's chunks
-      const int row = t >> 1, x = t & 1;
-      const int n_ch = x == 0 ? kCh : D / 8 - kCh;
-      const int qrow = q0 + 64 * wg + row;
-      float sum = 0.f;
-      if (qrow < Tq) {
-        const uint8_t* tile = sm.dout + wg * kH;
-        const bf16* orow = o + (static_cast<int64_t>(b) * Tq + qrow) * stride +
-                           h * W;
-#pragma unroll
-        for (int ch = 0; ch < kCh; ++ch) {
-          if (ch >= n_ch) break;
-          const int gc = x * kCh + ch;  // the chunk's place in the row
-          const uint4 dv4 = *reinterpret_cast<const uint4*>(
-              tile + tile_offset<D>(row, 8 * gc, kBox));
-          const uint4 ov4 = 8 * gc < W
-                                ? *reinterpret_cast<const uint4*>(orow + 8 * gc)
-                                : make_uint4(0, 0, 0, 0);
-          const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv4);
-          const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov4);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = __bfloat1622float2(d2[e]);
-            const float2 bb = __bfloat1622float2(o2[e]);
-            sum = fmaf(a.x, bb.x, sum);
-            sum = fmaf(a.y, bb.y, sum);
-          }
-        }
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if (x == 0) {
-        sm.delta[64 * wg + row] = sum;
-        if (qrow < Tq) delta[stat0 + qrow] = sum;
-      }
-      sm90::named_sync(1 + wg, 128);
-    }
+    dq_delta<D>(sm.dout + wg * kH, o, sm.delta + 64 * wg, delta, stat0,
+                q0 + 64 * wg, b, h, Tq, H, W);
+    sm90::named_sync(1 + wg, 128);
 
     const int qw = q0 + 64 * wg + 16 * warp;  // the warp's first query row
     const int qr[2] = {qw + g, qw + g + 8};
@@ -1244,22 +1274,49 @@ flash_dq_kernel_sm90(const __grid_constant__ CUtensorMap tq,
 //     runs s, softmax, rescale, p . v in turn; the other consumer's
 //     products fill the tensor cores meanwhile. Peak live values a
 //     consumer thread: o 128 + s 32 + p 16 = 176 of its 240.
-//   * dq (`flash_dq_kernel_sm90<256>`, the D 128 template): q and dO of
-//     128 rows stay resident (128 KB), so the streamed key tiles shrink to
-//     32 rows (k and v 32 KB a stage, two stages: 194 KB); s and dp are
-//     m64n32 (16 registers each) and dq += ds . k runs on two n128 halves.
-//     Peak: dq 128 + s 16 + dp 16.
+//   * dq (`flash_dq_kernel_sm90_d256`): q and dO of 128 rows stay resident
+//     (128 KB), and the keys stream in 64-key tiles through slots of their
+//     own: two of k and one of v (96 KB; 231,488 bytes with the flags,
+//     delta, barriers and the 1,024 of alignment). dp = dO . v^T and s =
+//     q . k^T are m64n64k16 with both operands in shared memory: a k-step
+//     reads 2 KB of A and 2 KB of B for 32 tensor-core cycles, shared
+//     memory's 128 bytes a cycle (32-key tiles, m64n32, read 3 KB for 16
+//     cycles, past that rate, and re-read q and dO twice as often). dp
+//     runs first, so v's slot goes back as soon as both consumers' dp is
+//     done and the next v loads under s and dq's product; k goes back
+//     after dq += ds . k (two n128 halves). Peak: dq 128 + dp 32 + s 32 =
+//     192. An interior tile takes p = exp2(s * scale * log2 e - lse *
+//     log2 e) in one fma and an edge tile the masked difference, so the
+//     tile width decides which pairs round which way: dq's last bits
+//     depend on it, within the bf16 bounds. On an H100 at [1, 4096, 8,
+//     256] causal, s before dp ran 9 % slower, the consumers taking turns
+//     at issuing (the forward's ping-pong) 7 % slower, and the next tile's
+//     dp and s issued behind dq's product 30 % slower (that v loads only
+//     once both consumers' dp is done).
 //   * dk/dv (`flash_dkv_kernel_sm90_d256`): the dk and dv accumulators of
 //     64 key rows at D 256 are 256 floats a thread, past the 255-register
 //     limit, so the two consumers split the gradients, not the rows: the
 //     block owns 64 key rows, consumer 0 accumulates dv and consumer 1 dk
-//     (128 registers each). Consumer 0 computes s^T = k . q^T, p^T and
-//     dv += p^T . dO; consumer 1 computes s^T and dp^T = v . dO^T, ds^T
-//     and dk += ds^T . q. s^T is computed twice (five products against
-//     four), which spares a hand-over of p^T through shared memory and a
-//     barrier between the consumers. 64-row q and dO tiles, two stages:
-//     198 KB. Peak: consumer 1 dk 128 + s^T 32 + dp^T 32 = 192.
-//   * TMA boxes stay 64 columns: a row of 256 is four boxes.
+//     (128 registers each). Consumer 0 computes s^T = k . q^T and p^T,
+//     writes p^T in fp32 to the stage's hand-over buffer, and adds p^T .
+//     dO into dv; consumer 1 computes dp^T = v . dO^T meanwhile, waits on
+//     the stage's named barrier, reads p^T, forms ds^T and adds ds^T . q
+//     into dk: four products a tile, two a consumer (s^T computed by both
+//     would make five, three on consumer 1, which would set the pace). A
+//     buffer a stage (16 KB each; 231,472 bytes): consumer 0
+//     writes stage s's again only for the tile S on, whose load waits for
+//     consumer 1's release of stage s, so the ring's own barriers keep the
+//     buffer from being overwritten before it is read, and barrier 1 + s
+//     is never arrived at twice before its wait. p^T crosses in fp32, so
+//     ds^T is what consumer 1 would compute from its own s^T. Peak:
+//     consumer 1 dk 128 + dp^T 32 + p^T 32 = 192. The next tile's s^T
+//     issued before dv drains ran 20 % slower on an H100 at [1, 4096, 8,
+//     256] causal: consumer 0 then holds both stages of the ring, and the
+//     next load waits.
+//   * TMA boxes stay 64 columns: a row of 256 is four boxes. The
+//     backward's epilogues keep their per-column store predicates: an
+//     instantiation without them for W = 256 ran within 1 % at [2, 1000,
+//     8, 256].
 
 // o (and lse) for 128 query rows of one head at D 256: each consumer owns
 // 64 query rows and walks the 64-key tiles up to the block's causal
@@ -1427,104 +1484,15 @@ flash_fwd_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-namespace wgp {
-
-// One query tile of the D 256 dk/dv kernel for one consumer: kDk false
-// (consumer 0) adds p^T . dO to `acc` (dv), kDk true (consumer 1) adds
-// ds^T . q (dk, unscaled). s^T = k . q^T and dp^T = v . dO^T read both
-// operands K-major from shared memory; rows are this warp's keys kr,
-// columns the tile's R queries from q0.
-template <bool kDk>
-__device__ __forceinline__ void dkv_tile_d256(
-    float (&acc)[128], uint32_t k_tile, uint32_t v_tile, uint32_t q_tile,
-    uint32_t do_tile, const float* lse_s, const float* delta_s, int q0,
-    const int (&kr)[2], const bool (&keep)[2], bool interior, int Tq, int Tkv,
-    int causal, float scale) {
-  constexpr int R = DkvSmemWide::R, KK = 256 / 16, kRB = R * 128;
-  const int c = threadIdx.x & 3;
-  const float sl2 = scale * kLog2e;
-  float st[R / 2];
-  float dpt[kDk ? R / 2 : 1];
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk) {
-    wgmma_ss<R>(st, desc_k<256>(k_tile, kk), desc_k<256>(q_tile, kk, kRB),
-                kk > 0);
-  }
-  sm90::wgmma_commit();
-  if constexpr (kDk) {
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      wgmma_ss<R>(dpt, desc_k<256>(v_tile, kk), desc_k<256>(do_tile, kk, kRB),
-                  kk > 0);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();
-  } else {
-    sm90::wgmma_wait<0>();
-  }
-  sm90::fence_regs(st);
-
-  // p^T = exp(s^T - lse): rows are keys, columns queries
-  if (interior) {
-#pragma unroll
-    for (int j = 0; j < R / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float l = lse_s[8 * j + 2 * c + (e & 1)];
-        st[4 * j + e] = ex2(fmaf(st[4 * j + e], sl2, -l * kLog2e));
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < R / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * c + (e & 1);
-        const float x = masked(st[4 * j + e] * scale, q0 + col, kr[e >> 1], Tq,
-                               Tkv, causal, keep[e >> 1]);
-        st[4 * j + e] = ex2((x - lse_s[col]) * kLog2e);
-      }
-    }
-  }
-
-  uint32_t fa[R / 16][4];
-  uint32_t operand;
-  if constexpr (kDk) {
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(dpt);
-    // ds^T = p^T (dp^T - delta)
-#pragma unroll
-    for (int j = 0; j < R / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float d = delta_s[8 * j + 2 * c + (e & 1)];
-        dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - d);
-      }
-    }
-    to_a_frags(fa, dpt);
-    operand = q_tile;
-  } else {
-    to_a_frags(fa, st);
-    operand = do_tile;
-  }
-  sm90::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < R / 16; ++kk) {
-    wgmma_rs_mn<256>(acc, fa[kk], operand, kk, kRB);
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(acc);
-  sm90::fence_regs(fa);
-}
-
-}  // namespace wgp
-
-// dk, dv for 64 key rows of one head at D 256: consumer 0 accumulates dv,
-// consumer 1 dk, each over all 64 keys (a warp's 16 rows), walking the
-// 64-row query tiles from the causal diagonal down (`dkv_tile_d256`). The
-// tensors are W columns wide, as in the D 256 forward.
+// dk, dv for 64 key rows of one head at D 256, walking the 64-row query
+// tiles from the causal diagonal down. Consumer 0 computes s^T = k . q^T
+// (both operands K-major in shared memory) and p^T = exp(s^T - lse), hands
+// p^T in fp32 to consumer 1 through shared memory, and adds p^T . dO into
+// dv; consumer 1 computes dp^T = v . dO^T meanwhile, takes p^T, forms ds^T
+// = p^T (dp^T - delta) and adds ds^T . q into dk (unscaled). Both hold the
+// same key rows (a warp's 16), so thread t of one consumer holds the
+// fragment that thread t of the other needs. The tensors are W columns
+// wide, as in the D 256 forward.
 __global__ void __launch_bounds__(wgp::kThreads, 1)
 flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -1538,11 +1506,12 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                            float scale) {
   using namespace wgp;
   constexpr int D = 256, S = DkvSmemWide::S, R = DkvSmemWide::R;
-  constexpr int kRB = R * 128;  // a streamed tile's box
+  constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
   DkvSmemWide& sm = smem_block<DkvSmemWide>();
   // causal: the first key blocks see the most query tiles, and the tile
   // index is the grid's slower axis, so every head's longest blocks start
-  // first
+  // first. A block's first query tile holds its first key (R = 64 keys a
+  // block), so no tile of the walk lies wholly above the diagonal.
   const int h = blockIdx.x, b = blockIdx.z;
   const int k0 = blockIdx.y * 64;
   const int n_q = (Tq + R - 1) / R;
@@ -1601,7 +1570,10 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
     }
   } else {  // ------------------------------------------------ consumers
     sm90::regs_alloc<240>();
-    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    // the warpgroup's index, shown warp-uniform to the compiler: each
+    // consumer's loop holds its own products
+    const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+    const int t = tid & 127, warp = t >> 5, lane = tid & 31;
     const int g = lane >> 2, c = lane & 3;
     const int kw = k0 + 16 * warp;  // the warp's first key row
     const int kr[2] = {kw + g, kw + g + 8};
@@ -1612,36 +1584,134 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
                 (pad == nullptr || pad[static_cast<int64_t>(b) * Tkv + kr[i]] != 0);
     }
     const bool warp_keep = __all_sync(0xffffffffu, keep[0] && keep[1]);
+    const float sl2 = scale * kLog2e;
 
-    float acc[D / 2];
+    float acc[D / 2];  // dv (consumer 0) or dk unscaled (consumer 1)
     zero(acc);
     const uint32_t k_tile = sm90::smem_u32(sm.k);
     const uint32_t v_tile = sm90::smem_u32(sm.v);
     sm90::mbar_wait(&sm.kv_full, 0);
 
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % S;
-      const int q0 = (first + it) * R;
-      sm90::mbar_wait(&sm.full[s], (it / S) & 1);
-      // a tile wholly above the diagonal for the block's keys is skipped
-      if (!causal || k0 <= q0 + R - 1) {
-        // only edge tiles (the diagonal, padded or ragged keys, a ragged
-        // query tail) take the per-element mask
-        const bool interior = q0 + R - 1 < Tq && warp_keep &&
-                              (!causal || kw + 15 <= q0);
+    if (wg == 0) {  // s^T, p^T (handed over), dv += p^T . dO
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        const int q0 = (first + it) * R;
+        sm90::mbar_wait(&sm.full[s], (it / S) & 1);
         const uint32_t q_tile = sm90::smem_u32(sm.q[s]);
         const uint32_t do_tile = sm90::smem_u32(sm.dout[s]);
-        if (wg == 1) {
-          dkv_tile_d256<true>(acc, k_tile, v_tile, q_tile, do_tile, sm.lse[s],
-                              sm.delta[s], q0, kr, keep, interior, Tq, Tkv,
-                              causal, scale);
-        } else {
-          dkv_tile_d256<false>(acc, k_tile, v_tile, q_tile, do_tile, sm.lse[s],
-                               sm.delta[s], q0, kr, keep, interior, Tq, Tkv,
-                               causal, scale);
+        float st[R / 2];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(st, desc_k<D>(k_tile, kk), desc_k<D>(q_tile, kk, kRB),
+                      kk > 0);
         }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+
+        // p^T = exp(s^T - lse): rows are keys, columns queries. Only edge
+        // tiles (the diagonal, padded or ragged keys, a ragged query tail)
+        // take the per-element mask.
+        const bool interior = q0 + R - 1 < Tq && warp_keep &&
+                              (!causal || kw + 15 <= q0);
+        if (interior) {
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float l = sm.lse[s][8 * j + 2 * c + (e & 1)];
+              st[4 * j + e] = ex2(fmaf(st[4 * j + e], sl2, -l * kLog2e));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * c + (e & 1);
+              const float x = masked(st[4 * j + e] * scale, q0 + col, kr[e >> 1],
+                                     Tq, Tkv, causal, keep[e >> 1]);
+              st[4 * j + e] = ex2((x - sm.lse[s][col]) * kLog2e);
+            }
+          }
+        }
+        // the hand-over: thread t's fragment, 16 bytes at a time, the
+        // warp's 32 stores on 512 consecutive bytes; then named barrier
+        // 1 + s, which consumer 1 waits on for this stage's tile
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+          sm.pt[s][j][t] = make_float4(st[4 * j], st[4 * j + 1], st[4 * j + 2],
+                                       st[4 * j + 3]);
+        }
+        sm90::named_arrive(1 + s, 256);
+
+        uint32_t pa[R / 16][4];
+        to_a_frags(pa, st);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc, pa[kk], do_tile, kk, kRB);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(pa);
+        sm90::mbar_arrive(&sm.empty[s]);
       }
-      sm90::mbar_arrive(&sm.empty[s]);
+    } else {  // dp^T, ds^T from the handed p^T, dk += ds^T . q
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % S;
+        sm90::mbar_wait(&sm.full[s], (it / S) & 1);
+        const uint32_t q_tile = sm90::smem_u32(sm.q[s]);
+        const uint32_t do_tile = sm90::smem_u32(sm.dout[s]);
+        float dpt[R / 2];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(dpt, desc_k<D>(v_tile, kk), desc_k<D>(do_tile, kk, kRB),
+                      kk > 0);
+        }
+        sm90::wgmma_commit();
+
+        // p^T of this tile from consumer 0 (stage s's buffer: consumer 0
+        // writes it again only for tile it + S, whose load waits for this
+        // consumer's release of stage s below)
+        sm90::named_sync(1 + s, 256);
+        float pt[R / 2];
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+          const float4 x = sm.pt[s][j][t];
+          pt[4 * j] = x.x;
+          pt[4 * j + 1] = x.y;
+          pt[4 * j + 2] = x.z;
+          pt[4 * j + 3] = x.w;
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dpt);
+
+        // ds^T = p^T (dp^T - delta)
+#pragma unroll
+        for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float d = sm.delta[s][8 * j + 2 * c + (e & 1)];
+            dpt[4 * j + e] = pt[4 * j + e] * (dpt[4 * j + e] - d);
+          }
+        }
+        uint32_t dsa[R / 16][4];
+        to_a_frags(dsa, dpt);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc, dsa[kk], q_tile, kk, kRB);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(dsa);
+        sm90::mbar_arrive(&sm.empty[s]);
+      }
     }
 
     const int64_t stride = static_cast<int64_t>(H) * W;
@@ -1654,6 +1724,227 @@ flash_dkv_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
         store_cols<D>(W, [&](int j) {
           put2(out + row + 8 * j + 2 * c, f * acc[4 * j + 2 * i],
                f * acc[4 * j + 2 * i + 1]);
+        });
+      }
+    }
+  }
+}
+
+// dq for 128 query rows of one head at D 256, and delta = sum(dO * O) for
+// them (written for the dk/dv launch that follows): each consumer owns 64
+// query rows and walks the 64-key tiles up to its causal frontier,
+// computing dp = dO . v^T and s = q . k^T (wgmma m64n64k16, both operands
+// K-major in shared memory), ds in registers, then dq += ds . k (two n128
+// halves, A from registers, k read MN-major). q and dO stay resident; k
+// and v stream through slots of their own (`DqSmemWide`): v is released
+// once both consumers' dp is done, k once their dq product is. The
+// tensors are W columns wide, as in the D 256 forward.
+__global__ void __launch_bounds__(wgp::kThreads, 1)
+flash_dq_kernel_sm90_d256(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const bf16* __restrict__ o, const int* __restrict__ pad,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          bf16* __restrict__ dq, int Tq, int Tkv, int H, int W,
+                          int causal, float scale) {
+  using namespace wgp;
+  constexpr int D = 256, R = DqSmemWide::R, kH = kHalf<D>;
+  constexpr int KK = D / 16, kRB = R * 128;  // kRB: a streamed tile's box
+  DqSmemWide& sm = smem_block<DqSmemWide>();
+  const int h = blockIdx.x, b = blockIdx.z;
+  // causal: the last query blocks see the most key tiles; launch them first
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * 128;
+  const int n_kv = (Tkv + R - 1) / R;
+  const int n_tiles = causal ? min(n_kv, min(q0 + 127, Tq - 1) / R + 1) : n_kv;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(&sm.qd_full, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&sm.k_full[s], 32);
+      sm90::mbar_init(&sm.k_empty[s], 256);
+    }
+    sm90::mbar_init(&sm.v_full, 1);
+    sm90::mbar_init(&sm.v_empty, 256);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {  // ---------------------------------------- producer
+    sm90::regs_dealloc<24>();
+    if (tid < 288) {
+      const int lane = tid & 31;
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&sm.qd_full, 4 * kH);
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.q + w * kH + x * kBox, &tq, &sm.qd_full,
+                              64 * x, h, q0 + 64 * w, b);
+            sm90::tma_load_4d(sm.dout + w * kH + x * kBox, &tdo, &sm.qd_full,
+                              64 * x, h, q0 + 64 * w, b);
+          }
+        }
+      }
+      // tile it's k into slot it % 2 (with its keep flags) once the
+      // consumers have released the tile two back, its v into the one v
+      // slot once they are done with the tile before
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it & 1;
+        const int k0 = it * R;
+        sm90::mbar_wait(&sm.k_empty[s], ((it >> 1) & 1) ^ 1);
+        bool all = true;
+#pragma unroll
+        for (int part = 0; part < R / 32; ++part) {
+          const int j = lane + 32 * part;
+          const int key = k0 + j;
+          const bool kp = key < Tkv &&
+                          (pad == nullptr ||
+                           pad[static_cast<int64_t>(b) * Tkv + key] != 0);
+          sm.keep[s][j] = kp;
+          all = all && kp;
+        }
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) {
+          sm.all_keep[s] = all;
+          sm90::mbar_arrive_expect_tx(&sm.k_full[s], kTile<D, R>);
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.k[s] + x * kRB, &tk, &sm.k_full[s], 64 * x, h,
+                              k0, b);
+          }
+        } else {
+          sm90::mbar_arrive(&sm.k_full[s]);
+        }
+        sm90::mbar_wait(&sm.v_empty, (it & 1) ^ 1);
+        if (lane == 0) {
+          sm90::mbar_arrive_expect_tx(&sm.v_full, kTile<D, R>);
+#pragma unroll
+          for (int x = 0; x < D / 64; ++x) {
+            sm90::tma_load_4d(sm.v + x * kRB, &tv, &sm.v_full, 64 * x, h, k0, b);
+          }
+        }
+      }
+    }
+  } else {  // ------------------------------------------------ consumers
+    sm90::regs_alloc<240>();
+    const int t = tid & 127, wg = tid >> 7, warp = t >> 5, lane = tid & 31;
+    const int g = lane >> 2, c = lane & 3;
+    const int64_t stride = static_cast<int64_t>(H) * W;
+    const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * Tq;
+    sm90::mbar_wait(&sm.qd_full, 0);
+
+    dq_delta<D>(sm.dout + wg * kH, o, sm.delta + 64 * wg, delta, stat0,
+                q0 + 64 * wg, b, h, Tq, H, W);
+    sm90::named_sync(1 + wg, 128);
+
+    const int qw = q0 + 64 * wg + 16 * warp;  // the warp's first query row
+    const int qr[2] = {qw + g, qw + g + 8};
+    float row_lse[2], row_delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      row_lse[i] = qr[i] < Tq ? lse[stat0 + qr[i]] : 0.f;
+      row_delta[i] = sm.delta[64 * wg + 16 * warp + g + 8 * i];
+    }
+    const float sl2 = scale * kLog2e;
+
+    float acc[D / 2];
+    zero(acc);
+    const uint32_t q_tile = sm90::smem_u32(sm.q + wg * kH);
+    const uint32_t do_tile = sm90::smem_u32(sm.dout + wg * kH);
+    const uint32_t v_tile = sm90::smem_u32(sm.v);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it & 1;
+      const int k0 = it * R;
+      // both waits come before either release below, also for a skipped
+      // tile: an arrival on an empty barrier never counts toward the phase
+      // of a load this consumer has not seen land
+      sm90::mbar_wait(&sm.k_full[s], (it >> 1) & 1);
+      sm90::mbar_wait(&sm.v_full, it & 1);
+      // a tile wholly past this consumer's causal frontier is skipped
+      if (!causal || k0 <= q0 + 64 * wg + 63) {
+        const uint32_t k_tile = sm90::smem_u32(sm.k[s]);
+        float dp[R / 2], sc[R / 2];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(dp, desc_k<D>(do_tile, kk), desc_k<D>(v_tile, kk, kRB),
+                      kk > 0);
+        }
+        sm90::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < KK; ++kk) {
+          wgmma_ss<R>(sc, desc_k<D>(q_tile, kk), desc_k<D>(k_tile, kk, kRB),
+                      kk > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();  // dp is done: v's slot goes back
+        sm90::fence_regs(dp);
+        sm90::mbar_arrive(&sm.v_empty);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+
+        // p = exp(s - lse). Only edge tiles (the diagonal, padded or ragged
+        // keys, a ragged query tail) take the per-element mask.
+        const bool interior = qw + 15 < Tq && k0 + R - 1 < Tkv &&
+                              sm.all_keep[s] != 0 && (!causal || k0 + R - 1 <= qw);
+        if (interior) {
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], sl2,
+                                       -row_lse[e >> 1] * kLog2e));
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < R / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int col = 8 * j + 2 * c + (e & 1);
+              const float x = masked(sc[4 * j + e] * scale, qr[e >> 1], k0 + col,
+                                     Tq, Tkv, causal, sm.keep[s][col]);
+              sc[4 * j + e] = ex2((x - row_lse[e >> 1]) * kLog2e);
+            }
+          }
+        }
+
+        // ds = p (dp - delta), cast to bf16 as the A fragments of dq's
+        // product
+        uint32_t dsa[R / 16][4];
+#pragma unroll
+        for (int i = 0; i < R / 2; ++i) {
+          dp[i] = sc[i] * (dp[i] - row_delta[(i >> 1) & 1]);
+        }
+        to_a_frags(dsa, dp);
+
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < R / 16; ++kk) {
+          wgmma_rs_mn<D>(acc, dsa[kk], k_tile, kk, kRB);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+        sm90::fence_regs(dsa);
+      } else {
+        sm90::mbar_arrive(&sm.v_empty);
+      }
+      sm90::mbar_arrive(&sm.k_empty[s]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (qr[i] < Tq) {
+        const int64_t row = (static_cast<int64_t>(b) * Tq + qr[i]) * stride + h * W;
+        store_cols<D>(W, [&](int j) {
+          put2(dq + row + 8 * j + 2 * c, scale * acc[4 * j + 2 * i],
+               scale * acc[4 * j + 2 * i + 1]);
         });
       }
     }
@@ -3486,8 +3777,7 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   cudaError_t e;
   // the block's own rows come in 64-row boxes, the streamed side's in
   // boxes of its tile's rows: 128 keys in the forward, R rows (q and dO
-  // for dk/dv, k and v for dq) in the backward; at D 256 64-key forward
-  // tiles, 64-row dk/dv tiles and 32-row dq ones
+  // for dk/dv, k and v for dq) in the backward; at D 256 64 rows in all
   constexpr int R = wgp::Ring<D>::kBwdRows;
   constexpr bool kWide = D == 256;
   const int q_rows = which == 2 && !kWide ? R : 64;
@@ -3535,11 +3825,19 @@ cudaError_t run_sm90(int which, const Args& a, cudaStream_t s) {
   }
   const float* lse = static_cast<const float*>(a.lse_in);
   if (which == 1) {
-    return launch(flash_dq_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
-                  wgp::kThreads, sizeof(wgp::DqSmem<D>) + 1024, s, mq, mk, mv,
-                  mdo, nm, static_cast<const bf16*>(a.o), pad, lse,
-                  static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
-                  a.Tkv, a.H, W, a.causal, a.scale);
+    if constexpr (kWide) {
+      return launch(flash_dq_kernel_sm90_d256, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                    wgp::kThreads, sizeof(wgp::DqSmemWide) + 1024, s, mq, mk,
+                    mv, mdo, static_cast<const bf16*>(a.o), pad, lse,
+                    static_cast<float*>(a.delta), static_cast<bf16*>(a.dq),
+                    a.Tq, a.Tkv, a.H, W, a.causal, a.scale);
+    } else {
+      return launch(flash_dq_kernel_sm90<D>, dim3(a.H, (a.Tq + 127) / 128, a.B),
+                    wgp::kThreads, sizeof(wgp::DqSmem<D>) + 1024, s, mq, mk, mv,
+                    mdo, nm, static_cast<const bf16*>(a.o), pad, lse,
+                    static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.Tq,
+                    a.Tkv, a.H, W, a.causal, a.scale);
+    }
   }
   if constexpr (kWide) {
     return launch(flash_dkv_kernel_sm90_d256, dim3(a.H, (a.Tkv + 63) / 64, a.B),
@@ -3596,13 +3894,13 @@ void kernel_of_sm90(int which, int /*W*/, const void** fn, size_t* smem) {
 template <>
 void kernel_of_sm90<256>(int which, int W, const void** fn, size_t* smem) {
   *smem = (which == 0   ? sizeof(wgp::FwdSmemWide)
-           : which == 1 ? sizeof(wgp::DqSmem<256>)
+           : which == 1 ? sizeof(wgp::DqSmemWide)
                         : sizeof(wgp::DkvSmemWide)) + 1024;
   *fn = which == 0   ? (W == 256 ? reinterpret_cast<const void*>(
                                         flash_fwd_kernel_sm90_d256<true>)
                                   : reinterpret_cast<const void*>(
                                         flash_fwd_kernel_sm90_d256<false>))
-        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90<256>)
+        : which == 1 ? reinterpret_cast<const void*>(flash_dq_kernel_sm90_d256)
                      : reinterpret_cast<const void*>(flash_dkv_kernel_sm90_d256);
 }
 

@@ -601,9 +601,9 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                # q scaled by 4 (FLASH_Q_SCALE): large logits, where a
                # TF32 term the fp32 kernels lost would show
                "scaled_q_d128": (2, 192, 192, 2, 128, True, 0.25),
-               # the D 256 kernels' edges (64-key forward tiles, 32-key dq
-               # tiles, 64-key dk/dv blocks, 16-row TF32 tiles); D 160
-               # and 192 run zero-padded to them
+               # the D 256 kernels' edges (64-key forward and dq tiles,
+               # 64-key dk/dv blocks, 16-row TF32 tiles); D 160 and 192
+               # run on them at their own widths (bf16)
                "causal_pad_d256": (2, 192, 192, 2, 256, True, 0.25),
                "all_pad_row_d256": (2, 200, 200, 2, 256, False, (1.0, 0.1)),
                "ragged_200_d256": (1, 200, 200, 2, 256, True, 0.25),
@@ -746,13 +746,20 @@ def test_flash_hopper_forward_keeps_to_registers(cuda):
     (wgmma's unit: 2 x 128 threads; the forward's a consumer and a
     producer). Each launch runs the function the runtime names: at D 256
     in fp32 the `_d256` kernels, the forward's with its own 230,584 bytes
-    of shared memory."""
+    of shared memory; in bf16 at D 256 and 160 the backward's `_d256`
+    kernels, dq with its two k slots and one v slot (231,488 bytes) and
+    dk/dv with its p^T hand-over buffers (231,472)."""
     for D in (*fa.HEAD_DIMS[torch.bfloat16], 160):
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.bfloat16)
             assert attrs["threads"] == 384 and attrs["spill_bytes"] == 0, \
                 (which, D, attrs)
             assert attrs["smem_bytes"] <= 227 * 1024
+            if D in (160, 256) and which != "fwd":
+                assert attrs["function"] == \
+                    f"flash_{which}_kernel_sm90_d256", attrs
+                assert attrs["smem_bytes"] == \
+                    {"dq": 231_488, "dkv": 231_472}[which], attrs
     for D in fa.HEAD_DIMS[torch.float32]:
         for which in ("fwd", "dq", "dkv"):
             attrs = fa.kernel_attrs(which, D, torch.float32)
