@@ -97,6 +97,22 @@ script exits non-zero):
               forward, 2 dq and 2 dk/dv launches; then `flash_attention`
               in fp32 at [2, 1024, 8, 256] through autograd: each fp32
               D 256 kernel launched once, gradients within 2e-4.
+  3c. any_head_dim  every kernel at the head dims it took only in part
+              before: paged attention at decode [4, 1] and prefill
+              [1, 512] (base 256, 32 heads over 8) at D 8, 72, 100, 264,
+              320 and 512, bf16 and fp32, with the poison and a rerun at
+              each D; flash forward, dq and dk/dv past 256 (the wide
+              kernels) at D 264, 320 and 512, ragged causal and full with
+              a row all padding, bf16 and fp32; timed at the new phases'
+              shapes beside SDPA's masked call and its backend.
+     lm_d512  phase_lm_d256's step at head_dim 512 (d 1024 over 2 heads)
+              on the wide flash kernels, with its bounds and launches.
+     serve_odd_d, serve_wide_d  2-layer fp32 Llamas at head_dim 72 (32
+              heads over 8 KV heads, d 2304) and 320 (8 heads, d 2560),
+              served at 4 slots with CUDA graphs through the paged kernel
+              and the gather read: streams equal (or a near tie), the
+              kernel's launches counted, none for the gather run. Each of
+              these phases prints its seconds.
   4. train_model  a tiny fp32 TransformerLM on the CPU (plain versions)
               against the same weights on the card (kernels): logits,
               loss and every gradient.
@@ -575,13 +591,13 @@ def check_paged(name, geo, dtype, timing: bool) -> dict:
     return rec
 
 
-def check_poison(dtype) -> None:
+def check_poison(dtype, D: int = 128) -> None:
     """Huge values in the null block 0 behind every unmapped table entry
     change no bit of the output, and a second run gives the same bits
-    (the splits merge in a fixed order, no atomics)."""
+    (the splits merge in a fixed order, no atomics), at head_dim D."""
     from hyperion_tpu_torch.ops.paged_attention import paged_attention
 
-    q, kp, vp, bt, base = paged_geometry(8, 5, 32, 32, dtype, seed=7)
+    q, kp, vp, bt, base = paged_geometry(8, 5, 32, 32, dtype, D=D, seed=7)
     assert int((bt == 0).sum()) > 0, "no unmapped entries to poison"
     clean = paged_attention(q, kp, vp, bt, base)
     rerun = paged_attention(q, kp, vp, bt, base)
@@ -593,7 +609,8 @@ def check_poison(dtype) -> None:
     same = bool(torch.equal(clean, poisoned))
     again = bool(torch.equal(clean, rerun))
     emit({"phase": "kernels", "kernel": "paged_attention", "case": "poison",
-          "dtype": str(dtype).split(".")[-1], "bit_identical": same,
+          "dtype": str(dtype).split(".")[-1], "head_dim": D,
+          "bit_identical": same,
           "rerun_bit_identical": again})
     if not same:
         raise AssertionError("null-block poison leaked into the output")
@@ -1317,14 +1334,19 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         which = kn.split("_")[-1]
         attrs = fa.kernel_attrs(which, D, dtype)
         ok = all(ok for ok, _ in c)
-        # the Hopper kernels (bf16: three warpgroups, 384 threads) and
-        # the split-TF32 ones (fp32: 256 threads) keep everything in
-        # registers
-        ok = ok and not attrs["spill_bytes"] and \
-            (attrs["threads"] == 384) == (dtype == torch.bfloat16)
+        # the Hopper kernels (bf16: three warpgroups, 384 threads), the
+        # split-TF32 ones (fp32: 256 threads) and, past D 256, the wide
+        # kernels of either dtype keep everything in registers
+        if D > fa.WIDE:
+            kind = attrs["function"].startswith(f"flash_{which}_kernel_wide<")
+        else:
+            kind = (attrs["threads"] == 384) == (dtype == torch.bfloat16)
+        ok = ok and not attrs["spill_bytes"] and kind
         # two runs of the forward, and of the backward, agree to the bit
         same = deterministic["fwd" if which == "fwd" else "bwd"]
         recs[kn] = {**base, "kernel": kn, **attrs,
+                    "source": fa._entry((B, T, T, H, fa.kernel_head_dim(
+                        D, dtype), D), which)[0] + ".cu",
                     "max_abs_err": max(e for _, e in c),
                     "deterministic": same, "ok": ok and same}
     if timing:
@@ -1350,6 +1372,8 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         mask4 = keep[None, None] if pad is None \
             else keep[None, None] & pad.bool()[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        f["library_backend"] = sdpa_backend(
+            *(t.transpose(1, 2) for t in (q, k, v)), mask4)
         f["library_ms"] = time_ms(
             lambda a, b, c: sdpa(a.transpose(1, 2), b.transpose(1, 2),
                                  c.transpose(1, 2), attn_mask=mask4),
@@ -1953,6 +1977,123 @@ def phase_train_long(smi: str) -> dict:
     return rec
 
 
+def lm_step(smi: str, shape: tuple, phase: str, seed: int
+            ) -> tuple[dict, list[str]]:
+    """One forward and backward of the port's TransformerLM at heads
+    `shape` = (B, T, H, D): d_model H * D, 2 layers, GPT-2 vocab, the
+    synthetic split's ragged key padding, `attention_impl="pallas"` in
+    bf16 and fp32 against "xla" in bf16, fp32 and float64 on the same
+    weights; the record and the bounds it misses (`phase_lm_d256` says
+    why each bound holds). Launches counted per dtype: 2 forward, 2 dq,
+    2 dk/dv."""
+    from hyperion_tpu_torch.models.transformer_lm import (
+        TransformerLM,
+        simple_lm_config,
+    )
+    from hyperion_tpu_torch.train.losses import next_token_loss
+
+    B, T, H, D = shape
+    kw = dict(vocab_size=50257, d_model=H * D, n_heads=H, n_layers=2,
+              ff_dim=4 * H * D, max_len=T, dropout=0.0, dtype="bfloat16")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    models = {"pallas": TransformerLM(simple_lm_config(
+        **kw, attention_impl="pallas"), device="cuda").init_params(g)}
+    models["xla"] = TransformerLM(simple_lm_config(
+        **kw, attention_impl="xla"), device="cuda")
+    models["xla"].load_state_dict(models["pallas"].state_dict())
+    models["fp32"] = TransformerLM(simple_lm_config(
+        **{**kw, "dtype": "float32"}, attention_impl="xla"), device="cuda")
+    models["fp32"].load_state_dict(models["pallas"].state_dict())
+    models["fp32_pallas"] = TransformerLM(simple_lm_config(
+        **{**kw, "dtype": "float32"}, attention_impl="pallas"), device="cuda")
+    models["fp32_pallas"].load_state_dict(models["pallas"].state_dict())
+    models["fp64"] = TransformerLM(simple_lm_config(
+        **{**kw, "dtype": "float64"}, attention_impl="xla"), device="cuda")
+    models["fp64"].load_state_dict(models["pallas"].state_dict())
+    ids = torch.randint(0, 50257, (B, T), generator=g, device="cuda")
+    mask = ragged_pad(B, T, seed)
+
+    def step(model):
+        model.zero_grad(set_to_none=True)
+        loss = next_token_loss(model(ids, padding_mask=mask), ids, mask)
+        loss.backward()
+        return loss
+
+    out, launches = {}, {}
+    for impl, model in models.items():
+        step(model)  # warm
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss = step(model)
+        end.record()
+        torch.cuda.synchronize()
+        out[impl] = {"loss": loss.item(), "step_ms": start.elapsed_time(end),
+                     "grads": {n: p.grad.float() for n, p in
+                               model.named_parameters()}}
+        launches[impl] = _flash_launches()
+    leaves = [n for n in out["xla"]["grads"] if not n.endswith("k_proj.bias")]
+    rel = {n: float((out["pallas"]["grads"][n] - out["xla"]["grads"][n])
+                    .norm() / out["xla"]["grads"][n].norm().clamp_min(1e-30))
+           for n in leaves}
+
+    def off(impl, ref="fp32"):  # |g_impl - g_ref| / |g_ref| over every leaf
+        d2 = sum(float((out[impl]["grads"][n] - out[ref]["grads"][n])
+                       .norm()) ** 2 for n in leaves)
+        r2 = sum(float(out[ref]["grads"][n].norm()) ** 2 for n in leaves)
+        return math.sqrt(d2 / r2)
+    fp32_bounds = {"loss": 2 * 2e-5 * fp32_flash_growth(D),
+                   "grad": 5 * off("fp32", "fp64")}
+    k_bias = {impl: [float(o["grads"][n].norm()) for n in o["grads"]
+                     if n.endswith("k_proj.bias")] for impl, o in out.items()}
+    finite = all(bool(t.isfinite().all())
+                 for o in out.values() for t in o["grads"].values())
+    rec = {"phase": phase, "nvidia_smi": smi, "shape": [B, T],
+           "heads": H, "head_dim": D, "layers": 2, "dtype": "bfloat16",
+           "loss": {k: o["loss"] for k, o in out.items()},
+           "step_ms": {k: o["step_ms"] for k, o in out.items()},
+           "grad_rel_norm_max": max(rel.values()),
+           "grad_rel_worst": max(rel, key=rel.get),
+           "grad_rel_norm": {n: round(v, 6) for n, v in rel.items()},
+           "grad_off_fp32": {k: off(k)
+                             for k in ("pallas", "xla", "fp32_pallas")},
+           "grad_off_fp64": {k: off(k, "fp64")
+                             for k in ("fp32", "fp32_pallas")},
+           "fp32_pallas_loss_off": abs(out["fp32_pallas"]["loss"] -
+                                       out["fp32"]["loss"]) /
+           abs(out["fp32"]["loss"]),
+           "fp32_pallas_bounds": fp32_bounds,
+           "k_proj_bias_grad_norm": k_bias, "finite": finite,
+           "launches": launches["pallas"],
+           "launches_fp32_pallas": launches["fp32_pallas"],
+           "launches_expected": {"flash_attention_fwd": 2,
+                                 "flash_attention_dq": 2,
+                                 "flash_attention_dkv": 2}}
+    del models, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if not finite or not all(math.isfinite(v) for v in rec["loss"].values()):
+        problems.append("non-finite loss or gradient")
+    if abs(rec["loss"]["pallas"] - rec["loss"]["xla"]) \
+            > 2.0 ** -6 * abs(rec["loss"]["xla"]):
+        problems.append(f"loss {rec['loss']}")
+    if rec["grad_off_fp32"]["pallas"] > rec["grad_off_fp32"]["xla"]:
+        problems.append(f"gradient further from fp32's than the plain "
+                        f"bf16 step's: {rec['grad_off_fp32']}")
+    if rec["fp32_pallas_loss_off"] > fp32_bounds["loss"] or \
+            rec["grad_off_fp32"]["fp32_pallas"] > fp32_bounds["grad"]:
+        problems.append(f"fp32 step on the kernels off the fp32 xla step: "
+                        f"loss {rec['fp32_pallas_loss_off']}, gradient "
+                        f"{rec['grad_off_fp32']['fp32_pallas']} "
+                        f"(bounds {fp32_bounds})")
+    for impl in ("pallas", "fp32_pallas"):
+        if launches[impl] != rec["launches_expected"]:
+            problems.append(f"{impl} launches {launches[impl]}")
+    return rec, problems
+
+
 def phase_lm_d256(smi: str) -> dict:
     """One forward and backward of the port's TransformerLM at head_dim
     256 through its existing config fields (d_model 1024, 4 heads, 2
@@ -2002,112 +2143,9 @@ def phase_lm_d256(smi: str) -> dict:
     once each and the gradients hold the fp32 bounds (2e-4) of the plain
     autograd. Returns {"lm_d256": ..., "flash_d256_fp32": ...} with each
     run's launches."""
-    from hyperion_tpu_torch.models.transformer_lm import (
-        TransformerLM,
-        simple_lm_config,
-    )
     from hyperion_tpu_torch.ops import flash_attention as fa
-    from hyperion_tpu_torch.train.losses import next_token_loss
 
-    B, T, H, D = LM_D256_SHAPE
-    kw = dict(vocab_size=50257, d_model=H * D, n_heads=H, n_layers=2,
-              ff_dim=4 * H * D, max_len=T, dropout=0.0, dtype="bfloat16")
-    g = torch.Generator(device="cuda").manual_seed(SEED + 47)
-    models = {"pallas": TransformerLM(simple_lm_config(
-        **kw, attention_impl="pallas"), device="cuda").init_params(g)}
-    models["xla"] = TransformerLM(simple_lm_config(
-        **kw, attention_impl="xla"), device="cuda")
-    models["xla"].load_state_dict(models["pallas"].state_dict())
-    models["fp32"] = TransformerLM(simple_lm_config(
-        **{**kw, "dtype": "float32"}, attention_impl="xla"), device="cuda")
-    models["fp32"].load_state_dict(models["pallas"].state_dict())
-    models["fp32_pallas"] = TransformerLM(simple_lm_config(
-        **{**kw, "dtype": "float32"}, attention_impl="pallas"), device="cuda")
-    models["fp32_pallas"].load_state_dict(models["pallas"].state_dict())
-    models["fp64"] = TransformerLM(simple_lm_config(
-        **{**kw, "dtype": "float64"}, attention_impl="xla"), device="cuda")
-    models["fp64"].load_state_dict(models["pallas"].state_dict())
-    ids = torch.randint(0, 50257, (B, T), generator=g, device="cuda")
-    mask = ragged_pad(B, T, SEED + 47)
-
-    def step(model):
-        model.zero_grad(set_to_none=True)
-        loss = next_token_loss(model(ids, padding_mask=mask), ids, mask)
-        loss.backward()
-        return loss
-
-    out, launches = {}, {}
-    for impl, model in models.items():
-        step(model)  # warm
-        torch.cuda.synchronize()
-        _reset_launch_counts()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        loss = step(model)
-        end.record()
-        torch.cuda.synchronize()
-        out[impl] = {"loss": loss.item(), "step_ms": start.elapsed_time(end),
-                     "grads": {n: p.grad.float() for n, p in
-                               model.named_parameters()}}
-        launches[impl] = _flash_launches()
-    leaves = [n for n in out["xla"]["grads"] if not n.endswith("k_proj.bias")]
-    rel = {n: float((out["pallas"]["grads"][n] - out["xla"]["grads"][n])
-                    .norm() / out["xla"]["grads"][n].norm().clamp_min(1e-30))
-           for n in leaves}
-
-    def off(impl, ref="fp32"):  # |g_impl - g_ref| / |g_ref| over every leaf
-        d2 = sum(float((out[impl]["grads"][n] - out[ref]["grads"][n])
-                       .norm()) ** 2 for n in leaves)
-        r2 = sum(float(out[ref]["grads"][n].norm()) ** 2 for n in leaves)
-        return math.sqrt(d2 / r2)
-    fp32_bounds = {"loss": 2 * 2e-5 * fp32_flash_growth(D),
-                   "grad": 5 * off("fp32", "fp64")}
-    k_bias = {impl: [float(o["grads"][n].norm()) for n in o["grads"]
-                     if n.endswith("k_proj.bias")] for impl, o in out.items()}
-    finite = all(bool(t.isfinite().all())
-                 for o in out.values() for t in o["grads"].values())
-    rec = {"phase": "lm_d256", "nvidia_smi": smi, "shape": [B, T],
-           "heads": H, "head_dim": D, "layers": 2, "dtype": "bfloat16",
-           "loss": {k: o["loss"] for k, o in out.items()},
-           "step_ms": {k: o["step_ms"] for k, o in out.items()},
-           "grad_rel_norm_max": max(rel.values()),
-           "grad_rel_worst": max(rel, key=rel.get),
-           "grad_rel_norm": {n: round(v, 6) for n, v in rel.items()},
-           "grad_off_fp32": {k: off(k)
-                             for k in ("pallas", "xla", "fp32_pallas")},
-           "grad_off_fp64": {k: off(k, "fp64")
-                             for k in ("fp32", "fp32_pallas")},
-           "fp32_pallas_loss_off": abs(out["fp32_pallas"]["loss"] -
-                                       out["fp32"]["loss"]) /
-           abs(out["fp32"]["loss"]),
-           "fp32_pallas_bounds": fp32_bounds,
-           "k_proj_bias_grad_norm": k_bias, "finite": finite,
-           "launches": launches["pallas"],
-           "launches_fp32_pallas": launches["fp32_pallas"],
-           "launches_expected": {"flash_attention_fwd": 2,
-                                 "flash_attention_dq": 2,
-                                 "flash_attention_dkv": 2}}
-    del models, out
-    gc.collect()
-    torch.cuda.empty_cache()
-    problems = []
-    if not finite or not all(math.isfinite(v) for v in rec["loss"].values()):
-        problems.append("non-finite loss or gradient")
-    if abs(rec["loss"]["pallas"] - rec["loss"]["xla"]) \
-            > 2.0 ** -6 * abs(rec["loss"]["xla"]):
-        problems.append(f"loss {rec['loss']}")
-    if rec["grad_off_fp32"]["pallas"] > rec["grad_off_fp32"]["xla"]:
-        problems.append(f"gradient further from fp32's than the plain "
-                        f"bf16 step's: {rec['grad_off_fp32']}")
-    if rec["fp32_pallas_loss_off"] > fp32_bounds["loss"] or \
-            rec["grad_off_fp32"]["fp32_pallas"] > fp32_bounds["grad"]:
-        problems.append(f"fp32 step on the kernels off the fp32 xla step: "
-                        f"loss {rec['fp32_pallas_loss_off']}, gradient "
-                        f"{rec['grad_off_fp32']['fp32_pallas']} "
-                        f"(bounds {fp32_bounds})")
-    for impl in ("pallas", "fp32_pallas"):
-        if launches[impl] != rec["launches_expected"]:
-            problems.append(f"{impl} launches {launches[impl]}")
+    rec, problems = lm_step(smi, LM_D256_SHAPE, "lm_d256", SEED + 47)
     emit(rec)
 
     # the public entry in fp32
@@ -2142,6 +2180,211 @@ def phase_lm_d256(smi: str) -> dict:
         raise AssertionError("lm_d256: " + "; ".join(problems))
     return {"lm_d256": rec, "flash_d256_fp32": fp32_rec}
 
+
+
+# The head dims the kernels took only in part before: paged attention at
+# D 8, 72 and 100 (the instantiations at 16, 80 and 112, read at the true
+# width; bf16 D 100 is a 200-byte row, loaded in 8-byte units) and at 264,
+# 320 and 512 (the wide kernel); flash attention past 256 (the wide
+# kernels). The serve phases' Llamas: 2 layers, vocab 32000, heads of 72
+# (32 over 8 KV heads) and of 320 (8 over 8).
+ANY_D = (8, 72, 100, 264, 320, 512)
+WIDE_FLASH_D = (264, 320, 512)
+LM_D512_SHAPE = (2, 4096, 2, 512)
+SERVE_HEAD_DIMS = {
+    "serve_odd_d": dict(d_model=2304, n_heads=32, n_kv_heads=8, ff_dim=6144),
+    "serve_wide_d": dict(d_model=2560, n_heads=8, n_kv_heads=8, ff_dim=6912)}
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend SDPA picks for a masked call on [B, H, T, D] tensors
+    (torch's own dispatch rule, `_fused_sdp_choice`)."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, attn_mask=mask, dropout_p=0.0, is_causal=False)).name
+    except (AttributeError, RuntimeError, TypeError) as e:  # a private rule
+        return f"unknown ({type(e).__name__})"
+
+
+def serve_tick_geometry(H, Hkv, D, dtype):
+    """The serve phases' decode tick: [4, 1] over chains at the decode
+    tick's ragged depths (`kernels_line`'s decode_tick_S4)."""
+    rng = np.random.default_rng(SEED + 4)
+    return paged_geometry(4, 1, H, Hkv, dtype, D=D,
+                          base=rng.integers(32, 532, 4), seed=5)
+
+
+def phase_any_head_dim() -> dict:
+    """Every kernel at the head dims that it took only in part before,
+    against its plain version: paged attention at decode [4, 1] and
+    prefill [1, 512], both at base 256, 32 heads over 8 KV heads, at D 8,
+    72, 100, 264, 320 and 512, in bf16 and fp32, with the null-block
+    poison and a rerun at each D; flash attention's forward, dq and
+    dk/dv at D 264, 320 and 512 on [2, 1000, 4, D] causal with the
+    synthetic split's ragged key padding and [2, 200, 4, D] full with one
+    batch row all padding, bf16 and fp32 (`check_flash`: the bounds of the
+    D <= 256 cases, fp32's grown by `fp32_flash_growth(D)`; two runs
+    bit-identical; no spill). Timed at the new phases' shapes: paged
+    attention at serve_odd_d's and serve_wide_d's decode ticks, flash at
+    one lm_d512 layer ([2, 4096, 2, 512], causal, ragged padding) in each
+    dtype, beside SDPA's masked call (`library_backend` names the backend
+    it picked). Returns the timed records by run."""
+    t0 = time.perf_counter()
+    bf16, fp32 = torch.bfloat16, torch.float32
+    for dtype in (bf16, fp32):
+        for D in ANY_D:
+            check_paged(f"decode_4x1_d{D}", paged_geometry(
+                4, 1, 32, 8, dtype, D=D, base=[256] * 4, seed=70 + D), dtype,
+                timing=False)
+            check_paged(f"prefill_1x512_d{D}", paged_geometry(
+                1, 512, 32, 8, dtype, D=D, base=[256], seed=71 + D), dtype,
+                timing=False)
+            check_poison(dtype, D)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for D in WIDE_FLASH_D:
+            check_flash(f"d{D}_ragged_1000", *flash_case(
+                2, 1000, 4, D, dtype, 0.0, SEED + 60 + D)[:4],
+                ragged_pad(2, 1000, SEED + 60 + D), causal=True, timing=False)
+            check_flash(f"d{D}_all_pad_row_200", *flash_case(
+                2, 200, 4, D, dtype, (1.0, 0.1), SEED + 61 + D),
+                causal=False, timing=False)
+    recs = {}
+    for run, cfg in SERVE_HEAD_DIMS.items():
+        H, Hkv = cfg["n_heads"], cfg["n_kv_heads"]
+        D = cfg["d_model"] // H
+        # the serve phases run fp32, as their streams are compared
+        recs[run] = {"paged_attention": check_paged(
+            f"{run}_decode_tick_S4", serve_tick_geometry(H, Hkv, D, fp32),
+            fp32, timing=True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for run, dtype, seed in (("lm_d512", bf16, SEED + 80),
+                             ("lm_d512_fp32", fp32, SEED + 81)):
+        recs[run] = check_flash(
+            "lm_d512_layer" + run[len("lm_d512"):], *flash_case(
+                *LM_D512_SHAPE, dtype, 0.0, seed)[:4],
+            ragged_pad(LM_D512_SHAPE[0], LM_D512_SHAPE[1], seed),
+            causal=True, timing=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "any_head_dim", "seconds": round(time.perf_counter() - t0,
+                                                    3)})
+    return recs
+
+
+def phase_lm_d512(smi: str) -> dict:
+    """`phase_lm_d256`'s step at head_dim 512 (`lm_step`: d_model 1024
+    over 2 heads, 2 layers, GPT-2 vocab, batch 2, seq 4096, ragged
+    padding), on the wide flash kernels, with its bounds: the bf16 kernel
+    step at least as close to the fp32 "xla" step as the bf16 "xla" one;
+    the fp32 kernel step's loss within 2 x 2e-5 x fp32_flash_growth(512)
+    of the fp32 "xla" step's, its gradient within 5 times the fp32 step's
+    distance from float64's. The growth (D / 128)^1.5 = 8 holds for these
+    kernels as for the split-TF32 ones: their products are plain fp32
+    FMAs, whose dot product over D is off by at most ~D u sum|q_d k_d|,
+    the bound the factor comes from, and the triangle bound on the
+    gradient needs only that their terms are no worse than the plain
+    step's. 2 forward, 2 dq and 2 dk/dv launches in each dtype."""
+    t0 = time.perf_counter()
+    rec, problems = lm_step(smi, LM_D512_SHAPE, "lm_d512", SEED + 82)
+    rec["seconds"] = round(time.perf_counter() - t0, 3)
+    emit(rec)
+    if problems:
+        raise AssertionError("lm_d512: " + "; ".join(problems))
+    return rec
+
+
+def serve_head_dim_requests(rng) -> list[dict]:
+    """Four greedy requests, prompts of 24, 41, 57 and 90 tokens (the
+    128-token bucket warms them), 16 new tokens each."""
+    return [{"id": f"h{i}", "prompt_ids": rng.integers(1, 32000, n)
+             .astype(int).tolist(), "max_new_tokens": 16}
+            for i, n in enumerate((24, 41, 57, 90))]
+
+
+def phase_serve_head_dim(run: str, smi: str) -> dict:
+    """A 2-layer Llama at a head dim the paged kernel refused before
+    (`SERVE_HEAD_DIMS[run]`: 32 heads of 72 over 8 KV heads, or 8 heads of
+    320 over 8, the wide kernel), fp32 on random weights from a seed,
+    served at temperature 0 by the port's Engine with its CUDA graphs at
+    4 slots: through the default paged read (the kernel), then on the
+    same weights through the gather read (`set_paged_attn`), as
+    `phase_gather` does. The kernel run launches the paged kernel once
+    a layer a forward and the gather run none; the gather streams equal
+    the kernel's, or part from them only at a near tie. The model is
+    freed."""
+    from hyperion_tpu_torch.models.llama import (
+        Llama,
+        llama2_7b_config,
+        set_paged_attn,
+    )
+    from hyperion_tpu_torch.ops.paged_attention import paged_attention
+    from hyperion_tpu_torch.serve.engine import Engine, EngineConfig
+    from hyperion_tpu_torch.serve.queue import Request
+
+    t0 = time.perf_counter()
+    cfg = llama2_7b_config(n_layers=2, max_len=256, dtype="float32",
+                           norm_impl="pallas", **SERVE_HEAD_DIMS[run])
+    model = Llama(cfg, device="cuda").init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 90))
+    reqs = serve_head_dim_requests(np.random.default_rng(SEED + 91))
+    runs = {}
+    for impl in ("pallas", "gather"):
+        set_paged_attn(model, impl)
+        eng = Engine(model, EngineConfig(slots=4, max_len=256),
+                     device="cuda")
+        eng.warmup([max(len(r["prompt_ids"]) for r in reqs)])
+        rs = [Request(prompt_ids=np.asarray(r["prompt_ids"], np.int32),
+                      max_new_tokens=r["max_new_tokens"], id=r["id"])
+              for r in reqs]
+        paged_attention.launches = 0
+        eng.forwards = 0
+        drive(eng, rs)
+        torch.cuda.synchronize()
+        runs[impl] = {"tokens": {r.id: r.tokens for r in rs},
+                      "launches": paged_attention.launches,
+                      "forwards": eng.forwards,
+                      "graphs": len(eng.tier.graphs)}
+        del eng
+    set_paged_attn(model, "pallas")
+    results = [near_tie_record(model, cfg, r["id"],
+                               np.asarray(r["prompt_ids"]),
+                               runs["gather"]["tokens"][r["id"]],
+                               runs["pallas"]["tokens"][r["id"]])
+               for r in reqs]
+    want = runs["pallas"]["forwards"] * cfg.n_layers
+    rec = {"phase": run, "nvidia_smi": smi, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": cfg.n_heads,
+           "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+           "dtype": "float32", "requests": len(reqs), "streams": results,
+           "tokens": sum(len(t) for t in runs["pallas"]["tokens"].values()),
+           "launches": {"paged_attention": runs["pallas"]["launches"]},
+           "launches_expected": {"paged_attention": want},
+           "gather_launches": runs["gather"]["launches"],
+           **{f"{impl}_{k}": v for impl, r in runs.items()
+              for k, v in r.items() if k != "tokens"}}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = round(time.perf_counter() - t0, 3)
+    emit(rec)
+    problems = []
+    if rec["launches"] != rec["launches_expected"] or \
+            rec["gather_launches"]:
+        problems.append(f"paged launches: kernel {rec['launches']} (want "
+                        f"{want}), gather {rec['gather_launches']}")
+    if not runs["pallas"]["graphs"]:
+        problems.append("no CUDA graph captured")
+    if rec["tokens"] != 16 * len(reqs):
+        problems.append(f"{rec['tokens']} tokens")
+    if beyond_near_tie(results):
+        problems.append(f"streams {beyond_near_tie(results)}")
+    if problems:
+        raise AssertionError(f"{run}: " + "; ".join(problems))
+    return rec
 
 def _launch_counts() -> dict:
     """Every training-path kernel's launch count (the wrappers' own)."""
@@ -6007,7 +6250,8 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
                  flash_recs: dict, fsdp_rec: dict,
                  llama_fsdp_rec: dict, axes_recs: dict,
                  int8_kernel_recs: dict, int8_rec: dict,
-                 d256_recs: dict) -> dict:
+                 d256_recs: dict, any_d_recs: dict,
+                 head_dim_runs: dict) -> dict:
     """One record per kernel and run, at that run's shapes, with the
     kernel's launches on the run: the serve kernels at the decode tick
     (S=4 slots, one token, bf16, 7B widths); at serve_features, paged
@@ -6035,7 +6279,13 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
     step's layer, [2, 4096, 4, 256], with that step's launches;
     lm_d256_fp32: the fp32 kernels at the same layer, with the fp32
     step's launches; flash_d256_fp32: the fp32 kernels at [2, 1024, 8,
-    256] causal, with the public entry's launches). `run` names the run."""
+    256] causal, with the public entry's launches); and the head dims
+    past the old instantiations (serve_odd_d and serve_wide_d: paged
+    attention at their decode tick, [4, 1] fp32 at 32 heads of 72 over 8
+    KV heads and 8 heads of 320 over 8, with each serve run's launches;
+    lm_d512 and lm_d512_fp32: the wide flash kernels at the D 512 step's
+    layer, [2, 4096, 2, 512], with that step's launches in each dtype).
+    `run` names the run."""
     rng = np.random.default_rng(SEED + 4)
     bases = rng.integers(32, 532, 4)
     pa = check_paged("decode_tick_S4", paged_geometry(
@@ -6112,12 +6362,18 @@ def kernels_line(serve_rec: dict, features_rec: dict, load_rec: dict,
             # lm_d256's fp32 step on the kernels, at its layer's shape
             ("lm_d256_fp32", {"launches": d256_recs["lm_d256"][
                 "launches_fp32_pallas"]},
-             list(flash_recs["lm_d256_fp32"].items())))
+             list(flash_recs["lm_d256_fp32"].items())),
+            *((run, head_dim_runs[run], list(any_d_recs[run].items()))
+              for run in ("serve_odd_d", "serve_wide_d", "lm_d512")),
+            ("lm_d512_fp32", {"launches": head_dim_runs["lm_d512"][
+                "launches_fp32_pallas"]},
+             list(any_d_recs["lm_d512_fp32"].items())))
     out = []
     for run, run_rec, recs in runs:
         for name, rec in recs:
             src, rep = where[name]
-            out.append({"name": name, "route": "cuda", "source": csrc + src,
+            out.append({"name": name, "route": "cuda",
+                        "source": csrc + rec.get("source", src),
                         "replaces": (rep if rep.startswith("hyperion_tpu/")
                                      else pallas + rep), "run": run,
                         "launches": run_rec["launches"][name],
@@ -6152,6 +6408,10 @@ def main() -> int:
     int8_kernel_recs = phase_int8_kernels()
     flash_recs = phase_flash()
     d256_recs = phase_lm_d256(dev["nvidia_smi"])
+    any_d_recs = phase_any_head_dim()
+    head_dim_runs = {"lm_d512": phase_lm_d512(dev["nvidia_smi"]),
+                     **{run: phase_serve_head_dim(run, dev["nvidia_smi"])
+                        for run in SERVE_HEAD_DIMS}}
     phase_train_model()
     train_rec = phase_train(dev["nvidia_smi"])
     long_rec = phase_train_long(dev["nvidia_smi"])
@@ -6203,7 +6463,8 @@ def main() -> int:
     emit(kernels_line(serve_rec, features_rec, load_rec, train_rec,
                       long_rec, llama_rec, resume_rec, kernel_recs,
                       flash_recs, fsdp_rec, llama_fsdp_rec, axes_recs,
-                      int8_kernel_recs, int8_rec, d256_recs))
+                      int8_kernel_recs, int8_rec, d256_recs, any_d_recs,
+                      head_dim_runs))
     emit({"phase": "total", "seconds": round(time.perf_counter() - t0, 3)})
     print(dev["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,10 +25,9 @@ CPU tensor each runs its plain version, a full-matrix formula of the
 same math with no tiles; on a CUDA tensor it launches
 `csrc/flash_attention.cu` or raises. The kernels are built per dtype
 (`HEAD_DIMS`): bf16 at D 64, 80, 96, 128 and 256, fp32 at D 32, 64, 128
-and 256; any other D up to 256 (the reference's kernel tiles the full D
-and takes them all; the port raises past 256) runs on the next of its
-dtype's (`kernel_head_dim`) with the scale of its true D, as if zero
-columns were appended: zero columns add exact zeros to q·kᵀ, and the
+and 256; any other D up to 256 runs on the next of its dtype's
+(`kernel_head_dim`) with the scale of its true D, as if zero columns
+were appended: zero columns add exact zeros to q·kᵀ, and the
 padded columns of v only fill columns that are never written. bf16 at a
 D that is a multiple of 8 reaches the kernels in place: their TMA maps
 read the tensors at their own width and fill the columns past it with
@@ -39,7 +38,11 @@ that file's Hopper kernels (wgmma, TMA, warp-specialised) for the
 forward and both backward kernels; fp32 runs its split-TF32 kernels (each
 product as three TF32 tensor-core passes over operands split as
 x = hi + lo, `split_tf32` being the split's plain model), within the
-reference's fp32 bounds of the plain versions.
+reference's fp32 bounds of the plain versions. Past 256 (the reference's
+kernels tile the whole D and take any) every D runs on the wide kernels
+of `csrc/flash_attention_wide.cu` at its own width, in both dtypes:
+mma.sync (bf16) or fp32 FMAs, the products over D in 64-column steps and
+each block owning a chunk of the output's columns.
 `kernel_attrs` reads what the compiler gave each kernel (registers,
 spills, shared memory, the function's name). `flash_attention` is the
 differentiable entry point: a `torch.autograd.Function` that saves q, k,
@@ -64,9 +67,11 @@ import torch
 from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import NEG_INF
 
-# the kernels' instantiations per dtype; any D up to 256 runs on the next
+# the kernels' instantiations per dtype; any D up to 256 runs on the next,
+# any D past it on the wide kernels at D itself
 HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
              torch.float32: (32, 64, 128, 256)}
+WIDE = 256  # past this head_dim: csrc/flash_attention_wide.cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,19 +96,29 @@ def _scale(D: int) -> float:
 
 def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
     """The kernel head_dim that runs a head_dim D in `dtype`: the least
-    of its HEAD_DIMS at or above it. Raises ValueError past 256."""
-    dims = HEAD_DIMS[dtype]
-    for Dk in dims:
+    of its HEAD_DIMS at or above it, or D itself past 256 (the wide
+    kernels). Raises ValueError for D < 1."""
+    if D > WIDE:
+        return D
+    for Dk in HEAD_DIMS[dtype]:
         if 0 < D <= Dk:
             return Dk
-    raise ValueError(f"flash_attention kernel takes head_dim 1 to "
-                     f"{dims[-1]}, got {D}")
+    raise ValueError(f"flash_attention takes head_dim >= 1, got {D}")
+
+
+def _entry(dims, which: str) -> tuple[str, str]:
+    """(source stem, C entry point) of the launch `which` ("fwd", "dq",
+    "dkv", "attrs") at these dims: the wide kernels past D 256."""
+    if dims[4] > WIDE:
+        return "flash_attention_wide", f"hyperion_flash_wide_{which}"
+    return "flash_attention", f"hyperion_flash_{which}"
 
 
 def host_padded(D: int, dtype: torch.dtype) -> bool:
     """Whether a head_dim D in `dtype` reaches the kernels as copies
-    zero-padded to `kernel_head_dim`. Not where D is an instantiation, nor
-    for bf16 at a D that is a multiple of 8: the Hopper kernels' TMA maps
+    zero-padded to `kernel_head_dim`. Not where D is an instantiation or
+    past 256 (the wide kernels read the tensors at D), nor for bf16 at a
+    D that is a multiple of 8: the Hopper kernels' TMA maps
     take a row stride of D·2 bytes if it is a multiple of 16, and read the
     columns past D as zeros. fp32 (the split-TF32 kernels read rows raw at
     the kernel's width) and bf16 at any other D are copied."""
@@ -240,8 +255,7 @@ def _run_fwd(dims, pad, q, k, v, causal, need_lse):
     """The forward launch on inputs of width W (D, or the kernel's Dk
     where `host_padded`), scaled for D; o comes back at width W."""
     B, Tq, Tkv, H, Dk, D = dims
-    fn = build.function("flash_attention", "hyperion_flash_fwd",
-                        _FWD_ARGTYPES)
+    fn = build.function(*_entry(dims, "fwd"), _FWD_ARGTYPES)
     o = torch.empty_like(q)
     lse = (torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
            if need_lse else None)
@@ -311,7 +325,7 @@ def _launch_dq(dims, pad, q, k, v, g, o, lse, causal):
     """(dq, delta): the kernel computes delta = Σ dO·O [B, H, Tq] from g
     and o and returns it for the dk/dv launch."""
     B, Tq, Tkv, H, Dk, D = dims
-    fn = build.function("flash_attention", "hyperion_flash_dq", _DQ_ARGTYPES)
+    fn = build.function(*_entry(dims, "dq"), _DQ_ARGTYPES)
     dq = torch.empty_like(q)
     delta = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -328,8 +342,7 @@ def _launch_dq(dims, pad, q, k, v, g, o, lse, causal):
 def _launch_dkv(dims, pad, q, k, v, g, o, lse, delta, causal):
     del o  # the inputs are _bwd_inputs', shared with dq
     B, Tq, Tkv, H, Dk, D = dims
-    fn = build.function("flash_attention", "hyperion_flash_dkv",
-                        _DKV_ARGTYPES)
+    fn = build.function(*_entry(dims, "dkv"), _DKV_ARGTYPES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(pad),
@@ -357,11 +370,11 @@ def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     (spill) bytes a thread, shared memory and threads a block, and the
     name of the function the launch runs, as the runtime names the one
     the C dispatch picked (`function_name`). Needs the card."""
-    fn = build.function("flash_attention", "hyperion_flash_attrs",
+    Dk = kernel_head_dim(D, dtype)
+    fn = build.function(*_entry((0, 0, 0, 0, Dk, D), "attrs"),
                         _ATTRS_ARGTYPES)
     out = (ctypes.c_int * 4)()
     name = ctypes.create_string_buffer(512)
-    Dk = kernel_head_dim(D, dtype)
     build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], Dk,
                    Dk if host_padded(D, dtype) else D, _DTYPES[dtype], out,
                    name, len(name)),

@@ -22,6 +22,14 @@ It reads no tensor, so a launch never waits on the card and a CUDA
 graph captures it whole; with more than one split the kernel writes
 fp32 partials into a workspace allocated here, and a second kernel of
 the same launch merges them.
+
+Any head_dim runs, as the reference's kernel takes any: D up to 256 on
+the instantiation at the next multiple of 16 (`kernel_head_dim`), q and
+the pools read at their own width with the columns past D as zeros
+(rows whose bytes are no multiple of 16 in narrower units), and past
+256 on the wide kernel, whose blocks each own one chunk of at most 192
+output columns (`Plan.chunks`) and sum q . k^T over D in 64-column
+steps. No pool is copied to a padded width.
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from hyperion_tpu_torch.ops import build
 from hyperion_tpu_torch.ops.attention import grouped_cache_attention
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = range(16, 257, 16)  # the kernel's instantiations
+HEAD_DIMS = range(16, 257, 16)  # the instantiations D <= 256 runs on
+WIDE_CHUNK = 192    # output columns a block of the wide kernel, at most
 KV_TILE = 32        # kv positions a tile (kN in the kernel)
 SMS = 132           # streaming multiprocessors of an H100 SXM
 MAX_SPLIT = 2048    # positions a split walks at most: its pool row
@@ -45,10 +54,25 @@ MAX_SPLIT = 2048    # positions a split walks at most: its pool row
 _GRID_X = 2 ** 31 - 1
 _GRID_YZ = 65535
 # q, k_pool, v_pool, block_tables, base, out, workspace; B, T, H, Hkv, D,
-# bs, MB; warps, row_tiles, n_splits, split_len; dtype; stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+# bs, MB; warps, row_tiles, n_splits, split_len, chunks; dtype; stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 # which (0 split kernel, 1 combine), D, dtype, warps, split_len, int out[4]
 _ATTRS_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+
+
+def kernel_head_dim(D: int) -> int:
+    """The instantiation that runs head_dim D: the next multiple of 16 up
+    to 256; past 256 the wide kernel, which takes the tensors at D."""
+    if D <= 0:
+        raise ValueError(f"paged_attention takes head_dim >= 1, got {D}")
+    return -(-D // 16) * 16 if D <= HEAD_DIMS[-1] else D
+
+
+def wide_chunks(D: int) -> int:
+    """Output-column chunks of a row D wide: 1 up to 256, else one block
+    for each WIDE_CHUNK columns or part of them (the kernel's
+    `wide_chunks`)."""
+    return 1 if D <= HEAD_DIMS[-1] else -(-D // WIDE_CHUNK)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,15 +80,17 @@ class Plan:
     """How one launch cuts its work: blocks of `warps` warps (16 query
     rows each), `row_tiles` of them over the window's T * H / Hkv rows,
     times `n_splits` splits of `split_len` kv positions over the chain
-    [0, MB * bs). Grid (row_tiles * n_splits, Hkv, B)."""
+    [0, MB * bs), times `chunks` chunks of the output columns (past D
+    256). Grid (row_tiles * n_splits * chunks, Hkv, B)."""
 
     warps: int
     row_tiles: int
     n_splits: int
     split_len: int
+    chunks: int = 1
 
     def grid(self, B: int, Hkv: int) -> tuple[int, int, int]:
-        return (self.row_tiles * self.n_splits, Hkv, B)
+        return (self.row_tiles * self.n_splits * self.chunks, Hkv, B)
 
 
 @functools.lru_cache(maxsize=256)  # a serve run meets a handful of shapes
@@ -75,11 +101,10 @@ def plan(B: int, T: int, H: int, Hkv: int, D: int, bs: int,
     (decode, verify) takes one-warp blocks and enough splits for ~8
     blocks an SM, since its bytes, not its products, bound it; wider
     windows (prefill) take 64-row blocks and split only when their row
-    tiles do not fill the card once. Raises ValueError on what the kernel
-    cannot take."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"paged_attention kernel takes head_dim a multiple "
-                         f"of 16 from 16 to 256, got {D}")
+    tiles do not fill the card once; past D 256 each block owns a chunk
+    of the output columns. Raises ValueError on what the kernel cannot
+    take."""
+    chunks = wide_chunks(kernel_head_dim(D))
     if Hkv <= 0 or H % Hkv:
         raise ValueError(f"n_heads {H} not a multiple of n_kv_heads {Hkv}")
     if MB * bs <= 0:
@@ -89,11 +114,11 @@ def plan(B: int, T: int, H: int, Hkv: int, D: int, bs: int,
     warps = 1 if rows <= 16 else 4
     row_tiles = -(-rows // (16 * warps))
     n_tiles = -(-(MB * bs) // KV_TILE)
-    blocks = max(1, B * Hkv * row_tiles)
+    blocks = max(1, B * Hkv * row_tiles * chunks)
     want = -(-(8 * SMS if warps == 1 else SMS) // blocks)
     per_split = min(-(-n_tiles // want), MAX_SPLIT // KV_TILE)
     n_splits = -(-n_tiles // per_split)
-    p = Plan(warps, row_tiles, n_splits, per_split * KV_TILE)
+    p = Plan(warps, row_tiles, n_splits, per_split * KV_TILE, chunks)
     x, y, z = p.grid(B, Hkv)
     if x > _GRID_X or y > _GRID_YZ or z > _GRID_YZ:
         raise ValueError(f"paged_attention: grid {(x, y, z)} exceeds CUDA's "
@@ -214,7 +239,8 @@ def _launch(q, k_pool, v_pool, block_tables, base, p: Plan | None = None):
                     block_tables.data_ptr(), base.data_ptr(), out.data_ptr(),
                     None if ws is None else ws.data_ptr(),
                     B, T, H, Hkv, D, bs, MB, p.warps, p.row_tiles,
-                    p.n_splits, p.split_len, _DTYPES[q.dtype], stream)
+                    p.n_splits, p.split_len, p.chunks, _DTYPES[q.dtype],
+                    stream)
     build.check(status, "paged_attention launch")
     paged_attention.launches += 1
     return out
@@ -223,8 +249,8 @@ def _launch(q, k_pool, v_pool, block_tables, base, p: Plan | None = None):
 def kernel_attrs(D: int, dtype: torch.dtype, p: Plan,
                  which: str = "split") -> dict:
     """What the compiler gave the kernel `which` ("split": the attention
-    kernel, at plan `p`; "combine": the merge of the splits) at this
-    head_dim and dtype: registers and local-memory (spill) bytes a
+    kernel that runs head_dim D, at plan `p`; "combine": the merge of the
+    splits) at this dtype: registers and local-memory (spill) bytes a
     thread, shared memory and threads a block. Needs the card."""
     fn = build.function("paged_attention", "hyperion_paged_attrs",
                         _ATTRS_ARGTYPES)

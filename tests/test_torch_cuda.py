@@ -8,7 +8,9 @@ autograd. jax-free, so it runs where the port runs:
 machine does not have.) Without a CUDA device every test skips with
 its reason. chip_smoke.py holds the same kernels at full model width;
 these cover the small, odd geometries: GQA, a shared prefix, a window
-running past the table, head dims from 16 to 256, the paged kernel's
+running past the table, head dims from 16 to 256 and any other (D 8,
+33, 72, 100 at the true width, 264, 320, 512 on the wide kernel; flash
+at 264, 300, 301, 320 and 512 on the wide kernels), the paged kernel's
 plans (chains split across blocks, with rows that end inside, on and at
 the end of a split; prefill row tiles at base 0 and mid-block), its
 determinism and null-block poison, odd rows and
@@ -179,6 +181,58 @@ def test_paged_attention_splits_are_deterministic_and_poison_free(
     assert torch.equal(paged_attention(q, kp, vp, bt, base), runs[0])
 
 
+# Any head_dim (the reference's kernel has no head_dim check): D up to 256
+# on the instantiation at the next multiple of 16, read at the true width
+# (D 8, 72; 100 in bf16 is a 200-byte row, loaded in 8-byte units; 33 an
+# odd one, 2-byte units in bf16 and 4-byte in fp32), past 256 on the wide
+# kernel (264 and 320 in two chunks of output columns, 512 in three; q . k^T in
+# 64-column steps): decode over many splits, a GQA verify window, and a
+# prefill of several row tiles at a base no multiple of the block size.
+ANY_D = (8, 33, 72, 100, 264, 320, 512)
+ANY_D_CASES = {
+    **{f"decode_d{D}": dict(B=3, T=1, H=4, Hkv=2, D=D, bs=16, MB=32,
+                            seed=60 + D) for D in ANY_D},
+    **{f"verify_gqa_d{D}": dict(B=2, T=5, H=8, Hkv=2, D=D, seed=61 + D)
+       for D in ANY_D},
+    **{f"prefill_d{D}_base37": dict(B=1, T=90, H=4, Hkv=4, D=D, bs=16, MB=16,
+                                    seed=62 + D, base=[37]) for D in ANY_D},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(ANY_D_CASES))
+def test_paged_attention_any_head_dim_matches_plain(cuda, case, dtype):
+    """One launch of the kernel at a head_dim no instantiation has, on the
+    caller's pools (their own row width), within the plain version's
+    tolerance."""
+    q, kp, vp, bt, base = _geometry(cuda, dtype, **ANY_D_CASES[case])
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, bt, base)
+    assert paged_attention.launches == before + 1
+    assert out.shape == q.shape
+    ref = paged_attention_plain(q, kp, vp, bt, base)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", ANY_D)
+def test_paged_attention_any_head_dim_deterministic_and_poison_free(
+        cuda, D, dtype):
+    """Two runs give the same bits (splits merged in order; at D past 256
+    every chunk's block writes only its own columns), and garbage in the
+    null block changes none."""
+    q, kp, vp, bt, base = _geometry(cuda, dtype, **ANY_D_CASES[f"decode_d{D}"])
+    assert int((bt == 0).sum()) > 0 and pa_mod.plan_for(q, kp, bt).n_splits > 1
+    runs = [paged_attention(q, kp, vp, bt, base) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    kp[0], vp[0] = 1e4, -1e4
+    assert torch.equal(paged_attention(q, kp, vp, bt, base), runs[0])
+
+
 def test_paged_attention_kernels_keep_to_registers(cuda):
     """The split kernel at 7B's decode tick and prefill plans, and the
     combine, spill nothing to local memory and fit a block's shared
@@ -189,6 +243,12 @@ def test_paged_attention_kernels_keep_to_registers(cuda):
             for which in ("split", "combine"):
                 attrs = pa_mod.kernel_attrs(128, dtype, p, which)
                 assert attrs["spill_bytes"] == 0, (T, dtype, which, attrs)
+                assert attrs["smem_bytes"] <= 227 * 1024
+            # the true-width instantiation (D 72 on 80) and the wide kernel
+            for D in (72, 320):
+                attrs = pa_mod.kernel_attrs(
+                    D, dtype, pa_mod.plan(4, T, 8, 8, D, 16, 64))
+                assert attrs["spill_bytes"] == 0, (T, dtype, D, attrs)
                 assert attrs["smem_bytes"] <= 227 * 1024
 
 
@@ -613,7 +673,18 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "two_tails_d256": (2, 256, 256, 2, 256, True, (0.25, 0.1)),
                "scaled_q_d256": (2, 192, 192, 2, 256, True, 0.25),
                "causal_pad_d160": (2, 192, 192, 2, 160, True, 0.25),
-               "cross_causal_d192": (2, 70, 200, 2, 192, True, 0.2)}
+               "cross_causal_d192": (2, 70, 200, 2, 192, True, 0.2),
+               # past 256, the wide kernels at the tensors' own width:
+               # three and two 128-column output chunks, a row all
+               # padding, unequal lengths both ways, an odd D (bf16 rows
+               # in 2-byte units, fp32 in 4-byte) and a ragged one
+               "causal_pad_d264": (2, 192, 192, 2, 264, True, 0.25),
+               "all_pad_row_d320": (2, 200, 200, 2, 320, False, (1.0, 0.1)),
+               "cross_causal_d320": (2, 70, 200, 2, 320, True, 0.2),
+               "cross_causal_long_q_d512": (1, 200, 130, 2, 512, True, 0.1),
+               "two_tails_d512": (2, 256, 256, 2, 512, True, (0.25, 0.1)),
+               "odd_d301": (1, 100, 100, 2, 301, True, 0.2),
+               "ragged_77_d300": (1, 77, 77, 2, 300, False, 0.1)}
 FLASH_Q_SCALE = {"scaled_q_d128": 4.0, "scaled_q_d256": 4.0}
 
 
@@ -688,7 +759,8 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                   "cross_causal_d128", "ragged_causal_d32",
                                   "causal_pad_d96", "causal_pad_d64",
                                   "two_tails_d64", "two_tails_d256",
-                                  "cross_causal_d256", "scaled_q_d256"])
+                                  "cross_causal_d256", "scaled_q_d256",
+                                  "cross_causal_d320", "two_tails_d512"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two runs of the whole backward (one delta for both kernels, which
     the dq kernel computes) give the same bits, and match the plain
@@ -709,7 +781,8 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", ["causal_pad_d128", "all_pad_row_d256",
                                   "cross_causal_long_q_d256",
-                                  "two_tails_d256", "scaled_q_d256"])
+                                  "two_tails_d256", "scaled_q_d256",
+                                  "all_pad_row_d320", "two_tails_d512"])
 def test_flash_forward_is_deterministic(cuda, case, dtype):
     """Two runs of the forward give the same bits for o and lse, and match
     the plain version. At D 256 in fp32 the forward's key tiles pass
@@ -838,8 +911,15 @@ def test_flash_true_width_equals_host_padded(cuda, D):
 
 
 def test_flash_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 8, 2, 264, device=cuda)  # past the 256 kernels
-    with pytest.raises(ValueError, match="head_dim 1 to 256"):
+    """Past 256 the wide kernels take the call (one launch, the plain
+    version's bits of a zero input); head_dim 0 and fp16 are refused."""
+    q = torch.zeros(1, 8, 2, 264, device=cuda)
+    before = fa.flash_attention_fwd.launches
+    o, lse = fa.flash_attention_fwd(q, q, q)
+    assert fa.flash_attention_fwd.launches == before + 1
+    assert torch.equal(o, torch.zeros_like(q))
+    q = torch.zeros(1, 8, 2, 0, device=cuda)
+    with pytest.raises(ValueError, match="head_dim >= 1"):
         fa.flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -871,6 +951,48 @@ def test_flash_d256_through_the_public_entry(cuda, dtype):
                                         padding_mask=pad)
     for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
         _flash_close(leaf.grad, ref, dtype, name, 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_wide_through_the_public_entry(cuda, dtype):
+    """D 512 through `dot_product_attention(impl="pallas")`, forward and
+    backward: the wide kernels launch once each on the caller's tensors,
+    and the gradients match the plain versions'."""
+    from hyperion_tpu_torch.ops.attention import dot_product_attention
+
+    q, k, v, g, pad, causal = _flash_inputs(cuda, dtype, "two_tails_d512",
+                                            seed=50)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+              fa.flash_attention_dkv.launches)
+    out = dot_product_attention(*leaves, causal=causal, padding_mask=pad,
+                                impl="pallas")
+    out.backward(g)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == tuple(b + 1 for b in before)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                          padding_mask=pad)
+    _flash_close(out.detach(), o, dtype, "o", 512)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, g, causal=causal,
+                                        padding_mask=pad)
+    for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, refs):
+        _flash_close(leaf.grad, ref, dtype, name, 512)
+
+
+def test_flash_wide_kernels_keep_to_registers(cuda):
+    """The wide forward, dq and dk/dv, in both dtypes, are one function
+    each at every D past 256 (128 threads), spill nothing and fit one
+    block's shared memory."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for which in ("fwd", "dq", "dkv"):
+            for D in (264, 512):
+                attrs = fa.kernel_attrs(which, D, dtype)
+                assert attrs["threads"] == 128 and \
+                    attrs["spill_bytes"] == 0, (which, D, dtype, attrs)
+                assert attrs["smem_bytes"] <= 227 * 1024
+                assert attrs["function"].startswith(
+                    f"flash_{which}_kernel_wide<"), attrs
 
 
 # ------------------------------------------ the serve engine's graphs

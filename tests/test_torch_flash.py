@@ -184,11 +184,14 @@ def test_hopper_kernels_take_bf16_at_every_head_dim(D, dtype, monkeypatch):
 def test_kernel_head_dim(D, dtype):
     """The kernel head_dim that runs D: the least of the dtype's
     instantiations at or above it (bf16 64, 80, 96, 128 and 256, the
-    Hopper kernels; fp32 32, 64, 128 and 256); past 256 it raises (the
+    Hopper kernels; fp32 32, 64, 128 and 256); past 256 D itself, on the
+    wide kernels, which read the tensors at their own width (the
     reference's kernel tiles any D)."""
     if D > 256:
-        with pytest.raises(ValueError, match="head_dim 1 to 256"):
-            fa.kernel_head_dim(D, dtype)
+        assert fa.kernel_head_dim(D, dtype) == D
+        assert not fa.host_padded(D, dtype)
+        assert fa._entry((1, 1, 1, 1, D, D), "fwd") == (
+            "flash_attention_wide", "hyperion_flash_wide_fwd")
         return
     want = min(Dk for Dk in ((64, 80, 96, 128, 256) if dtype == torch.bfloat16
                              else (32, 64, 128, 256)) if Dk >= D)

@@ -147,18 +147,23 @@ class TestPagedAttentionPlain:
 
     @pytest.mark.parametrize("bad, match", [
         ("dtype", "float32 or bfloat16"),
-        ("head_dim", "multiple of 16"),
+        ("head_dim", "head_dim: q 40, pools 32"),
         ("table_dtype", "int32"),
         ("pool_dtype", "one dtype"),
         ("strided", "contiguous"),
     ])
     def test_kernel_rejects_what_it_cannot_take(self, bad, match):
-        """The launch path validates before it builds or launches."""
-        q, kp, vp, bt, base = _torch(*_geometry(
-            2, 1, 4, 4, D=40 if bad == "head_dim" else 32))
+        """The launch path validates before it builds or launches. Any
+        head_dim >= 1 plans (the instantiation at the next multiple of 16
+        up to 256, the wide kernel's output chunks past it); q's and the
+        pools' head_dim must agree."""
+        q, kp, vp, bt, base = _torch(*_geometry(2, 1, 4, 4, D=32))
         if bad == "head_dim":
-            for D in (16, 80):  # multiples of 16 pass the planner's check
-                assert pa_mod.plan(2, 1, 4, 4, D, 4, 8).n_splits >= 1
+            for D, Dk, chunks in ((40, 48, 1), (16, 16, 1), (7, 16, 1),
+                                  (320, 320, 2), (513, 513, 3)):
+                assert pa_mod.kernel_head_dim(D) == Dk
+                assert pa_mod.plan(2, 1, 4, 4, D, 4, 8).chunks == chunks
+            q = _torch(*_geometry(2, 1, 4, 4, D=40))[0]
         elif bad == "dtype":
             q, kp, vp = q.half(), kp.half(), vp.half()
         elif bad == "table_dtype":
@@ -646,7 +651,8 @@ class TestBuild:
 
     def test_digest_keys_on_sources(self):
         srcs = sorted(build.CSRC.glob("*.cu"))
-        assert {s.stem for s in srcs} == {"flash_attention", "fused_ce",
+        assert {s.stem for s in srcs} == {"flash_attention",
+                                          "flash_attention_wide", "fused_ce",
                                           "fused_norm", "int8_matmul",
                                           "paged_attention"}
         assert build._digest(srcs) == build._digest(srcs)
