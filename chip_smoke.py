@@ -1336,8 +1336,15 @@ def check_flash(name, q, k, v, do, pad, causal, timing: bool) -> dict:
         ok = all(ok for ok, _ in c)
         # the Hopper kernels (bf16: three warpgroups, 384 threads), the
         # split-TF32 ones (fp32: 256 threads) and, past D 256, the wide
-        # kernels of either dtype keep everything in registers
-        if D > fa.WIDE:
+        # kernels of either dtype keep everything in registers; fp32's
+        # wide kernels run on the cluster `wide_plan` computes for D, past
+        # 2048 as their `_passes` twins
+        if D > fa.WIDE and dtype == torch.float32:
+            plan = fa.wide_plan(D)
+            kind = attrs["function"] == f"flash_{which}_kernel_wide_tf32" + (
+                "_passes" if plan["passes"] > 1 else "") \
+                and attrs["cluster"] == plan["cluster"]
+        elif D > fa.WIDE:
             kind = attrs["function"].startswith(f"flash_{which}_kernel_wide<")
         else:
             kind = (attrs["threads"] == 384) == (dtype == torch.bfloat16)
@@ -1977,7 +1984,7 @@ def phase_train_long(smi: str) -> dict:
     return rec
 
 
-def lm_step(smi: str, shape: tuple, phase: str, seed: int
+def lm_step(smi: str, shape: tuple, phase: str, seed: int, steps: int = 1
             ) -> tuple[dict, list[str]]:
     """One forward and backward of the port's TransformerLM at heads
     `shape` = (B, T, H, D): d_model H * D, 2 layers, GPT-2 vocab, the
@@ -1985,7 +1992,8 @@ def lm_step(smi: str, shape: tuple, phase: str, seed: int
     bf16 and fp32 against "xla" in bf16, fp32 and float64 on the same
     weights; the record and the bounds it misses (`phase_lm_d256` says
     why each bound holds). Launches counted per dtype: 2 forward, 2 dq,
-    2 dk/dv."""
+    2 dk/dv, in the first timed step. `steps` timed steps a model after
+    one warm one (CUDA events around each), `step_ms` their median."""
     from hyperion_tpu_torch.models.transformer_lm import (
         TransformerLM,
         simple_lm_config,
@@ -2023,16 +2031,23 @@ def lm_step(smi: str, shape: tuple, phase: str, seed: int
     for impl, model in models.items():
         step(model)  # warm
         torch.cuda.synchronize()
-        _reset_launch_counts()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        loss = step(model)
-        end.record()
-        torch.cuda.synchronize()
-        out[impl] = {"loss": loss.item(), "step_ms": start.elapsed_time(end),
+        times = []
+        for i in range(steps):
+            if i == 0:
+                _reset_launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            loss = step(model)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            if i == 0:
+                launches[impl] = _flash_launches()
+        out[impl] = {"loss": loss.item(), "step_ms": float(np.median(times)),
+                     "step_ms_all": times,
                      "grads": {n: p.grad.float() for n, p in
                                model.named_parameters()}}
-        launches[impl] = _flash_launches()
     leaves = [n for n in out["xla"]["grads"] if not n.endswith("k_proj.bias")]
     rel = {n: float((out["pallas"]["grads"][n] - out["xla"]["grads"][n])
                     .norm() / out["xla"]["grads"][n].norm().clamp_min(1e-30))
@@ -2053,6 +2068,7 @@ def lm_step(smi: str, shape: tuple, phase: str, seed: int
            "heads": H, "head_dim": D, "layers": 2, "dtype": "bfloat16",
            "loss": {k: o["loss"] for k, o in out.items()},
            "step_ms": {k: o["step_ms"] for k, o in out.items()},
+           "step_ms_all": {k: o["step_ms_all"] for k, o in out.items()},
            "grad_rel_norm_max": max(rel.values()),
            "grad_rel_worst": max(rel, key=rel.get),
            "grad_rel_norm": {n: round(v, 6) for n, v in rel.items()},
@@ -2189,7 +2205,12 @@ def phase_lm_d256(smi: str) -> dict:
 # kernels). The serve phases' Llamas: 2 layers, vocab 32000, heads of 72
 # (32 over 8 KV heads) and of 320 (8 over 8).
 ANY_D = (8, 72, 100, 264, 320, 512)
-WIDE_FLASH_D = (264, 320, 512)
+# flash past 256: 301 an odd row (4-byte units in fp32, 2-byte in bf16),
+# 1032 past eight 128-column slices (fp32: a non-portable cluster of 9),
+# 1928 and 2048 on the largest cluster, 16 (an 8-column last slice, and
+# 16 full ones), 2305 past it in two passes (an odd row, its last slice
+# one column)
+WIDE_FLASH_D = (264, 301, 320, 512, 1032, 1928, 2048, 2305)
 LM_D512_SHAPE = (2, 4096, 2, 512)
 SERVE_HEAD_DIMS = {
     "serve_odd_d": dict(d_model=2304, n_heads=32, n_kv_heads=8, ff_dim=6144),
@@ -2222,15 +2243,16 @@ def phase_any_head_dim() -> dict:
     prefill [1, 512], both at base 256, 32 heads over 8 KV heads, at D 8,
     72, 100, 264, 320 and 512, in bf16 and fp32, with the null-block
     poison and a rerun at each D; flash attention's forward, dq and
-    dk/dv at D 264, 320 and 512 on [2, 1000, 4, D] causal with the
-    synthetic split's ragged key padding and [2, 200, 4, D] full with one
-    batch row all padding, bf16 and fp32 (`check_flash`: the bounds of the
-    D <= 256 cases, fp32's grown by `fp32_flash_growth(D)`; two runs
-    bit-identical; no spill). Timed at the new phases' shapes: paged
-    attention at serve_odd_d's and serve_wide_d's decode ticks, flash at
-    one lm_d512 layer ([2, 4096, 2, 512], causal, ragged padding) in each
-    dtype, beside SDPA's masked call (`library_backend` names the backend
-    it picked). Returns the timed records by run."""
+    dk/dv at each of `WIDE_FLASH_D` on [2, 1000, 4, D] causal with
+    the synthetic split's ragged key padding and [2, 200, 4, D] full with
+    one batch row all padding, bf16 and fp32 (`check_flash`: the bounds
+    of the D <= 256 cases, fp32's grown by `fp32_flash_growth(D)`; two
+    runs bit-identical; no spill; fp32 on `wide_plan`'s cluster). Timed
+    at the new phases' shapes: paged attention at serve_odd_d's and
+    serve_wide_d's decode ticks, flash at one lm_d512 layer ([2, 4096, 2,
+    512], causal, ragged padding) in each dtype, beside SDPA's masked
+    call (`library_backend` names the backend it picked). Returns the
+    timed records by run."""
     t0 = time.perf_counter()
     bf16, fp32 = torch.bfloat16, torch.float32
     for dtype in (bf16, fp32):
@@ -2283,13 +2305,22 @@ def phase_lm_d512(smi: str) -> dict:
     the fp32 kernel step's loss within 2 x 2e-5 x fp32_flash_growth(512)
     of the fp32 "xla" step's, its gradient within 5 times the fp32 step's
     distance from float64's. The growth (D / 128)^1.5 = 8 holds for these
-    kernels as for the split-TF32 ones: their products are plain fp32
-    FMAs, whose dot product over D is off by at most ~D u sum|q_d k_d|,
-    the bound the factor comes from, and the triangle bound on the
-    gradient needs only that their terms are no worse than the plain
-    step's. 2 forward, 2 dq and 2 dk/dv launches in each dtype."""
+    kernels as for the D <= 256 split-TF32 ones: their products are the
+    same three TF32 passes, whose dot product over D is off by at most ~D
+    u sum|q_d k_d|, the bound the factor comes from (the cluster's
+    partial sums over D's slices are terms of that one sum), and the
+    triangle bound on the gradient needs only that their terms are no
+    worse than the plain step's. Each step is the median of 3; whether
+    the fp32 kernel step is below its "xla" twin's in the same run is
+    recorded (`fp32_kernels_below_xla`), not held: at this layer the
+    kernels' forward and backward take longer than the twin's attention
+    in plain fp32 matmuls (PERF.md section 6). 2 forward, 2 dq and 2
+    dk/dv launches in each dtype."""
     t0 = time.perf_counter()
-    rec, problems = lm_step(smi, LM_D512_SHAPE, "lm_d512", SEED + 82)
+    rec, problems = lm_step(smi, LM_D512_SHAPE, "lm_d512", SEED + 82,
+                            steps=3)
+    rec["fp32_kernels_below_xla"] = \
+        rec["step_ms"]["fp32_pallas"] < rec["step_ms"]["fp32"]
     rec["seconds"] = round(time.perf_counter() - t0, 3)
     emit(rec)
     if problems:

@@ -41,14 +41,18 @@ x = hi + lo, `split_tf32` being the split's plain model), within the
 reference's fp32 bounds of the plain versions. Past 256 (the reference's
 kernels tile the whole D and take any) every D runs on the wide kernels
 of `csrc/flash_attention_wide.cu` at its own width, in both dtypes:
-mma.sync (bf16) or fp32 FMAs, the products over D in 64-column steps and
-each block owning a chunk of the output's columns.
+bf16 on mma.sync, the products over D in 64-column steps and each block
+owning a chunk of the output's columns; fp32 on split TF32, a
+thread-block cluster a row tile whose blocks each own a slice of D and
+sum their partial logits across the cluster, so that s is computed once
+a tile (`wide_plan`: one pass up to 2048, then a pass per 2048 columns).
 `kernel_attrs` reads what the compiler gave each kernel (registers,
-spills, shared memory, the function's name). `flash_attention` is the
-differentiable entry point: a `torch.autograd.Function` that saves q, k,
-v, the mask, o and lse, as the reference's `_fwd` does, and runs the
-two backward kernels; a call that needs no gradient skips the lse
-write, as the reference's `need_lse=False` does.
+spills, shared memory, the function's name; past 256 the cluster).
+`flash_attention` is the differentiable entry point: a
+`torch.autograd.Function` that saves q, k, v, the mask, o and lse, as
+the reference's `_fwd` does, and runs the two backward kernels; a call
+that needs no gradient skips the lse write, as the reference's
+`need_lse=False` does.
 
 `block_q` / `block_kv` are the TPU kernel's tiling knobs: accepted, and
 left to the kernel, whose tile is fixed. `_pick_block`'s limits and the
@@ -72,6 +76,9 @@ from hyperion_tpu_torch.ops.attention import NEG_INF
 HEAD_DIMS = {torch.bfloat16: (64, 80, 96, 128, 256),
              torch.float32: (32, 64, 128, 256)}
 WIDE = 256  # past this head_dim: csrc/flash_attention_wide.cu
+# fp32 past 256: clusters of at most 16 blocks, a slice of at most 128
+# columns each (`wide_plan`)
+WIDE_CLUSTER_MAX, WIDE_SLICE_MAX = 16, 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,8 +89,9 @@ _FWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P]
 _DQ_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
 # q, k, v, pad, dout, lse, delta, dk, dv; B, Tq, Tkv, H, D, W, causal; ...
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P]
-# which (0 forward, 1 dq, 2 dk/dv), D, W, dtype, int out[4]; the
-# function's name and its buffer's bytes
+# which (0 forward, 1 dq, 2 dk/dv), D, W, dtype, int out[5] (the wide
+# kernels' fifth: blocks a cluster); the function's name and its
+# buffer's bytes
 _ATTRS_ARGTYPES = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int),
                    ctypes.c_char_p, _I]
 
@@ -112,6 +120,28 @@ def _entry(dims, which: str) -> tuple[str, str]:
     if dims[4] > WIDE:
         return "flash_attention_wide", f"hyperion_flash_wide_{which}"
     return "flash_attention", f"hyperion_flash_{which}"
+
+
+def wide_plan(D: int) -> dict:
+    """The fp32 wide kernels' launch at head_dim D past 256, as
+    `tf32::plan` in `csrc/flash_attention_wide.cu` computes it. Up to
+    2048: a cluster of ceil(D / 128) blocks, block r owning the columns
+    `slices[r]` of D (`slice` = D / cluster rounded up to 8 wide, the last
+    the rest), in one pass. Past 2048: a cluster of 16, slices of 128,
+    block r owning `slices[r::16]`, and ceil(len(slices) / 16) `passes`,
+    pass p's block r writing `slices[r + 16 p]`. Raises ValueError up to
+    256."""
+    if D <= WIDE:
+        raise ValueError(f"the fp32 wide flash kernels take head_dim > "
+                         f"{WIDE}, got {D}")
+    C = -(-D // WIDE_SLICE_MAX)
+    if C > WIDE_CLUSTER_MAX:
+        sw, passes, C = WIDE_SLICE_MAX, -(-C // WIDE_CLUSTER_MAX), \
+            WIDE_CLUSTER_MAX
+    else:
+        sw, passes = (-(-D // C) + 7) // 8 * 8, 1
+    return {"cluster": C, "slice": sw, "passes": passes,
+            "slices": [(c0, min(D, c0 + sw)) for c0 in range(0, D, sw)]}
 
 
 def host_padded(D: int, dtype: torch.dtype) -> bool:
@@ -369,19 +399,24 @@ def kernel_attrs(which: str, D: int, dtype: torch.dtype) -> dict:
     width its tensors reach it at) and dtype: registers and local-memory
     (spill) bytes a thread, shared memory and threads a block, and the
     name of the function the launch runs, as the runtime names the one
-    the C dispatch picked (`function_name`). Needs the card."""
+    the C dispatch picked (`function_name`; fp32 past 2048 runs the
+    `_passes` kernels); past 256 also the blocks of its cluster (1 in
+    bf16; `wide_plan`'s in fp32). Needs the card."""
     Dk = kernel_head_dim(D, dtype)
     fn = build.function(*_entry((0, 0, 0, 0, Dk, D), "attrs"),
                         _ATTRS_ARGTYPES)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     name = ctypes.create_string_buffer(512)
     build.check(fn({"fwd": 0, "dq": 1, "dkv": 2}[which], Dk,
                    Dk if host_padded(D, dtype) else D, _DTYPES[dtype], out,
                    name, len(name)),
                 "flash_attention kernel attributes")
-    return {"registers": out[0], "spill_bytes": out[1],
-            "smem_bytes": out[2], "threads": out[3],
-            "function": function_name(name.value.decode())}
+    rec = {"registers": out[0], "spill_bytes": out[1],
+           "smem_bytes": out[2], "threads": out[3],
+           "function": function_name(name.value.decode())}
+    if D > WIDE:
+        rec["cluster"] = out[4]
+    return rec
 
 
 def flash_attention_fwd(q, k, v, *, causal=False, padding_mask=None,

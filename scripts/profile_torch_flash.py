@@ -13,9 +13,14 @@ masks and without padding, [2, 4096, 4, 256] with the ragged padding
 one shape, [2, 1000, 8, D] causal with the last 100 keys of each row
 padding: D 32 (the D 64 kernels at width 32), 80 and 96 (kernels of
 their own), 128, 160 and 192 (the D 256 kernels at width D) and 256.
-fp32 [2, 1024, 8, 256] causal and full.
+fp32 [2, 1024, 8, 256] causal and full. Past 256 (the wide kernels):
+[2, 4096, 2, 512] causal with the ragged padding (chip_smoke.py's
+lm_d512 layer) in fp32 and bf16, fp32 [2, 1024, 4, 512] full, and fp32
+[2, 2048, 1, 2304] causal with the ragged padding (past 2048: the fp32
+kernels in two passes).
 
     python3 scripts/profile_torch_flash.py [--root DIR] [--cases a,b]
+        [--plain]
 
 Each of the forward and the backward is timed in turns with
 `scaled_dot_product_attention` over the same boolean mask: library,
@@ -31,7 +36,10 @@ gradients within 2e-4; bf16 as that function states), its outputs'
 bits are hashed (`digest`: two checkouts whose kernels agree to the bit
 print the same), and its bounds
 are this checkout's `chip_smoke.bound` (fp32: three TF32 passes at the
-dense TF32 rate). `--cases` runs the named cases only.
+dense TF32 rate). `--cases` runs the named cases only; `--plain` also
+times the plain versions (`flash_attention_fwd_plain`,
+`flash_attention_bwd_plain`), twice each (`fwd_plain_ms`,
+`bwd_plain_ms`).
 
 `--root` runs the kernels of another checkout of this repo (for example
 an older commit unpacked with `git archive`): its `hyperion_tpu_torch`
@@ -74,7 +82,11 @@ CASES = {"bf16_causal_4096_d64": ((1, 4096, 8, 64), BF16, True, None),
          "bf16_ragged_1000_d80": ((2, 1000, 8, 80), BF16, True, 0.1),
          "bf16_ragged_1000_d32": ((2, 1000, 8, 32), BF16, True, 0.1),
          "fp32_causal_d256": ((2, 1024, 8, 256), FP32, True, None),
-         "fp32_full_d256": ((2, 1024, 8, 256), FP32, False, None)}
+         "fp32_full_d256": ((2, 1024, 8, 256), FP32, False, None),
+         "fp32_lm_step_d512": ((2, 4096, 2, 512), FP32, True, "ragged"),
+         "fp32_full_d512": ((2, 1024, 4, 512), FP32, False, None),
+         "bf16_lm_step_d512": ((2, 4096, 2, 512), BF16, True, "ragged"),
+         "fp32_lm_step_d2304": ((2, 2048, 1, 2304), FP32, True, "ragged")}
 
 
 def load_smoke():
@@ -87,7 +99,8 @@ def load_smoke():
     return mod
 
 
-def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
+def profile_case(cs, fa, name, shape, dtype, causal, padding,
+                 plain=False) -> dict:
     B, T, H, D = shape
     seed = cs.SEED + 30
     q, k, v, do, pad = cs.flash_case(
@@ -176,6 +189,15 @@ def profile_case(cs, fa, name, shape, dtype, causal, padding) -> dict:
             ("dkv", lambda *a: fa._launch_dkv(dims, pad32, *a, causal),
              (*ins, delta))):
         rec[f"{part}_kernel_ms"] = [cs.time_ms(fn, args, nk) for _ in range(2)]
+    if plain:
+        for part, fn, args, nbytes in (
+                ("fwd", lambda a, b, c: fa.flash_attention_fwd_plain(
+                    a, b, c, **mask), (q, k, v), nf),
+                ("bwd", lambda a, b, c, oo, ll, g:
+                 fa.flash_attention_bwd_plain(a, b, c, oo, ll, g, **mask),
+                 (q, k, v, o, lse, do), nb)):
+            rec[f"{part}_plain_ms"] = [cs.time_ms(fn, args, nbytes)
+                                       for _ in range(2)]
     rec["fwd_bound_ms"], rec["fwd_bound_by"] = cs.bound(
         nf, 4.0 * D * H * pairs, dtype)
     rec["bwd_bound_ms"], rec["bwd_bound_by"] = cs.bound(
@@ -191,6 +213,8 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--cases", default="",
                     help="comma-separated case names (default: all)")
+    ap.add_argument("--plain", action="store_true",
+                    help="also time the plain versions")
     args = ap.parse_args()
     names = args.cases.split(",") if args.cases else list(CASES)
     unknown = sorted(set(names) - set(CASES))
@@ -209,7 +233,7 @@ def main() -> int:
     cs.emit({"root": str(root), "device": torch.cuda.get_device_name(0)})
     ok = True
     for name in names:
-        rec = profile_case(cs, fa, name, *CASES[name])
+        rec = profile_case(cs, fa, name, *CASES[name], plain=args.plain)
         cs.emit({**rec, "root": root.name})
         ok = ok and rec["ok"]
     print(json.dumps({"done": True, "ok": ok}), flush=True)

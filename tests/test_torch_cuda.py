@@ -684,7 +684,14 @@ FLASH_CASES = {"causal_pad_d128": (2, 192, 192, 2, 128, True, 0.25),
                "cross_causal_long_q_d512": (1, 200, 130, 2, 512, True, 0.1),
                "two_tails_d512": (2, 256, 256, 2, 512, True, (0.25, 0.1)),
                "odd_d301": (1, 100, 100, 2, 301, True, 0.2),
-               "ragged_77_d300": (1, 77, 77, 2, 300, False, 0.1)}
+               "ragged_77_d300": (1, 77, 77, 2, 300, False, 0.1),
+               # fp32 on a cluster of 16 with an 8-column last slice and
+               # of 16 full ones; past 2048 in passes (17 slices, 2
+               # passes; an odd D whose last slice is one column)
+               "causal_pad_d1928": (1, 150, 150, 2, 1928, True, 0.25),
+               "cross_causal_d2048": (1, 70, 200, 2, 2048, True, 0.2),
+               "causal_pad_d2056": (2, 150, 150, 1, 2056, True, 0.25),
+               "all_pad_row_d2305": (2, 100, 100, 1, 2305, False, (1.0, 0.1))}
 FLASH_Q_SCALE = {"scaled_q_d128": 4.0, "scaled_q_d256": 4.0}
 
 
@@ -760,7 +767,8 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                   "causal_pad_d96", "causal_pad_d64",
                                   "two_tails_d64", "two_tails_d256",
                                   "cross_causal_d256", "scaled_q_d256",
-                                  "cross_causal_d320", "two_tails_d512"])
+                                  "cross_causal_d320", "two_tails_d512",
+                                  "causal_pad_d2056"])
 def test_flash_backward_is_deterministic(cuda, case, dtype):
     """Two runs of the whole backward (one delta for both kernels, which
     the dq kernel computes) give the same bits, and match the plain
@@ -782,7 +790,8 @@ def test_flash_backward_is_deterministic(cuda, case, dtype):
 @pytest.mark.parametrize("case", ["causal_pad_d128", "all_pad_row_d256",
                                   "cross_causal_long_q_d256",
                                   "two_tails_d256", "scaled_q_d256",
-                                  "all_pad_row_d320", "two_tails_d512"])
+                                  "all_pad_row_d320", "two_tails_d512",
+                                  "causal_pad_d2056"])
 def test_flash_forward_is_deterministic(cuda, case, dtype):
     """Two runs of the forward give the same bits for o and lse, and match
     the plain version. At D 256 in fp32 the forward's key tiles pass
@@ -980,19 +989,51 @@ def test_flash_wide_through_the_public_entry(cuda, dtype):
         _flash_close(leaf.grad, ref, dtype, name, 512)
 
 
+@pytest.mark.parametrize("C", range(3, 17))
+def test_flash_fp32_wide_launches_every_cluster_size(cuda, C):
+    """fp32 past 256 at a D for each cluster the plan takes, 3 to 16
+    blocks (past 8 non-portable), the last slice 8 columns short: the
+    launch runs on a cluster of that size, and the forward and backward
+    match the plain versions."""
+    D = 128 * C - 8
+    assert fa.wide_plan(D)["cluster"] == C
+    assert fa.kernel_attrs("fwd", D, torch.float32)["cluster"] == C
+    g = torch.Generator(device=cuda).manual_seed(C)
+    q, k, v, do = (torch.randn(1, 40, 1, D, generator=g, device=cuda)
+                   for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = fa.flash_attention_fwd_plain(q, k, v, causal=True)
+    _flash_close(o, ro, torch.float32, "o", D)
+    _flash_close(lse, rlse, torch.float32, "lse", D)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        _flash_close(a, r, torch.float32, name, D)
+
+
 def test_flash_wide_kernels_keep_to_registers(cuda):
     """The wide forward, dq and dk/dv, in both dtypes, are one function
-    each at every D past 256 (128 threads), spill nothing and fit one
-    block's shared memory."""
+    each at every D past 256 (bf16: 128 threads; fp32: the split-TF32
+    cluster kernels, 256 threads, on `wide_plan`'s cluster, past 2048
+    their `_passes` twins), spill nothing and fit one block's shared
+    memory."""
     for dtype in (torch.bfloat16, torch.float32):
         for which in ("fwd", "dq", "dkv"):
-            for D in (264, 512):
+            for D in (264, 512, 1032, 1928, 2048, 2056):
                 attrs = fa.kernel_attrs(which, D, dtype)
-                assert attrs["threads"] == 128 and \
-                    attrs["spill_bytes"] == 0, (which, D, dtype, attrs)
+                assert attrs["spill_bytes"] == 0, (which, D, dtype, attrs)
                 assert attrs["smem_bytes"] <= 227 * 1024
-                assert attrs["function"].startswith(
-                    f"flash_{which}_kernel_wide<"), attrs
+                if dtype == torch.bfloat16:
+                    assert attrs["threads"] == 128 and attrs["cluster"] == 1
+                    assert attrs["function"].startswith(
+                        f"flash_{which}_kernel_wide<"), attrs
+                    continue
+                plan = fa.wide_plan(D)
+                assert attrs["threads"] == 256, attrs
+                assert attrs["function"] == \
+                    f"flash_{which}_kernel_wide_tf32" + \
+                    ("_passes" if plan["passes"] > 1 else ""), attrs
+                assert attrs["cluster"] == plan["cluster"], attrs
 
 
 # ------------------------------------------ the serve engine's graphs
